@@ -1,0 +1,93 @@
+"""Computation graph (twin of `flexflow_tpu/pcg/graph.py`, no `native`).
+
+Nodes, multi-edges (src, dst, src_idx, dst_idx) and a deterministic
+topological order. On one device the graph carries no parallel state, so
+a node's outputs are plain shapes.
+"""
+
+from __future__ import annotations
+
+import bisect
+import itertools
+from dataclasses import dataclass
+from typing import Any, Optional
+
+from ..fftype import OperatorType
+from ..ops.base import OpDef, WeightSpec, get_op_def
+
+_node_guid = itertools.count(5000000)  # NODE_GUID_FIRST_VALID
+
+
+@dataclass(frozen=True)
+class Edge:
+    """src node guid, dst node guid, src output idx, dst input idx."""
+
+    src: int
+    dst: int
+    src_idx: int = 0
+    dst_idx: int = 0
+
+
+class OpNode:
+    """One graph node: an operator instance with its output shapes."""
+
+    def __init__(
+        self,
+        op_type: OperatorType,
+        params: Any,
+        name: str = "",
+        layer_guid: int = -1,
+        initializers: Optional[dict] = None,
+    ):
+        self.guid = next(_node_guid)
+        self.op_type = op_type
+        self.params = params
+        self.name = name or f"{op_type.name.lower()}_{self.guid}"
+        self.layer_guid = layer_guid
+        self.initializers = initializers or {}
+        self.input_shapes: list[tuple[int, ...]] = []
+        self.output_shapes: list[tuple[int, ...]] = []
+        self.weight_specs: list[WeightSpec] = []
+
+    @property
+    def op_def(self) -> OpDef:
+        return get_op_def(self.op_type)
+
+    def __repr__(self):
+        return f"OpNode({self.name})"
+
+
+class Graph:
+    """Nodes + explicit edges. Node identity is the guid."""
+
+    def __init__(self):
+        self.nodes: dict[int, OpNode] = {}
+        self.in_edges: dict[int, list[Edge]] = {}
+        self.out_edges: dict[int, list[Edge]] = {}
+
+    def add_node(self, node: OpNode) -> OpNode:
+        self.nodes[node.guid] = node
+        self.in_edges.setdefault(node.guid, [])
+        self.out_edges.setdefault(node.guid, [])
+        return node
+
+    def add_edge(self, src: OpNode, dst: OpNode, src_idx: int = 0, dst_idx: int = 0):
+        e = Edge(src.guid, dst.guid, src_idx, dst_idx)
+        self.in_edges[dst.guid].append(e)
+        self.out_edges[src.guid].append(e)
+
+    def topo_order(self) -> list[OpNode]:
+        indeg = {g: len(es) for g, es in self.in_edges.items()}
+        # deterministic: process in guid order among ready nodes
+        ready = sorted(g for g, d in indeg.items() if d == 0)
+        order = []
+        while ready:
+            g = ready.pop(0)
+            order.append(self.nodes[g])
+            for e in self.out_edges[g]:
+                indeg[e.dst] -= 1
+                if indeg[e.dst] == 0:
+                    bisect.insort(ready, e.dst)
+        if len(order) != len(self.nodes):
+            raise ValueError("graph has a cycle")
+        return order

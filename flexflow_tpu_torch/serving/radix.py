@@ -1,0 +1,241 @@
+"""Radix tree over the paged block pool: cross-request prefix cache.
+
+SGLang-style upgrade of the flat chained-digest registry paged.py shipped
+with: cached prompt prefixes are held in a token-labelled radix tree whose
+nodes each own ONE physical block, so
+
+- **lookup matches the longest cached extent** — not just exact
+  block-aligned prefixes: a prompt that diverges mid-block still maps the
+  node's block read-only for the tokens that do match (the slot's length
+  masks the unread tail rows, and the cache pin below forces the first
+  divergent write to COW), so partial-block overlap is shared too;
+- **prefixes survive their residents** — every cached node holds one
+  refcount (the CACHE PIN) on its block, so a block stays allocated after
+  its last live slot releases; a burst of same-system-prompt requests
+  after a quiet period hits warm KV instead of re-prefilling;
+- **LRU eviction under the pool budget** — when admission cannot reserve
+  against the free list, cold leaves are evicted oldest-first until the
+  reservation fits; an evicted node only FREES its block when the pin was
+  the last reference (a block a live slot still maps merely leaves the
+  cache and is reclaimed by that slot's own release).
+
+Node shape: a node's `run` is the run of tokens (<= block_size) its block
+encodes, and its ROWS depend on the entire root->node token path (KV of a
+row attends over every earlier token), so tree position is part of the
+content address — two identical runs under different parents are
+different cache entries. Children only ever hang off full-run nodes
+(a partial tail is terminal until a longer prompt re-registers the
+extent); siblings are a scanned list, which handles same-first-token
+divergence without node splits at serving fan-outs.
+
+Pure host code (no torch), like paged.py: a copy of
+`flexflow_tpu/serving/radix.py`, unit-testable without a device.
+"""
+
+from __future__ import annotations
+
+__all__ = ["RadixNode", "RadixPrefixCache"]
+
+
+class RadixNode:
+    """One cached block: `run` tokens at this tree depth, stored in
+    physical `block`. `last_used` is the cache's logical LRU clock."""
+
+    __slots__ = ("run", "block", "children", "parent", "last_used")
+
+    def __init__(self, run: tuple, block: int, parent: "RadixNode | None"):
+        self.run = run
+        self.block = block
+        self.children: list[RadixNode] = []
+        self.parent = parent
+        self.last_used = 0
+
+    def __repr__(self):  # debug only
+        return (f"RadixNode(run={list(self.run)!r}, block={self.block}, "
+                f"children={len(self.children)})")
+
+
+def _common_len(a, b) -> int:
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+class RadixPrefixCache:
+    """The tree. Owns NO refcounts — the BlockManager increments a
+    block's refcount when a node is inserted (the pin) and decrements it
+    when the node is evicted; this class only tracks which blocks are
+    pinned (`pinned`: block -> node) and picks eviction victims."""
+
+    def __init__(self, block_size: int):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = int(block_size)
+        self.root = RadixNode((), -1, None)
+        self._pinned: dict[int, RadixNode] = {}
+        self._clock = 0
+
+    # ------------------------------------------------------------ queries
+
+    @property
+    def pinned(self) -> dict:
+        """block -> node for every cached block (read-only by convention)."""
+        return self._pinned
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, prompt, peek: bool = False):
+        """(covered, blocks): the longest cached extent of `prompt` and
+        the physical blocks encoding it, in logical order. The last block
+        may be only partially covered (divergence inside its run — mapped
+        read-only, first write COWs under the pin). `peek` skips the LRU
+        touch for pure queries."""
+        bs = self.block_size
+        node = self.root
+        covered = 0
+        blocks: list[int] = []
+        now = 0 if peek else self._tick()
+        while covered < len(prompt):
+            tail = prompt[covered:covered + bs]
+            best = None
+            best_len = 0
+            for child in node.children:
+                k = _common_len(child.run, tail)
+                if k > best_len:
+                    best, best_len = child, k
+            if best is None:
+                break
+            if not peek:
+                best.last_used = now
+            blocks.append(best.block)
+            covered += best_len
+            if best_len < len(best.run) or len(best.run) < bs:
+                # diverged inside the run, or a terminal partial tail:
+                # nothing deeper can match
+                break
+            node = best
+        return covered, blocks
+
+    # ------------------------------------------------------------ insert
+
+    def insert(self, prompt, table) -> list[int]:
+        """Publish a completed prompt's blocks: one node per logical block
+        of `prompt` (full runs, then the partial tail), taking the block
+        from the slot's page `table`. Exact-run incumbents win (the
+        earlier request already cached identical content — its block and
+        the slot's COWed twin encode the same rows); divergent runs become
+        siblings. Returns the blocks NEWLY pinned — the caller must
+        increment each one's refcount (the cache pin)."""
+        bs = self.block_size
+        node = self.root
+        now = self._tick()
+        pinned: list[int] = []
+        L = len(prompt)
+        for lb in range(min(len(table), -(-L // bs))):
+            run = tuple(prompt[lb * bs:min((lb + 1) * bs, L)])
+            if not run:
+                break
+            incumbent = None
+            for child in node.children:
+                if child.run == run:
+                    incumbent = child
+                    break
+            if incumbent is None:
+                blk = table[lb]
+                if blk in self._pinned:
+                    # the slot's block is already cached (as another
+                    # node) — never double-pin a block
+                    break
+                incumbent = RadixNode(run, blk, node)
+                node.children.append(incumbent)
+                self._pinned[blk] = incumbent
+                pinned.append(blk)
+            incumbent.last_used = now
+            if len(run) < bs:
+                break  # partial tail is terminal
+            node = incumbent
+        return pinned
+
+    # ------------------------------------------------------------ evict
+
+    def _leaves(self):
+        return [n for n in self._pinned.values() if not n.children]
+
+    def _detach(self, node: RadixNode) -> int:
+        if node.children:
+            raise ValueError("evicting an interior node would strand its "
+                             "subtree — evict leaves")
+        parent = node.parent
+        if parent is not None and node in parent.children:
+            parent.children.remove(node)
+        node.parent = None
+        self._pinned.pop(node.block, None)
+        return node.block
+
+    def evict_lru(self, freeable) -> int | None:
+        """Evict one leaf, LRU-first, and return its block (pin dropped —
+        the caller decrements the refcount). Prefers leaves whose block
+        `freeable(block)` says would actually free (refcount == pin);
+        falls back to the globally-LRU leaf only when a freeable block
+        exists deeper in the tree blocked behind non-freeable leaves
+        (evicting the leaf frees nothing now but unblocks the ancestor).
+        Returns None when nothing can be evicted."""
+        leaves = self._leaves()
+        if not leaves:
+            return None
+        free_leaves = [n for n in leaves if freeable(n.block)]
+        if free_leaves:
+            victim = min(free_leaves, key=lambda n: n.last_used)
+            return self._detach(victim)
+        if any(freeable(b) for b in self._pinned):
+            victim = min(leaves, key=lambda n: n.last_used)
+            return self._detach(victim)
+        return None
+
+    def drop_block(self, block: int) -> bool:
+        """Evict the node pinning `block` without cascading (children, if
+        any, stay pinned but become unmatchable and are dropped by their
+        own holders' releases — the no-cross-time compatibility path).
+        Returns True when a pin was dropped."""
+        node = self._pinned.pop(block, None)
+        if node is None:
+            return False
+        parent = node.parent
+        if parent is not None and node in parent.children:
+            parent.children.remove(node)
+        node.parent = None
+        return True
+
+    # ------------------------------------------------------------ debug
+
+    def check_invariants(self):
+        """Every pinned block maps to a reachable-or-detached node whose
+        block field agrees; reachable tree nodes are exactly pinned."""
+        seen = {}
+        stack = list(self.root.children)
+        while stack:
+            n = stack.pop()
+            assert n.block not in seen, f"block {n.block} cached twice"
+            seen[n.block] = n
+            assert len(n.run) >= 1
+            if n.children:
+                assert len(n.run) == self.block_size, \
+                    "children under a partial-run node"
+            stack.extend(n.children)
+        for blk, node in seen.items():
+            assert self._pinned.get(blk) is node, \
+                f"reachable node for block {blk} is not pinned"
+        for blk, node in self._pinned.items():
+            if blk not in seen:
+                # detached by drop_block (or a descendant of one) but
+                # still pinned: must NOT be reachable from the root
+                p, hops = node, 0
+                while p is not None and hops <= len(self._pinned) + 1:
+                    assert p is not self.root, \
+                        f"block {blk} pinned, parent-linked to root, " \
+                        f"but not reachable"
+                    p, hops = p.parent, hops + 1

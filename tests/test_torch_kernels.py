@@ -1,0 +1,297 @@
+"""The port's kernel modules against the JAX package's kernels.
+
+For each of K1 (LayerNorm forward), K2 (contiguous decode attention) and
+K3 (paged decode attention), the port's plain PyTorch version is held
+against the JAX function on the same numpy inputs made from a seed. The
+JAX side runs as its own tests run it on the CPU: the Pallas kernels in
+interpret mode. Tolerances: float32 at rtol = atol = 2e-5, the JAX suite's
+own bound for its decode kernels (tests/test_serving.py); bfloat16 at
+2e-2, since the two frameworks round bf16 at different points.
+
+On CPU tensors every wrapper takes its plain version and leaves its kernel
+launch count at 0; on a CUDA tensor it launches the kernel. The kernels
+themselves run only on the card: tests/test_torch_cuda.py holds each one
+against its plain version there.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexflow_tpu.kernels.layer_norm import fused_layer_norm_or_none
+from flexflow_tpu_torch.kernels import flash_attention as tfa
+from flexflow_tpu_torch.kernels import layer_norm as tln
+
+# the JAX kernels package re-exports a function named flash_attention
+jfa = importlib.import_module("flexflow_tpu.kernels.flash_attention")
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+DTYPES = {
+    "f32": (torch.float32, jnp.float32, F32_TOL),
+    "bf16": (torch.bfloat16, jnp.bfloat16, BF16_TOL),
+}
+
+# the decode edge cases of chip_smoke.py's parity phase, at a small size:
+# an empty slot, one key, a block boundary on either side, a partial
+# block and a full cache
+LENGTHS = [0, 1, 15, 16, 17, 200, 256]
+S, H, HD, BS = 256, 2, 64, 16
+E = H * HD
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+# ------------------------------------------------------------------- K1
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 128), (64, 256), (16, 1024)])
+def test_layer_norm_plain_matches_jax_kernel(shape, dtype):
+    """K1's plain version vs the JAX Pallas LayerNorm forward (interpret
+    mode) on shapes its gate tiles; scale/bias in the activation dtype,
+    as the executor's compute cast hands them to the op."""
+    tdt, jdt, tol = DTYPES[dtype]
+    rs = np.random.RandomState(0)
+    x = (rs.randn(*shape) * 3 + 1).astype(np.float32)
+    scale = rs.randn(shape[-1]).astype(np.float32)
+    bias = rs.randn(shape[-1]).astype(np.float32)
+    want = fused_layer_norm_or_none(
+        jnp.asarray(x, jdt), jnp.asarray(scale, jdt),
+        jnp.asarray(bias, jdt), (1,), 1e-5)
+    assert want is not None, "shape must take the JAX fused kernel"
+    got = tln.layer_norm_plain(torch.tensor(x).to(tdt),
+                               torch.tensor(scale).to(tdt),
+                               torch.tensor(bias).to(tdt), 1e-5)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+def test_layer_norm_wrapper_takes_plain_on_cpu():
+    rs = np.random.RandomState(1)
+    x = torch.tensor(rs.randn(3, 5, 40).astype(np.float32))
+    s = torch.tensor(rs.randn(40).astype(np.float32))
+    b = torch.tensor(rs.randn(40).astype(np.float32))
+    c = tln.LAYER_NORM_COUNTER
+    c.reset()
+    y = tln.layer_norm(x, s, b, 1e-5)
+    assert (c.launches, c.plain_calls) == (0, 1)
+    torch.testing.assert_close(y, tln.layer_norm_plain(x, s, b, 1e-5))
+    c.reset()
+
+
+# ------------------------------------------------------------------- K2
+
+
+def _decode_inputs(seed):
+    """q, k, v with NaN planted in every cache row past each slot's
+    length: the kernels must never read a dead row into the output."""
+    rs = np.random.RandomState(seed)
+    slots = len(LENGTHS)
+    q = rs.randn(slots, 1, E).astype(np.float32)
+    k = rs.randn(slots, S, E).astype(np.float32)
+    v = rs.randn(slots, S, E).astype(np.float32)
+    for s, n in enumerate(LENGTHS):
+        k[s, n:] = np.nan
+        v[s, n:] = np.nan
+    return q, k, v, np.asarray(LENGTHS, np.int32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_plain_matches_jax_kernel(dtype):
+    """K2's plain version vs the JAX single-query decode kernel (interpret
+    mode, two kv blocks so its online softmax and dead-block skip run).
+    The JAX op casts the f32 cache to the compute dtype before the
+    kernel; the port hands it the f32 cache and rounds on use."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v, lengths = _decode_inputs(0)
+    want = jfa.flash_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(lengths), num_heads=H, block_k=128, interpret=True)
+    got = tfa.decode_attention_plain(
+        torch.tensor(q).to(tdt), torch.tensor(k), torch.tensor(v),
+        torch.tensor(lengths), num_heads=H)
+    assert got.dtype == tdt and np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+def test_decode_plain_matches_jax_reference():
+    """K2's plain version vs the einsum oracle (finite cache: the oracle,
+    unlike the kernels, multiplies dead V rows by a zero probability)."""
+    q, k, v, lengths = _decode_inputs(1)
+    k, v = np.nan_to_num(k), np.nan_to_num(v)
+    live = lengths > 0  # the oracle spreads an empty slot's row uniformly
+    want = jfa.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths - 1)[:, None], num_heads=H)
+    got = tfa.decode_attention_plain(torch.tensor(q), torch.tensor(k),
+                                     torch.tensor(v), torch.tensor(lengths),
+                                     num_heads=H)
+    np.testing.assert_allclose(_np(got)[live], np.asarray(want)[live],
+                               **F32_TOL)
+
+
+def test_decode_wrapper_takes_plain_on_cpu():
+    q, k, v, lengths = _decode_inputs(2)
+    c = tfa.DECODE_COUNTER
+    c.reset()
+    out = tfa.flash_decode_attention(torch.tensor(q), torch.tensor(k),
+                                     torch.tensor(v), torch.tensor(lengths),
+                                     num_heads=H)
+    assert (c.launches, c.plain_calls) == (0, 1)
+    assert out.shape == (len(LENGTHS), 1, E)
+    with pytest.raises(ValueError, match="single-query"):
+        tfa.flash_decode_attention(torch.zeros(2, 3, E), torch.tensor(k),
+                                   torch.tensor(v), torch.tensor(lengths),
+                                   num_heads=H)
+    c.reset()
+
+
+# ------------------------------------------------------------------- K3
+
+
+def _paged_inputs(seed):
+    """A scrambled page table, two slots sharing every block, unmapped
+    entries on the scratch block 0, and NaN in every pool row no slot
+    reads (stale rows, the rest of the scratch block)."""
+    rs = np.random.RandomState(seed)
+    slots, W = len(LENGTHS), S // BS
+    nb = slots * W + 1
+    table = np.zeros((slots, W), np.int32)
+    perm = rs.permutation(np.arange(1, nb))
+    for s, n in enumerate(LENGTHS):
+        used = -(-n // BS)
+        table[s, :used] = perm[s * W:s * W + used]
+    table[5] = table[6]  # slot 5 shares slot 6's blocks (prefix reuse)
+    pool_k = rs.randn(nb, BS, E).astype(np.float32)
+    pool_v = rs.randn(nb, BS, E).astype(np.float32)
+    live = np.zeros((nb, BS), bool)
+    for s, n in enumerate(LENGTHS):
+        for r in range(n):
+            live[table[s, r // BS], r % BS] = True
+    pool_k[~live] = np.nan
+    pool_v[~live] = np.nan
+    q = rs.randn(slots, 1, E).astype(np.float32)
+    return q, pool_k, pool_v, table, np.asarray(LENGTHS, np.int32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_decode_plain_matches_jax_kernel(dtype):
+    """K3's plain version vs the JAX paged decode kernel (interpret mode,
+    kv grid walking the page table)."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, pk, pv, table, lengths = _paged_inputs(0)
+    want = jfa.paged_flash_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
+        jnp.asarray(table), jnp.asarray(lengths), num_heads=H,
+        interpret=True)
+    got = tfa.paged_decode_attention_plain(
+        torch.tensor(q).to(tdt), torch.tensor(pk), torch.tensor(pv),
+        torch.tensor(table), torch.tensor(lengths), num_heads=H)
+    assert got.dtype == tdt and np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+def test_paged_decode_plain_matches_jax_reference():
+    q, pk, pv, table, lengths = _paged_inputs(1)
+    pk, pv = np.nan_to_num(pk), np.nan_to_num(pv)
+    live = lengths > 0
+    want = jfa.paged_decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(table), jnp.asarray(lengths - 1)[:, None], num_heads=H)
+    got = tfa.paged_decode_attention_plain(
+        torch.tensor(q), torch.tensor(pk), torch.tensor(pv),
+        torch.tensor(table), torch.tensor(lengths), num_heads=H)
+    np.testing.assert_allclose(_np(got)[live], np.asarray(want)[live],
+                               **F32_TOL)
+
+
+def test_paged_decode_wrapper_takes_plain_on_cpu():
+    q, pk, pv, table, lengths = _paged_inputs(2)
+    c = tfa.PAGED_DECODE_COUNTER
+    c.reset()
+    out = tfa.paged_flash_decode_attention(
+        torch.tensor(q), torch.tensor(pk), torch.tensor(pv),
+        torch.tensor(table), torch.tensor(lengths), num_heads=H)
+    assert (c.launches, c.plain_calls) == (0, 1)
+    assert np.isfinite(_np(out)).all()
+    bad = table.copy()
+    bad[0, 0] = pk.shape[0]  # a block past the pool
+    with pytest.raises(IndexError):
+        tfa.paged_flash_decode_attention(
+            torch.tensor(q), torch.tensor(pk), torch.tensor(pv),
+            torch.tensor(bad), torch.tensor(lengths), num_heads=H)
+    c.reset()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_decode_plain_rounds_a_halfway_cache_as_jax(layout):
+    """bfloat16 over a float32 cache whose K/V values lie halfway between
+    bfloat16 values (chip_smoke.halfway_inputs). The plain version matches
+    the JAX kernel, which casts the whole cache before it reads it; and the
+    case sees each rounding: the same arithmetic with K or with V left
+    unrounded lands beyond the tolerance. tests/test_torch_cuda.py holds
+    the kernels to the plain version on this case, so a kernel that skips
+    the rounding on load fails there."""
+    import chip_smoke
+
+    lengths = [0, 1, 2, 17, 200, 256]
+    q, k, v, lens = chip_smoke.halfway_inputs(lengths, S, H, HD, 5)
+    qb = q.bfloat16()
+    if layout == "paged":
+        pk, pv, table = chip_smoke.pooled(k, v, lens, BS, 6)
+        want = jfa.paged_flash_decode_attention(
+            jnp.asarray(q.numpy(), jnp.bfloat16),
+            jnp.asarray(pk.numpy(), jnp.bfloat16),
+            jnp.asarray(pv.numpy(), jnp.bfloat16), jnp.asarray(table.numpy()),
+            jnp.asarray(lens.numpy()), num_heads=H, interpret=True)
+
+        def plain(q, k, v):
+            return tfa.paged_decode_attention_plain(q, k, v, table, lens,
+                                                    num_heads=H)
+
+        k_, v_ = pk, pv
+    else:
+        want = jfa.flash_decode_attention(
+            jnp.asarray(q.numpy(), jnp.bfloat16),
+            jnp.asarray(k.numpy(), jnp.bfloat16),
+            jnp.asarray(v.numpy(), jnp.bfloat16), jnp.asarray(lens.numpy()),
+            num_heads=H, block_k=128, interpret=True)
+
+        def plain(q, k, v):
+            return tfa.decode_attention_plain(q, k, v, lens, num_heads=H)
+
+        k_, v_ = k, v
+    got = plain(qb, k_, v_)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **BF16_TOL)
+    rounded = lambda t: t.bfloat16().float()  # noqa: E731
+    k_only = plain(q, k_, rounded(v_))  # f32 q: K and P left unrounded
+    v_only = plain(q, rounded(k_), v_)  # V and P left unrounded
+    for unrounded in (k_only, v_only):
+        assert not np.allclose(_np(unrounded), _np(got), **BF16_TOL)
+
+
+def test_multi_query_references_match_jax():
+    """The multi-query path (prefill chunks) is plain torch in the port,
+    as the einsum is in the JAX package on every backend."""
+    rs = np.random.RandomState(3)
+    slots, q_len = 3, 4
+    q = rs.randn(slots, q_len, E).astype(np.float32)
+    k = rs.randn(slots, S, E).astype(np.float32)
+    v = rs.randn(slots, S, E).astype(np.float32)
+    pos = np.asarray([[0, 1, 2, 3], [10, 11, 12, 13], [-1, 252, 254, 255]],
+                     np.int32)
+    want = jfa.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        num_heads=H)
+    got = tfa.decode_attention_reference(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v),
+        torch.tensor(pos), num_heads=H)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)

@@ -1,0 +1,280 @@
+"""The port's serving slice against the JAX package's serving engine.
+
+The tiny LM of tests/test_serving.py (vocab 64, hidden 32, 4 heads, 2
+layers, seq 32) is built in both packages; the JAX model's weights are
+copied into the port with `convert.load_params`, so both compute the same
+function. The JAX engine runs on a one-device CPU mesh (its CPU path is
+the einsum reference); the port runs on the CPU, where its kernel
+wrappers take their plain versions. Float32 throughout, with the
+tensor-op policy off on both sides (it applies on the accelerator only):
+greedy token streams must be identical, and the logits of one decode
+step agree to atol 1e-4.
+
+Also here: no source of the port imports jax or flexflow_tpu, importing
+the port pulls in neither (checked in a subprocess, since this process
+imports both), and a model asked for no device raises without CUDA.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+PROMPTS = [[3, 7, 11, 2, 5], [5, 2], [1, 9, 30, 30, 12, 4, 8], [60, 1, 2]]
+LOGIT_ATOL = 1e-4
+LAYOUTS = ["paged", "contiguous"]
+TINY = dict(vocab_size=64, hidden_size=32, num_heads=4, num_layers=2,
+            sequence_length=32, attention_impl="xla")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_lm():
+    sys.argv = ["test"]
+    from flexflow_tpu import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu.models import TransformerLMConfig, build_transformer_lm
+
+    cfg = FFConfig()
+    cfg.mesh_axis_sizes = (1, 1, 1, 1)
+    cfg.batch_size = 1
+    ff = FFModel(cfg)
+    build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=1)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff
+
+
+def _torch_lm(jff):
+    sys.argv = ["test"]
+    from flexflow_tpu_torch import FFConfig, FFModel, load_params
+    from flexflow_tpu_torch.models import (
+        TransformerLMConfig,
+        build_transformer_lm,
+    )
+
+    cfg = FFConfig(device="cpu")
+    cfg.batch_size = 1
+    ff = FFModel(cfg)
+    build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=1)
+    ff.compile()
+    params = {n: {w: np.asarray(v) for w, v in ws.items()}
+              for n, ws in jff._params.items()}
+    assert set(params) == set(ff._params)
+    assert load_params(ff, params) == sum(len(w) for w in params.values())
+    return ff
+
+
+@pytest.fixture(scope="module")
+def models():
+    jff = _jax_lm()
+    return jff, _torch_lm(jff)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_greedy_streams_identical(models, layout):
+    jff, tff = models
+    kw = dict(slots=2, max_new_tokens=8, prefill_chunk=4, kv_layout=layout)
+    want = jff.serve(**kw).generate(PROMPTS)
+    eng = tff.serve(**kw)
+    assert eng.generate(PROMPTS) == want
+    assert eng.stats()["requests_completed"] == len(PROMPTS)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_interleaved_batch_matches_single_requests(models, layout):
+    """Five requests through two slots force mid-run admission and slot
+    reuse; the interleaved streams equal single-request runs and the JAX
+    engine's."""
+    jff, tff = models
+    prompts = PROMPTS + [[2, 4, 6, 8]]
+    kw = dict(slots=2, max_new_tokens=6, prefill_chunk=4, kv_layout=layout)
+    eng = tff.serve(**kw)
+    interleaved = eng.generate(prompts)
+    assert eng.scheduler.drained
+    solo_eng = tff.serve(**kw)
+    solo = [solo_eng.generate([p])[0] for p in prompts]
+    assert interleaved == solo
+    assert interleaved == jff.serve(**kw).generate(prompts)
+
+
+def _prefill_all(eng, prompts):
+    """Submit and step until every slot has finished its prefill."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=16)
+    while (eng.scheduler.pending
+           or any(s.prefilling for s in eng.scheduler.slots)):
+        eng.step()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_decode_step_logits_match(models, layout):
+    """The logits of one pure-decode step (q_len 1: the decode kernels'
+    path) after the same prefills. The idle slot's row is never read and
+    is left out: the JAX CPU path spreads it over the whole cache, the
+    decode kernels write 0."""
+    import jax
+
+    jff, tff = models
+    kw = dict(slots=3, prefill_chunk=4, kv_layout=layout)
+    jeng, teng = jff.serve(**kw), tff.serve(**kw)
+    prompts = PROMPTS[:2]
+    _prefill_all(jeng, prompts)
+    _prefill_all(teng, prompts)
+
+    jdec = jeng.decode_model
+    tokens = np.zeros((3, 1), np.int32)
+    positions = np.full((3, 1), jeng.max_seq_len, np.int32)
+    writes = {}
+    for s in jeng.scheduler.slots:
+        if s.decoding:
+            tokens[s.index, 0] = s.last_token
+            positions[s.index, 0] = s.length
+            writes[s.index] = range(s.length, s.length + 1)
+    jeng._prepare_writes(writes)
+    xs = jeng._stage_inputs(tokens, positions)
+    jlogits, _, _ = jdec.executor._apply(
+        jdec._params, jdec._state, jdec.executor._cast_compute(xs),
+        training=False, rng=None)
+    jlogits = np.asarray(jax.device_get(jlogits))
+
+    ttokens, tpositions, _, pre, _, _, decoding = teng.next_feed()
+    assert pre is None and len(decoding) == len(prompts)
+    np.testing.assert_array_equal(ttokens, tokens)
+    np.testing.assert_array_equal(tpositions, positions)
+    tdec = teng.decode_model
+    tlogits, _ = tdec.executor._apply(
+        tdec._params, tdec._state, teng._stage_inputs(ttokens, tpositions))
+    live = [s.index for s in decoding]
+    np.testing.assert_allclose(tlogits.numpy()[live], jlogits[live],
+                               rtol=0, atol=LOGIT_ATOL)
+
+
+def _layer_signature(ff):
+    return [(l.name, int(l.op_type), tuple(l.outputs[0].dims))
+            for l in ff.layers]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_direct_decode_builder_matches_jax_and_engine(models, layout):
+    """`build_transformer_lm_decode` lays out the JAX package's layers
+    (names, operators, output shapes) and, with the tiny model's weights,
+    computes what the engine's replay of the trained graph computes."""
+    from flexflow_tpu import FFConfig as JConfig, FFModel as JModel
+    from flexflow_tpu.models import (
+        TransformerLMConfig as JLMConfig,
+        build_transformer_lm_decode as jbuild,
+    )
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel, load_params
+    from flexflow_tpu_torch.models import (
+        TransformerLMConfig,
+        build_transformer_lm_decode,
+    )
+
+    _, tff = models
+    kw = dict(slots=3, kv_layout=layout, kv_block_size=4)
+    sys.argv = ["test"]
+    jcfg = JConfig()
+    jcfg.mesh_axis_sizes = (1, 1, 1, 1)
+    jdec = JModel(jcfg)
+    jbuild(jdec, JLMConfig(**TINY), **kw)
+    dec = FFModel(FFConfig(device="cpu"))
+    build_transformer_lm_decode(dec, TransformerLMConfig(**TINY), **kw)
+    assert _layer_signature(dec) == _layer_signature(jdec)
+
+    dec.compile(comp_mode=CompMode.COMP_MODE_INFERENCE)
+    load_params(dec, {n: {w: t.numpy() for w, t in ws.items()}
+                      for n, ws in tff._params.items()})
+    eng = tff.serve(**kw)
+    max_seq = TINY["sequence_length"]
+    xs = {"tokens": np.asarray([[5], [17], [0]], np.int32),
+          "positions": np.asarray([[0], [1], [max_seq]], np.int32)}
+    if layout == "paged":
+        table = np.zeros((3, max_seq // 4), np.int32)
+        table[0, 0], table[1, 0] = 1, 2
+        xs["page_table"] = table
+    outs = []
+    for m in (dec, eng.decode_model):
+        logits, _ = m.executor._apply(m._params, m._state,
+                                      m.executor.stage_inputs(xs))
+        outs.append(logits[:2].numpy())  # slot 2 is idle
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_param_count_matches_jax_and_the_built_model(models):
+    from flexflow_tpu.models import (
+        TRANSFORMER_LM_ZOO as JZOO,
+        transformer_lm_param_count as jcount,
+    )
+    from flexflow_tpu_torch.models import (
+        TRANSFORMER_LM_ZOO,
+        TransformerLMConfig,
+        transformer_lm_param_count,
+    )
+
+    fields = ("vocab_size", "hidden_size", "num_heads", "num_layers",
+              "mlp_ratio", "sequence_length")
+    for name, c in TRANSFORMER_LM_ZOO.items():
+        assert ([getattr(c, f) for f in fields]
+                == [getattr(JZOO[name], f) for f in fields]), name
+        assert transformer_lm_param_count(c) == jcount(JZOO[name]), name
+    _, tff = models
+    assert (sum(w.numel() for ws in tff._params.values()
+                for w in ws.values())
+            == transformer_lm_param_count(TransformerLMConfig(**TINY)))
+
+
+def test_load_params_rejects_unknown_names(models):
+    from flexflow_tpu_torch import load_params
+
+    _, tff = models
+    with pytest.raises(KeyError, match="node"):
+        load_params(tff, {"nope": {"kernel": np.zeros(1)}})
+    with pytest.raises(KeyError, match="weight"):
+        load_params(tff, {"lm_head": {"bias": np.zeros(64)}})
+    with pytest.raises(ValueError, match="shape"):
+        load_params(tff, {"lm_head": {"kernel": np.zeros((2, 2))}})
+
+
+def test_no_source_imports_jax():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package (a lazy import inside a function included)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flexflow_tpu)(\.|\s|$)", re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(os.path.join(REPO, "flexflow_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    bad = [p for p in sources if pattern.search(open(p).read())]
+    assert len(sources) > 20 and not bad, bad
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, flexflow_tpu_torch, flexflow_tpu_torch.models, "
+        "flexflow_tpu_torch.serving, flexflow_tpu_torch.kernels._build, "
+        "flexflow_tpu_torch.kernels.flash_attention, "
+        "flexflow_tpu_torch.kernels.layer_norm\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'flexflow_tpu' or "
+        "m.startswith('flexflow_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_model_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    monkeypatch.setattr(sys, "argv", ["test"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FFModel(FFConfig())
+    assert FFModel(FFConfig(device="cpu")).device.type == "cpu"
+    monkeypatch.setattr(sys, "argv", ["test", "--device", "cpu"])
+    assert FFModel(FFConfig()).device.type == "cpu"
