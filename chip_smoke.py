@@ -5,18 +5,18 @@
 
 Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
-flexflow_tpu_torch/_build/, Triton at its first launch) and drives the
-serving main path of the lm-base Transformer LM (vocab 32000, hidden
-1024, 16 heads of dim 64, 12 layers, seq 512; random weights from
---seed 0; bf16 activations over fp32 master weights). Phases, each fatal
-on failure:
+flexflow_tpu_torch/_build/, one nvcc per source, started together; Triton
+at its first launch) and drives both main paths of the lm-base
+Transformer LM (vocab 32000, hidden 1024, 16 heads of dim 64, 12 layers,
+seq 512; random weights from seed 0; bf16 activations over fp32 master
+weights): serving and training. Phases, each fatal on failure:
 
   1. build and device: the card's name and power limit, the torch, CUDA
-     and Triton versions, the nvcc build of csrc/decode_attention.cu;
-  2. kernel parity: every kernel against its plain PyTorch version on the
-     card, at the main path's shapes, in float32 and bfloat16, and the
-     decode kernels over a float32 cache of values halfway between
-     bfloat16 values (rounding on load);
+     and Triton versions, the nvcc builds of csrc/*.cu;
+  2. kernel parity: every kernel (K1-K7) against its plain PyTorch version
+     on the card, in float32 and bfloat16, at the main paths' shapes and
+     ragged ones, and the decode kernels over a float32 cache of values
+     halfway between bfloat16 values (rounding on load);
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
@@ -24,10 +24,19 @@ on failure:
   4. serving, contiguous KV layout: the same requests;
   5. first-step logits: the same weights in float32, one pure-decode step
      with the kernels against the same step with the plain versions;
-  6. numbers: decode tokens/s, the median pure-decode step, and per
-     kernel its time, the plain version's, one PyTorch call's for the
-     same function (timed here only: the port never calls it) and the
-     least time the card could take.
+  6. training: FFModel -> build_transformer_lm -> compile(SGD(lr=0.01),
+     sparse CE, accuracy and CE metrics) -> fit over one repeated batch of
+     8 x 512 random tokens, 3 warm-up and 10 timed steps; the launch
+     counts are set to 0 just before and read just after: per step 12
+     launches of K5, K6 and K7 and 25 of K1 and K4, no plain version, a
+     finite loss that falls; tokens/s, the median step, MFU and the device
+     busy share of one profiled step;
+  7. training gradients: the same weights in float32, one step's
+     gradients with the kernels against the same step with the plain
+     versions;
+  8. numbers: per kernel its time, the plain version's, one PyTorch
+     call's for the same function (timed here only: the port never calls
+     it) and the least time the card could take.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -62,6 +71,14 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 # Phase 5: float32 logits of lm-base (12 layers) with the kernels vs with
 # the plain versions; only the kernels' summation order differs.
 LOGITS_ATOL = 1e-3
+# Phase 7: float32 gradients of one lm-base train step with the kernels vs
+# with the plain versions. The kernels sum in another order (64-key online
+# softmax against one pass, tiled f32 products, Triton row reductions), so
+# a gradient may differ by a few f32 ulps of its layer's largest gradient
+# entries, grown through 12 layers: the bound is relative to the largest
+# entry over the layer's gradients (the key bias's exact gradient is 0, so
+# its own entries are rounding noise and no scale).
+GRAD_RTOL = 1e-3
 
 SEED = 0
 SLOTS, MAX_SEQ, CHUNK, BLOCK = 8, 512, 16, 16
@@ -72,6 +89,9 @@ NEW_TOKENS = 64
 # block boundary, partial and full caches
 LENGTHS = [0, 1, 15, 16, 17, 300, 512, 384]
 LN_ROWS = (SLOTS, SLOTS * CHUNK)  # pure-decode and prefill-chunk calls
+# training: bench.py's batch and sequence, SGD(lr=0.01); one repeated batch
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
 def log(msg: str):
@@ -90,6 +110,35 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+CUDA_SOURCES = ("decode_attention", "flash_attention")
+
+
+def build_kernels() -> dict:
+    """nvcc every CUDA source of the port at once (one process each);
+    returns {source: seconds}. Prints what ptxas says of registers and
+    spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flexflow_tpu_torch.kernels import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        _build.build(name)
+        return name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        took = dict(pool.map(one, CUDA_SOURCES))
+    for name in CUDA_SOURCES:
+        log(f"nvcc sm_90a build of csrc/{name}.cu: {took[name]:.1f} s -> "
+            f"{os.path.relpath(_build.library_path(name), REPO)}")
+        ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
+    return took
 
 
 def check_close(name, got, want, dtype_name, errs):
@@ -291,6 +340,102 @@ def kernel_parity(dev) -> dict:
     return errs
 
 
+# K5-K7 parity cases: (batch, s_q, s_k, heads, head_dim, causal). The main
+# path's shape both ways, ragged sequences (partial tiles, masked q rows, a
+# causal offset s_k - s_q > 0), and the other head widths the kernels
+# instantiate.
+FLASH_CASES = [
+    (8, 512, 512, HEADS, HEAD_DIM, True),
+    (8, 512, 512, HEADS, HEAD_DIM, False),
+    (2, 300, 300, 4, HEAD_DIM, True),
+    (2, 130, 130, 4, HEAD_DIM, False),
+    (2, 130, 300, 4, HEAD_DIM, True),
+    (2, 256, 256, 4, 32, True),
+    (2, 256, 256, 2, 128, True),
+]
+# K4 parity shapes: the main path's (tokens, hidden) and a ragged one
+LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000)]
+
+
+def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    e = heads * head_dim
+    q = torch.randn(b, s_q, e, generator=g)
+    k = torch.randn(b, s_k, e, generator=g)
+    v = torch.randn(b, s_k, e, generator=g)
+    do = torch.randn(b, s_q, e, generator=g)
+    return tuple(t.to(dev, dtype) for t in (q, k, v, do))
+
+
+def train_kernel_parity(dev, errs) -> dict:
+    """K4-K7 against their plain versions on the card, in float32 and
+    bfloat16. K6/K7 get the lse and delta the plain forward made, so each
+    kernel is held on its own. Adds each kernel's max abs error to errs."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    c = counters()
+
+    def launched(name, fn):
+        n0 = c[name].launches
+        out = fn()
+        torch.cuda.synchronize()
+        require(c[name].launches == n0 + 1, f"{name} not launched")
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for n, d in LN_BWD_SHAPES:
+            x, s, _ = ln_inputs(dev, dtype, n, SEED + n)
+            x = (x[:, :d] if d < EMBED else x).contiguous()
+            s = s[:d].contiguous()
+            dy = torch.randn(n, d, generator=torch.Generator().manual_seed(
+                n)).to(dev, dtype)
+            got = launched("layer_norm_bwd",
+                           lambda: ln.layer_norm_bwd(x, s, dy, 1e-5))
+            want = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
+            errs_here = [check_close("layer_norm_bwd", a, b, dn, errs)
+                         for a, b in zip(got, want)]
+            log(f"  K4 layer_norm_bwd ({n}, {d}) {dn}: max abs err "
+                f"dx/dscale/dbias {max(errs_here):.3e}")
+        for i, (b, s_q, s_k, h, hd, causal) in enumerate(FLASH_CASES):
+            q, k, v, do = flash_inputs(dev, dtype, b, s_q, s_k, h, hd,
+                                       SEED + 100 + i)
+            kw = dict(num_heads=h, causal=causal)
+            out, lse = launched("flash_attention_fwd",
+                                lambda: fa.flash_attention_fwd(q, k, v, **kw))
+            p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            e5 = max(check_close("flash_attention_fwd", out, p_out, dn, errs),
+                     check_close("flash_attention_fwd", lse, p_lse, dn, errs))
+            delta = fa.flash_delta(do, p_out, h)
+            dq = launched("flash_attention_bwd_dq",
+                          lambda: fa.flash_attention_bwd_dq(
+                              q, k, v, do, p_lse, delta, **kw))
+            e6 = check_close("flash_attention_bwd_dq", dq,
+                             fa.flash_attention_bwd_dq_plain(
+                                 q, k, v, do, p_lse, delta, **kw), dn, errs)
+            dk, dv = launched("flash_attention_bwd_dkv",
+                              lambda: fa.flash_attention_bwd_dkv(
+                                  q, k, v, do, p_lse, delta, **kw))
+            p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(
+                q, k, v, do, p_lse, delta, **kw)
+            e7 = max(check_close("flash_attention_bwd_dkv", dk, p_dk, dn,
+                                 errs),
+                     check_close("flash_attention_bwd_dkv", dv, p_dv, dn,
+                                 errs))
+            log(f"  K5/K6/K7 b{b} s{s_q}x{s_k} {h}x{hd} "
+                f"{'causal' if causal else 'full'} {dn}: max abs err "
+                f"{e5:.3e} / {e6:.3e} / {e7:.3e}")
+            del q, k, v, do, out, lse, p_out, p_lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return errs
+
+
 def halfway_parity(dev, errs):
     """K2 and K3 in bfloat16 over a float32 cache whose values lie halfway
     between bfloat16 values: the kernels must round K and V on load as the
@@ -365,38 +510,52 @@ def make_prompts(vocab: int) -> list[list[int]]:
     return prompts
 
 
-def profile_step(eng, step):
-    """One pure-decode step, `step()`, under torch.profiler: its wall
-    time, the device time of its kernels (summed; one stream runs them in
-    order) and the kernels that take the most. Returns (those numbers,
-    what the step returned)."""
+def profiled(fn):
+    """`fn()` under torch.profiler: its wall time, the device time of its
+    kernels (summed; one stream runs them in order), their share of the
+    wall time, the kernels that take the most, and the host-side ops that
+    take the most host time of their own. Returns (those numbers, what fn
+    returned)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    active = sum(1 for s in eng.scheduler.slots if s.decoding)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        done = step()
+        done = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         # device-side events only: an aten op also reports the time of
         # the kernels it launched, which would count them twice
         if e.device_type == DeviceType.CUDA:
             rows.append((e.self_device_time_total, e.count, e.key))
+        else:
+            host.append((e.self_cpu_time_total, e.count, e.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     return {
-        "active_slots": active,
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
         "device_kernels": sum(r[1] for r in rows),
         "top": [{"kernel": k[:80], "count": n, "ms": us / 1e3}
                 for us, n, k in rows[:8]],
+        "top_host": [{"op": k[:80], "count": n, "ms": us / 1e3}
+                     for us, n, k in host[:12]],
     }, done
+
+
+def profile_step(eng, step):
+    """One pure-decode step, `step()`, profiled (`profiled`), with the
+    number of slots decoding in it."""
+    active = sum(1 for s in eng.scheduler.slots if s.decoding)
+    numbers, done = profiled(step)
+    return dict(numbers, active_slots=active), done
 
 
 def serve_phase(ff, layout, prompts, vocab) -> dict:
@@ -565,10 +724,207 @@ def logits_phase(ff, layout, prompts) -> float:
     return err
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------------ phases 6-7
 
 
-def time_ms(fn, arg_sets, iters=48, reps=5) -> tuple[float, float]:
+def build_train_lm(dtype: str, tensor_op_math: bool = True):
+    """lm-base compiled for training as bench.py compiles it: SGD(lr=0.01),
+    sparse CE from logits, plus the accuracy and CE metrics."""
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.models import (
+        TRANSFORMER_LM_ZOO,
+        build_transformer_lm,
+    )
+
+    cfg = FFConfig()
+    cfg.parse_args(["--dtype", dtype, "--seed", str(SEED),
+                    "-b", str(TRAIN_BATCH)])
+    cfg.allow_tensor_op_math_conversion = tensor_op_math
+    ff = FFModel(cfg)
+    build_transformer_lm(ff, TRANSFORMER_LM_ZOO["lm-base"])
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY,
+                        MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return ff
+
+
+def train_batch(vocab: int):
+    """One batch of random tokens and labels from the seed."""
+    rs = np.random.RandomState(SEED)
+    toks = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    pos = np.tile(np.arange(TRAIN_SEQ, dtype=np.int32), (TRAIN_BATCH, 1))
+    labels = rs.randint(0, vocab,
+                        (TRAIN_BATCH, TRAIN_SEQ, 1)).astype(np.int32)
+    return {"tokens": toks, "positions": pos}, labels
+
+
+def train_phase() -> dict:
+    """lm-base, bf16, through `fit` over one repeated batch: WARMUP_STEPS
+    then TIMED_STEPS steps. The launch counts are set to 0 just before fit
+    and read just after; each step is timed (host clock, synchronised on
+    both sides) through a wrapper on the executor's train step, which fit
+    calls. Then one more step, profiled."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.models import (
+        TRANSFORMER_LM_ZOO,
+        transformer_lm_flops_per_token,
+    )
+
+    cfg = TRANSFORMER_LM_ZOO["lm-base"]
+    ff = build_train_lm("bf16")
+    x, y = train_batch(cfg.vocab_size)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
+    ys = np.concatenate([y] * steps)
+    c = counters()
+    step_fn = ff.executor.build_train_step()
+    losses, step_ms, per_step = [], [], []
+
+    def timed_step(*args):
+        before = {k: v.launches for k, v in c.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out[-1])
+        per_step.append({k: v.launches - before[k] for k, v in c.items()})
+        return out
+
+    ff.executor._train_step = timed_step
+    reset_counters()
+    t_fit = time.perf_counter()
+    ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+           verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = {k: v.launches for k, v in c.items()}
+    plain = {k: v.plain_calls for k, v in c.items()}
+
+    layers = cfg.num_layers
+    losses = [float(v) for v in losses]
+    require(len(losses) == steps, f"fit ran {len(losses)} steps")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "layer_norm_fwd": 2 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1}
+    for i, n in enumerate(per_step):
+        got = {k: n[k] for k in want}
+        require(got == want, f"step {i}: launches {got}, want {want}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+
+    timed = step_ms[WARMUP_STEPS:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = TIMED_STEPS * tokens / (sum(timed) / 1e3)
+    flops_tok = transformer_lm_flops_per_token(cfg)
+    batch = ff._make_batch(x, y)
+    prof, _ = profiled(lambda: ff.executor.train_step(
+        ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+        batch))
+    metrics = ff.get_perf_metrics()
+    out = {
+        "steps": steps,
+        "losses": losses,
+        "step_ms": step_ms,
+        "median_step_ms": statistics.median(timed),
+        "tokens_per_s": tok_s,
+        "flops_per_token": flops_tok,
+        "mfu": flops_tok * tok_s / PEAK_OPS_PER_S["bfloat16"],
+        "fit_wall_s": fit_s,
+        # kernel time of the profiled step over the (unprofiled) median
+        # step: the profiler itself slows the host
+        "device_busy_share": prof["device_busy_ms"] / statistics.median(
+            timed),
+        "launches": launches,
+        "launches_per_step": per_step[-1],
+        "profiled_step": prof,
+        "train_accuracy": metrics.get_accuracy(),
+        "train_mean_loss": metrics.get_mean_loss(),
+    }
+    del ff, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_phase() -> dict:
+    """The same weights in float32 (no tensor-op rounding): one train
+    step's gradients with the kernels vs the same step with the plain
+    versions called in their place. Returns the worst tensor's name and
+    its max abs and relative differences."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+    from flexflow_tpu_torch.models import TRANSFORMER_LM_ZOO
+
+    cfg = TRANSFORMER_LM_ZOO["lm-base"]
+    layers = cfg.num_layers
+    ff = build_train_lm("fp32", tensor_op_math=False)
+    xs, labels = ff._make_batch(*train_batch(cfg.vocab_size))
+    ex = ff.executor
+    c = counters()
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd")
+    want = dict(zip(names, [layers] * 3 + [2 * layers + 1] * 2))
+
+    def grads(count):
+        n0 = {k: getattr(c[k], count) for k in names}
+        _, _, g = ex.value_and_grad(
+            ex.make_loss_fn(ff._state, xs, labels), ff._params)
+        torch.cuda.synchronize()
+        ran = {k: getattr(c[k], count) - n0[k] for k in names}
+        require(ran == want, f"{count} in the step: {ran}, want {want}")
+        return g
+
+    with_kernels = grads("launches")
+    with mock.patch.object(fa, "flash_attention_fwd",
+                           fa.flash_attention_fwd_plain), \
+            mock.patch.object(fa, "flash_attention_bwd_dq",
+                              fa.flash_attention_bwd_dq_plain), \
+            mock.patch.object(fa, "flash_attention_bwd_dkv",
+                              fa.flash_attention_bwd_dkv_plain), \
+            mock.patch.object(ln, "layer_norm", ln.layer_norm_plain), \
+            mock.patch.object(ln, "layer_norm_bwd", ln.layer_norm_bwd_plain):
+        with_plain = grads("plain_calls")
+    worst = (-1.0, None, 0.0)
+    for n, ws in with_plain.items():
+        scale = max(float(g.abs().max()) for g in ws.values())
+        for w, gp in ws.items():
+            gk = with_kernels[n][w]
+            require(bool(torch.isfinite(gk).all()), f"{n}.{w}: non-finite")
+            err = float((gk - gp).abs().max())
+            rel = err / max(scale, 1e-30)
+            if rel > worst[0]:
+                worst = (rel, f"{n}.{w}", err)
+    rel, name, err = worst
+    require(rel <= GRAD_RTOL, f"float32 gradient of {name} differs by "
+            f"{err:.3e} ({rel:.3e} of its layer's largest gradient entry, "
+            f"bound {GRAD_RTOL})")
+    tensors = sum(len(ws) for ws in with_plain.values())
+    del ff, with_kernels, with_plain
+    torch.cuda.empty_cache()
+    return {"worst_tensor": name, "max_abs_diff": err,
+            "relative_to_largest": rel, "bound_relative": GRAD_RTOL,
+            "tensors": tensors}
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def time_ms(fn, arg_sets, iters=48, reps=5,
+            graph=True) -> tuple[float, float]:
     """(device ms, eager ms) of one call, cycling over input sets whose
     total size exceeds the 50 MB L2 where the real caller finds its
     inputs cold. Device time: `iters` calls captured in one CUDA graph,
@@ -588,28 +944,33 @@ def time_ms(fn, arg_sets, iters=48, reps=5) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     eager = start.elapsed_time(end) / iters
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    if not graph:
+        return eager, eager
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
-    graph.replay()
+    g.replay()
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        graph.replay()
+        g.replay()
     end.record()
     torch.cuda.synchronize()
     device = start.elapsed_time(end) / (iters * reps)
-    del graph
+    del g
     return device, eager
 
 
 def timed(kernel, plain, library, arg_sets, library_sets, bound_ms,
           bound_by) -> dict:
+    """Device times of the kernel, its plain version and (when given) the
+    library call, with the bound."""
     ms, eager_ms = time_ms(kernel, arg_sets)
     return dict(ms=ms, eager_ms=eager_ms,
                 plain_ms=time_ms(plain, arg_sets)[0],
-                library_ms=time_ms(library, library_sets)[0],
+                library_ms=(time_ms(library, library_sets)[0]
+                            if library is not None else None),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -686,6 +1047,93 @@ def kernel_numbers(dev) -> dict:
     return out
 
 
+def train_kernel_numbers(dev) -> dict:
+    """K4-K7 at the training path's shapes and types (bf16; (8, 512,
+    16x64) causal; LayerNorm rows (4096, 1024)), each cycling over four
+    input sets (more than the 50 MB L2). Library yardsticks, timed only:
+    `native_layer_norm_backward` for K4; `scaled_dot_product_attention`
+    (causal) on the (b, h, s, d) view for K5, and its backward through
+    autograd for K6 and K7 together (timed eagerly between CUDA events:
+    autograd is not captured in a graph here)."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    bf16 = torch.bfloat16
+    out = {}
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM
+    n, e = b * s, h * d
+    eps = 1e-5
+
+    sets = []
+    for i in range(4):
+        x, w, bias = ln_inputs(dev, bf16, n, SEED + 30 + i)
+        dy = torch.randn(n, e, generator=torch.Generator().manual_seed(
+            40 + i)).to(dev, bf16)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [e], w, bias, eps)
+        sets.append((x, w, dy, bias, mean, rstd))
+    out["layer_norm_bwd"] = timed(
+        lambda x, w, dy, *_: ln.layer_norm_bwd(x, w, dy, eps),
+        lambda x, w, dy, *_: ln.layer_norm_bwd_plain(x, w, dy, eps),
+        lambda x, w, dy, bias, mean, rstd:
+            torch.ops.aten.native_layer_norm_backward(
+                dy, x, [e], mean, rstd, w, bias, [True, True, True]),
+        sets, sets,
+        # x, dy, scale read; dx written, dscale and dbias (f32) written;
+        # ~16 f32 operations an element
+        *bound(3 * n * e * 2 + e * 2 + 2 * e * 4, 16 * n * e, "float32"))
+    del sets
+
+    pairs = b * h * s * (s + 1) // 2  # live (query, key) pairs, causal
+    rows = b * h * s * 4  # one f32 row statistic (lse or delta)
+    act = b * s * e * 2  # one (b, s, e) bf16 tensor
+    kw = dict(num_heads=h, causal=True)
+    sets = []
+    for i in range(4):
+        q, k, v, do = flash_inputs(dev, bf16, b, s, s, h, d, SEED + 50 + i)
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        sets.append((q, k, v, do, lse, fa.flash_delta(do, o, h)))
+
+    def view(t):
+        return t.view(b, s, h, d).transpose(1, 2)
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(view(q), view(k), view(v),
+                                              is_causal=True)
+
+    out["flash_attention_fwd"] = timed(
+        lambda q, k, v, *_: fa.flash_attention_fwd(q, k, v, **kw),
+        lambda q, k, v, *_: fa.flash_attention_fwd_plain(q, k, v, **kw),
+        sdpa, sets, sets,
+        *bound(4 * act + rows, 4 * d * pairs, "bfloat16"))
+    out["flash_attention_bwd_dq"] = timed(
+        lambda *a: fa.flash_attention_bwd_dq(*a, **kw),
+        lambda *a: fa.flash_attention_bwd_dq_plain(*a, **kw),
+        None, sets, None, *bound(5 * act + 2 * rows, 6 * d * pairs,
+                                 "bfloat16"))
+    out["flash_attention_bwd_dkv"] = timed(
+        lambda *a: fa.flash_attention_bwd_dkv(*a, **kw),
+        lambda *a: fa.flash_attention_bwd_dkv_plain(*a, **kw),
+        None, sets, None, *bound(6 * act + 2 * rows, 8 * d * pairs,
+                                 "bfloat16"))
+    lib_sets = []
+    for q, k, v, do, *_ in sets:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_sets.append((sdpa(*leaves), leaves, view(do)))
+    lib_bwd = time_ms(
+        lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
+                                                 retain_graph=True),
+        lib_sets, graph=False)[0]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        out[name]["library_ms"] = lib_bwd
+        out[name]["library_is"] = "sdpa backward (dq, dk, dv together)"
+    del sets, lib_sets
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = [
     ("layer_norm_fwd", "triton", "flexflow_tpu_torch/kernels/_layer_norm_triton.py",
      "flexflow_tpu/kernels/layer_norm.py:48"),
@@ -694,6 +1142,16 @@ KERNELS = [
     ("paged_flash_decode_attention", "cuda",
      "flexflow_tpu_torch/csrc/decode_attention.cu",
      "flexflow_tpu/kernels/flash_attention.py:1446"),
+    ("layer_norm_bwd", "triton", "flexflow_tpu_torch/kernels/_layer_norm_triton.py",
+     "flexflow_tpu/kernels/layer_norm.py:59"),
+    ("flash_attention_fwd", "cuda", "flexflow_tpu_torch/csrc/flash_attention.cu",
+     "flexflow_tpu/kernels/flash_attention.py:705"),
+    ("flash_attention_bwd_dq", "cuda",
+     "flexflow_tpu_torch/csrc/flash_attention.cu",
+     "flexflow_tpu/kernels/flash_attention.py:808"),
+    ("flash_attention_bwd_dkv", "cuda",
+     "flexflow_tpu_torch/csrc/flash_attention.cu",
+     "flexflow_tpu/kernels/flash_attention.py:854"),
 ]
 
 
@@ -712,7 +1170,6 @@ def main(argv: list[str]) -> int:
     import triton
 
     from flexflow_tpu_torch.executor import set_float_policy
-    from flexflow_tpu_torch.kernels import _build
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -723,18 +1180,11 @@ def main(argv: list[str]) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"triton {triton.__version__}, python {sys.version.split()[0]}")
     set_float_policy()  # full float32 matmuls (no TF32), stated
-    t0 = time.perf_counter()
-    lib = _build.build("decode_attention")
-    log(f"nvcc sm_90a build of csrc/decode_attention.cu: "
-        f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, REPO)}")
-    ptxas = (_build.BUILD_DIR / "decode_attention.ptxas.txt")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    build_s = build_kernels()
 
     log("== phase 2: kernel parity on the card")
     errs = kernel_parity(dev)
+    train_kernel_parity(dev, errs)
 
     log("== phase 3/4: serving lm-base, bf16, paged then contiguous")
     ff = build_lm()
@@ -761,33 +1211,62 @@ def main(argv: list[str]) -> int:
     del ff
     torch.cuda.empty_cache()
 
-    log("== phase 6: kernel times at the main path's shapes")
+    log("== phase 6: training lm-base, bf16, SGD, fit over one batch")
+    train = train_phase()
+    log(f"  losses {[round(x, 4) for x in train['losses']]}")
+    log(f"  {train['tokens_per_s']:.0f} tokens/s, median step "
+        f"{train['median_step_ms']:.2f} ms, MFU {100 * train['mfu']:.2f}% "
+        f"of {PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s, kernel time "
+        f"of a profiled step {train['profiled_step']['device_busy_ms']:.2f} "
+        f"ms ({100 * train['device_busy_share']:.1f}% of the median step); "
+        f"launches per step {train['launches_per_step']}")
+
+    log("== phase 7: training gradients, float32, kernels vs plain")
+    grads = grad_phase()
+    log(f"  worst of {grads['tensors']} gradients: {grads['worst_tensor']}, "
+        f"max abs diff {grads['max_abs_diff']:.3e} "
+        f"({grads['relative_to_largest']:.3e} of its layer's largest "
+        f"gradient entry, bound {GRAD_RTOL})")
+
+    log("== phase 8: kernel times at the main paths' shapes")
     nums = kernel_numbers(dev)
-    main_run = {"layer_norm_fwd": "paged",
-                "paged_flash_decode_attention": "paged",
-                "flash_decode_attention": "contiguous"}
+    nums.update(train_kernel_numbers(dev))
+    # the run whose launches each kernel's row reports
+    counted = {"layer_norm_fwd": train,
+               "paged_flash_decode_attention": runs["paged"],
+               "flash_decode_attention": runs["contiguous"]}
     rows = []
     for name, route, source, replaces in KERNELS:
-        run = runs[main_run[name]]
+        run = counted.get(name, train)
+        per_step = run.get("launches_per_step",
+                           run.get("launches_per_decode_step"))
         rows.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=run["launches"][name], max_abs_err=errs[name],
-            launches_per_decode_step=run["launches_per_decode_step"][name],
-            **nums[name]))
+            launches_per_step=per_step[name], **nums[name]))
+        log(f"  {name}: {nums[name]['ms']:.4f} ms (bound "
+            f"{nums[name]['bound_ms']:.4f} by {nums[name]['bound_by']}, "
+            f"plain {nums[name]['plain_ms']:.4f}, library "
+            f"{nums[name]['library_ms']})")
     serving = {
         layout: {k: v for k, v in r.items() if k != "streams"}
         for layout, r in runs.items()}
     detail = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, triton=triton.__version__,
-                  kernels=rows, serving=serving, logits_max_abs=logit_err,
-                  streams_identical=same,
+                  build_s=build_s, kernels=rows, serving=serving,
+                  logits_max_abs=logit_err, streams_identical=same,
+                  training=train, training_gradients=grads,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
         with open(json_path, "w") as f:
             json.dump(detail, f, indent=1)
+    train_summary = {k: train[k] for k in (
+        "tokens_per_s", "median_step_ms", "mfu", "device_busy_share",
+        "launches_per_step")}
     log(json.dumps({"serving": serving, "logits_max_abs": logit_err,
+                    "training": train_summary, "training_gradients": grads,
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -1,12 +1,14 @@
 """flexflow_tpu_torch: the PyTorch/CUDA port of flexflow_tpu, for one
 NVIDIA H100.
 
-It mirrors the JAX package's module layout and names. This slice serves
-the flagship Transformer LM: FFConfig -> FFModel -> build_transformer_lm
--> compile -> serve() -> ServingEngine.generate, with hand-written Hopper
-kernels for the decode attention (CUDA C++, contiguous and paged KV
-cache) and the LayerNorm forward (Triton). It imports torch and numpy,
-never jax, and nothing of flexflow_tpu.
+It mirrors the JAX package's module layout and names. It trains the
+flagship Transformer LM (FFConfig -> FFModel -> build_transformer_lm ->
+compile(optimizer, loss_type, metrics) -> fit / eval / forward, backward,
+update) and serves it (compile -> serve() -> ServingEngine.generate), with
+hand-written Hopper kernels for the packed flash attention forward and
+backward and the decode attention (CUDA C++), and the LayerNorm forward
+and backward (Triton). It imports torch and numpy, never jax, and nothing
+of flexflow_tpu.
 
 Every tensor lives on `FFConfig.device`, "cuda" unless the caller asks
 for "cpu"; without a CUDA device and without that request, building a
@@ -22,6 +24,7 @@ from .fftype import (
     CompMode,
     DataType,
     LossType,
+    MetricsType,
     OperatorType,
 )
 from .initializer import (
@@ -31,7 +34,9 @@ from .initializer import (
     NormInitializer,
     UniformInitializer,
 )
+from .metrics import PerfMetrics
 from .model import FFModel
+from .optimizer import AdamOptimizer, Optimizer, SGDOptimizer
 from . import serving
 from .tensor import Tensor
 

@@ -1,11 +1,14 @@
-"""FFConfig: runtime configuration + CLI flag parsing (the port's slice).
+"""FFConfig: runtime configuration + CLI flag parsing (the port's slices).
 
-The twin of `flexflow_tpu/config.py`, cut to the flags the serving slice
-reads: `-b`, `--dtype`, `--seed`, the `--serve-*` flags and the
+The twin of `flexflow_tpu/config.py`, cut to the flags the serving and
+training slices read: `-e/--epochs`, `-b`, `--lr` (also spelled
+`--learning-rate`), `--dtype`, `--seed`, the `--serve-*` flags and the
 tensor-op math policy. Unknown flags are ignored, as the reference's
-tolerant argv scan does. New here: `device`, the torch device every
-tensor of a model lives on. It defaults to "cuda"; a run without a CUDA
-device must ask for "cpu" explicitly (see `resolve_device`).
+tolerant argv scan does, except the flags of paths the port does not have
+yet (`_NOT_PORTED`): asking for one raises, naming its ROADMAP item. New
+here: `device`, the torch device every tensor of a model lives on. It
+defaults to "cuda"; a run without a CUDA device must ask for "cpu"
+explicitly (see `resolve_device`).
 """
 
 from __future__ import annotations
@@ -18,10 +21,45 @@ import torch
 
 from .fftype import CompMode, DataType
 
+# Flags of the JAX package whose paths are not ported: flag -> (takes a
+# value, ROADMAP item). A valued flag asks for its path unless the value
+# is 0 or empty.
+_NOT_PORTED = {
+    "--flash-transposed": (False, "B4 (transposed-layout flash kernels)"),
+    "--profiling": (False, "A10 (profiling)"),
+    "--checkpoint-dir": (True, "A10 (resilience/ checkpoints)"),
+    "--checkpoint-every": (True, "A10 (resilience/ checkpoints)"),
+    "--checkpoint-every-seconds": (True, "A10 (resilience/ checkpoints)"),
+    "--auto-resume": (False, "A10 (resilience/ auto-resume)"),
+    "--telemetry-dir": (True, "A1 (telemetry/)"),
+    "--metrics-interval": (True, "A1 (telemetry/ metrics exporter)"),
+    "--metrics-port": (True, "A1 (telemetry/ metrics exporter)"),
+    "--xprof-dir": (True, "A10 (scope/ device traces)"),
+    "--profile-every": (True, "A10 (scope/ op-grain profiling)"),
+    "--watchdog-timeout": (True, "A10 (scope/ hang watchdog)"),
+    "--diagnostics": (False, "A10 (diagnostics/)"),
+    "--elastic": (False, "A10 (elastic/)"),
+    "--sanitize-numerics": (False, "A10 (sanitize.py)"),
+}
+
+
+def _asks(value: str) -> bool:
+    try:
+        return float(value) != 0.0
+    except ValueError:
+        return value != ""
+
+
+def not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to flexflow_tpu_torch yet (ROADMAP {item})")
+
 
 @dataclass
 class FFConfig:
+    epochs: int = 1
     batch_size: int = 64
+    learning_rate: float = 0.01
     seed: int = 0
     computation_mode: CompMode = CompMode.COMP_MODE_TRAINING
     # Mixed precision. allow_tensor_op_math_conversion is the reference's
@@ -55,8 +93,20 @@ class FFConfig:
                 i += 1
                 return argv[i]
 
-            if a in ("-b", "--batch-size"):
+            if a in _NOT_PORTED:
+                takes_value, item = _NOT_PORTED[a]
+                if not takes_value or _asks(val()):
+                    raise not_ported(f"flag {a}", item)
+            elif a in ("-e", "--epochs"):
+                self.epochs = int(val())
+            elif a in ("-b", "--batch-size"):
                 self.batch_size = int(val())
+            elif a in ("--lr", "--learning-rate"):
+                self.learning_rate = float(val())
+            elif a == "--pipeline-steps":
+                if int(val()) > 1:
+                    raise not_ported("--pipeline-steps > 1 (the pipelined "
+                                     "lax.scan engine)", "A10 (engine/)")
             elif a == "--seed":
                 self.seed = int(val())
             elif a == "--device":

@@ -2,8 +2,8 @@
 
 The serving engine covers a prompt's prefill with `plan_chunks` and runs
 one chunk per iteration. In the JAX package the same planner also cuts an
-epoch into fused multi-step training dispatches; that engine belongs to
-the port's training slice.
+epoch into fused multi-step training dispatches; that engine is not
+ported (ROADMAP A10): the port's `fit` is the eager loop.
 """
 
 from __future__ import annotations

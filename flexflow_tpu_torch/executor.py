@@ -1,13 +1,17 @@
 """Executor: runs a compiled graph eagerly on one torch device.
 
-The twin of the single-device serving half of `flexflow_tpu/executor.py`:
+The twin of the single-device half of `flexflow_tpu/executor.py`:
 `init_variables` (554), `_apply` (589), `_cast_compute` (442),
-`_restore_state_dtypes` (541), `build_decode_step` (799) and
-`build_block_copy` (862). The JAX executor traces one jitted, donated
-program; PyTorch runs eagerly, so a "step" here is a plain function, and
-where the JAX code donates the KV state to update it in place, the port
-updates the state tensors in place (the ops' `index_put_`, the block copy's
-indexed assignment).
+`_restore_state_dtypes` (541), `make_loss_fn` (493), `_train_step_body`
+(690), `build_train_step` (742), `build_eval_step` (783),
+`build_decode_step` (799), `build_block_copy` (862) and `build_forward`
+(945). The JAX executor traces one jitted, donated program; PyTorch runs
+eagerly, so a "step" here is a plain function. Gradients come from
+autograd through `_apply` (the training forward builds the graph; the
+eval, forward and decode steps run it under `no_grad`). Where the JAX code
+donates the KV state or the optimizer slots to update them in place, the
+port updates those tensors in place (the ops' `index_put_`, the block
+copy's indexed assignment, the optimizers' `_foreach_` ops).
 
 Float settings: TF32 is switched off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -23,8 +27,9 @@ from typing import Any
 import torch
 
 from .config import FFConfig
-from .fftype import OperatorType as OT, dtype_to_torch
+from .fftype import LossType, OperatorType as OT, dtype_to_torch
 from .initializer import initializer_by_name
+from .loss import loss_terms
 from .ops.base import OpContext
 from .pcg.graph import Graph, OpNode
 
@@ -44,13 +49,22 @@ def set_float_policy():
 
 class Executor:
     def __init__(self, graph: Graph, config: FFConfig, device: torch.device,
-                 logits_node: OpNode):
+                 logits_node: OpNode, loss_type: LossType = None,
+                 metrics=None, optimizer=None):
         set_float_policy()
         self.graph = graph
         self.config = config
         self.device = device
         self.order = graph.topo_order()
         self.logits_node = logits_node
+        self.loss_type = loss_type
+        self.metrics = metrics
+        self.optimizer = optimizer
+        # a graph that ends in softmax hands probabilities to the loss
+        self.last_op_is_softmax = logits_node.op_type == OT.OP_SOFTMAX
+        self._train_step = None
+        self._eval_step = None
+        self._forward_fn = None
         # mixed precision: compute_dtype != None -> bf16/fp16 activations
         # over fp32 master weights; matmul_dtype -> the tensor-op input cast
         # for fp32 matmuls, on CUDA (the JAX package applies it on the TPU)
@@ -110,9 +124,9 @@ class Executor:
             for name, ws in new_state.items()
         }
 
-    @torch.no_grad()
     def _apply(self, params, state, inputs, *, training: bool = False):
-        """Run the graph forward. Returns (logits, new_state)."""
+        """Run the graph forward. Returns (logits, new_state). Autograd
+        records it unless the caller runs it under `no_grad`."""
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, matmul_dtype=self.matmul_dtype)
@@ -139,7 +153,89 @@ class Executor:
         """Host arrays -> tensors on the model's device."""
         return {k: torch.as_tensor(v).to(self.device) for k, v in xs.items()}
 
-    # ------------------------------------------------------------ steps
+    # ------------------------------------------------------------ training
+
+    def make_loss_fn(self, state, x_inputs, labels):
+        """The mixed-precision loss closure of the train step and of the
+        granular `FFModel.backward`: the inputs are cast to the compute
+        dtype once, each node casts its own weights inside `_apply`, and
+        the cast's backward takes every gradient back to the f32 master.
+        The logits stay in the compute dtype (the loss reduces them in
+        f32). Returns loss_fn(params) -> (loss, (logits, new_state,
+        ce_sum))."""
+        xc = self._cast_compute(x_inputs)
+
+        def loss_fn(p):
+            logits, new_state = self._apply(p, state, xc, training=True)
+            lval, ce_sum = loss_terms(self.loss_type, logits, labels,
+                                      self.last_op_is_softmax)
+            return lval, (logits, new_state, ce_sum)
+
+        return loss_fn
+
+    def value_and_grad(self, loss_fn, params):
+        """(loss, aux, grads) of `loss_fn` at `params`, the twin of
+        `jax.value_and_grad(has_aux=True)`: the gradients are taken with
+        respect to detached views of the masters, and a parameter the loss
+        does not reach gets zeros, as JAX gives."""
+        leaves = {n: {k: t.detach().requires_grad_(True)
+                      for k, t in ws.items()} for n, ws in params.items()}
+        keys = [(n, k) for n, ws in leaves.items() for k in ws]
+        with torch.enable_grad():
+            lval, aux = loss_fn(leaves)
+            grads = torch.autograd.grad(
+                lval, [leaves[n][k] for n, k in keys], allow_unused=True)
+        out: dict = {}
+        for (n, k), g in zip(keys, grads):
+            out.setdefault(n, {})[k] = (g if g is not None
+                                        else torch.zeros_like(params[n][k]))
+        return lval.detach(), aux, out
+
+    def train_step(self, params, state, opt_slots, step, counters, batch):
+        """One iteration: forward, loss, backward, optimizer, metrics.
+        Returns (params, state, opt_slots, step + 1, counters, loss); the
+        parameters are new tensors, the slots are updated in place."""
+        x_inputs, labels = batch
+        loss_fn = self.make_loss_fn(state, x_inputs, labels)
+        lval, (logits, new_state, ce_sum), grads = self.value_and_grad(
+            loss_fn, params)
+        new_state = self._restore_state_dtypes(new_state)
+        new_params, new_slots = self.optimizer.update(grads, params,
+                                                      opt_slots, step)
+        counters = self.metrics.compute(
+            counters, logits.detach(), labels,
+            from_logits=not self.last_op_is_softmax, scce_sum=ce_sum)
+        return new_params, new_state, new_slots, step + 1, counters, lval
+
+    def build_train_step(self):
+        self._train_step = self.train_step
+        return self._train_step
+
+    def build_eval_step(self):
+        @torch.no_grad()
+        def eval_step(params, state, counters, batch):
+            x_inputs, labels = batch
+            logits, _ = self._apply(params, state,
+                                    self._cast_compute(x_inputs))
+            return self.metrics.compute(
+                counters, logits, labels,
+                from_logits=not self.last_op_is_softmax)
+
+        self._eval_step = eval_step
+        return eval_step
+
+    def build_forward(self):
+        @torch.no_grad()
+        def forward(params, state, x_inputs, training):
+            logits, new_state = self._apply(params, state,
+                                            self._cast_compute(x_inputs),
+                                            training=training)
+            return logits, self._restore_state_dtypes(new_state)
+
+        self._forward_fn = forward
+        return forward
+
+    # ------------------------------------------------------------ serving
 
     def build_decode_step(self):
         """ONE serving iteration: forward the decode graph (incremental

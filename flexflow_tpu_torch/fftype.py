@@ -60,6 +60,15 @@ class LossType(enum.IntEnum):
     LOSS_IDENTITY = 54
 
 
+class MetricsType(enum.IntEnum):
+    METRICS_ACCURACY = 1001
+    METRICS_CATEGORICAL_CROSSENTROPY = 1002
+    METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = 1004
+    METRICS_MEAN_SQUARED_ERROR = 1008
+    METRICS_ROOT_MEAN_SQUARED_ERROR = 1016
+    METRICS_MEAN_ABSOLUTE_ERROR = 1032
+
+
 class CompMode(enum.IntEnum):
     COMP_MODE_TRAINING = 70
     COMP_MODE_INFERENCE = 71
@@ -72,6 +81,7 @@ class OperatorType(enum.IntEnum):
 
     OP_INPUT = 1
     OP_LINEAR = 6
+    OP_SOFTMAX = 20
     OP_EMBEDDING = 24
     OP_EW_ADD = 34
     OP_GELU = 73

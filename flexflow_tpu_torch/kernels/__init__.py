@@ -4,6 +4,14 @@ version in the same module.
   K1 layer_norm.layer_norm               Triton  (TPU: layer_norm.py:_fwd_kernel)
   K2 flash_attention.flash_decode_attention        CUDA (TPU: _decode_kernel)
   K3 flash_attention.paged_flash_decode_attention  CUDA (TPU: _paged_decode_kernel)
+  K4 layer_norm.layer_norm_bwd           Triton  (TPU: layer_norm.py:_bwd_kernel)
+  K5 flash_attention.flash_attention_fwd     CUDA (TPU: _flash_kernel_grouped)
+  K6 flash_attention.flash_attention_bwd_dq  CUDA (TPU: _bwd_dq_kernel_grouped)
+  K7 flash_attention.flash_attention_bwd_dkv CUDA (TPU: _bwd_dkv_kernel_grouped)
+
+K1 and K4 are the forward and backward of `layer_norm.fused_layer_norm`;
+K5, K6 and K7 those of `flash_attention.flash_attention_packed` (both
+`torch.autograd.Function`s).
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises. Every wrapper counts its kernel
@@ -35,11 +43,19 @@ class KernelCounter:
 
 def counters() -> dict[str, KernelCounter]:
     """The counters of every kernel of the port, by kernel name."""
-    from .flash_attention import DECODE_COUNTER, PAGED_DECODE_COUNTER
-    from .layer_norm import LAYER_NORM_COUNTER
+    from .flash_attention import (
+        DECODE_COUNTER,
+        FLASH_BWD_DKV_COUNTER,
+        FLASH_BWD_DQ_COUNTER,
+        FLASH_FWD_COUNTER,
+        PAGED_DECODE_COUNTER,
+    )
+    from .layer_norm import LAYER_NORM_BWD_COUNTER, LAYER_NORM_COUNTER
 
-    return {c.name: c for c in (LAYER_NORM_COUNTER, DECODE_COUNTER,
-                                PAGED_DECODE_COUNTER)}
+    return {c.name: c for c in (
+        LAYER_NORM_COUNTER, DECODE_COUNTER, PAGED_DECODE_COUNTER,
+        LAYER_NORM_BWD_COUNTER, FLASH_FWD_COUNTER, FLASH_BWD_DQ_COUNTER,
+        FLASH_BWD_DKV_COUNTER)}
 
 
 def reset_counters():

@@ -1,14 +1,43 @@
-"""Decode attention: kernels K2 (contiguous) and K3 (paged) in CUDA C++,
-their plain PyTorch versions, and the multi-query reference.
+"""Flash attention: the packed training path, kernels K5 (forward), K6
+(backward dq) and K7 (backward dk/dv), and the decode kernels K2
+(contiguous) and K3 (paged), all CUDA C++, each beside its plain PyTorch
+version; plus the multi-query decode reference.
 
-The twin of the decode half of `flexflow_tpu/kernels/flash_attention.py`:
+The twin of `flexflow_tpu/kernels/flash_attention.py`:
 
+  flash_attention_packed (1212), the _flash_packed custom VJP (1189)
+                                           -> flash_attention_packed
+  _flash_kernel_grouped (705) via _flash_fwd_packed (965)
+                                           -> flash_attention_fwd      (K5)
+  _bwd_dq_kernel_grouped (808) via _flash_bwd_packed (1087)
+                                           -> flash_attention_bwd_dq   (K6)
+  _bwd_dkv_kernel_grouped (854) via _flash_bwd_packed (1087)
+                                           -> flash_attention_bwd_dkv  (K7)
   decode_attention_reference (1332)        -> decode_attention_reference
   paged_decode_attention_reference (1520)  -> paged_decode_attention_reference
   flash_decode_attention (1371)            -> flash_decode_attention   (K2)
   paged_flash_decode_attention (1539)      -> paged_flash_decode_attention (K3)
 
-The references are the multi-query path (prefill chunks, q_len > 1), in
+Training: `flash_attention_packed` is a `torch.autograd.Function` on the
+(b, s, h*d) projection layout. Its forward calls K5 (out and the f32 row
+log-sum-exp lse, kept as (b, h, s)); its backward computes
+delta = rowsum(dO*O) in plain torch, as the JAX package does outside
+Pallas (1097-1102), then K6 and K7. The kernel body is
+`csrc/flash_attention.cu` (its header note gives the bound and the
+design). The plain versions repeat the TPU kernels' arithmetic in one pass
+over all keys, as the JAX kernel runs lm-base's seq 512 (one 512-key
+block): f32 logits from the operands times scale, `-1e30` masking with the
+causal offset s_k - s_q, p rounded to V's dtype before P.V, out = acc / l
+cast once, lse = m + log(l); backward p = exp(s - lse) (0 where masked),
+ds = p * (dp - delta) * scale, dq = round(ds).k, dk = round(ds)^T.q,
+dv = round(p)^T.dO, each accumulated in f32 and cast once. The Mosaic
+gates of the TPU wrapper (s < 128, d % 8, the transposed fallback;
+1236-1243) are dropped: on CUDA every shape with head_dim <= 128 launches
+the kernels. Causal attention with s_q > s_k is refused on every device:
+the JAX package sends that shape to sdpa_xla, whose rows with no live key
+average V over all keys, and self-attention never produces it.
+
+Decode: the references are the multi-query path (prefill chunks, q_len > 1), in
 plain torch on every device, as the JAX package runs them on every backend.
 K2 and K3 are single-query; their kernel body is `csrc/decode_attention.cu`
 (one templated body for both layouts; its header note gives the bound and
@@ -32,6 +61,13 @@ NEG_INF = -1e30
 
 DECODE_COUNTER = KernelCounter("flash_decode_attention")
 PAGED_DECODE_COUNTER = KernelCounter("paged_flash_decode_attention")
+FLASH_FWD_COUNTER = KernelCounter("flash_attention_fwd")
+FLASH_BWD_DQ_COUNTER = KernelCounter("flash_attention_bwd_dq")
+FLASH_BWD_DKV_COUNTER = KernelCounter("flash_attention_bwd_dkv")
+
+# dtypes the training kernels are instantiated for (q, k, v alike)
+_FLASH_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_MAX_HEAD_DIM = 128
 
 # q (compute) dtypes the CUDA body is instantiated for; the KV state it
 # reads is f32 at rest (the ops' WeightSpec, the executor's state dtypes)
@@ -253,3 +289,263 @@ def paged_flash_decode_attention(q, pool_k, pool_v, page_table, lengths, *,
                    stride_outer=pool_k.stride(0),
                    stride_row=pool_k.stride(1), block_size=bs,
                    table_width=W, max_len=W * bs, num_blocks=nb)
+
+
+# ------------------------------------------------------------------ training
+
+
+def _causal_live(s_q: int, s_k: int, device) -> torch.Tensor:
+    """(s_q, s_k) bool: query i sees key j iff i + (s_k - s_q) >= j."""
+    return torch.ones(s_q, s_k, dtype=torch.bool, device=device).tril(
+        s_k - s_q)
+
+
+def _check_packed(q, k, v, num_heads, causal, scale) -> float:
+    """Shapes and dtypes every device takes; returns the scale."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash attention takes (batch, seq, heads*head_dim)"
+                         f" tensors, got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    b, s_q, e = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != e:
+        raise ValueError(f"flash attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if e % num_heads != 0:
+        raise ValueError(f"embed dim {e} % heads {num_heads} != 0")
+    if causal and s_q > k.shape[1]:
+        raise ValueError(
+            f"causal flash attention needs s_q <= s_k (got {s_q} > "
+            f"{k.shape[1]}): rows with no live key follow sdpa_xla's "
+            f"uniform-over-all-keys convention in the JAX package; use "
+            f"impl='xla' for that shape")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash attention: q, k, v dtypes differ "
+                        f"({q.dtype}, {k.dtype}, {v.dtype})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(e // num_heads)
+    return float(scale)
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(b, s, h*d) -> a (b, h, s, d) f32 view of the values."""
+    b, s, e = t.shape
+    return t.float().reshape(b, s, h, e // h).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor, dtype) -> torch.Tensor:
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d).to(dtype)
+
+
+def flash_attention_fwd_plain(q, k, v, *, num_heads: int,
+                              causal: bool = False,
+                              scale: float | None = None):
+    """Plain PyTorch version of K5: (out (b, s_q, h*d) in q's dtype,
+    lse (b, h, s_q) f32), the one-pass softmax of the TPU kernel."""
+    FLASH_FWD_COUNTER.plain_calls += 1
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    h = num_heads
+    logits = torch.matmul(_heads(q, h), _heads(k, h).transpose(-1, -2))
+    logits = logits * scale
+    if causal:
+        logits = torch.where(_causal_live(q.shape[1], k.shape[1], q.device),
+                             logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), _heads(v, h))
+    out = _merge(acc / l, q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+def _bwd_plain_tiles(q, k, v, dout, lse, delta, num_heads, causal, scale):
+    """The backward recompute (`_bwd_tile_math`) over all keys at once:
+    p = exp(s - lse) (0 where masked) and ds = p * (dp - delta) * scale."""
+    h = num_heads
+    s = torch.matmul(_heads(q, h), _heads(k, h).transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(_causal_live(q.shape[1], k.shape[1], q.device), p,
+                        torch.zeros_like(p))
+    dp = torch.matmul(_heads(dout, h), _heads(v, h).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, *,
+                                 num_heads: int, causal: bool = False,
+                                 scale: float | None = None):
+    """Plain PyTorch version of K6: dq = round(ds) . k, in q's dtype."""
+    FLASH_BWD_DQ_COUNTER.plain_calls += 1
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    _, ds = _bwd_plain_tiles(q, k, v, dout, lse, delta, num_heads, causal,
+                             scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), _heads(k, num_heads))
+    return _merge(dq, q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, *,
+                                  num_heads: int, causal: bool = False,
+                                  scale: float | None = None):
+    """Plain PyTorch version of K7: dk = round(ds)^T . q and
+    dv = round(p)^T . dO, in k's and v's dtypes."""
+    FLASH_BWD_DKV_COUNTER.plain_calls += 1
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    p, ds = _bwd_plain_tiles(q, k, v, dout, lse, delta, num_heads, causal,
+                             scale)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      _heads(q, num_heads))
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      _heads(dout, num_heads))
+    return _merge(dk, k.dtype), _merge(dv, v.dtype)
+
+
+def flash_delta(dout: torch.Tensor, out: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, (b, h, s) f32, from the stored
+    output (`flash_attention.py:1097-1102`)."""
+    b, s, e = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(b, s, num_heads, e // num_heads).sum(-1).transpose(
+        1, 2).contiguous()
+
+
+_FLASH_FNS = {
+    "ff_flash_attention_fwd": 5,
+    "ff_flash_attention_bwd_dq": 7,
+    "ff_flash_attention_bwd_dkv": 8,
+}
+
+
+def _flash_library(name: str):
+    from . import _build
+
+    fn = getattr(_build.load("flash_attention"), name)
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp] * _FLASH_FNS[name] + [ci] * 5
+                       + [ctypes.c_float, ci, ci, vp])
+        fn.restype = ci
+    return fn
+
+
+def _flash_launch(name, counter, tensors, outs, q, k, num_heads, causal,
+                  scale):
+    """Validate, launch one training kernel on `outs` (allocated by the
+    caller), count. Raises on anything the kernel does not take."""
+    dev = q.device
+    for t in tensors + outs:
+        if t.device != dev:
+            raise ValueError(f"flash attention: a tensor is on {t.device}, "
+                             f"q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError("flash attention: tensors must be contiguous")
+    code = _FLASH_DTYPE_CODE.get(q.dtype)
+    if code is None:
+        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
+    b, s_q, e = q.shape
+    hd = e // num_heads
+    if hd > _FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head_dim <= "
+                         f"{_FLASH_MAX_HEAD_DIM}, got {hd}")
+    fn = _flash_library(name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(*[t.data_ptr() for t in tensors + outs], b, num_heads, s_q,
+                k.shape[1], hd, scale, int(causal), code, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: code {rc}")
+    counter.launches += 1
+
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    return q.device.type
+
+
+def flash_attention_fwd(q, k, v, *, num_heads: int, causal: bool = False,
+                        scale: float | None = None):
+    """Flash attention forward on (b, s, h*d) tensors: (out, lse (b, h,
+    s_q) f32). CPU tensors take the plain version; CUDA tensors launch
+    K5."""
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    if _device_of(q) == "cpu":
+        return flash_attention_fwd_plain(q, k, v, num_heads=num_heads,
+                                         causal=causal, scale=scale)
+    b, s_q, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, s_q), dtype=torch.float32,
+                      device=q.device)
+    _flash_launch("ff_flash_attention_fwd", FLASH_FWD_COUNTER, [q, k, v],
+                  [out, lse], q, k, num_heads, causal, scale)
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, num_heads: int,
+                           causal: bool = False,
+                           scale: float | None = None):
+    """dq of flash attention. CPU tensors take the plain version; CUDA
+    tensors launch K6."""
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    if _device_of(q) == "cpu":
+        return flash_attention_bwd_dq_plain(
+            q, k, v, dout, lse, delta, num_heads=num_heads, causal=causal,
+            scale=scale)
+    dq = torch.empty_like(q)
+    _flash_launch("ff_flash_attention_bwd_dq", FLASH_BWD_DQ_COUNTER,
+                  [q, k, v, dout, lse, delta], [dq], q, k, num_heads, causal,
+                  scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, num_heads: int,
+                            causal: bool = False,
+                            scale: float | None = None):
+    """(dk, dv) of flash attention. CPU tensors take the plain version;
+    CUDA tensors launch K7."""
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    if _device_of(q) == "cpu":
+        return flash_attention_bwd_dkv_plain(
+            q, k, v, dout, lse, delta, num_heads=num_heads, causal=causal,
+            scale=scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("ff_flash_attention_bwd_dkv", FLASH_BWD_DKV_COUNTER,
+                  [q, k, v, dout, lse, delta], [dk, dv], q, k, num_heads,
+                  causal, scale)
+    return dk, dv
+
+
+class _FlashPacked(torch.autograd.Function):
+    """The `_flash_packed` custom VJP: forward K5, backward delta then K6
+    and K7 (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, num_heads=num_heads,
+                                       causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = (num_heads, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        num_heads, causal, scale = ctx.meta
+        g = g.contiguous()
+        delta = flash_delta(g, out, num_heads)
+        kw = dict(num_heads=num_heads, causal=causal, scale=scale)
+        dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_packed(q, k, v, *, num_heads: int, causal: bool = False,
+                           scale: float | None = None) -> torch.Tensor:
+    """Fused attention on (batch, seq, heads*head_dim) activations, the
+    qkv projections' own layout, differentiable in q, k and v."""
+    scale = _check_packed(q, k, v, num_heads, causal, scale)
+    return _FlashPacked.apply(q, k, v, num_heads, causal, scale)

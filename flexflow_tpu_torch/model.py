@@ -1,22 +1,26 @@
-"""FFModel: the layer-builder API, single-device compile, weights I/O and
-`serve()` (twin of `flexflow_tpu/model.py`, serving slice).
+"""FFModel: the layer-builder API, single-device compile, training
+(`fit`, `eval`, the granular forward/backward/update), weights I/O and
+`serve()` (twin of `flexflow_tpu/model.py`).
 
-The builder methods mirror the JAX package's one for one (155-490), so a
+The builder methods mirror the JAX package's one for one (155-690), so a
 model script carries over with only the import changed. `compile` lowers
 the layer list to a graph and adopts the single-device plan: on one device
 every plan is the replicated one, so no Unity search runs (the search and
-its plan cache are a later slice of the port). Training (`fit`, the
-optimizers, the loss) is the port's training slice.
+its plan cache are a later slice of the port). `fit` is the JAX package's
+eager loop (1660) without its telemetry, checkpoint, diagnostics, elastic,
+sanitizer and scope hooks: the flags that ask for those raise (config.py),
+as does `pipeline_steps > 1` (the pipelined lax.scan engine, ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from .config import FFConfig, resolve_device
+from .config import FFConfig, not_ported, resolve_device
 from .executor import Executor
 from .fftype import (
     ActiMode,
@@ -24,6 +28,7 @@ from .fftype import (
     CompMode,
     DataType,
     LossType,
+    MetricsType,
     OperatorType as OT,
 )
 from .initializer import Initializer
@@ -37,8 +42,11 @@ from .ops import (
     LinearParams,
     MultiHeadAttentionParams,
     PagedIncMultiHeadAttentionParams,
+    SoftmaxParams,
 )
+from .metrics import Metrics, PerfMetrics
 from .ops.base import get_op_def
+from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph, OpNode
 from .tensor import Tensor
 
@@ -53,9 +61,18 @@ class FFModel:
         self.graph: Optional[Graph] = None
         self.executor: Optional[Executor] = None
         self.loss_type: Optional[LossType] = None
+        self.optimizer: Optional[Optimizer] = None
+        self.metrics: Optional[Metrics] = None
         self._params = None
         self._state = None
+        self._opt_slots = None
+        self._step = None
+        self._counters = None
         self._compiled = False
+        # absolute epochs run by earlier fit() calls (shuffle keys)
+        self._epoch_base = 0
+        self._current_batch = None
+        self._grads = None
 
     # ================================================== tensor creation
 
@@ -112,6 +129,10 @@ class FFModel:
 
     def gelu(self, x, name=""):
         return self._unary(OT.OP_GELU, x, name)
+
+    def softmax(self, input: Tensor, dim: int = -1, name: str = "") -> Tensor:
+        return self._add_layer(OT.OP_SOFTMAX, SoftmaxParams(dim), [input],
+                               name, data_type=input.dtype).outputs[0]
 
     def dense(
         self,
@@ -238,17 +259,19 @@ class FFModel:
 
     def compile(
         self,
-        optimizer=None,
+        optimizer: Optional[Optimizer] = None,
         loss_type: LossType = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+        metrics: Sequence[MetricsType] = (),
         comp_mode: CompMode = CompMode.COMP_MODE_TRAINING,
     ):
         """Lower layers to a graph, adopt the single-device plan, build the
-        executor and initialise the weights on the model's device."""
-        if optimizer is not None:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP queue A3): compile "
-                "without an optimizer and serve the model")
+        executor, initialise the weights on the model's device and the
+        training state (optimizer slots, step, metric counters). Without
+        an optimizer, SGD at `config.learning_rate`, as in JAX."""
+        self.optimizer = optimizer or SGDOptimizer(
+            lr=self.config.learning_rate)
         self.loss_type = LossType(loss_type)
+        self.metrics = Metrics.from_list(self.loss_type, list(metrics))
         self.config.computation_mode = comp_mode
         g = Graph()
         tensor_to_out: dict[int, tuple[OpNode, int]] = {}
@@ -273,10 +296,157 @@ class FFModel:
                 tensor_to_out[t_out.tensor_guid] = (node, i)
         self.graph = g
         logits_node = tensor_to_out[self.layers[-1].outputs[0].tensor_guid][0]
-        self.executor = Executor(g, self.config, self.device, logits_node)
+        self.executor = Executor(g, self.config, self.device, logits_node,
+                                 self.loss_type, self.metrics, self.optimizer)
         self._params, self._state = self.executor.init_variables(
             self.config.seed)
+        self._opt_slots = self.optimizer.init(self._params)
+        self._step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._counters = self.metrics.zero_counters(self.device)
         self._compiled = True
+
+    # ================================================== training
+
+    def _make_batch(self, x_arrays: dict, labels):
+        """Host arrays -> (inputs, labels) on the model's device."""
+        return (self.executor.stage_inputs(x_arrays),
+                torch.as_tensor(np.asarray(labels)).to(self.device))
+
+    def _as_input_dict(self, x) -> dict:
+        input_names = [t.name for t in self._input_tensors]
+        if isinstance(x, dict):
+            return x
+        if isinstance(x, np.ndarray) or hasattr(x, "shape"):
+            x = [x]
+        if len(x) != len(input_names):
+            raise ValueError(
+                f"model has {len(input_names)} inputs {input_names}, got "
+                f"{len(x)} arrays")
+        return dict(zip(input_names, x))
+
+    def _epoch_order(self, num_samples: int, epoch: int,
+                     shuffle: bool) -> np.ndarray:
+        """Sample order for one epoch, keyed on (config.seed, absolute
+        epoch) exactly as the JAX package keys it, so both packages shuffle
+        alike."""
+        if not shuffle:
+            return np.arange(num_samples)
+        rs = np.random.RandomState(
+            (self.config.seed * 1_000_003
+             + self._epoch_base + epoch) % (2 ** 32))
+        return rs.permutation(num_samples)
+
+    def fit(self, x, y: np.ndarray, epochs: int = -1, batch_size: int = -1,
+            shuffle: bool = True, verbose: bool = True,
+            pipeline_steps: Optional[int] = None):
+        """The training loop: per epoch an order from `_epoch_order`, then
+        one train step per full batch (a tail shorter than a batch is
+        dropped, as in JAX). Prints one line per epoch when verbose."""
+        if not self._compiled:
+            raise RuntimeError("call compile() before fit()")
+        if pipeline_steps is not None and int(pipeline_steps) > 1:
+            raise not_ported("fit(pipeline_steps > 1), the pipelined "
+                             "lax.scan engine,", "A10 (engine/)")
+        if epochs < 0:
+            epochs = self.config.epochs
+        if batch_size < 0:
+            batch_size = self.config.batch_size
+        x_dict = self._as_input_dict(x)
+        num_samples = y.shape[0]
+        num_batches = num_samples // batch_size
+        step_fn = self.executor._train_step or self.executor.build_train_step()
+        for epoch in range(epochs):
+            order = self._epoch_order(num_samples, epoch, shuffle)
+            t0 = time.time()
+            for b in range(num_batches):
+                idx = order[b * batch_size:(b + 1) * batch_size]
+                batch = self._make_batch({k: v[idx] for k, v in x_dict.items()},
+                                         y[idx])
+                (self._params, self._state, self._opt_slots, self._step,
+                 self._counters, _) = step_fn(
+                    self._params, self._state, self._opt_slots, self._step,
+                    self._counters, batch)
+            if verbose:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.time() - t0
+                print(f"epoch {epoch}: {self.get_perf_metrics()} ELAPSED "
+                      f"TIME = {dt:.4f}s, THROUGHPUT = "
+                      f"{num_batches * batch_size / dt:.2f} samples/s")
+        self._epoch_base += epochs
+
+    def eval(self, x, y, batch_size: int = -1) -> PerfMetrics:
+        if not self._compiled:
+            raise RuntimeError("call compile() before eval()")
+        if batch_size < 0:
+            batch_size = self.config.batch_size
+        x_dict = self._as_input_dict(x)
+        eval_fn = self.executor._eval_step or self.executor.build_eval_step()
+        counters = self.metrics.zero_counters(self.device)
+        for b in range(y.shape[0] // batch_size):
+            sl = slice(b * batch_size, (b + 1) * batch_size)
+            batch = self._make_batch({k: v[sl] for k, v in x_dict.items()},
+                                     y[sl])
+            counters = eval_fn(self._params, self._state, counters, batch)
+        return PerfMetrics(counters, self.metrics)
+
+    # granular API (the reference's C++ train loops)
+
+    def start_batch(self, x, y):
+        self._current_batch = self._make_batch(self._as_input_dict(x), y)
+
+    def forward(self, seq_length: int = -1):
+        if self._current_batch is None:
+            raise RuntimeError("call start_batch first")
+        fwd = self.executor._forward_fn or self.executor.build_forward()
+        xs, _ = self._current_batch
+        logits, self._state = fwd(
+            self._params, self._state, xs,
+            self.config.computation_mode == CompMode.COMP_MODE_TRAINING)
+        return logits
+
+    def zero_gradients(self):
+        self._grads = None
+
+    def backward(self, seq_length: int = -1):
+        if self._current_batch is None:
+            raise RuntimeError("call start_batch first")
+        xs, labels = self._current_batch
+        loss_fn = self.executor.make_loss_fn(self._state, xs, labels)
+        lval, (logits, _, ce_sum), self._grads = (
+            self.executor.value_and_grad(loss_fn, self._params))
+        self._counters = self.metrics.compute(
+            self._counters, logits.detach(), labels,
+            from_logits=not self.executor.last_op_is_softmax,
+            scce_sum=ce_sum)
+        return lval
+
+    def update(self):
+        if self._grads is None:
+            raise RuntimeError("call backward first")
+        self._params, self._opt_slots = self.optimizer.update(
+            self._grads, self._params, self._opt_slots, self._step)
+        self._step = self._step + 1
+        self._grads = None
+
+    def reset_metrics(self):
+        self._counters = self.metrics.zero_counters(self.device)
+
+    def set_learning_rate(self, lr: float):
+        """Change the optimizer's learning rate; the eager step reads it at
+        the next update."""
+        if not self._compiled:
+            raise RuntimeError("call compile() before set_learning_rate()")
+        self.optimizer.set_learning_rate(lr)
+
+    def get_perf_metrics(self) -> PerfMetrics:
+        return PerfMetrics(self._counters, self.metrics)
+
+    def create_data_loader(self, batch_tensor: Tensor,
+                           full_array: np.ndarray):
+        from .dataloader import SingleDataLoader
+
+        return SingleDataLoader(self, batch_tensor, full_array)
 
     # ================================================== weights I/O
 

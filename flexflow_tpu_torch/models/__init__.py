@@ -1,10 +1,11 @@
-"""Model zoo of the port: the flagship Transformer LM (serving slice)."""
+"""Model zoo of the port: the flagship Transformer LM."""
 
 from .transformer import (
     TRANSFORMER_LM_ZOO,
     TransformerLMConfig,
     build_transformer_lm,
     build_transformer_lm_decode,
+    transformer_lm_flops_per_token,
     transformer_lm_param_count,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "TransformerLMConfig",
     "build_transformer_lm",
     "build_transformer_lm_decode",
+    "transformer_lm_flops_per_token",
     "transformer_lm_param_count",
 ]

@@ -24,7 +24,7 @@ class TransformerLMConfig:
     mlp_ratio: int = 4
     sequence_length: int = 512
     dtype: DataType = DataType.DT_FLOAT
-    attention_impl: str = "flash"  # xla | flash (training slice)
+    attention_impl: str = "flash"  # xla | flash
 
 
 def _lm_trunk(ff, c: TransformerLMConfig, h, attention):
@@ -47,8 +47,8 @@ def _lm_trunk(ff, c: TransformerLMConfig, h, attention):
 
 def build_transformer_lm(ff, config: TransformerLMConfig | None = None,
                          batch_size: int | None = None):
-    """Returns (tokens_input, logits). The graph's causal attention runs
-    only through `model.serve()` in this slice (see ops/attention.py)."""
+    """Returns (tokens_input, logits). The model also takes a `positions`
+    input (0..seq-1 per row) for the position embedding."""
     c = config or TransformerLMConfig()
     bs = batch_size or ff.config.batch_size
     tokens = ff.create_tensor((bs, c.sequence_length), DataType.DT_INT32,
@@ -127,7 +127,20 @@ def transformer_lm_param_count(c: TransformerLMConfig) -> int:
             + v * d)                        # lm_head
 
 
-# The serving slice's tiers of the JAX package's zoo, same configurations.
+def transformer_lm_flops_per_token(c: TransformerLMConfig) -> float:
+    """Analytic forward + backward FLOPs per token for MFU accounting (6N
+    over the matmul parameters, plus causal attention), the JAX package's
+    formula: the wte/wpe lookups are gathers, only the lm_head counts of
+    the embedding-sized parameters."""
+    d, L, s, v = c.hidden_size, c.num_layers, c.sequence_length, c.vocab_size
+    params_per_layer = 4 * d * d + 2 * c.mlp_ratio * d * d
+    n_matmul_params = L * params_per_layer + v * d  # lm_head only
+    flops = 6.0 * n_matmul_params
+    flops += L * 12.0 * d * s / 2  # causal attention scores+values fwd+bwd
+    return flops
+
+
+# Tiers of the JAX package's zoo that the port runs, same configurations.
 TRANSFORMER_LM_ZOO: dict = {
     "lm-smoke": TransformerLMConfig(
         vocab_size=512, hidden_size=128, num_heads=4, num_layers=2,

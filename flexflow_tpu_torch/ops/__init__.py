@@ -2,7 +2,7 @@
 
 from .attention import MultiHeadAttentionParams
 from .base import OpContext, OpDef, WeightSpec, get_op_def, matmul_cast, register_op
-from .core import EmbeddingParams, LayerNormParams, LinearParams
+from .core import EmbeddingParams, LayerNormParams, LinearParams, SoftmaxParams
 from .elementwise import ElementBinaryParams, ElementUnaryParams
 from .inc_attention import (
     IncMultiHeadAttentionParams,
@@ -20,6 +20,7 @@ __all__ = [
     "OpContext",
     "OpDef",
     "PagedIncMultiHeadAttentionParams",
+    "SoftmaxParams",
     "WeightSpec",
     "get_op_def",
     "matmul_cast",

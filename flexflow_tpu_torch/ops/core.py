@@ -1,9 +1,11 @@
-"""Dense-compute operators of the serving slice: Linear, LayerNorm,
-Embedding (twins of `flexflow_tpu/ops/core.py` 69-84, 291-317, 429-445).
+"""Dense-compute operators: Linear, LayerNorm, Softmax, Embedding (twins
+of `flexflow_tpu/ops/core.py` 69-84, 291-317, 327-343, 429-445).
 
 Matmuls accumulate in f32 and cast once to the activation dtype, as the
 JAX package's `jnp.dot(..., preferred_element_type=f32).astype(x.dtype)`.
-LayerNorm goes through the fused kernel K1 (`kernels/layer_norm.py`).
+Gradients come from autograd, except LayerNorm's: the last-axis affine
+LayerNorm goes through `kernels/layer_norm.fused_layer_norm`, the
+`autograd.Function` of the fused kernels K1 (forward) and K4 (backward).
 """
 
 from __future__ import annotations
@@ -104,15 +106,17 @@ def _ln_forward(p: LayerNormParams, inputs, weights, state, ctx):
     (x,) = inputs
     axes = tuple(a % x.ndim for a in p.axes)
     if p.elementwise_affine and axes == (x.ndim - 1,):
-        # fused kernel K1 on CUDA, its plain version on the CPU
-        from ..kernels.layer_norm import layer_norm
+        # fused kernels K1/K4 on CUDA, their plain versions on the CPU
+        from ..kernels.layer_norm import fused_layer_norm
 
-        return [layer_norm(x, weights["scale"], weights["bias"], p.eps)], state
+        return [fused_layer_norm(x, weights["scale"], weights["bias"],
+                                 p.eps)], state
     if x.device.type != "cpu":
         raise NotImplementedError(
             "LayerNorm on CUDA runs the fused last-axis affine kernel only; "
             f"axes={p.axes}, elementwise_affine={p.elementwise_affine} is "
-            "not on the serving slice's path")
+            "not on the port's main path (the JAX package runs it as plain "
+            "jnp, no kernel)")
     xf = x.float()  # fp32 statistics under mixed precision
     mean = xf.mean(dim=axes, keepdim=True)
     xc = xf - mean
@@ -126,6 +130,26 @@ def _ln_forward(p: LayerNormParams, inputs, weights, state, ctx):
 
 
 register_op(OpDef(OT.OP_LAYERNORM, _ln_infer, _ln_forward, _ln_weights))
+
+
+# ---------------------------------------------------------------- Softmax
+
+@dataclass(frozen=True)
+class SoftmaxParams:
+    dim: int = -1
+
+
+def _softmax_infer(p, in_shapes):
+    return [in_shapes[0]]
+
+
+def _softmax_forward(p: SoftmaxParams, inputs, weights, state, ctx):
+    (x,) = inputs
+    # f32 exponentials and normalisation, output in the activation dtype
+    return [torch.softmax(x.float(), dim=p.dim).to(x.dtype)], state
+
+
+register_op(OpDef(OT.OP_SOFTMAX, _softmax_infer, _softmax_forward))
 
 
 # ---------------------------------------------------------------- Embedding

@@ -1,4 +1,4 @@
-"""Elementwise operators of the serving slice: add and exact GELU (twins
+"""Elementwise operators of the main path: add and exact GELU (twins
 of `flexflow_tpu/ops/elementwise.py`; GELU is the erf form of line 43).
 """
 

@@ -7,11 +7,14 @@ so it also runs where only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 The tolerances are chip_smoke.py's. Its kernel-parity phase covers the
-main path's shapes (NaN in every cache row no slot may read, a scrambled
-page table with shared blocks, float32 and bfloat16, and a float32 cache of
-values halfway between bfloat16 values, which only a kernel that rounds K
-and V on load matches in bfloat16); the tests below add
-shapes off that path, which the kernels take all the same.
+main paths' shapes (decode: NaN in every cache row no slot may read, a
+scrambled page table with shared blocks, a float32 cache of values halfway
+between bfloat16 values, which only a kernel that rounds K and V on load
+matches in bfloat16; training: the flash kernels at lm-base's shape,
+ragged sequences and the other head widths, the LayerNorm backward at
+lm-base's rows and a ragged width), in float32 and bfloat16; the tests
+below add shapes off those paths, which the kernels take all the same, and
+the autograd Functions on the card.
 """
 
 import os
@@ -44,8 +47,11 @@ def test_kernels_match_plain_versions_on_card(cuda):
     import chip_smoke
 
     errs = chip_smoke.kernel_parity(cuda)
+    chip_smoke.train_kernel_parity(cuda, errs)
     assert set(errs) == {"layer_norm_fwd", "flash_decode_attention",
-                         "paged_flash_decode_attention"}
+                         "paged_flash_decode_attention", "layer_norm_bwd",
+                         "flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"}
 
 
 @pytest.mark.cuda
@@ -144,6 +150,115 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
         ln.layer_norm(q, torch.ones(64, device=cuda, dtype=torch.float64),
                       torch.zeros(64, device=cuda, dtype=torch.float64),
                       1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s_q,s_k,heads,head_dim,causal", [
+    (3, 1, 1, 3, 16, True),        # one row, the narrowest head
+    (1, 17, 65, 2, 40, True),      # causal offset, padded head columns
+    (2, 65, 17, 3, 80, False),     # s_q > s_k without a mask
+    (1, 100, 100, 1, 100, True),   # head width no multiple of 16
+    (2, 200, 333, 2, 128, False),  # ragged both ways, the widest head
+])
+def test_flash_kernels_off_the_main_path_shapes(cuda, b, s_q, s_k, heads,
+                                                head_dim, causal, dtype):
+    """K5, K6 and K7 against their plain versions where the tiles are
+    partial, the head is padded in shared memory (no 16-byte loads), or
+    the causal diagonal is offset."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(s_q * 1000 + s_k)
+    e = heads * head_dim
+    q = torch.randn(b, s_q, e, generator=g).to(cuda, dtype)
+    k = torch.randn(b, s_k, e, generator=g).to(cuda, dtype)
+    v = torch.randn(b, s_k, e, generator=g).to(cuda, dtype)
+    do = torch.randn(b, s_q, e, generator=g).to(cuda, dtype)
+    kw = dict(num_heads=heads, causal=causal)
+    tol = _tol(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, **tol)
+    delta = fa.flash_delta(do, p_out, heads)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, p_lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, p_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want = (fa.flash_attention_bwd_dq_plain(q, k, v, do, p_lse, delta, **kw),
+            *fa.flash_attention_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                              **kw))
+    for got, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [(1, 64), (17, 1000), (5, 10000)])
+def test_layer_norm_backward_kernel_off_the_main_path_shapes(cuda, rows,
+                                                            width, dtype):
+    """K4 at one row, a ragged program of rows, and a width past the
+    single-block limit (the multi-pass loop)."""
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    g = torch.Generator().manual_seed(rows * width)
+    x = (torch.randn(rows, width, generator=g) * 3 + 1).to(cuda, dtype)
+    s = torch.randn(width, generator=g).to(cuda, dtype)
+    dy = torch.randn(rows, width, generator=g).to(cuda, dtype)
+    n0 = ln.LAYER_NORM_BWD_COUNTER.launches
+    got = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.LAYER_NORM_BWD_COUNTER.launches == n0 + 1
+    for a, b in zip(got, ln.layer_norm_bwd_plain(x, s, dy, 1e-5)):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_autograd_functions_on_card_match_their_cpu_twins(cuda):
+    """The same Functions on CUDA tensors (the kernels) and on CPU copies
+    (the plain versions): outputs and every gradient, float32."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    g = torch.Generator().manual_seed(7)
+    ins = [torch.randn(2, 130, 128, generator=g) for _ in range(4)]
+    ln_ins = [torch.randn(130, 128, generator=g), torch.randn(128,
+              generator=g), torch.randn(128, generator=g)]
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in ins[:3])
+        out = fa.flash_attention_packed(q, k, v, num_heads=2, causal=True)
+        out.backward(ins[3].to(dev))
+        x, s, b = (t.to(dev).requires_grad_(True) for t in ln_ins)
+        y = ln.fused_layer_norm(x, s, b, 1e-5)
+        y.backward(out.detach()[0])
+        results.append([t.detach().cpu() for t in
+                        (out, q.grad, k.grad, v.grad, y, x.grad, s.grad,
+                         b.grad)])
+    tol = _tol(torch.float32)
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+def test_training_wrappers_raise_on_what_kernels_do_not_take(cuda):
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    wide = torch.zeros(1, 4, 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(wide, wide, wide, num_heads=1)
+    half = torch.zeros(1, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(half, half, half, num_heads=1)
+    with pytest.raises(ValueError, match="s_q <= s_k"):
+        fa.flash_attention_fwd(torch.zeros(1, 8, 64, device=cuda),
+                               wide[..., :64], wide[..., :64], num_heads=1,
+                               causal=True)
+    x = torch.zeros(4, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        ln.layer_norm_bwd(x, torch.ones(64, device=cuda, dtype=x.dtype), x,
+                          1e-5)
 
 
 _CORRUPT_TABLE = """

@@ -173,15 +173,18 @@ def test_inc_attention_paged(q_len):
 
 
 def test_training_attention_forward_raises():
-    """The builder-side MHA op exists for the decode replay; its training
-    forward is the port's training slice and says so."""
-    p = tops.MultiHeadAttentionParams(E_, H_, causal=True)
+    """The MHA op's weights match the JAX op's by name (the decode replay
+    adopts them); its training forward runs "flash" and "xla"
+    (tests/test_torch_train.py) and raises for "ring", naming its ROADMAP
+    item."""
+    p = tops.MultiHeadAttentionParams(E_, H_, causal=True, impl="ring")
     x = torch.zeros(2, 4, E_)
-    assert [w.name for w in tdef(TOT.OP_MULTIHEAD_ATTENTION).weights(
-        p, [x.shape] * 3)] == [w.name for w in jdef(
-            JOT.OP_MULTIHEAD_ATTENTION).weights(
-                jops.MultiHeadAttentionParams(E_, H_, causal=True),
-                [tuple(x.shape)] * 3)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdef(TOT.OP_MULTIHEAD_ATTENTION).forward(p, [x, x, x], {}, None,
-                                                 TCtx())
+    specs = tdef(TOT.OP_MULTIHEAD_ATTENTION).weights(p, [x.shape] * 3)
+    assert [w.name for w in specs] == [w.name for w in jdef(
+        JOT.OP_MULTIHEAD_ATTENTION).weights(
+            jops.MultiHeadAttentionParams(E_, H_, causal=True),
+            [tuple(x.shape)] * 3)]
+    weights = {w.name: torch.zeros(w.shape) for w in specs}
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tdef(TOT.OP_MULTIHEAD_ATTENTION).forward(p, [x, x, x], weights,
+                                                 None, TCtx())
