@@ -6,17 +6,22 @@
 Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
 flexflow_tpu_torch/_build/, one nvcc per source, started together; Triton
-at its first launch) and drives both main paths of the lm-base
+at its first launch) and drives the main paths of the lm-base
 Transformer LM (vocab 32000, hidden 1024, 16 heads of dim 64, 12 layers,
 seq 512; random weights from seed 0; bf16 activations over fp32 master
-weights): serving and training. Phases, each fatal on failure:
+weights), serving and training, and the per-head flash paths: lm-base
+under --flash-transposed, and lm-xxl-fsdp (hidden 4096, 32 heads of dim
+128, seq 2048, vocab 32000) at 4 of its 32 layers, in both layouts.
+Phases, each fatal on failure:
 
   1. build and device: the card's name and power limit, the torch, CUDA
      and Triton versions, the nvcc builds of csrc/*.cu;
-  2. kernel parity: every kernel (K1-K7) against its plain PyTorch version
+  2. kernel parity: every kernel (K1-K8) against its plain PyTorch version
      on the card, in float32 and bfloat16, at the main paths' shapes and
-     ragged ones, and the decode kernels over a float32 cache of values
-     halfway between bfloat16 values (rounding on load);
+     ragged ones, the flash kernels on both layouts (K5-K7 in bfloat16 at
+     lm-xxl-fsdp's (4, 32, 2048, 128) too) and the (out, lse) entry under
+     an lse cotangent, and the decode kernels over a float32
+     cache of values halfway between bfloat16 values (rounding on load);
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
@@ -36,7 +41,19 @@ weights): serving and training. Phases, each fatal on failure:
      versions;
   8. numbers: per kernel its time, the plain version's, one PyTorch
      call's for the same function (timed here only: the port never calls
-     it) and the least time the card could take.
+     it) and the least time the card could take, at each path's shapes;
+  9. training lm-base under --flash-transposed, bf16, SGD(lr=0.01), fit
+     over one batch of 8 x 512, 2 warm-up and 3 timed steps: per step 12
+     launches of K5 and K8 on the transposed layout, none of K6 or K7, 25
+     of K1 and K4, no plain version;
+ 10. training lm-xxl-fsdp at full width and 4 layers, bf16, SGD(lr=0.01),
+     fit over one batch of 4 x 2048: packed, 2 warm-up and 3 timed steps,
+     per step 4 launches each of K5, K6 and K7 (head_dim 128), none of
+     K8; then under --flash-transposed, as many steps, the same launches
+     on the transposed layout; tokens/s, MFU, busy share;
+ 11. float32 gradients, kernels vs plain versions, as phase 7: lm-base
+     under --flash-transposed at 2 layers, lm-xxl-fsdp at 1 layer (batch
+     1 x 2048) in both layouts.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -46,6 +63,8 @@ kernels as JSON. `--json PATH` also writes every number of the run there.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -92,6 +111,11 @@ LN_ROWS = (SLOTS, SLOTS * CHUNK)  # pure-decode and prefill-chunk calls
 # training: bench.py's batch and sequence, SGD(lr=0.01); one repeated batch
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# the head-dim-128 tier: full width; 4 of its 32 layers (32 layers of
+# replicated SGD state, ~6.7 B parameters x 10 bytes, are more than one
+# card holds with the activations of 2048-token rows); the attention
+# kernels see the same shapes at every depth
+XXL, XXL_LAYERS, XXL_BATCH = "lm-xxl-fsdp", 4, 4
 
 
 def log(msg: str):
@@ -353,41 +377,145 @@ FLASH_CASES = [
     (2, 256, 256, 4, 32, True),
     (2, 256, 256, 2, 128, True),
 ]
+# K5-K7 on the transposed (b, h, s, d) layout: (batch, heads, s_q, s_k,
+# head_dim, causal): lm-base's shape both ways, ragged, a causal offset,
+# and head_dim 128 past one tile
+FLASH_T_CASES = [
+    (8, HEADS, 512, 512, HEAD_DIM, True),
+    (8, HEADS, 512, 512, HEAD_DIM, False),
+    (2, 4, 300, 300, HEAD_DIM, True),
+    (2, 4, 130, 300, HEAD_DIM, True),
+    (2, 8, 1024, 1024, 128, True),
+]
+# K8: (layout, batch, heads, s_q, s_k, head_dim, causal): lm-base's
+# transposed shape, the packed head-dim-128 single tile (row 11 of
+# PERF.md's kernel table), ragged and offset shapes on both layouts
+FUSED_CASES = [
+    ("transposed", 8, HEADS, 512, 512, HEAD_DIM, True),
+    ("packed", 2, 8, 512, 512, 128, True),
+    ("transposed", 2, 4, 300, 300, HEAD_DIM, True),
+    ("packed", 2, 4, 300, 300, HEAD_DIM, True),
+    ("transposed", 2, 4, 130, 300, HEAD_DIM, True),
+    ("packed", 2, 4, 130, 300, HEAD_DIM, True),
+]
+# K5-K7 at lm-xxl-fsdp's shape, in bfloat16 only (the path's type; float32
+# takes other kernels, held at this shape by phase 11): the same cases on
+# both layouts, (batch, heads, s_q, s_k, head_dim, causal)
+def xxl_flash_case():
+    c = lm_config(XXL)
+    s = c.sequence_length
+    return (XXL_BATCH, c.num_heads, s, s, c.hidden_size // c.num_heads, True)
+
+
 # K4 parity shapes: the main path's (tokens, hidden) and a ragged one
 LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000)]
 
 
-def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed):
+def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
+                 layout="packed"):
+    """q, k, v, dO: (b, s, heads*head_dim) packed or (b, heads, s,
+    head_dim) transposed."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    e = heads * head_dim
-    q = torch.randn(b, s_q, e, generator=g)
-    k = torch.randn(b, s_k, e, generator=g)
-    v = torch.randn(b, s_k, e, generator=g)
-    do = torch.randn(b, s_q, e, generator=g)
+
+    def shape(s):
+        return ((b, s, heads * head_dim) if layout == "packed"
+                else (b, heads, s, head_dim))
+
+    q = torch.randn(*shape(s_q), generator=g)
+    k = torch.randn(*shape(s_k), generator=g)
+    v = torch.randn(*shape(s_k), generator=g)
+    do = torch.randn(*shape(s_q), generator=g)
     return tuple(t.to(dev, dtype) for t in (q, k, v, do))
 
 
-def train_kernel_parity(dev, errs) -> dict:
-    """K4-K7 against their plain versions on the card, in float32 and
-    bfloat16. K6/K7 get the lse and delta the plain forward made, so each
-    kernel is held on its own. Adds each kernel's max abs error to errs."""
+def flash_row(name, layout, heads, head_dim):
+    """The kernels line's row of a flash case: the per-head TPU kernels
+    (transposed, or one head a packed block) or the grouped ones."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    if layout == "packed" and fa.packed_heads_per_block(head_dim, heads) > 1:
+        return name
+    return f"{name} (per-head)"
+
+
+def launched(name, layout, fn):
+    """fn(), synchronised; fatal unless it launched kernel `name` once, on
+    tensors of `layout`."""
     import torch
 
     from flexflow_tpu_torch.kernels import counters
+
+    c = counters()[name]
+    n0, l0 = c.launches, c.layouts.get(layout, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    require(c.launches == n0 + 1 and c.layouts.get(layout, 0) == l0 + 1,
+            f"{name} not launched on the {layout} layout")
+    return out
+
+
+def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
+                     at=None):
+    """K5, K6 and K7 (or K8, `fused`) on one case against their plain
+    versions; K6-K8 get the lse and delta the plain forward made, so each
+    kernel is held on its own. `at` names the case of the kernels line
+    whose shape this is: its errors are also kept as errs[f"{row} @ {at}"]."""
     from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    b, h, s_q, s_k, d, causal = case
+    dn = str(dtype).split(".")[1]
+    q, k, v, do = flash_inputs(dev, dtype, b, s_q, s_k, h, d, seed, layout)
+    heads = h if layout == "packed" else None
+    kw = dict(num_heads=heads, causal=causal)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, p_lse, fa.flash_delta(do, p_out, heads))
+    tag = (f"b{b} s{s_q}x{s_k} {h}x{d} {layout} "
+           f"{'causal' if causal else 'full'} {dn}")
+    if fused:
+        name = "flash_attention_bwd_fused"
+        got = launched(name, layout,
+                       lambda: fa.flash_attention_bwd_fused(*args, **kw))
+        want = fa.flash_attention_bwd_fused_plain(*args, **kw)
+        e8 = max(check_close(name, a, w, dn, errs)
+                 for a, w in zip(got, want))
+        log(f"  K8 {tag}: max abs err dq/dk/dv {e8:.3e}")
+        return
+    def row(name):
+        return flash_row(name, layout, h, d)
+
+    out, lse = launched("flash_attention_fwd", layout,
+                        lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    e5 = max(check_close(row("flash_attention_fwd"), out, p_out, dn, errs),
+             check_close(row("flash_attention_fwd"), lse, p_lse, dn, errs))
+    dq = launched("flash_attention_bwd_dq", layout,
+                  lambda: fa.flash_attention_bwd_dq(*args, **kw))
+    e6 = check_close(row("flash_attention_bwd_dq"), dq,
+                     fa.flash_attention_bwd_dq_plain(*args, **kw), dn, errs)
+    dk, dv = launched("flash_attention_bwd_dkv", layout,
+                      lambda: fa.flash_attention_bwd_dkv(*args, **kw))
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+    e7 = max(check_close(row("flash_attention_bwd_dkv"), dk, p_dk, dn, errs),
+             check_close(row("flash_attention_bwd_dkv"), dv, p_dv, dn, errs))
+    log(f"  K5/K6/K7 {tag}: max abs err {e5:.3e} / {e6:.3e} / {e7:.3e}")
+    if at:
+        for name, e in (("flash_attention_fwd", e5),
+                        ("flash_attention_bwd_dq", e6),
+                        ("flash_attention_bwd_dkv", e7)):
+            errs[f"{row(name)} @ {at}"] = e
+
+
+def train_kernel_parity(dev, errs) -> dict:
+    """K4-K8 against their plain versions on the card, in float32 and
+    bfloat16, the flash kernels on both layouts, then the (out, lse) entry.
+    Adds each kernel's max abs error to errs."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters
     from flexflow_tpu_torch.kernels import layer_norm as ln
 
     c = counters()
-
-    def launched(name, fn):
-        n0 = c[name].launches
-        out = fn()
-        torch.cuda.synchronize()
-        require(c[name].launches == n0 + 1, f"{name} not launched")
-        return out
-
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for n, d in LN_BWD_SHAPES:
@@ -396,44 +524,82 @@ def train_kernel_parity(dev, errs) -> dict:
             s = s[:d].contiguous()
             dy = torch.randn(n, d, generator=torch.Generator().manual_seed(
                 n)).to(dev, dtype)
-            got = launched("layer_norm_bwd",
-                           lambda: ln.layer_norm_bwd(x, s, dy, 1e-5))
+            n0 = c["layer_norm_bwd"].launches
+            got = ln.layer_norm_bwd(x, s, dy, 1e-5)
+            torch.cuda.synchronize()
+            require(c["layer_norm_bwd"].launches == n0 + 1,
+                    "layer_norm_bwd not launched")
             want = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
             errs_here = [check_close("layer_norm_bwd", a, b, dn, errs)
                          for a, b in zip(got, want)]
             log(f"  K4 layer_norm_bwd ({n}, {d}) {dn}: max abs err "
                 f"dx/dscale/dbias {max(errs_here):.3e}")
         for i, (b, s_q, s_k, h, hd, causal) in enumerate(FLASH_CASES):
-            q, k, v, do = flash_inputs(dev, dtype, b, s_q, s_k, h, hd,
-                                       SEED + 100 + i)
-            kw = dict(num_heads=h, causal=causal)
-            out, lse = launched("flash_attention_fwd",
-                                lambda: fa.flash_attention_fwd(q, k, v, **kw))
-            p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
-            e5 = max(check_close("flash_attention_fwd", out, p_out, dn, errs),
-                     check_close("flash_attention_fwd", lse, p_lse, dn, errs))
-            delta = fa.flash_delta(do, p_out, h)
-            dq = launched("flash_attention_bwd_dq",
-                          lambda: fa.flash_attention_bwd_dq(
-                              q, k, v, do, p_lse, delta, **kw))
-            e6 = check_close("flash_attention_bwd_dq", dq,
-                             fa.flash_attention_bwd_dq_plain(
-                                 q, k, v, do, p_lse, delta, **kw), dn, errs)
-            dk, dv = launched("flash_attention_bwd_dkv",
-                              lambda: fa.flash_attention_bwd_dkv(
-                                  q, k, v, do, p_lse, delta, **kw))
-            p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(
-                q, k, v, do, p_lse, delta, **kw)
-            e7 = max(check_close("flash_attention_bwd_dkv", dk, p_dk, dn,
-                                 errs),
-                     check_close("flash_attention_bwd_dkv", dv, p_dv, dn,
-                                 errs))
-            log(f"  K5/K6/K7 b{b} s{s_q}x{s_k} {h}x{hd} "
-                f"{'causal' if causal else 'full'} {dn}: max abs err "
-                f"{e5:.3e} / {e6:.3e} / {e7:.3e}")
-            del q, k, v, do, out, lse, p_out, p_lse, delta, dq, dk, dv
-    torch.cuda.empty_cache()
+            check_flash_case(dev, dtype, "packed",
+                             (b, h, s_q, s_k, hd, causal), SEED + 100 + i,
+                             errs)
+        for i, case in enumerate(FLASH_T_CASES):
+            check_flash_case(dev, dtype, "transposed", case, SEED + 200 + i,
+                             errs)
+        for i, (layout, *case) in enumerate(FUSED_CASES):
+            check_flash_case(dev, dtype, layout, case, SEED + 300 + i, errs,
+                             fused=True)
+        if dtype == torch.bfloat16:
+            for i, layout in enumerate(("packed", "transposed")):
+                check_flash_case(dev, dtype, layout, xxl_flash_case(),
+                                 SEED + 400 + i, errs, at=f"lm-xxl {layout}")
+                torch.cuda.empty_cache()
+        lse_entry_parity(dev, dtype, errs)
+        torch.cuda.empty_cache()
     return errs
+
+
+def lse_entry_parity(dev, dtype, errs):
+    """`flash_attention_with_lse` (b, 8 heads, s, 64) causal, on the card
+    (K5, then K8 at s 512 or K6 and K7 at s 1024) against the same entry
+    with the plain versions in the kernels' place: out, lse and the
+    gradients under cotangents on both outputs."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    c = counters()
+    dn = str(dtype).split(".")[1]
+    names = ("flash_attention_fwd", "flash_attention_bwd_fused",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for s in (512, 1024):
+        q, k, v, do = flash_inputs(dev, dtype, 2, s, s, 8, HEAD_DIM,
+                                   SEED + s, "transposed")
+        g_lse = torch.randn(2, 8, s, generator=torch.Generator().manual_seed(
+            s)).to(dev)
+
+        def run(count):
+            n0 = {n: getattr(c[n], count) for n in names}
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out, lse = fa.flash_attention_with_lse(*leaves, causal=True)
+            torch.autograd.backward([out, lse], [do, g_lse])
+            torch.cuda.synchronize()
+            fused = int(s <= fa.SINGLE_TILE)
+            ran = {n: getattr(c[n], count) - n0[n] for n in names}
+            require(ran == dict(zip(names, (1, fused, 1 - fused, 1 - fused))),
+                    f"lse entry at s {s}: {count} {ran}")
+            return [out.detach(), lse.detach(), *(t.grad for t in leaves)]
+
+        got = run("launches")
+        with mock.patch.object(fa, "flash_attention_fwd",
+                               fa.flash_attention_fwd_plain), \
+                mock.patch.object(fa, "flash_attention_bwd_fused",
+                                  fa.flash_attention_bwd_fused_plain), \
+                mock.patch.object(fa, "flash_attention_bwd_dq",
+                                  fa.flash_attention_bwd_dq_plain), \
+                mock.patch.object(fa, "flash_attention_bwd_dkv",
+                                  fa.flash_attention_bwd_dkv_plain):
+            want = run("plain_calls")
+        err = max(check_close("flash_attention_with_lse", a, w, dn, errs)
+                  for a, w in zip(got, want))
+        log(f"  (out, lse) entry b2 s{s} 8x{HEAD_DIM} causal {dn}, lse "
+            f"cotangent: max abs err out/lse/dq/dk/dv {err:.3e}")
 
 
 def halfway_parity(dev, errs):
@@ -727,9 +893,19 @@ def logits_phase(ff, layout, prompts) -> float:
 # ------------------------------------------------------------ phases 6-7
 
 
-def build_train_lm(dtype: str, tensor_op_math: bool = True):
-    """lm-base compiled for training as bench.py compiles it: SGD(lr=0.01),
-    sparse CE from logits, plus the accuracy and CE metrics."""
+def lm_config(name: str = "lm-base", layers: int | None = None):
+    """A tier of the port's zoo, its depth cut to `layers` if given."""
+    from flexflow_tpu_torch.models import TRANSFORMER_LM_ZOO
+
+    c = TRANSFORMER_LM_ZOO[name]
+    return c if layers is None else dataclasses.replace(c, num_layers=layers)
+
+
+def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
+                   transposed: bool = False, batch: int = TRAIN_BATCH):
+    """An LM (lm-base unless `lm` is given) compiled for training as
+    bench.py compiles lm-base: SGD(lr=0.01), sparse CE from logits, plus
+    the accuracy and CE metrics; `transposed` passes --flash-transposed."""
     from flexflow_tpu_torch import (
         FFConfig,
         FFModel,
@@ -737,17 +913,14 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True):
         MetricsType,
         SGDOptimizer,
     )
-    from flexflow_tpu_torch.models import (
-        TRANSFORMER_LM_ZOO,
-        build_transformer_lm,
-    )
+    from flexflow_tpu_torch.models import build_transformer_lm
 
     cfg = FFConfig()
-    cfg.parse_args(["--dtype", dtype, "--seed", str(SEED),
-                    "-b", str(TRAIN_BATCH)])
+    cfg.parse_args(["--dtype", dtype, "--seed", str(SEED), "-b", str(batch)]
+                   + (["--flash-transposed"] if transposed else []))
     cfg.allow_tensor_op_math_conversion = tensor_op_math
     ff = FFModel(cfg)
-    build_transformer_lm(ff, TRANSFORMER_LM_ZOO["lm-base"])
+    build_transformer_lm(ff, lm or lm_config())
     ff.compile(optimizer=SGDOptimizer(lr=0.01),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY,
@@ -755,42 +928,61 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True):
     return ff
 
 
-def train_batch(vocab: int):
+def train_batch(vocab: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
     """One batch of random tokens and labels from the seed."""
     rs = np.random.RandomState(SEED)
-    toks = rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    pos = np.tile(np.arange(TRAIN_SEQ, dtype=np.int32), (TRAIN_BATCH, 1))
-    labels = rs.randint(0, vocab,
-                        (TRAIN_BATCH, TRAIN_SEQ, 1)).astype(np.int32)
+    toks = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    pos = np.tile(np.arange(seq, dtype=np.int32), (batch, 1))
+    labels = rs.randint(0, vocab, (batch, seq, 1)).astype(np.int32)
     return {"tokens": toks, "positions": pos}, labels
 
 
-def train_phase() -> dict:
-    """lm-base, bf16, through `fit` over one repeated batch: WARMUP_STEPS
-    then TIMED_STEPS steps. The launch counts are set to 0 just before fit
-    and read just after; each step is timed (host clock, synchronised on
-    both sides) through a wrapper on the executor's train step, which fit
-    calls. Then one more step, profiled."""
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_fused")
+
+
+def step_launches(layers: int, fused: bool) -> dict:
+    """Kernel launches of one training step of an LM with `layers`
+    layers: K5 per layer, K8 (`fused`) or K6 and K7 per layer, and K1 and
+    K4 for the two LayerNorms of each layer and the final one."""
+    return {"flash_attention_fwd": layers,
+            "flash_attention_bwd_dq": 0 if fused else layers,
+            "flash_attention_bwd_dkv": 0 if fused else layers,
+            "flash_attention_bwd_fused": layers if fused else 0,
+            "layer_norm_fwd": 2 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1}
+
+
+def train_phase(lm=None, *, transposed=False, fused=False,
+                batch=TRAIN_BATCH, warmup=WARMUP_STEPS,
+                timed_steps=TIMED_STEPS) -> dict:
+    """An LM (lm-base unless `lm` is given), bf16, through `fit` over one
+    repeated batch: `warmup` then `timed_steps` steps. The launch counts
+    are set to 0 just before fit and read just after; each step is timed
+    (host clock, synchronised on both sides) through a wrapper on the
+    executor's train step, which fit calls, and must launch
+    `step_launches(layers, fused)`, the flash kernels on the layout the
+    flags ask for. Then one more step, profiled."""
     import torch
 
     from flexflow_tpu_torch.kernels import counters, reset_counters
-    from flexflow_tpu_torch.models import (
-        TRANSFORMER_LM_ZOO,
-        transformer_lm_flops_per_token,
-    )
+    from flexflow_tpu_torch.models import transformer_lm_flops_per_token
 
-    cfg = TRANSFORMER_LM_ZOO["lm-base"]
-    ff = build_train_lm("bf16")
-    x, y = train_batch(cfg.vocab_size)
-    steps = WARMUP_STEPS + TIMED_STEPS
+    cfg = lm or lm_config()
+    seq = cfg.sequence_length
+    layout = "transposed" if transposed else "packed"
+    ff = build_train_lm("bf16", lm=cfg, transposed=transposed, batch=batch)
+    x, y = train_batch(cfg.vocab_size, batch, seq)
+    steps = warmup + timed_steps
     xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
     ys = np.concatenate([y] * steps)
     c = counters()
     step_fn = ff.executor.build_train_step()
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, per_layout = [], [], [], []
 
     def timed_step(*args):
         before = {k: v.launches for k, v in c.items()}
+        before_l = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step_fn(*args)
@@ -798,16 +990,20 @@ def train_phase() -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(out[-1])
         per_step.append({k: v.launches - before[k] for k, v in c.items()})
+        per_layout.append({k: {lay: n - before_l[k].get(lay, 0)
+                               for lay, n in c[k].layouts.items()
+                               if n - before_l[k].get(lay, 0)}
+                           for k in FLASH_KERNELS})
         return out
 
     ff.executor._train_step = timed_step
     reset_counters()
     t_fit = time.perf_counter()
-    ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
-           verbose=False)
+    ff.fit(xs, ys, epochs=1, batch_size=batch, shuffle=False, verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = {k: v.launches for k, v in c.items()}
+    by_layout = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
     plain = {k: v.plain_calls for k, v in c.items()}
 
     layers = cfg.num_layers
@@ -815,26 +1011,33 @@ def train_phase() -> dict:
     require(len(losses) == steps, f"fit ran {len(losses)} steps")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
-            "flash_attention_bwd_dkv": layers,
-            "layer_norm_fwd": 2 * layers + 1,
-            "layer_norm_bwd": 2 * layers + 1}
-    for i, n in enumerate(per_step):
+    want = step_launches(layers, fused)
+    want_layout = {k: ({layout: n} if n else {}) for k, n in want.items()
+                   if k in FLASH_KERNELS}
+    for i, (n, lay) in enumerate(zip(per_step, per_layout)):
         got = {k: n[k] for k in want}
         require(got == want, f"step {i}: launches {got}, want {want}")
+        require(lay == want_layout, f"step {i}: flash launches by layout "
+                f"{lay}, want {want_layout}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
-    timed = step_ms[WARMUP_STEPS:]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    tok_s = TIMED_STEPS * tokens / (sum(timed) / 1e3)
+    timed = step_ms[warmup:]
+    tokens = batch * seq
+    tok_s = timed_steps * tokens / (sum(timed) / 1e3)
     flops_tok = transformer_lm_flops_per_token(cfg)
-    batch = ff._make_batch(x, y)
+    staged = ff._make_batch(x, y)
     prof, _ = profiled(lambda: ff.executor.train_step(
         ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
-        batch))
+        staged))
     metrics = ff.get_perf_metrics()
     out = {
+        "model": (f"{cfg.hidden_size} hidden, {cfg.num_heads} heads of "
+                  f"{cfg.hidden_size // cfg.num_heads}, {layers} layers, seq "
+                  f"{seq}, vocab {cfg.vocab_size}"),
+        "layout": layout,
+        "batch": batch,
         "steps": steps,
+        "timed_steps": timed_steps,
         "losses": losses,
         "step_ms": step_ms,
         "median_step_ms": statistics.median(timed),
@@ -847,37 +1050,40 @@ def train_phase() -> dict:
         "device_busy_share": prof["device_busy_ms"] / statistics.median(
             timed),
         "launches": launches,
+        "launches_by_layout": by_layout,
         "launches_per_step": per_step[-1],
         "profiled_step": prof,
         "train_accuracy": metrics.get_accuracy(),
         "train_mean_loss": metrics.get_mean_loss(),
     }
-    del ff, batch
+    del ff, staged
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def grad_phase() -> dict:
+def grad_phase(lm=None, *, transposed=False, fused=False,
+               batch=TRAIN_BATCH) -> dict:
     """The same weights in float32 (no tensor-op rounding): one train
-    step's gradients with the kernels vs the same step with the plain
-    versions called in their place. Returns the worst tensor's name and
-    its max abs and relative differences."""
+    step's gradients of an LM (lm-base unless `lm` is given) with the
+    kernels vs the same step with the plain versions called in their
+    place. Returns the worst tensor's name and its max abs and relative
+    differences."""
     import torch
 
     from flexflow_tpu_torch.kernels import counters
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import layer_norm as ln
-    from flexflow_tpu_torch.models import TRANSFORMER_LM_ZOO
 
-    cfg = TRANSFORMER_LM_ZOO["lm-base"]
-    layers = cfg.num_layers
-    ff = build_train_lm("fp32", tensor_op_math=False)
-    xs, labels = ff._make_batch(*train_batch(cfg.vocab_size))
+    cfg = lm or lm_config()
+    ff = build_train_lm("fp32", tensor_op_math=False, lm=cfg,
+                        transposed=transposed, batch=batch)
+    xs, labels = ff._make_batch(*train_batch(cfg.vocab_size, batch,
+                                             cfg.sequence_length))
     ex = ff.executor
     c = counters()
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd")
-    want = dict(zip(names, [layers] * 3 + [2 * layers + 1] * 2))
+    want = step_launches(cfg.num_layers, fused)
+    names = tuple(want)
 
     def grads(count):
         n0 = {k: getattr(c[k], count) for k in names}
@@ -895,6 +1101,8 @@ def grad_phase() -> dict:
                               fa.flash_attention_bwd_dq_plain), \
             mock.patch.object(fa, "flash_attention_bwd_dkv",
                               fa.flash_attention_bwd_dkv_plain), \
+            mock.patch.object(fa, "flash_attention_bwd_fused",
+                              fa.flash_attention_bwd_fused_plain), \
             mock.patch.object(ln, "layer_norm", ln.layer_norm_plain), \
             mock.patch.object(ln, "layer_norm_bwd", ln.layer_norm_bwd_plain):
         with_plain = grads("plain_calls")
@@ -914,8 +1122,11 @@ def grad_phase() -> dict:
             f"bound {GRAD_RTOL})")
     tensors = sum(len(ws) for ws in with_plain.values())
     del ff, with_kernels, with_plain
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"worst_tensor": name, "max_abs_diff": err,
+    return {"layers": cfg.num_layers, "batch": batch,
+            "layout": "transposed" if transposed else "packed",
+            "worst_tensor": name, "max_abs_diff": err,
             "relative_to_largest": rel, "bound_relative": GRAD_RTOL,
             "tensors": tensors}
 
@@ -963,13 +1174,13 @@ def time_ms(fn, arg_sets, iters=48, reps=5,
 
 
 def timed(kernel, plain, library, arg_sets, library_sets, bound_ms,
-          bound_by) -> dict:
+          bound_by, **reps) -> dict:
     """Device times of the kernel, its plain version and (when given) the
     library call, with the bound."""
-    ms, eager_ms = time_ms(kernel, arg_sets)
+    ms, eager_ms = time_ms(kernel, arg_sets, **reps)
     return dict(ms=ms, eager_ms=eager_ms,
-                plain_ms=time_ms(plain, arg_sets)[0],
-                library_ms=(time_ms(library, library_sets)[0]
+                plain_ms=time_ms(plain, arg_sets, **reps)[0],
+                library_ms=(time_ms(library, library_sets, **reps)[0]
                             if library is not None else None),
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1134,25 +1345,158 @@ def train_kernel_numbers(dev) -> dict:
     return out
 
 
+def per_head_kernel_numbers(dev) -> dict:
+    """The flash kernels at the per-head paths' shapes, bf16, causal: K8
+    and K5 at lm-base's transposed (8, 16, 512, 64), K8 at the packed
+    head-dim-128 single tile (2, 512, 8 x 128), and K5, K6 and K7 at
+    lm-xxl-fsdp's (4, 2048, 32 x 128) on both layouts. Library
+    yardsticks, timed only: causal SDPA on (b, h, s, d) for K5, and its
+    autograd backward (dq, dk, dv together, eager) for K8 and for K6 + K7.
+    Returns {row: {case: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    out: dict = {}
+
+    def case(b, h, s, d, layout, n_sets, kinds, **reps):
+        heads = h if layout == "packed" else None
+        kw = dict(num_heads=heads, causal=True)
+        sets = []
+        for i in range(n_sets):
+            q, k, v, do = flash_inputs(dev, bf16, b, s, s, h, d,
+                                       SEED + 60 + i, layout)
+            o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            sets.append((q, k, v, do, lse, fa.flash_delta(do, o, heads)))
+            del o
+
+        def view(t):  # the (b, h, s, d) view SDPA takes
+            return t.view(b, s, h, d).transpose(1, 2) if heads else t
+
+        lib_sets = []
+        for q, k, v, do, *_ in sets:
+            leaves = [view(t).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            lib_sets.append((F.scaled_dot_product_attention(
+                *leaves, is_causal=True), leaves, view(do)))
+        lib_bwd = time_ms(
+            lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
+                                                     retain_graph=True),
+            lib_sets, graph=False, **reps)[0]
+        lib_fwd = time_ms(
+            lambda o, leaves, g: F.scaled_dot_product_attention(
+                *leaves, is_causal=True), lib_sets, **reps)[0]
+        pairs = b * h * s * (s + 1) // 2  # live (query, key) pairs
+        rows = b * h * s * 4  # one f32 row statistic
+        act = b * s * h * d * 2  # one bf16 activation
+        fns = {
+            # kernel: (wrapper, plain, bytes, operations)
+            "fwd": (lambda q, k, v, *_: fa.flash_attention_fwd(q, k, v, **kw),
+                    lambda q, k, v, *_: fa.flash_attention_fwd_plain(
+                        q, k, v, **kw), 4 * act + rows, 4 * d * pairs),
+            "dq": (lambda *a: fa.flash_attention_bwd_dq(*a, **kw),
+                   lambda *a: fa.flash_attention_bwd_dq_plain(*a, **kw),
+                   5 * act + 2 * rows, 6 * d * pairs),
+            "dkv": (lambda *a: fa.flash_attention_bwd_dkv(*a, **kw),
+                    lambda *a: fa.flash_attention_bwd_dkv_plain(*a, **kw),
+                    6 * act + 2 * rows, 8 * d * pairs),
+            "fused": (lambda *a: fa.flash_attention_bwd_fused(*a, **kw),
+                      lambda *a: fa.flash_attention_bwd_fused_plain(*a, **kw),
+                      7 * act + 2 * rows, 10 * d * pairs),
+        }
+        res = {}
+        for name in kinds:
+            kern, plain, nbytes, ops = fns[name]
+            res[name] = timed(kern, plain, None, sets, None,
+                              *bound(nbytes, ops, "bfloat16"), **reps)
+            res[name]["library_ms"] = lib_fwd if name == "fwd" else lib_bwd
+            res[name]["library_is"] = (
+                "causal sdpa" if name == "fwd"
+                else "causal sdpa backward (dq, dk, dv together)")
+            res[name]["shape"] = (f"({b}, {s}, {h}x{d}) {layout} causal "
+                                  f"bf16")
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+        return res
+
+    base_t = case(TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM, "transposed", 4,
+                  ("fwd", "fused"))
+    row11 = case(2, 8, 512, 128, "packed", 4, ("fused",))
+    xxl = lm_config(XXL)
+    xh, xd = xxl.num_heads, xxl.hidden_size // xxl.num_heads
+    big = dict(iters=8, reps=3)  # one input set is past the L2 here
+    xxl_p = case(XXL_BATCH, xh, xxl.sequence_length, xd, "packed", 2,
+                 ("fwd", "dq", "dkv"), **big)
+    xxl_t = case(XXL_BATCH, xh, xxl.sequence_length, xd, "transposed", 2,
+                 ("fwd", "dq", "dkv"), **big)
+    out["flash_attention_bwd_fused"] = {
+        "lm-base transposed": base_t["fused"],
+        "packed head_dim 128, one tile": row11["fused"]}
+    for name, kind in (("flash_attention_fwd (per-head)", "fwd"),
+                       ("flash_attention_bwd_dq (per-head)", "dq"),
+                       ("flash_attention_bwd_dkv (per-head)", "dkv")):
+        out[name] = {"lm-xxl packed": xxl_p[kind],
+                     "lm-xxl transposed": xxl_t[kind]}
+    out["flash_attention_fwd (per-head)"]["lm-base transposed"] = (
+        base_t["fwd"])
+    return out
+
+
+LN_SRC = "flexflow_tpu_torch/kernels/_layer_norm_triton.py"
+DECODE_SRC = "flexflow_tpu_torch/csrc/decode_attention.cu"
+FLASH_SRC = "flexflow_tpu_torch/csrc/flash_attention.cu"
+TPU_FA = "flexflow_tpu/kernels/flash_attention.py"
+# (row, kernel counter, route, source, TPU kernel it replaces, the run
+# whose launches the row reports). The flash kernels have a row per TPU
+# kernel they replace: the grouped narrow-head ones (lm-base packed) and
+# the per-head ones (lm-xxl-fsdp; transposed lm-base for K8).
 KERNELS = [
-    ("layer_norm_fwd", "triton", "flexflow_tpu_torch/kernels/_layer_norm_triton.py",
-     "flexflow_tpu/kernels/layer_norm.py:48"),
-    ("flash_decode_attention", "cuda", "flexflow_tpu_torch/csrc/decode_attention.cu",
-     "flexflow_tpu/kernels/flash_attention.py:1261"),
-    ("paged_flash_decode_attention", "cuda",
-     "flexflow_tpu_torch/csrc/decode_attention.cu",
-     "flexflow_tpu/kernels/flash_attention.py:1446"),
-    ("layer_norm_bwd", "triton", "flexflow_tpu_torch/kernels/_layer_norm_triton.py",
-     "flexflow_tpu/kernels/layer_norm.py:59"),
-    ("flash_attention_fwd", "cuda", "flexflow_tpu_torch/csrc/flash_attention.cu",
-     "flexflow_tpu/kernels/flash_attention.py:705"),
-    ("flash_attention_bwd_dq", "cuda",
-     "flexflow_tpu_torch/csrc/flash_attention.cu",
-     "flexflow_tpu/kernels/flash_attention.py:808"),
-    ("flash_attention_bwd_dkv", "cuda",
-     "flexflow_tpu_torch/csrc/flash_attention.cu",
-     "flexflow_tpu/kernels/flash_attention.py:854"),
+    ("layer_norm_fwd", "layer_norm_fwd", "triton", LN_SRC,
+     "flexflow_tpu/kernels/layer_norm.py:48", "train"),
+    ("flash_decode_attention", "flash_decode_attention", "cuda", DECODE_SRC,
+     f"{TPU_FA}:1261", "contiguous"),
+    ("paged_flash_decode_attention", "paged_flash_decode_attention", "cuda",
+     DECODE_SRC, f"{TPU_FA}:1446", "paged"),
+    ("layer_norm_bwd", "layer_norm_bwd", "triton", LN_SRC,
+     "flexflow_tpu/kernels/layer_norm.py:59", "train"),
+    ("flash_attention_fwd", "flash_attention_fwd", "cuda", FLASH_SRC,
+     f"{TPU_FA}:705", "train"),
+    ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "cuda", FLASH_SRC,
+     f"{TPU_FA}:808", "train"),
+    ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv", "cuda", FLASH_SRC,
+     f"{TPU_FA}:854", "train"),
+    ("flash_attention_bwd_fused", "flash_attention_bwd_fused", "cuda",
+     FLASH_SRC, f"{TPU_FA}:442", "lm-base transposed"),
+    ("flash_attention_fwd (per-head)", "flash_attention_fwd", "cuda",
+     FLASH_SRC, f"{TPU_FA}:117", "lm-xxl packed"),
+    ("flash_attention_bwd_dq (per-head)", "flash_attention_bwd_dq", "cuda",
+     FLASH_SRC, f"{TPU_FA}:351", "lm-xxl packed"),
+    ("flash_attention_bwd_dkv (per-head)", "flash_attention_bwd_dkv", "cuda",
+     FLASH_SRC, f"{TPU_FA}:392", "lm-xxl packed"),
 ]
+
+
+def log_train(t: dict):
+    log(f"  {t['model']}, {t['layout']}, batch {t['batch']}: losses "
+        f"{[round(x, 4) for x in t['losses']]}")
+    timed = t["step_ms"][t["steps"] - t["timed_steps"]:]
+    log(f"  {t['tokens_per_s']:.0f} tokens/s, median step "
+        f"{t['median_step_ms']:.2f} ms (timed steps "
+        f"{[round(x, 2) for x in timed]} ms), MFU {100 * t['mfu']:.2f}% of "
+        f"{PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s, kernel time of a "
+        f"profiled step {t['profiled_step']['device_busy_ms']:.2f} ms "
+        f"({100 * t['device_busy_share']:.1f}% of the median step); "
+        f"launches per step {t['launches_per_step']}, flash launches by "
+        f"layout {t['launches_by_layout']}")
+
+
+def log_grads(g: dict):
+    log(f"  {g['layers']} layers, batch {g['batch']}, {g['layout']}: worst "
+        f"of {g['tensors']} gradients: {g['worst_tensor']}, max abs diff "
+        f"{g['max_abs_diff']:.3e} ({g['relative_to_largest']:.3e} of its "
+        f"layer's largest gradient entry, bound {GRAD_RTOL})")
 
 
 def main(argv: list[str]) -> int:
@@ -1213,60 +1557,108 @@ def main(argv: list[str]) -> int:
 
     log("== phase 6: training lm-base, bf16, SGD, fit over one batch")
     train = train_phase()
-    log(f"  losses {[round(x, 4) for x in train['losses']]}")
-    log(f"  {train['tokens_per_s']:.0f} tokens/s, median step "
-        f"{train['median_step_ms']:.2f} ms, MFU {100 * train['mfu']:.2f}% "
-        f"of {PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s, kernel time "
-        f"of a profiled step {train['profiled_step']['device_busy_ms']:.2f} "
-        f"ms ({100 * train['device_busy_share']:.1f}% of the median step); "
-        f"launches per step {train['launches_per_step']}")
+    log_train(train)
 
     log("== phase 7: training gradients, float32, kernels vs plain")
     grads = grad_phase()
-    log(f"  worst of {grads['tensors']} gradients: {grads['worst_tensor']}, "
-        f"max abs diff {grads['max_abs_diff']:.3e} "
-        f"({grads['relative_to_largest']:.3e} of its layer's largest "
-        f"gradient entry, bound {GRAD_RTOL})")
+    log_grads(grads)
 
     log("== phase 8: kernel times at the main paths' shapes")
     nums = kernel_numbers(dev)
     nums.update(train_kernel_numbers(dev))
-    # the run whose launches each kernel's row reports
-    counted = {"layer_norm_fwd": train,
-               "paged_flash_decode_attention": runs["paged"],
-               "flash_decode_attention": runs["contiguous"]}
+    nums.update(per_head_kernel_numbers(dev))
+
+    log("== phase 9: training lm-base under --flash-transposed, bf16, SGD")
+    train_t = train_phase(transposed=True, fused=True, warmup=2,
+                          timed_steps=3)
+    log_train(train_t)
+
+    log(f"== phase 10: training {XXL} ({XXL_LAYERS} layers), bf16, SGD, "
+        f"packed then --flash-transposed")
+    xxl = lm_config(XXL, XXL_LAYERS)
+    train_x = train_phase(xxl, batch=XXL_BATCH, warmup=2, timed_steps=3)
+    log_train(train_x)
+    train_xt = train_phase(xxl, transposed=True, batch=XXL_BATCH, warmup=2,
+                           timed_steps=3)
+    log_train(train_xt)
+
+    log("== phase 11: per-head training gradients, float32, kernels vs "
+        "plain")
+    grads_ph = {
+        "lm-base transposed": grad_phase(lm_config(layers=2),
+                                         transposed=True, fused=True),
+        "lm-xxl packed": grad_phase(lm_config(XXL, 1), batch=1),
+        "lm-xxl transposed": grad_phase(lm_config(XXL, 1), transposed=True,
+                                        batch=1),
+    }
+    for g in grads_ph.values():
+        log_grads(g)
+
+    # the run whose launches each row (and each case of a row) reports
+    counted = {"train": train, "paged": runs["paged"],
+               "contiguous": runs["contiguous"],
+               "lm-base transposed": train_t, "lm-xxl packed": train_x,
+               "lm-xxl transposed": train_xt}
     rows = []
-    for name, route, source, replaces in KERNELS:
-        run = counted.get(name, train)
+    for row, counter, route, source, replaces, run_key in KERNELS:
+        run = counted[run_key]
         per_step = run.get("launches_per_step",
                            run.get("launches_per_decode_step"))
+        n = dict(nums[row])
+        cases = {}
+        if run_key in n:  # numbers by case: the row's own first
+            main_case = n.pop(run_key)
+            for case, numbers in n.items():
+                cr = counted.get(case)
+                cases[case] = dict(numbers, launches=(
+                    cr["launches"][counter] if cr else 0))
+                if f"{row} @ {case}" in errs:
+                    cases[case]["max_abs_err_at_shape"] = errs[
+                        f"{row} @ {case}"]
+            n = main_case
+            if f"{row} @ {run_key}" in errs:
+                n["max_abs_err_at_shape"] = errs[f"{row} @ {run_key}"]
         rows.append(dict(
-            name=name, route=route, source=source, replaces=replaces,
-            launches=run["launches"][name], max_abs_err=errs[name],
-            launches_per_step=per_step[name], **nums[name]))
-        log(f"  {name}: {nums[name]['ms']:.4f} ms (bound "
-            f"{nums[name]['bound_ms']:.4f} by {nums[name]['bound_by']}, "
-            f"plain {nums[name]['plain_ms']:.4f}, library "
-            f"{nums[name]['library_ms']})")
+            name=row, route=route, source=source, replaces=replaces,
+            launches=run["launches"][counter], max_abs_err=errs[row],
+            launches_per_step=per_step[counter], **n,
+            **({"cases": cases} if cases else {})))
+        log(f"  {row}: {n['ms']:.4f} ms (bound {n['bound_ms']:.4f} by "
+            f"{n['bound_by']}, plain {n['plain_ms']:.4f}, library "
+            f"{n['library_ms']}); "
+            + "; ".join(f"{c}: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                        f"plain {v['plain_ms']:.4f}, library "
+                        f"{v['library_ms']:.4f})" for c, v in cases.items()))
     serving = {
         layout: {k: v for k, v in r.items() if k != "streams"}
         for layout, r in runs.items()}
+    per_head = {"lm-base transposed": train_t, "lm-xxl packed": train_x,
+                "lm-xxl transposed": train_xt}
     detail = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, triton=triton.__version__,
                   build_s=build_s, kernels=rows, serving=serving,
                   logits_max_abs=logit_err, streams_identical=same,
                   training=train, training_gradients=grads,
+                  per_head_training=per_head,
+                  per_head_gradients=grads_ph,
+                  lse_entry_max_abs_err=errs["flash_attention_with_lse"],
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
         with open(json_path, "w") as f:
             json.dump(detail, f, indent=1)
-    train_summary = {k: train[k] for k in (
-        "tokens_per_s", "median_step_ms", "mfu", "device_busy_share",
-        "launches_per_step")}
+
+    def summary(t):
+        return {k: t[k] for k in (
+            "tokens_per_s", "median_step_ms", "mfu", "device_busy_share",
+            "launches_per_step")}
+
     log(json.dumps({"serving": serving, "logits_max_abs": logit_err,
-                    "training": train_summary, "training_gradients": grads,
+                    "training": summary(train), "training_gradients": grads,
+                    "per_head_training": {k: summary(t)
+                                          for k, t in per_head.items()},
+                    "per_head_gradients": grads_ph,
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

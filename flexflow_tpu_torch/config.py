@@ -2,10 +2,11 @@
 
 The twin of `flexflow_tpu/config.py`, cut to the flags the serving and
 training slices read: `-e/--epochs`, `-b`, `--lr` (also spelled
-`--learning-rate`), `--dtype`, `--seed`, the `--serve-*` flags and the
-tensor-op math policy. Unknown flags are ignored, as the reference's
-tolerant argv scan does, except the flags of paths the port does not have
-yet (`_NOT_PORTED`): asking for one raises, naming its ROADMAP item. New
+`--learning-rate`), `--dtype`, `--seed`, `--flash-transposed`, the
+`--serve-*` flags and the tensor-op math policy. Unknown flags are
+ignored, as the reference's tolerant argv scan does, except the flags of
+paths the port does not have yet (`_NOT_PORTED`): asking for one raises,
+naming its ROADMAP item. New
 here: `device`, the torch device every tensor of a model lives on. It
 defaults to "cuda"; a run without a CUDA device must ask for "cpu"
 explicitly (see `resolve_device`).
@@ -25,7 +26,6 @@ from .fftype import CompMode, DataType
 # value, ROADMAP item). A valued flag asks for its path unless the value
 # is 0 or empty.
 _NOT_PORTED = {
-    "--flash-transposed": (False, "B4 (transposed-layout flash kernels)"),
     "--profiling": (False, "A10 (profiling)"),
     "--checkpoint-dir": (True, "A10 (resilience/ checkpoints)"),
     "--checkpoint-every": (True, "A10 (resilience/ checkpoints)"),
@@ -71,6 +71,9 @@ class FFConfig:
     computation_dtype: Optional[DataType] = None  # None -> fp32 activations
     # torch device of every parameter, state and activation tensor
     device: str = "cuda"
+    # False (--flash-transposed): impl="flash" attention splits heads into
+    # (b, h, s, d) tensors and runs the transposed flash entry
+    flash_packed_layout: bool = True
     # serving engine defaults for model.serve()
     serve_slots: int = 4
     serve_max_seq_len: int = 0
@@ -111,6 +114,8 @@ class FFConfig:
                 self.seed = int(val())
             elif a == "--device":
                 self.device = val()
+            elif a == "--flash-transposed":
+                self.flash_packed_layout = False
             elif a == "--serve-slots":
                 self.serve_slots = int(val())
             elif a == "--serve-max-seq":

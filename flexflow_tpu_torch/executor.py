@@ -129,7 +129,8 @@ class Executor:
         records it unless the caller runs it under `no_grad`."""
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
-        ctx = OpContext(training=training, matmul_dtype=self.matmul_dtype)
+        ctx = OpContext(training=training, matmul_dtype=self.matmul_dtype,
+                        flash_packed=self.config.flash_packed_layout)
         for node in self.order:
             if node.op_type == OT.OP_INPUT:
                 vals[(node.guid, 0)] = inputs[node.name]

@@ -148,4 +148,8 @@ TRANSFORMER_LM_ZOO: dict = {
     "lm-base": TransformerLMConfig(
         vocab_size=32000, hidden_size=1024, num_heads=16, num_layers=12,
         sequence_length=512),
+    # the zoo's one tier with head_dim 128 (32 heads of 128)
+    "lm-xxl-fsdp": TransformerLMConfig(
+        vocab_size=32000, hidden_size=4096, num_heads=32, num_layers=32,
+        sequence_length=2048),
 }

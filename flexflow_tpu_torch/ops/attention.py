@@ -4,8 +4,12 @@ The q, k, v projections feed a scaled dot-product core, then the output
 projection. The core is chosen by `impl`, as in the JAX package:
 
   - "flash": `kernels/flash_attention.flash_attention_packed`, the
-    `autograd.Function` over kernels K5 (forward), K6 and K7 (backward), on
-    the projections' (b, s, h*d) layout with no head transpose;
+    `autograd.Function` over kernels K5 (forward) and K8 or K6 and K7
+    (backward), on the projections' (b, s, h*d) layout with no head
+    transpose; with `ctx.flash_packed` False (`--flash-transposed`) the
+    heads are split into materialized (b, h, s, d) tensors for
+    `flash_attention`, the same kernels on the transposed layout, and
+    merged back: the relayout copies that flag measures;
   - "xla": `sdpa_xla`, the einsum softmax(QK^T)V in plain torch (the JAX
     package runs no Pallas kernel there either), autograd for the
     backward;
@@ -99,7 +103,7 @@ def _mha_forward(p: MultiHeadAttentionParams, inputs, weights, state, ctx):
     v = proj(v_in, weights["wv"], weights.get("bv"))
     scale = 1.0 / math.sqrt(hd)
 
-    if p.impl == "flash":
+    if p.impl == "flash" and ctx.flash_packed:
         from ..kernels.flash_attention import flash_attention_packed
 
         out = flash_attention_packed(q, k, v, num_heads=H, causal=p.causal,
@@ -113,8 +117,15 @@ def _mha_forward(p: MultiHeadAttentionParams, inputs, weights, state, ctx):
         b, s, _ = x.shape
         return x.reshape(b, s, H, hd).transpose(1, 2)
 
-    out = sdpa_xla(split_heads(q), split_heads(k), split_heads(v),
-                   causal=p.causal, scale=scale)
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    if p.impl == "flash":
+        from ..kernels.flash_attention import flash_attention
+
+        # the entry materializes these views as (b, h, s, d) copies: the
+        # relayouts the flag measures
+        out = flash_attention(q, k, v, causal=p.causal, scale=scale)
+    else:
+        out = sdpa_xla(q, k, v, causal=p.causal, scale=scale)
     b, _, s, _ = out.shape
     out = out.transpose(1, 2).reshape(b, s, E)
     return [proj(out, weights["wo"], weights.get("bo"))], state

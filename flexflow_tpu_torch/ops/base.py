@@ -35,6 +35,10 @@ class OpContext:
     # math mode (allow_tensor_op_math_conversion): inputs are cast to this
     # dtype, accumulation stays fp32
     matmul_dtype: Any = None
+    # False routes impl="flash" attention through the head-transposed
+    # (b, h, s, d) entry instead of the packed relayout-free one — the
+    # kernel-layout ablation baseline (FFConfig.flash_packed_layout)
+    flash_packed: bool = True
 
 
 def matmul_cast(ctx: OpContext, *tensors):

@@ -10,11 +10,13 @@ The tolerances are chip_smoke.py's. Its kernel-parity phase covers the
 main paths' shapes (decode: NaN in every cache row no slot may read, a
 scrambled page table with shared blocks, a float32 cache of values halfway
 between bfloat16 values, which only a kernel that rounds K and V on load
-matches in bfloat16; training: the flash kernels at lm-base's shape,
-ragged sequences and the other head widths, the LayerNorm backward at
-lm-base's rows and a ragged width), in float32 and bfloat16; the tests
-below add shapes off those paths, which the kernels take all the same, and
-the autograd Functions on the card.
+matches in bfloat16; training: the flash kernels K5-K8 at lm-base's
+shape on both layouts, ragged sequences, a causal offset and the other
+head widths, K5-K7 in bfloat16 at lm-xxl-fsdp's shape on both layouts,
+the (out, lse) entry under an lse cotangent, the LayerNorm backward at
+lm-base's rows and a ragged width), in float32 and bfloat16;
+the tests below add shapes off those paths, which the kernels take all
+the same, strided views, and the autograd Functions on the card.
 """
 
 import os
@@ -51,7 +53,15 @@ def test_kernels_match_plain_versions_on_card(cuda):
     assert set(errs) == {"layer_norm_fwd", "flash_decode_attention",
                          "paged_flash_decode_attention", "layer_norm_bwd",
                          "flash_attention_fwd", "flash_attention_bwd_dq",
-                         "flash_attention_bwd_dkv"}
+                         "flash_attention_bwd_dkv",
+                         "flash_attention_bwd_fused",
+                         "flash_attention_fwd (per-head)",
+                         "flash_attention_bwd_dq (per-head)",
+                         "flash_attention_bwd_dkv (per-head)",
+                         "flash_attention_with_lse"} | {
+        f"flash_attention_{k} (per-head) @ lm-xxl {layout}"
+        for k in ("fwd", "bwd_dq", "bwd_dkv")
+        for layout in ("packed", "transposed")}
 
 
 @pytest.mark.cuda
@@ -259,6 +269,144 @@ def test_training_wrappers_raise_on_what_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         ln.layer_norm_bwd(x, torch.ones(64, device=cuda, dtype=x.dtype), x,
                           1e-5)
+
+
+def _bhsd(cuda, dtype, b, h, s_q, s_k, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, h, s_q, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, h, s_k, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, h, s_k, d, generator=g).to(cuda, dtype)
+    do = torch.randn(b, h, s_q, d, generator=g).to(cuda, dtype)
+    return q, k, v, do
+
+
+def _packed(t):
+    """(b, h, s, d) -> the same values as a contiguous (b, s, h*d)."""
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s_q,s_k,d,causal", [
+    (1, 3, 17, 65, 40, True),      # causal offset, padded head columns
+    (2, 2, 65, 17, 80, False),     # s_q > s_k without a mask
+    (2, 2, 200, 333, 128, False),  # ragged both ways, the widest head
+    (1, 2, 96, 96, 32, True),
+])
+def test_flash_kernels_transposed_layout(cuda, b, h, s_q, s_k, d, causal,
+                                         dtype):
+    """K5-K8 on contiguous (b, h, s, d) tensors against their plain
+    versions, and against the same kernels on the packed layout of the
+    same values: one arithmetic over two stride sets."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _bhsd(cuda, dtype, b, h, s_q, s_k, d, s_q * 7 + d)
+    tol = _tol(dtype)
+    c = fa.FLASH_FWD_COUNTER
+    n0 = c.layouts.get("transposed", 0)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert c.layouts["transposed"] == n0 + 1
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, **tol)
+    pk_out, pk_lse = fa.flash_attention_fwd(
+        *(_packed(t) for t in (q, k, v)), num_heads=h, causal=causal)
+    torch.testing.assert_close(_packed(out).float(), pk_out.float(), **tol)
+    torch.testing.assert_close(lse, pk_lse, **tol)
+    delta = fa.flash_delta(do, p_out)
+    args = (q, k, v, do, p_lse, delta)
+    kw = dict(causal=causal)
+    got = (fa.flash_attention_bwd_dq(*args, **kw),
+           *fa.flash_attention_bwd_dkv(*args, **kw))
+    fused = fa.flash_attention_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_fused_plain(*args, **kw)
+    assert want[0].shape == q.shape and want[1].shape == k.shape
+    for a, f, w in zip(got, fused, want):
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+        torch.testing.assert_close(f.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_kernel_packed_head_dim_128(cuda, causal, dtype):
+    """K8 on the packed layout at head_dim 128 (the JAX package's packed
+    single-tile backward), ragged: partial tiles, masked q rows."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = (_packed(t) for t in _bhsd(cuda, dtype, 2, 2, 190, 190,
+                                             128, 11))
+    kw = dict(num_heads=2, causal=causal)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.flash_delta(do, out, 2)
+    c = fa.FLASH_BWD_FUSED_COUNTER
+    n0 = c.layouts.get("packed", 0)
+    got = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert c.layouts["packed"] == n0 + 1
+    want = fa.flash_attention_bwd_fused_plain(q, k, v, do, lse, delta, **kw)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_read_strided_views_in_place(cuda):
+    """A (b, h, s, d) view of packed memory (strides (s*e, d, e, 1)) is
+    read where it lies: the outputs come back in the same strides."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    b, s, h, d = 2, 130, 4, 64
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, s, h * d, generator=g).to(cuda).view(
+        b, s, h, d).transpose(1, 2) for _ in range(3))
+    assert not q.is_contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    tol = _tol(torch.float32)
+    torch.testing.assert_close(out, p_out, **tol)
+    torch.testing.assert_close(lse, p_lse, **tol)
+    do = torch.randn(b, h, s, d, generator=g).to(cuda)
+    delta = fa.flash_delta(do, p_out)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_bwd_dq(q, k, v, do, p_lse, delta, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 640])
+def test_lse_entry_on_card_matches_its_cpu_twin(cuda, s):
+    """`flash_attention_with_lse` on CUDA tensors (K5, then K8 at s <= 512
+    or K6 and K7 past it) and on CPU copies (the plain versions): out,
+    lse and the gradients under a nonzero lse cotangent, float32."""
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(s)
+    ins = [torch.randn(1, 2, s, 64, generator=g) for _ in range(3)]
+    g_out = torch.randn(1, 2, s, 64, generator=g)
+    g_lse = torch.randn(1, 2, s, generator=g)
+    c = counters()
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        n0 = {n: t.launches for n, t in c.items()}
+        leaves = [t.to(dev).requires_grad_(True) for t in ins]
+        out, lse = fa.flash_attention_with_lse(*leaves, causal=True)
+        torch.autograd.backward([out, lse], [g_out.to(dev), g_lse.to(dev)])
+        ran = {n: t.launches - n0[n] for n, t in c.items()}
+        if dev.type == "cuda":
+            fused = int(s <= fa.SINGLE_TILE)
+            assert ran["flash_attention_fwd"] == 1
+            assert ran["flash_attention_bwd_fused"] == fused
+            assert ran["flash_attention_bwd_dq"] == 1 - fused
+            assert ran["flash_attention_bwd_dkv"] == 1 - fused
+        results.append([t.detach().cpu() for t in
+                        (out, lse, *(x.grad for x in leaves))])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, **_tol(torch.float32))
 
 
 _CORRUPT_TABLE = """

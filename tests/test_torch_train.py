@@ -15,7 +15,12 @@ the JAX package runs its Pallas kernels in interpret mode:
 - the tiny LM (vocab 64, hidden 128, 2 heads of 64, 2 layers, seq 128,
   batch 2, `attention_impl="flash"`: JAX takes its grouped flash kernels
   and its fused LayerNorm there) trained by `fit` in both packages from
-  the same weights (`load_params` on a model compiled for training);
+  the same weights (`load_params` on a model compiled for training); the
+  same LM under `--flash-transposed` (JAX's per-head `_flash_kernel` and
+  its fused single-tile backward, rows 3 and 4 of PERF.md's kernel
+  table), and at head_dim 128 (hidden 256, 2 heads of 128: the packed
+  one-head-per-block kernels, rows 8 and 11);
+- the zoo tiers and their parameter and state arithmetic;
 - the MLP of the verify flow, trained under the port to >= 90% accuracy.
 
 The tensor-op policy (bf16 matmul inputs under fp32) applies on the
@@ -41,6 +46,7 @@ from flexflow_tpu.fftype import (
 from flexflow_tpu.ops.base import OpContext as JCtx, get_op_def as jdef
 from flexflow_tpu_torch import loss as tloss
 from flexflow_tpu_torch import ops as tops
+from flexflow_tpu_torch.kernels import counters, reset_counters
 from flexflow_tpu_torch import optimizer as topt
 from flexflow_tpu_torch.fftype import (
     ActiMode as TActi,
@@ -70,7 +76,7 @@ def _close(got, want, tol, scaled, msg=""):
 
 
 def _op_grads(op, jparams, tparams, inputs, weights, dtype, diff_inputs,
-              seed=0, zero_grad=()):
+              seed=0, zero_grad=(), flash_packed=True):
     """Forward one op in both packages and pull one cotangent back through
     each. `diff_inputs` are the indices of the float inputs to
     differentiate; every weight is differentiated. Checks outputs and
@@ -94,7 +100,8 @@ def _op_grads(op, jparams, tparams, inputs, weights, dtype, diff_inputs,
         for i, t in zip(diff_inputs, diff):
             ins[i] = t
         outs, _ = jdef(getattr(JOT, op)).forward(
-            jparams, ins, dict(zip(names, ws)), None, JCtx(training=True))
+            jparams, ins, dict(zip(names, ws)), None,
+            JCtx(training=True, flash_packed=flash_packed))
         return outs[0]
 
     jdiff = [jconv(inputs[i]) for i in diff_inputs]
@@ -114,8 +121,9 @@ def _op_grads(op, jparams, tparams, inputs, weights, dtype, diff_inputs,
     for i in diff_inputs:
         tins[i].requires_grad_(True)
     tws = {n: tconv(weights[n]).requires_grad_(True) for n in names}
-    touts, _ = tdef(getattr(TOT, op)).forward(tparams, tins, tws, None,
-                                              TCtx(training=True))
+    touts, _ = tdef(getattr(TOT, op)).forward(
+        tparams, tins, tws, None,
+        TCtx(training=True, flash_packed=flash_packed))
     touts[0].backward(torch.tensor(cot).to(touts[0].dtype))
     _close(touts[0], jout, tol, False, f"{op} output")
     for i, want in zip(diff_inputs, jgd):
@@ -141,19 +149,24 @@ def _attn_weights(rs, d, e):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("impl", ["flash", "xla"])
+@pytest.mark.parametrize("impl", ["flash", "xla", "flash_transposed"])
 def test_mha_forward_and_gradients(impl, dtype):
     """Causal self-attention, (2, 128, 64) with 2 heads of 32: "flash" is
     the JAX grouped Pallas kernels against the port's flash Function,
-    "xla" sdpa_xla against its twin. The key bias adds q.bk to a whole
-    row of logits, which the softmax ignores: its gradient is 0."""
+    "xla" sdpa_xla against its twin, "flash_transposed" the op with
+    `flash_packed=False` (the split heads through the per-head Pallas
+    kernels, and through K5 and K8's plain versions). The key bias adds
+    q.bk to a whole row of logits, which the softmax ignores: its
+    gradient is 0."""
     rs = np.random.RandomState(0)
     x = rs.randn(2, 128, 64).astype(np.float32)
     w = _attn_weights(rs, 64, 64)
+    kind = "flash" if impl == "flash_transposed" else impl
     _op_grads("OP_MULTIHEAD_ATTENTION",
-              jops.MultiHeadAttentionParams(64, 2, causal=True, impl=impl),
-              tops.MultiHeadAttentionParams(64, 2, causal=True, impl=impl),
-              [x, x, x], w, dtype, diff_inputs=[0, 1, 2], zero_grad=("bk",))
+              jops.MultiHeadAttentionParams(64, 2, causal=True, impl=kind),
+              tops.MultiHeadAttentionParams(64, 2, causal=True, impl=kind),
+              [x, x, x], w, dtype, diff_inputs=[0, 1, 2], zero_grad=("bk",),
+              flash_packed=impl != "flash_transposed")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -302,7 +315,7 @@ def _data():
     return {"tokens": toks, "positions": pos}, labels
 
 
-def _jax_lm(opt, bf16=False):
+def _jax_lm(opt, bf16=False, tiny=TINY, transposed=False):
     sys.argv = ["test"]
     from flexflow_tpu import FFConfig, FFModel, MetricsType
     from flexflow_tpu.fftype import DataType
@@ -313,8 +326,9 @@ def _jax_lm(opt, bf16=False):
     cfg.batch_size = BATCH
     if bf16:
         cfg.computation_dtype = DataType.DT_BFLOAT16
+    cfg.flash_packed_layout = not transposed
     ff = FFModel(cfg)
-    build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=BATCH)
+    build_transformer_lm(ff, TransformerLMConfig(**tiny), batch_size=BATCH)
     ff.compile(optimizer=opt,
                loss_type=JLoss.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY,
@@ -322,7 +336,7 @@ def _jax_lm(opt, bf16=False):
     return ff
 
 
-def _torch_lm(jff, opt, bf16=False):
+def _torch_lm(jff, opt, bf16=False, tiny=TINY, transposed=False):
     sys.argv = ["test"]
     from flexflow_tpu_torch import FFConfig, FFModel, MetricsType, load_params
     from flexflow_tpu_torch.models import (
@@ -334,8 +348,10 @@ def _torch_lm(jff, opt, bf16=False):
     cfg.batch_size = BATCH
     if bf16:
         cfg.parse_args(["--dtype", "bf16"])
+    if transposed:
+        cfg.parse_args(["--flash-transposed"])
     ff = FFModel(cfg)
-    build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=BATCH)
+    build_transformer_lm(ff, TransformerLMConfig(**tiny), batch_size=BATCH)
     ff.compile(optimizer=opt,
                loss_type=TLoss.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY,
@@ -383,13 +399,15 @@ def _param_diff(jff, tff):
     return worst, name
 
 
-@pytest.fixture(scope="module")
-def sgd_run():
+def _sgd_run(tiny=TINY, transposed=False):
     """The float32 SGD (momentum 0.9) run of both packages from the same
-    weights, with one step's gradients at those weights taken first."""
+    weights, with one step's gradients at those weights taken first; the
+    port's kernel counters are read over its `fit`."""
     x, y = _data()
-    jff = _jax_lm(jopt.SGDOptimizer(lr=0.05, momentum=0.9))
-    tff = _torch_lm(jff, topt.SGDOptimizer(lr=0.05, momentum=0.9))
+    jff = _jax_lm(jopt.SGDOptimizer(lr=0.05, momentum=0.9), tiny=tiny,
+                  transposed=transposed)
+    tff = _torch_lm(jff, topt.SGDOptimizer(lr=0.05, momentum=0.9),
+                    tiny=tiny, transposed=transposed)
     xb = {k: v[:BATCH] for k, v in x.items()}
     jxs, jy = jff._make_batch(xb, y[:BATCH])
     loss_fn = jff.executor.make_loss_fn(jff._state, jxs, jy, jff._rng)
@@ -400,9 +418,16 @@ def sgd_run():
         tff.executor.make_loss_fn(tff._state, txs, ty), tff._params)
     jl, tl = _record_losses(jff), _record_losses(tff)
     jff.fit(x, y, epochs=1, batch_size=BATCH, shuffle=False, verbose=False)
+    reset_counters()
     tff.fit(x, y, epochs=1, batch_size=BATCH, shuffle=False, verbose=False)
+    plain = {n: c.plain_calls for n, c in counters().items()}
     return dict(jff=jff, tff=tff, jl=np.asarray(jl), tl=np.asarray(tl),
-                jgrads=jgrads, tgrads=tgrads)
+                jgrads=jgrads, tgrads=tgrads, plain=plain)
+
+
+@pytest.fixture(scope="module")
+def sgd_run():
+    return _sgd_run()
 
 
 def test_tiny_lm_sgd_training_matches_jax(sgd_run):
@@ -434,6 +459,69 @@ def test_every_parameter_gets_the_jax_gradient(sgd_run):
             assert float(got.abs().max()) > 0, f"{n}.{w} got no gradient"
             np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
                                        atol=1e-5, err_msg=f"{n}.{w}")
+
+
+# the tiny LM on the per-head paths: --flash-transposed, and head_dim 128
+LAYOUT_RUNS = {"transposed": (TINY, True),
+               "head_dim_128": (dict(TINY, hidden_size=256), False)}
+
+
+@pytest.fixture(scope="module", params=sorted(LAYOUT_RUNS))
+def layout_run(request):
+    tiny, transposed = LAYOUT_RUNS[request.param]
+    return _sgd_run(tiny, transposed)
+
+
+def test_tiny_lm_per_head_paths_train_as_jax(layout_run):
+    """3 SGD (momentum 0.9) steps on the per-head flash paths: per-step
+    losses at rtol 1e-5 and the final parameters at atol 1e-5. Per step
+    the port ran K5's and K8's plain versions once per layer (seq 128 is
+    one JAX tile), and never K6's or K7's."""
+    r = layout_run
+    np.testing.assert_allclose(r["tl"], r["jl"], rtol=1e-5)
+    worst, name = _param_diff(r["jff"], r["tff"])
+    assert worst < 1e-5, (worst, name)
+    layers = TINY["num_layers"]
+    assert r["plain"]["flash_attention_fwd"] == STEPS * layers
+    assert r["plain"]["flash_attention_bwd_fused"] == STEPS * layers
+    assert r["plain"]["flash_attention_bwd_dq"] == 0
+    assert r["plain"]["flash_attention_bwd_dkv"] == 0
+
+
+def test_per_head_paths_give_every_parameter_the_jax_gradient(layout_run):
+    """One step's float32 gradients on the per-head paths: every
+    parameter's matches JAX's (rtol 1e-4, atol 1e-5) and is nonzero."""
+    jgrads, tgrads = layout_run["jgrads"], layout_run["tgrads"]
+    assert set(tgrads) == set(jgrads)
+    for n, ws in jgrads.items():
+        assert set(tgrads[n]) == set(ws), n
+        for w, want in ws.items():
+            got = tgrads[n][w]
+            assert float(got.abs().max()) > 0, f"{n}.{w} got no gradient"
+            np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{n}.{w}")
+
+
+def test_zoo_and_its_arithmetic_are_the_jax_packages():
+    """Every tier of the port's zoo has the JAX package's configuration of
+    the same name, and the parameter count and FLOPs per token agree."""
+    from flexflow_tpu.models import transformer as jtr
+    from flexflow_tpu_torch.models import transformer as ttr
+
+    assert set(ttr.TRANSFORMER_LM_ZOO) == {"lm-smoke", "lm-base",
+                                           "lm-xxl-fsdp"}
+    fields = ("vocab_size", "hidden_size", "num_heads", "num_layers",
+              "mlp_ratio", "sequence_length", "attention_impl")
+    for name, tc in ttr.TRANSFORMER_LM_ZOO.items():
+        jc = jtr.TRANSFORMER_LM_ZOO[name]
+        assert ([getattr(tc, f) for f in fields]
+                == [getattr(jc, f) for f in fields]), name
+        assert (ttr.transformer_lm_param_count(tc)
+                == jtr.transformer_lm_param_count(jc)), name
+        assert (ttr.transformer_lm_flops_per_token(tc)
+                == jtr.transformer_lm_flops_per_token(jc)), name
+    xxl = ttr.TRANSFORMER_LM_ZOO["lm-xxl-fsdp"]
+    assert xxl.hidden_size // xxl.num_heads == 128
 
 
 def test_tiny_lm_adam_training_matches_jax():
@@ -562,8 +650,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch):
     cfg.parse_args(["-e", "3", "--lr", "0.5", "--learning-rate", "0.25",
                     "--pipeline-steps", "1", "--profile-every", "0"])
     assert (cfg.epochs, cfg.learning_rate) == (3, 0.25)
-    for argv, item in ((["--flash-transposed"], "B4"),
-                       (["--pipeline-steps", "4"], "A10"),
+    for argv, item in ((["--pipeline-steps", "4"], "A10"),
                        (["--telemetry-dir", "t"], "A1"),
                        (["--checkpoint-dir", "c"], "A10"),
                        (["--sanitize-numerics"], "A10")):
@@ -578,3 +665,37 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch):
     with pytest.raises(NotImplementedError, match="A8"):
         tdef(TOT.OP_MULTIHEAD_ATTENTION).forward(p, [x, x, x], w, None,
                                                  TCtx())
+
+
+def test_flash_transposed_flag_reaches_the_attention_op(monkeypatch):
+    """--flash-transposed parses to flash_packed_layout = False, and the
+    executor hands it to the MHA op in its OpContext (True without the
+    flag)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import (
+        TransformerLMConfig,
+        build_transformer_lm,
+    )
+
+    mha = tdef(TOT.OP_MULTIHEAD_ATTENTION)
+    real, seen = mha.forward, []
+
+    def spy(p, ins, w, state, ctx):
+        seen.append(ctx.flash_packed)
+        return real(p, ins, w, state, ctx)
+
+    monkeypatch.setattr(mha, "forward", spy)
+    rs = np.random.RandomState(0)
+    x = {"tokens": rs.randint(0, 64, (1, 128)).astype(np.int32),
+         "positions": np.arange(128, dtype=np.int32)[None]}
+    for argv, want in (([], True), (["--flash-transposed"], False)):
+        monkeypatch.setattr(sys, "argv", ["test"] + argv)
+        cfg = FFConfig(device="cpu")
+        assert cfg.flash_packed_layout is want
+        ff = FFModel(cfg)
+        build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=1)
+        ff.compile()
+        seen.clear()
+        ff.executor.build_forward()(ff._params, ff._state,
+                                    ff.executor.stage_inputs(x), False)
+        assert seen == [want] * TINY["num_layers"]
