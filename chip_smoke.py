@@ -5,8 +5,9 @@
 
 Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
-flexflow_tpu_torch/_build/, one nvcc per source, started together; Triton
-at its first launch) and drives the main paths of the lm-base
+flexflow_tpu_torch/_build/, one nvcc per source, started together:
+csrc/decode_attention.cu, csrc/flash_attention.cu and
+csrc/flash_attention_sm90.cu; Triton at its first launch) and drives the main paths of the lm-base
 Transformer LM (vocab 32000, hidden 1024, 16 heads of dim 64, 12 layers,
 seq 512; random weights from seed 0; bf16 activations over fp32 master
 weights), serving and training, and the per-head flash paths: lm-base
@@ -22,6 +23,10 @@ Phases, each fatal on failure:
      lm-xxl-fsdp's (4, 32, 2048, 128) too) and the (out, lse) entry under
      an lse cotangent, and the decode kernels over a float32
      cache of values halfway between bfloat16 values (rounding on load);
+     each K5/K7 launch of a case on the variant the shape takes: "sm90"
+     (wgmma/TMA) for bf16 at head_dim 64 and 128 (lm-base, lm-xxl, ragged
+     s 130/300/1000, s_q < s_k causal, non-causal), "mma" for bf16 at
+     head_dim 32 and 80, "simt" for float32;
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
@@ -33,7 +38,8 @@ Phases, each fatal on failure:
      sparse CE, accuracy and CE metrics) -> fit over one repeated batch of
      8 x 512 random tokens, 3 warm-up and 10 timed steps; the launch
      counts are set to 0 just before and read just after: per step 12
-     launches of K5, K6 and K7 and 25 of K1 and K4, no plain version, a
+     launches of K5, K6 and K7 and 25 of K1 and K4 (K5 and K7 all of the
+     "sm90" variant, K6 "mma"), no plain version, a
      finite loss that falls; tokens/s, the median step, MFU and the device
      busy share of one profiled step;
   7. training gradients: the same weights in float32, one step's
@@ -41,7 +47,10 @@ Phases, each fatal on failure:
      versions;
   8. numbers: per kernel its time, the plain version's, one PyTorch
      call's for the same function (timed here only: the port never calls
-     it) and the least time the card could take, at each path's shapes;
+     it; for the backward kernels the device time of the kernels of one
+     SDPA backward, from the profiler) and the least time the card could
+     take, at each path's shapes; K5 and K7 also on their "mma" variant at
+     the same shapes;
   9. training lm-base under --flash-transposed, bf16, SGD(lr=0.01), fit
      over one batch of 8 x 512, 2 warm-up and 3 timed steps: per step 12
      launches of K5 and K8 on the transposed layout, none of K6 or K7, 25
@@ -53,7 +62,9 @@ Phases, each fatal on failure:
      on the transposed layout; tokens/s, MFU, busy share;
  11. float32 gradients, kernels vs plain versions, as phase 7: lm-base
      under --flash-transposed at 2 layers, lm-xxl-fsdp at 1 layer (batch
-     1 x 2048) in both layouts.
+     1 x 2048) in both layouts; then bfloat16 gradients of lm-xxl-fsdp at
+     1 layer (batch 1 x 2048, packed: the sm90 K5 and K7), kernels vs
+     plain versions.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -98,6 +109,15 @@ LOGITS_ATOL = 1e-3
 # entry over the layer's gradients (the key bias's exact gradient is 0, so
 # its own entries are rounding noise and no scale).
 GRAD_RTOL = 1e-3
+# Phase 11's bfloat16 case: one lm-xxl-fsdp layer's bf16 gradients with the
+# kernels vs with the plain versions. Both round P, dS and every output to
+# bf16 (a relative step of 2^-8 = 3.9e-3), but at different points (the
+# kernels' online softmax rounds P against a running row max) and after
+# sums in another order, so an attention output or gradient differs by a
+# few bf16 steps of its largest entries, and the layer's products carry
+# that into every weight gradient: the bound is 5e-2 of the layer's
+# largest gradient entry, about 13 such steps.
+GRAD_RTOL_BF16 = 5e-2
 
 SEED = 0
 SLOTS, MAX_SEQ, CHUNK, BLOCK = 8, 512, 16, 16
@@ -136,7 +156,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-CUDA_SOURCES = ("decode_attention", "flash_attention")
+CUDA_SOURCES = ("decode_attention", "flash_attention", "flash_attention_sm90")
 
 
 def build_kernels() -> dict:
@@ -366,26 +386,33 @@ def kernel_parity(dev) -> dict:
 
 # K5-K7 parity cases: (batch, s_q, s_k, heads, head_dim, causal). The main
 # path's shape both ways, ragged sequences (partial tiles, masked q rows, a
-# causal offset s_k - s_q > 0), and the other head widths the kernels
-# instantiate.
+# causal offset s_k - s_q > 0, s 1000 over eight 128-row tiles), and the
+# other head widths the kernels instantiate: in bfloat16 head_dim 64 and
+# 128 take the sm90 K5/K7, 32 and 80 the mma.sync ones.
 FLASH_CASES = [
     (8, 512, 512, HEADS, HEAD_DIM, True),
     (8, 512, 512, HEADS, HEAD_DIM, False),
     (2, 300, 300, 4, HEAD_DIM, True),
     (2, 130, 130, 4, HEAD_DIM, False),
     (2, 130, 300, 4, HEAD_DIM, True),
+    (2, 1000, 1000, 4, 128, True),
     (2, 256, 256, 4, 32, True),
+    (2, 200, 200, 3, 80, True),
     (2, 256, 256, 2, 128, True),
 ]
 # K5-K7 on the transposed (b, h, s, d) layout: (batch, heads, s_q, s_k,
-# head_dim, causal): lm-base's shape both ways, ragged, a causal offset,
-# and head_dim 128 past one tile
+# head_dim, causal): lm-base's shape both ways, ragged (non-causal s 1000,
+# head_dim 128 at s 130), a causal offset, head_dim 128 past one tile, and
+# head_dim 80 (mma.sync in bfloat16)
 FLASH_T_CASES = [
     (8, HEADS, 512, 512, HEAD_DIM, True),
     (8, HEADS, 512, 512, HEAD_DIM, False),
     (2, 4, 300, 300, HEAD_DIM, True),
     (2, 4, 130, 300, HEAD_DIM, True),
+    (2, 4, 1000, 1000, HEAD_DIM, False),
+    (2, 3, 130, 130, 128, True),
     (2, 8, 1024, 1024, 128, True),
+    (2, 2, 200, 200, 80, False),
 ]
 # K8: (layout, batch, heads, s_q, s_k, head_dim, causal): lm-base's
 # transposed shape, the packed head-dim-128 single tile (row 11 of
@@ -440,20 +467,33 @@ def flash_row(name, layout, heads, head_dim):
     return f"{name} (per-head)"
 
 
-def launched(name, layout, fn):
+def launched(name, layout, fn, variant=None):
     """fn(), synchronised; fatal unless it launched kernel `name` once, on
-    tensors of `layout`."""
+    tensors of `layout` (and of kernel `variant`, when given)."""
     import torch
 
     from flexflow_tpu_torch.kernels import counters
 
     c = counters()[name]
     n0, l0 = c.launches, c.layouts.get(layout, 0)
+    v0 = c.variants.get(variant, 0)
     out = fn()
     torch.cuda.synchronize()
     require(c.launches == n0 + 1 and c.layouts.get(layout, 0) == l0 + 1,
             f"{name} not launched on the {layout} layout")
+    require(variant is None or c.variants.get(variant, 0) == v0 + 1,
+            f"{name}: not the {variant} kernel ({c.variants})")
     return out
+
+
+def want_variant(dtype, head_dim) -> str:
+    """The K5/K7 kernel a contiguous case takes: the wgmma/TMA kernels for
+    bf16 at head_dim 64 and 128, else mma.sync (bf16) or SIMT (f32)."""
+    import torch
+
+    if dtype == torch.float32:
+        return "simt"
+    return "sm90" if head_dim in (64, 128) else "mma"
 
 
 def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
@@ -485,8 +525,9 @@ def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
     def row(name):
         return flash_row(name, layout, h, d)
 
+    var = want_variant(dtype, d)
     out, lse = launched("flash_attention_fwd", layout,
-                        lambda: fa.flash_attention_fwd(q, k, v, **kw))
+                        lambda: fa.flash_attention_fwd(q, k, v, **kw), var)
     e5 = max(check_close(row("flash_attention_fwd"), out, p_out, dn, errs),
              check_close(row("flash_attention_fwd"), lse, p_lse, dn, errs))
     dq = launched("flash_attention_bwd_dq", layout,
@@ -494,11 +535,12 @@ def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
     e6 = check_close(row("flash_attention_bwd_dq"), dq,
                      fa.flash_attention_bwd_dq_plain(*args, **kw), dn, errs)
     dk, dv = launched("flash_attention_bwd_dkv", layout,
-                      lambda: fa.flash_attention_bwd_dkv(*args, **kw))
+                      lambda: fa.flash_attention_bwd_dkv(*args, **kw), var)
     p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
     e7 = max(check_close(row("flash_attention_bwd_dkv"), dk, p_dk, dn, errs),
              check_close(row("flash_attention_bwd_dkv"), dv, p_dv, dn, errs))
-    log(f"  K5/K6/K7 {tag}: max abs err {e5:.3e} / {e6:.3e} / {e7:.3e}")
+    log(f"  K5/K6/K7 {tag} (K5/K7 {var}): max abs err {e5:.3e} / "
+        f"{e6:.3e} / {e7:.3e}")
     if at:
         for name, e in (("flash_attention_fwd", e5),
                         ("flash_attention_bwd_dq", e6),
@@ -939,6 +981,7 @@ def train_batch(vocab: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_fused")
+SM90_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 
 
 def step_launches(layers: int, fused: bool) -> dict:
@@ -978,11 +1021,12 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     ys = np.concatenate([y] * steps)
     c = counters()
     step_fn = ff.executor.build_train_step()
-    losses, step_ms, per_step, per_layout = [], [], [], []
+    losses, step_ms, per_step, per_layout, per_variant = [], [], [], [], []
 
     def timed_step(*args):
         before = {k: v.launches for k, v in c.items()}
         before_l = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
+        before_v = {k: dict(c[k].variants) for k in FLASH_KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step_fn(*args)
@@ -994,6 +1038,10 @@ def train_phase(lm=None, *, transposed=False, fused=False,
                                for lay, n in c[k].layouts.items()
                                if n - before_l[k].get(lay, 0)}
                            for k in FLASH_KERNELS})
+        per_variant.append({k: {var: n - before_v[k].get(var, 0)
+                                for var, n in c[k].variants.items()
+                                if n - before_v[k].get(var, 0)}
+                            for k in FLASH_KERNELS})
         return out
 
     ff.executor._train_step = timed_step
@@ -1004,6 +1052,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     fit_s = time.perf_counter() - t_fit
     launches = {k: v.launches for k, v in c.items()}
     by_layout = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
+    by_variant = {k: dict(c[k].variants) for k in FLASH_KERNELS}
     plain = {k: v.plain_calls for k, v in c.items()}
 
     layers = cfg.num_layers
@@ -1014,11 +1063,18 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     want = step_launches(layers, fused)
     want_layout = {k: ({layout: n} if n else {}) for k, n in want.items()
                    if k in FLASH_KERNELS}
-    for i, (n, lay) in enumerate(zip(per_step, per_layout)):
+    # K5 and K7 on the wgmma/TMA kernels; K6 and K8 on mma.sync
+    var = want_variant(torch.bfloat16, cfg.hidden_size // cfg.num_heads)
+    want_var = {k: ({(var if k in SM90_KERNELS else "mma"): n} if n else {})
+                for k, n in want.items() if k in FLASH_KERNELS}
+    for i, (n, lay, vs) in enumerate(zip(per_step, per_layout,
+                                         per_variant)):
         got = {k: n[k] for k in want}
         require(got == want, f"step {i}: launches {got}, want {want}")
         require(lay == want_layout, f"step {i}: flash launches by layout "
                 f"{lay}, want {want_layout}")
+        require(vs == want_var, f"step {i}: flash launches by variant "
+                f"{vs}, want {want_var}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
     timed = step_ms[warmup:]
@@ -1051,6 +1107,8 @@ def train_phase(lm=None, *, transposed=False, fused=False,
             timed),
         "launches": launches,
         "launches_by_layout": by_layout,
+        "launches_by_variant": by_variant,
+        "launches_by_variant_per_step": per_variant[-1],
         "launches_per_step": per_step[-1],
         "profiled_step": prof,
         "train_accuracy": metrics.get_accuracy(),
@@ -1063,12 +1121,12 @@ def train_phase(lm=None, *, transposed=False, fused=False,
 
 
 def grad_phase(lm=None, *, transposed=False, fused=False,
-               batch=TRAIN_BATCH) -> dict:
-    """The same weights in float32 (no tensor-op rounding): one train
-    step's gradients of an LM (lm-base unless `lm` is given) with the
-    kernels vs the same step with the plain versions called in their
-    place. Returns the worst tensor's name and its max abs and relative
-    differences."""
+               batch=TRAIN_BATCH, dtype="fp32") -> dict:
+    """The same weights in float32 (no tensor-op rounding; or `dtype`
+    "bf16", the training path's bf16 activations): one train step's
+    gradients of an LM (lm-base unless `lm` is given) with the kernels vs
+    the same step with the plain versions called in their place. Returns
+    the worst tensor's name and its max abs and relative differences."""
     import torch
 
     from flexflow_tpu_torch.kernels import counters
@@ -1076,7 +1134,8 @@ def grad_phase(lm=None, *, transposed=False, fused=False,
     from flexflow_tpu_torch.kernels import layer_norm as ln
 
     cfg = lm or lm_config()
-    ff = build_train_lm("fp32", tensor_op_math=False, lm=cfg,
+    bound_rel = GRAD_RTOL if dtype == "fp32" else GRAD_RTOL_BF16
+    ff = build_train_lm(dtype, tensor_op_math=dtype != "fp32", lm=cfg,
                         transposed=transposed, batch=batch)
     xs, labels = ff._make_batch(*train_batch(cfg.vocab_size, batch,
                                              cfg.sequence_length))
@@ -1117,17 +1176,17 @@ def grad_phase(lm=None, *, transposed=False, fused=False,
             if rel > worst[0]:
                 worst = (rel, f"{n}.{w}", err)
     rel, name, err = worst
-    require(rel <= GRAD_RTOL, f"float32 gradient of {name} differs by "
+    require(rel <= bound_rel, f"{dtype} gradient of {name} differs by "
             f"{err:.3e} ({rel:.3e} of its layer's largest gradient entry, "
-            f"bound {GRAD_RTOL})")
+            f"bound {bound_rel})")
     tensors = sum(len(ws) for ws in with_plain.values())
     del ff, with_kernels, with_plain
     gc.collect()
     torch.cuda.empty_cache()
-    return {"layers": cfg.num_layers, "batch": batch,
+    return {"layers": cfg.num_layers, "batch": batch, "dtype": dtype,
             "layout": "transposed" if transposed else "packed",
             "worst_tensor": name, "max_abs_diff": err,
-            "relative_to_largest": rel, "bound_relative": GRAD_RTOL,
+            "relative_to_largest": rel, "bound_relative": bound_rel,
             "tensors": tensors}
 
 
@@ -1183,6 +1242,23 @@ def timed(kernel, plain, library, arg_sets, library_sets, bound_ms,
                 library_ms=(time_ms(library, library_sets, **reps)[0]
                             if library is not None else None),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def sdpa_backward_device_ms(lib_sets, calls=8) -> float:
+    """The library yardstick of the backward kernels: the device time of
+    one SDPA backward (dq, dk, dv together), the summed device time of the
+    kernels that `calls` autograd backward calls launch (profiler) over
+    their count. `lib_sets` hold (out, leaves, dO) of SDPA forwards."""
+    import torch
+
+    def backward(o, leaves, g):
+        return torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    for args in lib_sets:  # warm-up
+        backward(*args)
+    numbers, _ = profiled(lambda: [backward(*lib_sets[i % len(lib_sets)])
+                                   for i in range(calls)])
+    return numbers["device_busy_ms"] / calls
 
 
 def bound(nbytes: float, ops: float, dtype_name: str):
@@ -1261,11 +1337,12 @@ def kernel_numbers(dev) -> dict:
 def train_kernel_numbers(dev) -> dict:
     """K4-K7 at the training path's shapes and types (bf16; (8, 512,
     16x64) causal; LayerNorm rows (4096, 1024)), each cycling over four
-    input sets (more than the 50 MB L2). Library yardsticks, timed only:
+    input sets (more than the 50 MB L2); K5 and K7 also on their mma.sync
+    variant (`mma_ms`). Library yardsticks, timed only:
     `native_layer_norm_backward` for K4; `scaled_dot_product_attention`
-    (causal) on the (b, h, s, d) view for K5, and its backward through
-    autograd for K6 and K7 together (timed eagerly between CUDA events:
-    autograd is not captured in a graph here)."""
+    (causal) on the (b, h, s, d) view for K5, and the device time of its
+    backward's kernels (`sdpa_backward_device_ms`) for K6 and K7
+    together."""
     import torch
     import torch.nn.functional as F
 
@@ -1329,17 +1406,21 @@ def train_kernel_numbers(dev) -> dict:
         lambda *a: fa.flash_attention_bwd_dkv_plain(*a, **kw),
         None, sets, None, *bound(6 * act + 2 * rows, 8 * d * pairs,
                                  "bfloat16"))
+    sc = d ** -0.5
+    out["flash_attention_fwd"]["mma_ms"] = time_ms(
+        lambda q, k, v, *_: fa._launch_fwd(q, k, v, h, True, sc, "mma"),
+        sets)[0]
+    out["flash_attention_bwd_dkv"]["mma_ms"] = time_ms(
+        lambda *a: fa._launch_dkv(*a, h, True, sc, "mma"), sets)[0]
     lib_sets = []
     for q, k, v, do, *_ in sets:
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         lib_sets.append((sdpa(*leaves), leaves, view(do)))
-    lib_bwd = time_ms(
-        lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
-                                                 retain_graph=True),
-        lib_sets, graph=False)[0]
+    lib_bwd = sdpa_backward_device_ms(lib_sets)
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         out[name]["library_ms"] = lib_bwd
-        out[name]["library_is"] = "sdpa backward (dq, dk, dv together)"
+        out[name]["library_is"] = ("sdpa backward (dq, dk, dv together), "
+                                   "device time of its kernels")
     del sets, lib_sets
     torch.cuda.empty_cache()
     return out
@@ -1349,10 +1430,11 @@ def per_head_kernel_numbers(dev) -> dict:
     """The flash kernels at the per-head paths' shapes, bf16, causal: K8
     and K5 at lm-base's transposed (8, 16, 512, 64), K8 at the packed
     head-dim-128 single tile (2, 512, 8 x 128), and K5, K6 and K7 at
-    lm-xxl-fsdp's (4, 2048, 32 x 128) on both layouts. Library
-    yardsticks, timed only: causal SDPA on (b, h, s, d) for K5, and its
-    autograd backward (dq, dk, dv together, eager) for K8 and for K6 + K7.
-    Returns {row: {case: numbers}}."""
+    lm-xxl-fsdp's (4, 2048, 32 x 128) on both layouts; K5 and K7 also on
+    their mma.sync variant (`mma_ms`). Library yardsticks, timed only:
+    causal SDPA on (b, h, s, d) for K5, and the device time of its
+    backward's kernels (dq, dk, dv together; `sdpa_backward_device_ms`)
+    for K8 and for K6 + K7. Returns {row: {case: numbers}}."""
     import torch
     import torch.nn.functional as F
 
@@ -1381,10 +1463,7 @@ def per_head_kernel_numbers(dev) -> dict:
                       for t in (q, k, v)]
             lib_sets.append((F.scaled_dot_product_attention(
                 *leaves, is_causal=True), leaves, view(do)))
-        lib_bwd = time_ms(
-            lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
-                                                     retain_graph=True),
-            lib_sets, graph=False, **reps)[0]
+        lib_bwd = sdpa_backward_device_ms(lib_sets)
         lib_fwd = time_ms(
             lambda o, leaves, g: F.scaled_dot_product_attention(
                 *leaves, is_causal=True), lib_sets, **reps)[0]
@@ -1406,15 +1485,24 @@ def per_head_kernel_numbers(dev) -> dict:
                       lambda *a: fa.flash_attention_bwd_fused_plain(*a, **kw),
                       7 * act + 2 * rows, 10 * d * pairs),
         }
+        sc = d ** -0.5
+        mma = {  # the mma.sync variants of K5 and K7 at the same shape
+            "fwd": lambda q, k, v, *_: fa._launch_fwd(q, k, v, h, True, sc,
+                                                      "mma"),
+            "dkv": lambda *a: fa._launch_dkv(*a, h, True, sc, "mma"),
+        }
         res = {}
         for name in kinds:
             kern, plain, nbytes, ops = fns[name]
             res[name] = timed(kern, plain, None, sets, None,
                               *bound(nbytes, ops, "bfloat16"), **reps)
+            if name in mma:
+                res[name]["mma_ms"] = time_ms(mma[name], sets, **reps)[0]
             res[name]["library_ms"] = lib_fwd if name == "fwd" else lib_bwd
             res[name]["library_is"] = (
                 "causal sdpa" if name == "fwd"
-                else "causal sdpa backward (dq, dk, dv together)")
+                else "causal sdpa backward (dq, dk, dv together), device "
+                     "time of its kernels")
             res[name]["shape"] = (f"({b}, {s}, {h}x{d}) {layout} causal "
                                   f"bf16")
         del sets, lib_sets
@@ -1447,11 +1535,14 @@ def per_head_kernel_numbers(dev) -> dict:
 LN_SRC = "flexflow_tpu_torch/kernels/_layer_norm_triton.py"
 DECODE_SRC = "flexflow_tpu_torch/csrc/decode_attention.cu"
 FLASH_SRC = "flexflow_tpu_torch/csrc/flash_attention.cu"
+SM90_SRC = "flexflow_tpu_torch/csrc/flash_attention_sm90.cu"
 TPU_FA = "flexflow_tpu/kernels/flash_attention.py"
 # (row, kernel counter, route, source, TPU kernel it replaces, the run
 # whose launches the row reports). The flash kernels have a row per TPU
 # kernel they replace: the grouped narrow-head ones (lm-base packed) and
-# the per-head ones (lm-xxl-fsdp; transposed lm-base for K8).
+# the per-head ones (lm-xxl-fsdp; transposed lm-base for K8). K5 and K7
+# run their sm90 variant on every path (phase 2 holds the mma.sync one at
+# head_dim 32 and 80; phase 8 times it beside, as `mma_ms`).
 KERNELS = [
     ("layer_norm_fwd", "layer_norm_fwd", "triton", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:48", "train"),
@@ -1461,20 +1552,20 @@ KERNELS = [
      DECODE_SRC, f"{TPU_FA}:1446", "paged"),
     ("layer_norm_bwd", "layer_norm_bwd", "triton", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:59", "train"),
-    ("flash_attention_fwd", "flash_attention_fwd", "cuda", FLASH_SRC,
+    ("flash_attention_fwd", "flash_attention_fwd", "cuda", SM90_SRC,
      f"{TPU_FA}:705", "train"),
     ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "cuda", FLASH_SRC,
      f"{TPU_FA}:808", "train"),
-    ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv", "cuda", FLASH_SRC,
+    ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv", "cuda", SM90_SRC,
      f"{TPU_FA}:854", "train"),
     ("flash_attention_bwd_fused", "flash_attention_bwd_fused", "cuda",
      FLASH_SRC, f"{TPU_FA}:442", "lm-base transposed"),
     ("flash_attention_fwd (per-head)", "flash_attention_fwd", "cuda",
-     FLASH_SRC, f"{TPU_FA}:117", "lm-xxl packed"),
+     SM90_SRC, f"{TPU_FA}:117", "lm-xxl packed"),
     ("flash_attention_bwd_dq (per-head)", "flash_attention_bwd_dq", "cuda",
      FLASH_SRC, f"{TPU_FA}:351", "lm-xxl packed"),
     ("flash_attention_bwd_dkv (per-head)", "flash_attention_bwd_dkv", "cuda",
-     FLASH_SRC, f"{TPU_FA}:392", "lm-xxl packed"),
+     SM90_SRC, f"{TPU_FA}:392", "lm-xxl packed"),
 ]
 
 
@@ -1489,14 +1580,23 @@ def log_train(t: dict):
         f"profiled step {t['profiled_step']['device_busy_ms']:.2f} ms "
         f"({100 * t['device_busy_share']:.1f}% of the median step); "
         f"launches per step {t['launches_per_step']}, flash launches by "
-        f"layout {t['launches_by_layout']}")
+        f"layout {t['launches_by_layout']}, by variant per step "
+        f"{t['launches_by_variant_per_step']}")
+
+
+def mma_note(numbers: dict) -> str:
+    """The mma.sync variant's time, where a K5/K7 row has one."""
+    if "mma_ms" not in numbers:
+        return ""
+    return f", mma.sync {numbers['mma_ms']:.4f}"
 
 
 def log_grads(g: dict):
-    log(f"  {g['layers']} layers, batch {g['batch']}, {g['layout']}: worst "
-        f"of {g['tensors']} gradients: {g['worst_tensor']}, max abs diff "
-        f"{g['max_abs_diff']:.3e} ({g['relative_to_largest']:.3e} of its "
-        f"layer's largest gradient entry, bound {GRAD_RTOL})")
+    log(f"  {g['layers']} layers, batch {g['batch']}, {g['layout']}, "
+        f"{g['dtype']}: worst of {g['tensors']} gradients: "
+        f"{g['worst_tensor']}, max abs diff {g['max_abs_diff']:.3e} "
+        f"({g['relative_to_largest']:.3e} of its layer's largest gradient "
+        f"entry, bound {g['bound_relative']})")
 
 
 def main(argv: list[str]) -> int:
@@ -1582,14 +1682,16 @@ def main(argv: list[str]) -> int:
                            timed_steps=3)
     log_train(train_xt)
 
-    log("== phase 11: per-head training gradients, float32, kernels vs "
-        "plain")
+    log("== phase 11: per-head training gradients, float32 and bfloat16, "
+        "kernels vs plain")
     grads_ph = {
         "lm-base transposed": grad_phase(lm_config(layers=2),
                                          transposed=True, fused=True),
         "lm-xxl packed": grad_phase(lm_config(XXL, 1), batch=1),
         "lm-xxl transposed": grad_phase(lm_config(XXL, 1), transposed=True,
                                         batch=1),
+        "lm-xxl packed bf16": grad_phase(lm_config(XXL, 1), batch=1,
+                                         dtype="bf16"),
     }
     for g in grads_ph.values():
         log_grads(g)
@@ -1625,10 +1727,11 @@ def main(argv: list[str]) -> int:
             **({"cases": cases} if cases else {})))
         log(f"  {row}: {n['ms']:.4f} ms (bound {n['bound_ms']:.4f} by "
             f"{n['bound_by']}, plain {n['plain_ms']:.4f}, library "
-            f"{n['library_ms']}); "
+            f"{n['library_ms']}{mma_note(n)}); "
             + "; ".join(f"{c}: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
                         f"plain {v['plain_ms']:.4f}, library "
-                        f"{v['library_ms']:.4f})" for c, v in cases.items()))
+                        f"{v['library_ms']:.4f}{mma_note(v)})"
+                        for c, v in cases.items()))
     serving = {
         layout: {k: v for k, v in r.items() if k != "streams"}
         for layout, r in runs.items()}

@@ -41,8 +41,9 @@
 // kernel. JAX runs seq <= 512 in one key pass (one-pass softmax); the
 // tiled online softmax here differs from it only where p is rounded to
 // bf16 (against the running instead of the final row max). Causal
-// attention with s_q > s_k (rows with no live key) is refused by the
-// wrapper: the JAX package routes that shape to sdpa_xla.
+// attention with s_q > s_k (rows with no live key) is not taken: the
+// entries route that shape to sdpa_xla, as the JAX package does, and the
+// kernel functions refuse it.
 //
 // K6, K7 and K8 recompute p = exp(logit - lse) (0 where masked) and
 //   ds = p * (dp - delta) * scale,  dp = dO . v,  delta = rowsum(dO * O)
@@ -87,7 +88,10 @@
 // every intermediate in shared memory, a sync between passes. A plain
 // correct kernel.
 //
-// TMA, wgmma and warp specialisation are later work.
+// In bf16 at head_dim 64 and 128 with strides TMA takes (every path of
+// the zoo), K5 and K7 run the wgmma/TMA kernels of
+// csrc/flash_attention_sm90.cu instead; the mma.sync K5 and K7 here serve
+// the other bf16 shapes, and their walk (mma_dkv_walk) is also K8's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1390,7 +1394,8 @@ int dispatch(Which which, const Args& a, int dtype, void* stream) {
   if (a.st.qb < 0 || a.st.qh < 0 || a.st.qr < 1 || a.st.kb < 0 ||
       a.st.kh < 0 || a.st.kr < 1)
     return -1;
-  // causal rows with no live key are not taken (the wrapper refuses them)
+  // causal rows with no live key are not taken (the entries route them
+  // to sdpa_xla)
   if (a.causal && a.s_q > a.s_k) return -1;
   if (dtype != kF32 && dtype != kBF16) return -1;
   if (which == kFused && a.scratch == nullptr) return -1;

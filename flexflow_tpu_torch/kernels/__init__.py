@@ -6,11 +6,11 @@ version in the same module.
   K3 flash_attention.paged_flash_decode_attention  CUDA (TPU: _paged_decode_kernel)
   K4 layer_norm.layer_norm_bwd           Triton  (TPU: layer_norm.py:_bwd_kernel)
   K5 flash_attention.flash_attention_fwd     CUDA (TPU: _flash_kernel_grouped,
-                                                    _flash_kernel)
+                                                    _flash_kernel); sm90
   K6 flash_attention.flash_attention_bwd_dq  CUDA (TPU: _bwd_dq_kernel,
                                                     _bwd_dq_kernel_grouped)
   K7 flash_attention.flash_attention_bwd_dkv CUDA (TPU: _bwd_dkv_kernel,
-                                                    _bwd_dkv_kernel_grouped)
+                                                    _bwd_dkv_kernel_grouped); sm90
   K8 flash_attention.flash_attention_bwd_fused
                                              CUDA (TPU: _bwd_single_tile_kernel)
 
@@ -23,7 +23,10 @@ A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises. Every wrapper counts its kernel
 launches, and every plain version counts its calls, in a `KernelCounter`,
 so a run can show which path the main path went through; the flash
-kernels also count their launches by layout ("packed", "transposed").
+kernels also count their launches by layout ("packed", "transposed") and
+by variant (K5 and K7: "sm90", the wgmma/TMA kernels of
+`csrc/flash_attention_sm90.cu`; "mma" and "simt", the bf16 and f32
+kernels of `csrc/flash_attention.cu`).
 """
 
 from __future__ import annotations
@@ -39,20 +42,24 @@ class KernelCounter:
         self.launches = 0
         self.plain_calls = 0
         self.layouts: dict[str, int] = {}  # launches by tensor layout
+        self.variants: dict[str, int] = {}  # launches by kernel variant
 
-    def launched(self, layout: str):
-        """One launch, on tensors of `layout`."""
+    def launched(self, layout: str, variant: str):
+        """One launch of kernel `variant`, on tensors of `layout`."""
         self.launches += 1
         self.layouts[layout] = self.layouts.get(layout, 0) + 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
 
     def reset(self):
         self.launches = 0
         self.plain_calls = 0
         self.layouts = {}
+        self.variants = {}
 
     def __repr__(self):
         return (f"KernelCounter({self.name}, launches={self.launches}, "
-                f"plain_calls={self.plain_calls}, layouts={self.layouts})")
+                f"plain_calls={self.plain_calls}, layouts={self.layouts}, "
+                f"variants={self.variants})")
 
 
 def counters() -> dict[str, KernelCounter]:

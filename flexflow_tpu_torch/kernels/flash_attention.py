@@ -36,9 +36,13 @@ Pallas (521-526, 1097-1102), less the lse cotangent for the lse entry,
 then `flash_attention_bwd` picks the kernels the JAX package's backward
 runs at that shape: the fused single-tile K8 where the sequence fits one
 512-row block and a block holds one head (every transposed shape; packed
-head_dim % 128 == 0), else K6 and K7. The kernel body is
-`csrc/flash_attention.cu` (its header note gives the bounds and the
-design). The plain versions repeat the TPU kernels' arithmetic in one pass
+head_dim % 128 == 0), else K6 and K7. On CUDA, K5 and K7 take one of three
+hand-written variants by shape (`flash_variant`): "sm90" (wgmma, TMA and
+warp-specialised warpgroups, `csrc/flash_attention_sm90.cu`) for bf16 at
+head_dim 64 or 128 whose strides and pointers TMA takes, else "mma"
+(bf16, mma.sync) or "simt" (f32) in `csrc/flash_attention.cu`, which also
+holds K6 and K8; each source's header note gives the bounds and the
+design. The plain versions repeat the TPU kernels' arithmetic in one pass
 over all keys, as the JAX kernel runs a sequence of one block: f32 logits
 from the operands times scale, `-1e30` masking with the causal offset
 s_k - s_q, p rounded to V's dtype before P.V, out = acc / l cast once,
@@ -48,9 +52,12 @@ dv = round(p)^T.dO, each accumulated in f32 and cast once. The Mosaic
 gates of the TPU wrappers (s < 128, d % 8, the packed entry's transposed
 fallback; 668, 1236-1243, 1628) are dropped: on CUDA every shape with
 head_dim <= 128 launches the kernels. Causal attention with s_q > s_k is
-refused on every device: the JAX package sends that shape to sdpa_xla,
-whose rows with no live key average V over all keys, and self-attention
-never produces it.
+semantics the JAX entries route to their XLA path on every backend, and
+so do the three entries here, on every device: `sdpa_xla` (the packed
+entry splits the heads first) and, for the (out, lse) entry,
+`attn_reference_lse`, whose rows with no live key average V over all
+keys; autograd gives their gradients and no kernel runs. The kernel
+functions themselves refuse that shape.
 
 Decode: the references are the multi-query path (prefill chunks, q_len > 1), in
 plain torch on every device, as the JAX package runs them on every backend.
@@ -320,7 +327,7 @@ def _causal_live(s_q: int, s_k: int, device) -> torch.Tensor:
         s_k - s_q)
 
 
-def _check(q, k, v, num_heads, causal, scale) -> tuple[float, int]:
+def _check_shapes(q, k, v, num_heads, scale) -> tuple[float, int]:
     """Shapes and dtypes every device takes, on either layout: packed
     (b, s, h*d) with `num_heads`, or transposed (b, h, s, d). Returns
     (scale, heads)."""
@@ -349,18 +356,29 @@ def _check(q, k, v, num_heads, causal, scale) -> tuple[float, int]:
         raise ValueError("flash attention takes (batch, seq, heads*head_dim)"
                          " or (batch, heads, seq, head_dim) tensors, got "
                          f"{tuple(q.shape)}")
-    s_q, s_k = q.shape[-2], k.shape[-2]
-    if causal and s_q > s_k:
-        raise ValueError(
-            f"causal flash attention needs s_q <= s_k (got {s_q} > {s_k}): "
-            f"rows with no live key follow sdpa_xla's uniform-over-all-keys "
-            f"convention in the JAX package; use impl='xla' for that shape")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash attention: q, k, v dtypes differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     return float(scale), h
+
+
+def _rows_without_keys(q, k, causal) -> bool:
+    """Causal with s_q > s_k: the first rows see no key."""
+    return causal and q.shape[-2] > k.shape[-2]
+
+
+def _check(q, k, v, num_heads, causal, scale) -> tuple[float, int]:
+    """`_check_shapes`, and the kernel functions' own contract: no causal
+    rows without a live key (the entries route that shape to the XLA
+    path, as the JAX package does)."""
+    if _rows_without_keys(q, k, causal):
+        raise ValueError(
+            f"causal flash kernels need s_q <= s_k (got {q.shape[-2]} > "
+            f"{k.shape[-2]}): the entries route that shape to sdpa_xla, as "
+            f"the JAX package does")
+    return _check_shapes(q, k, v, num_heads, scale)
 
 
 def _layout(t: torch.Tensor) -> str:
@@ -499,13 +517,24 @@ def flash_delta(dout: torch.Tensor, out: torch.Tensor,
         1, 2).contiguous()
 
 
-# pointer arguments of each C entry point
+# pointer arguments of each C entry point of csrc/flash_attention.cu
 _FLASH_FNS = {
     "ff_flash_attention_fwd": 5,
     "ff_flash_attention_bwd_dq": 7,
     "ff_flash_attention_bwd_dkv": 8,
     "ff_flash_attention_bwd_fused": 10,
 }
+# The sm90 twins in csrc/flash_attention_sm90.cu: their entry point, and
+# the rows of one TMA box of each operand they load (the leading pointer
+# arguments): K5 q, k, v; K7 q, k, v, dO
+_SM90_FNS = {
+    "ff_flash_attention_fwd": ("ff_flash_attention_fwd_sm90",
+                               (128, 128, 128)),
+    "ff_flash_attention_bwd_dkv": ("ff_flash_attention_bwd_dkv_sm90",
+                                   (64, 128, 128, 64)),
+}
+_SM90_HEAD_DIMS = (64, 128)
+_TMA_BOX = 64  # bf16 columns of one 128-byte swizzled box
 
 
 def _flash_library(name: str):
@@ -520,11 +549,70 @@ def _flash_library(name: str):
     return fn
 
 
+def _sm90_library(name: str):
+    from . import _build
+
+    fn = getattr(_build.load("flash_attention_sm90"), name)
+    if fn.argtypes is None:
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * (_FLASH_FNS[name.removesuffix("_sm90")] + 1)
+                       + [ci] * 5 + [cll] * 6 + [ctypes.c_float, ci, vp])
+        fn.restype = ci
+    return fn
+
+
 def _strides(t: torch.Tensor, h: int) -> tuple[int, int, int]:
     """Element strides of (batch, head, row) on either layout."""
     if t.dim() == 3:
         return t.stride(0), t.shape[2] // h, t.stride(1)
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _head_dim(t: torch.Tensor, h: int) -> int:
+    return t.shape[-1] if t.dim() == 4 else t.shape[2] // h
+
+
+def tma_geometry(t: torch.Tensor, num_heads: int, rows: int):
+    """The TMA tensor map of one bf16 operand of the sm90 kernels, on
+    either layout: (dims, byte strides, box), innermost first. The dims
+    are the head dim, then head and row in the order of their strides,
+    then batch: (d, h, s, b) for the packed (b, s, h*d), (d, s, h, b) for
+    (b, h, s, d). The strides are those of the three outer dims; the box
+    is 64 columns (128 bytes, the swizzle's width) of `rows` rows of one
+    head."""
+    h = num_heads if t.dim() == 3 else t.shape[1]
+    sb, sh, sr = _strides(t, h)
+    b, s, d = t.shape[0], t.shape[-2], _head_dim(t, h)
+    size = t.element_size()
+    if sh <= sr:
+        return ((d, h, s, b), (sh * size, sr * size, sb * size),
+                (_TMA_BOX, 1, rows, 1))
+    return ((d, s, h, b), (sr * size, sh * size, sb * size),
+            (_TMA_BOX, rows, 1, 1))
+
+
+def _tma_takes(t: torch.Tensor, h: int) -> bool:
+    """16-byte aligned base, and outer strides that are positive multiples
+    of 16 bytes, non-decreasing innermost first."""
+    _, strides, _ = tma_geometry(t, h, 1)
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(x > 0 and x % 16 == 0 for x in strides)
+            and list(strides) == sorted(strides))
+
+
+def flash_variant(tensors, num_heads: int | None = None) -> str:
+    """The kernel a CUDA launch of K5 or K7 takes for these operands (the
+    ones it loads: q, k, v and, for K7, dO): "sm90" (wgmma and TMA) for
+    bf16 at head_dim 64 or 128 whose layout TMA takes, else "mma" (bf16)
+    or "simt" (float32)."""
+    q = tensors[0]
+    if q.dtype == torch.float32:
+        return "simt"
+    h = num_heads if q.dim() == 3 else q.shape[1]
+    if (q.dtype == torch.bfloat16 and _head_dim(q, h) in _SM90_HEAD_DIMS
+            and all(_tma_takes(t, h) for t in tensors)):
+        return "sm90"
+    return "mma"
 
 
 def _check_rows(q, h, *rows):
@@ -537,12 +625,13 @@ def _check_rows(q, h, *rows):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
-def _flash_launch(name, counter, args, q_group, k_group, h, causal, scale):
-    """Validate, launch one training kernel on its pointer `args` (outputs
-    allocated by the caller), count the launch by layout. q_group (q, dO,
-    out, dq) and k_group (k, v, dk, dv) each share one set of strides with
-    unit stride on the head dim. Raises on anything the kernel does not
-    take."""
+def _flash_launch(name, counter, args, q_group, k_group, h, causal, scale,
+                  variant):
+    """Validate, launch one training kernel `variant` on its pointer
+    `args` (outputs allocated by the caller), count the launch by layout
+    and variant. q_group (q, dO, out, dq) and k_group (k, v, dk, dv) each
+    share one set of strides with unit stride on the head dim. Raises on
+    anything the kernel does not take."""
     q, k = q_group[0], k_group[0]
     dev = q.device
     for t in args:
@@ -560,19 +649,28 @@ def _flash_launch(name, counter, args, q_group, k_group, h, causal, scale):
     if code is None:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
-    hd = q.shape[-1] if q.dim() == 4 else q.shape[2] // h
+    hd = _head_dim(q, h)
     if hd > _FLASH_MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head_dim <= "
                          f"{_FLASH_MAX_HEAD_DIM}, got {hd}")
-    fn = _flash_library(name)
+    ptrs = [t.data_ptr() for t in args]
+    shape = (q.shape[0], h, q.shape[-2], k.shape[-2], hd, *_strides(q, h),
+             *_strides(k, h), scale, int(causal))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(*[t.data_ptr() for t in args], q.shape[0], h, q.shape[-2],
-                k.shape[-2], hd, *_strides(q, h), *_strides(k, h), scale,
-                int(causal), code, stream)
+    if variant == "sm90":
+        entry, rows = _SM90_FNS[name]
+        geo = [x for t, r in zip(args, rows)
+               for part in tma_geometry(t, h, r) for x in part]
+        with torch.cuda.device(dev):
+            rc = _sm90_library(entry)(
+                *ptrs, (ctypes.c_longlong * len(geo))(*geo), *shape, stream)
+        name = entry
+    else:
+        with torch.cuda.device(dev):
+            rc = _flash_library(name)(*ptrs, *shape, code, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: code {rc}")
-    counter.launched(_layout(q))
+    counter.launched(_layout(q), variant)
 
 
 def _device_of(q):
@@ -581,20 +679,31 @@ def _device_of(q):
     return q.device.type
 
 
-def flash_attention_fwd(q, k, v, *, num_heads: int | None = None,
-                        causal: bool = False, scale: float | None = None):
-    """Flash attention forward on either layout: (out, lse (b, h, s_q)
-    f32). CPU tensors take the plain version; CUDA tensors launch K5."""
-    scale, h = _check(q, k, v, num_heads, causal, scale)
-    if _device_of(q) == "cpu":
-        return flash_attention_fwd_plain(q, k, v, num_heads=num_heads,
-                                         causal=causal, scale=scale)
+def _other_variant(q):
+    return "simt" if q.dtype == torch.float32 else "mma"
+
+
+def _launch_fwd(q, k, v, h, causal, scale, variant):
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], h, q.shape[-2]), dtype=torch.float32,
                       device=q.device)
     _flash_launch("ff_flash_attention_fwd", FLASH_FWD_COUNTER,
-                  [q, k, v, out, lse], [q, out], [k, v], h, causal, scale)
+                  [q, k, v, out, lse], [q, out], [k, v], h, causal, scale,
+                  variant)
     return out, lse
+
+
+def flash_attention_fwd(q, k, v, *, num_heads: int | None = None,
+                        causal: bool = False, scale: float | None = None):
+    """Flash attention forward on either layout: (out, lse (b, h, s_q)
+    f32). CPU tensors take the plain version; CUDA tensors launch K5 (the
+    variant `flash_variant` names)."""
+    scale, h = _check(q, k, v, num_heads, causal, scale)
+    if _device_of(q) == "cpu":
+        return flash_attention_fwd_plain(q, k, v, num_heads=num_heads,
+                                         causal=causal, scale=scale)
+    return _launch_fwd(q, k, v, h, causal, scale,
+                       flash_variant([q, k, v], h))
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *,
@@ -612,7 +721,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *,
     dq = torch.empty_like(q)
     _flash_launch("ff_flash_attention_bwd_dq", FLASH_BWD_DQ_COUNTER,
                   [q, k, v, dout, lse, delta, dq], [q, dout, dq], [k, v], h,
-                  causal, scale)
+                  causal, scale, _other_variant(q))
     return dq
 
 
@@ -621,17 +730,23 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *,
                             causal: bool = False,
                             scale: float | None = None):
     """(dk, dv) of flash attention on either layout. CPU tensors take the
-    plain version; CUDA tensors launch K7."""
+    plain version; CUDA tensors launch K7 (the variant `flash_variant`
+    names)."""
     scale, h = _check(q, k, v, num_heads, causal, scale)
     if _device_of(q) == "cpu":
         return flash_attention_bwd_dkv_plain(
             q, k, v, dout, lse, delta, num_heads=num_heads, causal=causal,
             scale=scale)
+    return _launch_dkv(q, k, v, dout, lse, delta, h, causal, scale,
+                       flash_variant([q, k, v, dout], h))
+
+
+def _launch_dkv(q, k, v, dout, lse, delta, h, causal, scale, variant):
     _check_rows(q, h, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("ff_flash_attention_bwd_dkv", FLASH_BWD_DKV_COUNTER,
                   [q, k, v, dout, lse, delta, dk, dv], [q, dout],
-                  [k, v, dk, dv], h, causal, scale)
+                  [k, v, dk, dv], h, causal, scale, variant)
     return dk, dv
 
 
@@ -650,12 +765,12 @@ def flash_attention_bwd_fused(q, k, v, dout, lse, delta, *,
     _check_rows(q, h, lse, delta)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    hd = q.shape[-1] if q.dim() == 4 else q.shape[2] // h
-    scratch = torch.empty((q.shape[0], h, q.shape[-2], hd),
+    scratch = torch.empty((q.shape[0], h, q.shape[-2], _head_dim(q, h)),
                           dtype=torch.float32, device=q.device)
     _flash_launch("ff_flash_attention_bwd_fused", FLASH_BWD_FUSED_COUNTER,
                   [q, k, v, dout, lse, delta, dq, dk, dv, scratch],
-                  [q, dout, dq], [k, v, dk, dv], h, causal, scale)
+                  [q, dout, dq], [k, v, dk, dv], h, causal, scale,
+                  _other_variant(q))
     return dq, dk, dv
 
 
@@ -705,25 +820,60 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def attn_reference_lse(q, k, v, *, causal: bool, scale: float):
+    """The XLA-path (out, lse) of the JAX package (`_attn_reference_lse`,
+    642), on (b, h, s, d): sdpa_xla's masking (f32 logits, `-1e30` with
+    `tril(s_k - s_q)`), lse the f32 log-sum-exp of those logits, the
+    softmax cast to q's dtype before P.V. Plain torch, autograd."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        logits = torch.where(
+            _causal_live(q.shape[-2], k.shape[-2], q.device), logits,
+            torch.full_like(logits, NEG_INF))
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v), lse
+
+
+def _sdpa_xla(q, k, v, causal, scale):
+    from ..ops.attention import sdpa_xla
+
+    return sdpa_xla(q, k, v, causal=causal, scale=scale)
+
+
 def flash_attention_packed(q, k, v, *, num_heads: int, causal: bool = False,
                            scale: float | None = None) -> torch.Tensor:
     """Fused attention on (batch, seq, heads*head_dim) activations, the
-    qkv projections' own layout, differentiable in q, k and v."""
+    qkv projections' own layout, differentiable in q, k and v. Causal
+    attention with s_q > s_k takes `sdpa_xla` on split heads, as the JAX
+    entry does (1236-1243)."""
     if q.dim() != 3:
         raise ValueError(f"flash_attention_packed takes (batch, seq, "
                          f"heads*head_dim) tensors, got {tuple(q.shape)}")
-    scale, _ = _check(q, k, v, num_heads, causal, scale)
+    scale, _ = _check_shapes(q, k, v, num_heads, scale)
+    if _rows_without_keys(q, k, causal):
+        b, s_q, e = q.shape
+
+        def split(t):
+            return t.reshape(b, t.shape[1], num_heads,
+                             e // num_heads).transpose(1, 2)
+
+        out = _sdpa_xla(split(q), split(k), split(v), causal, scale)
+        return out.transpose(1, 2).reshape(b, s_q, e)
     return _Flash.apply(q, k, v, num_heads, causal, scale, False)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: float | None = None) -> torch.Tensor:
     """Fused attention on (batch, heads, seq, head_dim) tensors,
-    differentiable in q, k and v."""
+    differentiable in q, k and v. Causal attention with s_q > s_k takes
+    `sdpa_xla`, as the JAX entry does (1628)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention takes (batch, heads, seq, "
                          f"head_dim) tensors, got {tuple(q.shape)}")
-    scale, _ = _check(q, k, v, None, causal, scale)
+    scale, _ = _check_shapes(q, k, v, None, scale)
+    if _rows_without_keys(q, k, causal):
+        return _sdpa_xla(q, k, v, causal, scale)
     return _Flash.apply(q, k, v, None, causal, scale, False)
 
 
@@ -732,9 +882,12 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     """Fused attention on (batch, heads, seq, head_dim) tensors returning
     (out, lse), lse the (b, h, s_q) f32 row log-sum-exp of the scaled,
     masked logits; differentiable in both outputs (ring attention merges
-    blocks by their lse)."""
+    blocks by their lse). Causal attention with s_q > s_k takes
+    `attn_reference_lse`, as the JAX entry does (668)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention_with_lse takes (batch, heads, "
                          f"seq, head_dim) tensors, got {tuple(q.shape)}")
-    scale, _ = _check(q, k, v, None, causal, scale)
+    scale, _ = _check_shapes(q, k, v, None, scale)
+    if _rows_without_keys(q, k, causal):
+        return attn_reference_lse(q, k, v, causal=causal, scale=scale)
     return _Flash.apply(q, k, v, None, causal, scale, True)

@@ -16,7 +16,9 @@ head widths, K5-K7 in bfloat16 at lm-xxl-fsdp's shape on both layouts,
 the (out, lse) entry under an lse cotangent, the LayerNorm backward at
 lm-base's rows and a ragged width), in float32 and bfloat16;
 the tests below add shapes off those paths, which the kernels take all
-the same, strided views, and the autograd Functions on the card.
+the same, strided views, the autograd Functions on the card, the
+wgmma/TMA K5 and K7 (the "sm90" variant) at small versions of the
+phase-2 shapes, and the entries' routing of causal s_q > s_k to sdpa_xla.
 """
 
 import os
@@ -407,6 +409,70 @@ def test_lse_entry_on_card_matches_its_cpu_twin(cuda, s):
                         (out, lse, *(x.grad for x in leaves))])
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, **_tol(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s_q,s_k,d,causal", [
+    ("packed", 2, 4, 512, 512, 64, True),        # lm-base's, batch cut
+    ("transposed", 2, 4, 512, 512, 64, True),
+    ("packed", 1, 4, 2048, 2048, 128, True),     # lm-xxl's, heads cut
+    ("transposed", 1, 4, 2048, 2048, 128, True),
+    ("packed", 2, 3, 130, 130, 128, True),       # ragged: partial tiles
+    ("transposed", 2, 2, 1000, 1000, 64, True),
+    ("packed", 2, 2, 130, 300, 64, True),        # causal offset
+    ("transposed", 2, 2, 300, 130, 128, False),  # s_q > s_k, no mask
+])
+def test_sm90_kernels_match_plain_versions(cuda, layout, b, h, s_q, s_k, d,
+                                           causal):
+    """The wgmma/TMA K5 and K7 against their plain versions in bfloat16 at
+    small versions of chip_smoke's phase-2 shapes, each launch counted as
+    the sm90 variant."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _bhsd(cuda, torch.bfloat16, b, h, s_q, s_k, d,
+                        s_q * 3 + s_k + d)
+    heads = None
+    if layout == "packed":
+        q, k, v, do = (_packed(t) for t in (q, k, v, do))
+        heads = h
+    kw = dict(num_heads=heads, causal=causal)
+    tol = _tol(torch.bfloat16)
+    n5 = fa.FLASH_FWD_COUNTER.variants.get("sm90", 0)
+    n7 = fa.FLASH_BWD_DKV_COUNTER.variants.get("sm90", 0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = fa.flash_delta(do, p_out, heads)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, p_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD_COUNTER.variants["sm90"] == n5 + 1
+    assert fa.FLASH_BWD_DKV_COUNTER.variants["sm90"] == n7 + 1
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, **tol)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                                  **kw)
+    torch.testing.assert_close(dk.float(), p_dk.float(), **tol)
+    torch.testing.assert_close(dv.float(), p_dv.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_entries_route_causal_rows_without_keys_to_sdpa_xla(cuda):
+    """Causal with s_q > s_k on CUDA tensors: the entries take sdpa_xla
+    (no kernel launches), as on the CPU; the kernel function refuses."""
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _bhsd(cuda, torch.float32, 1, 2, 192, 128, 64, 5)
+    c = counters()
+    n0 = {n: t.launches for n, t in c.items()}
+    got = fa.flash_attention_packed(*(_packed(t) for t in (q, k, v)),
+                                    num_heads=2, causal=True)
+    torch.cuda.synchronize()
+    assert {n: t.launches for n, t in c.items()} == n0
+    want = fa.flash_attention(*(t.cpu() for t in (q, k, v)), causal=True)
+    torch.testing.assert_close(got.cpu(), _packed(want),
+                               **_tol(torch.float32))
+    with pytest.raises(ValueError, match="s_q <= s_k"):
+        fa.flash_attention_fwd(q, k, v, causal=True)
 
 
 _CORRUPT_TABLE = """

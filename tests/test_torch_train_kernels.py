@@ -15,9 +15,11 @@ at different points (and the port's plain forward is one-pass where the
 JAX kernel's online softmax rounds p against a running max).
 
 JAX stores lse as (b*h, s, 128 lanes) copies; the port keeps (b, h, s),
-compared against lane 0.
+compared against lane 0. Causal attention with s_q > s_k is the JAX
+entries' XLA path in both packages, held to each other the same way.
 """
 
+import functools
 import importlib
 
 import jax
@@ -149,16 +151,70 @@ def test_flash_backward_kernels_match_the_fused_function():
         torch.testing.assert_close(got, leaf.grad, rtol=0, atol=0)
 
 
-def test_flash_refuses_causal_rows_without_keys():
-    """Causal with s_q > s_k: the JAX package sends it to sdpa_xla (rows
-    with no live key average V over all keys); the port's flash path
-    refuses it on every device."""
-    q = torch.zeros(1, 8, 16)
-    kv = torch.zeros(1, 4, 16)
+@pytest.mark.parametrize("entry", ["packed", "transposed", "lse"])
+def test_flash_refuses_causal_rows_without_keys(entry):
+    """Causal with s_q > s_k (the first rows see no key): the flash kernel
+    functions refuse it, and the three entries compute it as the JAX
+    entries do, on their XLA path (`flash_attention_packed` 1236,
+    `flash_attention` 1628 through sdpa_xla, `flash_attention_with_lse` 668
+    through `_attn_reference_lse`), where a row with no live key averages V
+    over all keys: outputs, lse and the q/k/v gradients under one
+    cotangent (and one on lse) match `jax.vjp` of the JAX entry in float32
+    at rtol = atol = 2e-5, and no kernel or plain version runs."""
+    b, h, d, s_q, s_k = 2, 2, 32, 192, 128
+    rs = np.random.RandomState(6)
+    q, g = (rs.randn(b, h, s_q, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, h, s_k, d).astype(np.float32) for _ in range(2))
+    g_lse = rs.randn(b, h, s_q).astype(np.float32)
+
+    def packed(a):  # (b, h, s, d) -> (b, s, h*d)
+        return a.transpose(0, 2, 1, 3).reshape(a.shape[0], a.shape[2], -1)
+
+    if entry == "packed":
+        q, k, v, g = (packed(a) for a in (q, k, v, g))
+
+        def jf(q_, k_, v_):
+            return jfa.flash_attention_packed(q_, k_, v_, num_heads=h,
+                                              causal=True)
+
+        def tf(q_, k_, v_):
+            return tfa.flash_attention_packed(q_, k_, v_, num_heads=h,
+                                              causal=True)
+    elif entry == "transposed":
+        jf = functools.partial(jfa.flash_attention, causal=True)
+        tf = functools.partial(tfa.flash_attention, causal=True)
+    else:
+        jf = functools.partial(jfa.flash_attention_with_lse, causal=True)
+        tf = functools.partial(tfa.flash_attention_with_lse, causal=True)
+    cot = (g, g_lse) if entry == "lse" else g
+
+    @jax.jit
+    def jrun(q_, k_, v_, cot_):
+        out, vjp = jax.vjp(jf, q_, k_, v_)
+        return out, vjp(cot_)
+
+    jout, jgrads = jrun(*(jnp.asarray(a) for a in (q, k, v)),
+                        jax.tree_util.tree_map(jnp.asarray, cot))
+    reset_counters()
+    leaves = [torch.tensor(a).requires_grad_(True) for a in (q, k, v)]
+    tout = tf(*leaves)
+    outs = tout if entry == "lse" else (tout,)
+    jouts = jout if entry == "lse" else (jout,)
+    torch.autograd.backward(list(outs), [torch.tensor(c) for c in
+                                         (cot if entry == "lse" else (cot,))])
+    c = counters()
+    assert all(t.launches == 0 and t.plain_calls == 0 for t in c.values()), c
+    tol = DTYPES["f32"][2]
+    for got, want in zip(outs, jouts):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+    for name, leaf, want in zip(("dq", "dk", "dv"), leaves, jgrads):
+        np.testing.assert_allclose(_np(leaf.grad), _np(want), **tol,
+                                   err_msg=name)
+    # the kernel functions keep refusing the shape, on every device
+    kw = dict(num_heads=h) if entry == "packed" else {}
     with pytest.raises(ValueError, match="s_q <= s_k"):
-        tfa.flash_attention_packed(q, kv, kv, num_heads=2, causal=True)
-    out = tfa.flash_attention_packed(kv, q, q, num_heads=2, causal=True)
-    assert out.shape == kv.shape
+        tfa.flash_attention_fwd(*leaves, causal=True, **kw)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
