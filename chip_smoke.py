@@ -23,10 +23,12 @@ Phases, each fatal on failure:
      lm-xxl-fsdp's (4, 32, 2048, 128) too) and the (out, lse) entry under
      an lse cotangent, and the decode kernels over a float32
      cache of values halfway between bfloat16 values (rounding on load);
-     each K5/K7 launch of a case on the variant the shape takes: "sm90"
-     (wgmma/TMA) for bf16 at head_dim 64 and 128 (lm-base, lm-xxl, ragged
-     s 130/300/1000, s_q < s_k causal, non-causal), "mma" for bf16 at
-     head_dim 32 and 80, "simt" for float32;
+     each K5-K8 launch of a case on the variant the shape takes: "sm90"
+     (wgmma/TMA; K8 a thread-block cluster) for bf16 at head_dim 64 and
+     128 (lm-base, lm-xxl, ragged s 130/300/1000, s_q < s_k causal,
+     non-causal), "mma" for bf16 at head_dim 32 and 80 and on operands
+     whose base TMA refuses, "simt" for float32; each sm90 K8 case twice,
+     bitwise identical;
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
@@ -38,8 +40,8 @@ Phases, each fatal on failure:
      sparse CE, accuracy and CE metrics) -> fit over one repeated batch of
      8 x 512 random tokens, 3 warm-up and 10 timed steps; the launch
      counts are set to 0 just before and read just after: per step 12
-     launches of K5, K6 and K7 and 25 of K1 and K4 (K5 and K7 all of the
-     "sm90" variant, K6 "mma"), no plain version, a
+     launches of K5, K6 and K7 and 25 of K1 and K4 (K5-K7 all of the
+     "sm90" variant), no plain version, a
      finite loss that falls; tokens/s, the median step, MFU and the device
      busy share of one profiled step;
   7. training gradients: the same weights in float32, one step's
@@ -49,12 +51,12 @@ Phases, each fatal on failure:
      call's for the same function (timed here only: the port never calls
      it; for the backward kernels the device time of the kernels of one
      SDPA backward, from the profiler) and the least time the card could
-     take, at each path's shapes; K5 and K7 also on their "mma" variant at
+     take, at each path's shapes; K5-K8 also on their "mma" variant at
      the same shapes;
   9. training lm-base under --flash-transposed, bf16, SGD(lr=0.01), fit
      over one batch of 8 x 512, 2 warm-up and 3 timed steps: per step 12
-     launches of K5 and K8 on the transposed layout, none of K6 or K7, 25
-     of K1 and K4, no plain version;
+     launches of K5 and K8 ("sm90") on the transposed layout, none of K6
+     or K7, 25 of K1 and K4, no plain version;
  10. training lm-xxl-fsdp at full width and 4 layers, bf16, SGD(lr=0.01),
      fit over one batch of 4 x 2048: packed, 2 warm-up and 3 timed steps,
      per step 4 launches each of K5, K6 and K7 (head_dim 128), none of
@@ -63,7 +65,7 @@ Phases, each fatal on failure:
  11. float32 gradients, kernels vs plain versions, as phase 7: lm-base
      under --flash-transposed at 2 layers, lm-xxl-fsdp at 1 layer (batch
      1 x 2048) in both layouts; then bfloat16 gradients of lm-xxl-fsdp at
-     1 layer (batch 1 x 2048, packed: the sm90 K5 and K7), kernels vs
+     1 layer (batch 1 x 2048, packed: the sm90 K5-K7), kernels vs
      plain versions.
 
 It exits non-zero, printing no result, without a CUDA device. The last
@@ -388,7 +390,7 @@ def kernel_parity(dev) -> dict:
 # path's shape both ways, ragged sequences (partial tiles, masked q rows, a
 # causal offset s_k - s_q > 0, s 1000 over eight 128-row tiles), and the
 # other head widths the kernels instantiate: in bfloat16 head_dim 64 and
-# 128 take the sm90 K5/K7, 32 and 80 the mma.sync ones.
+# 128 take the sm90 K5-K7, 32 and 80 the mma.sync ones.
 FLASH_CASES = [
     (8, 512, 512, HEADS, HEAD_DIM, True),
     (8, 512, 512, HEADS, HEAD_DIM, False),
@@ -416,7 +418,8 @@ FLASH_T_CASES = [
 ]
 # K8: (layout, batch, heads, s_q, s_k, head_dim, causal): lm-base's
 # transposed shape, the packed head-dim-128 single tile (row 11 of
-# PERF.md's kernel table), ragged and offset shapes on both layouts
+# PERF.md's kernel table), ragged and offset shapes on both layouts (in
+# bfloat16 the sm90 cluster kernel), and head_dim 80 and 32 (mma.sync)
 FUSED_CASES = [
     ("transposed", 8, HEADS, 512, 512, HEAD_DIM, True),
     ("packed", 2, 8, 512, 512, 128, True),
@@ -424,6 +427,15 @@ FUSED_CASES = [
     ("packed", 2, 4, 300, 300, HEAD_DIM, True),
     ("transposed", 2, 4, 130, 300, HEAD_DIM, True),
     ("packed", 2, 4, 130, 300, HEAD_DIM, True),
+    ("transposed", 2, 3, 200, 200, 80, True),
+    ("packed", 2, 4, 256, 256, 32, True),
+]
+# Operands whose base lies one element past a 16-byte boundary, which TMA
+# refuses: in bfloat16 they take the mma.sync K5-K8 at head_dims the sm90
+# kernels instantiate, (layout, batch, heads, s_q, s_k, head_dim, causal)
+UNALIGNED_CASES = [
+    ("packed", 2, 4, 300, 300, HEAD_DIM, True),
+    ("transposed", 2, 2, 256, 256, 128, True),
 ]
 # K5-K7 at lm-xxl-fsdp's shape, in bfloat16 only (the path's type; float32
 # takes other kernels, held at this shape by phase 11): the same cases on
@@ -439,9 +451,10 @@ LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000)]
 
 
 def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
-                 layout="packed"):
+                 layout="packed", unaligned=False):
     """q, k, v, dO: (b, s, heads*head_dim) packed or (b, heads, s,
-    head_dim) transposed."""
+    head_dim) transposed; `unaligned`: each starting one element into its
+    allocation (contiguous, the base not 16-byte aligned)."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -454,7 +467,16 @@ def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
     k = torch.randn(*shape(s_k), generator=g)
     v = torch.randn(*shape(s_k), generator=g)
     do = torch.randn(*shape(s_q), generator=g)
-    return tuple(t.to(dev, dtype) for t in (q, k, v, do))
+
+    def place(t):
+        if not unaligned:
+            return t.to(dev, dtype)
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    return tuple(place(t) for t in (q, k, v, do))
 
 
 def flash_row(name, layout, heads, head_dim):
@@ -486,52 +508,69 @@ def launched(name, layout, fn, variant=None):
     return out
 
 
-def want_variant(dtype, head_dim) -> str:
-    """The K5/K7 kernel a contiguous case takes: the wgmma/TMA kernels for
-    bf16 at head_dim 64 and 128, else mma.sync (bf16) or SIMT (f32)."""
+def want_variant(dtype, head_dim, aligned=True) -> str:
+    """The K5-K8 kernel a case takes: the wgmma/TMA kernels for bf16 at
+    head_dim 64 and 128 on 16-byte aligned operands (every case here keeps
+    s_k within K8's cluster), else mma.sync (bf16) or SIMT (f32)."""
     import torch
 
     if dtype == torch.float32:
         return "simt"
-    return "sm90" if head_dim in (64, 128) else "mma"
+    return "sm90" if head_dim in (64, 128) and aligned else "mma"
 
 
 def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
-                     at=None):
+                     at=None, unaligned=False):
     """K5, K6 and K7 (or K8, `fused`) on one case against their plain
-    versions; K6-K8 get the lse and delta the plain forward made, so each
-    kernel is held on its own. `at` names the case of the kernels line
-    whose shape this is: its errors are also kept as errs[f"{row} @ {at}"]."""
+    versions, each launch on the variant the case takes; K6-K8 get the
+    lse and delta the plain forward made, so each kernel is held on its
+    own. The sm90 K8 runs twice and must give the same bits (its dq is
+    summed across a cluster in a fixed order). `at` names the case of the
+    kernels line whose shape this is: its errors are also kept as
+    errs[f"{row} @ {at}"]."""
+    import torch
+
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
     b, h, s_q, s_k, d, causal = case
     dn = str(dtype).split(".")[1]
-    q, k, v, do = flash_inputs(dev, dtype, b, s_q, s_k, h, d, seed, layout)
+    q, k, v, do = flash_inputs(dev, dtype, b, s_q, s_k, h, d, seed, layout,
+                               unaligned)
     heads = h if layout == "packed" else None
     kw = dict(num_heads=heads, causal=causal)
     p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
     args = (q, k, v, do, p_lse, fa.flash_delta(do, p_out, heads))
+    var = want_variant(dtype, d, not unaligned)
     tag = (f"b{b} s{s_q}x{s_k} {h}x{d} {layout} "
-           f"{'causal' if causal else 'full'} {dn}")
+           f"{'causal' if causal else 'full'} {dn}"
+           f"{' unaligned' if unaligned else ''} ({var})")
     if fused:
         name = "flash_attention_bwd_fused"
         got = launched(name, layout,
-                       lambda: fa.flash_attention_bwd_fused(*args, **kw))
+                       lambda: fa.flash_attention_bwd_fused(*args, **kw),
+                       var)
         want = fa.flash_attention_bwd_fused_plain(*args, **kw)
         e8 = max(check_close(name, a, w, dn, errs)
                  for a, w in zip(got, want))
-        log(f"  K8 {tag}: max abs err dq/dk/dv {e8:.3e}")
+        same = ""
+        if var == "sm90":
+            again = launched(
+                name, layout,
+                lambda: fa.flash_attention_bwd_fused(*args, **kw), var)
+            require(all(torch.equal(a, a2) for a, a2 in zip(got, again)),
+                    f"K8 {tag}: two launches differ")
+            same = ", a second launch bitwise identical"
+        log(f"  K8 {tag}: max abs err dq/dk/dv {e8:.3e}{same}")
         return
     def row(name):
         return flash_row(name, layout, h, d)
 
-    var = want_variant(dtype, d)
     out, lse = launched("flash_attention_fwd", layout,
                         lambda: fa.flash_attention_fwd(q, k, v, **kw), var)
     e5 = max(check_close(row("flash_attention_fwd"), out, p_out, dn, errs),
              check_close(row("flash_attention_fwd"), lse, p_lse, dn, errs))
     dq = launched("flash_attention_bwd_dq", layout,
-                  lambda: fa.flash_attention_bwd_dq(*args, **kw))
+                  lambda: fa.flash_attention_bwd_dq(*args, **kw), var)
     e6 = check_close(row("flash_attention_bwd_dq"), dq,
                      fa.flash_attention_bwd_dq_plain(*args, **kw), dn, errs)
     dk, dv = launched("flash_attention_bwd_dkv", layout,
@@ -539,8 +578,7 @@ def check_flash_case(dev, dtype, layout, case, seed, errs, fused=False,
     p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
     e7 = max(check_close(row("flash_attention_bwd_dkv"), dk, p_dk, dn, errs),
              check_close(row("flash_attention_bwd_dkv"), dv, p_dv, dn, errs))
-    log(f"  K5/K6/K7 {tag} (K5/K7 {var}): max abs err {e5:.3e} / "
-        f"{e6:.3e} / {e7:.3e}")
+    log(f"  K5/K6/K7 {tag}: max abs err {e5:.3e} / {e6:.3e} / {e7:.3e}")
     if at:
         for name, e in (("flash_attention_fwd", e5),
                         ("flash_attention_bwd_dq", e6),
@@ -586,6 +624,10 @@ def train_kernel_parity(dev, errs) -> dict:
         for i, (layout, *case) in enumerate(FUSED_CASES):
             check_flash_case(dev, dtype, layout, case, SEED + 300 + i, errs,
                              fused=True)
+        for i, (layout, *case) in enumerate(UNALIGNED_CASES):
+            for fused in (False, True):
+                check_flash_case(dev, dtype, layout, case, SEED + 500 + i,
+                                 errs, fused=fused, unaligned=True)
         if dtype == torch.bfloat16:
             for i, layout in enumerate(("packed", "transposed")):
                 check_flash_case(dev, dtype, layout, xxl_flash_case(),
@@ -981,7 +1023,6 @@ def train_batch(vocab: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_fused")
-SM90_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 
 
 def step_launches(layers: int, fused: bool) -> dict:
@@ -1063,10 +1104,10 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     want = step_launches(layers, fused)
     want_layout = {k: ({layout: n} if n else {}) for k, n in want.items()
                    if k in FLASH_KERNELS}
-    # K5 and K7 on the wgmma/TMA kernels; K6 and K8 on mma.sync
+    # every flash kernel on the wgmma/TMA variant
     var = want_variant(torch.bfloat16, cfg.hidden_size // cfg.num_heads)
-    want_var = {k: ({(var if k in SM90_KERNELS else "mma"): n} if n else {})
-                for k, n in want.items() if k in FLASH_KERNELS}
+    want_var = {k: ({var: n} if n else {}) for k, n in want.items()
+                if k in FLASH_KERNELS}
     for i, (n, lay, vs) in enumerate(zip(per_step, per_layout,
                                          per_variant)):
         got = {k: n[k] for k in want}
@@ -1337,7 +1378,7 @@ def kernel_numbers(dev) -> dict:
 def train_kernel_numbers(dev) -> dict:
     """K4-K7 at the training path's shapes and types (bf16; (8, 512,
     16x64) causal; LayerNorm rows (4096, 1024)), each cycling over four
-    input sets (more than the 50 MB L2); K5 and K7 also on their mma.sync
+    input sets (more than the 50 MB L2); K5-K7 also on their mma.sync
     variant (`mma_ms`). Library yardsticks, timed only:
     `native_layer_norm_backward` for K4; `scaled_dot_product_attention`
     (causal) on the (b, h, s, d) view for K5, and the device time of its
@@ -1410,6 +1451,8 @@ def train_kernel_numbers(dev) -> dict:
     out["flash_attention_fwd"]["mma_ms"] = time_ms(
         lambda q, k, v, *_: fa._launch_fwd(q, k, v, h, True, sc, "mma"),
         sets)[0]
+    out["flash_attention_bwd_dq"]["mma_ms"] = time_ms(
+        lambda *a: fa._launch_dq(*a, h, True, sc, "mma"), sets)[0]
     out["flash_attention_bwd_dkv"]["mma_ms"] = time_ms(
         lambda *a: fa._launch_dkv(*a, h, True, sc, "mma"), sets)[0]
     lib_sets = []
@@ -1430,8 +1473,8 @@ def per_head_kernel_numbers(dev) -> dict:
     """The flash kernels at the per-head paths' shapes, bf16, causal: K8
     and K5 at lm-base's transposed (8, 16, 512, 64), K8 at the packed
     head-dim-128 single tile (2, 512, 8 x 128), and K5, K6 and K7 at
-    lm-xxl-fsdp's (4, 2048, 32 x 128) on both layouts; K5 and K7 also on
-    their mma.sync variant (`mma_ms`). Library yardsticks, timed only:
+    lm-xxl-fsdp's (4, 2048, 32 x 128) on both layouts; each also on its
+    mma.sync variant (`mma_ms`). Library yardsticks, timed only:
     causal SDPA on (b, h, s, d) for K5, and the device time of its
     backward's kernels (dq, dk, dv together; `sdpa_backward_device_ms`)
     for K8 and for K6 + K7. Returns {row: {case: numbers}}."""
@@ -1486,10 +1529,12 @@ def per_head_kernel_numbers(dev) -> dict:
                       7 * act + 2 * rows, 10 * d * pairs),
         }
         sc = d ** -0.5
-        mma = {  # the mma.sync variants of K5 and K7 at the same shape
+        mma = {  # the mma.sync variants at the same shape
             "fwd": lambda q, k, v, *_: fa._launch_fwd(q, k, v, h, True, sc,
                                                       "mma"),
+            "dq": lambda *a: fa._launch_dq(*a, h, True, sc, "mma"),
             "dkv": lambda *a: fa._launch_dkv(*a, h, True, sc, "mma"),
+            "fused": lambda *a: fa._launch_fused(*a, h, True, sc, "mma"),
         }
         res = {}
         for name in kinds:
@@ -1537,12 +1582,14 @@ DECODE_SRC = "flexflow_tpu_torch/csrc/decode_attention.cu"
 FLASH_SRC = "flexflow_tpu_torch/csrc/flash_attention.cu"
 SM90_SRC = "flexflow_tpu_torch/csrc/flash_attention_sm90.cu"
 TPU_FA = "flexflow_tpu/kernels/flash_attention.py"
+VARIANT_SOURCES = {"sm90": SM90_SRC, "mma": FLASH_SRC, "simt": FLASH_SRC}
 # (row, kernel counter, route, source, TPU kernel it replaces, the run
 # whose launches the row reports). The flash kernels have a row per TPU
 # kernel they replace: the grouped narrow-head ones (lm-base packed) and
-# the per-head ones (lm-xxl-fsdp; transposed lm-base for K8). K5 and K7
-# run their sm90 variant on every path (phase 2 holds the mma.sync one at
-# head_dim 32 and 80; phase 8 times it beside, as `mma_ms`).
+# the per-head ones (lm-xxl-fsdp; transposed lm-base for K8). K5-K8 run
+# their sm90 variant on every path (phase 2 holds the mma.sync one at
+# head_dim 32 and 80 and on unaligned operands; phase 8 times it beside,
+# as `mma_ms`).
 KERNELS = [
     ("layer_norm_fwd", "layer_norm_fwd", "triton", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:48", "train"),
@@ -1554,16 +1601,16 @@ KERNELS = [
      "flexflow_tpu/kernels/layer_norm.py:59", "train"),
     ("flash_attention_fwd", "flash_attention_fwd", "cuda", SM90_SRC,
      f"{TPU_FA}:705", "train"),
-    ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "cuda", FLASH_SRC,
+    ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "cuda", SM90_SRC,
      f"{TPU_FA}:808", "train"),
     ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv", "cuda", SM90_SRC,
      f"{TPU_FA}:854", "train"),
     ("flash_attention_bwd_fused", "flash_attention_bwd_fused", "cuda",
-     FLASH_SRC, f"{TPU_FA}:442", "lm-base transposed"),
+     SM90_SRC, f"{TPU_FA}:442", "lm-base transposed"),
     ("flash_attention_fwd (per-head)", "flash_attention_fwd", "cuda",
      SM90_SRC, f"{TPU_FA}:117", "lm-xxl packed"),
     ("flash_attention_bwd_dq (per-head)", "flash_attention_bwd_dq", "cuda",
-     FLASH_SRC, f"{TPU_FA}:351", "lm-xxl packed"),
+     SM90_SRC, f"{TPU_FA}:351", "lm-xxl packed"),
     ("flash_attention_bwd_dkv (per-head)", "flash_attention_bwd_dkv", "cuda",
      SM90_SRC, f"{TPU_FA}:392", "lm-xxl packed"),
 ]
@@ -1585,7 +1632,7 @@ def log_train(t: dict):
 
 
 def mma_note(numbers: dict) -> str:
-    """The mma.sync variant's time, where a K5/K7 row has one."""
+    """The mma.sync variant's time, where a flash row has one."""
     if "mma_ms" not in numbers:
         return ""
     return f", mma.sync {numbers['mma_ms']:.4f}"
@@ -1720,6 +1767,11 @@ def main(argv: list[str]) -> int:
             n = main_case
             if f"{row} @ {run_key}" in errs:
                 n["max_abs_err_at_shape"] = errs[f"{row} @ {run_key}"]
+        # the flash rows: launches by variant, and each variant's source
+        by_variant = run.get("launches_by_variant", {}).get(counter)
+        if by_variant is not None:
+            n = dict(n, launches_by_variant=by_variant,
+                     variant_sources=VARIANT_SOURCES)
         rows.append(dict(
             name=row, route=route, source=source, replaces=replaces,
             launches=run["launches"][counter], max_abs_err=errs[row],

@@ -89,9 +89,10 @@
 // correct kernel.
 //
 // In bf16 at head_dim 64 and 128 with strides TMA takes (every path of
-// the zoo), K5 and K7 run the wgmma/TMA kernels of
-// csrc/flash_attention_sm90.cu instead; the mma.sync K5 and K7 here serve
-// the other bf16 shapes, and their walk (mma_dkv_walk) is also K8's.
+// the zoo), K5-K8 run the wgmma/TMA kernels of
+// csrc/flash_attention_sm90.cu instead (K8 as a thread-block cluster per
+// (b, h), with no scratch); the mma.sync K5-K8 here serve the other bf16
+// shapes, and K7's walk (mma_dkv_walk) is also K8's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

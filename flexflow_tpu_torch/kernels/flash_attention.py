@@ -36,19 +36,20 @@ Pallas (521-526, 1097-1102), less the lse cotangent for the lse entry,
 then `flash_attention_bwd` picks the kernels the JAX package's backward
 runs at that shape: the fused single-tile K8 where the sequence fits one
 512-row block and a block holds one head (every transposed shape; packed
-head_dim % 128 == 0), else K6 and K7. On CUDA, K5 and K7 take one of three
-hand-written variants by shape (`flash_variant`): "sm90" (wgmma, TMA and
-warp-specialised warpgroups, `csrc/flash_attention_sm90.cu`) for bf16 at
-head_dim 64 or 128 whose strides and pointers TMA takes, else "mma"
-(bf16, mma.sync) or "simt" (f32) in `csrc/flash_attention.cu`, which also
-holds K6 and K8; each source's header note gives the bounds and the
-design. The plain versions repeat the TPU kernels' arithmetic in one pass
-over all keys, as the JAX kernel runs a sequence of one block: f32 logits
-from the operands times scale, `-1e30` masking with the causal offset
-s_k - s_q, p rounded to V's dtype before P.V, out = acc / l cast once,
-lse = m + log(l); backward p = exp(s - lse) (0 where masked),
-ds = p * (dp - delta) * scale, dq = round(ds).k, dk = round(ds)^T.q,
-dv = round(p)^T.dO, each accumulated in f32 and cast once. The Mosaic
+head_dim % 128 == 0), else K6 and K7. On CUDA, K5-K8 each take one of
+three hand-written variants by shape (`flash_variant`): "sm90" (wgmma, TMA
+and warp-specialised warpgroups, `csrc/flash_attention_sm90.cu`; K8 as a
+thread-block cluster per (b, h)) for bf16 at head_dim 64 or 128 whose
+strides and pointers TMA takes, else "mma" (bf16, mma.sync) or "simt"
+(f32) in `csrc/flash_attention.cu`; each source's header note gives the
+bounds and the design. The plain versions repeat the TPU kernels'
+arithmetic in one pass over all keys, as the JAX kernel runs a sequence
+of one block: f32 logits from the operands times scale, `-1e30` masking
+with the causal offset s_k - s_q, p rounded to V's dtype before P.V,
+out = acc / l cast once, lse = m + log(l); backward p = exp(s - lse) (0
+where masked), ds = p * (dp - delta) * scale, dq = round(ds).k, dk =
+round(ds)^T.q, dv = round(p)^T.dO, each accumulated in f32 and cast
+once. The Mosaic
 gates of the TPU wrappers (s < 128, d % 8, the packed entry's transposed
 fallback; 668, 1236-1243, 1628) are dropped: on CUDA every shape with
 head_dim <= 128 launches the kernels. Causal attention with s_q > s_k is
@@ -526,13 +527,22 @@ _FLASH_FNS = {
 }
 # The sm90 twins in csrc/flash_attention_sm90.cu: their entry point, and
 # the rows of one TMA box of each operand they load (the leading pointer
-# arguments): K5 q, k, v; K7 q, k, v, dO
+# arguments): K5 q, k, v; K6, K7 and K8 q, k, v, dO
 _SM90_FNS = {
     "ff_flash_attention_fwd": ("ff_flash_attention_fwd_sm90",
                                (128, 128, 128)),
+    "ff_flash_attention_bwd_dq": ("ff_flash_attention_bwd_dq_sm90",
+                                  (128, 64, 64, 128)),
     "ff_flash_attention_bwd_dkv": ("ff_flash_attention_bwd_dkv_sm90",
                                    (64, 128, 128, 64)),
+    "ff_flash_attention_bwd_fused": ("ff_flash_attention_bwd_fused_sm90",
+                                     (64, 128, 128, 64)),
 }
+# The sm90 K8 runs one thread-block cluster per (b, h), a block for each
+# 128 keys; it takes clusters of at most 4 blocks (s_k <= 512, every
+# shape the single-tile backward serves)
+SM90_KEYS_PER_BLOCK = 128
+SM90_MAX_CLUSTER = 4
 _SM90_HEAD_DIMS = (64, 128)
 _TMA_BOX = 64  # bf16 columns of one 128-byte swizzled box
 
@@ -549,13 +559,13 @@ def _flash_library(name: str):
     return fn
 
 
-def _sm90_library(name: str):
+def _sm90_library(name: str, pointers: int):
     from . import _build
 
     fn = getattr(_build.load("flash_attention_sm90"), name)
     if fn.argtypes is None:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * (_FLASH_FNS[name.removesuffix("_sm90")] + 1)
+        fn.argtypes = ([vp] * (pointers + 1)  # the tensors, then geo
                        + [ci] * 5 + [cll] * 6 + [ctypes.c_float, ci, vp])
         fn.restype = ci
     return fn
@@ -601,10 +611,11 @@ def _tma_takes(t: torch.Tensor, h: int) -> bool:
 
 
 def flash_variant(tensors, num_heads: int | None = None) -> str:
-    """The kernel a CUDA launch of K5 or K7 takes for these operands (the
-    ones it loads: q, k, v and, for K7, dO): "sm90" (wgmma and TMA) for
+    """The kernel a CUDA launch of K5-K8 takes for these operands (the
+    ones it loads: q, k, v and, for K6-K8, dO): "sm90" (wgmma and TMA) for
     bf16 at head_dim 64 or 128 whose layout TMA takes, else "mma" (bf16)
-    or "simt" (float32)."""
+    or "simt" (float32). K8 also needs its cluster to fit
+    (`fused_variant`)."""
     q = tensors[0]
     if q.dtype == torch.float32:
         return "simt"
@@ -613,6 +624,22 @@ def flash_variant(tensors, num_heads: int | None = None) -> str:
             and all(_tma_takes(t, h) for t in tensors)):
         return "sm90"
     return "mma"
+
+
+def fused_cluster_size(s_k: int) -> int:
+    """Blocks of the sm90 K8's cluster: one per 128 keys."""
+    return -(-s_k // SM90_KEYS_PER_BLOCK)
+
+
+def fused_variant(tensors, num_heads: int | None = None) -> str:
+    """The kernel a CUDA launch of K8 takes: `flash_variant`'s, except that
+    keys past one cluster (s_k > 512, which no single-tile backward
+    reaches) take the mma.sync kernel."""
+    variant = flash_variant(tensors, num_heads)
+    if (variant == "sm90" and fused_cluster_size(tensors[1].shape[-2])
+            > SM90_MAX_CLUSTER):
+        return "mma"
+    return variant
 
 
 def _check_rows(q, h, *rows):
@@ -662,7 +689,7 @@ def _flash_launch(name, counter, args, q_group, k_group, h, causal, scale,
         geo = [x for t, r in zip(args, rows)
                for part in tma_geometry(t, h, r) for x in part]
         with torch.cuda.device(dev):
-            rc = _sm90_library(entry)(
+            rc = _sm90_library(entry, len(ptrs))(
                 *ptrs, (ctypes.c_longlong * len(geo))(*geo), *shape, stream)
         name = entry
     else:
@@ -677,10 +704,6 @@ def _device_of(q):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention: unsupported device {q.device}")
     return q.device.type
-
-
-def _other_variant(q):
-    return "simt" if q.dtype == torch.float32 else "mma"
 
 
 def _launch_fwd(q, k, v, h, causal, scale, variant):
@@ -711,17 +734,23 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *,
                            causal: bool = False,
                            scale: float | None = None):
     """dq of flash attention on either layout. CPU tensors take the plain
-    version; CUDA tensors launch K6."""
+    version; CUDA tensors launch K6 (the variant `flash_variant`
+    names)."""
     scale, h = _check(q, k, v, num_heads, causal, scale)
     if _device_of(q) == "cpu":
         return flash_attention_bwd_dq_plain(
             q, k, v, dout, lse, delta, num_heads=num_heads, causal=causal,
             scale=scale)
+    return _launch_dq(q, k, v, dout, lse, delta, h, causal, scale,
+                      flash_variant([q, k, v, dout], h))
+
+
+def _launch_dq(q, k, v, dout, lse, delta, h, causal, scale, variant):
     _check_rows(q, h, lse, delta)
     dq = torch.empty_like(q)
     _flash_launch("ff_flash_attention_bwd_dq", FLASH_BWD_DQ_COUNTER,
                   [q, k, v, dout, lse, delta, dq], [q, dout, dq], [k, v], h,
-                  causal, scale, _other_variant(q))
+                  causal, scale, variant)
     return dq
 
 
@@ -755,22 +784,31 @@ def flash_attention_bwd_fused(q, k, v, dout, lse, delta, *,
                               causal: bool = False,
                               scale: float | None = None):
     """(dq, dk, dv) of flash attention in one kernel on either layout.
-    CPU tensors take the plain version; CUDA tensors launch K8, which
-    sums dq in an f32 (b, h, s_q, d) scratch allocated here."""
+    CPU tensors take the plain version; CUDA tensors launch K8 (the
+    variant `fused_variant` names). The sm90 kernel sums each dq row
+    across its cluster's blocks in shared memory; the others sum dq in an
+    f32 (b, h, s_q, d) scratch allocated here."""
     scale, h = _check(q, k, v, num_heads, causal, scale)
     if _device_of(q) == "cpu":
         return flash_attention_bwd_fused_plain(
             q, k, v, dout, lse, delta, num_heads=num_heads, causal=causal,
             scale=scale)
+    return _launch_fused(q, k, v, dout, lse, delta, h, causal, scale,
+                         fused_variant([q, k, v, dout], h))
+
+
+def _launch_fused(q, k, v, dout, lse, delta, h, causal, scale, variant):
     _check_rows(q, h, lse, delta)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((q.shape[0], h, q.shape[-2], _head_dim(q, h)),
-                          dtype=torch.float32, device=q.device)
+    args = [q, k, v, dout, lse, delta, dq, dk, dv]
+    if variant != "sm90":
+        args.append(torch.empty((q.shape[0], h, q.shape[-2],
+                                 _head_dim(q, h)), dtype=torch.float32,
+                                device=q.device))
     _flash_launch("ff_flash_attention_bwd_fused", FLASH_BWD_FUSED_COUNTER,
-                  [q, k, v, dout, lse, delta, dq, dk, dv, scratch],
-                  [q, dout, dq], [k, v, dk, dv], h, causal, scale,
-                  _other_variant(q))
+                  args, [q, dout, dq], [k, v, dk, dv], h, causal, scale,
+                  variant)
     return dq, dk, dv
 
 

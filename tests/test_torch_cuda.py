@@ -454,6 +454,80 @@ def test_sm90_kernels_match_plain_versions(cuda, layout, b, h, s_q, s_k, d,
     torch.testing.assert_close(dv.float(), p_dv.float(), **tol)
 
 
+def _sm90_inputs(cuda, layout, b, h, s_q, s_k, d, causal):
+    """bf16 q, k, v, dO on `layout` and the plain forward's lse and delta:
+    the backward kernels' inputs."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _bhsd(cuda, torch.bfloat16, b, h, s_q, s_k, d,
+                        s_q * 5 + s_k + d)
+    heads = None
+    if layout == "packed":
+        q, k, v, do = (_packed(t) for t in (q, k, v, do))
+        heads = h
+    kw = dict(num_heads=heads, causal=causal)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    return (q, k, v, do, p_lse, fa.flash_delta(do, p_out, heads)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s_q,s_k,d,causal", [
+    ("packed", 2, 4, 512, 512, 64, True),        # lm-base's, batch cut
+    ("transposed", 2, 4, 512, 512, 64, True),
+    ("packed", 1, 4, 2048, 2048, 128, True),     # lm-xxl's, heads cut
+    ("transposed", 1, 4, 2048, 2048, 128, True),
+    ("packed", 2, 3, 130, 130, 128, True),       # ragged: partial tiles
+    ("transposed", 2, 2, 1000, 1000, 64, True),
+    ("packed", 2, 2, 130, 300, 64, True),        # causal offset
+    ("transposed", 2, 2, 300, 130, 128, False),  # s_q > s_k, no mask
+])
+def test_sm90_dq_kernel_matches_plain_version(cuda, layout, b, h, s_q, s_k,
+                                              d, causal):
+    """The wgmma/TMA K6 against its plain version in bfloat16 at small
+    versions of chip_smoke's phase-2 shapes, counted as the sm90
+    variant."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    args, kw = _sm90_inputs(cuda, layout, b, h, s_q, s_k, d, causal)
+    n6 = fa.FLASH_BWD_DQ_COUNTER.variants.get("sm90", 0)
+    dq = fa.flash_attention_bwd_dq(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD_DQ_COUNTER.variants["sm90"] == n6 + 1
+    torch.testing.assert_close(
+        dq.float(), fa.flash_attention_bwd_dq_plain(*args, **kw).float(),
+        **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s_q,s_k,d,causal", [
+    ("transposed", 2, 4, 512, 512, 64, True),  # lm-base's, batch cut
+    ("packed", 2, 4, 512, 512, 128, True),     # row 11's, heads cut
+    ("packed", 2, 4, 300, 300, 64, True),      # ragged: partial tiles
+    ("transposed", 2, 3, 130, 300, 128, True),  # causal offset
+    ("packed", 1, 2, 100, 100, 64, False),     # a cluster of one block
+    ("transposed", 1, 2, 512, 200, 128, False),  # s_q > s_k, no mask
+])
+def test_sm90_fused_kernel_matches_plain_version_bitwise_run_to_run(
+        cuda, layout, b, h, s_q, s_k, d, causal):
+    """The cluster K8 against its plain version in bfloat16, counted as
+    the sm90 variant; a second launch on the same inputs gives the same
+    bits (dq is summed across the cluster in a fixed order)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    args, kw = _sm90_inputs(cuda, layout, b, h, s_q, s_k, d, causal)
+    assert fa.fused_cluster_size(s_k) <= fa.SM90_MAX_CLUSTER
+    n8 = fa.FLASH_BWD_FUSED_COUNTER.variants.get("sm90", 0)
+    got = fa.flash_attention_bwd_fused(*args, **kw)
+    again = fa.flash_attention_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD_FUSED_COUNTER.variants["sm90"] == n8 + 2
+    want = fa.flash_attention_bwd_fused_plain(*args, **kw)
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **_tol(torch.bfloat16))
+
+
 @pytest.mark.cuda
 def test_entries_route_causal_rows_without_keys_to_sdpa_xla(cuda):
     """Causal with s_q > s_k on CUDA tensors: the entries take sdpa_xla

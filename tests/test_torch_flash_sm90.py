@@ -1,4 +1,4 @@
-"""Which kernel a CUDA launch of K5 or K7 takes, and the TMA geometry the
+"""Which kernel a CUDA launch of K5-K8 takes, and the TMA geometry the
 wgmma/TMA kernels (csrc/flash_attention_sm90.cu) are handed, on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py holds them
@@ -6,13 +6,16 @@ against their plain versions); what surrounds them is plain Python:
 `flash_variant` picks "sm90" for bf16 at head_dim 64 or 128 whose layout
 TMA takes (16-byte aligned base, outer strides positive multiples of 16
 bytes in increasing order), "mma" for other bf16 shapes and "simt" for
-float32; `tma_geometry` gives each operand's 4-D tensor map (dims and byte
-strides innermost first, and the box), reading either layout where it
-lies. This file imports no JAX.
+float32; `fused_variant` adds K8's limit, one thread-block cluster of a
+block per 128 keys, at most 4 blocks; `tma_geometry` gives each operand's
+4-D tensor map (dims and byte strides innermost first, and the box),
+reading either layout where it lies. This file imports no JAX.
 """
 
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from flexflow_tpu_torch.kernels import counters, reset_counters
 from flexflow_tpu_torch.kernels import flash_attention as fa
@@ -37,6 +40,9 @@ def _transposed(b, h, s, d, dtype=BF16):
     ("lm-xxl transposed", lambda: _transposed(1, 32, 2048, 128), 32,
      "sm90"),
     ("ragged s", lambda: _packed(2, 130, 4, 64), 4, "sm90"),
+    ("ragged s transposed", lambda: _transposed(2, 4, 130, 64), 4, "sm90"),
+    # K8's packed head-dim-128 single tile (row 11 of PERF.md's table)
+    ("row 11", lambda: _packed(2, 512, 8, 128), 8, "sm90"),
     ("head_dim 32", lambda: _packed(2, 256, 4, 32), 4, "mma"),
     ("head_dim 80", lambda: _transposed(2, 3, 200, 80), 3, "mma"),
     # rows 1028 elements apart: not a multiple of 16 bytes
@@ -55,10 +61,67 @@ def _transposed(b, h, s, d, dtype=BF16):
 def test_variant_choice(name, make, heads, want):
     t = make()
     assert fa.flash_variant([t, t, t], heads) == want, name
-    # K7 also loads dO: one operand TMA cannot take moves it off sm90
+    # K6-K8 also load dO; K8's cluster holds 512 keys, and longer ones
+    # (no single-tile backward) take its mma.sync kernel
+    ops = [t, t, t, t]
+    assert fa.flash_variant(ops, heads) == want, name
+    long = want == "sm90" and t.shape[-2] > 512
+    assert fa.fused_variant(ops, heads) == ("mma" if long else want), name
+    # one operand TMA cannot take moves them off sm90
     if want == "sm90":
         odd = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
         assert fa.flash_variant([t, t, t, odd], heads) == "mma"
+        assert fa.fused_variant([t, t, t, odd], heads) == "mma"
+
+
+@pytest.mark.parametrize("s_k,want", [(512, "sm90"), (513, "mma"),
+                                      (2048, "mma")])
+def test_fused_variant_beyond_one_cluster(s_k, want):
+    """Keys past 4 blocks of 128 (which no single-tile backward reaches)
+    take the mma.sync K8; K6 and K7 keep sm90 at any length."""
+    q, k = _transposed(1, 2, 256, 64), _transposed(1, 2, s_k, 64)
+    assert fa.fused_variant([q, k, k, q]) == want
+    assert fa.flash_variant([q, k, k, q]) == "sm90"
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(s_q=st.integers(1, 1024), s_k=st.integers(1, 1024),
+       layout=st.sampled_from(["packed", "transposed"]),
+       d=st.sampled_from([32, 64, 128]))
+def test_cluster_fits_every_single_tile_shape(s_q, s_k, layout, d):
+    """Every shape the fused backward serves (`fused_backward_applies`:
+    s <= 512) needs a cluster of at most 4 blocks, one per 128 keys, the
+    kernel's limit; so K8 never leaves sm90 for its length."""
+    h = 4
+    make = ((lambda s: _packed(1, s, h, d)) if layout == "packed"
+            else (lambda s: _transposed(1, h, s, d)))
+    q, k = make(s_q), make(s_k)
+    n = fa.fused_cluster_size(s_k)
+    assert (n - 1) * fa.SM90_KEYS_PER_BLOCK < s_k <= n * fa.SM90_KEYS_PER_BLOCK
+    if fa.fused_backward_applies(q, k, h if layout == "packed" else None):
+        assert n <= fa.SM90_MAX_CLUSTER == 4
+        assert (fa.fused_variant([q, k, k, q], h)
+                == fa.flash_variant([q, k, k, q], h))
+
+
+@pytest.mark.parametrize("layout", ["packed", "transposed"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_geometry_of_the_backward_boxes(layout, d):
+    """The boxes each backward entry asks for: K6 q and dO in 128-row
+    tiles, k and v in 64-key stages; K8 (as K7) q and dO in 64-row stages,
+    k and v in 128-key tiles; each box 64 columns of one head."""
+    b, h, s = 2, 4, 300
+    t = _packed(b, s, h, d) if layout == "packed" else _transposed(b, h, s,
+                                                                   d)
+    heads = h if layout == "packed" else None
+    for name, want in (("ff_flash_attention_bwd_dq", (128, 64, 64, 128)),
+                       ("ff_flash_attention_bwd_fused", (64, 128, 128, 64))):
+        rows = fa._SM90_FNS[name][1]
+        assert rows == want
+        for r in rows:
+            dims, _, box = fa.tma_geometry(t, heads, r)
+            assert dims[0] == d and box[0] == 64
+            assert box[1:3] == ((1, r) if layout == "packed" else (r, 1))
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -101,12 +164,16 @@ def test_tma_geometry_of_a_head_view_of_packed_memory():
 
 def test_sm90_entry_points_box_rows():
     """The rows of each operand's box the C entry points expect: K5 loads
-    q, k, v in 128-row tiles; K7 k, v in 128-key tiles and q, dO in 64-row
-    stages."""
+    q, k, v in 128-row tiles; K6 q, dO in 128-row tiles and k, v in 64-key
+    stages; K7 and K8 k, v in 128-key tiles and q, dO in 64-row stages."""
     assert fa._SM90_FNS["ff_flash_attention_fwd"] == (
         "ff_flash_attention_fwd_sm90", (128, 128, 128))
+    assert fa._SM90_FNS["ff_flash_attention_bwd_dq"] == (
+        "ff_flash_attention_bwd_dq_sm90", (128, 64, 64, 128))
     assert fa._SM90_FNS["ff_flash_attention_bwd_dkv"] == (
         "ff_flash_attention_bwd_dkv_sm90", (64, 128, 128, 64))
+    assert fa._SM90_FNS["ff_flash_attention_bwd_fused"] == (
+        "ff_flash_attention_bwd_fused_sm90", (64, 128, 128, 64))
 
 
 def test_cpu_launches_count_no_variant():
@@ -118,9 +185,12 @@ def test_cpu_launches_count_no_variant():
                    for _ in range(4))
     assert fa.flash_variant([q, k, v, do], 2) == "sm90"
     out, lse = fa.flash_attention_fwd(q, k, v, num_heads=2, causal=True)
-    fa.flash_attention_bwd_dkv(q, k, v, do, lse, fa.flash_delta(do, out, 2),
-                               num_heads=2, causal=True)
+    args = (q, k, v, do, lse, fa.flash_delta(do, out, 2))
+    fa.flash_attention_bwd_dq(*args, num_heads=2, causal=True)
+    fa.flash_attention_bwd_dkv(*args, num_heads=2, causal=True)
+    fa.flash_attention_bwd_fused(*args, num_heads=2, causal=True)
     c = counters()
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_fused"):
         assert c[name].launches == 0 and c[name].variants == {}, c[name]
         assert c[name].plain_calls == 1
