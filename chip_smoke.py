@@ -6,8 +6,9 @@
 Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
 flexflow_tpu_torch/_build/, one nvcc per source, started together:
-csrc/decode_attention.cu, csrc/flash_attention.cu and
-csrc/flash_attention_sm90.cu; Triton at its first launch) and drives the main paths of the lm-base
+csrc/decode_attention.cu, csrc/flash_attention.cu,
+csrc/flash_attention_sm90.cu and csrc/layer_norm.cu; Triton, for K1, at
+its first launch) and drives the main paths of the lm-base
 Transformer LM (vocab 32000, hidden 1024, 16 heads of dim 64, 12 layers,
 seq 512; random weights from seed 0; bf16 activations over fp32 master
 weights), serving and training, and the per-head flash paths: lm-base
@@ -28,12 +29,16 @@ Phases, each fatal on failure:
      128 (lm-base, lm-xxl, ragged s 130/300/1000, s_q < s_k causal,
      non-causal), "mma" for bf16 at head_dim 32 and 80 and on operands
      whose base TMA refuses, "simt" for float32; each sm90 K8 case twice,
-     bitwise identical;
+     bitwise identical; K3 (split-K, merged in a fixed order) and K4 (at
+     lm-base's rows, a ragged width and lm-xxl-fsdp's (8192, 4096)) also
+     bitwise identical on two launches;
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
      launch counts are set to 0 just before and read just after;
-  4. serving, contiguous KV layout: the same requests;
+  4. serving, contiguous KV layout: the same requests; then both layouts
+     again with the weights in float32, their greedy streams compared
+     (the first difference logged with each layout's top-2 logits);
   5. first-step logits: the same weights in float32, one pure-decode step
      with the kernels against the same step with the plain versions;
   6. training: FFModel -> build_transformer_lm -> compile(SGD(lr=0.01),
@@ -51,8 +56,8 @@ Phases, each fatal on failure:
      call's for the same function (timed here only: the port never calls
      it; for the backward kernels the device time of the kernels of one
      SDPA backward, from the profiler) and the least time the card could
-     take, at each path's shapes; K5-K8 also on their "mma" variant at
-     the same shapes;
+     take, at each path's shapes (K4 also at lm-xxl-fsdp's (8192,
+     4096)); K5-K8 also on their "mma" variant at the same shapes;
   9. training lm-base under --flash-transposed, bf16, SGD(lr=0.01), fit
      over one batch of 8 x 512, 2 warm-up and 3 timed steps: per step 12
      launches of K5 and K8 ("sm90") on the transposed layout, none of K6
@@ -158,7 +163,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-CUDA_SOURCES = ("decode_attention", "flash_attention", "flash_attention_sm90")
+CUDA_SOURCES = ("decode_attention", "flash_attention", "flash_attention_sm90",
+                "layer_norm")
 
 
 def build_kernels() -> dict:
@@ -328,6 +334,33 @@ def ln_inputs(dev, dtype, rows, seed):
     return x, s, b
 
 
+def ln_bwd_inputs(dev, dtype, rows, width, seed):
+    """K4's inputs (x, scale, dy): rows of `width` in `dtype`."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn(rows, width, generator=g) * 3 + 1).to(dev, dtype)
+    s = torch.randn(width, generator=g).to(dev, dtype)
+    dy = torch.randn(rows, width, generator=g).to(dev, dtype)
+    return x, s, dy
+
+
+def same_bits(fn) -> bool:
+    """Whether two calls of `fn()` give bitwise equal tensors (a tensor or
+    a tuple of them): a kernel whose sums run in a fixed order must."""
+    import torch
+
+    def bits(t):  # the same bytes as integers: NaN-safe, -0 != +0
+        return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
 # ------------------------------------------------------------ phase 2
 
 
@@ -380,8 +413,11 @@ def kernel_parity(dev) -> dict:
             fa.paged_decode_attention_plain(q, pk, pv, table, lengths,
                                             num_heads=HEADS),
             dn, errs)
+        require(same_bits(lambda: fa.paged_flash_decode_attention(
+            q, pk, pv, table, lengths, num_heads=HEADS)),
+            f"K3 [{dn}]: two launches differ in their bits")
         log(f"  K3 paged_flash_decode_attention {tuple(pk.shape)} {dn}: "
-            f"max abs err {err:.3e}")
+            f"max abs err {err:.3e}, the same bits on two launches")
     halfway_parity(dev, errs)
     return errs
 
@@ -446,8 +482,11 @@ def xxl_flash_case():
     return (XXL_BATCH, c.num_heads, s, s, c.hidden_size // c.num_heads, True)
 
 
-# K4 parity shapes: the main path's (tokens, hidden) and a ragged one
-LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000)]
+# K4 parity shapes: lm-base's (tokens, hidden), a ragged one, and
+# lm-xxl-fsdp's (4 x 2048 tokens, hidden 4096: four warps a row)
+XXL_HIDDEN = 4096
+LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000),
+                 (XXL_BATCH * 2048, XXL_HIDDEN)]
 
 
 def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
@@ -599,21 +638,24 @@ def train_kernel_parity(dev, errs) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for n, d in LN_BWD_SHAPES:
-            x, s, _ = ln_inputs(dev, dtype, n, SEED + n)
-            x = (x[:, :d] if d < EMBED else x).contiguous()
-            s = s[:d].contiguous()
-            dy = torch.randn(n, d, generator=torch.Generator().manual_seed(
-                n)).to(dev, dtype)
+            x, s, dy = ln_bwd_inputs(dev, dtype, n, d, SEED + n)
             n0 = c["layer_norm_bwd"].launches
             got = ln.layer_norm_bwd(x, s, dy, 1e-5)
             torch.cuda.synchronize()
             require(c["layer_norm_bwd"].launches == n0 + 1,
                     "layer_norm_bwd not launched")
             want = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
-            errs_here = [check_close("layer_norm_bwd", a, b, dn, errs)
+            row = "layer_norm_bwd (lm-xxl)" if d == XXL_HIDDEN else (
+                "layer_norm_bwd")
+            errs_here = [check_close(row, a, b, dn, errs)
                          for a, b in zip(got, want)]
+            require(same_bits(lambda: ln.layer_norm_bwd(x, s, dy, 1e-5)),
+                    f"K4 ({n}, {d}) [{dn}]: two launches differ in their "
+                    f"bits")
             log(f"  K4 layer_norm_bwd ({n}, {d}) {dn}: max abs err "
-                f"dx/dscale/dbias {max(errs_here):.3e}")
+                f"dx/dscale/dbias {max(errs_here):.3e}, the same bits on "
+                f"two launches")
+            del x, s, dy, got, want
         for i, (b, s_q, s_k, h, hd, causal) in enumerate(FLASH_CASES):
             check_flash_case(dev, dtype, "packed",
                              (b, h, s_q, s_k, hd, causal), SEED + 100 + i,
@@ -900,6 +942,75 @@ def serve_phase(ff, layout, prompts, vocab) -> dict:
     return out
 
 
+def f32_engine(ff, layout):
+    """A serving engine of ff's weights in float32 (no bf16 compute)."""
+    cfg = ff.config
+    saved = (cfg.computation_dtype, cfg.allow_tensor_op_math_conversion)
+    cfg.computation_dtype, cfg.allow_tensor_op_math_conversion = None, False
+    try:
+        return ff.serve(kv_layout=layout, max_new_tokens=NEW_TOKENS)
+    finally:
+        cfg.computation_dtype, cfg.allow_tensor_op_math_conversion = saved
+
+
+def top2_at(ff, layout, tokens) -> list:
+    """The two largest float32 logits (value, token) after `tokens`, from
+    one request of `tokens` as its prompt, in `layout`."""
+    import torch
+
+    eng = f32_engine(ff, layout)
+    ex = eng.decode_model.executor
+    seen = {}
+    apply, step_fn = ex._apply, eng._step_fn
+
+    def keep_logits(*a, **kw):
+        logits, state = apply(*a, **kw)
+        seen["logits"] = logits
+        return logits, state
+
+    def keep_row(params, state, xs, read_idx, *rest):
+        seen["row"] = read_idx
+        return step_fn(params, state, xs, read_idx, *rest)
+
+    ex._apply, eng._step_fn = keep_logits, keep_row
+    eng.generate([tokens], max_new_tokens=1)
+    slot = 0  # the only request takes the first slot
+    row = seen["logits"][slot, int(seen["row"][slot])].float()
+    top = torch.topk(row, 2)
+    del eng
+    torch.cuda.empty_cache()
+    return [(float(v), int(i)) for v, i in zip(top.values, top.indices)]
+
+
+def f32_stream_check(ff, prompts) -> dict:
+    """The same requests served in float32 in both KV layouts: how many
+    greedy streams agree and, where one does not, the first differing
+    request and step, the two tokens, and the top-2 float32 logits after
+    the common prefix in each layout (a re-prefill of prompt + prefix)."""
+    import torch
+
+    streams = {}
+    for layout in ("paged", "contiguous"):
+        eng = f32_engine(ff, layout)
+        streams[layout] = eng.generate(prompts)
+        del eng
+        torch.cuda.empty_cache()
+    a, b = streams["paged"], streams["contiguous"]
+    out = {"identical": sum(x == y for x, y in zip(a, b)),
+           "requests": len(prompts)}
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            t = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
+            ctx = list(prompts[i]) + x[:t]
+            out["first_difference"] = {
+                "request": i, "step": t, "paged_token": x[t],
+                "contiguous_token": y[t],
+                "top2_paged": top2_at(ff, "paged", ctx),
+                "top2_contiguous": top2_at(ff, "contiguous", ctx)}
+            break
+    return out
+
+
 def logits_phase(ff, layout, prompts) -> float:
     """The same weights in float32: the logits of one pure-decode step
     with the kernels vs the same step with the plain versions called in
@@ -910,13 +1021,7 @@ def logits_phase(ff, layout, prompts) -> float:
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import layer_norm as ln
 
-    cfg = ff.config
-    saved = (cfg.computation_dtype, cfg.allow_tensor_op_math_conversion)
-    cfg.computation_dtype, cfg.allow_tensor_op_math_conversion = None, False
-    try:
-        eng = ff.serve(kv_layout=layout, max_new_tokens=NEW_TOKENS)
-    finally:
-        cfg.computation_dtype, cfg.allow_tensor_op_math_conversion = saved
+    eng = f32_engine(ff, layout)
     for p in prompts:  # no request may finish before the last prefill
         eng.submit(p[:48], max_new_tokens=MAX_SEQ - 48)
     while (eng.scheduler.pending
@@ -1377,8 +1482,9 @@ def kernel_numbers(dev) -> dict:
 
 def train_kernel_numbers(dev) -> dict:
     """K4-K7 at the training path's shapes and types (bf16; (8, 512,
-    16x64) causal; LayerNorm rows (4096, 1024)), each cycling over four
-    input sets (more than the 50 MB L2); K5-K7 also on their mma.sync
+    16x64) causal; LayerNorm rows (4096, 1024), and lm-xxl-fsdp's (8192,
+    4096) over two sets), each cycling over four input sets (more than
+    the 50 MB L2); K5-K7 also on their mma.sync
     variant (`mma_ms`). Library yardsticks, timed only:
     `native_layer_norm_backward` for K4; `scaled_dot_product_attention`
     (causal) on the (b, h, s, d) view for K5, and the device time of its
@@ -1396,24 +1502,31 @@ def train_kernel_numbers(dev) -> dict:
     n, e = b * s, h * d
     eps = 1e-5
 
-    sets = []
-    for i in range(4):
-        x, w, bias = ln_inputs(dev, bf16, n, SEED + 30 + i)
-        dy = torch.randn(n, e, generator=torch.Generator().manual_seed(
-            40 + i)).to(dev, bf16)
-        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [e], w, bias, eps)
-        sets.append((x, w, dy, bias, mean, rstd))
-    out["layer_norm_bwd"] = timed(
-        lambda x, w, dy, *_: ln.layer_norm_bwd(x, w, dy, eps),
-        lambda x, w, dy, *_: ln.layer_norm_bwd_plain(x, w, dy, eps),
-        lambda x, w, dy, bias, mean, rstd:
-            torch.ops.aten.native_layer_norm_backward(
-                dy, x, [e], mean, rstd, w, bias, [True, True, True]),
-        sets, sets,
-        # x, dy, scale read; dx written, dscale and dbias (f32) written;
-        # ~16 f32 operations an element
-        *bound(3 * n * e * 2 + e * 2 + 2 * e * 4, 16 * n * e, "float32"))
-    del sets
+    # K4 at lm-base's rows (4 input sets) and lm-xxl-fsdp's (8192, 4096)
+    # (2 sets, 128 MB each)
+    for row, rows, width, n_sets in (
+            ("layer_norm_bwd", n, e, 4),
+            ("layer_norm_bwd (lm-xxl)", XXL_BATCH * 2048, XXL_HIDDEN, 2)):
+        sets = []
+        for i in range(n_sets):
+            x, w, dy = ln_bwd_inputs(dev, bf16, rows, width, SEED + 30 + i)
+            bias = torch.zeros_like(w)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [width], w, bias, eps)
+            sets.append((x, w, dy, bias, mean, rstd))
+        out[row] = timed(
+            lambda x, w, dy, *_: ln.layer_norm_bwd(x, w, dy, eps),
+            lambda x, w, dy, *_: ln.layer_norm_bwd_plain(x, w, dy, eps),
+            lambda x, w, dy, bias, mean, rstd, width=width:
+                torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [width], mean, rstd, w, bias, [True, True, True]),
+            sets, sets,
+            # x, dy, scale read; dx written, dscale and dbias (f32)
+            # written; ~16 f32 operations an element
+            *bound(3 * rows * width * 2 + width * 2 + 2 * width * 4,
+                   16 * rows * width, "float32"))
+        del sets
+        torch.cuda.empty_cache()
 
     pairs = b * h * s * (s + 1) // 2  # live (query, key) pairs, causal
     rows = b * h * s * 4  # one f32 row statistic (lse or delta)
@@ -1578,6 +1691,7 @@ def per_head_kernel_numbers(dev) -> dict:
 
 
 LN_SRC = "flexflow_tpu_torch/kernels/_layer_norm_triton.py"
+LN_BWD_SRC = "flexflow_tpu_torch/csrc/layer_norm.cu"
 DECODE_SRC = "flexflow_tpu_torch/csrc/decode_attention.cu"
 FLASH_SRC = "flexflow_tpu_torch/csrc/flash_attention.cu"
 SM90_SRC = "flexflow_tpu_torch/csrc/flash_attention_sm90.cu"
@@ -1597,8 +1711,10 @@ KERNELS = [
      f"{TPU_FA}:1261", "contiguous"),
     ("paged_flash_decode_attention", "paged_flash_decode_attention", "cuda",
      DECODE_SRC, f"{TPU_FA}:1446", "paged"),
-    ("layer_norm_bwd", "layer_norm_bwd", "triton", LN_SRC,
+    ("layer_norm_bwd", "layer_norm_bwd", "cuda", LN_BWD_SRC,
      "flexflow_tpu/kernels/layer_norm.py:59", "train"),
+    ("layer_norm_bwd (lm-xxl)", "layer_norm_bwd", "cuda", LN_BWD_SRC,
+     "flexflow_tpu/kernels/layer_norm.py:59", "lm-xxl packed"),
     ("flash_attention_fwd", "flash_attention_fwd", "cuda", SM90_SRC,
      f"{TPU_FA}:705", "train"),
     ("flash_attention_bwd_dq", "flash_attention_bwd_dq", "cuda", SM90_SRC,
@@ -1694,6 +1810,10 @@ def main(argv: list[str]) -> int:
                                       runs["contiguous"]["streams"]))
     log(f"  paged and contiguous streams identical for {same} of "
         f"{len(prompts)} requests (bf16)")
+    f32_streams = f32_stream_check(ff, prompts)
+    log(f"  float32: paged and contiguous streams identical for "
+        f"{f32_streams['identical']} of {len(prompts)} requests; first "
+        f"difference: {f32_streams.get('first_difference')}")
 
     log("== phase 5: first-step logits, float32, kernels vs plain")
     logit_err = {layout: logits_phase(ff, layout, prompts[:SLOTS])
@@ -1793,6 +1913,7 @@ def main(argv: list[str]) -> int:
                   cuda=torch.version.cuda, triton=triton.__version__,
                   build_s=build_s, kernels=rows, serving=serving,
                   logits_max_abs=logit_err, streams_identical=same,
+                  f32_streams=f32_streams,
                   training=train, training_gradients=grads,
                   per_head_training=per_head,
                   per_head_gradients=grads_ph,
@@ -1810,6 +1931,7 @@ def main(argv: list[str]) -> int:
             "launches_per_step")}
 
     log(json.dumps({"serving": serving, "logits_max_abs": logit_err,
+                    "f32_streams": f32_streams,
                     "training": summary(train), "training_gradients": grads,
                     "per_head_training": {k: summary(t)
                                           for k, t in per_head.items()},

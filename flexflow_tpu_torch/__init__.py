@@ -5,10 +5,10 @@ It mirrors the JAX package's module layout and names. It trains the
 flagship Transformer LM (FFConfig -> FFModel -> build_transformer_lm ->
 compile(optimizer, loss_type, metrics) -> fit / eval / forward, backward,
 update) and serves it (compile -> serve() -> ServingEngine.generate), with
-hand-written Hopper kernels for the packed flash attention forward and
-backward and the decode attention (CUDA C++), and the LayerNorm forward
-and backward (Triton). It imports torch and numpy, never jax, and nothing
-of flexflow_tpu.
+hand-written Hopper kernels for the flash attention forward and
+backward, the decode attention and the LayerNorm backward (CUDA C++), and
+the LayerNorm forward (Triton). It imports torch and numpy, never jax,
+and nothing of flexflow_tpu.
 
 Every tensor lives on `FFConfig.device`, "cuda" unless the caller asks
 for "cpu"; without a CUDA device and without that request, building a

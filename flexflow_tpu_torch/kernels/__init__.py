@@ -4,7 +4,7 @@ version in the same module.
   K1 layer_norm.layer_norm               Triton  (TPU: layer_norm.py:_fwd_kernel)
   K2 flash_attention.flash_decode_attention        CUDA (TPU: _decode_kernel)
   K3 flash_attention.paged_flash_decode_attention  CUDA (TPU: _paged_decode_kernel)
-  K4 layer_norm.layer_norm_bwd           Triton  (TPU: layer_norm.py:_bwd_kernel)
+  K4 layer_norm.layer_norm_bwd           CUDA    (TPU: layer_norm.py:_bwd_kernel)
   K5 flash_attention.flash_attention_fwd     CUDA (TPU: _flash_kernel_grouped,
                                                     _flash_kernel); sm90
   K6 flash_attention.flash_attention_bwd_dq  CUDA (TPU: _bwd_dq_kernel,

@@ -62,9 +62,12 @@ functions themselves refuse that shape.
 
 Decode: the references are the multi-query path (prefill chunks, q_len > 1), in
 plain torch on every device, as the JAX package runs them on every backend.
-K2 and K3 are single-query; their kernel body is `csrc/decode_attention.cu`
-(one templated body for both layouts; its header note gives the bound and
-the design). Each has a plain version here that repeats the TPU kernel's
+K2 and K3 are single-query, in `csrc/decode_attention.cu` (its header
+note gives the bound and the designs): K2 a block per (slot, head); K3
+split-K, a CTA per run of keys (`paged_decode_geometry`, from shapes
+alone) and a merge of the runs in a fixed order by the last to finish,
+with `paged_decode_split_model` its arithmetic in plain PyTorch, which no
+path calls. Each has a plain version here that repeats the TPU kernel's
 arithmetic in one pass: f32 logits from compute-dtype operands, `-1e30`
 masking, V rows past the cursor zeroed, P rounded to V's dtype before P.V,
 `acc / max(l, 1e-30)`. The Mosaic gates of the TPU wrappers (s_k < 128,
@@ -74,6 +77,8 @@ d % 128, bs % 8) are dropped: on CUDA every shape launches the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -97,7 +102,7 @@ _FLASH_MAX_HEAD_DIM = 128
 # reads is f32 at rest (the ops' WeightSpec, the executor's state dtypes)
 _Q_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-_MAX_TABLE_WIDTH = 12288  # int32 entries in 48 KB of shared memory
+_MAX_TABLE_WIDTH = 12288  # K3's table width, as the kernel took it
 
 
 def _split(t: torch.Tensor, s: int, h: int, d: int) -> torch.Tensor:
@@ -205,26 +210,123 @@ def _check_args(q, num_heads, scale):
     return float(scale)
 
 
-def _library():
+@dataclasses.dataclass(frozen=True)
+class PagedDecodeGeometry:
+    """K3's launch shape: each (slot, head)'s W*bs logical keys in
+    `splits` runs of `keys_per_split`; `grid` (splits, heads, slots)
+    CTAs; `scratch_shape` the f32 partials (m, l, acc[hd]) of every split;
+    `tickets` the per-(slot, head) arrival counters."""
+
+    keys_per_split: int
+    splits: int
+    grid: tuple[int, int, int]
+    scratch_shape: tuple[int, int, int, int]
+    tickets: int
+
+
+@functools.lru_cache(maxsize=256)
+def paged_decode_geometry(slots: int, heads: int, W: int, bs: int,
+                          hd: int) -> PagedDecodeGeometry:
+    """K3's split of the keys, from shapes alone (the lengths are never
+    read on the host): a split stages `rows` = min(32, 2048 // hd) keys,
+    16 KB of f32 K and V at most (the kernel takes up to 64 keys and 4096
+    floats of each; at lm-base's head_dim 64, 32-key splits ran faster
+    than 64-key ones on the H100: more CTAs resident at once, and a long
+    slot spread wider); a page no wider than that gives whole pages (bs *
+    (rows // bs) keys), a wider one runs of `rows` keys inside it."""
+    if min(slots, heads, W, bs, hd) < 1 or hd > _MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_geometry: slots={slots} heads="
+                         f"{heads} W={W} bs={bs} hd={hd}")
+    rows = min(32, 2048 // hd)
+    kps = bs * (rows // bs) if bs <= rows else rows
+    splits = -(-(W * bs) // kps)
+    return PagedDecodeGeometry(kps, splits, (splits, heads, slots),
+                               (slots, heads, splits, hd + 2),
+                               slots * heads)
+
+
+def split_copies_vectorised(pool_k, pool_v, hd: int) -> bool:
+    """Whether K3 may copy K and V rows in 16-byte pieces: head_dim, the
+    pool's block and row strides and both bases in whole 4-float units
+    (else it takes 4-byte copies)."""
+    return (hd % 4 == 0 and pool_k.stride(0) % 4 == 0
+            and pool_k.stride(1) % 4 == 0 and pool_k.data_ptr() % 16 == 0
+            and pool_v.data_ptr() % 16 == 0)
+
+
+def paged_decode_split_model(q, pool_k, pool_v, page_table, lengths, *,
+                             num_heads: int, keys_per_split: int,
+                             scale: float | None = None):
+    """K3's split-and-merge arithmetic in plain PyTorch, on the CPU or
+    the card; no path calls it (the tests hold it to the JAX kernel). Per
+    split of `keys_per_split` logical keys: logits in f32 from rounded
+    K, the split's max m_i over its live keys, p = exp(logit - m_i), l_i
+    = sum p, acc_i = sum round(p) round(V); then, over the live splits in
+    order, M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i
+    e^(m_i - M), 1e-30), cast once; an empty slot gives 0."""
+    scale = _check_args(q, num_heads, scale)
+    slots, _, e = q.shape
+    W = page_table.shape[1]
+    bs = pool_k.shape[1]
+    h, d = num_heads, e // num_heads
+    n_keys = W * bs
+    splits = -(-n_keys // keys_per_split)
+    pad = splits * keys_per_split - n_keys
+    tbl = page_table.long()
+
+    def view(pool):  # (slots, splits, kps, h, d), rounded to q's dtype
+        c = pool[tbl].reshape(slots, n_keys, e).to(q.dtype).float()
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+        return c.reshape(slots, splits, keys_per_split, h, d)
+
+    kc, vc = view(pool_k), view(pool_v)
+    pos = torch.arange(splits * keys_per_split, device=q.device).reshape(
+        splits, keys_per_split)
+    live = pos[None] < lengths.long()[:, None, None]  # (slots, splits, kps)
+    qh = q.float().reshape(slots, h, d)
+    logits = torch.einsum("bhd,bckhd->bchk", qh, kc) * scale
+    logits = torch.where(live[:, :, None, :], logits,
+                         torch.full_like(logits, -math.inf))
+    m = logits.amax(-1)  # (slots, splits, h); -inf for a dead split
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m_safe[..., None])  # 0 on dead keys
+    l_i = p.sum(-1)
+    vc = torch.where(live[:, :, :, None, None], vc, torch.zeros_like(vc))
+    acc = torch.einsum("bchk,bckhd->bchd", p.to(q.dtype).float(), vc)
+    big = m.amax(1, keepdim=True)  # (slots, 1, h)
+    w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
+        torch.isfinite(big), big, torch.zeros_like(big))),
+        torch.zeros_like(m))
+    total = torch.zeros(slots, h, device=q.device)
+    out = torch.zeros(slots, h, d, device=q.device)
+    for i in range(splits):  # split order
+        total = total + l_i[:, i] * w[:, i]
+        out = out + acc[:, i] * w[:, i, :, None]
+    out = out / torch.clamp_min(total, 1e-30)[..., None]
+    return out.reshape(slots, 1, e).to(q.dtype)
+
+
+def _library(name: str):
     from . import _build
 
     lib = _build.load("decode_attention")
-    fn = lib.ff_decode_attention
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 6 + [ci] * 4 + [cll] * 3 + [ci] * 4
-                       + [ctypes.c_float, ci, vp])
+        if name == "ff_decode_attention":
+            fn.argtypes = ([vp] * 5 + [ci] * 4 + [cll] * 3 + [ci]
+                           + [ctypes.c_float, ci, vp])
+        else:
+            fn.argtypes = ([vp] * 8 + [ci] * 4 + [cll] * 3 + [ci] * 5
+                           + [ctypes.c_float, ci, ci, vp])
         fn.restype = ci
     return fn
 
 
-def _launch(counter, q, k, v, lengths, table, *, num_heads, scale,
-            stride_outer, stride_row, block_size, table_width, max_len,
-            num_blocks):
-    """Validate, allocate the output, launch, count. Raises on anything the
-    kernel does not take; there is no fallback."""
-    slots, _, e = q.shape
-    hd = e // num_heads
+def _validate(q, k, v, lengths, num_heads):
+    """Checks every decode launch makes; returns (q dtype code, head_dim,
+    int32 lengths). Raises on anything the kernels do not take."""
+    hd = q.shape[2] // num_heads
     dev = q.device
     for name, t in (("k", k), ("v", v), ("lengths", lengths)):
         if t.device != dev:
@@ -241,24 +343,23 @@ def _launch(counter, q, k, v, lengths, table, *, num_heads, scale,
             or k.stride() != v.stride()):
         raise ValueError("decode attention: q, k, v need unit stride on the "
                          "feature axis and k, v equal strides")
-    lengths = lengths.to(torch.int32).contiguous()
-    if table is not None:
-        if table.device != dev:
-            raise ValueError(f"paged decode: table on {table.device}")
-        table = table.to(torch.int32).contiguous()
-    out = torch.empty((slots, 1, e), dtype=q.dtype, device=dev)
-    fn = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                table.data_ptr() if table is not None else None,
-                out.data_ptr(), slots, num_heads, hd, e, q.stride(0),
-                stride_outer, stride_row, block_size, table_width, max_len,
-                num_blocks, scale, q_code, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode attention kernel launch failed: code {rc}")
-    counter.launches += 1
-    return out
+    return q_code, hd, lengths.to(torch.int32).contiguous()
+
+
+# K3's partials and tickets, kept per (device, stream, geometry): the
+# tickets are zeroed once and left at 0 by every launch
+_SPLIT_SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(dev, stream: int, geo: PagedDecodeGeometry):
+    key = (dev.index, stream, geo.scratch_shape)
+    got = _SPLIT_SCRATCH.get(key)
+    if got is None:
+        got = (torch.empty(geo.scratch_shape, dtype=torch.float32,
+                           device=dev),
+               torch.zeros(geo.tickets, dtype=torch.int32, device=dev))
+        _SPLIT_SCRATCH[key] = got
+    return got
 
 
 def flash_decode_attention(q, k, v, lengths, *, num_heads: int,
@@ -276,11 +377,20 @@ def flash_decode_attention(q, k, v, lengths, *, num_heads: int,
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_decode_attention: cache {tuple(k.shape)} "
                          f"does not match q {tuple(q.shape)}")
-    return _launch(DECODE_COUNTER, q, k, v, lengths, None,
-                   num_heads=num_heads, scale=scale,
-                   stride_outer=k.stride(0), stride_row=k.stride(1),
-                   block_size=1, table_width=0, max_len=k.shape[1],
-                   num_blocks=0)
+    q_code, hd, lengths = _validate(q, k, v, lengths, num_heads)
+    slots, _, e = q.shape
+    dev = q.device
+    out = torch.empty((slots, 1, e), dtype=q.dtype, device=dev)
+    fn = _library("ff_decode_attention")
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), slots, num_heads, hd, e, q.stride(0),
+                k.stride(0), k.stride(1), k.shape[1], scale, q_code,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: code {rc}")
+    DECODE_COUNTER.launches += 1
+    return out
 
 
 def paged_flash_decode_attention(q, pool_k, pool_v, page_table, lengths, *,
@@ -288,7 +398,8 @@ def paged_flash_decode_attention(q, pool_k, pool_v, page_table, lengths, *,
     """Single-query decode attention over a paged block pool (K3). q:
     (slots, 1, H*hd); pool_k/v: (num_blocks, bs, H*hd); page_table:
     (slots, W) int logical->physical block map; lengths: (slots,) int.
-    CPU tensors take the plain version; CUDA tensors launch K3."""
+    CPU tensors take the plain version; CUDA tensors launch K3, split
+    over the keys (`paged_decode_geometry`)."""
     scale = _check_args(q, num_heads, scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -306,13 +417,31 @@ def paged_flash_decode_attention(q, pool_k, pool_v, page_table, lengths, *,
     W = page_table.shape[1]
     if W > _MAX_TABLE_WIDTH:
         raise ValueError(f"paged_flash_decode_attention: page table width "
-                         f"{W} > {_MAX_TABLE_WIDTH} (staged in 48 KB of "
-                         f"shared memory)")
-    return _launch(PAGED_DECODE_COUNTER, q, pool_k, pool_v, lengths,
-                   page_table, num_heads=num_heads, scale=scale,
-                   stride_outer=pool_k.stride(0),
-                   stride_row=pool_k.stride(1), block_size=bs,
-                   table_width=W, max_len=W * bs, num_blocks=nb)
+                         f"{W} > {_MAX_TABLE_WIDTH}")
+    q_code, hd, lengths = _validate(q, pool_k, pool_v, lengths, num_heads)
+    dev = q.device
+    if page_table.device != dev:
+        raise ValueError(f"paged decode: table on {page_table.device}")
+    table = page_table.to(torch.int32).contiguous()
+    slots = q.shape[0]
+    geo = paged_decode_geometry(slots, num_heads, W, bs, hd)
+    vec = split_copies_vectorised(pool_k, pool_v, hd)
+    out = torch.empty((slots, 1, e), dtype=q.dtype, device=dev)
+    fn = _library("ff_paged_decode_attention")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        part, tickets = _split_scratch(dev, stream, geo)
+        rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
+                part.data_ptr(), tickets.data_ptr(), slots, num_heads, hd, e,
+                q.stride(0), pool_k.stride(0), pool_k.stride(1), bs, W, nb,
+                geo.keys_per_split, geo.splits, scale, q_code, int(vec),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"paged decode attention kernel launch failed: "
+                           f"code {rc}")
+    PAGED_DECODE_COUNTER.launches += 1
+    return out
 
 
 # ------------------------------------------------------------------ training

@@ -1,6 +1,6 @@
-"""Fused LayerNorm: the forward kernel K1 and the backward kernel K4
-(Triton), each beside its plain version, and the `autograd.Function` that
-joins them.
+"""Fused LayerNorm: the forward kernel K1 (Triton) and the backward kernel
+K4 (CUDA C++), each beside its plain version, and the `autograd.Function`
+that joins them.
 
 K1 replaces `flexflow_tpu/kernels/layer_norm.py:_fwd_kernel` (48), reached
 through `fused_layer_norm_or_none` (140) -> `_fused_ln` (99) -> `_call_fwd`
@@ -12,26 +12,32 @@ K4 replaces `_bwd_kernel` (59), the backward of the `_fused_ln` custom VJP
 (`_fused_ln_bwd`, 108; `pallas_call` at 113). It recomputes mean and rstd
 from x in f32 rather than saving them, forms xhat and dyh = dy * scale,
 writes dx = rstd * (dyh - mean(dyh) - xhat * mean(dyh * xhat)) cast to x's
-dtype, and per-program partial dscale = sum dy * xhat and dbias = sum dy in
-f32, summed over programs outside the kernel as the TPU wrapper sums its
-row blocks (134). The Function hands dscale and dbias back in scale's and
-bias's dtypes: under bf16 compute those are the bf16 copies of the f32
-masters, and the cast's backward takes them up to f32 again, as in JAX.
+dtype, and dscale = sum dy * xhat and dbias = sum dy in f32, summed over
+rows in a fixed order (per-CTA partial rows, then a column sum in CTA
+order), as the TPU wrapper sums its row blocks (134). The Function hands
+dscale and dbias back in scale's and bias's dtypes: under bf16 compute
+those are the bf16 copies of the f32 masters, and the cast's backward
+takes them up to f32 again, as in JAX.
 
 Bound on the H100: bytes. K1 reads x once and writes y once; K4 reads x
 and dy once and writes dx once (plus the small partials), ~8-20 flops per
 element, far below the tensor-core line. Design: K1 is one Triton program
-per row; K4 one program per 16 rows, accumulating its partials in
-registers. Rows up to 8192 wide stay in registers (one HBM pass); wider
-rows loop over the row (three passes for K1, four for K4, re-reads served
-from cache). The TPU kernels' Mosaic gates (d % 128, rows divisible by an
-8-aligned row block, `layer_norm.py:151-157`) and the 8-sublane broadcast
-of K4's partials (72-77) are tiling rules of the TPU, not semantics, and
-are dropped: on CUDA every last-axis affine LayerNorm launches K1 forward
-and K4 backward.
+per row (rows up to 8192 wide in registers, wider ones in three passes).
+K4 is `csrc/layer_norm.cu` (its header note gives the design): a warp per
+row up to 1024 bf16 / 512 f32 columns, four warps a row up to 4096 / 2048,
+passes over wider rows, on a persistent grid whose shape is
+`layer_norm_bwd_geometry`. The TPU kernels' Mosaic gates (d % 128, rows
+divisible by an 8-aligned row block, `layer_norm.py:151-157`) and the
+8-sublane broadcast of K4's partials (72-77) are tiling rules of the TPU,
+not semantics, and are dropped: on CUDA every last-axis affine LayerNorm
+launches K1 forward and K4 backward.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -42,8 +48,46 @@ LAYER_NORM_BWD_COUNTER = KernelCounter("layer_norm_bwd")
 
 # rows up to this width are normalised in one register-resident block
 _SINGLE_BLOCK_MAX = 8192
-# rows per K4 program: its dscale/dbias partials are (n / 16, d) f32
-_BWD_ROWS = 16
+
+# K4's dtype codes (csrc/layer_norm.cu) and its threads a CTA
+_LN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BWD_THREADS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNormBwdGeometry:
+    """K4's launch shape: `warps_per_row` warps take a row, each thread
+    `ept` of its elements a pass; a `wide` row takes passes of
+    32 * warps_per_row * ept columns (else one, in registers); `grid` CTAs
+    of 128 threads, each striding over rows `rows_in_flight` at a time;
+    `part_shape` the f32 partial rows of dscale and dbias, one per CTA."""
+
+    warps_per_row: int
+    ept: int
+    wide: bool
+    grid: int
+    rows_in_flight: int
+    part_shape: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def layer_norm_bwd_geometry(n: int, d: int, itemsize: int, sms: int,
+                            ctas_per_sm: int) -> LayerNormBwdGeometry:
+    """K4's geometry for n rows of width d of an `itemsize`-byte type on a
+    card of `sms` SMs holding `ctas_per_sm` of its CTAs at once: a warp a
+    row up to 32 ept columns, four up to 128 ept, then passes of 128 ept
+    (ept: 32 for 2-byte types, 16 for f32); as many CTAs as the card holds
+    at once, but no CTA without a row."""
+    if n < 1 or d < 1 or sms < 1 or ctas_per_sm < 1:
+        raise ValueError(f"layer_norm_bwd_geometry: n={n} d={d} sms={sms} "
+                         f"ctas_per_sm={ctas_per_sm}")
+    ept = 32 if itemsize == 2 else 16
+    wpr = 1 if d <= 32 * ept else 4
+    wide = d > 128 * ept
+    in_flight = (_BWD_THREADS // 32) // wpr
+    grid = max(1, min(sms * ctas_per_sm, -(-n // in_flight)))
+    return LayerNormBwdGeometry(wpr, ept, wide, grid, in_flight,
+                                (grid, 2, d))
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -98,25 +142,74 @@ def _launch(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y2
 
 
+_SMS: dict[int, int] = {}
+_OCCUPANCY: dict[tuple, int] = {}
+
+
+def _bwd_library():
+    from . import _build
+
+    lib = _build.load("layer_norm")
+    fn = lib.ff_layer_norm_bwd
+    if fn.argtypes is None:
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 7 + [cll, ci] + [cll] * 3 + [ci, ci,
+                       ctypes.c_float] + [ci] * 5 + [vp])
+        fn.restype = ci
+        occ = lib.ff_layer_norm_bwd_occupancy
+        occ.argtypes = [ci] * 5
+        occ.restype = ci
+    return lib
+
+
+def _vectorised(itemsize: int, d: int, *tensors) -> bool:
+    """Whether K4 may move rows in 16-byte vectors: the width, every row
+    stride and every base a multiple of 16 bytes."""
+    per = 16 // itemsize
+    return d % per == 0 and all(
+        t.data_ptr() % 16 == 0 and t.stride(0) % per == 0 for t in tensors)
+
+
 def _launch_bwd(x2, scale, dy2, eps):
-    import triton
-
-    from ._layer_norm_triton import layer_norm_bwd_kernel
-
     n, d = x2.shape
+    dev = x2.device
+    if dy2.dtype != x2.dtype or scale.dtype not in _LN_DTYPE_CODE:
+        raise TypeError(f"layer_norm_bwd: dy must be in x's dtype {x2.dtype} "
+                        f"and scale float32, bfloat16 or float16 (got dy "
+                        f"{dy2.dtype}, scale {scale.dtype})")
     dx2 = torch.empty_like(x2)
-    single = d <= _SINGLE_BLOCK_MAX
-    block = triton.next_power_of_2(d) if single else 4096
-    progs = triton.cdiv(n, _BWD_ROWS)
-    alloc = torch.empty if single else torch.zeros
-    ds_part = alloc((progs, d), dtype=torch.float32, device=x2.device)
-    db_part = alloc((progs, d), dtype=torch.float32, device=x2.device)
-    layer_norm_bwd_kernel[(progs,)](
-        x2, scale, dy2, dx2, ds_part, db_part, n, d, x2.stride(0),
-        dy2.stride(0), dx2.stride(0), float(eps), ROWS=_BWD_ROWS,
-        BLOCK=block, SINGLE=single, num_warps=4 if block <= 1024 else 8)
+    lib = _bwd_library()
+    code = _LN_DTYPE_CODE[x2.dtype]
+    vec = _vectorised(x2.element_size(), d, x2, dy2, dx2)
+    with torch.cuda.device(dev):
+        sms = _SMS.get(dev.index)
+        if sms is None:
+            sms = _SMS[dev.index] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        geo = layer_norm_bwd_geometry(n, d, x2.element_size(), sms, 1)
+        key = (dev.index, code, geo.warps_per_row, geo.ept, vec, geo.wide)
+        per_sm = _OCCUPANCY.get(key)
+        if per_sm is None:
+            per_sm = lib.ff_layer_norm_bwd_occupancy(
+                code, geo.warps_per_row, geo.ept, int(vec), int(geo.wide))
+            if per_sm < 1:
+                raise RuntimeError(f"layer_norm_bwd: no occupancy for "
+                                   f"{key} (code {per_sm})")
+            _OCCUPANCY[key] = per_sm
+        geo = layer_norm_bwd_geometry(n, d, x2.element_size(), sms, per_sm)
+        part = torch.empty(geo.part_shape, dtype=torch.float32, device=dev)
+        ds, db = torch.empty((2, d), dtype=torch.float32, device=dev)
+        rc = lib.ff_layer_norm_bwd(
+            x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx2.data_ptr(),
+            part.data_ptr(), ds.data_ptr(), db.data_ptr(), n, d,
+            x2.stride(0), dy2.stride(0), dx2.stride(0), code,
+            _LN_DTYPE_CODE[scale.dtype], float(eps), geo.warps_per_row,
+            geo.ept, int(vec), int(geo.wide), geo.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"layer_norm_bwd kernel launch failed: code {rc}")
     LAYER_NORM_BWD_COUNTER.launches += 1
-    return dx2, ds_part.sum(0), db_part.sum(0)
+    return dx2, ds, db
 
 
 def _check_cuda(name, x, **params):

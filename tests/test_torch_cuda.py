@@ -54,6 +54,7 @@ def test_kernels_match_plain_versions_on_card(cuda):
     chip_smoke.train_kernel_parity(cuda, errs)
     assert set(errs) == {"layer_norm_fwd", "flash_decode_attention",
                          "paged_flash_decode_attention", "layer_norm_bwd",
+                         "layer_norm_bwd (lm-xxl)",
                          "flash_attention_fwd", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv",
                          "flash_attention_bwd_fused",
@@ -574,3 +575,141 @@ def test_paged_kernel_stops_on_a_page_table_entry_outside_the_pool(cuda):
     assert proc.returncode != 0 and "NO ERROR" not in proc.stdout, (
         proc.stdout, proc.stderr)
     assert "assert" in proc.stderr.lower(), proc.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_and_layer_norm_backward_give_the_same_bits_twice(
+        cuda, dtype):
+    """K3 merges its splits and K4 sums its partial rows in a fixed order:
+    two launches on the same inputs give the same bits (lm-base's pool at
+    phase 8's lengths; K4 at lm-base's rows and lm-xxl-fsdp's width)."""
+    import chip_smoke
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    args = chip_smoke.paged_inputs(cuda, dtype, 11)
+    assert chip_smoke.same_bits(lambda: fa.paged_flash_decode_attention(
+        *args, num_heads=chip_smoke.HEADS))
+    for n, d in ((4096, 1024), (1024, 4096)):
+        x, s, dy = chip_smoke.ln_bwd_inputs(cuda, dtype, n, d, 12)
+        assert chip_smoke.same_bits(lambda: ln.layer_norm_bwd(x, s, dy,
+                                                              1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_at_lm_xxl_width(cuda, dtype):
+    """K4 at lm-xxl-fsdp's (8192 tokens, 4096) rows: four warps a row."""
+    import chip_smoke
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    x, s, dy = chip_smoke.ln_bwd_inputs(cuda, dtype, 8192, 4096, 13)
+    n0 = ln.LAYER_NORM_BWD_COUNTER.launches
+    got = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.LAYER_NORM_BWD_COUNTER.launches == n0 + 1
+    for a, b in zip(got, ln.layer_norm_bwd_plain(x, s, dy, 1e-5)):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_lm_base_pool(cuda, dtype):
+    """K3 over lm-base's pool (8 slots of 32 pages of 16, 16 heads of 64):
+    shared pages, partial last pages, an empty slot, NaN in every row no
+    slot reads; against its plain version and the split model at the
+    kernel's own split."""
+    import chip_smoke
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    q, pk, pv, table, lengths = chip_smoke.paged_inputs(cuda, dtype, 14)
+    h = chip_smoke.HEADS
+    got = fa.paged_flash_decode_attention(q, pk, pv, table, lengths,
+                                          num_heads=h)
+    torch.cuda.synchronize()
+    geo = fa.paged_decode_geometry(q.shape[0], h, table.shape[1],
+                                   pk.shape[1], q.shape[2] // h)
+    assert geo.splits == 16 and geo.keys_per_split == 32
+    tol = _tol(dtype)
+    for want in (fa.paged_decode_attention_plain(q, pk, pv, table, lengths,
+                                                 num_heads=h),
+                 fa.paged_decode_split_model(
+                     q, pk, pv, table, lengths, num_heads=h,
+                     keys_per_split=geo.keys_per_split)):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim,block,offset", [
+    (64, 128, 0),   # pages wider than a split: runs of 32 keys in a page
+    (256, 16, 0),   # 8-key splits, half a page
+    (62, 7, 0),     # head_dim no multiple of 4: 4-byte copies
+    (64, 16, 1),    # the pool one float past a 16-byte boundary: 4-byte
+])
+def test_paged_split_kernel_variants(cuda, head_dim, block, offset, dtype):
+    """K3's other splits and its 4-byte copies against the plain version,
+    long slots (many splits, merged) beside short ones."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    heads, W = 2, 40
+    lengths = [0, 1, block, 3 * block + 1, W * block - 5, W * block]
+    n, e = len(lengths), heads * head_dim
+    g = torch.Generator().manual_seed(head_dim * 100 + block)
+    nb = n * W + 1
+    flat_k = torch.randn(nb * block * e + offset, generator=g)
+    flat_v = torch.randn(nb * block * e + offset, generator=g)
+    pk = flat_k[offset:].view(nb, block, e)
+    pv = flat_v[offset:].view(nb, block, e)
+    table = torch.zeros(n, W, dtype=torch.int32)
+    perm = torch.randperm(nb - 1, generator=g) + 1
+    for s, length in enumerate(lengths):
+        used = -(-length // block)
+        table[s, :used] = perm[s * W:s * W + used].to(torch.int32)
+        # rows past the cursor in the last page: stale, never read
+        if length % block:
+            pk[table[s, used - 1], length % block:] = float("nan")
+            pv[table[s, used - 1], length % block:] = float("nan")
+    q = torch.randn(n, 1, e, generator=g).to(cuda, dtype)
+    flat_k, flat_v = flat_k.to(cuda), flat_v.to(cuda)
+    pk = flat_k[offset:].view(nb, block, e)
+    pv = flat_v[offset:].view(nb, block, e)
+    table = table.to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    c = fa.PAGED_DECODE_COUNTER
+    n0 = c.launches
+    got = fa.paged_flash_decode_attention(q, pk, pv, table, lens,
+                                          num_heads=heads)
+    torch.cuda.synchronize()
+    assert c.launches == n0 + 1
+    want = fa.paged_decode_attention_plain(q, pk, pv, table, lens,
+                                           num_heads=heads)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scale_dtype,width,row_stride", [
+    (torch.bfloat16, torch.bfloat16, 1001, 1001),  # element loads
+    (torch.float16, torch.float16, 1024, 1024),
+    (torch.bfloat16, torch.float32, 768, 768),     # f32 scale, bf16 rows
+    (torch.float32, torch.float32, 1024, 1030),    # strided rows
+    (torch.bfloat16, torch.bfloat16, 2048, 2056),  # four warps a row
+    (torch.float32, torch.float32, 5000, 5000),    # passes over the row
+])
+def test_layer_norm_backward_kernel_variants(cuda, dtype, scale_dtype,
+                                             width, row_stride):
+    """K4's variants by width, type and layout against its plain version."""
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    rows = 300
+    g = torch.Generator().manual_seed(width + row_stride)
+    xs = (torch.randn(rows, row_stride, generator=g) * 3 + 1).to(cuda, dtype)
+    x = xs[:, :width]
+    s = torch.randn(width, generator=g).to(cuda, scale_dtype)
+    dy = torch.randn(rows, width, generator=g).to(cuda, dtype)
+    got = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    tol = _tol(torch.bfloat16 if dtype == torch.float16 else dtype)
+    for a, b in zip(got, ln.layer_norm_bwd_plain(x, s, dy, 1e-5)):
+        torch.testing.assert_close(a.float(), b.float(), **tol)

@@ -4,7 +4,9 @@ For each of K1 (LayerNorm forward), K2 (contiguous decode attention) and
 K3 (paged decode attention), the port's plain PyTorch version is held
 against the JAX function on the same numpy inputs made from a seed. The
 JAX side runs as its own tests run it on the CPU: the Pallas kernels in
-interpret mode. Tolerances: float32 at rtol = atol = 2e-5, the JAX suite's
+interpret mode; so is K3's split-and-merge arithmetic
+(`paged_decode_split_model`), at 1, 2 and all pages a split. Tolerances:
+float32 at rtol = atol = 2e-5, the JAX suite's
 own bound for its decode kernels (tests/test_serving.py); bfloat16 at
 2e-2, since the two frameworks round bf16 at different points.
 
@@ -295,3 +297,57 @@ def test_multi_query_references_match_jax():
         torch.tensor(q), torch.tensor(k), torch.tensor(v),
         torch.tensor(pos), num_heads=H)
     np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+
+
+# ------------------------------------------------ K3's split-and-merge
+
+
+def _pages_per_split(pages):
+    return S // BS if pages == "W" else pages
+
+
+@pytest.mark.parametrize("pages", [1, 2, "W"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_split_model_matches_jax_kernel(dtype, pages):
+    """The CUDA K3's arithmetic (`paged_decode_split_model`: partials per
+    split of 1, 2 or all W pages, p rounded against the split's max, the
+    splits merged in order) vs the JAX paged decode kernel (interpret
+    mode) on the decode edge cases: an empty slot, one key, both sides of
+    a page boundary, shared pages, NaN in every row no slot reads. The
+    tolerances are the module's: 2e-5 float32, 2e-2 bfloat16 (P rounded
+    against another max than the JAX kernel's running one)."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, pk, pv, table, lengths = _paged_inputs(3)
+    want = jfa.paged_flash_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
+        jnp.asarray(table), jnp.asarray(lengths), num_heads=H,
+        interpret=True)
+    got = tfa.paged_decode_split_model(
+        torch.tensor(q).to(tdt), torch.tensor(pk), torch.tensor(pv),
+        torch.tensor(table), torch.tensor(lengths), num_heads=H,
+        keys_per_split=_pages_per_split(pages) * BS)
+    assert got.dtype == tdt and np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("pages", [1, 2, "W"])
+def test_paged_split_model_rounds_a_halfway_cache_as_jax(pages):
+    """bfloat16 over the float32 cache of values halfway between bfloat16
+    values (chip_smoke.halfway_inputs): the split model, which rounds K
+    and V as it reads them, matches the JAX kernel, which casts the whole
+    cache first, at 2e-2."""
+    import chip_smoke
+
+    lengths = [0, 1, 2, 17, 200, 256]
+    q, k, v, lens = chip_smoke.halfway_inputs(lengths, S, H, HD, 5)
+    pk, pv, table = chip_smoke.pooled(k, v, lens, BS, 6)
+    want = jfa.paged_flash_decode_attention(
+        jnp.asarray(q.numpy(), jnp.bfloat16),
+        jnp.asarray(pk.numpy(), jnp.bfloat16),
+        jnp.asarray(pv.numpy(), jnp.bfloat16), jnp.asarray(table.numpy()),
+        jnp.asarray(lens.numpy()), num_heads=H, interpret=True)
+    got = tfa.paged_decode_split_model(
+        q.bfloat16(), pk, pv, table, lens, num_heads=H,
+        keys_per_split=_pages_per_split(pages) * BS)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **BF16_TOL)
