@@ -7,17 +7,17 @@ Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
 flexflow_tpu_torch/_build/, one nvcc per source, started together:
 csrc/decode_attention.cu, csrc/flash_attention.cu,
-csrc/flash_attention_sm90.cu and csrc/layer_norm.cu; Triton, for K1, at
-its first launch) and drives the main paths of the lm-base
-Transformer LM (vocab 32000, hidden 1024, 16 heads of dim 64, 12 layers,
-seq 512; random weights from seed 0; bf16 activations over fp32 master
-weights), serving and training, and the per-head flash paths: lm-base
-under --flash-transposed, and lm-xxl-fsdp (hidden 4096, 32 heads of dim
-128, seq 2048, vocab 32000) at 4 of its 32 layers, in both layouts.
+csrc/flash_attention_sm90.cu and csrc/layer_norm.cu) and drives the main
+paths of the lm-base Transformer LM (vocab 32000, hidden 1024, 16 heads
+of dim 64, 12 layers, seq 512; random weights from seed 0; bf16
+activations over fp32 master weights), serving and training, and the
+per-head flash paths: lm-base under --flash-transposed, and lm-xxl-fsdp
+(hidden 4096, 32 heads of dim 128, seq 2048, vocab 32000) at 4 of its 32
+layers, in both layouts.
 Phases, each fatal on failure:
 
-  1. build and device: the card's name and power limit, the torch, CUDA
-     and Triton versions, the nvcc builds of csrc/*.cu;
+  1. build and device: the card's name and power limit, the torch and
+     CUDA versions, the nvcc builds of csrc/*.cu;
   2. kernel parity: every kernel (K1-K8) against its plain PyTorch version
      on the card, in float32 and bfloat16, at the main paths' shapes and
      ragged ones, the flash kernels on both layouts (K5-K7 in bfloat16 at
@@ -29,9 +29,10 @@ Phases, each fatal on failure:
      128 (lm-base, lm-xxl, ragged s 130/300/1000, s_q < s_k causal,
      non-causal), "mma" for bf16 at head_dim 32 and 80 and on operands
      whose base TMA refuses, "simt" for float32; each sm90 K8 case twice,
-     bitwise identical; K3 (split-K, merged in a fixed order) and K4 (at
-     lm-base's rows, a ragged width and lm-xxl-fsdp's (8192, 4096)) also
-     bitwise identical on two launches;
+     bitwise identical; K2 and K3 (split-K, merged in a fixed order) and
+     K4 (at lm-base's rows, a ragged width and lm-xxl-fsdp's (8192,
+     4096)) also bitwise identical on two launches; K1 also at the
+     training rows, lm-base's (4096, 1024) and lm-xxl-fsdp's (8192, 4096);
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
@@ -56,8 +57,9 @@ Phases, each fatal on failure:
      call's for the same function (timed here only: the port never calls
      it; for the backward kernels the device time of the kernels of one
      SDPA backward, from the profiler) and the least time the card could
-     take, at each path's shapes (K4 also at lm-xxl-fsdp's (8192,
-     4096)); K5-K8 also on their "mma" variant at the same shapes;
+     take, at each path's shapes (K1 at the training rows and the
+     pure-decode call, K4 also at lm-xxl-fsdp's (8192, 4096)); K5-K8 also
+     on their "mma" variant at the same shapes;
   9. training lm-base under --flash-transposed, bf16, SGD(lr=0.01), fit
      over one batch of 8 x 512, 2 warm-up and 3 timed steps: per step 12
      launches of K5 and K8 ("sm90") on the transposed layout, none of K6
@@ -100,8 +102,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # Kernel vs plain version on the same inputs. float32: the kernels sum in
-# another order (warp-interleaved keys, online softmax, Triton's row
-# reduction) over up to 512 keys or 1024 features. bfloat16: P and the
+# another order (runs of keys merged, online softmax, warp-shuffle row
+# reductions) over up to 512 keys or 4096 features. bfloat16: P and the
 # outputs are rounded to 8 bits of mantissa at different points.
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -110,7 +112,7 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 LOGITS_ATOL = 1e-3
 # Phase 7: float32 gradients of one lm-base train step with the kernels vs
 # with the plain versions. The kernels sum in another order (64-key online
-# softmax against one pass, tiled f32 products, Triton row reductions), so
+# softmax against one pass, tiled f32 products, warp row reductions), so
 # a gradient may differ by a few f32 ulps of its layer's largest gradient
 # entries, grown through 12 layers: the bound is relative to the largest
 # entry over the layer's gradients (the key bias's exact gradient is 0, so
@@ -134,7 +136,6 @@ NEW_TOKENS = 64
 # decode parity/timing lengths: an empty slot, one key, both sides of a
 # block boundary, partial and full caches
 LENGTHS = [0, 1, 15, 16, 17, 300, 512, 384]
-LN_ROWS = (SLOTS, SLOTS * CHUNK)  # pure-decode and prefill-chunk calls
 # training: bench.py's batch and sequence, SGD(lr=0.01); one repeated batch
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -324,13 +325,14 @@ def pooled(k, v, lengths, block, seed):
     return pk, pv, table
 
 
-def ln_inputs(dev, dtype, rows, seed):
+def ln_inputs(dev, dtype, rows, seed, width=EMBED):
+    """K1's inputs (x, scale, bias): rows of `width` in `dtype`."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = (torch.randn(rows, EMBED, generator=g) * 3 + 1).to(dev, dtype)
-    s = torch.randn(EMBED, generator=g).to(dev, dtype)
-    b = torch.randn(EMBED, generator=g).to(dev, dtype)
+    x = (torch.randn(rows, width, generator=g) * 3 + 1).to(dev, dtype)
+    s = torch.randn(width, generator=g).to(dev, dtype)
+    b = torch.randn(width, generator=g).to(dev, dtype)
     return x, s, b
 
 
@@ -377,16 +379,17 @@ def kernel_parity(dev) -> dict:
     errs: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for rows in LN_ROWS:
-            x, s, b = ln_inputs(dev, dtype, rows, SEED + rows)
+        for rows, width in LN_FWD_SHAPES:
+            x, s, b = ln_inputs(dev, dtype, rows, SEED + rows, width)
             n0 = c["layer_norm_fwd"].launches
             got = ln.layer_norm(x, s, b, 1e-5)
             torch.cuda.synchronize()
             require(c["layer_norm_fwd"].launches == n0 + 1, "K1 not launched")
             err = check_close("layer_norm_fwd", got,
                               ln.layer_norm_plain(x, s, b, 1e-5), dn, errs)
-            log(f"  K1 layer_norm_fwd ({rows}, {EMBED}) {dn}: "
+            log(f"  K1 layer_norm_fwd ({rows}, {width}) {dn}: "
                 f"max abs err {err:.3e}")
+            del x, s, b, got
 
         q, k, v, lengths = decode_inputs(dev, dtype, SEED + 1)
         n0 = c["flash_decode_attention"].launches
@@ -398,8 +401,11 @@ def kernel_parity(dev) -> dict:
             "flash_decode_attention", got,
             fa.decode_attention_plain(q, k, v, lengths, num_heads=HEADS),
             dn, errs)
+        require(same_bits(lambda: fa.flash_decode_attention(
+            q, k, v, lengths, num_heads=HEADS)),
+            f"K2 [{dn}]: two launches differ in their bits")
         log(f"  K2 flash_decode_attention {tuple(k.shape)} {dn}: "
-            f"max abs err {err:.3e}")
+            f"max abs err {err:.3e}, the same bits on two launches")
 
         q, pk, pv, table, lengths = paged_inputs(dev, dtype, SEED + 2)
         n0 = c["paged_flash_decode_attention"].launches
@@ -487,6 +493,11 @@ def xxl_flash_case():
 XXL_HIDDEN = 4096
 LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000),
                  (XXL_BATCH * 2048, XXL_HIDDEN)]
+# K1's parity rows: the pure-decode and prefill-chunk calls at lm-base's
+# width, and the training rows of lm-base and lm-xxl-fsdp
+LN_FWD_SHAPES = ((SLOTS, EMBED), (SLOTS * CHUNK, EMBED),
+                 (TRAIN_BATCH * TRAIN_SEQ, EMBED),
+                 (XXL_BATCH * 2048, XXL_HIDDEN))
 
 
 def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
@@ -1349,7 +1360,7 @@ def time_ms(fn, arg_sets, iters=48, reps=5,
     which is what the eager serving step pays per call."""
     import torch
 
-    for args in arg_sets:  # warm-up: Triton compiles at its first launch
+    for args in arg_sets:  # warm-up
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1413,6 +1424,41 @@ def bound(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K1's timed shapes, bf16: (case, rows, width, input sets). The training
+# rows (lm-base's 8 x 512 tokens, lm-xxl-fsdp's 4 x 2048 at width 4096)
+# cycle over sets past the 50 MB L2, as the caller finds them cold; the
+# pure-decode call's (slots, 1024) rows are hot in L2 from the op before.
+LN_FWD_CASES = (("train", TRAIN_BATCH * TRAIN_SEQ, EMBED, 8),
+                ("lm-xxl packed", XXL_BATCH * 2048, XXL_HIDDEN, 2),
+                ("contiguous", SLOTS, EMBED, 1))
+
+
+def ln_fwd_numbers(dev) -> dict:
+    """K1's times by case (`LN_FWD_CASES`), beside `F.layer_norm`'s and
+    its bound: x read once, y written once, scale and bias read once, ~8
+    f32 operations an element."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    out = {}
+    for case, rows, width, n_sets in LN_FWD_CASES:
+        sets = [ln_inputs(dev, torch.bfloat16, rows, SEED + 40 + i, width)
+                for i in range(n_sets)]
+        out[case] = dict(timed(
+            lambda *a: ln.layer_norm(*a, 1e-5),
+            lambda *a: ln.layer_norm_plain(*a, 1e-5),
+            lambda x, s, b, width=width: F.layer_norm(x, (width,), s, b,
+                                                      1e-5),
+            sets, sets,
+            *bound(2 * rows * width * 2 + 2 * width * 2, 8 * rows * width,
+                   "bfloat16")), shape=f"({rows}, {width}) bf16")
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_numbers(dev) -> dict:
     """Times at the main path's shapes and types: bf16 activations, f32
     KV state. Returns {kernel name: numbers}."""
@@ -1425,17 +1471,7 @@ def kernel_numbers(dev) -> dict:
     bf16 = torch.bfloat16
     out = {}
 
-    # K1 at the pure-decode call: (slots, 1024) rows, the input hot in L2
-    # as it comes from the op before
-    x, s, b = ln_inputs(dev, bf16, SLOTS, SEED)
-    n, d = x.shape
-    out["layer_norm_fwd"] = timed(
-        lambda *a: ln.layer_norm(*a, 1e-5),
-        lambda *a: ln.layer_norm_plain(*a, 1e-5),
-        lambda x, s, b: F.layer_norm(x, (d,), s, b, 1e-5),
-        [(x, s, b)], [(x, s, b)],
-        *bound(2 * n * d * 2 + 2 * d * 2, 8 * n * d, "bfloat16"))
-
+    out["layer_norm_fwd"] = ln_fwd_numbers(dev)
     live = sum(LENGTHS)
     ops = 4.0 * live * EMBED  # q.k and p.v per live key and feature
     small = len(LENGTHS) * EMBED * (2 + 2) + len(LENGTHS) * 4  # q, out, len
@@ -1690,8 +1726,7 @@ def per_head_kernel_numbers(dev) -> dict:
     return out
 
 
-LN_SRC = "flexflow_tpu_torch/kernels/_layer_norm_triton.py"
-LN_BWD_SRC = "flexflow_tpu_torch/csrc/layer_norm.cu"
+LN_SRC = "flexflow_tpu_torch/csrc/layer_norm.cu"
 DECODE_SRC = "flexflow_tpu_torch/csrc/decode_attention.cu"
 FLASH_SRC = "flexflow_tpu_torch/csrc/flash_attention.cu"
 SM90_SRC = "flexflow_tpu_torch/csrc/flash_attention_sm90.cu"
@@ -1705,15 +1740,15 @@ VARIANT_SOURCES = {"sm90": SM90_SRC, "mma": FLASH_SRC, "simt": FLASH_SRC}
 # head_dim 32 and 80 and on unaligned operands; phase 8 times it beside,
 # as `mma_ms`).
 KERNELS = [
-    ("layer_norm_fwd", "layer_norm_fwd", "triton", LN_SRC,
+    ("layer_norm_fwd", "layer_norm_fwd", "cuda", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:48", "train"),
     ("flash_decode_attention", "flash_decode_attention", "cuda", DECODE_SRC,
      f"{TPU_FA}:1261", "contiguous"),
     ("paged_flash_decode_attention", "paged_flash_decode_attention", "cuda",
      DECODE_SRC, f"{TPU_FA}:1446", "paged"),
-    ("layer_norm_bwd", "layer_norm_bwd", "cuda", LN_BWD_SRC,
+    ("layer_norm_bwd", "layer_norm_bwd", "cuda", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:59", "train"),
-    ("layer_norm_bwd (lm-xxl)", "layer_norm_bwd", "cuda", LN_BWD_SRC,
+    ("layer_norm_bwd (lm-xxl)", "layer_norm_bwd", "cuda", LN_SRC,
      "flexflow_tpu/kernels/layer_norm.py:59", "lm-xxl packed"),
     ("flash_attention_fwd", "flash_attention_fwd", "cuda", SM90_SRC,
      f"{TPU_FA}:705", "train"),
@@ -1774,8 +1809,6 @@ def main(argv: list[str]) -> int:
               "only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import triton
-
     from flexflow_tpu_torch.executor import set_float_policy
 
     dev = torch.device("cuda")
@@ -1785,7 +1818,7 @@ def main(argv: list[str]) -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"triton {triton.__version__}, python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}")
     set_float_policy()  # full float32 matmuls (no TF32), stated
     build_s = build_kernels()
 
@@ -1910,7 +1943,7 @@ def main(argv: list[str]) -> int:
     per_head = {"lm-base transposed": train_t, "lm-xxl packed": train_x,
                 "lm-xxl transposed": train_xt}
     detail = dict(card=card, torch=torch.__version__,
-                  cuda=torch.version.cuda, triton=triton.__version__,
+                  cuda=torch.version.cuda,
                   build_s=build_s, kernels=rows, serving=serving,
                   logits_max_abs=logit_err, streams_identical=same,
                   f32_streams=f32_streams,

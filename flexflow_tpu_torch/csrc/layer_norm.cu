@@ -1,45 +1,60 @@
-// LayerNorm backward over the last axis (K4): dx, dscale and dbias.
+// LayerNorm over the last axis: the forward (K1), y, and the backward
+// (K4), dx, dscale and dbias.
 //
-// Replaces the TPU kernel flexflow_tpu/kernels/layer_norm.py:_bwd_kernel
-// (59), the backward of the _fused_ln custom VJP (_fused_ln_bwd, 108;
-// pallas_call at 113).
+// Replaces the TPU kernels flexflow_tpu/kernels/layer_norm.py:_fwd_kernel
+// (48), reached through fused_layer_norm_or_none (140) -> _fused_ln (99)
+// -> _call_fwd (80; pallas_call at 84), and _bwd_kernel (59), the backward
+// of the _fused_ln custom VJP (_fused_ln_bwd, 108; pallas_call at 113).
 //
-// What it computes, per row of x (n, d), in f32: mean, the variance of
+// What they compute, per row of x (n, d), in f32: mean, the variance of
 // the centred row (not E[x^2] - mean^2), rstd = rsqrt(var + eps), xhat =
-// (x - mean) rstd, dyh = dy scale, and dx = rstd (dyh - mean(dyh) - xhat
-// mean(dyh xhat)) cast once to x's dtype; over rows, dscale = sum dy xhat
-// and dbias = sum dy, both f32. x and dy are f32, bf16 or f16 (one type);
-// scale is any of the three, read as f32.
+// (x - mean) rstd. K1: y = xhat scale + bias, cast once to x's dtype; x
+// is f32, bf16 or f16, scale and bias each any of the three, read as f32.
+// K4: dyh = dy scale, and dx = rstd (dyh - mean(dyh) - xhat mean(dyh
+// xhat)) cast once to x's dtype; over rows, dscale = sum dy xhat and dbias
+// = sum dy, both f32. x and dy are f32, bf16 or f16 (one type); scale is
+// any of the three, read as f32.
 //
-// Bound on the H100: bytes. x and dy are read once and dx written once
-// (3 n d elements; lm-base's (4096, 1024) bf16: 25.2 MB, 7.5 us at 3.35
-// TB/s; lm-xxl-fsdp's (8192, 4096): 201 MB, 60.1 us), at ~16 f32
-// operations an element, far below the tensor-core line.
+// Bound on the H100: bytes. K1 reads x once and writes y once (2 n d
+// elements; lm-base's (4096, 1024) bf16: 16.8 MB, 5.0 us at 3.35 TB/s;
+// lm-xxl-fsdp's (8192, 4096): 134 MB, 40.1 us), at ~8 f32 operations an
+// element. K4 reads x and dy once and writes dx once (3 n d elements;
+// 25.2 MB, 7.5 us; 201 MB, 60.1 us), at ~16. Both far below the
+// tensor-core line.
 //
 // Design. Rows live in registers and are reduced inside the warp:
-//  - "rows" kernel, d <= 32 EPT (EPT = 32 elements a thread in bf16/f16,
-//    16 in f32: d <= 1024 / 512): one warp takes a row, 16-byte loads
-//    (VEC; else element loads, for widths or strides that are no
-//    multiple of 16 bytes), statistics by __shfl_xor_sync with no block
-//    barrier. d <= 128 EPT (4096 / 2048): four warps take a row, one
-//    shared-memory exchange per reduction (two buffers, one barrier).
-//  - "wide" kernel, wider rows: four warps a row, passes of 128 EPT
-//    columns (mean, centred variance, the two dot products, then dx),
-//    the re-reads served from L2.
+//  - "rows" kernels, d <= 32 EPT (EPT elements a thread; K4: 32 in
+//    bf16/f16, 16 in f32, so d <= 1024 / 512): one warp takes a row,
+//    16-byte loads (VEC; else element loads, for widths or strides that
+//    are no multiple of 16 bytes), statistics by __shfl_xor_sync with no
+//    block barrier. d <= 128 EPT (4096 / 2048): four warps take a row,
+//    one shared-memory exchange per reduction (two buffers, one barrier).
+//    K1 takes the fewest elements a thread that cover the row with four
+//    warps, in whole 16-byte vectors (8, 16 or 32 bf16; 4, 8 or 16 f32):
+//    at lm-base's 1024 four warps of 8, which hold 4x more rows in flight
+//    an SM than one warp of 32 (fewer registers a thread).
+//  - "wide" kernels, wider rows: four warps a row (K1 also one, for
+//    launch-shape sweeps), passes of 32 warps EPT columns (mean, centred
+//    variance, then y; K4: the two dot products, then dx), the re-reads
+//    served from L2.
 //  - A persistent grid: SMs x resident CTAs of 128 threads (the wrapper
-//    takes the count from `ff_layer_norm_bwd_occupancy` and the SM count,
-//    read once), each CTA striding over rows. A warp issues the next
-//    row's loads into registers before this row's math, so each SM keeps
-//    a few rows in flight.
-//  - dscale and dbias: a thread's columns are the same on every row, so
-//    it keeps their sums in registers across its rows. The CTA adds its
+//    takes the count from `ff_layer_norm_fwd_occupancy` /
+//    `ff_layer_norm_bwd_occupancy` and the SM count, read once), each CTA
+//    striding over rows. A warp issues the next row's loads into
+//    registers before this row's math, so each SM keeps a few rows in
+//    flight.
+//  - K1: a thread owns the same columns on every row, so it loads their
+//    scale and bias once, into registers (16-byte vectors of their own
+//    dtype where VEC), after its first row's x.
+//  - K4's dscale and dbias: a thread's columns are the same on every row,
+//    so it keeps their sums in registers across its rows. The CTA adds its
 //    row groups in order into one partial row (n_ctas, 2, d) f32 (the
 //    wide kernel adds into it in place, row by row). A second small
 //    kernel of this file, in the same entry, sums the partial rows in
 //    CTA order (32 warps a 32-column slice, each a fixed subset of rows,
 //    then the warps in order). No float atomics: the bits are the same
 //    from launch to launch.
-// The TPU kernel's Mosaic gates (d % 128, 8-aligned row blocks) and its
+// The TPU kernels' Mosaic gates (d % 128, 8-aligned row blocks) and K4's
 // 8-sublane broadcast of the partials are TPU tiling, not semantics.
 
 #include <cuda_bf16.h>
@@ -167,6 +182,29 @@ __device__ __forceinline__ float2 row_sum(float a, float b,
   return r;
 }
 
+// A row's (mean, rstd) in f32 from the EPT elements a thread holds of it
+// (masked columns hold 0): the mean first, then the mean of the centred
+// row's squares, never E[x^2] - mean^2
+template <typename C, int WPR, int EPT, typename T>
+__device__ __forceinline__ float2 row_stats(const T (&xr)[EPT], int t, int d,
+                                            float eps,
+                                            float2 (*sm_red)[kWarps],
+                                            int& turn) {
+  const float fd = (float)d;
+  float sx = 0.f;
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) sx += to_f(xr[i]);  // masked columns: 0
+  const float mean = row_sum<WPR>(sx, 0.f, sm_red, turn).x / fd;
+  float sv = 0.f;
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const float c = to_f(xr[i]) - mean;
+    if (C::col(0, t, i) < d) sv += c * c;
+  }
+  return make_float2(
+      mean, rsqrtf(row_sum<WPR>(sv, 0.f, sm_red, turn).x / fd + eps));
+}
+
 // scale as f32 into shared memory in the rows kernel's per-thread order
 // (element i of thread t at [i * NT + t]): every load issued before the
 // first store, so the CTA's prologue costs one memory round trip
@@ -199,17 +237,8 @@ __device__ __forceinline__ void row_math(const T (&xr)[EPT],
                                          int& turn) {
   constexpr int NT = C::kNT;
   const float fd = (float)d;
-  float sx = 0.f;
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) sx += to_f(xr[i]);  // masked columns: 0
-  const float mean = row_sum<WPR>(sx, 0.f, sm_red, turn).x / fd;
-  float sv = 0.f;
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const float c = to_f(xr[i]) - mean;
-    if (C::col(0, t, i) < d) sv += c * c;
-  }
-  const float rstd = rsqrtf(row_sum<WPR>(sv, 0.f, sm_red, turn).x / fd + eps);
+  const float2 st = row_stats<C, WPR>(xr, t, d, eps, sm_red, turn);
+  const float mean = st.x, rstd = st.y;
   float a1 = 0.f, a2 = 0.f;
 #pragma unroll
   for (int i = 0; i < EPT; ++i) {
@@ -440,6 +469,202 @@ ln_bwd_colsum(const float* __restrict__ part, int parts, int d,
   }
 }
 
+// ------------------------------------------------------------------ K1
+
+struct LnFwd {
+  const void* x;
+  const void* scale;
+  const void* bias;
+  void* y;
+  long long n;
+  long long x_stride;
+  long long y_stride;
+  int d;
+  int scale_code;
+  int bias_code;
+  float eps;
+};
+
+// The EPT columns a thread owns (the rows kernel's), as f32 (0 past d),
+// from an array of S: with VEC, a vector of x's V columns at a time (V
+// elements of S: 8, 16 or 32 bytes, one or two loads; the array 16-byte
+// aligned), else an element at a time
+template <typename C, int EPT, bool VEC, typename S>
+__device__ __forceinline__ void load_cols(float (&r)[EPT], const S* src,
+                                          int t, int d) {
+  constexpr int V = C::V;
+  constexpr int B = V * (int)sizeof(S);
+#pragma unroll
+  for (int j = 0; j < EPT / V; ++j) {
+    const int c = C::col(0, t, j * V);
+    if (VEC) {
+      __align__(16) S w[V];
+      if (c < d) {
+        if constexpr (B % 16 == 0) {
+#pragma unroll
+          for (int q = 0; q < B / 16; ++q)
+            reinterpret_cast<uint4*>(w)[q] =
+                __ldg(reinterpret_cast<const uint4*>(src + c) + q);
+        } else {
+          *reinterpret_cast<uint2*>(w) =
+              __ldg(reinterpret_cast<const uint2*>(src + c));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) r[j * V + k] = c < d ? to_f(w[k]) : 0.f;
+    } else {
+      r[j] = c < d ? to_f(src[c]) : 0.f;
+    }
+  }
+}
+
+template <typename C, int EPT, bool VEC>
+__device__ __forceinline__ void load_cols(float (&r)[EPT], const void* src,
+                                          int code, int t, int d) {
+  if (code == kBF16)
+    load_cols<C, EPT, VEC>(r, (const __nv_bfloat16*)src, t, d);
+  else if (code == kF16)
+    load_cols<C, EPT, VEC>(r, (const __half*)src, t, d);
+  else
+    load_cols<C, EPT, VEC>(r, (const float*)src, t, d);
+}
+
+// d <= 32 * WPR * EPT: a row in registers, WPR warps a row, kWarps / WPR
+// rows in flight a CTA. A thread owns the same columns on every row, so
+// scale and bias stay in its registers, loaded once; the next row's x is
+// issued before this row's math.
+template <typename T, int WPR, int EPT, bool VEC>
+__global__ void __launch_bounds__(kThreads) ln_fwd_rows(LnFwd p) {
+  constexpr int NT = 32 * WPR;
+  constexpr int G = kWarps / WPR;
+  using C = Cols<T, NT, EPT, VEC>;
+  __shared__ float2 sm_red[2][kWarps];
+  const int g = (threadIdx.x >> 5) / WPR;
+  const int t = threadIdx.x % NT;
+  const int d = p.d;
+  const T* x = (const T*)p.x;
+  T* y = (T*)p.y;
+  const long long step = (long long)gridDim.x * G;
+  long long row = (long long)blockIdx.x * G + g;
+  // the first row's loads go out first, then the scale's and the bias's
+  __align__(16) T xr[EPT];
+  if (row < p.n) C::load(xr, x + row * p.x_stride, 0, t, d);
+  float sc[EPT], bi[EPT];
+  load_cols<C, EPT, VEC>(sc, p.scale, p.scale_code, t, d);
+  load_cols<C, EPT, VEC>(bi, p.bias, p.bias_code, t, d);
+  int turn = 0;
+  for (; row < p.n; row += step) {
+    __align__(16) T xn[EPT];
+    if (row + step < p.n) C::load(xn, x + (row + step) * p.x_stride, 0, t, d);
+    const float2 st = row_stats<C, WPR>(xr, t, d, p.eps, sm_red, turn);
+    T* yrow = y + row * p.y_stride;
+#pragma unroll
+    for (int j = 0; j < EPT / C::V; ++j) {
+      float out[C::V];
+#pragma unroll
+      for (int k = 0; k < C::V; ++k) {
+        const int i = j * C::V + k;
+        out[k] = (to_f(xr[i]) - st.x) * st.y * sc[i] + bi[i];
+      }
+      C::store(yrow, out, 0, t, d, j);
+    }
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) xr[i] = xn[i];
+  }
+}
+
+// d > 32 * WPR * EPT: WPR warps a row, passes of 32 WPR EPT columns (mean,
+// centred variance, then y), the re-reads served from L2
+template <typename T, int WPR, int EPT, bool VEC>
+__global__ void __launch_bounds__(kThreads) ln_fwd_wide(LnFwd p) {
+  constexpr int NT = 32 * WPR;
+  constexpr int G = kWarps / WPR;
+  constexpr int W = NT * EPT;
+  using C = Cols<T, NT, EPT, VEC>;
+  __shared__ float2 sm_red[2][kWarps];
+  const int g = (threadIdx.x >> 5) / WPR;
+  const int t = threadIdx.x % NT;
+  const int d = p.d;
+  const float fd = (float)d;
+  int turn = 0;
+  for (long long row = (long long)blockIdx.x * G + g; row < p.n;
+       row += (long long)gridDim.x * G) {
+    const T* xrow = (const T*)p.x + row * p.x_stride;
+    T* yrow = (T*)p.y + row * p.y_stride;
+    __align__(16) T xr[EPT];
+    float sx = 0.f;
+    for (int off = 0; off < d; off += W) {
+      C::load(xr, xrow, off, t, d);
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) sx += to_f(xr[i]);
+    }
+    const float mean = row_sum<WPR>(sx, 0.f, sm_red, turn).x / fd;
+    float sv = 0.f;
+    for (int off = 0; off < d; off += W) {
+      C::load(xr, xrow, off, t, d);
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) {
+        const float c = to_f(xr[i]) - mean;
+        if (C::col(off, t, i) < d) sv += c * c;
+      }
+    }
+    const float rstd =
+        rsqrtf(row_sum<WPR>(sv, 0.f, sm_red, turn).x / fd + p.eps);
+    for (int off = 0; off < d; off += W) {
+      C::load(xr, xrow, off, t, d);
+#pragma unroll
+      for (int j = 0; j < EPT / C::V; ++j) {
+        float out[C::V];
+#pragma unroll
+        for (int k = 0; k < C::V; ++k) {
+          const int i = j * C::V + k;
+          const int c = C::col(off, t, i);
+          const float s = c < d ? load_scale(p.scale, p.scale_code, c) : 0.f;
+          const float b = c < d ? load_scale(p.bias, p.bias_code, c) : 0.f;
+          out[k] = (to_f(xr[i]) - mean) * rstd * s + b;
+        }
+        C::store(yrow, out, off, t, d, j);
+      }
+    }
+  }
+}
+
+using FwdKernel = void (*)(LnFwd);
+
+// K1's instantiation for (wpr, ept, vec, wide), or null. With V = 16 /
+// sizeof(T) (a 16-byte vector) and E = 4 V (32 for 2-byte types, 16 for
+// f32): rows kernels at (1, V), (4, V), (4, 2 V), (4, E) and (1, E) (one
+// warp a row at the widest, for launch-shape sweeps); wide kernels at
+// (4, E) and (1, E).
+template <typename T>
+FwdKernel pick_fwd(int wpr, int ept, int vec, int wide) {
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int E = 4 * V;
+#define FF_PICK(KERNEL, WPR, EPT)                                          \
+  if (wpr == WPR && ept == EPT)                                            \
+    return vec ? FwdKernel(KERNEL<T, WPR, EPT, true>)                      \
+               : FwdKernel(KERNEL<T, WPR, EPT, false>);
+  if (wide) {
+    FF_PICK(ln_fwd_wide, 4, E)
+    FF_PICK(ln_fwd_wide, 1, E)
+    return nullptr;
+  }
+  FF_PICK(ln_fwd_rows, 1, V)
+  FF_PICK(ln_fwd_rows, 4, V)
+  FF_PICK(ln_fwd_rows, 4, 2 * V)
+  FF_PICK(ln_fwd_rows, 4, E)
+  FF_PICK(ln_fwd_rows, 1, E)
+#undef FF_PICK
+  return nullptr;
+}
+
+FwdKernel pick_fwd_type(int dtype, int wpr, int ept, int vec, int wide) {
+  if (dtype == kF32) return pick_fwd<float>(wpr, ept, vec, wide);
+  if (dtype == kBF16) return pick_fwd<__nv_bfloat16>(wpr, ept, vec, wide);
+  if (dtype == kF16) return pick_fwd<__half>(wpr, ept, vec, wide);
+  return nullptr;
+}
+
 using Kernel = void (*)(LnBwd);
 
 // The instantiation for (wpr, ept, vec, wide), or null: EPT is 32 for
@@ -507,6 +732,42 @@ extern "C" int ff_layer_norm_bwd(const void* x, const void* dy,
 extern "C" int ff_layer_norm_bwd_occupancy(int x_dtype, int wpr, int ept,
                                            int vec, int wide) {
   Kernel k = pick_type(x_dtype, wpr, ept, vec, wide);
+  if (k == nullptr) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                    0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// K1: y = (x - mean) rstd scale + bias over rows of x (n, d), y in x's
+// dtype `x_dtype`, scale and bias each f32, bf16 or f16 (their own
+// codes). The geometry (wpr, ept, vec, wide, grid) comes from the
+// wrapper. Returns a cudaError_t code (0 = the launch was accepted), or -1
+// for a geometry or dtype it was not built for.
+extern "C" int ff_layer_norm_fwd(const void* x, const void* scale,
+                                 const void* bias, void* y, long long n,
+                                 int d, long long x_stride,
+                                 long long y_stride, int x_dtype,
+                                 int scale_dtype, int bias_dtype, float eps,
+                                 int wpr, int ept, int vec, int wide,
+                                 int grid, void* stream) {
+  FwdKernel k = pick_fwd_type(x_dtype, wpr, ept, vec, wide);
+  if (k == nullptr || n < 1 || d < 1 || grid < 1 || scale_dtype < kF32 ||
+      scale_dtype > kF16 || bias_dtype < kF32 || bias_dtype > kF16 ||
+      (!wide && d > 32 * wpr * ept))
+    return -1;
+  LnFwd p{x, scale, bias, y, n, x_stride, y_stride, d, scale_dtype,
+          bias_dtype, eps};
+  k<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of one K1 instantiation that fit on an SM at once (the persistent
+// grid's depth), or -1 for one it was not built for.
+extern "C" int ff_layer_norm_fwd_occupancy(int x_dtype, int wpr, int ept,
+                                           int vec, int wide) {
+  FwdKernel k = pick_fwd_type(x_dtype, wpr, ept, vec, wide);
   if (k == nullptr) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,

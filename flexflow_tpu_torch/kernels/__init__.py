@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version in the same module.
 
-  K1 layer_norm.layer_norm               Triton  (TPU: layer_norm.py:_fwd_kernel)
+  K1 layer_norm.layer_norm               CUDA    (TPU: layer_norm.py:_fwd_kernel)
   K2 flash_attention.flash_decode_attention        CUDA (TPU: _decode_kernel)
   K3 flash_attention.paged_flash_decode_attention  CUDA (TPU: _paged_decode_kernel)
   K4 layer_norm.layer_norm_bwd           CUDA    (TPU: layer_norm.py:_bwd_kernel)
@@ -14,10 +14,11 @@ version in the same module.
   K8 flash_attention.flash_attention_bwd_fused
                                              CUDA (TPU: _bwd_single_tile_kernel)
 
-K1 and K4 are the forward and backward of `layer_norm.fused_layer_norm`;
-K5-K8 those of `flash_attention.flash_attention_packed`,
-`flash_attention` and `flash_attention_with_lse` (all
-`torch.autograd.Function`s).
+K1 and K4 are the forward and backward of `layer_norm.fused_layer_norm`
+(one source, `csrc/layer_norm.cu`); K2 and K3 are one split-K kernel over
+two layouts (`csrc/decode_attention.cu`); K5-K8 are the forward and
+backward of `flash_attention.flash_attention_packed`, `flash_attention`
+and `flash_attention_with_lse` (all `torch.autograd.Function`s).
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises. Every wrapper counts its kernel

@@ -62,12 +62,13 @@ functions themselves refuse that shape.
 
 Decode: the references are the multi-query path (prefill chunks, q_len > 1), in
 plain torch on every device, as the JAX package runs them on every backend.
-K2 and K3 are single-query, in `csrc/decode_attention.cu` (its header
-note gives the bound and the designs): K2 a block per (slot, head); K3
-split-K, a CTA per run of keys (`paged_decode_geometry`, from shapes
-alone) and a merge of the runs in a fixed order by the last to finish,
-with `paged_decode_split_model` its arithmetic in plain PyTorch, which no
-path calls. Each has a plain version here that repeats the TPU kernel's
+K2 and K3 are single-query, one split-K kernel in
+`csrc/decode_attention.cu` (its header note gives the bound and the
+design) over either layout: a CTA per run of keys (`decode_split_geometry`,
+`paged_decode_geometry`, from shapes alone) and a merge of the runs in a
+fixed order by the last to finish, with `decode_split_model` and
+`paged_decode_split_model` its arithmetic in plain PyTorch, which no path
+calls. Each has a plain version here that repeats the TPU kernel's
 arithmetic in one pass: f32 logits from compute-dtype operands, `-1e30`
 masking, V rows past the cursor zeroed, P rounded to V's dtype before P.V,
 `acc / max(l, 1e-30)`. The Mosaic gates of the TPU wrappers (s_k < 128,
@@ -211,11 +212,12 @@ def _check_args(q, num_heads, scale):
 
 
 @dataclasses.dataclass(frozen=True)
-class PagedDecodeGeometry:
-    """K3's launch shape: each (slot, head)'s W*bs logical keys in
-    `splits` runs of `keys_per_split`; `grid` (splits, heads, slots)
-    CTAs; `scratch_shape` the f32 partials (m, l, acc[hd]) of every split;
-    `tickets` the per-(slot, head) arrival counters."""
+class DecodeSplitGeometry:
+    """The decode kernel's launch shape, either layout: each (slot,
+    head)'s logical keys in `splits` runs of `keys_per_split`; `grid`
+    (splits, heads, slots) CTAs; `scratch_shape` the f32 partials (m, l,
+    acc[hd]) of every split; `tickets` the per-(slot, head) arrival
+    counters."""
 
     keys_per_split: int
     splits: int
@@ -224,65 +226,82 @@ class PagedDecodeGeometry:
     tickets: int
 
 
-@functools.lru_cache(maxsize=256)
-def paged_decode_geometry(slots: int, heads: int, W: int, bs: int,
-                          hd: int) -> PagedDecodeGeometry:
-    """K3's split of the keys, from shapes alone (the lengths are never
-    read on the host): a split stages `rows` = min(32, 2048 // hd) keys,
-    16 KB of f32 K and V at most (the kernel takes up to 64 keys and 4096
-    floats of each; at lm-base's head_dim 64, 32-key splits ran faster
-    than 64-key ones on the H100: more CTAs resident at once, and a long
-    slot spread wider); a page no wider than that gives whole pages (bs *
-    (rows // bs) keys), a wider one runs of `rows` keys inside it."""
-    if min(slots, heads, W, bs, hd) < 1 or hd > _MAX_HEAD_DIM:
-        raise ValueError(f"paged_decode_geometry: slots={slots} heads="
-                         f"{heads} W={W} bs={bs} hd={hd}")
-    rows = min(32, 2048 // hd)
-    kps = bs * (rows // bs) if bs <= rows else rows
-    splits = -(-(W * bs) // kps)
-    return PagedDecodeGeometry(kps, splits, (splits, heads, slots),
+def _split_rows(hd: int) -> int:
+    """Keys a split stages: min(32, 2048 // hd), 16 KB of f32 K and V at
+    most (the kernel takes up to 64 keys and 4096 floats of each; at
+    lm-base's head_dim 64, 32-key splits ran faster than 16-key ones on
+    the H100 and no slower than 64-key ones; `kernel_sweep.py` times
+    them)."""
+    return min(32, 2048 // hd)
+
+
+def _split_geometry(slots, heads, n_keys, kps, hd) -> DecodeSplitGeometry:
+    splits = -(-n_keys // kps)
+    return DecodeSplitGeometry(kps, splits, (splits, heads, slots),
                                (slots, heads, splits, hd + 2),
                                slots * heads)
 
 
-def split_copies_vectorised(pool_k, pool_v, hd: int) -> bool:
-    """Whether K3 may copy K and V rows in 16-byte pieces: head_dim, the
-    pool's block and row strides and both bases in whole 4-float units
-    (else it takes 4-byte copies)."""
-    return (hd % 4 == 0 and pool_k.stride(0) % 4 == 0
-            and pool_k.stride(1) % 4 == 0 and pool_k.data_ptr() % 16 == 0
-            and pool_v.data_ptr() % 16 == 0)
+@functools.lru_cache(maxsize=256)
+def decode_split_geometry(slots: int, heads: int, S: int,
+                          hd: int) -> DecodeSplitGeometry:
+    """K2's split of a contiguous cache of S keys a slot, from shapes alone
+    (the lengths are never read on the host): runs of `_split_rows(hd)`
+    keys, the last one short where S is no multiple of it."""
+    if min(slots, heads, S, hd) < 1 or hd > _MAX_HEAD_DIM:
+        raise ValueError(f"decode_split_geometry: slots={slots} heads="
+                         f"{heads} S={S} hd={hd}")
+    return _split_geometry(slots, heads, S, _split_rows(hd), hd)
 
 
-def paged_decode_split_model(q, pool_k, pool_v, page_table, lengths, *,
-                             num_heads: int, keys_per_split: int,
-                             scale: float | None = None):
-    """K3's split-and-merge arithmetic in plain PyTorch, on the CPU or
-    the card; no path calls it (the tests hold it to the JAX kernel). Per
-    split of `keys_per_split` logical keys: logits in f32 from rounded
-    K, the split's max m_i over its live keys, p = exp(logit - m_i), l_i
-    = sum p, acc_i = sum round(p) round(V); then, over the live splits in
-    order, M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i
+@functools.lru_cache(maxsize=256)
+def paged_decode_geometry(slots: int, heads: int, W: int, bs: int,
+                          hd: int) -> DecodeSplitGeometry:
+    """K3's split of W pages of bs keys, from shapes alone: a page no wider
+    than `_split_rows(hd)` keys gives whole pages (bs * (rows // bs) keys),
+    a wider one runs of `rows` keys inside it."""
+    if min(slots, heads, W, bs, hd) < 1 or hd > _MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_geometry: slots={slots} heads="
+                         f"{heads} W={W} bs={bs} hd={hd}")
+    rows = _split_rows(hd)
+    kps = bs * (rows // bs) if bs <= rows else rows
+    return _split_geometry(slots, heads, W * bs, kps, hd)
+
+
+def split_copies_vectorised(k, v, hd: int) -> bool:
+    """Whether K2 or K3 may copy K and V rows in 16-byte pieces: head_dim,
+    the cache's (slot or block) and row strides and both bases in whole
+    4-float units (else it takes 4-byte copies)."""
+    return (hd % 4 == 0 and k.stride(0) % 4 == 0 and k.stride(1) % 4 == 0
+            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+
+
+def decode_split_model(q, k, v, lengths, *, num_heads: int,
+                       keys_per_split: int, scale: float | None = None):
+    """The split kernel's arithmetic in plain PyTorch over a contiguous
+    cache k/v (slots, S, E) of any float dtype, on the CPU or the card; no
+    path calls it (the tests hold it to the JAX kernels). The cursor is
+    clamped to S. Per split of `keys_per_split` keys: logits in f32 from
+    rounded K, the split's max m_i over its live keys, p = exp(logit -
+    m_i), l_i = sum p, acc_i = sum round(p) round(V); then, over the live
+    splits in order, M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i
     e^(m_i - M), 1e-30), cast once; an empty slot gives 0."""
     scale = _check_args(q, num_heads, scale)
     slots, _, e = q.shape
-    W = page_table.shape[1]
-    bs = pool_k.shape[1]
+    n_keys = k.shape[1]
     h, d = num_heads, e // num_heads
-    n_keys = W * bs
     splits = -(-n_keys // keys_per_split)
     pad = splits * keys_per_split - n_keys
-    tbl = page_table.long()
 
-    def view(pool):  # (slots, splits, kps, h, d), rounded to q's dtype
-        c = pool[tbl].reshape(slots, n_keys, e).to(q.dtype).float()
-        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    def view(c):  # (slots, splits, kps, h, d), rounded to q's dtype
+        c = torch.nn.functional.pad(c.to(q.dtype).float(), (0, 0, 0, pad))
         return c.reshape(slots, splits, keys_per_split, h, d)
 
-    kc, vc = view(pool_k), view(pool_v)
+    kc, vc = view(k), view(v)
     pos = torch.arange(splits * keys_per_split, device=q.device).reshape(
         splits, keys_per_split)
-    live = pos[None] < lengths.long()[:, None, None]  # (slots, splits, kps)
+    length = lengths.long().clamp(0, n_keys)
+    live = pos[None] < length[:, None, None]  # (slots, splits, kps)
     qh = q.float().reshape(slots, h, d)
     logits = torch.einsum("bhd,bckhd->bchk", qh, kc) * scale
     logits = torch.where(live[:, :, None, :], logits,
@@ -306,6 +325,20 @@ def paged_decode_split_model(q, pool_k, pool_v, page_table, lengths, *,
     return out.reshape(slots, 1, e).to(q.dtype)
 
 
+def paged_decode_split_model(q, pool_k, pool_v, page_table, lengths, *,
+                             num_heads: int, keys_per_split: int,
+                             scale: float | None = None):
+    """`decode_split_model` over the pool's logical view: the page-table
+    gather, then the same splits of the W * bs logical keys."""
+    slots, e = q.shape[0], q.shape[2]
+    n_keys = page_table.shape[1] * pool_k.shape[1]
+    tbl = page_table.long()
+    return decode_split_model(
+        q, pool_k[tbl].reshape(slots, n_keys, e),
+        pool_v[tbl].reshape(slots, n_keys, e), lengths, num_heads=num_heads,
+        keys_per_split=keys_per_split, scale=scale)
+
+
 def _library(name: str):
     from . import _build
 
@@ -314,8 +347,8 @@ def _library(name: str):
     if fn.argtypes is None:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "ff_decode_attention":
-            fn.argtypes = ([vp] * 5 + [ci] * 4 + [cll] * 3 + [ci]
-                           + [ctypes.c_float, ci, vp])
+            fn.argtypes = ([vp] * 7 + [ci] * 4 + [cll] * 3 + [ci] * 3
+                           + [ctypes.c_float, ci, ci, vp])
         else:
             fn.argtypes = ([vp] * 8 + [ci] * 4 + [cll] * 3 + [ci] * 5
                            + [ctypes.c_float, ci, ci, vp])
@@ -346,12 +379,14 @@ def _validate(q, k, v, lengths, num_heads):
     return q_code, hd, lengths.to(torch.int32).contiguous()
 
 
-# K3's partials and tickets, kept per (device, stream, geometry): the
-# tickets are zeroed once and left at 0 by every launch
+# The split kernel's partials and tickets, kept per (device, stream,
+# partials' shape): the tickets are zeroed once and left at 0 by every
+# launch. So K2 and K3 may share them where their shapes agree: launches on
+# one stream run one after another, and each finds every ticket at 0.
 _SPLIT_SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _split_scratch(dev, stream: int, geo: PagedDecodeGeometry):
+def _split_scratch(dev, stream: int, geo: DecodeSplitGeometry):
     key = (dev.index, stream, geo.scratch_shape)
     got = _SPLIT_SCRATCH.get(key)
     if got is None:
@@ -367,7 +402,8 @@ def flash_decode_attention(q, k, v, lengths, *, num_heads: int,
     """Single-query decode attention over a contiguous cache (K2). q:
     (slots, 1, H*hd); k/v: (slots, S, H*hd), f32 at rest;
     lengths: (slots,) int live-key counts (query at position p attends p+1
-    keys). CPU tensors take the plain version; CUDA tensors launch K2."""
+    keys). CPU tensors take the plain version; CUDA tensors launch K2, split
+    over the keys (`decode_split_geometry`)."""
     scale = _check_args(q, num_heads, scale)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, num_heads=num_heads,
@@ -378,15 +414,20 @@ def flash_decode_attention(q, k, v, lengths, *, num_heads: int,
         raise ValueError(f"flash_decode_attention: cache {tuple(k.shape)} "
                          f"does not match q {tuple(q.shape)}")
     q_code, hd, lengths = _validate(q, k, v, lengths, num_heads)
-    slots, _, e = q.shape
+    slots, S, e = k.shape
     dev = q.device
+    geo = decode_split_geometry(slots, num_heads, S, hd)
+    vec = split_copies_vectorised(k, v, hd)
     out = torch.empty((slots, 1, e), dtype=q.dtype, device=dev)
     fn = _library("ff_decode_attention")
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        part, tickets = _split_scratch(dev, stream, geo)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), slots, num_heads, hd, e, q.stride(0),
-                k.stride(0), k.stride(1), k.shape[1], scale, q_code,
-                torch.cuda.current_stream(dev).cuda_stream)
+                out.data_ptr(), part.data_ptr(), tickets.data_ptr(), slots,
+                num_heads, hd, e, q.stride(0), k.stride(0), k.stride(1), S,
+                geo.keys_per_split, geo.splits, scale, q_code, int(vec),
+                stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: code {rc}")
     DECODE_COUNTER.launches += 1

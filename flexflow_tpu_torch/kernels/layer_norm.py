@@ -1,6 +1,6 @@
-"""Fused LayerNorm: the forward kernel K1 (Triton) and the backward kernel
-K4 (CUDA C++), each beside its plain version, and the `autograd.Function`
-that joins them.
+"""Fused LayerNorm: the forward kernel K1 and the backward kernel K4 (CUDA
+C++, `csrc/layer_norm.cu`), each beside its plain version, and the
+`autograd.Function` that joins them.
 
 K1 replaces `flexflow_tpu/kernels/layer_norm.py:_fwd_kernel` (48), reached
 through `fused_layer_norm_or_none` (140) -> `_fused_ln` (99) -> `_call_fwd`
@@ -21,16 +21,18 @@ takes them up to f32 again, as in JAX.
 
 Bound on the H100: bytes. K1 reads x once and writes y once; K4 reads x
 and dy once and writes dx once (plus the small partials), ~8-20 flops per
-element, far below the tensor-core line. Design: K1 is one Triton program
-per row (rows up to 8192 wide in registers, wider ones in three passes).
-K4 is `csrc/layer_norm.cu` (its header note gives the design): a warp per
-row up to 1024 bf16 / 512 f32 columns, four warps a row up to 4096 / 2048,
-passes over wider rows, on a persistent grid whose shape is
-`layer_norm_bwd_geometry`. The TPU kernels' Mosaic gates (d % 128, rows
-divisible by an 8-aligned row block, `layer_norm.py:151-157`) and the
-8-sublane broadcast of K4's partials (72-77) are tiling rules of the TPU,
-not semantics, and are dropped: on CUDA every last-axis affine LayerNorm
-launches K1 forward and K4 backward.
+element, far below the tensor-core line. Design (the source's header note
+gives it in full): rows in registers, a warp or four a row (K4: a warp up
+to 1024 bf16 / 512 f32 columns, four up to 4096 / 2048; K1: four warps of
+the fewest elements a thread past 256 / 128), passes over wider rows, on
+a persistent grid whose shape is `layer_norm_fwd_geometry` /
+`layer_norm_bwd_geometry`; K1 keeps a thread's scale and bias in
+registers across its rows. The TPU
+kernels' Mosaic gates (d % 128, rows divisible by an 8-aligned row block,
+`layer_norm.py:151-157`) and the 8-sublane broadcast of K4's partials
+(72-77) are tiling rules of the TPU, not semantics, and are dropped: on
+CUDA every last-axis affine LayerNorm launches K1 forward and K4
+backward, at every width.
 """
 
 from __future__ import annotations
@@ -46,28 +48,64 @@ from . import KernelCounter
 LAYER_NORM_COUNTER = KernelCounter("layer_norm_fwd")
 LAYER_NORM_BWD_COUNTER = KernelCounter("layer_norm_bwd")
 
-# rows up to this width are normalised in one register-resident block
-_SINGLE_BLOCK_MAX = 8192
-
-# K4's dtype codes (csrc/layer_norm.cu) and its threads a CTA
+# the kernels' dtype codes (csrc/layer_norm.cu) and their threads a CTA
 _LN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BWD_THREADS = 128
+_THREADS = 128
 
 
 @dataclasses.dataclass(frozen=True)
-class LayerNormBwdGeometry:
-    """K4's launch shape: `warps_per_row` warps take a row, each thread
+class LayerNormFwdGeometry:
+    """K1's launch shape: `warps_per_row` warps take a row, each thread
     `ept` of its elements a pass; a `wide` row takes passes of
     32 * warps_per_row * ept columns (else one, in registers); `grid` CTAs
-    of 128 threads, each striding over rows `rows_in_flight` at a time;
-    `part_shape` the f32 partial rows of dscale and dbias, one per CTA."""
+    of 128 threads, each striding over rows `rows_in_flight` at a time."""
 
     warps_per_row: int
     ept: int
     wide: bool
     grid: int
     rows_in_flight: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNormBwdGeometry(LayerNormFwdGeometry):
+    """K4's launch shape: K1's fields, and `part_shape`, the f32 partial
+    rows of dscale and dbias, one per CTA."""
+
     part_shape: tuple[int, int, int]
+
+
+def _grid(n: int, wpr: int, sms: int, ctas_per_sm: int) -> tuple[int, int]:
+    """(CTAs, rows in flight a CTA): as many CTAs of 128 threads as the
+    card holds at once, but no CTA without a row."""
+    if n < 1 or sms < 1 or ctas_per_sm < 1:
+        raise ValueError(f"layer_norm geometry: n={n} sms={sms} "
+                         f"ctas_per_sm={ctas_per_sm}")
+    in_flight = (_THREADS // 32) // wpr
+    return max(1, min(sms * ctas_per_sm, -(-n // in_flight))), in_flight
+
+
+@functools.lru_cache(maxsize=256)
+def layer_norm_fwd_geometry(n: int, d: int, itemsize: int, sms: int,
+                            ctas_per_sm: int) -> LayerNormFwdGeometry:
+    """K1's geometry for n rows of width d of an `itemsize`-byte type on a
+    card of `sms` SMs holding `ctas_per_sm` of its CTAs at once. A thread
+    holds the fewest elements of a row, `ept`, that four warps need (one
+    16-byte vector, 8 bf16 or 4 f32, at least; 32 bf16 or 16 f32 at
+    most): a warp a row up to 32 ept columns, else four warps, and passes
+    of 128 ept columns past 128 * 32 bf16 / 16 f32. (K4 keeps 32 / 16: at
+    lm-base's width 1024 it takes a warp a row where K1 takes four warps
+    of 8 bf16 a thread, which ran faster on the H100; `kernel_sweep.py`
+    times both.)"""
+    if d < 1:
+        raise ValueError(f"layer_norm geometry: d={d}")
+    ept = 16 // itemsize  # one vector
+    while ept < min(-(-d // 128), 4 * (16 // itemsize)):
+        ept *= 2
+    wpr = 1 if d <= 32 * ept else 4
+    grid, in_flight = _grid(n, wpr, sms, ctas_per_sm)
+    return LayerNormFwdGeometry(wpr, ept, d > 32 * wpr * ept, grid,
+                                in_flight)
 
 
 @functools.lru_cache(maxsize=256)
@@ -78,16 +116,13 @@ def layer_norm_bwd_geometry(n: int, d: int, itemsize: int, sms: int,
     row up to 32 ept columns, four up to 128 ept, then passes of 128 ept
     (ept: 32 for 2-byte types, 16 for f32); as many CTAs as the card holds
     at once, but no CTA without a row."""
-    if n < 1 or d < 1 or sms < 1 or ctas_per_sm < 1:
-        raise ValueError(f"layer_norm_bwd_geometry: n={n} d={d} sms={sms} "
-                         f"ctas_per_sm={ctas_per_sm}")
+    if d < 1:
+        raise ValueError(f"layer_norm geometry: d={d}")
     ept = 32 if itemsize == 2 else 16
     wpr = 1 if d <= 32 * ept else 4
-    wide = d > 128 * ept
-    in_flight = (_BWD_THREADS // 32) // wpr
-    grid = max(1, min(sms * ctas_per_sm, -(-n // in_flight)))
-    return LayerNormBwdGeometry(wpr, ept, wide, grid, in_flight,
-                                (grid, 2, d))
+    grid, in_flight = _grid(n, wpr, sms, ctas_per_sm)
+    return LayerNormBwdGeometry(wpr, ept, d > 32 * wpr * ept, grid,
+                                in_flight, (grid, 2, d))
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -124,50 +159,90 @@ def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
     return dx, (dyf * xhat).sum(0), dyf.sum(0)
 
 
-def _launch(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float) -> torch.Tensor:
-    import triton
-
-    from ._layer_norm_triton import layer_norm_fwd_kernel
-
-    n, d = x2.shape
-    y2 = torch.empty_like(x2)
-    single = d <= _SINGLE_BLOCK_MAX
-    block = triton.next_power_of_2(d) if single else 4096
-    num_warps = 4 if block <= 1024 else 8
-    layer_norm_fwd_kernel[(n,)](
-        x2, scale, bias, y2, d, x2.stride(0), y2.stride(0), float(eps),
-        BLOCK=block, SINGLE=single, num_warps=num_warps)
-    LAYER_NORM_COUNTER.launches += 1
-    return y2
-
-
 _SMS: dict[int, int] = {}
 _OCCUPANCY: dict[tuple, int] = {}
 
 
-def _bwd_library():
+def _library():
     from . import _build
 
     lib = _build.load("layer_norm")
-    fn = lib.ff_layer_norm_bwd
-    if fn.argtypes is None:
+    if lib.ff_layer_norm_bwd.argtypes is None:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 7 + [cll, ci] + [cll] * 3 + [ci, ci,
-                       ctypes.c_float] + [ci] * 5 + [vp])
-        fn.restype = ci
-        occ = lib.ff_layer_norm_bwd_occupancy
-        occ.argtypes = [ci] * 5
-        occ.restype = ci
+        lib.ff_layer_norm_fwd.argtypes = ([vp] * 4 + [cll, ci, cll, cll]
+                                          + [ci] * 3 + [ctypes.c_float]
+                                          + [ci] * 5 + [vp])
+        lib.ff_layer_norm_bwd.argtypes = (
+            [vp] * 7 + [cll, ci] + [cll] * 3 + [ci, ci, ctypes.c_float]
+            + [ci] * 5 + [vp])
+        for fn in (lib.ff_layer_norm_fwd_occupancy,
+                   lib.ff_layer_norm_bwd_occupancy):
+            fn.argtypes = [ci] * 5
+        for fn in (lib.ff_layer_norm_fwd, lib.ff_layer_norm_bwd,
+                   lib.ff_layer_norm_fwd_occupancy,
+                   lib.ff_layer_norm_bwd_occupancy):
+            fn.restype = ci
     return lib
 
 
+def _persistent_geometry(kind: str, geometry, x2, vec: bool, lib):
+    """`geometry(n, d, itemsize, sms, ctas_per_sm)` at the card's SM count
+    and the CTAs of the chosen instantiation that fit on an SM, each read
+    once per device (and instantiation)."""
+    n, d = x2.shape
+    dev = x2.device
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    geo = geometry(n, d, x2.element_size(), sms, 1)
+    code = _LN_DTYPE_CODE[x2.dtype]
+    key = (dev.index, kind, code, geo.warps_per_row, geo.ept, vec, geo.wide)
+    per_sm = _OCCUPANCY.get(key)
+    if per_sm is None:
+        occupancy = getattr(lib, f"ff_layer_norm_{kind}_occupancy")
+        per_sm = occupancy(code, geo.warps_per_row, geo.ept, int(vec),
+                           int(geo.wide))
+        if per_sm < 1:
+            raise RuntimeError(f"layer_norm_{kind}: no occupancy for {key} "
+                               f"(code {per_sm})")
+        _OCCUPANCY[key] = per_sm
+    return geometry(n, d, x2.element_size(), sms, per_sm)
+
+
 def _vectorised(itemsize: int, d: int, *tensors) -> bool:
-    """Whether K4 may move rows in 16-byte vectors: the width, every row
-    stride and every base a multiple of 16 bytes."""
+    """Whether K1 or K4 may move rows in 16-byte vectors: the width, every
+    row stride and every base a multiple of 16 bytes."""
     per = 16 // itemsize
     return d % per == 0 and all(
         t.data_ptr() % 16 == 0 and t.stride(0) % per == 0 for t in tensors)
+
+
+def _launch_fwd(x2, scale, bias, eps):
+    n, d = x2.shape
+    dev = x2.device
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype not in _LN_DTYPE_CODE:
+            raise TypeError(f"layer_norm: {name} must be float32, bfloat16 "
+                            f"or float16 (got {t.dtype})")
+    y2 = torch.empty_like(x2)
+    lib = _library()
+    # 16-byte vectors of x and y, and of scale and bias in their own types
+    vec = (_vectorised(x2.element_size(), d, x2, y2)
+           and scale.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        geo = _persistent_geometry("fwd", layer_norm_fwd_geometry, x2, vec,
+                                   lib)
+        rc = lib.ff_layer_norm_fwd(
+            x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y2.data_ptr(),
+            n, d, x2.stride(0), y2.stride(0), _LN_DTYPE_CODE[x2.dtype],
+            _LN_DTYPE_CODE[scale.dtype], _LN_DTYPE_CODE[bias.dtype],
+            float(eps), geo.warps_per_row, geo.ept, int(vec), int(geo.wide),
+            geo.grid, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"layer_norm kernel launch failed: code {rc}")
+    LAYER_NORM_COUNTER.launches += 1
+    return y2
 
 
 def _launch_bwd(x2, scale, dy2, eps):
@@ -178,25 +253,12 @@ def _launch_bwd(x2, scale, dy2, eps):
                         f"and scale float32, bfloat16 or float16 (got dy "
                         f"{dy2.dtype}, scale {scale.dtype})")
     dx2 = torch.empty_like(x2)
-    lib = _bwd_library()
+    lib = _library()
     code = _LN_DTYPE_CODE[x2.dtype]
     vec = _vectorised(x2.element_size(), d, x2, dy2, dx2)
     with torch.cuda.device(dev):
-        sms = _SMS.get(dev.index)
-        if sms is None:
-            sms = _SMS[dev.index] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        geo = layer_norm_bwd_geometry(n, d, x2.element_size(), sms, 1)
-        key = (dev.index, code, geo.warps_per_row, geo.ept, vec, geo.wide)
-        per_sm = _OCCUPANCY.get(key)
-        if per_sm is None:
-            per_sm = lib.ff_layer_norm_bwd_occupancy(
-                code, geo.warps_per_row, geo.ept, int(vec), int(geo.wide))
-            if per_sm < 1:
-                raise RuntimeError(f"layer_norm_bwd: no occupancy for "
-                                   f"{key} (code {per_sm})")
-            _OCCUPANCY[key] = per_sm
-        geo = layer_norm_bwd_geometry(n, d, x2.element_size(), sms, per_sm)
+        geo = _persistent_geometry("bwd", layer_norm_bwd_geometry, x2, vec,
+                                   lib)
         part = torch.empty(geo.part_shape, dtype=torch.float32, device=dev)
         ds, db = torch.empty((2, d), dtype=torch.float32, device=dev)
         rc = lib.ff_layer_norm_bwd(
@@ -241,7 +303,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_cuda("layer_norm", x, scale=scale, bias=bias)
     if x.numel() == 0:
         return torch.empty_like(x)
-    y2 = _launch(_rows(x), scale.contiguous(), bias.contiguous(), eps)
+    y2 = _launch_fwd(_rows(x), scale.contiguous(), bias.contiguous(), eps)
     return y2.reshape(x.shape)
 
 

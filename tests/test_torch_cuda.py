@@ -1,8 +1,8 @@
 """The port's kernels on the card, each against its plain PyTorch version.
 
-Needs an NVIDIA GPU (sm_90a for the CUDA kernels), nvcc and triton; skips
-without a CUDA device. This file imports neither jax nor the JAX package,
-so it also runs where only the port is installed:
+Needs an NVIDIA GPU (sm_90a) and nvcc (every kernel is CUDA C++, built
+at first use); skips without a CUDA device. This file imports neither jax
+nor the JAX package, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
@@ -72,8 +72,9 @@ def test_kernels_match_plain_versions_on_card(cuda):
 @pytest.mark.parametrize("rows,width", [(3, 1000), (5, 10000)])
 def test_layer_norm_kernel_off_the_main_path_shapes(cuda, rows, width,
                                                    dtype):
-    """A width that is no power of two (masked tail of the one block) and
-    one past the single-block limit (the three-pass loop)."""
+    """A width that is no power of two (four warps a row, the last
+    threads idle) and one past four warps' width (passes over the row),
+    scale and bias in float32 under a bfloat16 x."""
     from flexflow_tpu_torch.kernels import layer_norm as ln
 
     g = torch.Generator().manual_seed(width)
@@ -163,6 +164,24 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda):
         ln.layer_norm(q, torch.ones(64, device=cuda, dtype=torch.float64),
                       torch.zeros(64, device=cuda, dtype=torch.float64),
                       1e-5)
+    x = torch.zeros(4, 64, device=cuda)
+    f64 = torch.ones(64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bias"):
+        ln.layer_norm(x, torch.ones(64, device=cuda), f64, 1e-5)
+    with pytest.raises(ValueError):
+        ln.layer_norm(x, torch.ones(32, device=cuda), f64[:32], 1e-5)
+    q32, kv32 = q.float(), kv.float()
+    with pytest.raises(TypeError):  # a half-precision cache
+        fa.flash_decode_attention(q32, kv32.half(), kv32.half(), lengths,
+                                  num_heads=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_decode_attention(q32.repeat(1, 1, 5), kv32.repeat(1, 1, 5),
+                                  kv32.repeat(1, 1, 5), lengths, num_heads=1)
+    with pytest.raises(ValueError, match="single-query"):
+        fa.flash_decode_attention(kv32, kv32, kv32, lengths, num_heads=1)
+    with pytest.raises(ValueError):  # a cache of no keys
+        fa.flash_decode_attention(q32, kv32[:, :0], kv32[:, :0], lengths,
+                                  num_heads=1)
 
 
 @pytest.mark.cuda
@@ -581,13 +600,17 @@ def test_paged_kernel_stops_on_a_page_table_entry_outside_the_pool(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_decode_and_layer_norm_backward_give_the_same_bits_twice(
         cuda, dtype):
-    """K3 merges its splits and K4 sums its partial rows in a fixed order:
-    two launches on the same inputs give the same bits (lm-base's pool at
-    phase 8's lengths; K4 at lm-base's rows and lm-xxl-fsdp's width)."""
+    """K2 and K3 merge their splits and K4 sums its partial rows in a
+    fixed order: two launches on the same inputs give the same bits
+    (lm-base's contiguous cache and pool at phase 8's lengths; K4 at
+    lm-base's rows and lm-xxl-fsdp's width)."""
     import chip_smoke
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import layer_norm as ln
 
+    args = chip_smoke.decode_inputs(cuda, dtype, 10)
+    assert chip_smoke.same_bits(lambda: fa.flash_decode_attention(
+        *args, num_heads=chip_smoke.HEADS))
     args = chip_smoke.paged_inputs(cuda, dtype, 11)
     assert chip_smoke.same_bits(lambda: fa.paged_flash_decode_attention(
         *args, num_heads=chip_smoke.HEADS))
@@ -713,3 +736,109 @@ def test_layer_norm_backward_kernel_variants(cuda, dtype, scale_dtype,
     tol = _tol(torch.bfloat16 if dtype == torch.float16 else dtype)
     for a, b in zip(got, ln.layer_norm_bwd_plain(x, s, dy, 1e-5)):
         torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim,offset,row_pad", [
+    (64, 0, 0),    # 16-byte copies, 32-key splits
+    (62, 0, 0),    # head_dim no multiple of 4: 4-byte copies
+    (64, 1, 0),    # the cache one float past a 16-byte boundary: 4-byte
+    (64, 0, 2),    # a row stride no multiple of 4 floats: 4-byte
+    (256, 0, 0),   # 8-key splits
+    (20, 0, 0),    # 32 keys of a head narrower than a warp
+])
+def test_contiguous_split_kernel_variants(cuda, head_dim, offset, row_pad,
+                                          dtype):
+    """K2's splits and its 4-byte copies against the plain version and the
+    split model at the kernel's own split, over a strided cache of 97 keys
+    (no multiple of a split) with NaN in every row past each length:
+    lengths 0, 1, both sides of a split boundary, S, and one past S (the
+    cursor is clamped to the cache)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    heads, seq = 2, 97
+    e = heads * head_dim
+    geo = fa.decode_split_geometry(1, heads, seq, head_dim)
+    kps = geo.keys_per_split
+    lengths = [0, 1, kps - 1, kps, kps + 1, seq, seq + 1]
+    n = len(lengths)
+    g = torch.Generator().manual_seed(head_dim * 10 + offset + row_pad)
+    stride = e + row_pad
+    flat_k = torch.randn(n * seq * stride + offset, generator=g)
+    flat_v = torch.randn(n * seq * stride + offset, generator=g)
+    for flat in (flat_k, flat_v):
+        rows = flat[offset:].view(n, seq, stride)
+        for s, length in enumerate(lengths):
+            rows[s, length:] = float("nan")
+    flat_k, flat_v = flat_k.to(cuda), flat_v.to(cuda)
+    k = flat_k[offset:].view(n, seq, stride)[..., :e]
+    v = flat_v[offset:].view(n, seq, stride)[..., :e]
+    assert fa.split_copies_vectorised(k, v, head_dim) == (
+        head_dim % 4 == 0 and offset == 0 and row_pad % 4 == 0)
+    q = torch.randn(n, 1, e, generator=g).to(cuda, dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    c = fa.DECODE_COUNTER
+    n0 = c.launches
+    got = fa.flash_decode_attention(q, k, v, lens, num_heads=heads)
+    torch.cuda.synchronize()
+    assert c.launches == n0 + 1
+    tol = _tol(dtype)
+    for want in (fa.decode_attention_plain(q, k, v, lens, num_heads=heads),
+                 fa.decode_split_model(q, k, v, lens, num_heads=heads,
+                                       keys_per_split=kps)):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("width", [1, 33, 1000, 1024, 4096, 8192, 12288])
+def test_layer_norm_forward_kernel_widths(cuda, width, dtype):
+    """K1 against its plain version at every kind of width: one column, an
+    odd one (element loads), a warp a row, four warps a row, and passes
+    past four warps' width; rows cut so that the persistent grid's row
+    groups end unevenly. float16 is held at the bfloat16 tolerance (its
+    outputs round to 11 bits)."""
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    rows = 1001 if width <= 4096 else 131
+    g = torch.Generator().manual_seed(width)
+    x = (torch.randn(rows, width, generator=g) * 3 + 1).to(cuda, dtype)
+    s = torch.randn(width, generator=g).to(cuda, dtype)
+    b = torch.randn(width, generator=g).to(cuda, dtype)
+    n0 = ln.LAYER_NORM_COUNTER.launches
+    got = ln.layer_norm(x, s, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.LAYER_NORM_COUNTER.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = _tol(torch.bfloat16 if dtype == torch.float16 else dtype)
+    torch.testing.assert_close(got.float(),
+                               ln.layer_norm_plain(x, s, b, 1e-5).float(),
+                               **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scale_dtype,bias_dtype,width,row_stride", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, 1024, 1032),  # vectors
+    (torch.bfloat16, torch.float32, torch.bfloat16, 1024, 1030),   # elements
+    (torch.float32, torch.float32, torch.float16, 2048, 2052),     # 4 warps
+    (torch.float16, torch.float16, torch.float32, 5000, 5008),     # passes
+])
+def test_layer_norm_forward_kernel_reads_strided_rows(
+        cuda, dtype, scale_dtype, bias_dtype, width, row_stride):
+    """K1 on a row view of wider rows (the rows read in place, y written
+    contiguous), with scale and bias each in its own dtype."""
+    from flexflow_tpu_torch.kernels import layer_norm as ln
+
+    g = torch.Generator().manual_seed(row_stride)
+    xs = (torch.randn(300, row_stride, generator=g) * 3 + 1).to(cuda, dtype)
+    x = xs[:, 3:3 + width] if row_stride % 8 else xs[:, :width]
+    s = torch.randn(width, generator=g).to(cuda, scale_dtype)
+    b = torch.randn(width, generator=g).to(cuda, bias_dtype)
+    got = ln.layer_norm(x, s, b, 1e-5)
+    torch.cuda.synchronize()
+    tol = _tol(torch.bfloat16 if dtype == torch.float16 else dtype)
+    torch.testing.assert_close(got.float(),
+                               ln.layer_norm_plain(x, s, b, 1e-5).float(),
+                               **tol)

@@ -1,16 +1,20 @@
-"""The launch geometry of K3 (the split-K paged decode kernel) and K4 (the
-LayerNorm backward kernel), on the CPU.
+"""The launch geometry of K2 and K3 (the split-K decode kernel, contiguous
+and paged) and of K1 and K4 (the LayerNorm forward and backward kernels),
+on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py holds them
 against their plain versions); the shapes they launch are plain Python:
-`paged_decode_geometry` splits each slot's W * bs logical keys into runs
-that fit the kernel's shared memory, from shapes alone (the lengths are
-never read on the host), and `layer_norm_bwd_geometry` picks warps per row,
+`decode_split_geometry` and `paged_decode_geometry` split each slot's S or
+W * bs logical keys into runs that fit the kernel's shared memory, from
+shapes alone (the lengths are never read on the host), and
+`layer_norm_fwd_geometry` / `layer_norm_bwd_geometry` pick warps per row,
 elements per thread and the persistent grid from (n, d, SM count). This
 file imports no JAX.
 """
 
 import math
+
+import numpy as np
 
 import pytest
 import torch
@@ -75,9 +79,72 @@ def test_paged_split_geometry_refuses_what_the_kernel_does_not_take():
             fa.paged_decode_geometry(*bad)
 
 
+def _split_args_ok(g: fa.DecodeSplitGeometry, extent: int, hd: int) -> bool:
+    """The entries' own check (csrc/decode_attention.cu, split_args_ok)."""
+    kps = g.keys_per_split
+    covered = g.splits * kps
+    return (1 <= hd <= 256 and 1 <= kps <= MAX_SPLIT_KEYS
+            and kps * hd <= MAX_SPLIT_FLOATS
+            and extent <= covered <= 2 ** 31 - 1)
+
+
+@settings(max_examples=200, deadline=None)
+@given(slots=st.integers(1, 64), heads=st.integers(1, 64),
+       S=st.integers(1, 20000), hd=st.integers(1, 256))
+def test_contiguous_split_geometry_fits_the_kernel(slots, heads, S, hd):
+    """K2's splits: runs of min(32, 2048 // hd) keys (the last one short
+    where S is no multiple of it), the fewest that cover the S keys, each
+    key in exactly one split, and a split the kernel takes."""
+    g = fa.decode_split_geometry(slots, heads, S, hd)
+    kps = g.keys_per_split
+    assert kps == min(32, 2048 // hd)
+    assert g.splits == math.ceil(S / kps)
+    starts = np.arange(g.splits) * kps
+    ends = np.minimum(starts + kps, S)
+    assert (ends > starts).all()  # no split without a key of the cache
+    keys = np.concatenate([np.arange(a, b) for a, b in zip(starts, ends)])
+    assert np.array_equal(keys, np.arange(S))
+    assert g.grid == (g.splits, heads, slots)
+    assert g.scratch_shape == (slots, heads, g.splits, hd + 2)
+    assert g.tickets == slots * heads
+    assert _split_args_ok(g, S, hd)
+
+
+def test_contiguous_split_geometry_at_lm_base_serving():
+    """lm-base serving's contiguous cache (8 slots of 513 keys, 16 heads
+    of 64): 17 splits of 32 keys, the last one holding one key; at
+    chip_smoke's phase-8 lengths, as many live splits as on the paged
+    layout. Where the partials' shapes agree, the two layouts share one
+    scratch (the tickets are 0 between launches)."""
+    import chip_smoke
+
+    g = fa.decode_split_geometry(8, 16, chip_smoke.MAX_SEQ + 1, 64)
+    assert (g.keys_per_split, g.splits, g.grid) == (32, 17, (17, 16, 8))
+    assert chip_smoke.MAX_SEQ + 1 - (g.splits - 1) * g.keys_per_split == 1
+    live = sum(math.ceil(n / g.keys_per_split) for n in chip_smoke.LENGTHS)
+    assert live == 42
+    paged = fa.paged_decode_geometry(8, 16, 32, 16, 64)
+    assert g.keys_per_split == paged.keys_per_split
+    assert fa.decode_split_geometry(8, 16, 512, 64) == paged
+
+
+@pytest.mark.parametrize("bad", [(0, 1, 1, 64), (1, 0, 1, 64),
+                                 (1, 1, 0, 64), (1, 1, 16, 0),
+                                 (1, 1, 16, 257)])
+def test_contiguous_split_geometry_refuses_what_the_kernel_does_not_take(
+        bad):
+    with pytest.raises(ValueError):
+        fa.decode_split_geometry(*bad)
+
+
 def test_split_copies_vectorised():
-    """16-byte copies need head_dim, the pool's strides and both bases in
-    whole 4-float units."""
+    """16-byte copies need head_dim, the cache's strides and both bases in
+    whole 4-float units, on either layout."""
+    cache = torch.empty(3, 513, 128)  # contiguous (slots, S, E)
+    assert fa.split_copies_vectorised(cache, cache, 64)
+    assert not fa.split_copies_vectorised(cache[:, :, 1:65], cache, 64)
+    assert not fa.split_copies_vectorised(
+        torch.empty(3, 513, 130)[..., :128], cache, 64)
     pool = torch.empty(5, 16, 128)
     assert fa.split_copies_vectorised(pool, pool, 64)
     assert not fa.split_copies_vectorised(pool, pool, 62)
@@ -150,6 +217,73 @@ def test_layer_norm_bwd_geometry_at_the_zoo_widths():
 def test_layer_norm_bwd_geometry_refuses_empty_shapes():
     with pytest.raises(ValueError):
         ln.layer_norm_bwd_geometry(0, 64, 2, 132, 2)
+
+
+def _fwd_instantiated(itemsize: int) -> set:
+    """(warps a row, ept, wide) of K1's instantiations (csrc/layer_norm.cu,
+    pick_fwd): V = one 16-byte vector, E = 4 V."""
+    v = 16 // itemsize
+    e = 4 * v
+    return ({(1, v, False), (4, v, False), (4, 2 * v, False), (4, e, False),
+             (1, e, False)} | {(4, e, True), (1, e, True)})
+
+
+def _fwd_kernel_takes(g: ln.LayerNormFwdGeometry, d: int,
+                      itemsize: int) -> bool:
+    """The entry's own check (csrc/layer_norm.cu, ff_layer_norm_fwd)."""
+    return (g.grid >= 1
+            and (g.warps_per_row, g.ept, g.wide) in _fwd_instantiated(itemsize)
+            and (g.wide or d <= 32 * g.warps_per_row * g.ept))
+
+
+@settings(max_examples=200, deadline=None)
+@given(n=st.integers(1, 20000), d=st.integers(1, 20000),
+       itemsize=st.sampled_from([2, 4]), sms=st.integers(1, 200),
+       per_sm=st.integers(1, 16))
+def test_layer_norm_fwd_geometry_fits_the_kernel(n, d, itemsize, sms,
+                                                 per_sm):
+    """K1: a thread holds the fewest elements, in whole 16-byte vectors,
+    that four warps need for the row (at most four vectors); a warp a row
+    where it alone holds the row, passes past four warps of four vectors;
+    as many CTAs as the card holds at once, and none without a row."""
+    g = ln.layer_norm_fwd_geometry(n, d, itemsize, sms, per_sm)
+    v = 16 // itemsize
+    assert g.ept in (v, 2 * v, 4 * v)
+    assert g.wide == (d > 128 * 4 * v)
+    if not g.wide:
+        assert 128 * g.ept >= d and (g.ept == v or 64 * g.ept < d)
+    assert g.warps_per_row == (1 if d <= 32 * g.ept else 4)
+    assert g.rows_in_flight * g.warps_per_row == 4  # 4 warps a CTA
+    assert g.grid == min(sms * per_sm, math.ceil(n / g.rows_in_flight))
+    assert _fwd_kernel_takes(g, d, itemsize)
+
+
+@pytest.mark.parametrize("n,d,itemsize,wpr,ept,wide", [
+    (4096, 1024, 2, 4, 8, False),    # lm-base's rows: four warps of 8
+    (8192, 4096, 2, 4, 32, False),   # lm-xxl-fsdp's: four warps of 32
+    (8192, 4096, 4, 4, 16, True),    # f32 past four warps' width: passes
+    (3000, 12288, 2, 4, 32, True),   # bf16 past four warps' width: passes
+    (777, 1, 2, 1, 8, False),        # a width of one
+    (50, 1500, 4, 4, 16, False),     # f32, two vectors a thread
+])
+@pytest.mark.parametrize("sms,per_sm", [(132, 9), (132, 1), (7, 3)])
+def test_layer_norm_fwd_rows_are_covered_once(n, d, itemsize, wpr, ept,
+                                              wide, sms, per_sm):
+    """Row group g of CTA b takes rows b * G + g, then every grid * G rows
+    on (both kernels): each row exactly once, at the zoo widths and past
+    the four-warp width."""
+    g = ln.layer_norm_fwd_geometry(n, d, itemsize, sms, per_sm)
+    assert (g.warps_per_row, g.ept, g.wide) == (wpr, ept, wide)
+    G = g.rows_in_flight
+    rows = np.concatenate([np.arange(b * G + grp, n, g.grid * G)
+                           for b in range(g.grid) for grp in range(G)])
+    assert np.array_equal(np.sort(rows), np.arange(n))
+
+
+def test_layer_norm_fwd_geometry_refuses_empty_shapes():
+    for bad in ((0, 64, 2, 132, 2), (8, 0, 2, 132, 2), (8, 64, 2, 0, 2)):
+        with pytest.raises(ValueError):
+            ln.layer_norm_fwd_geometry(*bad)
 
 
 @pytest.mark.parametrize("dtype,width,stride,offset,want", [

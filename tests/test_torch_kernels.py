@@ -4,8 +4,9 @@ For each of K1 (LayerNorm forward), K2 (contiguous decode attention) and
 K3 (paged decode attention), the port's plain PyTorch version is held
 against the JAX function on the same numpy inputs made from a seed. The
 JAX side runs as its own tests run it on the CPU: the Pallas kernels in
-interpret mode; so is K3's split-and-merge arithmetic
-(`paged_decode_split_model`), at 1, 2 and all pages a split. Tolerances:
+interpret mode; so is the split-and-merge arithmetic of the one CUDA
+kernel behind K2 and K3 (`decode_split_model`, `paged_decode_split_model`),
+at several split sizes on each layout. Tolerances:
 float32 at rtol = atol = 2e-5, the JAX suite's
 own bound for its decode kernels (tests/test_serving.py); bfloat16 at
 2e-2, since the two frameworks round bf16 at different points.
@@ -91,18 +92,18 @@ def test_layer_norm_wrapper_takes_plain_on_cpu():
 # ------------------------------------------------------------------- K2
 
 
-def _decode_inputs(seed):
+def _decode_inputs(seed, lengths=LENGTHS, seq=S):
     """q, k, v with NaN planted in every cache row past each slot's
     length: the kernels must never read a dead row into the output."""
     rs = np.random.RandomState(seed)
-    slots = len(LENGTHS)
+    slots = len(lengths)
     q = rs.randn(slots, 1, E).astype(np.float32)
-    k = rs.randn(slots, S, E).astype(np.float32)
-    v = rs.randn(slots, S, E).astype(np.float32)
-    for s, n in enumerate(LENGTHS):
+    k = rs.randn(slots, seq, E).astype(np.float32)
+    v = rs.randn(slots, seq, E).astype(np.float32)
+    for s, n in enumerate(lengths):
         k[s, n:] = np.nan
         v[s, n:] = np.nan
-    return q, k, v, np.asarray(LENGTHS, np.int32)
+    return q, k, v, np.asarray(lengths, np.int32)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -351,3 +352,82 @@ def test_paged_split_model_rounds_a_halfway_cache_as_jax(pages):
         keys_per_split=_pages_per_split(pages) * BS)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                **BF16_TOL)
+
+
+# ------------------------------------------------ K2's split-and-merge
+
+# a cache of 200 keys, no multiple of the splits below; lengths 0, 1 and S
+# beside both sides of a 16-key and a 128-key boundary
+S_RAGGED = 200
+LENGTHS_RAGGED = [0, 1, 15, 16, 17, 127, 129, S_RAGGED]
+
+
+def _keys_per_split(kps):
+    return S_RAGGED if kps == "S" else kps
+
+
+@pytest.mark.parametrize("kps", [7, 32, "S"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_contiguous_split_model_matches_jax_kernel(dtype, kps):
+    """The CUDA K2's arithmetic (`decode_split_model`: partials per split
+    of 7, 32 (the kernel's own at head_dim 64) or all S keys, the last
+    split short, p rounded against the split's max, the splits merged in
+    order) vs the JAX single-query decode kernel (interpret mode, two kv
+    blocks, the second one ragged) over a cache with NaN in every row past
+    each length. The tolerances are the module's."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v, lengths = _decode_inputs(4, LENGTHS_RAGGED, S_RAGGED)
+    want = jfa.flash_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(lengths), num_heads=H, block_k=128, interpret=True)
+    got = tfa.decode_split_model(
+        torch.tensor(q).to(tdt), torch.tensor(k), torch.tensor(v),
+        torch.tensor(lengths), num_heads=H,
+        keys_per_split=_keys_per_split(kps))
+    assert got.dtype == tdt and np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("kps", [7, 32, "S"])
+def test_contiguous_split_model_rounds_a_halfway_cache_as_jax(kps):
+    """bfloat16 over the float32 cache of values halfway between bfloat16
+    values (chip_smoke.halfway_inputs), S no multiple of the split: the
+    split model, which rounds K and V as it reads them, matches the JAX
+    kernel, which casts the whole cache first, at 2e-2; the same
+    arithmetic with K or with V left unrounded does not."""
+    import chip_smoke
+
+    lengths = [0, 1, 2, 17, 130, S_RAGGED]
+    q, k, v, lens = chip_smoke.halfway_inputs(lengths, S_RAGGED, H, HD, 5)
+    want = jfa.flash_decode_attention(
+        jnp.asarray(q.numpy(), jnp.bfloat16),
+        jnp.asarray(k.numpy(), jnp.bfloat16),
+        jnp.asarray(v.numpy(), jnp.bfloat16), jnp.asarray(lens.numpy()),
+        num_heads=H, block_k=128, interpret=True)
+
+    def model(q, k, v):
+        return tfa.decode_split_model(q, k, v, lens, num_heads=H,
+                                      keys_per_split=_keys_per_split(kps))
+
+    got = model(q.bfloat16(), k, v)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **BF16_TOL)
+    rounded = lambda t: t.bfloat16().float()  # noqa: E731
+    for unrounded in (model(q, k, rounded(v)), model(q, rounded(k), v)):
+        assert not np.allclose(_np(unrounded), _np(got), **BF16_TOL)
+
+
+def test_split_models_clamp_the_cursor_to_the_cache():
+    """A length past the cache's extent reads the whole cache, as the
+    kernel clamps it (and as the plain version's mask does); the paged
+    model is the contiguous one over the gathered view."""
+    q, k, v, lengths = _decode_inputs(6, [S_RAGGED] * 2, S_RAGGED)
+    args = (torch.tensor(q), torch.tensor(k), torch.tensor(v))
+    full = tfa.decode_split_model(*args, torch.tensor(lengths), num_heads=H,
+                                  keys_per_split=32)
+    past = tfa.decode_split_model(*args, torch.tensor([S_RAGGED + 5, 10 ** 6]),
+                                  num_heads=H, keys_per_split=32)
+    torch.testing.assert_close(past, full, rtol=0, atol=0)
+    torch.testing.assert_close(
+        full, tfa.decode_attention_plain(*args, torch.tensor(lengths),
+                                         num_heads=H), **F32_TOL)
