@@ -13,7 +13,17 @@ of dim 64, 12 layers, seq 512; random weights from seed 0; bf16
 activations over fp32 master weights), serving and training, and the
 per-head flash paths: lm-base under --flash-transposed, and lm-xxl-fsdp
 (hidden 4096, 32 heads of dim 128, seq 2048, vocab 32000) at 4 of its 32
-layers, in both layouts.
+layers, in both layouts. The train and decode steps are the executor's
+captured ones (a CUDA graph per batch signature or q width: the first
+call of each warms up, the second captures, the rest replay; the steps
+that warm up or capture are left out of every median); phases 3/4, 6 and
+10 also run under `executor.eager()` (the steps op by op) and hold the
+two to each other. The launch counts come from the kernels' wrappers,
+which a replay cannot bump: a captured step adds what its capture
+counted. So every serving and training run also profiles one step and
+requires the port's kernels that the profiler saw on the device, by
+name, to equal the counts of such a step, and a serving run may capture
+each decode width at most once.
 Phases, each fatal on failure:
 
   1. build and device: the card's name and power limit, the torch and
@@ -36,10 +46,14 @@ Phases, each fatal on failure:
   3. serving, paged KV layout: 16 requests of random tokens (4 share a
      64-token prefix), 64 new tokens each, through FFModel ->
      build_transformer_lm -> compile -> serve() -> engine.generate; the
-     launch counts are set to 0 just before and read just after;
-  4. serving, contiguous KV layout: the same requests; then both layouts
-     again with the weights in float32, their greedy streams compared
-     (the first difference logged with each layout's top-2 logits);
+     launch counts are set to 0 just before and read just after; then
+     the same run under executor.eager(): the same greedy streams and
+     launch counts, both medians and busy shares logged;
+  4. serving, contiguous KV layout: the same requests, captured and
+     eager; then both layouts again with the weights in float32,
+     captured and eager (the same greedy streams), the layouts' streams
+     compared (the first difference logged with each layout's top-2
+     logits);
   5. first-step logits: the same weights in float32, one pure-decode step
      with the kernels against the same step with the plain versions;
   6. training: FFModel -> build_transformer_lm -> compile(SGD(lr=0.01),
@@ -49,7 +63,10 @@ Phases, each fatal on failure:
      launches of K5, K6 and K7 and 25 of K1 and K4 (K5-K7 all of the
      "sm90" variant), no plain version, a
      finite loss that falls; tokens/s, the median step, MFU and the device
-     busy share of one profiled step;
+     busy share of one profiled step; then the same under
+     executor.eager(): the same launches, and the masters after the same
+     steps equal bit for bit (else within 1e-3 of each layer's largest
+     entry), both medians and busy shares logged;
   7. training gradients: the same weights in float32, one step's
      gradients with the kernels against the same step with the plain
      versions;
@@ -67,13 +84,18 @@ Phases, each fatal on failure:
  10. training lm-xxl-fsdp at full width and 4 layers, bf16, SGD(lr=0.01),
      fit over one batch of 4 x 2048: packed, 2 warm-up and 3 timed steps,
      per step 4 launches each of K5, K6 and K7 (head_dim 128), none of
-     K8; then under --flash-transposed, as many steps, the same launches
-     on the transposed layout; tokens/s, MFU, busy share;
+     K8; the packed run also under executor.eager() (masters compared as
+     in phase 6, max_memory_allocated of both modes logged); then under
+     --flash-transposed, as many steps, the same launches on the
+     transposed layout; tokens/s, MFU, busy share;
  11. float32 gradients, kernels vs plain versions, as phase 7: lm-base
      under --flash-transposed at 2 layers, lm-xxl-fsdp at 1 layer (batch
      1 x 2048) in both layouts; then bfloat16 gradients of lm-xxl-fsdp at
      1 layer (batch 1 x 2048, packed: the sm90 K5-K7), kernels vs
-     plain versions.
+     plain versions;
+ 12. bench_torch.py's measurement in this process (lm-base, 8 x 512,
+     SGD, the captured step replayed n and 3n times, the slope per
+     step): its detail line and its metric line.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -87,8 +109,8 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -154,14 +176,6 @@ def require(cond: bool, msg: str):
     """A check of this run's results: fatal, and kept under `python -O`."""
     if not cond:
         raise AssertionError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 CUDA_SOURCES = ("decode_attention", "flash_attention", "flash_attention_sm90",
@@ -813,21 +827,65 @@ def make_prompts(vocab: int) -> list[list[int]]:
     return prompts
 
 
+# the device kernels that each counter's wrapper launches once a count, by
+# function name, every variant (K4's second kernel, ln_bwd_colsum, follows
+# each ln_bwd launch and is not counted)
+DEVICE_KERNELS = {
+    "layer_norm_fwd": ("ln_fwd_rows", "ln_fwd_wide"),
+    "layer_norm_bwd": ("ln_bwd_rows", "ln_bwd_wide"),
+    "flash_decode_attention": ("decode_split_kernel",),
+    "paged_flash_decode_attention": ("paged_decode_split_kernel",),
+    **{f"flash_attention_{k}": tuple(f"flash_{k}_{v}"
+                                      for v in ("sm90", "mma", "f32"))
+       for k in ("fwd", "bwd_dq", "bwd_dkv", "bwd_fused")},
+}
+# a name not preceded by a letter or "_": decode_split_kernel is not
+# paged_decode_split_kernel (a digit may precede it in a mangled name)
+_KERNEL_NAME = {c: re.compile("|".join(rf"(?<![A-Za-z_]){n}" for n in ns))
+                for c, ns in DEVICE_KERNELS.items()}
+
+
+def counter_of(kernel: str):
+    """The counter whose wrapper launched the device kernel the profiler
+    names `kernel`, or None."""
+    hits = [c for c, pat in _KERNEL_NAME.items() if pat.search(kernel)]
+    require(len(hits) <= 1, f"{kernel!r} matches {hits}")
+    return hits[0] if hits else None
+
+
+def require_seen(prof: dict, counted: dict, what: str):
+    """The launches the profiler saw on the device, by counter, equal to
+    the counters' count of the same kind of call (fatal): inside a graph's
+    replay the counters add what the capture recorded, so this is what
+    shows that the replayed graph launched each kernel."""
+    want = {c: counted.get(c, 0) for c in DEVICE_KERNELS}
+    require(prof["kernel_launches"] == want,
+            f"{what}: the profiler saw {prof['kernel_launches']} kernel "
+            f"launches, the counters count {want}")
+
+
 def profiled(fn):
     """`fn()` under torch.profiler: its wall time, the device time of its
-    kernels (summed; one stream runs them in order), their share of the
+    kernels (summed; one stream runs them in order; inside a CUDA graph's
+    replay too, where the profiler reports them), their share of the
     wall time, the kernels that take the most, and the host-side ops that
-    take the most host time of their own. Returns (those numbers, what fn
-    returned)."""
+    take the most host time of their own; beside it `stream_ms`, the
+    stream's time between CUDA events recorded around `fn` (what the
+    stream ran, gaps where it waited on the host included). Returns
+    (those numbers, what fn returned)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         done = fn()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, host = [], []
@@ -841,11 +899,33 @@ def profiled(fn):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    seen = dict.fromkeys(DEVICE_KERNELS, 0)
+    for _, n, k in rows:
+        c = counter_of(k)
+        if c is not None:
+            seen[c] += n
+    copies: dict[str, list] = {}  # by kernel family (names cut short)
+    for us, n, k in rows:
+        if "copy" in k:
+            c = copies.setdefault(k[:90], [0, 0.0])
+            c[0] += n
+            c[1] += us / 1e3
     return {
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
+        "stream_ms": start.elapsed_time(end),
         "device_kernels": sum(r[1] for r in rows),
+        # the port's kernels among them, by the counter of their wrapper
+        "kernel_launches": seen,
+        # the elementwise copies (dtype casts among them), and the host's
+        # casts and copies that launch them
+        "copy_kernels": {"count": sum(n for _, n, k in rows if "copy" in k),
+                         "ms": sum(us for us, _, k in rows
+                                   if "copy" in k) / 1e3,
+                         "by_kernel": copies},
+        "host_casts": {op: sum(n for _, n, k in host if k == op)
+                       for op in ("aten::_to_copy", "aten::copy_")},
         "top": [{"kernel": k[:80], "count": n, "ms": us / 1e3}
                 for us, n, k in rows[:8]],
         "top_host": [{"op": k[:80], "count": n, "ms": us / 1e3}
@@ -861,23 +941,41 @@ def profile_step(eng, step):
     return dict(numbers, active_slots=active), done
 
 
-def serve_phase(ff, layout, prompts, vocab) -> dict:
-    """Drive one serving run through `engine.generate(prompts)`: the
-    launch counts are set to 0 just before and read just after. Each
-    engine iteration that generate runs is timed through a wrapper on the
-    engine's `step`; the first pure-decode one is profiled instead, and
-    its time and tokens are left out of the rate and the medians. Returns
-    the run's numbers."""
+def graph_ready(run, slots: int) -> bool:
+    """Whether the captured decode step `run` holds a graph for the
+    pure-decode width (tokens of (slots, 1))."""
+    return any(g is not None and any(len(e) == 3 and e[1] == (slots, 1)
+                                     for e in sig)
+               for sig, g in run._graphs.items())
+
+
+def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
+    """Drive one serving run through `engine.generate(prompts)`, its
+    decode step captured (one CUDA graph per q width) or, `mode` "eager",
+    under `executor.eager()`: the launch counts are set to 0 just before
+    and read just after. Each engine iteration that generate runs is
+    timed through a wrapper on the engine's `step`; the first pure-decode
+    one that replays a graph (eager: the first) is profiled instead, and
+    its time and tokens are left out of the rate and the medians; so are
+    the steps that warmed up or captured a width. Returns the run's
+    numbers."""
+    import contextlib
+
     import torch
 
+    from flexflow_tpu_torch.executor import eager
     from flexflow_tpu_torch.kernels import counters, reset_counters
 
     eng = ff.serve(kv_layout=layout, max_new_tokens=NEW_TOKENS)
+    run = eng._step_fn.captured
     sched = eng.scheduler
     c = counters()
     step = eng.step
     decode_ms, per_step, profiled = [], {}, {}
     steps = 0
+
+    def graphs():
+        return len(run._graphs), run.captures
 
     def timed_step():
         nonlocal steps
@@ -886,15 +984,17 @@ def serve_phase(ff, layout, prompts, vocab) -> dict:
         before = {k: v.launches for k, v in c.items()}
         pure_decode = (not sched.pending
                        and not any(s.prefilling for s in sched.slots))
+        g0 = graphs()
         t0 = time.perf_counter()
-        if pure_decode and not profiled:
+        if (pure_decode and not profiled
+                and (mode == "eager" or graph_ready(run, SLOTS))):
             profiled["numbers"], done = profile_step(eng, step)
             profiled["s"] = time.perf_counter() - t0
             profiled["tokens"] = eng._decode_tokens - tokens0
             return done
         done = step()  # ends in the sampled tokens' copy to the host
         dt = (time.perf_counter() - t0) * 1e3
-        if eng._prefill_calls == calls0:
+        if eng._prefill_calls == calls0 and graphs() == g0:
             decode_ms.append(dt)
             per_step.update({k: v.launches - before[k]
                              for k, v in c.items()})
@@ -903,13 +1003,21 @@ def serve_phase(ff, layout, prompts, vocab) -> dict:
     eng.step = timed_step
     reset_counters()
     t_run = time.perf_counter()
-    streams = eng.generate(prompts)
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        streams = eng.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = {k: v.launches for k, v in c.items()}
     plain = {k: v.plain_calls for k, v in c.items()}
 
     require(bool(profiled), f"{layout}: no pure-decode step was profiled")
+    require_seen(profiled["numbers"], per_step,
+                 f"{layout} {mode} pure-decode step")
+    # a width captures once: a graph that no longer holds its tensors
+    # (a state not written back, say) would capture again every step
+    require(run.captures <= len(run._graphs),
+            f"{layout}: {run.captures} captures of {len(run._graphs)} "
+            f"decode widths")
     for i, toks in enumerate(streams):
         if len(toks) != NEW_TOKENS:
             raise AssertionError(f"request {i}: {len(toks)} tokens")
@@ -925,6 +1033,10 @@ def serve_phase(ff, layout, prompts, vocab) -> dict:
     st = eng.stats()
     out = {
         "layout": layout,
+        "mode": mode,
+        # widths called, and widths called twice or more (captured)
+        "decode_widths": len(run._graphs),
+        "decode_graphs": run.captures,
         "requests": len(streams),
         "steps": steps,
         "prefill_calls": st["prefill_calls"],
@@ -969,6 +1081,8 @@ def top2_at(ff, layout, tokens) -> list:
     one request of `tokens` as its prompt, in `layout`."""
     import torch
 
+    from flexflow_tpu_torch.executor import eager
+
     eng = f32_engine(ff, layout)
     ex = eng.decode_model.executor
     seen = {}
@@ -984,7 +1098,8 @@ def top2_at(ff, layout, tokens) -> list:
         return step_fn(params, state, xs, read_idx, *rest)
 
     ex._apply, eng._step_fn = keep_logits, keep_row
-    eng.generate([tokens], max_new_tokens=1)
+    with eager():  # a replay runs no Python: keep each call's logits
+        eng.generate([tokens], max_new_tokens=1)
     slot = 0  # the only request takes the first slot
     row = seen["logits"][slot, int(seen["row"][slot])].float()
     top = torch.topk(row, 2)
@@ -994,21 +1109,34 @@ def top2_at(ff, layout, tokens) -> list:
 
 
 def f32_stream_check(ff, prompts) -> dict:
-    """The same requests served in float32 in both KV layouts: how many
-    greedy streams agree and, where one does not, the first differing
-    request and step, the two tokens, and the top-2 float32 logits after
-    the common prefix in each layout (a re-prefill of prompt + prefix)."""
+    """The same requests served in float32 in both KV layouts, each with
+    the captured decode step and under `executor.eager()`: the captured
+    and eager greedy streams must be identical (fatal). Then how many
+    streams agree across the layouts and, where one does not, the first
+    differing request and step, the two tokens, and the top-2 float32
+    logits after the common prefix in each layout (a re-prefill of
+    prompt + prefix)."""
     import torch
+
+    from flexflow_tpu_torch.executor import eager
 
     streams = {}
     for layout in ("paged", "contiguous"):
-        eng = f32_engine(ff, layout)
-        streams[layout] = eng.generate(prompts)
-        del eng
-        torch.cuda.empty_cache()
-    a, b = streams["paged"], streams["contiguous"]
+        for mode in ("captured", "eager"):
+            eng = f32_engine(ff, layout)
+            if mode == "eager":
+                with eager():
+                    streams[layout, mode] = eng.generate(prompts)
+            else:
+                streams[layout, mode] = eng.generate(prompts)
+            del eng
+            torch.cuda.empty_cache()
+        require(streams[layout, "captured"] == streams[layout, "eager"],
+                f"float32 {layout}: captured and eager greedy streams "
+                f"differ")
+    a, b = streams["paged", "captured"], streams["contiguous", "captured"]
     out = {"identical": sum(x == y for x, y in zip(a, b)),
-           "requests": len(prompts)}
+           "requests": len(prompts), "captured_equals_eager": True}
     for i, (x, y) in enumerate(zip(a, b)):
         if x != y:
             t = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
@@ -1155,22 +1283,36 @@ def step_launches(layers: int, fused: bool) -> dict:
 
 def train_phase(lm=None, *, transposed=False, fused=False,
                 batch=TRAIN_BATCH, warmup=WARMUP_STEPS,
-                timed_steps=TIMED_STEPS) -> dict:
+                timed_steps=TIMED_STEPS, mode="captured",
+                keep_masters=False) -> dict:
     """An LM (lm-base unless `lm` is given), bf16, through `fit` over one
-    repeated batch: `warmup` then `timed_steps` steps. The launch counts
-    are set to 0 just before fit and read just after; each step is timed
-    (host clock, synchronised on both sides) through a wrapper on the
-    executor's train step, which fit calls, and must launch
-    `step_launches(layers, fused)`, the flash kernels on the layout the
-    flags ask for. Then one more step, profiled."""
+    repeated batch: `warmup` then `timed_steps` steps, the train step
+    captured (the first call warms up, the second captures, the rest
+    replay: `warmup` >= 2 leaves only replays to time) or, `mode`
+    "eager", under `executor.eager()`. The launch counts are set to 0
+    just before fit and read just after; each step is timed (host clock,
+    synchronised on both sides) through a wrapper on the executor's
+    train step, which fit calls, and must launch `step_launches(layers,
+    fused)`, the flash kernels on the layout the flags ask for. Then one
+    more step, profiled. `keep_masters` returns a copy of the masters
+    after the run (`masters`)."""
+    import contextlib
+
     import torch
 
+    from flexflow_tpu_torch.executor import CapturedStep, eager
     from flexflow_tpu_torch.kernels import counters, reset_counters
     from flexflow_tpu_torch.models import transformer_lm_flops_per_token
 
     cfg = lm or lm_config()
     seq = cfg.sequence_length
     layout = "transposed" if transposed else "packed"
+    require(warmup >= 2, "the timed steps must be replays: warm up twice")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what the caller still holds (another run's masters) is not this run's
+    held = torch.cuda.memory_allocated()
     ff = build_train_lm("bf16", lm=cfg, transposed=transposed, batch=batch)
     x, y = train_batch(cfg.vocab_size, batch, seq)
     steps = warmup + timed_steps
@@ -1202,11 +1344,17 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         return out
 
     ff.executor._train_step = timed_step
+    mode_ctx = eager() if mode == "eager" else contextlib.nullcontext()
     reset_counters()
     t_fit = time.perf_counter()
-    ff.fit(xs, ys, epochs=1, batch_size=batch, shuffle=False, verbose=False)
+    with mode_ctx:
+        ff.fit(xs, ys, epochs=1, batch_size=batch, shuffle=False,
+               verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
+    require(isinstance(step_fn, CapturedStep)
+            and step_fn.captures == (0 if mode == "eager" else 1),
+            f"{mode}: {getattr(step_fn, 'captures', None)} captures")
     launches = {k: v.launches for k, v in c.items()}
     by_layout = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
     by_variant = {k: dict(c[k].variants) for k in FLASH_KERNELS}
@@ -1239,11 +1387,15 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     tok_s = timed_steps * tokens / (sum(timed) / 1e3)
     flops_tok = transformer_lm_flops_per_token(cfg)
     staged = ff._make_batch(x, y)
-    prof, _ = profiled(lambda: ff.executor.train_step(
-        ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
-        staged))
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        prof, _ = profiled(lambda: step_fn(
+            ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+            staged))
+    torch.cuda.synchronize()
+    require_seen(prof, per_step[-1], f"{mode} {layout} train step")
     metrics = ff.get_perf_metrics()
     out = {
+        "mode": mode,
         "model": (f"{cfg.hidden_size} hidden, {cfg.num_heads} heads of "
                   f"{cfg.hidden_size // cfg.num_heads}, {layers} layers, seq "
                   f"{seq}, vocab {cfg.vocab_size}"),
@@ -1262,6 +1414,9 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         # step: the profiler itself slows the host
         "device_busy_share": prof["device_busy_ms"] / statistics.median(
             timed),
+        "stream_busy_share": prof["stream_ms"] / statistics.median(timed),
+        # the run's own peak: model, state, activations, graph pool
+        "max_memory_allocated": torch.cuda.max_memory_allocated() - held,
         "launches": launches,
         "launches_by_layout": by_layout,
         "launches_by_variant": by_variant,
@@ -1271,10 +1426,66 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         "train_accuracy": metrics.get_accuracy(),
         "train_mean_loss": metrics.get_mean_loss(),
     }
-    del ff, staged
+    if keep_masters:
+        out["masters"] = {n: {k: t.detach().clone() for k, t in ws.items()}
+                          for n, ws in ff._params.items()}
+    del ff, staged, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def compare_masters(captured: dict, eager: dict) -> dict:
+    """The masters after the same steps from the same weights, captured vs
+    eager: equal bits, as every kernel of the step sums in a fixed order;
+    failing that (a library call choosing another algorithm inside a
+    graph), within GRAD_RTOL of each layer's largest entry. Fatal."""
+    import torch
+
+    bitwise, worst = True, (0.0, None, 0.0)
+    for n, ws in eager.items():
+        scale = max(float(t.abs().max()) for t in ws.values())
+        for k, want in ws.items():
+            got = captured[n][k]
+            if torch.equal(got, want):
+                continue
+            bitwise = False
+            err = float((got - want).abs().max())
+            rel = err / max(scale, 1e-30)
+            if rel > worst[0]:
+                worst = (rel, f"{n}.{k}", err)
+    rel, name, err = worst
+    require(bitwise or rel <= GRAD_RTOL,
+            f"captured and eager masters differ at {name} by {err:.3e} "
+            f"({rel:.3e} of its layer's largest entry, bound {GRAD_RTOL})")
+    return {"bitwise_equal": bitwise, "worst_tensor": name,
+            "max_abs_diff": err, "relative_to_largest": rel,
+            "tensors": sum(len(ws) for ws in eager.values())}
+
+
+def captured_vs_eager(captured: dict, eager: dict) -> dict:
+    """Launch counts of the two runs (equal: fatal; each run's per-step
+    counts were held to the kernels the profiler saw on the device,
+    `require_seen`) and the masters after them (`compare_masters`)."""
+    require(captured["launches"] == eager["launches"]
+            and captured["launches_by_variant"]
+            == eager["launches_by_variant"],
+            f"launches captured {captured['launches']} vs eager "
+            f"{eager['launches']}")
+    return compare_masters(captured.pop("masters"), eager.pop("masters"))
+
+
+def log_modes(name: str, cap: dict, eag: dict, median_key: str):
+    """The captured and eager medians and busy shares of one cell."""
+    def busy(r):
+        p = r.get("profiled_step") or r.get("profiled_decode_step")
+        share = p["device_busy_ms"] / r[median_key]
+        return (f"busy {100 * share:.1f}% ({p['device_busy_ms']:.2f} ms of "
+                f"kernels, {p['device_kernels']} launches seen by the "
+                f"profiler; stream {p['stream_ms']:.2f} ms)")
+
+    log(f"  {name}: captured median {cap[median_key]:.3f} ms, {busy(cap)}; "
+        f"eager median {eag[median_key]:.3f} ms, {busy(eag)}")
 
 
 def grad_phase(lm=None, *, transposed=False, fused=False,
@@ -1776,7 +1987,11 @@ def log_train(t: dict):
         f"{[round(x, 2) for x in timed]} ms), MFU {100 * t['mfu']:.2f}% of "
         f"{PEAK_OPS_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s, kernel time of a "
         f"profiled step {t['profiled_step']['device_busy_ms']:.2f} ms "
-        f"({100 * t['device_busy_share']:.1f}% of the median step); "
+        f"({100 * t['device_busy_share']:.1f}% of the median step; "
+        f"stream {t['profiled_step']['stream_ms']:.2f} ms; copy kernels "
+        f"{t['profiled_step']['copy_kernels']}, host casts "
+        f"{t['profiled_step']['host_casts']}; max_memory_allocated "
+        f"{t['max_memory_allocated']} B); "
         f"launches per step {t['launches_per_step']}, flash launches by "
         f"layout {t['launches_by_layout']}, by variant per step "
         f"{t['launches_by_variant_per_step']}")
@@ -1810,6 +2025,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, REPO)
     from flexflow_tpu_torch.executor import set_float_policy
+    from flexflow_tpu_torch.search.machine_model import card_line
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1830,15 +2046,26 @@ def main(argv: list[str]) -> int:
     ff = build_lm()
     vocab = ff.layers[-1].params.out_channels
     prompts = make_prompts(vocab)
-    runs = {}
+    runs, eager_runs = {}, {}
     for layout in ("paged", "contiguous"):
         runs[layout] = serve_phase(ff, layout, prompts, vocab)
+        eager_runs[layout] = e = serve_phase(ff, layout, prompts, vocab,
+                                             mode="eager")
         r = runs[layout]
         log(f"  {layout}: {r['requests']} requests x {NEW_TOKENS} tokens, "
-            f"{r['decode_tokens_per_s']:.1f} decode tokens/s, median "
-            f"pure-decode step {r['median_decode_step_ms']:.2f} ms, "
-            f"launches {r['launches']}, per pure-decode step "
+            f"{r['decode_tokens_per_s']:.1f} decode tokens/s (eager "
+            f"{e['decode_tokens_per_s']:.1f}), median pure-decode step "
+            f"{r['median_decode_step_ms']:.2f} ms, {r['decode_graphs']} "
+            f"decode graphs of {r['decode_widths']} widths, launches "
+            f"{r['launches']}, per pure-decode step "
             f"{r['launches_per_decode_step']}")
+        log_modes(layout, r, e, "median_decode_step_ms")
+        require(r["streams"] == e["streams"],
+                f"{layout}: captured and eager bf16 streams differ")
+        require(r["launches"] == e["launches"],
+                f"{layout}: launches captured {r['launches']} vs eager "
+                f"{e['launches']}")
+        e.pop("streams")
     same = sum(a == b for a, b in zip(runs["paged"]["streams"],
                                       runs["contiguous"]["streams"]))
     log(f"  paged and contiguous streams identical for {same} of "
@@ -1855,9 +2082,16 @@ def main(argv: list[str]) -> int:
     del ff
     torch.cuda.empty_cache()
 
-    log("== phase 6: training lm-base, bf16, SGD, fit over one batch")
-    train = train_phase()
+    log("== phase 6: training lm-base, bf16, SGD, fit over one batch, "
+        "captured then eager")
+    train = train_phase(keep_masters=True)
     log_train(train)
+    train_e = train_phase(mode="eager", keep_masters=True)
+    log_train(train_e)
+    train["captured_vs_eager"] = captured_vs_eager(train, train_e)
+    log_modes("lm-base train", train, train_e, "median_step_ms")
+    log(f"  masters after {train['steps'] + 1} steps, captured vs eager: "
+        f"{train['captured_vs_eager']}")
 
     log("== phase 7: training gradients, float32, kernels vs plain")
     grads = grad_phase()
@@ -1876,8 +2110,17 @@ def main(argv: list[str]) -> int:
     log(f"== phase 10: training {XXL} ({XXL_LAYERS} layers), bf16, SGD, "
         f"packed then --flash-transposed")
     xxl = lm_config(XXL, XXL_LAYERS)
-    train_x = train_phase(xxl, batch=XXL_BATCH, warmup=2, timed_steps=3)
+    train_x = train_phase(xxl, batch=XXL_BATCH, warmup=2, timed_steps=3,
+                          keep_masters=True)
     log_train(train_x)
+    train_xe = train_phase(xxl, batch=XXL_BATCH, warmup=2, timed_steps=3,
+                           mode="eager", keep_masters=True)
+    log_train(train_xe)
+    train_x["captured_vs_eager"] = captured_vs_eager(train_x, train_xe)
+    log_modes(f"{XXL} packed", train_x, train_xe, "median_step_ms")
+    log(f"  masters, captured vs eager: {train_x['captured_vs_eager']}; "
+        f"max_memory_allocated captured {train_x['max_memory_allocated']} "
+        f"B, eager {train_xe['max_memory_allocated']} B")
     train_xt = train_phase(xxl, transposed=True, batch=XXL_BATCH, warmup=2,
                            timed_steps=3)
     log_train(train_xt)
@@ -1895,6 +2138,14 @@ def main(argv: list[str]) -> int:
     }
     for g in grads_ph.values():
         log_grads(g)
+
+    log("== phase 12: bench_torch.py's measurement (lm-base, 8 x 512, "
+        "SGD, the captured step replayed n and 3n times)")
+    import bench_torch
+
+    bench = bench_torch.measure()
+    log(json.dumps(bench))
+    log(json.dumps(bench_torch.metric_line(bench)))
 
     # the run whose launches each row (and each case of a row) reports
     counted = {"train": train, "paged": runs["paged"],
@@ -1940,6 +2191,7 @@ def main(argv: list[str]) -> int:
     serving = {
         layout: {k: v for k, v in r.items() if k != "streams"}
         for layout, r in runs.items()}
+    serving_eager = eager_runs
     per_head = {"lm-base transposed": train_t, "lm-xxl packed": train_x,
                 "lm-xxl transposed": train_xt}
     detail = dict(card=card, torch=torch.__version__,
@@ -1947,7 +2199,10 @@ def main(argv: list[str]) -> int:
                   build_s=build_s, kernels=rows, serving=serving,
                   logits_max_abs=logit_err, streams_identical=same,
                   f32_streams=f32_streams,
-                  training=train, training_gradients=grads,
+                  serving_eager=serving_eager,
+                  training=train, training_eager=train_e,
+                  training_xxl_eager=train_xe, bench_torch=bench,
+                  training_gradients=grads,
                   per_head_training=per_head,
                   per_head_gradients=grads_ph,
                   lse_entry_max_abs_err=errs["flash_attention_with_lse"],
@@ -1961,11 +2216,22 @@ def main(argv: list[str]) -> int:
     def summary(t):
         return {k: t[k] for k in (
             "tokens_per_s", "median_step_ms", "mfu", "device_busy_share",
+            "stream_busy_share", "max_memory_allocated",
             "launches_per_step")}
 
     log(json.dumps({"serving": serving, "logits_max_abs": logit_err,
                     "f32_streams": f32_streams,
-                    "training": summary(train), "training_gradients": grads,
+                    "serving_eager": {
+                        k: {m: v[m] for m in ("median_decode_step_ms",
+                                              "decode_tokens_per_s")}
+                        for k, v in serving_eager.items()},
+                    "training": summary(train),
+                    "training_eager": summary(train_e),
+                    "captured_vs_eager": {
+                        "lm-base": train["captured_vs_eager"],
+                        XXL: train_x["captured_vs_eager"]},
+                    "bench_torch": bench_torch.metric_line(bench),
+                    "training_gradients": grads,
                     "per_head_training": {k: summary(t)
                                           for k, t in per_head.items()},
                     "per_head_gradients": grads_ph,

@@ -23,7 +23,9 @@ and `flash_attention_with_lse` (all `torch.autograd.Function`s).
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises. Every wrapper counts its kernel
 launches, and every plain version counts its calls, in a `KernelCounter`,
-so a run can show which path the main path went through; the flash
+so a run can show which path the main path went through (a step captured
+in a CUDA graph counts its capture's launches once per replay: see
+`executor.CapturedStep`); the flash
 kernels also count their launches by layout ("packed", "transposed") and
 by variant (K5 and K7: "sm90", the wgmma/TMA kernels of
 `csrc/flash_attention_sm90.cu`; "mma" and "simt", the bf16 and f32
@@ -56,6 +58,32 @@ class KernelCounter:
         self.plain_calls = 0
         self.layouts = {}
         self.variants = {}
+
+    def state(self) -> tuple:
+        """(launches, plain_calls, layouts, variants), copied."""
+        return (self.launches, self.plain_calls, dict(self.layouts),
+                dict(self.variants))
+
+    def restore(self, state: tuple):
+        self.launches, self.plain_calls = state[0], state[1]
+        self.layouts, self.variants = dict(state[2]), dict(state[3])
+
+    def add(self, delta: tuple):
+        """Add a `since` delta: what a CUDA graph's replay launches."""
+        self.launches += delta[0]
+        self.plain_calls += delta[1]
+        for mine, more in ((self.layouts, delta[2]),
+                           (self.variants, delta[3])):
+            for k, n in more.items():
+                mine[k] = mine.get(k, 0) + n
+
+    def since(self, state: tuple) -> tuple:
+        """What this counter gained since `state` (a `state()`)."""
+        return (self.launches - state[0], self.plain_calls - state[1],
+                {k: n - state[2].get(k, 0) for k, n in self.layouts.items()
+                 if n != state[2].get(k, 0)},
+                {k: n - state[3].get(k, 0) for k, n in self.variants.items()
+                 if n != state[3].get(k, 0)})
 
     def __repr__(self):
         return (f"KernelCounter({self.name}, launches={self.launches}, "

@@ -1,8 +1,9 @@
 """Metrics: PerfMetrics accumulation (twin of `flexflow_tpu/metrics.py`).
 
-The counters are 0-dim f32 tensors on the model's device, updated by each
-step without a host sync; the host reads them only when the user asks
-(`FFModel.get_perf_metrics`).
+The counters are 0-dim f32 tensors on the model's device, accumulated in
+place by each step without a host sync (where the JAX step donates them),
+so a captured step adds into the same tensors on every replay; the host
+reads them only when the user asks (`FFModel.get_perf_metrics`).
 """
 
 from __future__ import annotations
@@ -55,9 +56,10 @@ class Metrics:
     @torch.no_grad()
     def compute(self, counters, logits, labels, *, from_logits=False,
                 scce_sum=None):
-        """One batch's contribution. Classification metrics treat every
-        leading position as a sample; `from_logits` says the final op is
-        not a softmax; `scce_sum`, when given, is the loss pass's CE sum."""
+        """Add one batch's contribution to `counters`, in place, and return
+        them. Classification metrics treat every leading position as a
+        sample; `from_logits` says the final op is not a softmax;
+        `scce_sum`, when given, is the loss pass's CE sum."""
         classification = (
             self.measure_accuracy
             or self.measure_sparse_categorical_crossentropy
@@ -68,16 +70,15 @@ class Metrics:
             flat = logits.reshape(n, logits.shape[-1])
         else:
             n = logits.shape[0]
-        new = dict(counters)
-        new["train_all"] = counters["train_all"] + n
+        counters["train_all"].add_(n)
         eps = 1e-8
         if (self.measure_accuracy
                 or self.measure_sparse_categorical_crossentropy):
             sparse = labels.reshape(-1).long()
         if self.measure_accuracy:
             pred = torch.argmax(flat, dim=-1)
-            new["train_correct"] = counters["train_correct"] + torch.sum(
-                (pred == sparse).float())
+            counters["train_correct"].add_(torch.sum(
+                (pred == sparse).float()))
         if self.measure_sparse_categorical_crossentropy:
             if scce_sum is not None:
                 contrib = scce_sum.detach()
@@ -86,22 +87,22 @@ class Metrics:
                 logp = (torch.log_softmax(f32, dim=-1) if from_logits
                         else torch.log(f32 + eps))
                 contrib = -torch.sum(logp.gather(1, sparse[:, None]))
-            new["sparse_cce_loss"] = counters["sparse_cce_loss"] + contrib
+            counters["sparse_cce_loss"].add_(contrib)
         if self.measure_categorical_crossentropy:
             f32 = logits.float()
             logp = (torch.log_softmax(f32, dim=-1) if from_logits
                     else torch.log(f32 + eps))
-            new["cce_loss"] = counters["cce_loss"] - torch.sum(labels * logp)
+            counters["cce_loss"].sub_(torch.sum(labels * logp))
         if (self.measure_mean_squared_error
                 or self.measure_root_mean_squared_error
                 or self.measure_mean_absolute_error):
             err = logits.float() - labels.float()
         if (self.measure_mean_squared_error
                 or self.measure_root_mean_squared_error):
-            new["mse_loss"] = counters["mse_loss"] + torch.sum(err ** 2)
+            counters["mse_loss"].add_(torch.sum(err ** 2))
         if self.measure_mean_absolute_error:
-            new["mae_loss"] = counters["mae_loss"] + torch.sum(torch.abs(err))
-        return new
+            counters["mae_loss"].add_(torch.sum(torch.abs(err)))
+        return counters
 
 
 class PerfMetrics:

@@ -7,9 +7,13 @@ model script carries over with only the import changed. `compile` lowers
 the layer list to a graph and adopts the single-device plan: on one device
 every plan is the replicated one, so no Unity search runs (the search and
 its plan cache are a later slice of the port). `fit` is the JAX package's
-eager loop (1660) without its telemetry, checkpoint, diagnostics, elastic,
-sanitizer and scope hooks: the flags that ask for those raise (config.py),
-as does `pipeline_steps > 1` (the pipelined lax.scan engine, ROADMAP A10).
+loop (1660) over the executor's train step (a CUDA graph replayed per
+batch on the card, as JAX replays one jitted executable) without its
+telemetry, checkpoint, diagnostics, elastic, sanitizer and scope hooks:
+the flags that ask for those raise (config.py), as does `pipeline_steps >
+1` (the pipelined lax.scan engine, ROADMAP A10). The training state
+(masters, optimizer slots, step, metric counters) is updated in place,
+the twin of the JAX step's donation.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ class FFModel:
         self._epoch_base = 0
         self._current_batch = None
         self._grads = None
+        self._eval_counters = None
 
     # ================================================== tensor creation
 
@@ -382,7 +387,13 @@ class FFModel:
             batch_size = self.config.batch_size
         x_dict = self._as_input_dict(x)
         eval_fn = self.executor._eval_step or self.executor.build_eval_step()
-        counters = self.metrics.zero_counters(self.device)
+        # one set of counters, zeroed in place: the eval step adds into the
+        # tensors it was captured on
+        if self._eval_counters is None:
+            self._eval_counters = self.metrics.zero_counters(self.device)
+        counters = self._eval_counters
+        for c in counters.values():
+            c.zero_()
         for b in range(y.shape[0] // batch_size):
             sl = slice(b * batch_size, (b + 1) * batch_size)
             batch = self._make_batch({k: v[sl] for k, v in x_dict.items()},
@@ -426,18 +437,23 @@ class FFModel:
             raise RuntimeError("call backward first")
         self._params, self._opt_slots = self.optimizer.update(
             self._grads, self._params, self._opt_slots, self._step)
-        self._step = self._step + 1
+        self._step.add_(1)
         self._grads = None
 
     def reset_metrics(self):
-        self._counters = self.metrics.zero_counters(self.device)
+        for c in self._counters.values():
+            c.zero_()
 
     def set_learning_rate(self, lr: float):
-        """Change the optimizer's learning rate; the eager step reads it at
-        the next update."""
+        """Change the optimizer's learning rate. The rate is a constant of
+        the captured train step, so the step is dropped and the next batch
+        captures anew (JAX retraces, `model.py:2208`)."""
         if not self._compiled:
             raise RuntimeError("call compile() before set_learning_rate()")
+        if float(lr) == float(self.optimizer.lr):
+            return
         self.optimizer.set_learning_rate(lr)
+        self.executor._train_step = None
 
     def get_perf_metrics(self) -> PerfMetrics:
         return PerfMetrics(self._counters, self.metrics)
@@ -455,6 +471,10 @@ class FFModel:
 
     def set_weight(self, layer_name: str, weight_name: str,
                    value: np.ndarray):
+        """Replace one master with a new tensor of `value`, as the JAX
+        package replaces the array: a serving engine that adopted the old
+        one keeps it, and a captured train step that held it captures
+        anew at the next batch."""
         old = self._params[layer_name][weight_name]
         value = np.asarray(value)
         if tuple(value.shape) != tuple(old.shape):

@@ -2,12 +2,13 @@
 `flexflow_tpu/optimizer.py`, same update formulas in the same order).
 
 `init(params)` -> slots; `update(grads, params, slots, step)` ->
-(new_params, slots). Parameters are `{node: {weight: tensor}}` dicts of
-f32 masters. The new parameters are new tensors, as JAX's are, so a
-serving engine that adopted the old ones keeps them. The optimizer slots
-(momentum, Adam's m and v) are updated in place under `no_grad`, where the
-JAX step donates them. The updates go through `torch._foreach_*`: one
-launch per op for the whole parameter list instead of one per tensor.
+(params, slots). Parameters are `{node: {weight: tensor}}` dicts of f32
+masters. The masters and the optimizer slots (momentum, Adam's m and v)
+are updated in place under `no_grad`, where the JAX step donates them
+(`donate_argnums`): a captured train step (`executor.CapturedStep`) reads
+and writes the same tensors on every replay. The updates go through
+`torch._foreach_*`: one launch per op for the whole parameter list instead
+of one per tensor.
 `step` is the number of updates already applied, a device int32 scalar;
 Adam's bias correction is computed from it in float32 tensors, as the JAX
 package computes it in f32 arrays.
@@ -70,8 +71,8 @@ class SGDOptimizer(Optimizer):
             torch._foreach_add_(vs, gs)  # v = momentum * v + g
             gs = (torch._foreach_add(gs, vs, alpha=self.momentum)
                   if self.nesterov else vs)
-        new = torch._foreach_sub(ps, torch._foreach_mul(gs, self.lr))
-        return _unflat(keys, new), slots
+        torch._foreach_sub_(ps, torch._foreach_mul(gs, self.lr))
+        return _unflat(keys, ps), slots
 
 
 @dataclass
@@ -116,4 +117,5 @@ class AdamOptimizer(Optimizer):
         torch._foreach_add_(denom, self.epsilon)
         num = torch._foreach_mul(ms, alpha_t)
         torch._foreach_div_(num, denom)  # alpha_t * m / (sqrt(v) + eps)
-        return _unflat(keys, torch._foreach_sub(ps, num)), slots
+        torch._foreach_sub_(ps, num)
+        return _unflat(keys, ps), slots

@@ -193,11 +193,13 @@ def build_decode_model(model, spec: ServingSpec):
 
 
 def adopt_params(dec, model) -> int:
-    """Move the trained model's parameters into the decode model by
-    (node, weight) name. The decode model holds the same tensors: serving
-    never writes a parameter, and `set_weight` on either model replaces
-    its own entry rather than writing in place. The KV caches keep their
-    zero init. Returns the number of weights adopted."""
+    """Copy the trained model's parameters into the decode model by
+    (node, weight) name. Each is a copy of its own, as the JAX package's
+    `set_weight` places a new array: an engine keeps the weights it had
+    when it was built, and a later `fit` step, which updates the trained
+    model's masters in place, reaches only an engine built after it. The
+    KV caches keep their zero init. Returns the number of weights
+    adopted."""
     moved = 0
     for node_name, ws in dec._params.items():
         for wname in ws:
@@ -207,6 +209,6 @@ def adopt_params(dec, model) -> int:
                     f"{node_name}.{wname}: trained shape "
                     f"{tuple(src.shape)} != decode shape "
                     f"{tuple(ws[wname].shape)}")
-            ws[wname] = src
+            ws[wname] = src.detach().clone()
             moved += 1
     return moved

@@ -16,9 +16,13 @@ before the step that writes. "contiguous" keeps the (slots, max_seq+1,
 embed) per-slot cache.
 
 A pure-decode iteration (q_len 1) runs the decode kernels K2/K3 and the
-LayerNorm kernel K1 on CUDA. Telemetry, elastic re-planning, KV handoff
-and the speculative engine of the JAX package are later slices of the
-port.
+LayerNorm kernel K1 on CUDA. On the card the decode step is a CUDA graph
+per q width (`Executor.build_decode_step`): 1 and the power-of-two prefill
+buckets, O(log chunk) graphs, as the JAX engine's bucketing bounds its
+executables; the step's inputs go from the host into that graph's own
+buffers, and the weights come from the decode model's cache of
+compute-dtype copies. Telemetry, elastic re-planning, KV handoff and the
+speculative engine of the JAX package are later slices of the port.
 """
 
 from __future__ import annotations
@@ -134,26 +138,32 @@ class ServingEngine:
             b *= 2
         return min(b, self.spec.prefill_chunk)
 
-    def _stage_inputs(self, tokens: np.ndarray,
-                      positions: np.ndarray) -> dict:
-        """One decode-graph call's inputs on the model's device: the token
-        stream, positions and, for the paged layout, the page tables."""
+    def _feed(self, tokens: np.ndarray, positions: np.ndarray) -> dict:
+        """One decode-graph call's inputs on the host: the token stream,
+        positions and, for the paged layout, the page tables."""
         xs = {self._token_input: tokens, "positions": positions}
         if self.block_manager is not None:
             mgr = self.block_manager
             xs["page_table"] = np.asarray(
                 [mgr.table(i) for i in range(self.spec.slots)], np.int32)
-        return self.decode_model.executor.stage_inputs(xs)
+        return xs
+
+    def _stage_inputs(self, tokens: np.ndarray,
+                      positions: np.ndarray) -> dict:
+        """`_feed`'s inputs on the model's device."""
+        return self.decode_model.executor.stage_inputs(
+            self._feed(tokens, positions))
 
     def _run_step(self, tokens: np.ndarray, positions: np.ndarray,
                   read_idx: np.ndarray) -> np.ndarray:
-        """One decode-graph call: stage inputs, run the step (it updates
-        the KV state in place), return the sampled tokens."""
+        """One decode-graph call: the host inputs go to the step (into its
+        graph's buffers on the card), which updates the KV state in place;
+        returns the sampled tokens."""
         dec = self.decode_model
-        dev = dec.device
-        xs = self._stage_inputs(tokens, positions)
+        xs = {k: torch.as_tensor(v)
+              for k, v in self._feed(tokens, positions).items()}
         if self._gen is None:
-            self._gen = torch.Generator(device=dev).manual_seed(
+            self._gen = torch.Generator(device=dec.device).manual_seed(
                 dec.config.seed)
         temp = np.zeros((self.spec.slots,), np.float32)
         for s in self.scheduler.active_slots:
@@ -161,8 +171,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         dec._state, next_tok = self._step_fn(
             dec._params, dec._state, xs,
-            torch.as_tensor(read_idx, dtype=torch.int32).to(dev),
-            self._gen, torch.as_tensor(temp).to(dev))
+            torch.as_tensor(read_idx, dtype=torch.int32), self._gen,
+            torch.as_tensor(temp))
         out = next_tok.cpu().numpy()  # waits for the device
         self._device_s += time.perf_counter() - t0
         return out

@@ -52,10 +52,11 @@ def main(argv: list[str]) -> int:
     import chip_smoke as cs
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import layer_norm as ln
+    from flexflow_tpu_torch.search.machine_model import card_line
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    card = cs.card_line()
+    card = card_line()
     print(card, flush=True)
     cs.build_kernels()
 

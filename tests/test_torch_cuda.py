@@ -18,9 +18,13 @@ lm-base's rows and a ragged width), in float32 and bfloat16;
 the tests below add shapes off those paths, which the kernels take all
 the same, strided views, the autograd Functions on the card, the
 wgmma/TMA K5 and K7 (the "sm90" variant) at small versions of the
-phase-2 shapes, and the entries' routing of causal s_q > s_k to sdpa_xla.
+phase-2 shapes, the entries' routing of causal s_q > s_k to sdpa_xla, and
+the executor's captured steps (CUDA graphs) held to their eager selves:
+token streams, masters, metrics and kernel counts, and a capture that
+reads the host raising with nothing run.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -842,3 +846,245 @@ def test_layer_norm_forward_kernel_reads_strided_rows(
     torch.testing.assert_close(got.float(),
                                ln.layer_norm_plain(x, s, b, 1e-5).float(),
                                **tol)
+
+
+# ------------------------------------------------------------ captured steps
+
+def _smoke_lm(monkeypatch, dtype="bf16", batch=2):
+    """lm-smoke's widths (vocab 512, hidden 128, 2 layers, seq 128) with 2
+    heads of 64 on the flash path, compiled for training (SGD with
+    momentum, accuracy and CE metrics) and for serving at chunk 4: seed
+    0, so two builds draw the same weights."""
+    import dataclasses
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.models import (
+        TRANSFORMER_LM_ZOO,
+        build_transformer_lm,
+    )
+
+    monkeypatch.setattr(sys, "argv", ["test"])
+    cfg = FFConfig()
+    cfg.parse_args(["--dtype", dtype, "--seed", "0", "-b", str(batch),
+                    "--serve-slots", "4", "--serve-prefill-chunk", "4",
+                    "--serve-kv-block-size", "8"])
+    ff = FFModel(cfg)
+    lm = dataclasses.replace(TRANSFORMER_LM_ZOO["lm-smoke"], num_heads=2,
+                             attention_impl="flash")
+    build_transformer_lm(ff, lm, batch_size=batch)
+    ff.compile(optimizer=SGDOptimizer(lr=0.05, momentum=0.9),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY,
+                        MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return ff, lm
+
+
+def _smoke_prompts(vocab):
+    import numpy as np
+
+    rs = np.random.RandomState(1)
+    # chunks of 4, then of 2 twice (26 = 6 x 4 + 2, 6 = 4 + 2), then pure
+    # decode: every width is called twice or more, so each is captured
+    return [rs.randint(0, vocab, size=n).tolist() for n in (3, 9, 17, 40,
+                                                            6, 26)]
+
+
+def _smoke_batches(lm, batch, steps):
+    import numpy as np
+
+    rs = np.random.RandomState(2)
+    n, s = batch * steps, lm.sequence_length
+    x = {"tokens": rs.randint(0, lm.vocab_size, (n, s)).astype(np.int32),
+         "positions": np.tile(np.arange(s, dtype=np.int32), (n, 1))}
+    return x, rs.randint(0, lm.vocab_size, (n, s, 1)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_decode_streams_match_eager(cuda, monkeypatch, layout,
+                                             dtype, temperature):
+    """The decode step replayed from its CUDA graphs (q widths 1, 2 and 4)
+    gives the eager step's token streams, greedy and sampled (the
+    engine's generator registered with every graph advances as eager
+    calls advance it); each bf16 copy of a master is cast once."""
+    from flexflow_tpu_torch import executor
+
+    ff, lm = _smoke_lm(monkeypatch, dtype)
+    prompts = _smoke_prompts(lm.vocab_size)
+    eng = ff.serve(kv_layout=layout, max_new_tokens=12)
+    got = eng.generate(prompts, temperature=temperature)
+    with executor.eager():
+        want = ff.serve(kv_layout=layout, max_new_tokens=12).generate(
+            prompts, temperature=temperature)
+    assert got == want
+    run = eng._step_fn.captured
+    assert isinstance(run, executor.CapturedStep)
+    assert run.captures == 3 and len(run._graphs) == 3  # widths 1, 2, 4
+    floats = sum(1 for ws in eng.decode_model._params.values()
+                 for w in ws.values() if w.is_floating_point())
+    ex = eng.decode_model.executor
+    assert ex.weight_refreshes == floats  # cast once each (bf16)
+
+
+@pytest.mark.cuda
+def test_captured_train_and_eval_steps_match_eager(cuda, monkeypatch):
+    """Three train steps through fit (a warm-up, a capture, a replay) and
+    an eval give the eager steps' masters, slots, metrics and eval
+    metrics, bit for bit; the kernel counters count the same launches,
+    by layout and variant."""
+    from flexflow_tpu_torch import executor
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    runs = {}
+    for mode in ("captured", "eager"):
+        ff, lm = _smoke_lm(monkeypatch)
+        x, y = _smoke_batches(lm, 2, 3)
+        reset_counters()
+        with (executor.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            ff.fit(x, y, epochs=1, batch_size=2, shuffle=False,
+                   verbose=False)
+            counts = {n: c.state() for n, c in counters().items()}
+            ev = ff.eval(x, y, batch_size=2)
+        torch.cuda.synchronize()
+        runs[mode] = (ff, counts, ev)
+    (a, ca, ea), (b, cb, eb) = runs["captured"], runs["eager"]
+    assert isinstance(a.executor._train_step, executor.CapturedStep)
+    assert a.executor._train_step.captures == 1
+    assert ca == cb and ca["flash_attention_fwd"][0] == 3 * 2
+    assert int(a._step) == int(b._step) == 3
+    for n, ws in a._params.items():
+        for k, t in ws.items():
+            assert torch.equal(t, b._params[n][k]), f"{n}.{k}"
+            assert torch.equal(a._opt_slots["v"][n][k],
+                               b._opt_slots["v"][n][k]), f"v {n}.{k}"
+    for k, t in a._counters.items():
+        assert torch.equal(t, b._counters[k]), k
+    assert ea._c == eb._c
+
+
+@pytest.mark.cuda
+def test_capture_that_reads_the_host_raises_and_runs_nothing(cuda,
+                                                            monkeypatch):
+    """A host read inside the step (`.item()` in the GELU op) passes the
+    eager warm-up, then breaks the capture: the second step raises a
+    CaptureError naming the line, and no step ran in its place."""
+    from flexflow_tpu_torch import executor
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+    from flexflow_tpu_torch.ops.base import get_op_def
+
+    ff, lm = _smoke_lm(monkeypatch)
+    x, y = _smoke_batches(lm, 2, 1)
+    gelu = get_op_def(OT.OP_GELU)
+    plain = gelu.forward
+
+    def reads_the_host(params, inputs, weights, state, ctx):
+        if inputs[0].sum().item() == float("inf"):  # a host read
+            raise AssertionError("unreachable")
+        return plain(params, inputs, weights, state, ctx)
+
+    monkeypatch.setattr(gelu, "forward", reads_the_host)
+    ff.fit(x, y, epochs=1, batch_size=2, shuffle=False, verbose=False)
+    after_one = {n: {k: t.clone() for k, t in ws.items()}
+                 for n, ws in ff._params.items()}
+    with pytest.raises(executor.CaptureError,
+                       match=r"train_step: .*test_torch_cuda\.py:\d+ in "
+                       r"reads_the_host"):
+        ff.fit(x, y, epochs=1, batch_size=2, shuffle=False, verbose=False)
+    assert int(ff._step) == 1
+    for n, ws in after_one.items():
+        for k, t in ws.items():
+            assert torch.equal(ff._params[n][k], t), f"{n}.{k}"
+    # the step runs op by op under eager()
+    with executor.eager():
+        ff.fit(x, y, epochs=1, batch_size=2, shuffle=False, verbose=False)
+    assert int(ff._step) == 2
+
+
+@pytest.mark.cuda
+def test_captured_train_step_follows_new_tensors_and_rates(cuda,
+                                                           monkeypatch):
+    """A master replaced by `set_weight` (another tensor) makes the
+    captured train step capture anew; a new learning rate drops the step
+    (a constant of its graph). Either way the masters stay those of the
+    eager steps, bit for bit."""
+    import numpy as np
+
+    from flexflow_tpu_torch import executor
+
+    runs = {}
+    for mode in ("captured", "eager"):
+        ff, lm = _smoke_lm(monkeypatch)
+        x, y = _smoke_batches(lm, 2, 3)
+        ctx = executor.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            ff.fit(x, y, epochs=1, batch_size=2, shuffle=False,
+                   verbose=False)
+            w = np.random.RandomState(3).randn(
+                *ff._params["lm_head"]["kernel"].shape).astype(np.float32)
+            ff.set_weight("lm_head", "kernel", w)
+            step = ff.executor._train_step
+            ff.fit(x, y, epochs=1, batch_size=2, shuffle=False,
+                   verbose=False)
+            if mode == "captured":
+                assert ff.executor._train_step is step
+                assert step.captures == 2  # once, then anew for the tensor
+            ff.set_learning_rate(0.01)
+            assert ff.executor._train_step is None
+            ff.fit(x, y, epochs=1, batch_size=2, shuffle=False,
+                   verbose=False)
+        torch.cuda.synchronize()
+        runs[mode] = ff
+    a, b = runs["captured"], runs["eager"]
+    assert int(a._step) == int(b._step) == 9
+    for n, ws in a._params.items():
+        for k, t in ws.items():
+            assert torch.equal(t, b._params[n][k]), f"{n}.{k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_captured_decode_reads_the_recast_weights(cuda, monkeypatch,
+                                                  layout):
+    """`set_weight` on the decode model recasts that master into its
+    cached bf16 copy's own storage, and the engine's decode graphs,
+    captured before, read it: its streams equal a fresh engine's on a
+    model with that weight, and differ from its first. A `fit` step on
+    the trained model leaves the engine's weights (`adopt_params` copied
+    them): the same streams, and a fresh engine's differ. No engine
+    keeps prefixes across runs (`prefix_cache=False`), so each run
+    prefills the same chunks as a fresh engine's first: a prefix read
+    from the cache leaves other rows to prefill, whose bf16 KV may differ
+    in the last bit, and a near tie then breaks the other way."""
+    import numpy as np
+
+    ff, lm = _smoke_lm(monkeypatch)
+    prompts = _smoke_prompts(lm.vocab_size)
+    kw = dict(kv_layout=layout, max_new_tokens=12, prefix_cache=False)
+    eng = ff.serve(**kw)
+    dec = eng.decode_model
+    first = eng.generate(prompts)
+    copies = dec.executor.compute_params(dec._params)
+    head = np.random.RandomState(4).randn(
+        *ff._params["lm_head"]["kernel"].shape).astype(np.float32)
+    dec.set_weight("lm_head", "kernel", head)
+    ff.set_weight("lm_head", "kernel", head)
+    again = eng.generate(prompts)
+    assert again == ff.serve(**kw).generate(prompts)
+    assert again != first
+    ff.set_learning_rate(2.0)
+    x, y = _smoke_batches(lm, 2, 1)
+    ff.fit(x, y, epochs=1, batch_size=2, shuffle=False, verbose=False)
+    assert eng.generate(prompts) == again
+    assert ff.serve(**kw).generate(prompts) != again
+    recast = dec.executor.compute_params(dec._params)
+    assert all(recast[n][k] is t for n, ws in copies.items()
+               for k, t in ws.items())

@@ -239,11 +239,12 @@ def test_load_params_rejects_unknown_names(models):
 
 
 def test_no_source_imports_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or the JAX
-    package (a lazy import inside a function included)."""
+    """No module of the port, nor chip_smoke.py or bench_torch.py, imports
+    jax or the JAX package (a lazy import inside a function included)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flexflow_tpu)(\.|\s|$)", re.M)
-    sources = [os.path.join(REPO, "chip_smoke.py")]
+    sources = [os.path.join(REPO, "chip_smoke.py"),
+               os.path.join(REPO, "bench_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO, "flexflow_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -256,7 +257,8 @@ def test_import_pulls_in_no_jax():
         "import sys, flexflow_tpu_torch, flexflow_tpu_torch.models, "
         "flexflow_tpu_torch.serving, flexflow_tpu_torch.kernels._build, "
         "flexflow_tpu_torch.kernels.flash_attention, "
-        "flexflow_tpu_torch.kernels.layer_norm\n"
+        "flexflow_tpu_torch.kernels.layer_norm, "
+        "flexflow_tpu_torch.search.machine_model, bench_torch\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.')]\n"
