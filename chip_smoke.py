@@ -13,11 +13,13 @@ of dim 64, 12 layers, seq 512; random weights from seed 0; bf16
 activations over fp32 master weights), serving and training, and the
 per-head flash paths: lm-base under --flash-transposed, and lm-xxl-fsdp
 (hidden 4096, 32 heads of dim 128, seq 2048, vocab 32000) at 4 of its 32
-layers, in both layouts. The train and decode steps are the executor's
+layers, in both layouts; then the layer API's path, ResNet-50 at full
+width, and lm-base's training under --telemetry-dir. The train and
+decode steps are the executor's
 captured ones (a CUDA graph per batch signature or q width: the first
 call of each warms up, the second captures, the rest replay; the steps
-that warm up or capture are left out of every median); phases 3/4, 6 and
-10 also run under `executor.eager()` (the steps op by op) and hold the
+that warm up or capture are left out of every median); phases 3/4, 6, 10
+and 13 also run under `executor.eager()` (the steps op by op) and hold the
 two to each other. The launch counts come from the kernels' wrappers,
 which a replay cannot bump: a captured step adds what its capture
 counted. So every serving and training run also profiles one step and
@@ -95,7 +97,25 @@ Phases, each fatal on failure:
      plain versions;
  12. bench_torch.py's measurement in this process (lm-base, 8 x 512,
      SGD, the captured step replayed n and 3n times, the slope per
-     step): its detail line and its metric line.
+     step): its detail line and its metric line;
+ 13. training ResNet-50 (the layer API's path: conv2d, pool2d, add, relu,
+     flat, dense, softmax) at full width, FFModel -> build_resnet50 at
+     batch 64, 224 x 224, 10 classes, bf16 over f32 masters ->
+     compile(SGD(lr=0.01), sparse CE, accuracy) -> fit over one repeated
+     batch of random images and labels, 3 warm-up and 10 timed steps,
+     captured then under executor.eager(): a finite loss that falls, no
+     launch of K1-K8, cuDNN or cuBLAS convolution kernels in a profiled
+     step, the masters of both modes equal bit for bit (else within 1e-3
+     of each layer's largest entry); images/s, median step, MFU (the
+     convolutions' and the dense layer's FLOPs x 3), busy share, peak
+     memory, NCHW<->NHWC transposes;
+ 14. phase 6's run under --telemetry-dir (a fresh temporary directory)
+     and --metrics-interval 1, captured: trace.json a Chrome trace with
+     compile, step and data_wait spans, metrics.jsonl with a manifest
+     naming the card, a step record a step and a summary, metrics.prom;
+     each step phase 6's launches; the recorded timed step times'
+     median and the MFU gauge within 15% of phase 6's, the summary's
+     p50 (a histogram estimate) within one bucket of phase 6's median.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -864,15 +884,17 @@ def require_seen(prof: dict, counted: dict, what: str):
             f"launches, the counters count {want}")
 
 
-def profiled(fn):
+def profiled(fn, patterns=None):
     """`fn()` under torch.profiler: its wall time, the device time of its
     kernels (summed; one stream runs them in order; inside a CUDA graph's
     replay too, where the profiler reports them), their share of the
     wall time, the kernels that take the most, and the host-side ops that
     take the most host time of their own; beside it `stream_ms`, the
     stream's time between CUDA events recorded around `fn` (what the
-    stream ran, gaps where it waited on the host included). Returns
-    (those numbers, what fn returned)."""
+    stream ran, gaps where it waited on the host included). `patterns`
+    ({label: regex}) adds, per label, the launches and device time of the
+    kernels whose names match (`matched`). Returns (those numbers, what
+    fn returned)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -910,7 +932,15 @@ def profiled(fn):
             c = copies.setdefault(k[:90], [0, 0.0])
             c[0] += n
             c[1] += us / 1e3
+    matched = {}
+    for label, pat in (patterns or {}).items():
+        hits = [(us, n, k) for us, n, k in rows if re.search(pat, k)]
+        matched[label] = {"count": sum(n for _, n, _ in hits),
+                          "ms": sum(us for us, _, _ in hits) / 1e3,
+                          "top": [{"kernel": k[:90], "count": n,
+                                   "ms": us / 1e3} for us, n, k in hits[:6]]}
     return {
+        **({"matched": matched} if patterns else {}),
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
@@ -1230,10 +1260,12 @@ def lm_config(name: str = "lm-base", layers: int | None = None):
 
 
 def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
-                   transposed: bool = False, batch: int = TRAIN_BATCH):
+                   transposed: bool = False, batch: int = TRAIN_BATCH,
+                   flags: tuple = ()):
     """An LM (lm-base unless `lm` is given) compiled for training as
     bench.py compiles lm-base: SGD(lr=0.01), sparse CE from logits, plus
-    the accuracy and CE metrics; `transposed` passes --flash-transposed."""
+    the accuracy and CE metrics; `transposed` passes --flash-transposed,
+    `flags` any other FFConfig flags (phase 14: --telemetry-dir)."""
     from flexflow_tpu_torch import (
         FFConfig,
         FFModel,
@@ -1245,7 +1277,8 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
 
     cfg = FFConfig()
     cfg.parse_args(["--dtype", dtype, "--seed", str(SEED), "-b", str(batch)]
-                   + (["--flash-transposed"] if transposed else []))
+                   + (["--flash-transposed"] if transposed else [])
+                   + list(flags))
     cfg.allow_tensor_op_math_conversion = tensor_op_math
     ff = FFModel(cfg)
     build_transformer_lm(ff, lm or lm_config())
@@ -1390,7 +1423,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     with eager() if mode == "eager" else contextlib.nullcontext():
         prof, _ = profiled(lambda: step_fn(
             ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
-            staged))
+            staged, ff._rng))
     torch.cuda.synchronize()
     require_seen(prof, per_step[-1], f"{mode} {layout} train step")
     metrics = ff.get_perf_metrics()
@@ -1978,6 +2011,317 @@ KERNELS = [
 ]
 
 
+# ------------------------------------------------------------ phases 13-14
+
+# phase 13: ResNet-50 at the zoo's defaults (224 x 224, 10 classes) and
+# FFConfig's default batch
+RESNET_BATCH = 64
+# the layout transposes cuDNN adds around a convolution, and the kernels
+# that compute one: cuDNN's (implicit-GEMM, Winograd, forward, data- and
+# weight-gradient kernels) and the cuBLAS/CUTLASS GEMMs it lowers some to,
+# by the names NVIDIA gives them, the transposes left out
+LAYOUT_KERNELS = r"(?i)(nchwtonhwc|nhwctonchw)"
+CONV_KERNELS = (r"(?i)^(?!.*(nchwtonhwc|nhwctonchw))"
+                r".*(conv|xmma|fprop|dgrad|wgrad|implicit|winograd|cutlass"
+                r"|gemm|nvjet)")
+# phase 14: the telemetry's exact per-step times and its MFU gauge against
+# phase 6's, and the bucket estimate of its summary p50 against one
+# bucket of its histogram (telemetry/metrics.py: four a decade)
+TELEMETRY_RTOL = 0.15
+BUCKET_RATIO = 10.0 ** 0.25
+
+
+def resnet_phase(mode: str = "captured", warmup: int = WARMUP_STEPS,
+                 timed_steps: int = TIMED_STEPS,
+                 keep_masters: bool = False) -> dict:
+    """ResNet-50 (FFModel -> build_resnet50 at batch 64, 224 x 224, 10
+    classes), bf16 over f32 masters, compile(SGD(lr=0.01), sparse CE,
+    accuracy) -> fit over one repeated batch of random images and labels
+    from the seed: `warmup` then `timed_steps` steps, captured or, `mode`
+    "eager", under `executor.eager()`. Each step is timed as phase 6's
+    (host clock, synchronised on both sides). Fatal: a finite loss that
+    falls, no launch of the port's kernels (K1-K8), and convolution
+    kernels of cuDNN or cuBLAS in one profiled step. MFU counts the
+    convolutions' and the dense layer's FLOPs (the ops' counts) x 3."""
+    import contextlib
+
+    import torch
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.executor import CapturedStep, eager
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.models import build_resnet50
+
+    require(warmup >= 2, "the timed steps must be replays: warm up twice")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = FFConfig()
+    cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED), "-b",
+                    str(RESNET_BATCH)])
+    ff = FFModel(cfg)
+    inp, _ = build_resnet50(ff, batch_size=RESNET_BATCH)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY])
+    classes = ff.layers[-1].outputs[0].dims[-1]
+    rs = np.random.RandomState(SEED)
+    x = rs.randn(*inp.dims).astype(np.float32)
+    y = rs.randint(0, classes, (RESNET_BATCH, 1)).astype(np.int32)
+    steps = warmup + timed_steps
+    c = counters()
+    step_fn = ff.executor.build_train_step()
+    losses, step_ms = [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out[-1])
+        return out
+
+    ff.executor._train_step = timed_step
+
+    def mode_ctx():
+        return eager() if mode == "eager" else contextlib.nullcontext()
+
+    reset_counters()
+    with mode_ctx():
+        ff.fit(np.concatenate([x] * steps), np.concatenate([y] * steps),
+               epochs=1, batch_size=RESNET_BATCH, shuffle=False,
+               verbose=False)
+    torch.cuda.synchronize()
+    require(isinstance(step_fn, CapturedStep)
+            and step_fn.captures == (0 if mode == "eager" else 1),
+            f"resnet {mode}: {getattr(step_fn, 'captures', None)} captures")
+    launches = {k: v.launches for k, v in c.items()}
+    plain = {k: v.plain_calls for k, v in c.items()}
+    require(not any(launches.values()) and not any(plain.values()),
+            f"resnet {mode}: the port's kernels ran: {launches}, plain "
+            f"{plain}")
+    losses = [float(v) for v in losses]
+    require(len(losses) == steps, f"fit ran {len(losses)} steps")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    staged = ff._make_batch({inp.name: x}, y)
+    with mode_ctx():
+        prof, _ = profiled(lambda: step_fn(
+            ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+            staged, ff._rng), patterns={"conv": CONV_KERNELS,
+                                        "layout": LAYOUT_KERNELS})
+    torch.cuda.synchronize()
+    require_seen(prof, {}, f"resnet {mode} train step")
+    require(prof["matched"]["conv"]["count"] > 0,
+            f"resnet {mode}: no cuDNN/cuBLAS convolution kernel in a "
+            f"profiled step: {prof['top']}")
+    fwd = {OT.OP_CONV2D: 0.0, OT.OP_LINEAR: 0.0}
+    for node in ff.graph.topo_order():
+        if node.op_type in fwd:
+            fwd[node.op_type] += node.op_def.flops(
+                node.params, node.input_shapes, node.output_shapes)
+    flops_step = 3.0 * sum(fwd.values())
+    timed = step_ms[warmup:]
+    median = statistics.median(timed)
+    out = {
+        "mode": mode,
+        "model": (f"ResNet-50, {inp.dims[2]} x {inp.dims[3]}, {classes} "
+                  f"classes, {len(fwd)} op types counted"),
+        "batch": RESNET_BATCH,
+        "steps": steps,
+        "timed_steps": timed_steps,
+        "losses": losses,
+        "step_ms": step_ms,
+        "median_step_ms": median,
+        "images_per_s": timed_steps * RESNET_BATCH / (sum(timed) / 1e3),
+        "flops_per_step": flops_step,
+        "conv_flops_per_step": 3.0 * fwd[OT.OP_CONV2D],
+        "mfu": flops_step / (median / 1e3) / PEAK_OPS_PER_S["bfloat16"],
+        "device_busy_share": prof["device_busy_ms"] / median,
+        "stream_busy_share": prof["stream_ms"] / median,
+        "max_memory_allocated": torch.cuda.max_memory_allocated() - held,
+        "launches": launches,
+        "conv_kernels": prof["matched"]["conv"],
+        "layout_transposes": prof["matched"]["layout"],
+        "profiled_step": prof,
+    }
+    if keep_masters:
+        out["masters"] = {n: {k: t.detach().clone() for k, t in ws.items()}
+                          for n, ws in ff._params.items()}
+    del ff, staged, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_resnet(r: dict):
+    p = r["profiled_step"]
+    log(f"  {r['mode']}: losses {[round(v, 4) for v in r['losses']]}")
+    log(f"  {r['images_per_s']:.1f} images/s, median step "
+        f"{r['median_step_ms']:.2f} ms, MFU {100 * r['mfu']:.2f}% "
+        f"({r['flops_per_step'] / 1e9:.1f} GFLOP a step, conv "
+        f"{r['conv_flops_per_step'] / 1e9:.1f}), kernel time of a "
+        f"profiled step {p['device_busy_ms']:.2f} ms ("
+        f"{100 * r['device_busy_share']:.1f}% of the median; stream "
+        f"{p['stream_ms']:.2f} ms), {p['device_kernels']} kernel launches; "
+        f"convolution kernels {r['conv_kernels']['count']} launches "
+        f"{r['conv_kernels']['ms']:.2f} ms (top {r['conv_kernels']['top']}), "
+        f"NCHW<->NHWC transposes {r['layout_transposes']['count']} launches "
+        f"{r['layout_transposes']['ms']:.2f} ms; max_memory_allocated "
+        f"{r['max_memory_allocated']} B; top {p['top'][:4]}")
+
+
+def telemetry_phase(base: dict) -> dict:
+    """Phase 6's run (lm-base, bf16, captured, 3 warm-up and 10 timed
+    steps through fit) with --telemetry-dir in a fresh temporary directory
+    and --metrics-interval 1, its steps untimed by this script. Fatal:
+    trace.json is a Chrome trace with compile, step and data_wait spans;
+    metrics.jsonl holds the manifest naming the card (`card_line()`), one
+    step record per step and a summary; metrics.prom exists; each step
+    launches what phase 6's did (K1-K7, sm90); the median of the recorded
+    timed step times and the final MFU gauge are within 15% of phase 6's
+    (`base`), the summary's p50 (a histogram estimate) within one bucket
+    of phase 6's median."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.search.machine_model import card_line
+    from flexflow_tpu_torch.telemetry import read_jsonl
+
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = lm_config()
+        ff = build_train_lm("bf16", flags=("--telemetry-dir", tdir,
+                                           "--metrics-interval", "1"))
+        x, y = train_batch(cfg.vocab_size)
+        steps = WARMUP_STEPS + TIMED_STEPS
+        c = counters()
+        step_fn = ff.executor.build_train_step()
+        per_step, per_variant = [], []
+
+        def counted(*args):
+            before = {k: v.launches for k, v in c.items()}
+            before_v = {k: dict(c[k].variants) for k in FLASH_KERNELS}
+            out = step_fn(*args)
+            per_step.append({k: v.launches - before[k]
+                             for k, v in c.items()})
+            per_variant.append({k: {var: n - before_v[k].get(var, 0)
+                                    for var, n in c[k].variants.items()
+                                    if n - before_v[k].get(var, 0)}
+                                for k in FLASH_KERNELS})
+            return out
+
+        ff.executor._train_step = counted
+        reset_counters()
+        t0 = time.perf_counter()
+        ff.fit({k: np.concatenate([v] * steps) for k, v in x.items()},
+               np.concatenate([y] * steps), epochs=1,
+               batch_size=TRAIN_BATCH, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        ff.get_telemetry().close()  # the final snapshot; the exporter stops
+        require(step_fn.captures == 1,
+                f"telemetry: {step_fn.captures} captures")
+        want = step_launches(cfg.num_layers, False)
+        want_var = {k: ({"sm90": n} if n else {}) for k, n in want.items()
+                    if k in FLASH_KERNELS}
+        require(len(per_step) == steps, f"telemetry: {len(per_step)} steps")
+        for i, (n, vs) in enumerate(zip(per_step, per_variant)):
+            got = {k: n[k] for k in want}
+            require(got == want and vs == want_var,
+                    f"telemetry step {i}: launches {got} {vs}, want {want} "
+                    f"{want_var}")
+        require(per_step[-1] == base["launches_per_step"],
+                f"telemetry: a step launches {per_step[-1]}, phase 6's "
+                f"{base['launches_per_step']}")
+
+        with open(os.path.join(tdir, "trace.json")) as f:
+            trace = json.load(f)
+        evs = trace["traceEvents"]
+        require(isinstance(evs, list) and all("name" in e and "ph" in e
+                                              for e in evs),
+                "trace.json is not a Chrome trace")
+        spans = [e for e in evs if e["ph"] == "X"]
+        names = {e["name"] for e in spans}
+        require({"compile", "step", "data_wait"} <= names,
+                f"trace.json spans: {sorted(names)}")
+        require(sum(e["name"] == "step" for e in spans) == steps,
+                "trace.json: one step span a step")
+        recs = read_jsonl(os.path.join(tdir, "metrics.jsonl"))
+        man = recs[0]
+        card = card_line()
+        require(man["kind"] == "manifest" and man.get("card") == card
+                and man.get("device_kind") == torch.cuda.get_device_name(0),
+                f"manifest {man} does not name the card {card!r}")
+        step_recs = [r for r in recs if r["kind"] == "step"]
+        require([r["step"] for r in step_recs] == list(range(1, steps + 1)),
+                f"step records {[r['step'] for r in step_recs]}")
+        summaries = [r for r in recs if r["kind"] == "summary"]
+        require(summaries and summaries[-1]["steps"] == steps,
+                f"summary records {summaries}")
+        summary = summaries[-1]
+        require(os.path.exists(os.path.join(tdir, "metrics.prom")),
+                "no metrics.prom")
+        snaps = [r for r in recs if r["kind"] == "metrics_snapshot"]
+        gauge_mfu = snaps[-1]["metrics"]["gauges"]["train_mfu"]
+
+        timed = step_recs[WARMUP_STEPS:]
+        median_s = statistics.median(r["step_time_s"] for r in timed)
+        base_s = base["median_step_ms"] / 1e3
+        p50 = summary["p50_step_time_s"]
+        out = {
+            "steps": steps,
+            "fit_wall_s": fit_s,
+            "recorded_median_step_ms": 1e3 * median_s,
+            "recorded_step_ms": [1e3 * r["step_time_s"] for r in step_recs],
+            "data_wait_ms": [1e3 * r["data_wait_s"] for r in step_recs],
+            "device_time_ms": [1e3 * r["device_time_s"] for r in step_recs],
+            "summary_p50_step_ms": 1e3 * p50,
+            "summary_p95_step_ms": 1e3 * summary["p95_step_time_s"],
+            "summary_mfu": summary.get("mfu"),
+            "mfu_gauge": gauge_mfu,
+            "phase6_median_step_ms": base["median_step_ms"],
+            "phase6_mfu": base["mfu"],
+            "recorded_vs_phase6": median_s / base_s,
+            "p50_vs_phase6": p50 / base_s,
+            "mfu_gauge_vs_phase6": gauge_mfu / base["mfu"],
+            "p50_within_15pct": abs(p50 / base_s - 1) <= TELEMETRY_RTOL,
+            "records": sorted({r["kind"] for r in recs}),
+            "snapshots": len(snaps),
+            "launches_per_step": per_step[-1],
+        }
+        require(abs(median_s / base_s - 1) <= TELEMETRY_RTOL,
+                f"telemetry's median step {1e3 * median_s:.3f} ms vs phase "
+                f"6's {base['median_step_ms']:.3f} ms")
+        require(abs(gauge_mfu / base["mfu"] - 1) <= TELEMETRY_RTOL,
+                f"telemetry's MFU gauge {gauge_mfu:.4f} vs phase 6's "
+                f"{base['mfu']:.4f}")
+        require(1 / BUCKET_RATIO <= p50 / base_s <= BUCKET_RATIO,
+                f"telemetry's summary p50 {1e3 * p50:.3f} ms is more than "
+                f"a histogram bucket from phase 6's median "
+                f"{base['median_step_ms']:.3f} ms")
+        del ff, step_fn
+        return out
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def log_train(t: dict):
     log(f"  {t['model']}, {t['layout']}, batch {t['batch']}: losses "
         f"{[round(x, 4) for x in t['losses']]}")
@@ -2147,6 +2491,33 @@ def main(argv: list[str]) -> int:
     log(json.dumps(bench))
     log(json.dumps(bench_torch.metric_line(bench)))
 
+    log(f"== phase 13: training ResNet-50 ({RESNET_BATCH} x 3 x 224 x "
+        f"224, 10 classes), bf16, SGD, fit over one batch, captured then "
+        f"eager")
+    rn = resnet_phase(keep_masters=True)
+    log_resnet(rn)
+    rn_e = resnet_phase(mode="eager", keep_masters=True)
+    log_resnet(rn_e)
+    rn["captured_vs_eager"] = compare_masters(rn.pop("masters"),
+                                              rn_e.pop("masters"))
+    log_modes("resnet-50 train", rn, rn_e, "median_step_ms")
+    log(f"  masters after {rn['steps'] + 1} steps, captured vs eager: "
+        f"{rn['captured_vs_eager']}")
+
+    log("== phase 14: training lm-base under --telemetry-dir "
+        "(--metrics-interval 1), captured")
+    tel = telemetry_phase(train)
+    log(f"  recorded median step {tel['recorded_median_step_ms']:.3f} ms "
+        f"({tel['recorded_vs_phase6']:.4f} of phase 6's "
+        f"{tel['phase6_median_step_ms']:.3f}), summary p50 "
+        f"{tel['summary_p50_step_ms']:.3f} ms ({tel['p50_vs_phase6']:.4f}; "
+        f"within 15%: {tel['p50_within_15pct']}), MFU gauge "
+        f"{100 * tel['mfu_gauge']:.2f}% ({tel['mfu_gauge_vs_phase6']:.4f} "
+        f"of phase 6's {100 * tel['phase6_mfu']:.2f}%); data wait "
+        f"{[round(v, 3) for v in tel['data_wait_ms']]} ms, device "
+        f"{[round(v, 3) for v in tel['device_time_ms']]} ms; records "
+        f"{tel['records']}")
+
     # the run whose launches each row (and each case of a row) reports
     counted = {"train": train, "paged": runs["paged"],
                "contiguous": runs["contiguous"],
@@ -2206,6 +2577,7 @@ def main(argv: list[str]) -> int:
                   per_head_training=per_head,
                   per_head_gradients=grads_ph,
                   lse_entry_max_abs_err=errs["flash_attention_with_lse"],
+                  resnet50=rn, resnet50_eager=rn_e, telemetry=tel,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -2235,6 +2607,15 @@ def main(argv: list[str]) -> int:
                     "per_head_training": {k: summary(t)
                                           for k, t in per_head.items()},
                     "per_head_gradients": grads_ph,
+                    "resnet50": {m: {k: r[k] for k in (
+                        "images_per_s", "median_step_ms", "mfu",
+                        "device_busy_share", "max_memory_allocated",
+                        "conv_kernels", "layout_transposes")}
+                        for m, r in (("captured", rn), ("eager", rn_e))},
+                    "resnet50_captured_vs_eager": rn["captured_vs_eager"],
+                    "telemetry": {k: v for k, v in tel.items() if k not in (
+                        "recorded_step_ms", "data_wait_ms",
+                        "device_time_ms")},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -2,13 +2,14 @@
 NVIDIA H100.
 
 It mirrors the JAX package's module layout and names. It trains the
-flagship Transformer LM (FFConfig -> FFModel -> build_transformer_lm ->
-compile(optimizer, loss_type, metrics) -> fit / eval / forward, backward,
-update) and serves it (compile -> serve() -> ServingEngine.generate), with
-hand-written Hopper kernels for the flash attention forward and
-backward, the decode attention and the LayerNorm backward (CUDA C++), and
-the LayerNorm forward (Triton). It imports torch and numpy, never jax,
-and nothing of flexflow_tpu.
+flagship Transformer LM, the MLPs and ResNet-50 through the JAX
+package's layer API (FFConfig -> FFModel -> builders -> compile(optimizer,
+loss_type, metrics) -> fit / eval / forward, backward, update) and serves
+the LM (compile -> serve() -> ServingEngine.generate), with hand-written
+Hopper kernels (CUDA C++) for the flash attention forward and backward,
+the decode attention and the LayerNorm forward and backward; telemetry/
+writes the JAX package's trace and run metrics. It imports torch and
+numpy, never jax, and nothing of flexflow_tpu.
 
 Every tensor lives on `FFConfig.device`, "cuda" unless the caller asks
 for "cpu"; without a CUDA device and without that request, building a
@@ -26,6 +27,8 @@ from .fftype import (
     LossType,
     MetricsType,
     OperatorType,
+    PoolType,
+    RegularizerMode,
 )
 from .initializer import (
     ConstantInitializer,
@@ -34,10 +37,12 @@ from .initializer import (
     NormInitializer,
     UniformInitializer,
 )
+from .machine import MachineResource, MachineView, MeshShape
 from .metrics import PerfMetrics
 from .model import FFModel
 from .optimizer import AdamOptimizer, Optimizer, SGDOptimizer
 from . import serving
+from . import telemetry  # tracer + run metrics + leveled logging
 from .tensor import Tensor
 
 __version__ = "0.1.0"

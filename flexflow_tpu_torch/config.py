@@ -3,7 +3,8 @@
 The twin of `flexflow_tpu/config.py`, cut to the flags the serving and
 training slices read: `-e/--epochs`, `-b`, `--lr` (also spelled
 `--learning-rate`), `--dtype`, `--seed`, `--flash-transposed`, the
-`--serve-*` flags and the tensor-op math policy. Unknown flags are
+`--serve-*` flags, the tensor-op math policy, and telemetry's
+`--telemetry-dir`, `--metrics-interval` and `--metrics-port`. Unknown flags are
 ignored, as the reference's tolerant argv scan does, except the flags of
 paths the port does not have yet (`_NOT_PORTED`): asking for one raises,
 naming its ROADMAP item. New
@@ -31,9 +32,6 @@ _NOT_PORTED = {
     "--checkpoint-every": (True, "A10 (resilience/ checkpoints)"),
     "--checkpoint-every-seconds": (True, "A10 (resilience/ checkpoints)"),
     "--auto-resume": (False, "A10 (resilience/ auto-resume)"),
-    "--telemetry-dir": (True, "A1 (telemetry/)"),
-    "--metrics-interval": (True, "A1 (telemetry/ metrics exporter)"),
-    "--metrics-port": (True, "A1 (telemetry/ metrics exporter)"),
     "--xprof-dir": (True, "A10 (scope/ device traces)"),
     "--profile-every": (True, "A10 (scope/ op-grain profiling)"),
     "--watchdog-timeout": (True, "A10 (scope/ hang watchdog)"),
@@ -82,6 +80,16 @@ class FFConfig:
     serve_kv_block_size: int = 16
     serve_kv_blocks: int = 0
     serve_prefix_cache: int = 1
+    # observability (telemetry/): telemetry_dir enables the run-wide
+    # tracer + JSONL metrics log (trace.json / metrics.jsonl under the dir)
+    telemetry_dir: str = ""
+    # continuous export (telemetry/export.py, needs telemetry):
+    # metrics_interval > 0 writes a rolling metrics_snapshot record +
+    # metrics.prom every N seconds; metrics_port serves the latest
+    # snapshot at /metrics and liveness at /healthz on 127.0.0.1 (port 0 =
+    # off)
+    metrics_interval: float = 0.0
+    metrics_port: int = 0
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
@@ -110,6 +118,12 @@ class FFConfig:
                 if int(val()) > 1:
                     raise not_ported("--pipeline-steps > 1 (the pipelined "
                                      "lax.scan engine)", "A10 (engine/)")
+            elif a == "--telemetry-dir":
+                self.telemetry_dir = val()
+            elif a == "--metrics-interval":
+                self.metrics_interval = float(val())
+            elif a == "--metrics-port":
+                self.metrics_port = int(val())
             elif a == "--seed":
                 self.seed = int(val())
             elif a == "--device":

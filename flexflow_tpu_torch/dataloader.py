@@ -2,12 +2,18 @@
 
 The full array stays in host memory as numpy; `next_batch` slices it
 round-robin with an epoch-stable order (sequential batches, `reset()` to
-restart). `FFModel.start_batch` or `fit` stages a batch on the device.
+restart). `FFModel.start_batch` or `fit` stages a batch on the device;
+`next_batch_sharded` stages it here (one device: no sharding, the JAX
+name kept). Both carry the JAX loader's telemetry
+spans (`data.next_batch`, `data_wait`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from . import telemetry
 
 
 class SingleDataLoader:
@@ -27,8 +33,16 @@ class SingleDataLoader:
         self.next_index = 0
 
     def next_batch(self, ffmodel=None) -> np.ndarray:
-        if self.next_index + self.batch_size > self.num_samples:
-            self.next_index = 0
-        sl = slice(self.next_index, self.next_index + self.batch_size)
-        self.next_index += self.batch_size
-        return self.full_array[sl]
+        with telemetry.span("data.next_batch"):
+            if self.next_index + self.batch_size > self.num_samples:
+                self.next_index = 0
+            sl = slice(self.next_index, self.next_index + self.batch_size)
+            self.next_index += self.batch_size
+            return self.full_array[sl]
+
+    def next_batch_sharded(self) -> torch.Tensor:
+        """The next batch on the model's device. The data_wait span covers
+        the slice and the copy — the host-side stall a training step pays
+        before dispatch."""
+        with telemetry.span("data_wait"):
+            return torch.as_tensor(self.next_batch()).to(self.ffmodel.device)

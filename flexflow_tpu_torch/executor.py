@@ -337,14 +337,20 @@ class Executor:
         # (each a cast where there is a compute dtype)
         self._weight_cache: dict[tuple[str, str], tuple] = {}
         self.weight_refreshes = 0
+        # constant inputs, made at first use (`_constant`)
+        self._constants: dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------ variables
 
     def init_variables(self, seed: int):
-        """Params (trainable) and state (non-trainable weights, e.g. the KV
-        caches), each drawn from its own generator, on the model's device."""
+        """Params (trainable) and state (non-trainable weights: the KV
+        caches, BatchNorm's running statistics), each drawn from its own
+        generator, on the model's device. A node with tied weights
+        (`weight_source`) gets none: it reads its source's."""
         params, state = {}, {}
         for node in self.order:
+            if getattr(node, "weight_source", None):
+                continue
             p, s = {}, {}
             for ws in node.weight_specs:
                 init = node.initializers.get(
@@ -417,24 +423,48 @@ class Executor:
             for name, ws in new_state.items()
         }
 
-    def _apply(self, params, state, inputs, *, training: bool = False):
+    def _constant(self, node: OpNode) -> torch.Tensor:
+        """The tensor of a constant input (`FFModel.create_constant`),
+        made once on the model's device, float constants in the compute
+        dtype (where the JAX package's user passes them as inputs, which
+        its step casts)."""
+        t = self._constants.get(node.name)
+        if t is None:
+            shape, dtype, value = node.constant
+            dt = dtype_to_torch(dtype)
+            if self.compute_dtype is not None and dt.is_floating_point:
+                dt = self.compute_dtype
+            t = self._constants[node.name] = torch.full(
+                shape, value, dtype=dt, device=self.device)
+        return t
+
+    def _apply(self, params, state, inputs, *, training: bool = False,
+               rng=None, seq_length: int = -1):
         """Run the graph forward. Returns (logits, new_state). Autograd
-        records it unless the caller runs it under `no_grad`."""
+        records it unless the caller runs it under `no_grad`. `rng` is the
+        torch.Generator dropout draws from (training only); `seq_length`
+        reaches the ops' context (batch_matmul's truncation)."""
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
-        ctx = OpContext(training=training, matmul_dtype=self.matmul_dtype,
+        ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
+                        matmul_dtype=self.matmul_dtype,
                         flash_packed=self.config.flash_packed_layout)
         for node in self.order:
             if node.op_type == OT.OP_INPUT:
-                vals[(node.guid, 0)] = inputs[node.name]
+                vals[(node.guid, 0)] = (
+                    self._constant(node) if node.constant is not None
+                    else inputs[node.name])
                 continue
             ins = [None] * len(self.graph.in_edges[node.guid])
             for e in self.graph.in_edges[node.guid]:
                 ins[e.dst_idx] = vals[(e.src, e.src_idx)]
+            # tied weights read the source node's parameter set; autograd
+            # then sums every use's gradient into that one set
+            wsrc = getattr(node, "weight_source", None) or node.name
             # the compute-dtype cast at the consumer: each node casts only
             # its own weights (state stays fp32 — ops own its handling)
-            weights = dict(self._cast_compute(params.get(node.name, {})))
-            weights.update(new_state.get(node.name, {}))
+            weights = dict(self._cast_compute(params.get(wsrc, {})))
+            weights.update(new_state.get(wsrc, {}))
             outs, op_state = node.op_def.forward(
                 node.params, ins, weights, new_state.get(node.name), ctx)
             if op_state:
@@ -449,7 +479,8 @@ class Executor:
 
     # ------------------------------------------------------------ training
 
-    def make_loss_fn(self, state, x_inputs, labels):
+    def make_loss_fn(self, state, x_inputs, labels, rng=None,
+                     seq_length: int = -1):
         """The mixed-precision loss closure of the train step and of the
         granular `FFModel.backward`: the inputs are cast to the compute
         dtype once, each node casts its own weights inside `_apply`, and
@@ -460,7 +491,8 @@ class Executor:
         xc = self._cast_compute(x_inputs)
 
         def loss_fn(p):
-            logits, new_state = self._apply(p, state, xc, training=True)
+            logits, new_state = self._apply(p, state, xc, training=True,
+                                            rng=rng, seq_length=seq_length)
             lval, ce_sum = loss_terms(self.loss_type, logits, labels,
                                       self.last_op_is_softmax)
             return lval, (logits, new_state, ce_sum)
@@ -478,20 +510,25 @@ class Executor:
         with torch.enable_grad():
             lval, aux = loss_fn(leaves)
             grads = torch.autograd.grad(
-                lval, [leaves[n][k] for n, k in keys], allow_unused=True)
+                lval, [leaves[n][k] for n, k in keys],
+                allow_unused=True) if keys else []
         out: dict = {}
         for (n, k), g in zip(keys, grads):
             out.setdefault(n, {})[k] = (g if g is not None
                                         else torch.zeros_like(params[n][k]))
         return lval.detach(), aux, out
 
-    def train_step(self, params, state, opt_slots, step, counters, batch):
+    def train_step(self, params, state, opt_slots, step, counters, batch,
+                   rng=None):
         """One iteration: forward, loss, backward, optimizer, metrics.
         Returns (params, state, opt_slots, step, counters, loss): the first
         five are the given tensors, updated in place (the JAX step's
-        donated arguments 0-4); `step` is one more."""
+        donated arguments 0-4; the state's new values, BatchNorm's running
+        statistics among them, written into its tensors); `step` is one
+        more. `rng` is the model's torch.Generator, which dropout draws
+        from and advances (the JAX step takes a fresh key per step)."""
         x_inputs, labels = batch
-        loss_fn = self.make_loss_fn(state, x_inputs, labels)
+        loss_fn = self.make_loss_fn(state, x_inputs, labels, rng)
         lval, (logits, new_state, ce_sum), grads = self.value_and_grad(
             loss_fn, params)
         _write_back(state, self._restore_state_dtypes(new_state))
@@ -514,10 +551,12 @@ class Executor:
 
     def build_train_step(self):
         """The train step: one CUDA graph per batch signature on the card
-        (masters, state, slots, step and counters held: updated in
-        place), `train_step` itself on the CPU."""
+        (masters, state, slots, step, counters and the generator held:
+        updated in place; the generator registered with the graph, so
+        each replay draws new dropout masks), `train_step` itself on the
+        CPU."""
         self._train_step = self._compiled("train_step", self.train_step,
-                                          held=(0, 1, 2, 3, 4))
+                                          held=(0, 1, 2, 3, 4, 6))
         return self._train_step
 
     def build_eval_step(self):
@@ -538,12 +577,20 @@ class Executor:
         return self._eval_step
 
     def build_forward(self):
+        """The granular forward: logits and the new state (written into
+        the given state's tensors). In training mode dropout draws from a
+        generator seeded 0 at each call, as the JAX forward's fixed
+        `jax.random.key(0)`."""
         @torch.no_grad()
-        def forward(params, state, x_inputs, training):
+        def forward(params, state, x_inputs, training, seq_length=-1):
+            rng = (torch.Generator(self.device).manual_seed(0)
+                   if training else None)
             logits, new_state = self._apply(params, state,
                                             self._cast_compute(x_inputs),
-                                            training=training)
-            return logits, self._restore_state_dtypes(new_state)
+                                            training=training, rng=rng,
+                                            seq_length=seq_length)
+            return logits, _write_back(
+                state, self._restore_state_dtypes(new_state))
 
         self._forward_fn = forward
         return forward

@@ -20,10 +20,21 @@ class ActiMode(enum.IntEnum):
     AC_MODE_GELU = 14
 
 
+class RegularizerMode(enum.IntEnum):
+    REG_MODE_NONE = 17
+    REG_MODE_L1 = 18
+    REG_MODE_L2 = 19
+
+
 class AggrMode(enum.IntEnum):
     AGGR_MODE_NONE = 20
     AGGR_MODE_SUM = 21
     AGGR_MODE_AVG = 22
+
+
+class PoolType(enum.IntEnum):
+    POOL_MAX = 30
+    POOL_AVG = 31
 
 
 class DataType(enum.IntEnum):
@@ -48,8 +59,19 @@ _DTYPE_TO_TORCH = {
 }
 
 
+_TORCH_TO_DTYPE = {v: k for k, v in _DTYPE_TO_TORCH.items()}
+
+
 def dtype_to_torch(dt: DataType) -> torch.dtype:
     return _DTYPE_TO_TORCH[DataType(dt)]
+
+
+def torch_to_dtype(dt: torch.dtype) -> DataType:
+    return _TORCH_TO_DTYPE[dt]
+
+
+def size_of_datatype(dt: DataType) -> int:
+    return dtype_to_torch(dt).itemsize
 
 
 class LossType(enum.IntEnum):
@@ -58,6 +80,15 @@ class LossType(enum.IntEnum):
     LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE = 52
     LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE = 53
     LOSS_IDENTITY = 54
+
+
+class ParameterSyncType(enum.IntEnum):
+    """Kept for API parity with the JAX package (which keeps it for the
+    reference's ffconst.h). On one device there is nothing to sync."""
+
+    NONE = 80
+    PS = 81
+    NCCL = 82
 
 
 class MetricsType(enum.IntEnum):
@@ -75,17 +106,66 @@ class CompMode(enum.IntEnum):
 
 
 class OperatorType(enum.IntEnum):
-    """The operator vocabulary of this slice, with the values the JAX
-    package's enum gives the same names (it numbers them with
-    `enum.auto()` in declaration order)."""
+    """The operators the port registers, with the values the JAX package's
+    enum gives the same names (it numbers them with `enum.auto()` in
+    declaration order)."""
 
     OP_INPUT = 1
+    OP_CONV2D = 4
+    OP_DROPOUT = 5
     OP_LINEAR = 6
+    OP_BATCHMATMUL = 7
+    OP_POOL2D = 8
+    OP_SCALAR_MULTIPLY = 9
+    OP_SCALAR_ADD = 10
+    OP_SCALAR_FLOOR_DIV = 11
+    OP_SCALAR_TRUE_DIV = 12
+    OP_SCALAR_SUB = 13
+    OP_RELU = 14
+    OP_IDENTITY = 15
+    OP_SIGMOID = 16
+    OP_TANH = 17
+    OP_ELU = 18
+    OP_FLAT = 19
     OP_SOFTMAX = 20
+    OP_BATCHNORM = 21
+    OP_CONCAT = 22
+    OP_SPLIT = 23
     OP_EMBEDDING = 24
+    OP_RESHAPE = 31
+    OP_REVERSE = 32
+    OP_TRANSPOSE = 33
     OP_EW_ADD = 34
+    OP_EW_MUL = 35
+    OP_EW_SUB = 41
+    OP_EW_DIV = 42
+    OP_EW_EQUAL = 43
+    OP_EW_GREATER = 44
+    OP_EW_LESS = 45
+    OP_EW_MAX = 46
+    OP_EW_MIN = 47
+    OP_REDUCE_MAX = 50
+    OP_REDUCE_MEAN = 51
+    OP_REDUCE_MIN = 52
+    OP_REDUCE_PROD = 53
+    OP_REDUCE_SUM = 54
+    OP_TOPK = 58
+    OP_CEIL = 60
+    OP_CAST = 61
+    OP_EXP = 62
+    OP_ROUND = 63
+    OP_LOG = 64
+    OP_LOGICAL_NOT = 65
+    OP_SQRT = 66
+    OP_SIN = 67
+    OP_COS = 68
+    OP_LEAKYRELU = 69
     OP_GELU = 73
     OP_MULTIHEAD_ATTENTION = 74
     OP_INC_MULTIHEAD_ATTENTION = 75
     OP_PAGED_INC_MULTIHEAD_ATTENTION = 76
+    OP_RSQRT = 78
+    OP_POW = 79
+    OP_MEAN = 80
     OP_LAYERNORM = 81
+    OP_GATHER = 82

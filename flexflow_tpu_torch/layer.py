@@ -33,6 +33,9 @@ class Layer:
         self.name = name or f"{op_type.name.lower()}_{self.layer_guid}"
         # per-weight Initializer overrides, name -> Initializer
         self.initializers = initializers or {}
+        # tied weights: the layer_guid whose parameters this layer reads
+        # (FFModel's shared_op), else -1
+        self.shared_layer_guid = -1
 
     def __repr__(self):
         return f"Layer({self.name}, {self.op_type.name})"

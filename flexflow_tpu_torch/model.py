@@ -2,16 +2,19 @@
 (`fit`, `eval`, the granular forward/backward/update), weights I/O and
 `serve()` (twin of `flexflow_tpu/model.py`).
 
-The builder methods mirror the JAX package's one for one (155-690), so a
-model script carries over with only the import changed. `compile` lowers
-the layer list to a graph and adopts the single-device plan: on one device
-every plan is the replicated one, so no Unity search runs (the search and
-its plan cache are a later slice of the port). `fit` is the JAX package's
+The builder methods mirror the JAX package's one for one (155-560), tied
+weights (`shared_op`) and constant inputs included, so a model script
+carries over with only the import changed. `compile` lowers the layer
+list to a graph and adopts the single-device plan: on one device every
+plan is the replicated one, so no Unity search runs (the search and its
+plan cache are a later slice of the port). `fit` is the JAX package's
 loop (1660) over the executor's train step (a CUDA graph replayed per
-batch on the card, as JAX replays one jitted executable) without its
-telemetry, checkpoint, diagnostics, elastic, sanitizer and scope hooks:
-the flags that ask for those raise (config.py), as does `pipeline_steps >
-1` (the pipelined lax.scan engine, ROADMAP A10). The training state
+batch on the card, as JAX replays one jitted executable) with its
+telemetry hooks (`--telemetry-dir`, `enable_telemetry`: spans, step
+records, the MFU anchor) and without its checkpoint, diagnostics,
+elastic, sanitizer and scope hooks: the flags that ask for those raise
+(config.py), as does `pipeline_steps > 1` (the pipelined lax.scan engine,
+ROADMAP A10). The training state
 (masters, optimizer slots, step, metric counters) is updated in place,
 the twin of the JAX step's donation.
 """
@@ -19,7 +22,7 @@ the twin of the JAX step's donation.
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,19 +37,35 @@ from .fftype import (
     LossType,
     MetricsType,
     OperatorType as OT,
+    PoolType,
+    RegularizerMode,
 )
 from .initializer import Initializer
 from .layer import Layer
 from .ops import (
+    BatchMatmulParams,
+    BatchNormParams,
+    CastParams,
+    ConcatParams,
+    Conv2DParams,
+    DropoutParams,
     ElementBinaryParams,
     ElementUnaryParams,
     EmbeddingParams,
+    GatherParams,
     IncMultiHeadAttentionParams,
     LayerNormParams,
     LinearParams,
     MultiHeadAttentionParams,
     PagedIncMultiHeadAttentionParams,
+    Pool2DParams,
+    ReduceParams,
+    ReshapeParams,
+    ReverseParams,
     SoftmaxParams,
+    SplitParams,
+    TopKParams,
+    TransposeParams,
 )
 from .metrics import Metrics, PerfMetrics
 from .ops.base import get_op_def
@@ -55,7 +74,37 @@ from .pcg.graph import Graph, OpNode
 from .tensor import Tensor
 
 
+# FFModel methods of the JAX package that the port has not got yet, by
+# ROADMAP item: calling one raises, naming its item
+_NOT_PORTED_METHODS = {
+    **dict.fromkeys(("repartition", "combine", "replicate", "reduction"),
+                    "A6 (parallel ops)"),
+    "set_strategy": "A7 (Unity search)",
+    "pipeline_blocks": "A8 (pipeline)",
+    **dict.fromkeys(("enable_checkpointing", "save_checkpoint",
+                     "load_checkpoint", "set_fault_hook"),
+                    "A10 (resilience/)"),
+    **dict.fromkeys(("enable_diagnostics", "get_diagnostics"),
+                    "A10 (diagnostics/)"),
+    "enable_elastic": "A10 (elastic/)",
+    "profile_step": "A10 (scope/)",
+    **dict.fromkeys(("moe", "experts", "group_by", "aggregate",
+                     "aggregate_spec", "cache"), "A12 (ops/moe.py)"),
+}
+
+
 class FFModel:
+    def __getattr__(self, name):
+        item = _NOT_PORTED_METHODS.get(name)
+        if item is None:
+            raise AttributeError(
+                f"{type(self).__name__!r} object has no attribute {name!r}")
+
+        def not_yet(*args, **kwargs):
+            raise not_ported(f"FFModel.{name}", item)
+
+        return not_yet
+
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
         # raises when CUDA is asked for (the default) and absent
@@ -78,6 +127,15 @@ class FFModel:
         self._current_batch = None
         self._grads = None
         self._eval_counters = None
+        # the generator dropout draws from, on the model's device (the
+        # JAX model's PRNG key), made at compile from config.seed
+        self._rng = None
+        self._telemetry = None  # TelemetrySession (telemetry/session.py)
+        # tied node name -> the node that owns its parameters
+        self._weight_alias: dict[str, str] = {}
+        # MFU anchor: FLOPs of a train step (the ops' forward FLOPs x 3)
+        # and the card's peak, set at compile (`_goodput`)
+        self._goodput_anchor = None
 
     # ================================================== tensor creation
 
@@ -94,6 +152,14 @@ class FFModel:
         self._input_tensors.append(t)
         return t
 
+    def create_constant(self, dims, value: float, data_type: DataType) -> Tensor:
+        """An input that holds `value` everywhere: fit and eval take no
+        array for it (the executor makes it on the device)."""
+        t = self.create_tensor(dims, data_type, create_grad=False,
+                               name=f"const_{len(self._input_tensors)}")
+        t.constant_value = value
+        return t
+
     # ================================================== internal builder
 
     def _add_layer(
@@ -104,9 +170,24 @@ class FFModel:
         name: str = "",
         initializers: Optional[dict] = None,
         data_type: DataType = DataType.DT_FLOAT,
+        shared_op=None,
     ) -> Layer:
         layer = Layer(op_type, params, inputs, name=name, data_type=data_type,
                       initializers=initializers)
+        if shared_op is not None:
+            # tied weights (reference dense/embedding shared_op): this
+            # layer reads the shared layer's parameters; autograd sums the
+            # gradients of every use into the one parameter set
+            src = getattr(shared_op, "owner_layer", shared_op)
+            if not isinstance(src, Layer):
+                raise TypeError(
+                    f"shared_op must be a Layer or one of its output "
+                    f"tensors, got {type(shared_op).__name__}")
+            if src.op_type != op_type:
+                raise ValueError(
+                    f"shared_op ties a {op_type.name} layer to a "
+                    f"{src.op_type.name} layer")
+            layer.shared_layer_guid = src.layer_guid
         out_shapes = get_op_def(op_type).infer_shapes(
             params, [t.dims for t in inputs])
         for i, s in enumerate(out_shapes):
@@ -116,8 +197,9 @@ class FFModel:
         self.layers.append(layer)
         return layer
 
-    def _unary(self, op_type: OT, x: Tensor, name: str = "") -> Tensor:
-        p = ElementUnaryParams(op_type)
+    def _unary(self, op_type: OT, x: Tensor, name: str = "", inplace: bool = True,
+               scalar: float = 0.0) -> Tensor:
+        p = ElementUnaryParams(op_type, inplace, scalar)
         return self._add_layer(op_type, p, [x], name,
                                data_type=x.dtype).outputs[0]
 
@@ -129,11 +211,68 @@ class FFModel:
 
     # ================================================== ops
 
+    def exp(self, x, name=""):
+        return self._unary(OT.OP_EXP, x, name)
+
+    def sin(self, x, name=""):
+        return self._unary(OT.OP_SIN, x, name)
+
+    def cos(self, x, name=""):
+        return self._unary(OT.OP_COS, x, name)
+
     def add(self, x, y, inplace_a=False, name=""):
         return self._binary(OT.OP_EW_ADD, x, y, name, inplace_a)
 
+    def subtract(self, x, y, inplace_a=False, name=""):
+        return self._binary(OT.OP_EW_SUB, x, y, name, inplace_a)
+
+    def multiply(self, x, y, inplace_a=False, name=""):
+        return self._binary(OT.OP_EW_MUL, x, y, name, inplace_a)
+
+    def divide(self, x, y, inplace_a=False, name=""):
+        return self._binary(OT.OP_EW_DIV, x, y, name, inplace_a)
+
+    def max(self, x, y, inplace_a=False, name=""):
+        return self._binary(OT.OP_EW_MAX, x, y, name, inplace_a)
+
+    def min(self, x, y, inplace_a=False, name=""):
+        return self._binary(OT.OP_EW_MIN, x, y, name, inplace_a)
+
+    def rsqrt(self, x, inplace=True, name=""):
+        return self._unary(OT.OP_RSQRT, x, name, inplace)
+
+    def pow(self, x, exponent: float, inplace=True, name=""):
+        return self._unary(OT.OP_POW, x, name, inplace, scalar=exponent)
+
+    def scalar_multiply(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OT.OP_SCALAR_MULTIPLY, x, name, inplace, scalar)
+
+    def scalar_add(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OT.OP_SCALAR_ADD, x, name, inplace, scalar)
+
+    def scalar_sub(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OT.OP_SCALAR_SUB, x, name, inplace, scalar)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OT.OP_SCALAR_TRUE_DIV, x, name, inplace, scalar)
+
+    def relu(self, x, inplace=True, name=""):
+        return self._unary(OT.OP_RELU, x, name, inplace)
+
+    def identity(self, x, name=""):
+        return self._unary(OT.OP_IDENTITY, x, name)
+
     def gelu(self, x, name=""):
         return self._unary(OT.OP_GELU, x, name)
+
+    def sigmoid(self, x, name=""):
+        return self._unary(OT.OP_SIGMOID, x, name)
+
+    def tanh(self, x, name=""):
+        return self._unary(OT.OP_TANH, x, name)
+
+    def elu(self, x, inplace=True, name=""):
+        return self._unary(OT.OP_ELU, x, name, inplace)
 
     def softmax(self, input: Tensor, dim: int = -1, name: str = "") -> Tensor:
         return self._add_layer(OT.OP_SOFTMAX, SoftmaxParams(dim), [input],
@@ -146,8 +285,10 @@ class FFModel:
         activation: ActiMode = ActiMode.AC_MODE_NONE,
         use_bias: bool = True,
         data_type: DataType = DataType.DT_FLOAT,
+        shared_op=None,
         kernel_initializer: Optional[Initializer] = None,
         bias_initializer: Optional[Initializer] = None,
+        kernel_regularizer: RegularizerMode = RegularizerMode.REG_MODE_NONE,
         name: str = "",
     ) -> Tensor:
         p = LinearParams(out_dim, use_bias, ActiMode(activation), data_type)
@@ -157,7 +298,57 @@ class FFModel:
         if bias_initializer is not None:
             inits["bias"] = bias_initializer
         return self._add_layer(OT.OP_LINEAR, p, [input], name, inits,
-                               data_type).outputs[0]
+                               data_type, shared_op=shared_op).outputs[0]
+
+    def conv2d(
+        self,
+        input: Tensor,
+        out_channels: int,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int,
+        stride_w: int,
+        padding_h: int,
+        padding_w: int,
+        activation: ActiMode = ActiMode.AC_MODE_NONE,
+        groups: int = 1,
+        use_bias: bool = True,
+        shared_op=None,
+        kernel_initializer: Optional[Initializer] = None,
+        bias_initializer: Optional[Initializer] = None,
+        name: str = "",
+    ) -> Tensor:
+        p = Conv2DParams(out_channels, kernel_h, kernel_w, stride_h, stride_w,
+                         padding_h, padding_w, groups, use_bias,
+                         ActiMode(activation))
+        inits = {}
+        if kernel_initializer is not None:
+            inits["kernel"] = kernel_initializer
+        if bias_initializer is not None:
+            inits["bias"] = bias_initializer
+        return self._add_layer(OT.OP_CONV2D, p, [input], name,
+                               inits).outputs[0]
+
+    def pool2d(
+        self,
+        input: Tensor,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int,
+        stride_w: int,
+        padding_h: int,
+        padding_w: int,
+        pool_type: PoolType = PoolType.POOL_MAX,
+        activation: ActiMode = ActiMode.AC_MODE_NONE,
+        name: str = "",
+    ) -> Tensor:
+        p = Pool2DParams(kernel_h, kernel_w, stride_h, stride_w, padding_h,
+                         padding_w, PoolType(pool_type), ActiMode(activation))
+        return self._add_layer(OT.OP_POOL2D, p, [input], name).outputs[0]
+
+    def batch_norm(self, input: Tensor, relu: bool = True, name: str = "") -> Tensor:
+        p = BatchNormParams(relu)
+        return self._add_layer(OT.OP_BATCHNORM, p, [input], name).outputs[0]
 
     def layer_norm(
         self,
@@ -171,6 +362,23 @@ class FFModel:
         return self._add_layer(OT.OP_LAYERNORM, p, [input], name,
                                data_type=input.dtype).outputs[0]
 
+    def batch_matmul(
+        self,
+        A: Tensor,
+        B: Tensor,
+        a_seq_length_dim: int = -1,
+        b_seq_length_dim: int = -1,
+        name: str = "",
+    ) -> Tensor:
+        p = BatchMatmulParams(a_seq_length_dim, b_seq_length_dim)
+        return self._add_layer(OT.OP_BATCHMATMUL, p, [A, B], name,
+                               data_type=A.dtype).outputs[0]
+
+    def dropout(self, input: Tensor, rate: float, seed: int = 0, name: str = "") -> Tensor:
+        p = DropoutParams(rate, seed)
+        return self._add_layer(OT.OP_DROPOUT, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
     def embedding(
         self,
         input: Tensor,
@@ -178,13 +386,19 @@ class FFModel:
         out_dim: int,
         aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
         dtype: DataType = DataType.DT_FLOAT,
+        shared_op=None,
         kernel_initializer: Optional[Initializer] = None,
         name: str = "",
     ) -> Tensor:
         p = EmbeddingParams(num_entries, out_dim, AggrMode(aggr), dtype)
         inits = {"kernel": kernel_initializer} if kernel_initializer else {}
         return self._add_layer(OT.OP_EMBEDDING, p, [input], name, inits,
-                               dtype).outputs[0]
+                               dtype, shared_op=shared_op).outputs[0]
+
+    def gather(self, input: Tensor, index: Tensor, dim: int = 0, name: str = "") -> Tensor:
+        p = GatherParams(dim)
+        return self._add_layer(OT.OP_GATHER, p, [input, index], name,
+                               data_type=input.dtype).outputs[0]
 
     def multihead_attention(
         self,
@@ -260,6 +474,65 @@ class FFModel:
                                [input, positions, page_table], name,
                                data_type=input.dtype).outputs[0]
 
+    def concat(self, tensors: Sequence[Tensor], axis: int, name: str = "") -> Tensor:
+        p = ConcatParams(axis, len(tensors))
+        return self._add_layer(OT.OP_CONCAT, p, list(tensors), name,
+                               data_type=tensors[0].dtype).outputs[0]
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]], axis: int,
+              name: str = "") -> list[Tensor]:
+        if isinstance(sizes, int):
+            # torch.split-style: n equal chunks
+            total = input.dims[axis % len(input.dims)]
+            if total % sizes != 0:
+                raise ValueError(f"cannot split dim {total} into {sizes} equal parts")
+            sizes = [total // sizes] * sizes
+        p = SplitParams(tuple(sizes), axis)
+        return self._add_layer(OT.OP_SPLIT, p, [input], name,
+                               data_type=input.dtype).outputs
+
+    def flat(self, input: Tensor, name: str = "") -> Tensor:
+        return self._add_layer(OT.OP_FLAT, None, [input], name).outputs[0]
+
+    def transpose(self, input: Tensor, perm: Sequence[int], name: str = "") -> Tensor:
+        p = TransposeParams(tuple(perm))
+        return self._add_layer(OT.OP_TRANSPOSE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                   name: str = "") -> Tensor:
+        p = ReduceParams(OT.OP_REDUCE_SUM, tuple(axes), keepdims)
+        return self._add_layer(OT.OP_REDUCE_SUM, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name: str = "") -> Tensor:
+        p = ReduceParams(OT.OP_MEAN, tuple(dims), keepdims)
+        return self._add_layer(OT.OP_MEAN, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def reshape(self, input: Tensor, shape: Sequence[int], name: str = "") -> Tensor:
+        p = ReshapeParams(tuple(shape))
+        return self._add_layer(OT.OP_RESHAPE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def reverse(self, input: Tensor, axis: int, name: str = "") -> Tensor:
+        p = ReverseParams(axis)
+        return self._add_layer(OT.OP_REVERSE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name: str = "") -> tuple[Tensor, Tensor]:
+        p = TopKParams(k, sorted)
+        outs = self._add_layer(OT.OP_TOPK, p, [input], name,
+                               data_type=input.dtype).outputs
+        return outs[0], outs[1]
+
+    def cast(self, input: Tensor, dtype: DataType, name: str = "") -> Tensor:
+        p = CastParams(DataType(dtype))
+        return self._add_layer(OT.OP_CAST, p, [input], name,
+                               data_type=DataType(dtype)).outputs[0]
+
     # ================================================== compile
 
     def compile(
@@ -272,7 +545,45 @@ class FFModel:
         """Lower layers to a graph, adopt the single-device plan, build the
         executor, initialise the weights on the model's device and the
         training state (optimizer slots, step, metric counters). Without
-        an optimizer, SGD at `config.learning_rate`, as in JAX."""
+        an optimizer, SGD at `config.learning_rate`, as in JAX. Under
+        telemetry the manifest comes first, then a `compile` span and
+        record (JAX `model.py:714-760`)."""
+        from . import telemetry
+
+        if self._telemetry is None and self.config.telemetry_dir:
+            self.enable_telemetry(self.config.telemetry_dir)
+        tel = self._telemetry
+        try:
+            if tel is not None:
+                # the global sink is active only while ITS model is inside
+                # an instrumented operation
+                telemetry.activate(tel)
+                tel.write_manifest(self)
+            t_compile0 = time.perf_counter()
+            if tel is not None:
+                tel.note_compile_start(t_compile0)
+            with telemetry.span("compile"):
+                self._compile_impl(optimizer, loss_type, metrics, comp_mode)
+            if tel is not None:
+                from .telemetry.session import single_device_mesh_axes
+
+                tel.recorder.record(
+                    "compile",
+                    duration_s=time.perf_counter() - t_compile0,
+                    num_nodes=len(self.graph.topo_order()),
+                    mesh_axes=single_device_mesh_axes(),
+                    strategy_nodes=[],
+                    plan_source="default",
+                    plan_fingerprint=None,
+                    sanitize_numerics=False,
+                    spmd_barrier="off",
+                )
+        finally:
+            if tel is not None:
+                tel.flush()
+                telemetry.deactivate(tel)
+
+    def _compile_impl(self, optimizer, loss_type, metrics, comp_mode):
         self.optimizer = optimizer or SGDOptimizer(
             lr=self.config.learning_rate)
         self.loss_type = LossType(loss_type)
@@ -283,13 +594,18 @@ class FFModel:
         for t in self._input_tensors:
             node = OpNode(OT.OP_INPUT, None, name=t.name)
             node.output_shapes = [t.dims]
+            if hasattr(t, "constant_value"):
+                node.constant = (t.dims, t.dtype, t.constant_value)
             g.add_node(node)
             tensor_to_out[t.tensor_guid] = (node, 0)
+        guid_to_node: dict[int, OpNode] = {}
+        self._weight_alias = {}
         for layer in self.layers:
             node = OpNode(layer.op_type, layer.params, name=layer.name,
                           layer_guid=layer.layer_guid,
                           initializers=layer.initializers)
             g.add_node(node)
+            guid_to_node[layer.layer_guid] = node
             for dst_idx, t_in in enumerate(layer.inputs):
                 src_node, src_idx = tensor_to_out[t_in.tensor_guid]
                 g.add_edge(src_node, node, src_idx, dst_idx)
@@ -297,6 +613,23 @@ class FFModel:
             node.output_shapes = [t.dims for t in layer.outputs]
             node.weight_specs = node.op_def.weights(layer.params,
                                                     node.input_shapes)
+            if layer.shared_layer_guid >= 0:
+                # tied weights: this node reads the source node's
+                # parameter set; the executor makes no variables for it
+                src = guid_to_node.get(layer.shared_layer_guid)
+                if src is None:
+                    raise ValueError(
+                        f"{layer.name}: shared_op layer must be built "
+                        f"before the layer sharing it")
+                src_shapes = {ws.name: ws.shape for ws in src.weight_specs}
+                for ws in node.weight_specs:
+                    if src_shapes.get(ws.name) != ws.shape:
+                        raise ValueError(
+                            f"{layer.name}: shared weight {ws.name!r} shape "
+                            f"{ws.shape} != source {src.name}'s "
+                            f"{src_shapes.get(ws.name)}")
+                node.weight_source = src.name
+                self._weight_alias[node.name] = src.name
             for i, t_out in enumerate(layer.outputs):
                 tensor_to_out[t_out.tensor_guid] = (node, i)
         self.graph = g
@@ -305,10 +638,39 @@ class FFModel:
                                  self.loss_type, self.metrics, self.optimizer)
         self._params, self._state = self.executor.init_variables(
             self.config.seed)
+        self._rng = torch.Generator(self.device).manual_seed(
+            self.config.seed)
         self._opt_slots = self.optimizer.init(self._params)
         self._step = torch.zeros((), dtype=torch.int32, device=self.device)
         self._counters = self.metrics.zero_counters(self.device)
+        self._goodput_anchor = self._goodput()
         self._compiled = True
+
+    def _goodput(self) -> Optional[dict]:
+        """The MFU anchor (JAX `model.py:1286-1314`): the ops' forward
+        FLOPs over the graph, x3 for forward and backward, against the
+        peak of the card `search/machine_model.detect_chip` names (the
+        host entry on the CPU). The port has no mesh: one chip. None when
+        no op counts FLOPs or no spec names the device."""
+        from . import telemetry
+        from .search.machine_model import detect_chip
+
+        fwd = 0.0
+        for node in self.graph.topo_order():
+            if node.op_type == OT.OP_INPUT or not node.input_shapes:
+                continue
+            fwd += node.op_def.flops(node.params, node.input_shapes,
+                                     node.output_shapes)
+        if fwd <= 0:
+            return None
+        try:
+            peak = detect_chip(self.device).peak_flops
+        except ValueError:  # a card the spec table does not hold
+            return None
+        anchor = {"flops_per_step": 3.0 * fwd, "peak_flops": peak,
+                  "num_chips": 1}
+        telemetry.event("goodput_anchor", **anchor)
+        return anchor
 
     # ================================================== training
 
@@ -318,7 +680,8 @@ class FFModel:
                 torch.as_tensor(np.asarray(labels)).to(self.device))
 
     def _as_input_dict(self, x) -> dict:
-        input_names = [t.name for t in self._input_tensors]
+        input_names = [t.name for t in self._input_tensors
+                       if not hasattr(t, "constant_value")]
         if isinstance(x, dict):
             return x
         if isinstance(x, np.ndarray) or hasattr(x, "shape"):
@@ -346,12 +709,41 @@ class FFModel:
             pipeline_steps: Optional[int] = None):
         """The training loop: per epoch an order from `_epoch_order`, then
         one train step per full batch (a tail shorter than a batch is
-        dropped, as in JAX). Prints one line per epoch when verbose."""
+        dropped, as in JAX). Logs one line per epoch (`telemetry.log`:
+        info when verbose, else debug).
+
+        With telemetry on (--telemetry-dir / enable_telemetry) every step
+        emits a `step` span around a `data_wait` span and a JSONL record
+        splitting its wall time into data wait and device time (JAX
+        `model.py:1927-2003`). A captured step's replay is one
+        asynchronous launch, so on the card the step's window ends with
+        a stream synchronisation, only when telemetry is on: its time is
+        then the device's step, and the next batch's staging is its own
+        data wait (the staging copies from pageable memory wait for the
+        stream anyway, so the synchronisation removes no overlap)."""
         if not self._compiled:
             raise RuntimeError("call compile() before fit()")
         if pipeline_steps is not None and int(pipeline_steps) > 1:
             raise not_ported("fit(pipeline_steps > 1), the pipelined "
                              "lax.scan engine,", "A10 (engine/)")
+        from . import telemetry
+        from .telemetry import log as fflog
+
+        if self._telemetry is None and self.config.telemetry_dir:
+            self.enable_telemetry(self.config.telemetry_dir)
+        tel = self._telemetry
+        if tel is not None:
+            # active only for the duration of THIS model's fit
+            telemetry.activate(tel)
+            tel.write_manifest(self)
+            anchor = self._goodput_anchor
+            if anchor is not None:
+                tel.set_goodput(anchor["flops_per_step"],
+                                anchor["peak_flops"])
+            if self.config.metrics_interval or self.config.metrics_port:
+                tel.start_exporter(interval_s=self.config.metrics_interval,
+                                   port=self.config.metrics_port)
+        epoch_log = fflog.info if verbose else fflog.debug
         if epochs < 0:
             epochs = self.config.epochs
         if batch_size < 0:
@@ -360,25 +752,54 @@ class FFModel:
         num_samples = y.shape[0]
         num_batches = num_samples // batch_size
         step_fn = self.executor._train_step or self.executor.build_train_step()
-        for epoch in range(epochs):
-            order = self._epoch_order(num_samples, epoch, shuffle)
-            t0 = time.time()
-            for b in range(num_batches):
-                idx = order[b * batch_size:(b + 1) * batch_size]
-                batch = self._make_batch({k: v[idx] for k, v in x_dict.items()},
-                                         y[idx])
-                (self._params, self._state, self._opt_slots, self._step,
-                 self._counters, _) = step_fn(
-                    self._params, self._state, self._opt_slots, self._step,
-                    self._counters, batch)
-            if verbose:
+        sync = (torch.cuda.current_stream(self.device).synchronize
+                if tel is not None and self.device.type == "cuda" else None)
+        # labels shaped (N, seq, ...) carry seq tokens per example
+        tokens_per_example = int(np.prod(y.shape[1:])) if y.ndim > 1 else 1
+        py_step = int(self._step)
+        try:
+            for epoch in range(epochs):
+                abs_e = self._epoch_base + epoch
+                order = self._epoch_order(num_samples, epoch, shuffle)
+                t0 = time.time()
+                for b in range(num_batches):
+                    t_it0 = time.perf_counter() if tel is not None else 0.0
+                    with telemetry.span("step", step=py_step + 1):
+                        with telemetry.span("data_wait"):
+                            idx = order[b * batch_size:(b + 1) * batch_size]
+                            batch = self._make_batch(
+                                {k: v[idx] for k, v in x_dict.items()},
+                                y[idx])
+                        data_wait = (time.perf_counter() - t_it0
+                                     if tel is not None else 0.0)
+                        (self._params, self._state, self._opt_slots,
+                         self._step, self._counters, _) = step_fn(
+                            self._params, self._state, self._opt_slots,
+                            self._step, self._counters, batch, self._rng)
+                        py_step += 1
+                        if sync is not None:
+                            sync()
+                    if tel is not None:
+                        tel.record_step(
+                            py_step, abs_e, time.perf_counter() - t_it0,
+                            data_wait, 0.0, batch_size, tokens_per_example)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 dt = time.time() - t0
-                print(f"epoch {epoch}: {self.get_perf_metrics()} ELAPSED "
-                      f"TIME = {dt:.4f}s, THROUGHPUT = "
-                      f"{num_batches * batch_size / dt:.2f} samples/s")
-        self._epoch_base += epochs
+                thru = num_batches * batch_size / dt
+                epoch_log(f"epoch {epoch}: {self.get_perf_metrics()} "
+                          f"ELAPSED TIME = {dt:.4f}s, THROUGHPUT = "
+                          f"{thru:.2f} samples/s")
+                telemetry.event("epoch", epoch=abs_e, duration_s=dt,
+                                examples_per_sec=thru)
+            self._epoch_base += epochs
+        finally:
+            if tel is not None:
+                # artifacts exist however fit ends: summary, then trace
+                tel.write_summary()
+                tel.write_metrics_snapshot(reason="fit_end")
+                tel.flush()
+                telemetry.deactivate(tel)
 
     def eval(self, x, y, batch_size: int = -1) -> PerfMetrics:
         if not self._compiled:
@@ -407,23 +828,30 @@ class FFModel:
         self._current_batch = self._make_batch(self._as_input_dict(x), y)
 
     def forward(self, seq_length: int = -1):
+        """The forward of the staged batch. `seq_length` >= 0 truncates
+        the sequence dims batch_matmul names (FFIterationConfig's
+        seq_length); the JAX model takes the argument and drops it."""
         if self._current_batch is None:
             raise RuntimeError("call start_batch first")
         fwd = self.executor._forward_fn or self.executor.build_forward()
         xs, _ = self._current_batch
         logits, self._state = fwd(
             self._params, self._state, xs,
-            self.config.computation_mode == CompMode.COMP_MODE_TRAINING)
+            self.config.computation_mode == CompMode.COMP_MODE_TRAINING,
+            seq_length)
         return logits
 
     def zero_gradients(self):
         self._grads = None
 
     def backward(self, seq_length: int = -1):
+        """Loss and gradients of the staged batch (dropout draws from the
+        model's generator); `seq_length` as in `forward`."""
         if self._current_batch is None:
             raise RuntimeError("call start_batch first")
         xs, labels = self._current_batch
-        loss_fn = self.executor.make_loss_fn(self._state, xs, labels)
+        loss_fn = self.executor.make_loss_fn(self._state, xs, labels,
+                                             self._rng, seq_length)
         lval, (logits, _, ce_sum), self._grads = (
             self.executor.value_and_grad(loss_fn, self._params))
         self._counters = self.metrics.compute(
@@ -439,6 +867,10 @@ class FFModel:
             self._grads, self._params, self._opt_slots, self._step)
         self._step.add_(1)
         self._grads = None
+
+    def init_operators(self):
+        """A no-op, as in the JAX package: per-device operator set-up (the
+        reference's INIT tasks) has no analog; the first step does it."""
 
     def reset_metrics(self):
         for c in self._counters.values():
@@ -466,7 +898,13 @@ class FFModel:
 
     # ================================================== weights I/O
 
+    def _resolve_weight_owner(self, layer_name: str) -> str:
+        """Tied-weight nodes (shared_op) hold no parameters of their own:
+        reads and writes go to the source layer's set."""
+        return self._weight_alias.get(layer_name, layer_name)
+
     def get_weight(self, layer_name: str, weight_name: str) -> np.ndarray:
+        layer_name = self._resolve_weight_owner(layer_name)
         return self._params[layer_name][weight_name].detach().cpu().numpy()
 
     def set_weight(self, layer_name: str, weight_name: str,
@@ -475,6 +913,7 @@ class FFModel:
         package replaces the array: a serving engine that adopted the old
         one keeps it, and a captured train step that held it captures
         anew at the next batch."""
+        layer_name = self._resolve_weight_owner(layer_name)
         old = self._params[layer_name][weight_name]
         value = np.asarray(value)
         if tuple(value.shape) != tuple(old.shape):
@@ -483,6 +922,46 @@ class FFModel:
                 f"{tuple(old.shape)}")
         self._params[layer_name][weight_name] = torch.tensor(
             value, dtype=old.dtype, device=old.device)
+
+    # ================================================== observability
+
+    def enable_telemetry(self, directory: str):
+        """Attach the observability subsystem (telemetry/): Chrome-trace
+        spans + JSONL run metrics under `directory`. The session becomes
+        the process-wide sink only while this model is inside compile or
+        fit. The programmatic twin of --telemetry-dir."""
+        import os
+
+        from . import telemetry
+        from .telemetry import log as fflog
+
+        if self._telemetry is None:
+            self._telemetry = telemetry.TelemetrySession(directory)
+        elif os.path.abspath(directory) != self._telemetry.directory:
+            fflog.warning(
+                "enable_telemetry(%r) ignored: this model's telemetry "
+                "session already writes to %s",
+                directory, self._telemetry.directory)
+        return self._telemetry
+
+    def get_telemetry(self):
+        """The model's TelemetrySession, or None when telemetry is off."""
+        return self._telemetry
+
+    def export_dot(self, path: str = "") -> str:
+        """Graph DOT export (reference --compgraph flag / print_dot)."""
+        from .pcg.graph import export_dot
+
+        if self.graph is None:
+            raise RuntimeError("call compile() first")
+        return export_dot(self.graph, path or None)
+
+    def print_layers(self, id: int = -1):
+        for i, l in enumerate(self.layers):
+            if id < 0 or i == id:
+                print(f"[{i}] {l.name} {l.op_type.name} "
+                      f"in={[t.dims for t in l.inputs]} "
+                      f"out={[t.dims for t in l.outputs]}")
 
     # ================================================== serving
 

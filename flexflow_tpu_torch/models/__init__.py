@@ -1,4 +1,9 @@
-"""Model zoo of the port: the flagship Transformer LM."""
+"""Model zoo of the port: the flagship Transformer LM, the MLPs and
+ResNet-50 / ResNeXt-50 (copies of the JAX package's builders, which call
+only the FFModel API)."""
+
+from .mlp import build_mlp_unify, build_mnist_mlp
+from .resnet import build_resnet50, build_resnext50
 
 from .transformer import (
     TRANSFORMER_LM_ZOO,
@@ -11,6 +16,10 @@ from .transformer import (
 
 __all__ = [
     "TRANSFORMER_LM_ZOO",
+    "build_mlp_unify",
+    "build_mnist_mlp",
+    "build_resnet50",
+    "build_resnext50",
     "TransformerLMConfig",
     "build_transformer_lm",
     "build_transformer_lm_decode",

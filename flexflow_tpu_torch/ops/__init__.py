@@ -1,18 +1,54 @@
 """Operators of the port (importing this package registers every OpDef)."""
 
 from .attention import MultiHeadAttentionParams
-from .base import OpContext, OpDef, WeightSpec, get_op_def, matmul_cast, register_op
-from .core import EmbeddingParams, LayerNormParams, LinearParams, SoftmaxParams
+from .base import (
+    OpContext,
+    OpDef,
+    WeightSpec,
+    get_op_def,
+    matmul_cast,
+    register_op,
+    registered_ops,
+)
+from .core import (
+    BatchMatmulParams,
+    BatchNormParams,
+    Conv2DParams,
+    DropoutParams,
+    EmbeddingParams,
+    LayerNormParams,
+    LinearParams,
+    Pool2DParams,
+    SoftmaxParams,
+)
 from .elementwise import ElementBinaryParams, ElementUnaryParams
 from .inc_attention import (
     IncMultiHeadAttentionParams,
     PagedIncMultiHeadAttentionParams,
 )
+from .shape_ops import (
+    CastParams,
+    ConcatParams,
+    GatherParams,
+    ReduceParams,
+    ReshapeParams,
+    ReverseParams,
+    SplitParams,
+    TopKParams,
+    TransposeParams,
+)
 
 __all__ = [
+    "BatchMatmulParams",
+    "BatchNormParams",
+    "CastParams",
+    "ConcatParams",
+    "Conv2DParams",
+    "DropoutParams",
     "ElementBinaryParams",
     "ElementUnaryParams",
     "EmbeddingParams",
+    "GatherParams",
     "IncMultiHeadAttentionParams",
     "LayerNormParams",
     "LinearParams",
@@ -20,9 +56,17 @@ __all__ = [
     "OpContext",
     "OpDef",
     "PagedIncMultiHeadAttentionParams",
+    "Pool2DParams",
+    "ReduceParams",
+    "ReshapeParams",
+    "ReverseParams",
     "SoftmaxParams",
+    "SplitParams",
+    "TopKParams",
+    "TransposeParams",
     "WeightSpec",
     "get_op_def",
     "matmul_cast",
     "register_op",
+    "registered_ops",
 ]

@@ -131,5 +131,15 @@ def _mha_forward(p: MultiHeadAttentionParams, inputs, weights, state, ctx):
     return [proj(out, weights["wo"], weights.get("bo"))], state
 
 
+def _mha_flops(p: MultiHeadAttentionParams, in_shapes, out_shapes):
+    q, k, v = in_shapes
+    b, sq, dq = q
+    sk = k[1]
+    E = p.embed_dim
+    proj = 2.0 * b * (sq * dq * E + sk * k[2] * E + sk * v[2] * E + sq * E * E)
+    attn = 2.0 * b * p.num_heads * sq * sk * (E // p.num_heads) * 2
+    return proj + attn
+
+
 register_op(OpDef(OT.OP_MULTIHEAD_ATTENTION, _mha_infer, _mha_forward,
-                  _mha_weights))
+                  _mha_weights, _mha_flops))

@@ -2,13 +2,16 @@
 
 An operator is a frozen Params dataclass, shape and weight inference, and
 a `forward(params, inputs, weights, state, ctx) -> (outputs, state)` on
-torch tensors. Stateful ops (the KV caches) return their updated state
-tensors; the port updates them in place where the JAX package relies on
-buffer donation, and returns the same tensors.
+torch tensors, and an analytic flop count (the MFU anchor of telemetry).
+Stateful ops (the KV caches, BatchNorm's running statistics) return
+their updated state tensors; the executor writes them back into the
+model's state in place, where the JAX package relies on buffer
+donation.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -31,6 +34,12 @@ class OpContext:
     """Per-call execution context."""
 
     training: bool = True
+    # the model's torch.Generator on its device (dropout's draws); None
+    # outside training, where no op draws
+    rng: Any = None
+    # FFIterationConfig::seq_length (reference config.h:162-167): >= 0
+    # truncates batch_matmul's sequence dims (forward/backward(seq_length))
+    seq_length: int = -1
     # matmul input dtype for fp32 activations — the reference's tensor-op
     # math mode (allow_tensor_op_math_conversion): inputs are cast to this
     # dtype, accumulation stays fp32
@@ -53,6 +62,18 @@ def matmul_cast(ctx: OpContext, *tensors):
     return out if len(out) > 1 else out[0]
 
 
+def weak_scalar(c: float, x):
+    """A Python scalar as the JAX ops see it next to `x`: JAX's weak
+    typing rounds it to a floating `x`'s dtype before the arithmetic
+    (0.7 next to bf16 is 0.69921875), where torch would keep it in f32.
+    Rounded on the host, so a captured step copies nothing."""
+    import torch
+
+    if torch.is_tensor(x) and x.is_floating_point():
+        return float(torch.tensor(float(c), dtype=x.dtype))
+    return c
+
+
 class OpDef:
     """Registry entry for one OperatorType."""
 
@@ -62,11 +83,23 @@ class OpDef:
         infer_shapes: Callable,  # (params, in_shapes) -> list[tuple]
         forward: Callable,  # (params, inputs, weights, state, ctx) -> (outputs, state)
         weights: Optional[Callable] = None,  # (params, in_shapes) -> list[WeightSpec]
+        flops: Optional[Callable] = None,  # (params, in_shapes, out_shapes) -> float
+        num_outputs: int = 1,
     ):
         self.op_type = op_type
         self.infer_shapes = infer_shapes
         self.forward = forward
         self.weights = weights or (lambda params, in_shapes: [])
+        self.flops = flops or _default_flops
+        self.num_outputs = num_outputs
+
+
+def _default_flops(params, in_shapes, out_shapes) -> float:
+    # elementwise-ish default: one flop per output element
+    total = 0
+    for s in out_shapes:
+        total += math.prod(s) if s else 1
+    return float(total)
 
 
 _REGISTRY: dict[OperatorType, OpDef] = {}
@@ -81,3 +114,7 @@ def get_op_def(op_type: OperatorType) -> OpDef:
     if op_type not in _REGISTRY:
         raise KeyError(f"no OpDef registered for {op_type!r}")
     return _REGISTRY[op_type]
+
+
+def registered_ops() -> dict[OperatorType, OpDef]:
+    return dict(_REGISTRY)

@@ -125,8 +125,20 @@ def _inc_mha_forward(p: IncMultiHeadAttentionParams, inputs, weights,
     return [y], {"cache_k": ck, "cache_v": cv}
 
 
+def _inc_mha_flops(p: IncMultiHeadAttentionParams, in_shapes, out_shapes):
+    x = in_shapes[0]
+    slots, q_len = x[0], x[1]
+    E = p.embed_dim
+    # four projections of the q_len new tokens + attention of each query
+    # against the full cache (the worst-case full-cache read)
+    proj = 2.0 * slots * q_len * (3 * x[-1] * E + E * E)
+    attn = 2.0 * slots * p.num_heads * q_len * (p.max_seq_len + 1) * (
+        E // p.num_heads) * 2
+    return proj + attn
+
+
 register_op(OpDef(OT.OP_INC_MULTIHEAD_ATTENTION, _inc_mha_infer,
-                  _inc_mha_forward, _inc_mha_weights))
+                  _inc_mha_forward, _inc_mha_weights, _inc_mha_flops))
 
 
 # ===================================================================== paged
@@ -216,5 +228,18 @@ def _paged_mha_forward(p: PagedIncMultiHeadAttentionParams, inputs, weights,
     return [y], {"pool_k": pk, "pool_v": pv}
 
 
+def _paged_mha_flops(p: PagedIncMultiHeadAttentionParams, in_shapes,
+                     out_shapes):
+    x = in_shapes[0]
+    slots, q_len = x[0], x[1]
+    E = p.embed_dim
+    # as the contiguous op's count: projections of the new tokens +
+    # worst-case full-capacity cache read per query
+    proj = 2.0 * slots * q_len * (3 * x[-1] * E + E * E)
+    attn = 2.0 * slots * p.num_heads * q_len * (
+        p.blocks_per_slot * p.block_size) * (E // p.num_heads) * 2
+    return proj + attn
+
+
 register_op(OpDef(OT.OP_PAGED_INC_MULTIHEAD_ATTENTION, _paged_mha_infer,
-                  _paged_mha_forward, _paged_mha_weights))
+                  _paged_mha_forward, _paged_mha_weights, _paged_mha_flops))

@@ -1,8 +1,8 @@
 """Computation graph (twin of `flexflow_tpu/pcg/graph.py`, no `native`).
 
-Nodes, multi-edges (src, dst, src_idx, dst_idx) and a deterministic
-topological order. On one device the graph carries no parallel state, so
-a node's outputs are plain shapes.
+Nodes, multi-edges (src, dst, src_idx, dst_idx), a deterministic
+topological order and the DOT export. On one device the graph carries no
+parallel state, so a node's outputs are plain shapes.
 """
 
 from __future__ import annotations
@@ -48,6 +48,11 @@ class OpNode:
         self.input_shapes: list[tuple[int, ...]] = []
         self.output_shapes: list[tuple[int, ...]] = []
         self.weight_specs: list[WeightSpec] = []
+        # tied weights: the name of the node whose parameters this one
+        # reads (FFModel's shared_op), else None
+        self.weight_source: Optional[str] = None
+        # an input made by FFModel.create_constant: (dims, DataType, value)
+        self.constant: Optional[tuple] = None
 
     @property
     def op_def(self) -> OpDef:
@@ -91,3 +96,28 @@ class Graph:
         if len(order) != len(self.nodes):
             raise ValueError("graph has a cycle")
         return order
+
+
+def export_dot(graph: "Graph", path: str | None = None) -> str:
+    """DOT export of the graph (the JAX package's `export_dot`, reference
+    print_dot): one box per node with its name, operator and output
+    shape; on one device every placement is the replicated one, so the
+    spec line is empty."""
+    lines = ["digraph PCG {", '  rankdir="TB";']
+    for n in graph.topo_order():
+        shape = n.output_shapes[0] if n.output_shapes else ""
+        color = ("gray90" if n.op_type.name in ("OP_INPUT", "OP_NOOP")
+                 else "white")
+        lines.append(
+            f'  n{n.guid} [label="{n.name}\\n{n.op_type.name}\\n'
+            f'{shape}\\n", style=filled, fillcolor={color}];'
+        )
+    for guid, edges in graph.out_edges.items():
+        for e in edges:
+            lines.append(f"  n{e.src} -> n{e.dst};")
+    lines.append("}")
+    dot = "\n".join(lines)
+    if path:
+        with open(path, "w") as f:
+            f.write(dot)
+    return dot

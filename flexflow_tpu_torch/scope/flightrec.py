@@ -1,0 +1,190 @@
+"""Always-on bounded flight recorder for post-mortem diagnosis.
+
+A fixed-capacity in-memory ring of the last N telemetry events (spans,
+instants, counters, step boundaries).  Recording follows the same
+one-global-read no-op discipline as ``telemetry.span``: when disabled
+(``FF_FLIGHT_RECORDER=0``) every hook is a single global load plus an
+``is None`` test.  When enabled, a record is index assignments into
+preallocated mutable slots — no objects are allocated per event in the
+steady state (the zero-alloc guard test pins slot identity), so the
+recorder is safe to leave on in production step loops.
+
+On crash (executor exception, ``HealthAbort``, ``SPMDDivergenceError``),
+SIGTERM/preemption, or watchdog firing, :func:`dump` writes the ring
+atomically as ``flight.json`` next to the run's telemetry artifacts —
+the "what were the last 256 things this process did" artifact a hung
+multihost collective otherwise never leaves behind.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import time
+from typing import Any, Dict, List, Optional
+
+__all__ = ["FlightRecorder", "get_recorder", "configure", "record",
+           "note_step", "dump", "DEFAULT_CAPACITY"]
+
+DEFAULT_CAPACITY = 256
+
+# Slot layout (mutated in place, never reallocated):
+#   [seq, t_monotonic, kind, name, value]
+_SEQ, _T, _KIND, _NAME, _VALUE = range(5)
+
+
+class FlightRecorder:
+    """Bounded ring of telemetry events with atomic JSON dump."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self.capacity = max(8, int(capacity))
+        # Preallocated slots; record() only index-assigns into them.
+        self._ring: List[List[Any]] = [
+            [0, 0.0, "", "", None] for _ in range(self.capacity)]
+        self._seq = 0
+        self.last_step = -1
+        self.last_step_t = 0.0
+
+    # ------------------------------------------------------------ hot
+
+    def record(self, kind: str, name: str, value: Any = None) -> None:
+        # Index assignment only — no allocation in the steady state.
+        self._seq += 1
+        s = self._seq
+        slot = self._ring[s % self.capacity]
+        slot[_SEQ] = s
+        slot[_T] = time.monotonic()
+        slot[_KIND] = kind
+        slot[_NAME] = name
+        slot[_VALUE] = value
+
+    def note_step(self, step: int) -> None:
+        self.last_step = step
+        self.last_step_t = time.monotonic()
+        self.record("step", "step", step)
+
+    # ----------------------------------------------------------- cold
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """Ordered copy of the ring's live events (oldest first).
+
+        A slot whose seq doesn't match its expected position is torn
+        (written concurrently) or never written; both are skipped.
+        """
+        out: List[Dict[str, Any]] = []
+        hi = self._seq
+        lo = max(1, hi - self.capacity + 1)
+        for s in range(lo, hi + 1):
+            slot = self._ring[s % self.capacity]
+            if slot[_SEQ] != s:
+                continue
+            val = slot[_VALUE]
+            if val is not None and not isinstance(
+                    val, (int, float, str, bool)):
+                val = repr(val)
+            out.append({"seq": s, "t": slot[_T], "kind": slot[_KIND],
+                        "name": slot[_NAME], "value": val})
+        return out
+
+    def dump(self, directory: str, reason: str,
+             extra: Optional[Dict[str, Any]] = None) -> str:
+        """Atomically write ``flight.json`` into ``directory``."""
+        os.makedirs(directory, exist_ok=True)
+        doc: Dict[str, Any] = {
+            "kind": "flight_record",
+            "reason": reason,
+            "pid": os.getpid(),
+            "host": socket.gethostname(),
+            "time_unix": time.time(),
+            "capacity": self.capacity,
+            "total_recorded": self._seq,
+            "last_step": self.last_step,
+            "events": self.snapshot(),
+        }
+        if extra:
+            doc.update(extra)
+        path = os.path.join(directory, "flight.json")
+        tmp = path + ".tmp.%d" % os.getpid()
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1)
+        os.replace(tmp, path)
+        return path
+
+
+# -------------------------------------------------- module-global plane
+
+def _default_recorder() -> Optional[FlightRecorder]:
+    if os.environ.get("FF_FLIGHT_RECORDER", "1").lower() in (
+            "0", "off", "false", "no"):
+        return None
+    try:
+        cap = int(os.environ.get("FF_FLIGHT_EVENTS", DEFAULT_CAPACITY))
+    except ValueError:
+        cap = DEFAULT_CAPACITY
+    return FlightRecorder(cap)
+
+
+_recorder: Optional[FlightRecorder] = _default_recorder()
+
+
+def get_recorder() -> Optional[FlightRecorder]:
+    return _recorder
+
+
+def configure(capacity: Optional[int] = None,
+              enabled: bool = True) -> Optional[FlightRecorder]:
+    """(Re)configure the global recorder; used by --flight-events."""
+    global _recorder
+    if not enabled:
+        _recorder = None
+    elif capacity is not None and (
+            _recorder is None or _recorder.capacity != int(capacity)):
+        _recorder = FlightRecorder(int(capacity))
+    elif _recorder is None:
+        _recorder = FlightRecorder()
+    return _recorder
+
+
+def record(kind: str, name: str, value: Any = None) -> None:
+    """One-global-read hook used by the telemetry dispatchers."""
+    rec = _recorder
+    if rec is None:
+        return
+    rec.record(kind, name, value)
+
+
+def note_step(step: int) -> None:
+    rec = _recorder
+    if rec is None:
+        return
+    rec.note_step(step)
+
+
+def dump(reason: str, directory: Optional[str] = None,
+         extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
+    """Dump the global ring if a destination directory can be found.
+
+    Destination resolution: explicit ``directory`` → the active
+    telemetry session's directory → ``FF_FLIGHT_DIR``.  Without any of
+    those the dump is skipped (never litter the CWD).
+    """
+    rec = _recorder
+    if rec is None:
+        return None
+    if directory is None:
+        try:
+            from flexflow_tpu_torch import telemetry as _tel
+            sess = _tel.active_session()
+            if sess is not None and getattr(sess, "directory", None):
+                directory = str(sess.directory)
+        except Exception:
+            directory = None
+    if directory is None:
+        directory = os.environ.get("FF_FLIGHT_DIR") or None
+    if directory is None:
+        return None
+    try:
+        return rec.dump(directory, reason, extra)
+    except OSError:
+        return None

@@ -1,0 +1,157 @@
+"""Run-wide observability: tracer spans, structured metrics, leveled logs.
+
+Three coordinated pieces (docs/observability.md):
+
+1. **Tracer** (tracer.py) — host-side span/counter/instant events dumped as
+   Chrome trace-event JSON (Perfetto / chrome://tracing). The device
+   timeline passthrough (`--xprof-dir`) is ROADMAP A10.
+2. **MetricsRecorder** (recorder.py) — JSONL event log with a run manifest
+   and derived rates; `summary` record carries p50/p95 step time.
+3. **Instrumentation hooks** — model compile/fit and the dataloader call
+   the module-level `span`/`instant`/`counter`/`event`
+   helpers below. They dispatch to the ACTIVE session when one exists and
+   cost one global read + one `is None` test when telemetry is off, so the
+   hooks can live permanently in hot paths.
+
+Enable with `--telemetry-dir DIR` (FFConfig) or `model.enable_telemetry(DIR)`;
+read back via `model.get_telemetry()`. The port's copy of
+`flexflow_tpu/telemetry/`: the same record kinds and field names, except
+the manifest's device fields (session.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from . import log  # noqa: F401  (flexflow_tpu_torch.telemetry.log)
+from .metrics import MetricsRegistry  # noqa: F401  (re-export)
+from .recorder import MetricsRecorder, read_jsonl
+from .session import TelemetrySession
+from .tracer import Tracer
+
+# ffscope flight recorder (scope/flightrec.py): stdlib-only, always-on
+# bounded ring fed from the dispatchers below.  Its own hot path is the
+# same one-global-read discipline — when disabled, _flight.record is a
+# global load + `is None` test.
+from ..scope import flightrec as _flight
+
+__all__ = [
+    "Tracer", "MetricsRecorder", "MetricsRegistry", "TelemetrySession",
+    "read_jsonl", "log",
+    "activate", "deactivate", "active_session",
+    "span", "instant", "counter", "event",
+    "inc", "observe", "set_gauge",
+]
+
+_active: Optional[TelemetrySession] = None
+# same-session nesting depth: the disaggregated serving coordinator
+# holds one activation across an overlapped step while both engines'
+# inner _active() blocks enter and exit on their own threads — an
+# unbalanced deactivate must not tear the session down mid-step
+_depth: int = 0
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager — the entire cost of a disabled
+    `with telemetry.span(...)` block is returning this singleton."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+def activate(session: TelemetrySession) -> TelemetrySession:
+    """Install `session` as the process-wide telemetry sink. Activating
+    the session that is already active nests: the sink stays installed
+    until the matching number of deactivate(session) calls."""
+    global _active, _depth
+    if _active is session:
+        _depth += 1
+    else:
+        _active = session
+        _depth = 1
+    return session
+
+
+def deactivate(session: Optional[TelemetrySession] = None):
+    """Remove the active session (or only `session`, if it is active).
+    Same-session activations nest — only the outermost deactivate
+    removes the sink; deactivate(None) always tears down."""
+    global _active, _depth
+    if session is None:
+        _active = None
+        _depth = 0
+    elif _active is session:
+        _depth -= 1
+        if _depth <= 0:
+            _active = None
+            _depth = 0
+
+
+def active_session() -> Optional[TelemetrySession]:
+    return _active
+
+
+# ---------------------------------------------------------------- dispatch
+# Hot-path helpers: cheap no-ops when no session is active.
+
+def span(name: str, **args):
+    _flight.record("span", name)
+    s = _active
+    if s is None:
+        return _NOOP
+    return s.tracer.span(name, **args)
+
+
+def instant(name: str, **args):
+    _flight.record("instant", name)
+    s = _active
+    if s is not None:
+        s.tracer.instant(name, **args)
+
+
+def counter(name: str, values: dict):
+    _flight.record("counter", name)
+    s = _active
+    if s is not None:
+        s.tracer.counter(name, values)
+
+
+def event(kind: str, **fields):
+    """Structured JSONL record into the active session's metrics log."""
+    _flight.record("event", kind, fields.get("step"))
+    s = _active
+    if s is not None:
+        s.recorder.record(kind, **fields)
+
+
+# ffpulse registry dispatch (metrics.py): same one-global-read no-op
+# contract as span/instant — with telemetry off, no registry (and no
+# metric object) is ever touched or created.
+
+def inc(name: str, value: float = 1.0, **labels):
+    """Counter increment on the active session's registry."""
+    s = _active
+    if s is not None:
+        s.metrics.counter(name, **labels).inc(value)
+
+
+def observe(name: str, value: float, **labels):
+    """Histogram observation on the active session's registry."""
+    s = _active
+    if s is not None:
+        s.metrics.histogram(name, **labels).observe(value)
+
+
+def set_gauge(name: str, value: float, **labels):
+    """Gauge set on the active session's registry."""
+    s = _active
+    if s is not None:
+        s.metrics.gauge(name, **labels).set(value)

@@ -1,0 +1,321 @@
+"""TelemetrySession: one run's Tracer + MetricsRecorder under a directory.
+
+Artifacts under `--telemetry-dir`:
+
+    <dir>/trace.json      Chrome trace-event JSON (Perfetto / chrome://tracing)
+    <dir>/metrics.jsonl   structured run metrics (recorder.py schema)
+
+The session owns the step-time accounting (EMA, percentile summary,
+examples/sec) so the fit loop only reports raw timings. `flush()` rewrites
+trace.json from the tracer buffer — called at the end of every fit (and on
+preemption), so artifacts exist the moment training stops for any reason.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+from .log import process_count, process_index
+from .metrics import MetricsRegistry, merge_snapshots, percentile_from_hist
+from .recorder import MetricsRecorder, git_sha
+from .tracer import Tracer
+
+
+# FFConfig fields worth reproducing a run from; everything else is either
+# derived or irrelevant to performance forensics.
+_MANIFEST_CONFIG_FIELDS = (
+    "epochs", "batch_size", "learning_rate", "num_nodes",
+    "workers_per_node", "search_budget", "search_calibrate",
+    "search_mesh_shapes", "only_data_parallel", "enable_substitutions",
+    "profiling", "computation_dtype", "checkpoint_dir", "checkpoint_every",
+    "checkpoint_every_seconds", "auto_resume", "seed",
+    "diagnostics", "drift_threshold", "pipeline_steps",
+    "health_sample_every", "warmstart_dir",
+    "metrics_interval", "metrics_port",
+    "profile_every", "watchdog_timeout", "watchdog_multiplier",
+    "watchdog_abort", "flight_events",
+)
+
+
+def _is_coordinator() -> bool:
+    return process_index() == 0
+
+
+class TelemetrySession:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.tracer = Tracer()
+        self.recorder = MetricsRecorder(
+            os.path.join(self.directory, "metrics.jsonl"))
+        self.trace_path = os.path.join(self.directory, "trace.json")
+        self._manifest_written = False
+        # ffpulse registry: session-owned metrics plus any attached
+        # registries (e.g. a serving engine's); snapshots merge them all
+        self.metrics = MetricsRegistry()
+        self._registries: list = [self.metrics]
+        self.exporter = None
+        # step accounting — histogram-backed (bounded, mergeable); the
+        # histogram is pre-created so record_step never allocates series
+        self._h_step = self.metrics.histogram("train_step_time_s")
+        self._g_tokens_per_sec = self.metrics.gauge("train_tokens_per_sec")
+        self._g_examples_per_sec = self.metrics.gauge(
+            "train_examples_per_sec")
+        self._g_mfu = self.metrics.gauge("train_mfu")
+        self._c_tokens = self.metrics.counter("train_tokens_total")
+        # goodput anchors (set_goodput): cost-model FLOPs per optimizer
+        # step and the machine-model aggregate chip peak, for MFU
+        self._flops_per_step: Optional[float] = None
+        self._peak_flops: Optional[float] = None
+        self._ema: Optional[float] = None
+        self._examples = 0
+        self._tokens = 0
+        self._train_seconds = 0.0
+        self._last_summary_steps = -1
+        self._dropped_warned = False
+        self._closed = False
+        # time-to-first-step: compile start (note_compile_start) → first
+        # step completion, the cold-vs-warm restart metric (warmstart/)
+        self._compile_t0: Optional[float] = None
+        self._time_to_first_step: Optional[float] = None
+
+    # ------------------------------------------------------------ manifest
+
+    def write_manifest(self, model=None):
+        """First record of the log: everything needed to interpret the
+        numbers (mesh, strategy, config, git sha). Idempotent — a second
+        compile on the same session records a fresh manifest only if the
+        first one never happened."""
+        if self._manifest_written:
+            return
+        self._manifest_written = True
+        fields: dict = {"git_sha": git_sha()}
+        fields.update(device_fields(getattr(model, "device", None)))
+        fields["process_index"] = process_index()
+        fields["process_count"] = process_count()
+        if model is not None:
+            mesh = getattr(model, "mesh", None)
+            cfg = getattr(model, "config", None)
+            if mesh is not None:
+                fields["mesh_axes"] = {
+                    k: int(v) for k, v in mesh.shape.items()}
+            else:
+                # one device: every axis of the default mesh has size 1
+                fields["mesh_axes"] = single_device_mesh_axes()
+            if cfg is not None:
+                fields["config"] = {
+                    k: _plain(getattr(cfg, k, None))
+                    for k in _MANIFEST_CONFIG_FIELDS
+                }
+        self.recorder.record("manifest", **fields)
+
+    # ------------------------------------------------------------ metrics
+
+    def attach_registry(self, registry: MetricsRegistry):
+        """Fold another registry (e.g. a serving engine's) into every
+        snapshot this session exports."""
+        if registry not in self._registries:
+            self._registries.append(registry)
+
+    def collect_snapshot(self) -> dict:
+        """Merged point-in-time snapshot of every attached registry —
+        the same merge a cross-host gather would apply."""
+        return merge_snapshots([r.snapshot() for r in self._registries])
+
+    def _get_exporter(self):
+        if self.exporter is None:
+            from .export import MetricsExporter
+
+            self.exporter = MetricsExporter(
+                self.directory, collect=self.collect_snapshot,
+                record=self.recorder.record)
+        return self.exporter
+
+    def start_exporter(self, interval_s: float = 0.0, port: int = 0):
+        """Begin continuous export (interval snapshot writer and/or the
+        /metrics endpoint). Coordinator-only: non-coordinator processes
+        get a no-op so one file/port exists per fleet."""
+        if not _is_coordinator():
+            return None
+        exp = self._get_exporter()
+        if interval_s > 0:
+            exp.interval_s = float(interval_s)
+        if port:
+            exp.port = int(port)
+        exp.start()
+        return exp
+
+    def write_metrics_snapshot(self, reason: str = "manual",
+                               **flags) -> Optional[dict]:
+        """Export one snapshot now (JSONL record + metrics.prom)."""
+        if self._closed or not _is_coordinator():
+            return None
+        return self._get_exporter().snapshot_now(reason, **flags)
+
+    def set_goodput(self, flops_per_step: Optional[float],
+                    peak_flops: Optional[float]):
+        """Anchor MFU: `flops_per_step` from the search cost model over
+        the compiled graph, `peak_flops` = chip peak × chips from the
+        machine model. Either None disables the MFU gauge."""
+        if flops_per_step and flops_per_step > 0:
+            self._flops_per_step = float(flops_per_step)
+        if peak_flops and peak_flops > 0:
+            self._peak_flops = float(peak_flops)
+
+    # ------------------------------------------------------------ steps
+
+    def note_compile_start(self, t: Optional[float] = None):
+        """Anchor for time_to_first_step_s (the first compile's start
+        wins — that is the cold-start instant a restart pays for)."""
+        if self._compile_t0 is None:
+            self._compile_t0 = time.perf_counter() if t is None else t
+
+    def record_step(self, step: int, epoch: int, step_time: float,
+                    data_wait: float, save_latency: float,
+                    batch_size: int, tokens_per_example: int = 1):
+        """One optimizer step's host-side timing split. `step_time` is
+        wall-clock between step dispatches — with one step in flight it
+        converges to true device step time under backpressure."""
+        if self._time_to_first_step is None and self._compile_t0 is not None:
+            # completion of the run's FIRST step relative to compile
+            # start: search + calibration + executor build + first-batch
+            # staging + the step itself — the restart latency warm start
+            # exists to collapse
+            self._time_to_first_step = time.perf_counter() - self._compile_t0
+        self._h_step.observe(step_time)
+        self._ema = (step_time if self._ema is None
+                     else 0.9 * self._ema + 0.1 * step_time)
+        step_tokens = batch_size * tokens_per_example
+        self._examples += batch_size
+        self._tokens += step_tokens
+        self._train_seconds += step_time
+        # goodput gauges: instantaneous per-step rates + MFU against the
+        # cost-model/machine-model anchor (set_goodput)
+        self._c_tokens.inc(step_tokens)
+        mfu = None
+        if step_time > 0:
+            self._g_tokens_per_sec.set(step_tokens / step_time)
+            self._g_examples_per_sec.set(batch_size / step_time)
+            if self._flops_per_step and self._peak_flops:
+                mfu = self._flops_per_step / (step_time * self._peak_flops)
+                self._g_mfu.set(mfu)
+        extra = {} if mfu is None else {"mfu": mfu}
+        self.recorder.record(
+            "step", step=int(step), epoch=int(epoch),
+            step_time_s=step_time, data_wait_s=data_wait,
+            save_latency_s=save_latency,
+            device_time_s=max(0.0, step_time - data_wait - save_latency),
+            ema_step_time_s=self._ema, **extra)
+
+    def write_summary(self):
+        """Cumulative percentile summary over every step recorded so far.
+        Each fit() call writes one on exit, so consumers take the LAST
+        summary record as the run's numbers; a call with no new steps
+        since the previous summary writes nothing (no duplicates from
+        e.g. the keras Telemetry callback's train-end).
+
+        Percentiles come from the bounded step-time histogram (one-bucket
+        estimation error, ~1.78x width) instead of an unbounded list of
+        every step time — summary keys unchanged for existing readers."""
+        h = self._h_step
+        if h.count == 0 or h.count == self._last_summary_steps:
+            return
+        self._last_summary_steps = h.count
+        hd = h.to_dict()
+        fields = {
+            "steps": int(h.count),
+            "p50_step_time_s": percentile_from_hist(hd, 50),
+            "p95_step_time_s": percentile_from_hist(hd, 95),
+            "mean_step_time_s": h.sum / h.count,
+            "examples_per_sec": (self._examples / self._train_seconds
+                                 if self._train_seconds > 0 else 0.0),
+        }
+        if self._flops_per_step and self._peak_flops and h.sum > 0:
+            # run-average MFU over measured train seconds
+            fields["mfu"] = (self._flops_per_step * h.count
+                             / (h.sum * self._peak_flops))
+        if self._tokens > self._examples:
+            fields["tokens_per_sec"] = (
+                self._tokens / self._train_seconds
+                if self._train_seconds > 0 else 0.0)
+        if self._time_to_first_step is not None:
+            fields["time_to_first_step_s"] = self._time_to_first_step
+        dropped = self.tracer.dropped
+        if dropped:
+            # a capped trace is NOT a complete trace: say so in the summary
+            # record AND out loud — buried as a counter inside trace.json
+            # (tracer.to_dict) the drop looks like a complete timeline
+            fields["trace_dropped_events"] = int(dropped)
+            if not self._dropped_warned:
+                self._dropped_warned = True
+                from . import log
+
+                log.warning(
+                    "telemetry: trace buffer cap reached — %d event(s) "
+                    "dropped; %s is truncated (raise Tracer max_events or "
+                    "shorten the run)", dropped, self.trace_path)
+        self.recorder.record("summary", **fields)
+
+    # ------------------------------------------------------------ lifecycle
+
+    def flush(self):
+        """Persist the trace buffer; the JSONL is already on disk."""
+        if not self._closed:
+            self.tracer.dump(self.trace_path)
+
+    def close(self):
+        if self._closed:
+            return
+        # final snapshot: any run that produced metrics leaves a
+        # self-contained last metrics_snapshot record + metrics.prom
+        if _is_coordinator() and (
+                self.exporter is not None or self._h_step.count > 0
+                or len(self._registries) > 1):
+            try:
+                exp = self._get_exporter()
+                exp.stop(final_reason="final")
+            except Exception:
+                pass
+        self.flush()
+        self.recorder.close()
+        self._closed = True
+
+
+def single_device_mesh_axes() -> dict:
+    """The mesh axes of the port's one-device plan."""
+    from ..machine import DEFAULT_AXES
+
+    return {a: 1 for a in DEFAULT_AXES}
+
+
+def device_fields(device=None) -> dict:
+    """The manifest's device fields, in place of the JAX package's
+    `jax_backend`: the torch and CUDA versions, the device kind (the
+    card's name, or "cpu") and, on the card, `card` — its name and power
+    limit as nvidia-smi gives them (`search/machine_model.card_line`)."""
+    import torch
+
+    fields = {"torch_version": torch.__version__,
+              "cuda_version": torch.version.cuda}
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type == "cuda":
+        from ..search.machine_model import card_line
+
+        fields["device_kind"] = torch.cuda.get_device_name(dev)
+        try:
+            fields["card"] = card_line(dev.index or 0)
+        except Exception as e:  # nvidia-smi missing: say why, go on
+            fields["card"] = f"unavailable ({type(e).__name__}: {e})"
+    else:
+        fields["device_kind"] = "cpu"
+    return fields
+
+
+def _plain(v):
+    """Manifest values must be JSON-native."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    return str(v)

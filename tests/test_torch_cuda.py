@@ -1088,3 +1088,171 @@ def test_captured_decode_reads_the_recast_weights(cuda, monkeypatch,
     recast = dec.executor.compute_params(dec._params)
     assert all(recast[n][k] is t for n, ws in copies.items()
                for k, t in ws.items())
+
+
+# ------------------------------------------------------------ layer API
+
+
+def _conv_bn_dropout_model(monkeypatch, rate=0.5):
+    """conv -> batch_norm -> dropout -> pool -> dense -> softmax on the
+    card, f32 activations, SGD; seeded weights."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.fftype import PoolType
+
+    monkeypatch.setattr(sys, "argv", ["test", "--seed", "3"])
+    ff = FFModel(FFConfig())
+    x = ff.create_tensor((8, 3, 16, 16), name="input")
+    t = ff.conv2d(x, 16, 3, 3, 1, 1, 1, 1, name="conv")
+    t = ff.batch_norm(t, name="bn")
+    t = ff.dropout(t, rate, name="drop")
+    t = ff.pool2d(t, 2, 2, 2, 2, 0, 0, PoolType.POOL_MAX, name="pool")
+    t = ff.flat(t, name="flat")
+    t = ff.softmax(ff.dense(t, 10, name="fc"), name="softmax")
+    ff.compile(optimizer=SGDOptimizer(lr=0.05),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff
+
+
+@pytest.mark.cuda
+def test_captured_conv_bn_dropout_step_matches_eager(cuda, monkeypatch):
+    """Four train steps through fit (a warm-up, a capture, two replays)
+    against the same steps under eager(): BatchNorm's running statistics
+    advance once per step, replays included (equal after every step in
+    both modes); the model's generator, registered with the graph,
+    advances on every replay, so each step draws a new dropout mask, and
+    the same generator state gives the same masks in both modes (masters
+    within 1e-5 of each layer's largest entry: cuDNN may choose other
+    convolution algorithms inside a graph; another mask moves them by
+    far more)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import executor
+
+    rs = np.random.RandomState(5)
+    x = rs.randn(32, 3, 16, 16).astype(np.float32)
+    y = rs.randint(0, 10, (32, 1)).astype(np.int32)
+    runs = {}
+    for mode in ("captured", "eager"):
+        ff = _conv_bn_dropout_model(monkeypatch)
+        stats, offsets = [], []
+        step = ff.executor.build_train_step()
+
+        def watched(*args):
+            out = step(*args)
+            stats.append(ff._state["bn"]["running_mean"].clone())
+            offsets.append(ff._rng.get_offset())
+            return out
+
+        ff.executor._train_step = watched
+        with (executor.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            ff.fit(x, y, epochs=1, batch_size=8, shuffle=False,
+                   verbose=False)
+        torch.cuda.synchronize()
+        runs[mode] = (ff, stats, offsets, step)
+    (a, sa, oa, step_a), (b, sb, ob, _) = runs["captured"], runs["eager"]
+    assert isinstance(step_a, executor.CapturedStep) and step_a.captures == 1
+    assert oa == ob and all(o2 > o1 for o1, o2 in zip(oa, oa[1:]))
+    for i, (u, v) in enumerate(zip(sa, sb)):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-6,
+                                   msg=f"running mean after step {i + 1}")
+    assert all(not torch.equal(u, v) for u, v in zip(sa, sa[1:]))
+    for n, ws in b._params.items():
+        scale = max(float(t.abs().max()) for t in ws.values())
+        for k, t in ws.items():
+            err = float((a._params[n][k] - t).abs().max())
+            assert err <= 1e-5 * scale, f"{n}.{k}: {err}"
+
+
+@pytest.mark.cuda
+def test_captured_dropout_draws_a_new_mask_per_replay(cuda):
+    """The dropout op inside a CapturedStep that holds the generator:
+    every call (warm-up, capture + replay, replays) draws the mask an
+    eager call would draw from the same generator state, and successive
+    replays draw different masks."""
+    from flexflow_tpu_torch import ops
+    from flexflow_tpu_torch.executor import CapturedStep
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+
+    op = ops.get_op_def(OT.OP_DROPOUT)
+    p = ops.DropoutParams(0.5)
+
+    def fn(x, gen):
+        (y,), _ = op.forward(p, [x], {}, None,
+                             ops.OpContext(training=True, rng=gen))
+        return y * 1.0
+
+    x = torch.ones(64, 128, device=cuda)
+    step = CapturedStep("dropout", fn, cuda, held=(1,))
+    g = torch.Generator(cuda).manual_seed(5)
+    got = [step(x, g) for _ in range(5)]
+    g2 = torch.Generator(cuda).manual_seed(5)
+    want = [fn(x, g2) for _ in range(5)]
+    assert step.captures == 1
+    for i, (u, v) in enumerate(zip(got, want)):
+        assert torch.equal(u, v), f"call {i + 1}"
+    assert all(not torch.equal(u, v) for u, v in zip(got, got[1:]))
+    assert g.get_offset() == g2.get_offset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_ties_on_card(cuda, dtype):
+    """top_k on the card breaks ties by the lower index, as
+    jax.lax.top_k does (the op's stable descending sort), rows of many
+    equal values included."""
+    from flexflow_tpu_torch import ops
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 0.0],
+                      [5.0, 5.0, 5.0, 5.0, 5.0, 5.0],
+                      [0.0, -1.0, 0.0, 2.0, 2.0, -1.0]], dtype=dtype)
+    want = [[1, 2, 4, 3], [0, 1, 2, 3], [3, 4, 0, 2]]
+    op = ops.get_op_def(OT.OP_TOPK)
+    (v, i), _ = op.forward(ops.TopKParams(4), [x.to(cuda)], {}, None,
+                           ops.OpContext())
+    assert i.tolist() == want and i.dtype == torch.int32
+    assert torch.equal(v.cpu(), torch.gather(x, 1, torch.tensor(want)))
+    wide = torch.zeros(4, 5000, dtype=dtype, device=cuda)
+    wide[:, 4000] = 1.0
+    (v, i), _ = op.forward(ops.TopKParams(5), [wide], {}, None,
+                           ops.OpContext())
+    assert i.tolist() == [[4000, 0, 1, 2, 3]] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["POOL_MAX", "POOL_AVG"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool2d_pad_above_half_window_on_card(cuda, pool, dtype):
+    """A pad above kernel // 2 (the JAX op's reduce_window takes any pad;
+    the torch pools at most half the window): the op pads explicitly with
+    -inf (max) or 0 (avg, the padding counted), on the card as on the
+    CPU, forward and gradient."""
+    from flexflow_tpu_torch import ops
+    from flexflow_tpu_torch.fftype import OperatorType as OT, PoolType
+
+    op = ops.get_op_def(OT.OP_POOL2D)
+    p = ops.Pool2DParams(3, 3, 1, 1, 2, 2, getattr(PoolType, pool))
+    g = torch.Generator().manual_seed(6)
+    # distinct values in each plane, exact in bf16 (quarters up to 8): a
+    # tie in a window would let the CPU and CUDA max pools route its
+    # gradient to different entries
+    x = torch.stack([torch.randperm(63, generator=g) for _ in range(8)])
+    x = ((x.float() - 31.0) / 4).reshape(2, 4, 9, 7).to(dtype)
+    cot = torch.randn(2, 4, 11, 9, generator=g).to(dtype)
+    res = {}
+    for dev in ("cpu", cuda):
+        xi = x.detach().to(dev).requires_grad_(True)
+        (y,), _ = op.forward(p, [xi], {}, None, ops.OpContext())
+        y.backward(cot.to(dev))
+        res[str(dev)] = (y.detach().float().cpu(), xi.grad.float().cpu())
+    (yc, gc), (yg, gg) = res["cpu"], res[str(cuda)]
+    assert yg.shape == (2, 4, 11, 9) and torch.isfinite(yg).all()
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(
+        rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(yg, yc, **tol)
+    torch.testing.assert_close(gg, gc, **tol)
+    if pool == "POOL_AVG":  # a corner window holds one input entry of 9
+        torch.testing.assert_close(yg[:, :, 0, 0], x[:, :, 0, 0].float() / 9,
+                                   **tol)

@@ -258,7 +258,9 @@ def test_import_pulls_in_no_jax():
         "flexflow_tpu_torch.serving, flexflow_tpu_torch.kernels._build, "
         "flexflow_tpu_torch.kernels.flash_attention, "
         "flexflow_tpu_torch.kernels.layer_norm, "
-        "flexflow_tpu_torch.search.machine_model, bench_torch\n"
+        "flexflow_tpu_torch.search.machine_model, bench_torch, "
+        "flexflow_tpu_torch.telemetry, flexflow_tpu_torch.scope.flightrec, "
+        "flexflow_tpu_torch.models.resnet, flexflow_tpu_torch.machine\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.')]\n"

@@ -651,7 +651,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch):
                     "--pipeline-steps", "1", "--profile-every", "0"])
     assert (cfg.epochs, cfg.learning_rate) == (3, 0.25)
     for argv, item in ((["--pipeline-steps", "4"], "A10"),
-                       (["--telemetry-dir", "t"], "A1"),
+                       (["--xprof-dir", "t"], "A10"),
                        (["--checkpoint-dir", "c"], "A10"),
                        (["--sanitize-numerics"], "A10")):
         with pytest.raises(NotImplementedError, match=item):
