@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (flexflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                               # one card
+    torchrun --nproc-per-node 4 chip_smoke.py           # the mesh, 4 cards
 
 Run from the root of a checkout. It builds the port's kernels from the
 sources in the checkout at first use (CUDA C++ with nvcc into
@@ -14,7 +15,8 @@ activations over fp32 master weights), serving and training, and the
 per-head flash paths: lm-base under --flash-transposed, and lm-xxl-fsdp
 (hidden 4096, 32 heads of dim 128, seq 2048, vocab 32000) at 4 of its 32
 layers, in both layouts; then the layer API's path, ResNet-50 at full
-width, and lm-base's training under --telemetry-dir. The train and
+width, lm-base's training under --telemetry-dir, and on a mesh: NCCL
+with one rank, two gloo ranks sharing the card. The train and
 decode steps are the executor's
 captured ones (a CUDA graph per batch signature or q width: the first
 call of each warms up, the second captures, the rest replay; the steps
@@ -115,7 +117,34 @@ Phases, each fatal on failure:
      naming the card, a step record a step and a summary, metrics.prom;
      each step phase 6's launches; the recorded timed step times'
      median and the MFU gauge within 15% of phase 6's, the summary's
-     p50 (a histogram estimate) within one bucket of phase 6's median.
+     p50 (a histogram estimate) within one bucket of phase 6's median;
+ 15. under an NCCL process group of one rank: phase 6's run (captured,
+     14 steps) on a (1, 1, 1, 1) mesh, whose step has nothing to sum and
+     runs no collective: it captures, launches phase 6's kernels, and its
+     masters equal phase 6's bit for bit (else within GRAD_RTOL of each
+     layer's largest entry); then the port's collectives (sync_grad's
+     reduce-scatter, all-gather and all-reduce, ParamGather's all-gather
+     and its backward's reduce-scatter) at lm-base's MLP shapes captured
+     in one CUDA graph, replayed twice on new inputs, each output equal
+     to its input (a sum over one rank);
+ 16. two gloo ranks spawned on the one card (each names cuda:0; NCCL
+     takes no two ranks of one device), lm-base at full width and 2 of
+     its 12 layers, eager (gloo cannot be captured), 3 steps of phase 6's
+     global batch through fit: in float32 (tensor-op math off) and bf16,
+     one rank alone, then dp 2 and tp 2 (megatron_transformer) held to it
+     by each master's change and each step's loss (MESH_TOL), and in
+     bf16 dp 2 under stage 2 (and stage 3 where gloo takes a ring hop of
+     CUDA tensors: a probe pair tries batch_isend_irecv first) bit-equal
+     to dp 2 replicated; every run launches K1, K4 and K5-K7 on each
+     rank, tp's flash kernels on 8 of the 16 heads; per rank the median
+     step, busy share of a profiled step and peak memory. Gloo moves
+     every collective through host memory: its step times are not the
+     port's speed on a mesh.
+
+Under torchrun with more than one rank (one a card, NCCL) it runs only
+the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
+6 steps, on dp N, dp N/2 x tp 2 and tp N, stages 2 and 3; rank 0 prints
+every rank's runs, the card line and {"ok": ..., "world": N} last.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -1276,7 +1305,8 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
     from flexflow_tpu_torch.models import build_transformer_lm
 
     cfg = FFConfig()
-    cfg.parse_args(["--dtype", dtype, "--seed", str(SEED), "-b", str(batch)]
+    cfg.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
+                    "--seed", str(SEED), "-b", str(batch)]
                    + (["--flash-transposed"] if transposed else [])
                    + list(flags))
     cfg.allow_tensor_op_math_conversion = tensor_op_math
@@ -1317,7 +1347,7 @@ def step_launches(layers: int, fused: bool) -> dict:
 def train_phase(lm=None, *, transposed=False, fused=False,
                 batch=TRAIN_BATCH, warmup=WARMUP_STEPS,
                 timed_steps=TIMED_STEPS, mode="captured",
-                keep_masters=False) -> dict:
+                keep_masters=False, flags: tuple = ()) -> dict:
     """An LM (lm-base unless `lm` is given), bf16, through `fit` over one
     repeated batch: `warmup` then `timed_steps` steps, the train step
     captured (the first call warms up, the second captures, the rest
@@ -1328,7 +1358,8 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     train step, which fit calls, and must launch `step_launches(layers,
     fused)`, the flash kernels on the layout the flags ask for. Then one
     more step, profiled. `keep_masters` returns a copy of the masters
-    after the run (`masters`)."""
+    after the run (`masters`); `flags` go to FFConfig (phase 15: the
+    mesh)."""
     import contextlib
 
     import torch
@@ -1346,7 +1377,8 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     torch.cuda.reset_peak_memory_stats()
     # what the caller still holds (another run's masters) is not this run's
     held = torch.cuda.memory_allocated()
-    ff = build_train_lm("bf16", lm=cfg, transposed=transposed, batch=batch)
+    ff = build_train_lm("bf16", lm=cfg, transposed=transposed, batch=batch,
+                        flags=flags)
     x, y = train_batch(cfg.vocab_size, batch, seq)
     steps = warmup + timed_steps
     xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
@@ -1458,6 +1490,8 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         "profiled_step": prof,
         "train_accuracy": metrics.get_accuracy(),
         "train_mean_loss": metrics.get_mean_loss(),
+        "mesh_axes": dict(ff.mesh.shape),
+        "update_sharding": dict(ff._update_sharding),
     }
     if keep_masters:
         out["masters"] = {n: {k: t.detach().clone() for k, t in ws.items()}
@@ -2322,6 +2356,467 @@ def telemetry_phase(base: dict) -> dict:
         torch.cuda.empty_cache()
 
 
+def nccl_collectives() -> dict:
+    """Phase 15's second half, under its NCCL group of one rank: the
+    port's collectives at lm-base's MLP shapes, captured in one CUDA
+    graph and replayed on new inputs: the weight-gradient reduction
+    (`sync_grad`: a reduce-scatter then an all-gather along dim 0, and
+    the all-reduce of a weight with no shardable dim) and stage 2's
+    gather (`ParamGather`: an all-gather forward, the gradient's
+    reduce-scatter backward). Over one rank each is the identity, so
+    every replay's outputs must equal its inputs bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.machine import _Group
+    from flexflow_tpu_torch.parallel.spmd import ParamGather, sync_grad
+
+    group = _Group(dist.group.WORLD, [0], 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grad = torch.empty(EMBED, 4 * EMBED, device="cuda")
+    bias_grad = torch.empty(4 * EMBED, device="cuda")
+    shard = torch.empty(EMBED, 4 * EMBED, device="cuda", requires_grad=True)
+    cotangent = torch.empty(EMBED, 4 * EMBED, device="cuda")
+    ins = (grad, bias_grad, shard, cotangent)
+
+    def fill():
+        with torch.no_grad():
+            for t in ins:
+                t.normal_(generator=gen)
+
+    def body():
+        full = ParamGather.apply(shard, group, 0, False)
+        (dshard,) = torch.autograd.grad(full, shard, cotangent)
+        return (sync_grad(grad, group, 0), sync_grad(bias_grad, group, None),
+                full.detach(), dshard)
+
+    fill()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()  # NCCL's first call sets its communicator up: not in a graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    equal = []
+    for _ in range(2):
+        fill()
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append([bool(torch.equal(o, i)) for o, i in zip(outs, ins)])
+    prof, _ = profiled(graph.replay, patterns={"nccl": "(?i)nccl"})
+    require(all(all(e) for e in equal),
+            f"captured collectives over one rank changed their inputs: "
+            f"{equal}")
+    return {"replays_equal": equal, "profiled_replay": {
+        k: prof[k] for k in ("device_busy_ms", "device_kernels", "top",
+                             "matched")}}
+
+
+def nccl_phase(p6_masters: dict) -> dict:
+    """Phase 15, under an NCCL process group of one rank: phase 6's
+    lm-base run (bf16, SGD, one repeated batch of 8 x 512, captured) on a
+    (1, 1, 1, 1) mesh, whose step runs no collective (one rank has
+    nothing to sum): it captures, and its masters after the same 14 steps
+    equal phase 6's bit for bit (else within GRAD_RTOL of each layer's
+    largest entry: fatal); then the port's collectives captured in a
+    CUDA graph (`nccl_collectives`), the only part of the mesh path one
+    card can hold under NCCL."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import free_port
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        run = train_phase(keep_masters=True, flags=("--mesh", "1,1,1,1"))
+        run["backend"] = dist.get_backend()
+        run["collectives"] = nccl_collectives()
+    finally:
+        dist.destroy_process_group()
+    require(run["mesh_axes"] == {"data": 1, "model": 1, "pipe": 1,
+                                 "seq": 1}, f"mesh {run['mesh_axes']}")
+    run["vs_phase6"] = compare_masters(run.pop("masters"), p6_masters)
+    return run
+
+
+# ------------------------------------------------------------ the mesh
+# Phase 16 (two gloo ranks on the one card, eager: gloo collectives
+# cannot be captured) and the mesh run (`torchrun --nproc-per-node N
+# chip_smoke.py`: one rank a card over NCCL, captured) train lm-base at
+# full width over phase 6's global batch, SGD(lr=0.01), through fit: each
+# dtype first on one rank alone, then on meshes of the world's ranks.
+# Every mesh starts from the one-rank run's masters (each rank draws the
+# full tensor from the seed), so a mesh run is held to the one-rank run
+# by what it changed: per master, ||dmesh - done|| / ||done|| with d the
+# change from the initial masters (`delta_rel`; a master whose change is
+# below DELTA_FLOOR of the run's largest, such as the key bias, whose
+# exact gradient is 0, against that floor), and per step the loss's
+# relative difference (`loss_rel`). A gradient summed twice, or an update
+# skipped, moves a master's change by all of it: delta_rel 1. float32
+# (tensor-op math off): only the order of sums differs (on 4 CPU ranks
+# at 2 layers of width 256: delta_rel 2.3e-5, loss_rel 1.5e-7). bf16:
+# each rank rounds its own activations and partial gradients to 8 bits
+# of mantissa (there: delta_rel 8e-3, loss_rel 7.2e-5). Stages 2 and 3
+# must equal the replicated dp run bit for bit.
+MESH_TOL = {"f32": dict(delta_rel=1e-3, loss_rel=2e-6),
+            "bf16": dict(delta_rel=1e-1, loss_rel=1e-3)}
+DELTA_FLOOR = 1e-2
+GLOO_LAYERS, GLOO_STEPS = 2, 3
+MESH_LAYERS, MESH_STEPS = 4, 6
+MESH_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def gloo_p2p_probe(rank: int) -> str:
+    """Whether gloo takes a point-to-point ring hop (batch_isend_irecv) of
+    CUDA tensors: stage 3's ring all-gather needs it. A refusal raises or
+    aborts the process (`gloo_phase` reads either as no)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((1024,), float(rank), device="cuda:0")
+    y = torch.empty_like(x)
+    try:
+        for r in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, y, 1 - rank)]):
+            r.wait()
+        torch.cuda.synchronize()
+        return "ok" if float(y[0]) == 1 - rank else f"wrong value {y[0]}"
+    except Exception as e:
+        return f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def _full_masters(ff) -> dict:
+    """Every master as a whole float32 tensor on the host (a collective
+    on a sharded mesh: every rank calls it in the same order), copied:
+    on the CPU `get_weight` may hand back the live master's memory."""
+    import torch
+
+    return {f"{n}.{k}": torch.from_numpy(
+        np.array(ff.get_weight(n, k), dtype=np.float32, copy=True))
+        for n, ws in ff._params.items() for k in ws}
+
+
+def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
+             flags: tuple = (), tp: bool = False, steps: int = GLOO_STEPS,
+             captured: bool = False):
+    """One training run of `lm` on this rank on `device`: the global batch
+    of `train_batch` (each data rank keeps its rows), `steps` SGD steps
+    through fit, each timed, captured or under executor.eager(); on the
+    card one more step profiled. `tp` sets megatron_transformer. Returns
+    (its numbers, its masters after the run, its initial masters)."""
+    import contextlib
+    import importlib
+
+    import torch
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.models import build_transformer_lm
+    from flexflow_tpu_torch.parallel import megatron_transformer
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = FFConfig(device=device)
+    cfg.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
+                    "--seed", str(SEED), "-b", str(TRAIN_BATCH), "--mesh",
+                    ",".join(map(str, mesh)), *flags])
+    cfg.allow_tensor_op_math_conversion = dtype == "bf16"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ff = FFModel(cfg)
+    build_transformer_lm(ff, lm)
+    if tp:
+        ff.set_strategy(megatron_transformer(ff))
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY])
+    initial = _full_masters(ff)
+    x, y = train_batch(lm.vocab_size, seq=lm.sequence_length)
+    xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
+    ys = np.concatenate([y] * steps)
+    step = ff.executor.build_train_step()
+    step_ms, losses = [], []
+
+    def timed(*args):
+        sync()
+        t0 = time.perf_counter()
+        out = step(*args)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[-1]))
+        return out
+
+    heads = []
+    flash_attention = importlib.import_module(
+        "flexflow_tpu_torch.kernels.flash_attention")
+    packed = flash_attention.flash_attention_packed
+
+    def seen(q, k, v, *, num_heads, **kw):
+        heads.append(num_heads)
+        return packed(q, k, v, num_heads=num_heads, **kw)
+
+    ff.executor._train_step = timed
+    reset_counters()
+    with (contextlib.nullcontext() if captured else eager()), \
+            mock.patch.object(flash_attention, "flash_attention_packed",
+                              seen):
+        ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+               verbose=False)
+        launches = {k: counters()[k].launches for k in MESH_KERNELS}
+        variants = {k: dict(counters()[k].variants) for k in FLASH_KERNELS}
+        prof = None
+        if on_card:
+            staged = ff._make_batch(x, y)
+            prof, _ = profiled(lambda: step(
+                ff._params, ff._state, ff._opt_slots, ff._step,
+                ff._counters, staged, ff._rng), patterns={"nccl": "(?i)nccl"})
+    sync()
+    # eager: the first step warms up; captured: the second captures too
+    med = statistics.median(step_ms[2 if captured else 1:])
+    numbers = {
+        "name": name, "dtype": dtype, "mesh": list(mesh), "device": device,
+        "captures": getattr(step, "captures", 0), "losses": losses,
+        "step_ms": step_ms, "median_step_ms": med,
+        "tokens_per_s_per_chip": (TRAIN_BATCH * lm.sequence_length
+                                  / (med / 1e3) / ff.mesh.size),
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if on_card else None),
+        "launches": launches, "flash_variants": variants,
+        "flash_heads": sorted(set(heads)),
+        "update_sharding": {k: ff._update_sharding.get(k)
+                            for k in ("enabled", "stage", "shards")}}
+    if prof is not None:
+        numbers.update(
+            device_busy_ms=prof["device_busy_ms"],
+            device_busy_share=prof["device_busy_ms"] / med,
+            nccl_ms=prof["matched"]["nccl"]["ms"], top_kernels=prof["top"])
+    masters = _full_masters(ff)
+    del ff, step
+    return numbers, masters, initial
+
+
+def mesh_agree(got: dict, want: dict, initial: dict, got_losses: list,
+               want_losses: list, tol: dict) -> dict:
+    """A mesh run against the one-rank run (see MESH_TOL): the largest
+    delta_rel over the masters and the three masters that reach the
+    most, the largest max-abs difference of a master, the largest
+    loss_rel, and whether both are within `tol`."""
+    done = {k: want[k].double() - w0.double() for k, w0 in initial.items()}
+    floor = DELTA_FLOOR * max(float(d.norm()) for d in done.values())
+    rels, max_abs = [], 0.0
+    for k, d in done.items():
+        diff = got[k].double() - initial[k].double() - d
+        rels.append((float(diff.norm()) / max(float(d.norm()), floor), k))
+        max_abs = max(max_abs, float((got[k] - want[k]).abs().max()))
+    rels.sort(reverse=True)
+    worst = rels[0][0]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(got_losses, want_losses))
+    return {"within_tolerance": (worst <= tol["delta_rel"]
+                                 and loss_rel <= tol["loss_rel"]
+                                 and len(got_losses) == len(want_losses)),
+            "delta_rel": worst, "worst_tensors": rels[:3],
+            "max_abs_diff": max_abs, "loss_rel": loss_rel, "tolerance": tol}
+
+
+def mesh_check(device: str, lm, steps: int, captured: bool,
+               stage3: bool = True) -> dict:
+    """Every run of this rank under the process group already started:
+    per dtype one rank alone, then dp over the world, dp / 2 x tp 2 (a
+    world of 4 or more), tp over the world (where it divides the heads),
+    each held to one rank by `mesh_agree`; in bf16 dp under stage 2 (and
+    stage 3 when `stage3`) bit-equal to replicated dp. On the card every
+    run must launch K1, K4 and K5-K7 (and, captured, capture once); the
+    flash kernels must see heads / tp heads. Returns the runs, the checks
+    and the failed ones (`failures`)."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    on_card = torch.device(device).type == "cuda"
+    off = ("--weight-update-sharding=off",)
+    plans = [(f"dp {world}", (world, 1, 1, 1), off, False)]
+    if world % 2 == 0 and world > 2:
+        plans.append((f"dp {world // 2} x tp 2", (world // 2, 2, 1, 1), off,
+                      True))
+    if lm.num_heads % world == 0:
+        plans.append((f"tp {world}", (1, world, 1, 1), off, True))
+    failures, runs, checks = [], [], {}
+
+    def attempt(name, dtype, mesh, flags=(), tp=False):
+        # a run that raises does so on every rank alike (the same program
+        # on the same shapes), so the ranks stay in step past it
+        try:
+            return mesh_run(name, lm, device, dtype, mesh, flags, tp, steps,
+                            captured)
+        except Exception as e:
+            failures.append(f"{name} {dtype}: {type(e).__name__}: "
+                            f"{str(e)[:300]}")
+            return None, None, None
+
+    t0 = time.perf_counter()
+    dp_masters = None
+    for dtype in ("f32", "bf16"):
+        one, ref, initial = attempt("one rank", dtype, (1, 1, 1, 1))
+        if one is None:
+            continue
+        runs.append(one)
+        for name, mesh, flags, tp in plans:
+            r, masters, _ = attempt(name, dtype, mesh, flags, tp)
+            if r is None:
+                continue
+            key = f"{name} {dtype}"
+            checks[key] = mesh_agree(masters, ref, initial, r["losses"],
+                                     one["losses"], MESH_TOL[dtype])
+            if not checks[key]["within_tolerance"]:
+                failures.append(f"{key} vs one rank: {checks[key]}")
+            runs.append(r)
+            if name == plans[0][0] and dtype == "bf16":
+                dp_masters = masters
+        del ref, initial
+        gc.collect()
+    for stage in (2, 3) if stage3 else (2,):
+        name = f"dp {world} stage {stage}"
+        r, masters, _ = attempt(name, "bf16", (world, 1, 1, 1),
+                                (f"--weight-update-sharding=stage{stage}",))
+        if r is None or dp_masters is None:
+            continue
+        same = all(torch.equal(masters[k], v) for k, v in dp_masters.items())
+        checks[f"{name} bf16"] = {"bitwise_equal_to_dp": same}
+        if not same:
+            failures.append(f"{name}: masters differ from dp {world}'s")
+        runs.append(r)
+    for r in runs:
+        tp = r["mesh"][1]
+        if r["flash_heads"] != [lm.num_heads // tp]:
+            failures.append(f"{r['name']} {r['dtype']}: flash kernels on "
+                            f"{r['flash_heads']} heads, want "
+                            f"{[lm.num_heads // tp]}")
+        if on_card and not all(r["launches"].values()):
+            failures.append(f"{r['name']} {r['dtype']}: launches "
+                            f"{r['launches']}")
+        if on_card and captured and r["captures"] != 1:
+            failures.append(f"{r['name']} {r['dtype']}: {r['captures']} "
+                            f"captures")
+    return {"rank": dist.get_rank(), "world": world, "device": device,
+            "backend": dist.get_backend(), "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "runs": runs,
+            "checks": checks, "failures": failures}
+
+
+def gloo_rank(rank: int, stage3: bool) -> dict:
+    """Phase 16 on one of the two ranks: `mesh_check` on cuda:0, eager,
+    lm-base at GLOO_LAYERS layers."""
+    import torch
+
+    del rank
+    torch.cuda.set_device(0)
+    return mesh_check("cuda:0", lm_config(layers=GLOO_LAYERS), GLOO_STEPS,
+                      captured=False, stage3=stage3)
+
+
+def gloo_phase() -> dict:
+    """Phase 16: spawn two gloo ranks on the card (cuda:0 named for each:
+    NCCL refuses two ranks of one communicator on one device), probe
+    gloo's ring hop of CUDA tensors, then run `gloo_rank` on both (stage
+    3 only where the probe passed). Fatal: any failure on either rank."""
+    from flexflow_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    try:
+        probe = spawn(gloo_p2p_probe, 2, timeout=120)
+    except RuntimeError as e:
+        # gloo may abort the process on a refused hop of CUDA tensors
+        # (std::terminate on a gloo::IoException) instead of raising
+        probe = [f"a probe rank died: {e}"]
+    stage3 = all(p == "ok" for p in probe)
+    ranks = spawn(gloo_rank, 2, stage3, timeout=900)
+    failures = [f"rank {r}: {f}" for r, out in enumerate(ranks)
+                for f in out["failures"]]
+    require(not failures, f"phase 16: {failures}")
+    return {"p2p_probe": probe, "stage3_ran": stage3, "ranks": ranks,
+            "wall_s": time.perf_counter() - t0}
+
+
+def log_mesh_runs(out: dict):
+    rank = out["rank"]
+    for r in out["runs"]:
+        busy = (f"kernels {r['device_busy_ms']:.2f} ms (busy "
+                f"{100 * r['device_busy_share']:.1f}%, NCCL "
+                f"{r['nccl_ms']:.2f} ms), " if "device_busy_ms" in r else "")
+        log(f"  rank {rank} {r['name']} {r['dtype']} mesh {r['mesh']}: "
+            f"median step {r['median_step_ms']:.2f} ms (steps "
+            f"{[round(v, 2) for v in r['step_ms']]}), {busy}peak "
+            f"{r['max_memory_allocated']} B, losses "
+            f"{[round(v, 7) for v in r['losses']]}, flash heads "
+            f"{r['flash_heads']}, variants {r['flash_variants']}, update "
+            f"{r['update_sharding']}")
+    for key, c in out["checks"].items():
+        log(f"  rank {rank} {key}: {c}")
+
+
+def log_gloo(g: dict):
+    log(f"  gloo ring hop of CUDA tensors (batch_isend_irecv), per rank: "
+        f"{g['p2p_probe']}; stage 3 "
+        f"{'ran' if g['stage3_ran'] else 'not run: gloo refused its ring hop'}")
+    for out in g["ranks"]:
+        log_mesh_runs(out)
+
+
+def mesh_main(json_path: str) -> int:
+    """The mesh run, under `torchrun --nproc-per-node N` (N > 1 cards of
+    one host): one rank a card over NCCL, `mesh_check` captured, lm-base
+    at MESH_LAYERS layers. Rank 0 prints every rank's runs and checks,
+    the card line, then {"ok": ..., "failures": [...], "world": N}
+    last; `--json PATH` writes each rank's numbers to PATH with
+    `_rank<r>` before its suffix. Any failed check exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import initialize
+    from flexflow_tpu_torch.search.machine_model import card_line
+
+    initialize(device="cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if rank == 0:
+        log(f"== the mesh: {world} ranks over NCCL, lm-base at full width "
+            f"({MESH_LAYERS} layers), captured")
+        build_kernels()  # once, before the ranks' first use
+    dist.barrier()
+    out = mesh_check(f"cuda:{torch.cuda.current_device()}",
+                     lm_config(layers=MESH_LAYERS), MESH_STEPS,
+                     captured=True)
+    if json_path:
+        root, ext = os.path.splitext(os.path.abspath(json_path))
+        os.makedirs(os.path.dirname(root), exist_ok=True)
+        with open(f"{root}_rank{rank}{ext}", "w") as f:
+            json.dump(out, f, indent=1)
+    outs = [None] * world
+    dist.all_gather_object(outs, out)
+    bad = [f"rank {r}: {f}" for r, o in enumerate(outs)
+           for f in o["failures"]]
+    if rank == 0:
+        for o in outs:
+            log_mesh_runs(o)
+        log(card_line())
+        print(json.dumps({"ok": not bad, "failures": bad[:8],
+                          "world": world, "backend": dist.get_backend()}),
+              flush=True)
+    return 1 if bad else 0
+
+
 def log_train(t: dict):
     log(f"  {t['model']}, {t['layout']}, batch {t['batch']}: losses "
         f"{[round(x, 4) for x in t['losses']]}")
@@ -2368,6 +2863,8 @@ def main(argv: list[str]) -> int:
               "only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return mesh_main(json_path)
     from flexflow_tpu_torch.executor import set_float_policy
     from flexflow_tpu_torch.search.machine_model import card_line
 
@@ -2429,6 +2926,7 @@ def main(argv: list[str]) -> int:
     log("== phase 6: training lm-base, bf16, SGD, fit over one batch, "
         "captured then eager")
     train = train_phase(keep_masters=True)
+    p6_masters = train["masters"]  # phase 15 holds its run to these
     log_train(train)
     train_e = train_phase(mode="eager", keep_masters=True)
     log_train(train_e)
@@ -2518,6 +3016,27 @@ def main(argv: list[str]) -> int:
         f"{[round(v, 3) for v in tel['device_time_ms']]} ms; records "
         f"{tel['records']}")
 
+    log("== phase 15: phase 6's lm-base run on a (1, 1, 1, 1) mesh under "
+        "an NCCL process group of one rank, captured")
+    nccl = nccl_phase(p6_masters)
+    del p6_masters
+    log_train(nccl)
+    log(f"  backend {nccl['backend']}, mesh {nccl['mesh_axes']}, update "
+        f"{nccl['update_sharding']}; masters after {nccl['steps'] + 1} "
+        f"steps vs phase 6's: {nccl['vs_phase6']}")
+    coll = nccl["collectives"]
+    log(f"  collectives captured in a CUDA graph over one rank (sync_grad's "
+        f"reduce-scatter + all-gather and all-reduce, ParamGather's "
+        f"all-gather and its backward's reduce-scatter): replays equal to "
+        f"their inputs {coll['replays_equal']}; a replay's kernels "
+        f"{coll['profiled_replay']}")
+
+    log(f"== phase 16: two gloo ranks on the one card, lm-base at full "
+        f"width ({GLOO_LAYERS} layers), eager: one rank vs dp 2 and tp 2, "
+        f"float32 and bf16; stages 2/3 vs replicated")
+    gloo = gloo_phase()
+    log_gloo(gloo)
+
     # the run whose launches each row (and each case of a row) reports
     counted = {"train": train, "paged": runs["paged"],
                "contiguous": runs["contiguous"],
@@ -2578,6 +3097,7 @@ def main(argv: list[str]) -> int:
                   per_head_gradients=grads_ph,
                   lse_entry_max_abs_err=errs["flash_attention_with_lse"],
                   resnet50=rn, resnet50_eager=rn_e, telemetry=tel,
+                  nccl_world1=nccl, gloo_two_ranks=gloo,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -2616,6 +3136,18 @@ def main(argv: list[str]) -> int:
                     "telemetry": {k: v for k, v in tel.items() if k not in (
                         "recorded_step_ms", "data_wait_ms",
                         "device_time_ms")},
+                    "nccl_world1": dict(
+                        summary(nccl), vs_phase6=nccl["vs_phase6"],
+                        collectives_replays_equal=nccl["collectives"][
+                            "replays_equal"]),
+                    "gloo_two_ranks": {
+                        "stage3_ran": gloo["stage3_ran"],
+                        "checks": {r: o["checks"] for r, o in
+                                   enumerate(gloo["ranks"])},
+                        "runs": [{k: r[k] for k in (
+                            "name", "dtype", "median_step_ms",
+                            "device_busy_share", "max_memory_allocated")}
+                            for r in gloo["ranks"][0]["runs"]]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))
@@ -2626,4 +3158,12 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    code = main(sys.argv[1:])
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        # leave without tearing the NCCL communicators down: on 4 H100s
+        # the teardown of a group whose collectives CUDA graphs captured
+        # hung past the run's end (every result was written by then)
+        os._exit(code)
+    sys.exit(code)

@@ -1,5 +1,5 @@
-"""flexflow_tpu_torch: the PyTorch/CUDA port of flexflow_tpu, for one
-NVIDIA H100.
+"""flexflow_tpu_torch: the PyTorch/CUDA port of flexflow_tpu, for NVIDIA
+H100s.
 
 It mirrors the JAX package's module layout and names. It trains the
 flagship Transformer LM, the MLPs and ResNet-50 through the JAX
@@ -8,8 +8,10 @@ loss_type, metrics) -> fit / eval / forward, backward, update) and serves
 the LM (compile -> serve() -> ServingEngine.generate), with hand-written
 Hopper kernels (CUDA C++) for the flash attention forward and backward,
 the decode attention and the LayerNorm forward and backward; telemetry/
-writes the JAX package's trace and run metrics. It imports torch and
-numpy, never jax, and nothing of flexflow_tpu.
+writes the JAX package's trace and run metrics. A model trains on a mesh
+of torch.distributed ranks (`--mesh`, one rank a device): data and tensor
+parallel, with the weight update replicated or sharded (ZeRO stage 2/3).
+It imports torch and numpy, never jax, and nothing of flexflow_tpu.
 
 Every tensor lives on `FFConfig.device`, "cuda" unless the caller asks
 for "cpu"; without a CUDA device and without that request, building a
@@ -17,6 +19,7 @@ model raises.
 """
 
 from . import ops  # registers every OpDef
+from . import parallel  # registers the parallel ops' OpDefs
 from .config import FFConfig
 from .convert import load_params
 from .fftype import (
@@ -37,7 +40,7 @@ from .initializer import (
     NormInitializer,
     UniformInitializer,
 )
-from .machine import MachineResource, MachineView, MeshShape
+from .machine import MachineResource, MachineView, Mesh, MeshShape
 from .metrics import PerfMetrics
 from .model import FFModel
 from .optimizer import AdamOptimizer, Optimizer, SGDOptimizer

@@ -3,9 +3,10 @@
 The full array stays in host memory as numpy; `next_batch` slices it
 round-robin with an epoch-stable order (sequential batches, `reset()` to
 restart). `FFModel.start_batch` or `fit` stages a batch on the device;
-`next_batch_sharded` stages it here (one device: no sharding, the JAX
-name kept). Both carry the JAX loader's telemetry
-spans (`data.next_batch`, `data_wait`).
+`next_batch_sharded` stages it here: on a mesh, this rank's block of it,
+by the placement of the graph input of the loader's tensor (the whole
+batch for a tensor that is no graph input). Both carry the JAX loader's
+telemetry spans (`data.next_batch`, `data_wait`).
 """
 
 from __future__ import annotations
@@ -41,8 +42,14 @@ class SingleDataLoader:
             return self.full_array[sl]
 
     def next_batch_sharded(self) -> torch.Tensor:
-        """The next batch on the model's device. The data_wait span covers
-        the slice and the copy — the host-side stall a training step pays
-        before dispatch."""
+        """The next batch (this rank's block of it) on the model's device.
+        The data_wait span covers the slice and the copy — the host-side
+        stall a training step pays before dispatch."""
         with telemetry.span("data_wait"):
-            return torch.as_tensor(self.next_batch()).to(self.ffmodel.device)
+            batch = self.next_batch()
+            ex = self.ffmodel.executor
+            name = self.batch_tensor.name
+            if ex is not None and any(
+                    n.name == name for n in ex.graph.sources()):
+                return ex.stage_inputs({name: batch})[name]
+            return torch.as_tensor(batch).to(self.ffmodel.device)

@@ -1,0 +1,233 @@
+"""Multi-process support over `torch.distributed` (twin of
+`flexflow_tpu/distributed.py`).
+
+One process a device, every process running the same program (the
+reference's control-replicated Legion top-level task; JAX's
+multi-controller mode). `initialize` starts the process group: from the
+environment `torchrun` sets (`env://`: MASTER_ADDR, MASTER_PORT, RANK,
+WORLD_SIZE), or from an explicit `coordinator_address`. The backend is
+"nccl" for a CUDA device and "gloo" for the CPU unless the caller names
+one. After it, `FFConfig` reads the world size, `--mesh` lays the ranks
+over the mesh axes, and a plan decided on rank 0 reaches every rank as a
+serialized Strategy (`run_search_on_host0`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import torch.distributed as dist
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+    device: str = "cuda",
+):
+    """Start the process group (once per process, before building a
+    model). Without arguments it reads `torchrun`'s environment; with
+    `coordinator_address` ("host:port") it needs `num_processes` and
+    `process_id`. Under NCCL the current CUDA device becomes this rank's
+    card, `LOCAL_RANK` (else `process_id`)."""
+    if backend is None:
+        backend = "nccl" if str(device).startswith("cuda") else "gloo"
+    if backend == "nccl":
+        import torch
+
+        # NCCL binds a communicator to the current device: this rank's
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
+                                                 process_id or 0)))
+    if coordinator_address is None:
+        dist.init_process_group(backend, init_method="env://")
+        return
+    if num_processes is None or process_id is None:
+        raise ValueError("coordinator_address needs num_processes and "
+                         "process_id")
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id))
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_rank() -> int:
+    """This process's device index on its host: `LOCAL_RANK` as torchrun
+    sets it, else the global rank."""
+    return int(os.environ.get("LOCAL_RANK", process_index()))
+
+
+def is_coordinator() -> bool:
+    return process_index() == 0
+
+
+def barrier(name: str = "barrier"):
+    """World-wide synchronization point (a no-op in one process)."""
+    if process_count() > 1:
+        dist.barrier()
+
+
+_ERR_KEY = "__broadcast_error__"
+
+
+def broadcast_json(payload: Optional[dict], max_bytes: int = 1 << 20) -> dict:
+    """A JSON-serializable dict from rank 0 to every rank. A failure on
+    rank 0 (too large, not serializable) reaches every rank as an error
+    marker, so all raise together instead of one hanging."""
+    import json
+
+    if process_count() <= 1:
+        assert payload is not None
+        return payload
+    box = [None]
+    if is_coordinator():
+        try:
+            raw = json.dumps(payload)
+            if len(raw) + 4 > max_bytes:
+                raise ValueError(
+                    f"payload {len(raw)}B exceeds broadcast buffer "
+                    f"{max_bytes}B — pass a larger max_bytes")
+            box[0] = raw
+        except Exception as e:
+            box[0] = json.dumps({_ERR_KEY: f"{type(e).__name__}: {e}"})
+    dist.broadcast_object_list(box, src=0)
+    data = json.loads(box[0])
+    if isinstance(data, dict) and _ERR_KEY in data:
+        raise RuntimeError(data[_ERR_KEY])
+    return data
+
+
+def gather_json(payload: dict, max_bytes: int = 1 << 20) -> list:
+    """One JSON-serializable dict per rank, gathered on every rank in
+    rank order; a rank's serialization failure becomes {}."""
+    import json
+
+    if process_count() <= 1:
+        return [payload]
+    try:
+        raw = json.dumps(payload)
+        if len(raw) + 4 > max_bytes:
+            raise ValueError("payload too large")
+    except Exception:
+        raw = "{}"
+    out = [None] * process_count()
+    dist.all_gather_object(out, raw)
+    return [json.loads(r) for r in out]
+
+
+def gather_merged_snapshot(session) -> dict:
+    """The world's merged metrics snapshot (collective)."""
+    from .telemetry.metrics import merge_snapshots
+
+    return merge_snapshots(gather_json(session.collect_snapshot()))
+
+
+def run_search_on_host0(search_fn: Callable[[], "object"]) -> dict:
+    """Run `search_fn` (returning a Strategy) on rank 0 only; every rank
+    receives the serialized plan (a failure on rank 0 raises on every
+    rank). Returns the Strategy's overrides."""
+    from .parallel.strategies import Strategy
+
+    payload = None
+    if process_count() <= 1 or is_coordinator():
+        try:
+            payload = search_fn().to_json()
+        except Exception as e:
+            if process_count() <= 1:
+                raise
+            payload = {_ERR_KEY: f"search failed on process 0: "
+                       f"{type(e).__name__}: {e}"}
+    data = broadcast_json(payload)
+    return Strategy.from_json(data).overrides
+
+
+def _spawned(rank, world, port, fn, args, queue):
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        import torch
+
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+        out = fn(rank, *args)
+    except Exception:
+        queue.put((rank, False, traceback.format_exc()))
+        return
+    queue.put((rank, True, out))
+    try:
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # a group a refused collective left broken
+        pass
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(fn, nprocs: int, *args, timeout: float = 600.0) -> list:
+    """Run `fn(rank, *args)` in `nprocs` fresh processes joined in a gloo
+    process group over localhost (the CPU twin of `torchrun
+    --nproc-per-node`); returns their results in rank order, or raises
+    with the first failing rank's traceback. `fn` must be importable (a
+    module-level function)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_spawned,
+                         args=(r, nprocs, port, fn, args, q), daemon=True)
+             for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    import time
+
+    results: dict = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < nprocs:
+            try:
+                rank, ok, out = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and not p.is_alive()]
+                if dead:
+                    # a rank killed outright (a native abort) reports nothing
+                    raise RuntimeError(
+                        f"spawn: rank {dead[0]} exited with code "
+                        f"{procs[dead[0]].exitcode} before giving a "
+                        f"result") from None
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"spawn: {nprocs - len(results)} ranks gave no "
+                        f"result in {timeout} s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{out}")
+            results[rank] = out
+    finally:
+        # after a failure the other ranks may wait on the lost one forever
+        done = len(results) == nprocs
+        for p in procs:
+            p.join(timeout=30 if done else 1)
+            if p.is_alive():
+                p.kill()
+    return [results[r] for r in range(nprocs)]

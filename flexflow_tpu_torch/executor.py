@@ -1,6 +1,7 @@
-"""Executor: runs a compiled graph on one torch device.
+"""Executor: runs a compiled graph on this rank's device, alone or as one
+rank of a mesh.
 
-The twin of the single-device half of `flexflow_tpu/executor.py`:
+The twin of `flexflow_tpu/executor.py`. Its single-device half:
 `init_variables` (554), `_apply` (589), `_cast_compute` (442),
 `_restore_state_dtypes` (541), `make_loss_fn` (493), `_train_step_body`
 (690), `build_train_step` (742), `build_eval_step` (783),
@@ -28,6 +29,27 @@ changes (another tensor, or a newer `_version`), in place, so a captured
 decode graph keeps reading the same copies. The train step casts inside
 the step, since its masters change every step.
 
+On a mesh of more than one device every rank runs the same step on its
+blocks of the tensors (the sharded half, JAX 171-440, 554-741, 920-990):
+each node's output stays in the placement the plan gave it (`_plan`),
+moved between placements by `parallel/spmd.py`'s collectives where the
+JAX executor's sharding constraints let XLA insert them. A node runs
+batch-local (its inputs' batch rows only), elementwise on any
+placement, or whole (inputs and weights gathered); a Linear pair,
+attention and an embedding whose weights the plan shards run the
+Megatron way on this rank's columns, rows or heads, with the all-reduce
+of a row-parallel product in the forward and of a column-parallel
+input's gradient in the backward. Each rank keeps the sum of its own
+rows' weight gradients; `sync_grads` reduces them over the axes
+`grad_sync_axes` names by one reduce-scatter then an all-gather (an
+all-reduce for a weight with no shardable dim). Under weight-update
+sharding the masters and slots live 1/dp at rest (`update_specs`): stage
+2 gathers each weight at its first use in a step, stage 3 at every use
+by the ring all-gather, the copy dropped after the op and gathered again
+for the backward (saved-tensor hooks); the gather's backward is the same
+reduce-scatter, so every stage sums the same elements in the same order
+and the trajectories are bit-equal.
+
 Float settings: TF32 is switched off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) when an executor is built, so
@@ -37,15 +59,17 @@ an fp32 run is full fp32 on the card, as the reference's fp32 path is.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
+import math
 import os
 import traceback
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from .config import FFConfig
-from .fftype import LossType, OperatorType as OT, dtype_to_torch
+from .fftype import ActiMode, LossType, OperatorType as OT, dtype_to_torch
 from .initializer import initializer_by_name
 from .loss import loss_terms
 from .ops.base import OpContext
@@ -303,15 +327,63 @@ def _write_back(state: dict, new_state: dict) -> dict:
     return state
 
 
+def _elementwise_ops() -> frozenset:
+    from .ops.elementwise import _BINARY_FNS, _SCALAR_FNS, _UNARY_FNS
+
+    return frozenset(_UNARY_FNS) | frozenset(_SCALAR_FNS) | frozenset(
+        _BINARY_FNS) | {OT.OP_CAST}
+
+
+_ELEMENTWISE = _elementwise_ops()
+# ops whose rows (dim 0) are independent, whatever their params
+_ROW_INDEPENDENT = _ELEMENTWISE | {
+    OT.OP_LINEAR, OT.OP_CONV2D, OT.OP_POOL2D, OT.OP_FLAT, OT.OP_EMBEDDING,
+    OT.OP_MULTIHEAD_ATTENTION, OT.OP_BATCHMATMUL, OT.OP_TOPK}
+
+
+def _batch_local(node: OpNode) -> bool:
+    """Whether the op on a block of rows gives the same rows of its
+    output: true of row-independent ops, and of the ops that work along
+    a dim (a norm, a softmax, a reduction, a concat...) when that dim is
+    not the first. Dropout (its mask drawn over the whole batch) and
+    BatchNorm (statistics over the batch) are not; neither is a reshape
+    (its params hold the whole batch)."""
+    op, p = node.op_type, node.params
+    if op in _ROW_INDEPENDENT:
+        return True
+    nd = len(node.input_shapes[0]) if node.input_shapes else 0
+    if not nd:
+        return False
+    if op == OT.OP_LAYERNORM:
+        return all(a % nd != 0 for a in p.axes)
+    if op == OT.OP_SOFTMAX:
+        return p.dim % nd != 0
+    if op == OT.OP_TRANSPOSE:
+        return p.perm[0] == 0
+    if op in (OT.OP_CONCAT, OT.OP_SPLIT, OT.OP_REVERSE):
+        return p.axis % nd != 0
+    if op == OT.OP_GATHER:
+        return p.dim % nd != 0
+    if op in (OT.OP_REDUCE_SUM, OT.OP_REDUCE_MEAN, OT.OP_REDUCE_MAX,
+              OT.OP_REDUCE_MIN, OT.OP_REDUCE_PROD, OT.OP_MEAN):
+        return all(a % nd != 0 for a in p.axes)
+    return False
+
+
 class Executor:
     def __init__(self, graph: Graph, config: FFConfig, device: torch.device,
                  logits_node: OpNode, loss_type: LossType = None,
-                 metrics=None, optimizer=None):
+                 metrics=None, optimizer=None, mesh=None,
+                 update_sharding=None):
         set_float_policy()
         self.graph = graph
+        self.mesh = mesh
+        # one rank of a mesh of more than one device: the sharded half
+        self.spmd = mesh is not None and mesh.size > 1
         self.config = config
         self.device = device
         self.order = graph.topo_order()
+        self._by_name = {n.name: n for n in self.order}
         self.logits_node = logits_node
         self.loss_type = loss_type
         self.metrics = metrics
@@ -339,6 +411,563 @@ class Executor:
         self.weight_refreshes = 0
         # constant inputs, made at first use (`_constant`)
         self._constants: dict[str, torch.Tensor] = {}
+        # weight-update sharding (ZeRO stages 2/3; the decision record of
+        # search/unity.choose_update_sharding): update_specs[(node,
+        # weight)] = (at-rest PartitionSpec, shape) of each sharded
+        # master, slot and gradient; gather_specs[(node, weight)] = (the
+        # compute spec, the update spec, the update axes, the dim) of
+        # each weight stage 3 gathers at every use; gather_schedule the
+        # owners in topological order, each after the one before
+        self.update_sharding = dict(update_sharding or {"enabled": False})
+        self.update_stage = int(self.update_sharding.get(
+            "stage", 2 if self.update_sharding.get("enabled") else 0))
+        self.update_specs: dict[tuple[str, str], tuple] = {}
+        self.gather_specs: dict[tuple[str, str], tuple] = {}
+        self.gather_schedule: list[tuple[str, Optional[str]]] = []
+        if self.spmd:
+            self._plan()
+            if self.update_sharding.get("enabled"):
+                self._build_update_specs()
+
+    # ------------------------------------------------------------ placements
+
+    def _norm(self, assignment) -> tuple:
+        from .parallel.spmd import normalize
+
+        return normalize(assignment, self.mesh)
+
+    def _wlayout(self, node: OpNode, ws) -> tuple:
+        """A weight's compute placement, size-1 axes dropped."""
+        from .tensor import spec_assignment
+
+        return self._norm(spec_assignment(node.weight_axes.get(ws.name),
+                                          len(ws.shape)))
+
+    def _plan(self):
+        """The placement of every node output and weight, the rule each
+        node runs by (`_node_rule`), and each trainable weight's gradient
+        sync (the axes its gradient is summed over, its update dim). Makes
+        every process group the steps use, in graph order, so that each
+        rank makes them in the same sequence."""
+        from .parallel.ops import choose_update_dim, grad_sync_axes
+        from .parallel.spmd import layout_axes
+        from .tensor import spec_assignment
+
+        mesh = self.mesh
+        axis_sizes = {k: int(v) for k, v in mesh.shape.items()}
+        self._layout: dict[tuple[int, int], tuple] = {}
+        self._rules: dict[int, dict] = {}
+        # (owner, weight) -> (sync axes, update dim for the reduce-scatter)
+        self._sync: dict[tuple[str, str], tuple] = {}
+        for node in self.order:
+            for i, pt in enumerate(node.outputs):
+                self._layout[(node.guid, i)] = self._norm(pt.axis_assignment)
+        for node in self.order:
+            if getattr(node, "weight_source", None):
+                continue
+            out_axes = (layout_axes(self._layout[(node.guid, 0)])
+                        if node.outputs else set())
+            for ws in node.weight_specs:
+                if not ws.trainable:
+                    continue
+                base = self._wlayout(node, ws)
+                axes = tuple(ax for ax in grad_sync_axes(
+                    out_axes, layout_axes(base)) if axis_sizes[ax] > 1)
+                dim = choose_update_dim(ws.shape, spec_assignment(
+                    node.weight_axes.get(ws.name), len(ws.shape)), axes,
+                    axis_sizes)
+                self._sync[(node.name, ws.name)] = (axes, dim)
+                mesh.group(axes)
+        for node in self.order:
+            if node.op_type == OT.OP_INPUT:
+                continue
+            rule = self._node_rule(node)
+            owner = getattr(node, "weight_source", None) or node.name
+            owner_node = self._by_name[owner]
+            rule["mask"] = {}
+            for ws in owner_node.weight_specs:
+                if not ws.trainable:
+                    continue
+                sync_axes = set(self._sync[(owner, ws.name)][0])
+                partial = rule["partial"] - layout_axes(
+                    self._wlayout(owner_node, ws))
+                if partial - sync_axes:
+                    raise NotImplementedError(
+                        f"{node.name}.{ws.name}: its gradient is a partial "
+                        f"sum over {sorted(partial - sync_axes)}, axes its "
+                        f"update does not reduce (placements "
+                        f"{[self._layout[(node.guid, i)] for i in range(len(node.outputs))]})")
+                rule["mask"][ws.name] = tuple(sorted(sync_axes - partial))
+            for g in rule["groups"]:
+                mesh.group(g)
+            self._rules[node.guid] = rule
+        logits = self._layout[(self.logits_node.guid, 0)]
+        # the loss runs on the logits' batch rows; labels are staged so
+        self._loss_layout = (logits[0],) + ((),) * (len(logits) - 1)
+        self._batch_group = mesh.group(logits[0])
+
+    def _in_layouts(self, node: OpNode) -> list:
+        out = [None] * len(self.graph.in_edges[node.guid])
+        for e in self.graph.in_edges[node.guid]:
+            out[e.dst_idx] = self._layout[(e.src, e.src_idx)]
+        return out
+
+    def _node_rule(self, node: OpNode) -> dict:
+        """How a node runs on this rank: the placement each input is moved
+        to (`run`), the placement of its raw outputs (`nat`, moved on to
+        the plan's), the weights it gathers whole, the groups of its
+        column-parallel inputs' backward all-reduce (`enter`) and of its
+        row-parallel output's forward all-reduce (`reduce`), the params it
+        calls the op with, and the axes its weight gradients are partial
+        sums over (`partial`)."""
+        from .parallel.spmd import layout_axes
+
+        ins = self._in_layouts(node)
+        outs = [self._layout[(node.guid, i)] for i in range(len(node.outputs))]
+        wnode = self._by_name[getattr(node, "weight_source", None)
+                              or node.name]
+        wl = {ws.name: self._wlayout(wnode, ws) for ws in wnode.weight_specs}
+        rule = None
+        if node.is_parallel_op:
+            rule = dict(kind="parallel", run=[outs[0]], nat=[outs[0]])
+        elif node.op_type == OT.OP_LINEAR:
+            rule = self._linear_rule(node, ins, wl)
+        elif node.op_type == OT.OP_MULTIHEAD_ATTENTION:
+            rule = self._mha_rule(node, ins, wl)
+        elif node.op_type == OT.OP_EMBEDDING:
+            rule = self._embedding_rule(node, ins, wl)
+        if rule is None:
+            rule = self._generic_rule(node, ins, outs, wl)
+        rule.setdefault("gather_w", ())
+        rule.setdefault("enter", None)
+        rule.setdefault("reduce", None)
+        rule.setdefault("params", node.params)
+        rule.setdefault("partial", set())
+        rule["bias"] = {"row": "bias", "mha": "bo"}.get(rule["kind"])
+        rule["groups"] = [g for g in (rule["enter"], rule["reduce"]) if g]
+        return rule
+
+    def _linear_rule(self, node, ins, wl):
+        from .parallel.spmd import layout_axes
+
+        k, b = wl["kernel"], wl.get("bias")
+        lead = ins[0][:-1]
+        lead_axes = layout_axes(lead)
+        p = node.params
+        if not k[0] and k[1] and (b is None or b == (k[1],)) \
+                and not set(k[1]) & lead_axes:
+            # column parallel: this rank's output columns
+            return dict(kind="col", run=[lead + ((),)],
+                        nat=[lead + (k[1],)], enter=k[1],
+                        partial=set(lead_axes))
+        if k[0] and not k[1] and (b is None or not b[0]) \
+                and not set(k[0]) & lead_axes:
+            # row parallel: this rank's input features, the partial
+            # product all-reduced, then the bias and the activation
+            return dict(kind="row", run=[lead + (k[0],)],
+                        nat=[lead + ((),)], reduce=k[0],
+                        params=dataclasses.replace(
+                            p, use_bias=False,
+                            activation=ActiMode.AC_MODE_NONE),
+                        partial=set(lead_axes))
+        return None
+
+    def _mha_rule(self, node, ins, wl):
+        from .parallel.spmd import layout_axes
+
+        p = node.params
+        a = wl["wq"][1]
+        n = self.mesh.axes_size(a)
+        want = {"wq": ((), a), "wk": ((), a), "wv": ((), a), "wo": (a, ())}
+        if p.use_bias:
+            want.update(bq=(a,), bk=(a,), bv=(a,), bo=((),))
+        lead_axes = set().union(*(layout_axes(l[:-1]) for l in ins))
+        if (not a or any(wl[w] != v for w, v in want.items())
+                or p.num_heads % n or set(a) & lead_axes):
+            return None
+        # head parallel: this rank's heads, the output projection's
+        # partial sum all-reduced, then its bias
+        return dict(kind="mha", run=[l[:-1] + ((),) for l in ins],
+                    nat=[ins[0][:-1] + ((),)], enter=a, reduce=a,
+                    params=dataclasses.replace(
+                        p, num_heads=p.num_heads // n,
+                        embed_dim=p.embed_dim // n),
+                    partial=lead_axes)
+
+    def _embedding_rule(self, node, ins, wl):
+        from .fftype import AggrMode
+        from .parallel.spmd import layout_axes
+
+        k = wl["kernel"]
+        if k[0] or not k[1] or set(k[1]) & layout_axes(ins[0]):
+            return None
+        lead = (ins[0] if node.params.aggr == AggrMode.AGGR_MODE_NONE
+                else ins[0][:-1])
+        # column parallel: this rank's columns of the table
+        return dict(kind="emb", run=[ins[0]], nat=[lead + (k[1],)],
+                    partial=layout_axes(ins[0]))
+
+    def _generic_rule(self, node, ins, outs, wl):
+        """Batch-local where the op's rows are independent and the plan
+        shards the output's batch dim; elementwise ops on the output's own
+        placement; any other op whole on every rank (its weight gradient
+        then full on each: masked)."""
+        gather_w = tuple(w for w, l in wl.items() if any(l))
+        out0 = outs[0] if outs else ()
+        batch = out0[0] if out0 else ()
+        rows = node.output_shapes[0][0] if node.output_shapes and \
+            node.output_shapes[0] else None
+
+        def rep(layout):
+            return ((),) * len(layout)
+
+        def batch_only(layout):
+            return (batch,) + ((),) * (len(layout) - 1)
+
+        if batch and _batch_local(node) and all(
+                len(o) and o[0] == batch for o in outs):
+            run = [batch_only(l) if len(l) and node.input_shapes[i][0] == rows
+                   else rep(l) for i, l in enumerate(ins)]
+            return dict(kind="batch", run=run,
+                        nat=[batch_only(o) for o in outs],
+                        gather_w=gather_w, partial=set(batch))
+        if (node.op_type in _ELEMENTWISE and len(outs) == 1
+                and all(tuple(s) == tuple(node.output_shapes[0])
+                        for s in node.input_shapes)):
+            from .parallel.spmd import layout_axes
+
+            return dict(kind="elementwise", run=[out0] * len(ins),
+                        nat=[out0], gather_w=gather_w,
+                        partial=layout_axes(out0))
+        return dict(kind="whole", run=[rep(l) for l in ins],
+                    nat=[rep(o) for o in outs], gather_w=gather_w)
+
+    # ------------------------------------------------- weight-update sharding
+
+    def _build_update_specs(self):
+        """Per-weight update shardings through the helpers of
+        `parallel/ops` (JAX 171-297): every trainable, untied weight whose
+        gradient is reduced over some axes and has a dim those axes divide
+        lives sharded along it at rest. Emits the weight_update telemetry
+        event and a grad_sync counter per bucket (a weight-owning node)."""
+        from . import telemetry
+        from .parallel.ops import weight_update_spec
+        from .tensor import PartitionSpec
+
+        axis_sizes = {k: int(v) for k, v in self.mesh.shape.items()}
+        total_bytes = buckets = 0
+        used_axes: set = set()
+        max_shards = 1
+        for node in self.order:
+            if getattr(node, "weight_source", None):
+                continue
+            bucket_bytes = 0
+            for ws in node.weight_specs:
+                sync = self._sync.get((node.name, ws.name))
+                if sync is None or not sync[0] or sync[1] is None:
+                    continue
+                axes, dim = sync
+                base = node.weight_axes.get(ws.name, PartitionSpec())
+                spec = weight_update_spec(ws.shape, base, axes, axis_sizes)
+                self.update_specs[(node.name, ws.name)] = (
+                    spec, tuple(ws.shape))
+                if self.update_stage >= 3:
+                    self.gather_specs[(node.name, ws.name)] = (
+                        base, spec, tuple(axes), dim)
+                used_axes.update(axes)
+                max_shards = max(max_shards, self.mesh.axes_size(axes))
+                nbytes = math.prod(ws.shape) * 4
+                bucket_bytes += nbytes
+                total_bytes += nbytes
+            if bucket_bytes:
+                buckets += 1
+                telemetry.counter("grad_sync", {
+                    "bucket": buckets, "bytes": bucket_bytes})
+        self.update_sharding.update(buckets=buckets,
+                                    sharded_weights=len(self.update_specs),
+                                    bytes=total_bytes)
+        if self.gather_specs:
+            owners = []
+            for node in self.order:
+                if any((node.name, ws.name) in self.gather_specs
+                       for ws in node.weight_specs):
+                    owners.append(node.name)
+            self.gather_schedule = [
+                (name, owners[i - 1] if i > 0 else None)
+                for i, name in enumerate(owners)]
+            telemetry.event(
+                "param_gather", layers=len(owners),
+                sharded_weights=len(self.gather_specs),
+                bytes=sum(math.prod(shape) * 4
+                          for key, (_, shape) in self.update_specs.items()
+                          if key in self.gather_specs))
+        if self.update_specs:
+            self.update_sharding["axes"] = sorted(used_axes)
+            self.update_sharding["shards"] = max_shards
+            telemetry.event(
+                "weight_update", stage=self.update_stage,
+                shards=max_shards, buckets=buckets,
+                sharded_weights=len(self.update_specs), bytes=total_bytes)
+        else:
+            # nothing divisible: nothing runs sharded, and the record says
+            self.update_sharding.update(
+                enabled=False, stage=0, shards=1, axes=[],
+                reason=self.update_sharding.get("reason", "")
+                + "+no_shardable_weight")
+            self.update_stage = 0
+
+    def _rest_layout(self, owner: str, wname: str) -> tuple:
+        """A weight's placement at rest: its update spec where it has one,
+        else its compute placement."""
+        from .tensor import spec_assignment
+
+        ws = self._weight_spec(owner, wname)
+        upd = self.update_specs.get((owner, wname))
+        spec = (upd[0] if upd is not None
+                else self._by_name[owner].weight_axes.get(wname))
+        return self._norm(spec_assignment(spec, len(ws.shape)))
+
+    def _weight_spec(self, owner: str, wname: str):
+        return next(ws for ws in self._by_name[owner].weight_specs
+                    if ws.name == wname)
+
+    def weight_shape(self, owner: str, wname: str) -> tuple:
+        return tuple(self._weight_spec(owner, wname).shape)
+
+    def local_weight(self, owner: str, wname: str, full: torch.Tensor):
+        """This rank's at-rest block of a whole weight."""
+        if not self.spmd:
+            return full
+        from .parallel.spmd import take_local
+
+        return take_local(full, self._rest_layout(owner, wname), self.mesh)
+
+    @torch.no_grad()
+    def full_weight(self, owner: str, wname: str, local: torch.Tensor):
+        """The whole weight from this rank's at-rest block (collective)."""
+        if not self.spmd:
+            return local
+        from .parallel.spmd import redistribute
+
+        rest = self._rest_layout(owner, wname)
+        return redistribute(local, rest, ((),) * len(rest), self.mesh)
+
+    @torch.no_grad()
+    def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole logits from this rank's block (collective)."""
+        if not self.spmd:
+            return logits
+        from .parallel.spmd import redistribute
+
+        lay = self._layout[(self.logits_node.guid, 0)]
+        return redistribute(logits, lay, ((),) * len(lay), self.mesh)
+
+    def build_param_gather(self):
+        """Every weight sharded at rest gathered back to its compute
+        placement, in one call (JAX 920): a reader's view of the
+        stage-2/3 masters; other weights pass through."""
+        from .parallel.spmd import gather_param
+
+        @torch.no_grad()
+        def gather_params(params):
+            out = {}
+            for name, ws in params.items():
+                nw = dict(ws)
+                for k in ws:
+                    upd = self.update_specs.get((name, k))
+                    if upd is not None:
+                        axes, dim = self._sync[(name, k)]
+                        nw[k] = gather_param(ws[k], self.mesh.group(axes),
+                                             dim, self.update_stage >= 3)
+                out[name] = nw
+            return out
+
+        return gather_params
+
+    def shard_batch(self, arrays: dict, specs: dict) -> dict:
+        """Host arrays -> this rank's blocks on the device, each by its
+        PartitionSpec in `specs` (absent: whole), the twin of JAX's
+        `shard_batch` (977)."""
+        from .parallel.spmd import take_local
+        from .tensor import spec_assignment
+
+        out = {}
+        for name, arr in arrays.items():
+            t = torch.as_tensor(arr)
+            if self.spmd:
+                t = take_local(t, self._norm(spec_assignment(
+                    specs.get(name), t.dim())), self.mesh)
+            out[name] = t.to(self.device)
+        return out
+
+    def _compute_weight(self, owner: str, wname: str, t: torch.Tensor,
+                        cache: dict):
+        """A weight in its compute placement from its at-rest block: a
+        stage-2 weight gathered at its first use in the step (`cache`),
+        a stage-3 weight by the ring at every use."""
+        from .parallel.spmd import ParamGather
+
+        key = (owner, wname)
+        if key not in self.update_specs:
+            return t
+        if self.update_stage < 3 and key in cache:
+            return cache[key]
+        axes, dim = self._sync[key]
+        w = ParamGather.apply(t, self.mesh.group(axes), dim,
+                              self.update_stage >= 3)
+        if self.update_stage < 3:
+            cache[key] = w
+        return w
+
+    def sync_grads(self, grads: dict) -> dict:
+        """The local weight gradients summed over their sync axes (JAX:
+        GSPMD's psum): a reduce-scatter then an all-gather along the
+        update dim, or one all-reduce where no dim divides. A weight
+        sharded at rest already got its reduce-scatter in its gather's
+        backward."""
+        if not self.spmd:
+            return grads
+        from .parallel.spmd import sync_grad
+
+        out = {}
+        for n, ws in grads.items():
+            mine = out[n] = {}
+            for k, g in ws.items():
+                axes, dim = self._sync.get((n, k), ((), None))
+                if (n, k) in self.update_specs or not axes:
+                    mine[k] = g
+                else:
+                    mine[k] = sync_grad(g, self.mesh.group(axes), dim)
+        return out
+
+    def _apply_spmd(self, params, state, inputs, *, training, rng,
+                    seq_length):
+        """`_apply` on this rank's blocks: each node's inputs moved to the
+        placement its rule runs on, its weights to their compute
+        placement, its raw outputs on to the plan's."""
+        from .parallel.spmd import (
+            mask_grad,
+            redistribute,
+            reduce_backward,
+            reduce_forward,
+        )
+
+        mesh = self.mesh
+        vals: dict[tuple[int, int], Any] = {}
+        new_state = {k: dict(v) for k, v in state.items()}
+        ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
+                        matmul_dtype=self.matmul_dtype,
+                        flash_packed=self.config.flash_packed_layout)
+        gathered: dict = {}
+        for node in self.order:
+            if node.op_type == OT.OP_INPUT:
+                vals[(node.guid, 0)] = (
+                    self._local_constant(node) if node.constant is not None
+                    else inputs[node.name])
+                continue
+            rule = self._rules[node.guid]
+            src = [None] * len(self.graph.in_edges[node.guid])
+            lays = self._in_layouts(node)
+            for e in self.graph.in_edges[node.guid]:
+                src[e.dst_idx] = vals[(e.src, e.src_idx)]
+            ins, entered = [], {}
+            for x, lay, run in zip(src, lays, rule["run"]):
+                key = (id(x), run)
+                if key not in entered:
+                    y = redistribute(x, lay, run, mesh)
+                    if rule["enter"]:
+                        y = reduce_backward(y, mesh.group(rule["enter"]))
+                    entered[key] = y
+                ins.append(entered[key])
+            wsrc = getattr(node, "weight_source", None) or node.name
+            weights, regather = {}, []
+            for k, t in params.get(wsrc, {}).items():
+                w = self._compute_weight(wsrc, k, t, gathered)
+                if k in rule["gather_w"]:
+                    base = self._wlayout(self._by_name[wsrc],
+                                         self._weight_spec(wsrc, k))
+                    w = redistribute(w, base, ((),) * len(base), mesh)
+                w = mask_grad(w, rule["mask"].get(k, ()), mesh)
+                weights[k] = w
+                if self.update_stage >= 3 and (wsrc, k) in self.update_specs:
+                    regather.append(k)
+            # a row-parallel product's bias is added after its all-reduce
+            tail = self._cast_compute(
+                {"bias": weights.pop(rule["bias"])}
+                if rule["bias"] in weights else {})
+            weights = dict(self._cast_compute(weights))
+            weights.update(new_state.get(wsrc, {}))
+            with self._dropping(wsrc, [k for k in regather if k in weights],
+                                weights, params.get(wsrc, {})):
+                outs, op_state = node.op_def.forward(
+                    rule["params"], ins, weights, new_state.get(node.name),
+                    ctx)
+            if op_state:
+                new_state.setdefault(node.name, {}).update(op_state)
+            outs = list(outs)
+            if rule["reduce"]:
+                y = reduce_forward(outs[0], mesh.group(rule["reduce"]))
+                b = tail.get("bias")
+                if b is not None:
+                    y = y + b.to(y.dtype)
+                if rule["kind"] == "row":
+                    from .ops.core import apply_activation
+
+                    y = apply_activation(y, node.params.activation)
+                outs[0] = y
+            for i, out in enumerate(outs):
+                vals[(node.guid, i)] = redistribute(
+                    out, rule["nat"][i], self._layout[(node.guid, i)], mesh)
+        return vals[(self.logits_node.guid, 0)], new_state
+
+    @contextlib.contextmanager
+    def _dropping(self, owner: str, keys: list, weights: dict, shards: dict):
+        """Stage 3: while the op runs, what its backward saves of a
+        gathered weight (or of its compute-dtype copy) is swapped for the
+        means to gather it again, so the copy is freed after the op and
+        the backward gathers anew (JAX: the remat region whose policy
+        refuses to save the gathered copies)."""
+        if not keys:
+            yield
+            return
+        from .parallel.spmd import gather_param
+
+        def again(k, dtype):
+            def make():
+                axes, dim = self._sync[(owner, k)]
+                with torch.no_grad():
+                    w = gather_param(shards[k], self.mesh.group(axes), dim,
+                                     True)
+                return w.to(dtype)
+            return make
+
+        by_storage = {weights[k].untyped_storage().data_ptr():
+                      again(k, weights[k].dtype) for k in keys}
+
+        def pack(t):
+            make = by_storage.get(t.untyped_storage().data_ptr())
+            if make is None:
+                return t
+            return (make, t.size(), t.stride(), t.storage_offset())
+
+        def unpack(p):
+            if torch.is_tensor(p):
+                return p
+            make, size, stride, offset = p
+            return torch.as_strided(make(), size, stride, offset)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+
+    def _local_constant(self, node: OpNode) -> torch.Tensor:
+        from .parallel.spmd import local_shape
+
+        t = self._constant(node)
+        lay = self._layout[(node.guid, 0)]
+        shape = local_shape(t.shape, lay, self.mesh)
+        return t if tuple(shape) == tuple(t.shape) else t[
+            tuple(slice(0, s) for s in shape)]
+
 
     # ------------------------------------------------------------ variables
 
@@ -346,7 +975,10 @@ class Executor:
         """Params (trainable) and state (non-trainable weights: the KV
         caches, BatchNorm's running statistics), each drawn from its own
         generator, on the model's device. A node with tied weights
-        (`weight_source`) gets none: it reads its source's."""
+        (`weight_source`) gets none: it reads its source's. On a mesh
+        every rank draws the whole tensor from the seed and keeps its
+        block at rest (`local_weight`), so every mesh starts from the same
+        masters."""
         params, state = {}, {}
         for node in self.order:
             if getattr(node, "weight_source", None):
@@ -358,6 +990,7 @@ class Executor:
                 gen = torch.Generator().manual_seed(
                     _stable_seed(seed, f"{node.name}/{ws.name}"))
                 arr = init(gen, ws.shape, dtype_to_torch(ws.dtype), self.device)
+                arr = self.local_weight(node.name, ws.name, arr)
                 (p if ws.trainable else s)[ws.name] = arr
             if p:
                 params[node.name] = p
@@ -443,7 +1076,11 @@ class Executor:
         """Run the graph forward. Returns (logits, new_state). Autograd
         records it unless the caller runs it under `no_grad`. `rng` is the
         torch.Generator dropout draws from (training only); `seq_length`
-        reaches the ops' context (batch_matmul's truncation)."""
+        reaches the ops' context (batch_matmul's truncation). On a mesh,
+        `_apply_spmd`: the logits are this rank's block."""
+        if self.spmd:
+            return self._apply_spmd(params, state, inputs, training=training,
+                                    rng=rng, seq_length=seq_length)
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
@@ -474,8 +1111,68 @@ class Executor:
         return vals[(self.logits_node.guid, 0)], new_state
 
     def stage_inputs(self, xs: dict) -> dict:
-        """Host arrays -> tensors on the model's device."""
-        return {k: torch.as_tensor(v).to(self.device) for k, v in xs.items()}
+        """Host arrays -> tensors on the model's device; on a mesh this
+        rank's block of each, by its input node's placement."""
+        return self.shard_batch(xs, {
+            n.name: n.outputs[0].partition_spec() for n in self.order
+            if n.op_type == OT.OP_INPUT} if self.spmd else {})
+
+    def stage_labels(self, labels) -> torch.Tensor:
+        """Host labels -> this rank's rows of them on the device (the
+        logits' batch placement)."""
+        import numpy as np
+
+        y = torch.as_tensor(np.asarray(labels))
+        if self.spmd:
+            from .parallel.spmd import take_local
+
+            y = take_local(y, (self._loss_layout[0],) + ((),) * (y.dim() - 1),
+                           self.mesh)
+        return y.to(self.device)
+
+    def _loss_logits(self, logits):
+        """The logits on the loss's placement (batch rows only) and the
+        number of row blocks the batch is cut into."""
+        if not self.spmd:
+            return logits, 1
+        from .parallel.spmd import redistribute
+
+        lay = self._layout[(self.logits_node.guid, 0)]
+        return (redistribute(logits, lay, self._loss_layout, self.mesh),
+                self.mesh.axes_size(self._loss_layout[0]))
+
+    @torch.no_grad()
+    def add_metrics(self, counters, logits, labels, scce_sum=None):
+        """One batch's metrics added into `counters`; on a mesh each rank
+        counts its rows and the counts are summed over the batch's
+        ranks."""
+        from_logits = not self.last_op_is_softmax
+        if self._batch_group_of() is None:
+            return self.metrics.compute(counters, logits, labels,
+                                        from_logits=from_logits,
+                                        scce_sum=scce_sum)
+        from .parallel.spmd import all_reduce
+
+        delta = self.metrics.zero_counters(logits.device)
+        self.metrics.compute(delta, logits, labels, from_logits=from_logits,
+                             scce_sum=scce_sum)
+        keys = list(delta)
+        total = all_reduce(torch.stack([delta[k] for k in keys]),
+                           self._batch_group)
+        for i, k in enumerate(keys):
+            counters[k].add_(total[i])
+        return counters
+
+    def _batch_group_of(self):
+        return self._batch_group if self.spmd else None
+
+    def global_loss(self, lval):
+        """The loss over the whole batch (each rank's is its rows' share)."""
+        if self._batch_group_of() is None:
+            return lval
+        from .parallel.spmd import all_reduce
+
+        return all_reduce(lval.detach(), self._batch_group)
 
     # ------------------------------------------------------------ training
 
@@ -493,8 +1190,9 @@ class Executor:
         def loss_fn(p):
             logits, new_state = self._apply(p, state, xc, training=True,
                                             rng=rng, seq_length=seq_length)
+            logits, shards = self._loss_logits(logits)
             lval, ce_sum = loss_terms(self.loss_type, logits, labels,
-                                      self.last_op_is_softmax)
+                                      self.last_op_is_softmax, shards)
             return lval, (logits, new_state, ce_sum)
 
         return loss_fn
@@ -531,15 +1229,15 @@ class Executor:
         loss_fn = self.make_loss_fn(state, x_inputs, labels, rng)
         lval, (logits, new_state, ce_sum), grads = self.value_and_grad(
             loss_fn, params)
+        grads = self.sync_grads(grads)
         _write_back(state, self._restore_state_dtypes(new_state))
         params, opt_slots = self.optimizer.update(grads, params, opt_slots,
                                                   step)
         with torch.no_grad():
             step.add_(1)
-        self.metrics.compute(
-            counters, logits.detach(), labels,
-            from_logits=not self.last_op_is_softmax, scce_sum=ce_sum)
-        return params, state, opt_slots, step, counters, lval
+        self.add_metrics(counters, logits.detach(), labels, ce_sum)
+        return (params, state, opt_slots, step, counters,
+                self.global_loss(lval))
 
     def _compiled(self, name: str, fn, held, pool=None):
         """`fn` as a step of this device: captured on CUDA
@@ -568,9 +1266,8 @@ class Executor:
             x_inputs, labels = batch
             logits, _ = self._apply(params, state,
                                     self._cast_compute(x_inputs))
-            return self.metrics.compute(
-                counters, logits, labels,
-                from_logits=not self.last_op_is_softmax)
+            return self.add_metrics(counters, self._loss_logits(logits)[0],
+                                    labels)
 
         self._eval_step = self._compiled("eval_step", eval_step,
                                          held=(0, 1, 2))

@@ -169,3 +169,23 @@ class OperatorType(enum.IntEnum):
     OP_MEAN = 80
     OP_LAYERNORM = 81
     OP_GATHER = 82
+    OP_REPARTITION = 83
+    OP_COMBINE = 84
+    OP_REPLICATE = 85
+    OP_REDUCTION = 86
+    OP_PIPELINE = 87
+    OP_FUSED_PARALLEL = 88
+
+
+# the parallel ops: PCG nodes that change a tensor's placement, not its
+# values (runtime identity; the executor moves the data)
+PARALLEL_OP_TYPES = frozenset(
+    {
+        OperatorType.OP_REPARTITION,
+        OperatorType.OP_COMBINE,
+        OperatorType.OP_REPLICATE,
+        OperatorType.OP_REDUCTION,
+        OperatorType.OP_PIPELINE,
+        OperatorType.OP_FUSED_PARALLEL,
+    }
+)

@@ -61,12 +61,14 @@ def softmax_xent_sum(logits2d: torch.Tensor,
 
 
 def loss_terms(loss_type: LossType, logits, labels,
-               last_op_is_softmax: bool):
+               last_op_is_softmax: bool, shards: int = 1):
     """(scalar loss, reusable sparse-CE sum or None): the CE sum (f32,
     before averaging) goes to Metrics, so the counter does not reduce the
-    logits a second time."""
+    logits a second time. `logits` may be one of `shards` equal blocks of
+    the batch's rows (a rank of a mesh): the loss is then this block's
+    share of the whole batch's mean, and the shares sum to it."""
     lt = LossType(loss_type)
-    b = logits.shape[0]
+    b = logits.shape[0] * shards
     if lt == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
         # every leading position is a sample (LM: (b, s, vocab) logits with
         # (b, s, 1) labels)
@@ -78,8 +80,9 @@ def loss_terms(loss_type: LossType, logits, labels,
             ce_sum = -torch.sum(logp2.gather(1, lab[:, None]))
         else:
             ce_sum = softmax_xent_sum(flat, lab)
-        return ce_sum / flat.shape[0], ce_sum
-    return _loss_value_rest(lt, logits, labels, last_op_is_softmax, b), None
+        return ce_sum / (flat.shape[0] * shards), ce_sum
+    return _loss_value_rest(lt, logits, labels, last_op_is_softmax, b,
+                            shards), None
 
 
 def loss_value(loss_type: LossType, logits, labels,
@@ -89,7 +92,7 @@ def loss_value(loss_type: LossType, logits, labels,
     return loss_terms(loss_type, logits, labels, last_op_is_softmax)[0]
 
 
-def _loss_value_rest(lt, logits, labels, last_op_is_softmax, b):
+def _loss_value_rest(lt, logits, labels, last_op_is_softmax, b, shards=1):
     logits = logits.float()
     if lt == LossType.LOSS_CATEGORICAL_CROSSENTROPY:
         logp = (torch.log(logits + _EPS) if last_op_is_softmax
@@ -99,7 +102,7 @@ def _loss_value_rest(lt, logits, labels, last_op_is_softmax, b):
         sq = (logits - labels) ** 2
         if sq.dim() > 1:  # torch reads dim=() as every dim
             sq = torch.sum(sq, dim=tuple(range(1, sq.dim())))
-        return torch.mean(sq)
+        return torch.mean(sq) / shards
     if lt == LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE:
         return torch.sum((logits - labels) ** 2) / b
     if lt == LossType.LOSS_IDENTITY:

@@ -1,22 +1,28 @@
-"""Machine abstraction: machine views, resources and mesh axis names.
+"""Machine abstraction: machine views, resources and the device mesh.
 
-The twin of the JAX-free half of `flexflow_tpu/machine.py` (26-128):
-`MachineView` (the reference's strided view of a flat device grid, the
-cost model's placement key), `MachineResource`, the canonical mesh axis
-names, `batch_axes_for` and `MeshShape`. The mesh itself
-(`build_mesh`, `spec_num_shards`, `named_sharding`) becomes a
-`torch.distributed` DeviceMesh with ROADMAP A6; until then those names
-raise, naming it.
+The twin of `flexflow_tpu/machine.py`: `MachineView` (the reference's
+strided view of a flat device grid, the cost model's placement key),
+`MachineResource`, the canonical mesh axis names, `batch_axes_for`,
+`MeshShape`, and the mesh itself (130-156). `build_mesh` returns a `Mesh`
+over the ranks of the `torch.distributed` world: one rank a device, rank
+r at row-major position r of the axis grid, as JAX lays
+`jax.devices()[:n]` over it. A `Mesh` has the surface of JAX's (`shape`,
+`axis_names`, `size`, `devices`) plus what the executor needs: this
+rank's coordinates and a process group over any tuple of its axes.
+The executor keeps each rank's local blocks and moves them itself
+(`parallel/spmd.py`), so no DTensor placement stands in for JAX's
+`NamedSharding`. A mesh of one device needs no process group and runs
+no collective.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
-
-from .config import not_ported
 
 
 @dataclass(frozen=True)
@@ -120,14 +126,129 @@ class MeshShape:
         return MeshShape((num_devices, 1, 1, 1))
 
 
-def build_mesh(*args, **kwargs):
-    raise not_ported("machine.build_mesh (a torch.distributed DeviceMesh)",
-                     "A6 (multi-GPU execution)")
+class _Group:
+    """The process group over some mesh axes that holds this rank: its
+    torch group, its size, this rank's index in it (the chunk it owns
+    when a dim is split over those axes) and its global ranks in
+    index order."""
+
+    def __init__(self, pg, ranks: list[int], rank: int):
+        self.pg = pg
+        self.ranks = ranks
+        self.size = len(ranks)
+        self.index = ranks.index(rank)
+        # torch orders a group's ranks by global rank: its collectives'
+        # position j holds chunk `order[j]` of ours (None: the same order)
+        order = [ranks.index(r) for r in sorted(ranks)]
+        self.order = None if order == list(range(self.size)) else order
+
+    def global_rank(self, index: int) -> int:
+        return self.ranks[index % self.size]
 
 
-def spec_num_shards(*args, **kwargs):
-    raise not_ported("machine.spec_num_shards", "A6 (multi-GPU execution)")
+class Mesh:
+    """The global device mesh over the `torch.distributed` world (or one
+    device with no process group). `shape` maps axis name -> size, in
+    order, as a JAX mesh's does."""
+
+    def __init__(self, mesh_shape: MeshShape, device, rank: int = 0):
+        self.mesh_shape = mesh_shape
+        self.shape = OrderedDict(zip(mesh_shape.axis_names,
+                                     mesh_shape.axis_sizes))
+        self.axis_names = tuple(mesh_shape.axis_names)
+        self.device = device
+        self.rank = rank
+        grid = np.arange(mesh_shape.num_devices).reshape(
+            mesh_shape.axis_sizes)
+        self.rank_grid = grid
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.argwhere(grid == rank)[0])))
+        self._groups: dict[tuple, Optional[_Group]] = {}
+
+    @property
+    def size(self) -> int:
+        return self.mesh_shape.num_devices
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The ranks laid over the axis grid (JAX: the device grid)."""
+        return self.rank_grid
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape.get(ax, 1) for ax in axes)
+
+    def group(self, axes) -> Optional[_Group]:
+        """The group over `axes` (in that order: the first axis major)
+        that holds this rank, or None when they span one device. Making
+        a group is collective: every rank makes every group over the same
+        axes, in one order, so the first call for a tuple of axes must
+        come on every rank in the same sequence (the executor makes its
+        groups when it is built)."""
+        axes = tuple(ax for ax in axes if self.shape.get(ax, 1) > 1)
+        if not axes:
+            return None
+        if axes not in self._groups:
+            import torch.distributed as dist
+
+            order = list(axes) + [a for a in self.axis_names
+                                  if a not in axes]
+            perm = [self.axis_names.index(a) for a in order]
+            g = self.rank_grid.transpose(perm).reshape(
+                self.axes_size(axes), -1)
+            mine = None
+            for col in range(g.shape[1]):
+                ranks = [int(r) for r in g[:, col]]
+                pg = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = _Group(pg, ranks, self.rank)
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def __repr__(self):
+        return f"Mesh({dict(self.shape)}, rank={self.rank})"
 
 
-def named_sharding(*args, **kwargs):
-    raise not_ported("machine.named_sharding", "A6 (multi-GPU execution)")
+def build_mesh(shape: MeshShape, device=None) -> Mesh:
+    """The global mesh of `shape` over the process group's ranks (JAX
+    `build_mesh`). It raises when the world holds fewer ranks than the
+    mesh needs, and when a mesh of more than one device is asked for
+    with no process group: the port never runs such a mesh on one
+    device. A mesh of one device in a larger world is each rank's own
+    (the one-rank reference of a multi-rank run)."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(device) if device is not None else torch.device(
+        "cpu")
+    n = shape.num_devices
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1:
+        return Mesh(shape, device)
+    if not dist.is_initialized():
+        raise ValueError(
+            f"mesh needs {n} devices but only 1 available: no "
+            f"torch.distributed process group (start the ranks with "
+            f"torchrun, or call flexflow_tpu_torch.distributed.initialize)")
+    if n > world:
+        raise ValueError(
+            f"mesh needs {n} devices but only {world} available")
+    if n < world:
+        raise ValueError(
+            f"mesh of {n} devices in a world of {world} ranks: every rank "
+            f"must hold one device of the mesh")
+    return Mesh(shape, device, dist.get_rank())
+
+
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_num_shards(mesh: Mesh, spec) -> int:
+    """How many shards a PartitionSpec cuts a tensor into on `mesh`."""
+    n = 1
+    for entry in spec:
+        for ax in _spec_axes(entry):
+            n *= mesh.shape[ax]
+    return n

@@ -1,13 +1,19 @@
-"""FFModel: the layer-builder API, single-device compile, training
-(`fit`, `eval`, the granular forward/backward/update), weights I/O and
-`serve()` (twin of `flexflow_tpu/model.py`).
+"""FFModel: the layer-builder API, compile onto a mesh, training (`fit`,
+`eval`, the granular forward/backward/update), weights I/O and `serve()`
+(twin of `flexflow_tpu/model.py`).
 
 The builder methods mirror the JAX package's one for one (155-560), tied
-weights (`shared_op`) and constant inputs included, so a model script
-carries over with only the import changed. `compile` lowers the layer
-list to a graph and adopts the single-device plan: on one device every
-plan is the replicated one, so no Unity search runs (the search and its
-plan cache are a later slice of the port). `fit` is the JAX package's
+weights (`shared_op`), constant inputs and the parallel ops
+(`repartition`, `combine`, `replicate`, `reduction`) included, so a model
+script carries over with only the import changed. `compile` lowers the
+layer list to a graph, builds the mesh (`--mesh`, over the
+torch.distributed world) and places every tensor: data parallel by
+default (batch over `data`, weights replicated), under a strategy where
+one is given (`set_strategy`, `--import-strategy`); the weight update
+runs replicated or sharded (ZeRO stage 2/3) as the flags force it. The
+Unity search (ROADMAP A7) is not ported: where the JAX package would
+search, compile raises. Every rank is given the same global arrays, as
+JAX's single-controller `fit` is, and keeps its own rows. `fit` is the JAX package's
 loop (1660) over the executor's train step (a CUDA graph replayed per
 batch on the card, as JAX replays one jitted executable) with its
 telemetry hooks (`--telemetry-dir`, `enable_telemetry`: spans, step
@@ -77,9 +83,6 @@ from .tensor import Tensor
 # FFModel methods of the JAX package that the port has not got yet, by
 # ROADMAP item: calling one raises, naming its item
 _NOT_PORTED_METHODS = {
-    **dict.fromkeys(("repartition", "combine", "replicate", "reduction"),
-                    "A6 (parallel ops)"),
-    "set_strategy": "A7 (Unity search)",
     "pipeline_blocks": "A8 (pipeline)",
     **dict.fromkeys(("enable_checkpointing", "save_checkpoint",
                      "load_checkpoint", "set_fault_hook"),
@@ -136,6 +139,13 @@ class FFModel:
         # MFU anchor: FLOPs of a train step (the ops' forward FLOPs x 3)
         # and the card's peak, set at compile (`_goodput`)
         self._goodput_anchor = None
+        # the mesh (machine.Mesh), the strategy's overrides (set_strategy
+        # or --import-strategy), where the plan came from and the update
+        # sharding decision, set at compile
+        self.mesh = None
+        self._strategy = None
+        self._plan_source = "none"
+        self._update_sharding = None
 
     # ================================================== tensor creation
 
@@ -533,6 +543,47 @@ class FFModel:
         return self._add_layer(OT.OP_CAST, p, [input], name,
                                data_type=DataType(dtype)).outputs[0]
 
+    # ================================================== parallel ops
+    # (reference src/parallel_ops/*; inserted explicitly or by a strategy)
+
+    def repartition(self, input: Tensor, dim: int, degree: int,
+                    name: str = "") -> Tensor:
+        from .parallel import RepartitionParams
+
+        p = RepartitionParams(dim, degree)
+        return self._add_layer(OT.OP_REPARTITION, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def combine(self, input: Tensor, dim: int, degree: int,
+                name: str = "") -> Tensor:
+        from .parallel import CombineParams
+
+        p = CombineParams(dim, degree)
+        return self._add_layer(OT.OP_COMBINE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def replicate(self, input: Tensor, degree: int, name: str = "") -> Tensor:
+        from .parallel import ReplicateParams
+
+        p = ReplicateParams(degree)
+        return self._add_layer(OT.OP_REPLICATE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def reduction(self, input: Tensor, degree: int, name: str = "") -> Tensor:
+        from .parallel import ReductionParams
+
+        p = ReductionParams(degree)
+        return self._add_layer(OT.OP_REDUCTION, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    # ================================================== strategy
+
+    def set_strategy(self, strategy):
+        """Install a parallelization strategy (a parallel.Strategy or raw
+        override dict), applied on top of the data-parallel default at
+        compile: the `--import-strategy` analog."""
+        self._strategy = getattr(strategy, "overrides", strategy)
+
     # ================================================== compile
 
     def compile(
@@ -565,15 +616,15 @@ class FFModel:
             with telemetry.span("compile"):
                 self._compile_impl(optimizer, loss_type, metrics, comp_mode)
             if tel is not None:
-                from .telemetry.session import single_device_mesh_axes
-
                 tel.recorder.record(
                     "compile",
                     duration_s=time.perf_counter() - t_compile0,
                     num_nodes=len(self.graph.topo_order()),
-                    mesh_axes=single_device_mesh_axes(),
-                    strategy_nodes=[],
-                    plan_source="default",
+                    mesh_axes={k: int(v)
+                               for k, v in self.mesh.shape.items()},
+                    strategy_nodes=sorted(self._strategy)
+                    if self._strategy else [],
+                    plan_source=self._plan_source,
                     plan_fingerprint=None,
                     sanitize_numerics=False,
                     spmd_barrier="off",
@@ -584,6 +635,10 @@ class FFModel:
                 telemetry.deactivate(tel)
 
     def _compile_impl(self, optimizer, loss_type, metrics, comp_mode):
+        from .parallel.strategies import Strategy
+        from .search.unity import choose_update_sharding
+        from .tensor import ParallelTensor, ParallelTensorShape
+
         self.optimizer = optimizer or SGDOptimizer(
             lr=self.config.learning_rate)
         self.loss_type = LossType(loss_type)
@@ -594,6 +649,8 @@ class FFModel:
         for t in self._input_tensors:
             node = OpNode(OT.OP_INPUT, None, name=t.name)
             node.output_shapes = [t.dims]
+            node.outputs = [ParallelTensor(
+                ParallelTensorShape.from_shape(t.dims, t.dtype), name=t.name)]
             if hasattr(t, "constant_value"):
                 node.constant = (t.dims, t.dtype, t.constant_value)
             g.add_node(node)
@@ -609,6 +666,7 @@ class FFModel:
             for dst_idx, t_in in enumerate(layer.inputs):
                 src_node, src_idx = tensor_to_out[t_in.tensor_guid]
                 g.add_edge(src_node, node, src_idx, dst_idx)
+                node.inputs.append(src_node.outputs[src_idx])
             node.input_shapes = [t.dims for t in layer.inputs]
             node.output_shapes = [t.dims for t in layer.outputs]
             node.weight_specs = node.op_def.weights(layer.params,
@@ -631,11 +689,54 @@ class FFModel:
                 node.weight_source = src.name
                 self._weight_alias[node.name] = src.name
             for i, t_out in enumerate(layer.outputs):
+                pt = ParallelTensor(
+                    ParallelTensorShape.from_shape(t_out.dims, t_out.dtype),
+                    name=t_out.name)
+                pt.owner_op, pt.owner_idx = node, i
+                node.outputs.append(pt)
                 tensor_to_out[t_out.tensor_guid] = (node, i)
         self.graph = g
+
+        # --- mesh + strategy (JAX model.py 825-880, without the search)
+        shape = self.config.mesh_shape()
+        search = self.config.search_flags()
+        if (self._strategy is None and not self.config.import_strategy_file
+                and not self.config.only_data_parallel
+                and shape.num_devices > 1 and search):
+            raise not_ported(
+                f"the Unity search ({', '.join(search)} on a mesh of "
+                f"{shape.num_devices} devices; pass a strategy or "
+                f"--only-data-parallel)", "A7 (Unity search)")
+        self.mesh = self._build_mesh(shape)
+        if self._strategy is not None:
+            self._plan_source = "manual"
+        elif self.config.import_strategy_file:
+            imported = Strategy.load(self.config.import_strategy_file)
+            try:
+                imported.validate(g, self.mesh)
+            except ValueError as e:
+                raise ValueError(
+                    f"--import-strategy "
+                    f"{self.config.import_strategy_file}: {e}") from e
+            self._strategy = imported.overrides
+            self._plan_source = "import"
+        if self._plan_source == "none":
+            self._plan_source = "default"
+        self._assign_strategy()
+        if self.config.export_strategy_file:
+            from .distributed import is_coordinator
+
+            if is_coordinator():
+                Strategy(self._strategy or {}).save(
+                    self.config.export_strategy_file)
         logits_node = tensor_to_out[self.layers[-1].outputs[0].tensor_guid][0]
+        self._update_sharding = choose_update_sharding(g, self.mesh,
+                                                       self.config)
         self.executor = Executor(g, self.config, self.device, logits_node,
-                                 self.loss_type, self.metrics, self.optimizer)
+                                 self.loss_type, self.metrics, self.optimizer,
+                                 mesh=self.mesh,
+                                 update_sharding=self._update_sharding)
+        self._update_sharding = self.executor.update_sharding
         self._params, self._state = self.executor.init_variables(
             self.config.seed)
         self._rng = torch.Generator(self.device).manual_seed(
@@ -646,12 +747,59 @@ class FFModel:
         self._goodput_anchor = self._goodput()
         self._compiled = True
 
+    def _build_mesh(self, shape):
+        """The mesh of `shape` over the torch.distributed world (JAX
+        `_build_mesh`, model.py:2251)."""
+        from .machine import build_mesh
+
+        return build_mesh(shape, self.device)
+
+    def _assign_strategy(self):
+        """Mesh axes of every op output and weight (JAX model.py:1319):
+        by default the batch dim of every activation over the batch axes
+        (where they divide it), weights replicated; a parallel op's
+        output derived from its input's; the strategy's overrides on
+        top."""
+        import warnings
+
+        from .machine import batch_axes_for
+        from .parallel.ops import derive_parallel_assignment
+
+        batch_axes = batch_axes_for(dict(self.mesh.shape))
+        batch_deg = self.mesh.axes_size(batch_axes)
+        if self._strategy:
+            present = {n.name for n in self.graph.topo_order()}
+            dropped = sorted(set(self._strategy) - present)
+            if dropped:
+                warnings.warn(
+                    "strategy contains placements for nodes not in this "
+                    f"graph (dropped, falling back to data parallel): "
+                    f"{dropped}", stacklevel=2)
+        for node in self.graph.topo_order():
+            ov = (self._strategy or {}).get(node.name, {})
+            if node.is_parallel_op and node.inputs:
+                if 0 not in ov.get("outputs", {}):
+                    node.outputs[0].assign_axes(derive_parallel_assignment(
+                        node.op_type, node.params,
+                        node.inputs[0].axis_assignment, self.mesh))
+            else:
+                for pt in node.outputs:
+                    dims = pt.shape.dims
+                    assignment = [()] * len(dims)
+                    if (batch_deg > 1 and len(dims) > 0
+                            and dims[0].size % batch_deg == 0):
+                        assignment[0] = batch_axes
+                    pt.assign_axes(tuple(assignment))
+            for i, spec_axes in ov.get("outputs", {}).items():
+                node.outputs[i].assign_axes(spec_axes)
+            node.weight_axes.update(ov.get("weights", {}))
+
     def _goodput(self) -> Optional[dict]:
         """The MFU anchor (JAX `model.py:1286-1314`): the ops' forward
         FLOPs over the graph, x3 for forward and backward, against the
         peak of the card `search/machine_model.detect_chip` names (the
-        host entry on the CPU). The port has no mesh: one chip. None when
-        no op counts FLOPs or no spec names the device."""
+        host entry on the CPU) times the mesh's chips. None when no op
+        counts FLOPs or no spec names the device."""
         from . import telemetry
         from .search.machine_model import detect_chip
 
@@ -667,17 +815,20 @@ class FFModel:
             peak = detect_chip(self.device).peak_flops
         except ValueError:  # a card the spec table does not hold
             return None
-        anchor = {"flops_per_step": 3.0 * fwd, "peak_flops": peak,
-                  "num_chips": 1}
+        num_chips = self.mesh.size
+        anchor = {"flops_per_step": 3.0 * fwd,
+                  "peak_flops": peak * num_chips, "num_chips": num_chips}
         telemetry.event("goodput_anchor", **anchor)
         return anchor
 
     # ================================================== training
 
     def _make_batch(self, x_arrays: dict, labels):
-        """Host arrays -> (inputs, labels) on the model's device."""
+        """Host arrays of the global batch -> (inputs, labels) on the
+        model's device, each rank keeping its block: an input by its
+        node's placement, the labels by the logits' batch axes."""
         return (self.executor.stage_inputs(x_arrays),
-                torch.as_tensor(np.asarray(labels)).to(self.device))
+                self.executor.stage_labels(labels))
 
     def _as_input_dict(self, x) -> dict:
         input_names = [t.name for t in self._input_tensors
@@ -839,7 +990,7 @@ class FFModel:
             self._params, self._state, xs,
             self.config.computation_mode == CompMode.COMP_MODE_TRAINING,
             seq_length)
-        return logits
+        return self.executor.full_logits(logits)
 
     def zero_gradients(self):
         self._grads = None
@@ -852,13 +1003,12 @@ class FFModel:
         xs, labels = self._current_batch
         loss_fn = self.executor.make_loss_fn(self._state, xs, labels,
                                              self._rng, seq_length)
-        lval, (logits, _, ce_sum), self._grads = (
+        lval, (logits, _, ce_sum), grads = (
             self.executor.value_and_grad(loss_fn, self._params))
-        self._counters = self.metrics.compute(
-            self._counters, logits.detach(), labels,
-            from_logits=not self.executor.last_op_is_softmax,
-            scce_sum=ce_sum)
-        return lval
+        self._grads = self.executor.sync_grads(grads)
+        self._counters = self.executor.add_metrics(
+            self._counters, logits.detach(), labels, ce_sum)
+        return self.executor.global_loss(lval)
 
     def update(self):
         if self._grads is None:
@@ -904,8 +1054,12 @@ class FFModel:
         return self._weight_alias.get(layer_name, layer_name)
 
     def get_weight(self, layer_name: str, weight_name: str) -> np.ndarray:
+        """The whole weight, gathered from its shards (collective on a
+        mesh: every rank calls it)."""
         layer_name = self._resolve_weight_owner(layer_name)
-        return self._params[layer_name][weight_name].detach().cpu().numpy()
+        w = self.executor.full_weight(
+            layer_name, weight_name, self._params[layer_name][weight_name])
+        return w.detach().cpu().numpy()
 
     def set_weight(self, layer_name: str, weight_name: str,
                    value: np.ndarray):
@@ -916,12 +1070,14 @@ class FFModel:
         layer_name = self._resolve_weight_owner(layer_name)
         old = self._params[layer_name][weight_name]
         value = np.asarray(value)
-        if tuple(value.shape) != tuple(old.shape):
+        shape = self.executor.weight_shape(layer_name, weight_name)
+        if tuple(value.shape) != tuple(shape):
             raise ValueError(
                 f"{layer_name}.{weight_name}: shape {value.shape} != "
-                f"{tuple(old.shape)}")
-        self._params[layer_name][weight_name] = torch.tensor(
-            value, dtype=old.dtype, device=old.device)
+                f"{tuple(shape)}")
+        self._params[layer_name][weight_name] = self.executor.local_weight(
+            layer_name, weight_name,
+            torch.tensor(value, dtype=old.dtype, device=old.device))
 
     # ================================================== observability
 
@@ -975,6 +1131,10 @@ class FFModel:
         prefix_sharing, prefix_cache."""
         if not self._compiled:
             raise RuntimeError("call compile() before serve()")
+        if self.mesh.size > 1:
+            raise not_ported(
+                f"serve() on a mesh of {self.mesh.size} devices (a sharded "
+                f"KV cache)", "A11 (serving extras: serving on a mesh)")
         for flag in ("disaggregate", "speculate"):
             if kwargs.pop(flag, False):
                 raise NotImplementedError(

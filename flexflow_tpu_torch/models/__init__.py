@@ -12,6 +12,7 @@ from .transformer import (
     build_transformer_lm_decode,
     transformer_lm_flops_per_token,
     transformer_lm_param_count,
+    transformer_lm_state_bytes_per_chip,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "build_transformer_lm_decode",
     "transformer_lm_flops_per_token",
     "transformer_lm_param_count",
+    "transformer_lm_state_bytes_per_chip",
 ]

@@ -140,7 +140,28 @@ def transformer_lm_flops_per_token(c: TransformerLMConfig) -> float:
     return flops
 
 
+def transformer_lm_state_bytes_per_chip(c: TransformerLMConfig,
+                                        opt_slots: int = 2,
+                                        update_stage: int = 0,
+                                        shards: int = 1) -> float:
+    """Resident fp32 training-state bytes per chip (master, gradient and
+    `opt_slots` optimizer entries per parameter) under a weight-update
+    stage: stage 2 shards masters, gradients and slots 1/shards but keeps
+    one gathered compute copy of each weight; stage 3 shards the weights
+    at rest too."""
+    n = float(transformer_lm_param_count(c)) * 4.0
+    state = n * (2 + opt_slots)
+    if update_stage >= 3 and shards > 1:
+        return state / shards
+    if update_stage >= 2 and shards > 1:
+        return n + state / shards
+    return state
+
+
 # Tiers of the JAX package's zoo that the port runs, same configurations.
+# The -fsdp tiers' replicated training state (about 16 bytes a parameter
+# with Adam) exceeds one chip of the HBM class they name; stage 3 over
+# enough data shards fits them.
 TRANSFORMER_LM_ZOO: dict = {
     "lm-smoke": TransformerLMConfig(
         vocab_size=512, hidden_size=128, num_heads=4, num_layers=2,
@@ -148,7 +169,12 @@ TRANSFORMER_LM_ZOO: dict = {
     "lm-base": TransformerLMConfig(
         vocab_size=32000, hidden_size=1024, num_heads=16, num_layers=12,
         sequence_length=512),
-    # the zoo's one tier with head_dim 128 (32 heads of 128)
+    # ~1.3B params: replicated Adam state ~21 GB
+    "lm-xl-fsdp": TransformerLMConfig(
+        vocab_size=32000, hidden_size=2048, num_heads=32, num_layers=24,
+        sequence_length=1024),
+    # head_dim 128 (32 heads of 128); ~6.7B params: replicated Adam state
+    # ~107 GB
     "lm-xxl-fsdp": TransformerLMConfig(
         vocab_size=32000, hidden_size=4096, num_heads=32, num_layers=32,
         sequence_length=2048),

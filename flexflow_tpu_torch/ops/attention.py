@@ -16,6 +16,12 @@ projection. The core is chosen by `impl`, as in the JAX package:
   - "ring": ring attention over a sequence mesh axis, not ported (ROADMAP
     A8); it raises.
 
+On a mesh whose plan shards the projections by heads
+(`megatron_transformer`), the executor calls this op with this rank's
+weights and params of its heads only (`num_heads` and `embed_dim` cut by
+the model axis) and no output bias: the output projection's partial sum
+is all-reduced, then the bias added (`executor._mha_rule`).
+
 The serving decode graph replays each causal layer of this op as
 incremental attention over a KV cache (`serving/decode_graph.py`); the
 weights transfer by name. `dropout` is ignored, as the JAX op ignores it.

@@ -1,8 +1,12 @@
-"""Computation graph (twin of `flexflow_tpu/pcg/graph.py`, no `native`).
+"""Parallel computation graph (twin of `flexflow_tpu/pcg/graph.py`, no
+`native`).
 
 Nodes, multi-edges (src, dst, src_idx, dst_idx), a deterministic
-topological order and the DOT export. On one device the graph carries no
-parallel state, so a node's outputs are plain shapes.
+topological order and the DOT export. Compute ops and the parallel ops
+(`is_parallel_op`) are both nodes. A node's `outputs` are ParallelTensors
+carrying the mesh axes each output takes (`axis_assignment`), and
+`weight_axes` the PartitionSpec of each weight the plan shards (absent:
+replicated); `output_shapes` keeps the plain shapes.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import itertools
 from dataclasses import dataclass
 from typing import Any, Optional
 
-from ..fftype import OperatorType
+from ..fftype import PARALLEL_OP_TYPES, OperatorType
 from ..ops.base import OpDef, WeightSpec, get_op_def
 
 _node_guid = itertools.count(5000000)  # NODE_GUID_FIRST_VALID
@@ -47,6 +51,11 @@ class OpNode:
         self.initializers = initializers or {}
         self.input_shapes: list[tuple[int, ...]] = []
         self.output_shapes: list[tuple[int, ...]] = []
+        # ParallelTensors: the producers' outputs, and this node's
+        self.inputs: list = []
+        self.outputs: list = []
+        # weight name -> PartitionSpec of the weight's compute placement
+        self.weight_axes: dict[str, Any] = {}
         self.weight_specs: list[WeightSpec] = []
         # tied weights: the name of the node whose parameters this one
         # reads (FFModel's shared_op), else None
@@ -57,6 +66,10 @@ class OpNode:
     @property
     def op_def(self) -> OpDef:
         return get_op_def(self.op_type)
+
+    @property
+    def is_parallel_op(self) -> bool:
+        return self.op_type in PARALLEL_OP_TYPES
 
     def __repr__(self):
         return f"OpNode({self.name})"
@@ -81,6 +94,18 @@ class Graph:
         self.in_edges[dst.guid].append(e)
         self.out_edges[src.guid].append(e)
 
+    def sources(self) -> list[OpNode]:
+        return [n for g, n in self.nodes.items() if not self.in_edges[g]]
+
+    def sinks(self) -> list[OpNode]:
+        return [n for g, n in self.nodes.items() if not self.out_edges[g]]
+
+    def producer(self, node: OpNode, dst_idx: int) -> tuple[OpNode, int]:
+        for e in self.in_edges[node.guid]:
+            if e.dst_idx == dst_idx:
+                return self.nodes[e.src], e.src_idx
+        raise KeyError(f"{node.name} has no input {dst_idx}")
+
     def topo_order(self) -> list[OpNode]:
         indeg = {g: len(es) for g, es in self.in_edges.items()}
         # deterministic: process in guid order among ready nodes
@@ -100,17 +125,20 @@ class Graph:
 
 def export_dot(graph: "Graph", path: str | None = None) -> str:
     """DOT export of the graph (the JAX package's `export_dot`, reference
-    print_dot): one box per node with its name, operator and output
-    shape; on one device every placement is the replicated one, so the
-    spec line is empty."""
+    print_dot): one box per node with its name, operator, output shape
+    and its output's PartitionSpec (empty when replicated)."""
     lines = ["digraph PCG {", '  rankdir="TB";']
     for n in graph.topo_order():
         shape = n.output_shapes[0] if n.output_shapes else ""
-        color = ("gray90" if n.op_type.name in ("OP_INPUT", "OP_NOOP")
-                 else "white")
+        spec = ""
+        if n.outputs and any(n.outputs[0].axis_assignment):
+            spec = repr(tuple(n.outputs[0].partition_spec()))
+        color = "lightblue" if n.is_parallel_op else (
+            "gray90" if n.op_type.name in ("OP_INPUT", "OP_NOOP")
+            else "white")
         lines.append(
             f'  n{n.guid} [label="{n.name}\\n{n.op_type.name}\\n'
-            f'{shape}\\n", style=filled, fillcolor={color}];'
+            f'{shape}\\n{spec}", style=filled, fillcolor={color}];'
         )
     for guid, edges in graph.out_edges.items():
         for e in edges:

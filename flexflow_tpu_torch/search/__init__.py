@@ -1,2 +1,3 @@
-"""The Unity search's machine model (a first piece of the twin of
-`flexflow_tpu/search/`; the rest is ROADMAP A7)."""
+"""The Unity search's machine model and the plain rules of its
+update-sharding decision (`unity.choose_update_sharding`): a first piece
+of the twin of `flexflow_tpu/search/`; the rest is ROADMAP A7."""

@@ -101,9 +101,11 @@ class TelemetrySession:
             if mesh is not None:
                 fields["mesh_axes"] = {
                     k: int(v) for k, v in mesh.shape.items()}
-            else:
-                # one device: every axis of the default mesh has size 1
-                fields["mesh_axes"] = single_device_mesh_axes()
+            elif cfg is not None:
+                # before compile: the configured mesh
+                ms = cfg.mesh_shape()
+                fields["mesh_axes"] = {
+                    a: int(s) for a, s in zip(ms.axis_names, ms.axis_sizes)}
             if cfg is not None:
                 fields["config"] = {
                     k: _plain(getattr(cfg, k, None))
@@ -281,13 +283,6 @@ class TelemetrySession:
         self.flush()
         self.recorder.close()
         self._closed = True
-
-
-def single_device_mesh_axes() -> dict:
-    """The mesh axes of the port's one-device plan."""
-    from ..machine import DEFAULT_AXES
-
-    return {a: 1 for a in DEFAULT_AXES}
 
 
 def device_fields(device=None) -> dict:

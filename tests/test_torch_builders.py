@@ -450,9 +450,13 @@ def test_machine_is_the_jax_packages_without_the_mesh():
     assert tm.MeshShape.data_parallel(8).num_devices == 8
     with pytest.raises(ValueError):
         tm.MeshShape((2, 2), ("data",))
-    for fn in (tm.build_mesh, tm.spec_num_shards, tm.named_sharding):
-        with pytest.raises(NotImplementedError, match="A6"):
-            fn(None)
+    # the mesh: one device needs no process group; more raise without one
+    mesh = tm.build_mesh(tm.MeshShape((1, 1, 1, 1)))
+    assert dict(mesh.shape) == {"data": 1, "model": 1, "pipe": 1, "seq": 1}
+    assert mesh.size == 1 and mesh.group(("data",)) is None
+    assert tm.spec_num_shards(mesh, ("data", None)) == 1
+    with pytest.raises(ValueError, match="mesh needs 2 devices"):
+        tm.build_mesh(tm.MeshShape((2, 1, 1, 1)))
 
 
 # ------------------------------------------------------------------ ties
@@ -941,7 +945,6 @@ def test_export_dot_and_print_layers(capsys):
 
 
 @pytest.mark.parametrize("method", [
-    "repartition", "combine", "replicate", "reduction", "set_strategy",
     "pipeline_blocks", "enable_checkpointing", "save_checkpoint",
     "load_checkpoint", "set_fault_hook", "enable_diagnostics",
     "get_diagnostics", "enable_elastic", "profile_step", "moe", "experts",

@@ -239,8 +239,9 @@ def test_load_params_rejects_unknown_names(models):
 
 
 def test_no_source_imports_jax():
-    """No module of the port, nor chip_smoke.py or bench_torch.py, imports
-    jax or the JAX package (a lazy import inside a function included)."""
+    """No module of the port, nor chip_smoke.py or bench_torch.py,
+    imports jax or the JAX package (a lazy import inside a
+    function included)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flexflow_tpu)(\.|\s|$)", re.M)
     sources = [os.path.join(REPO, "chip_smoke.py"),
@@ -260,7 +261,11 @@ def test_import_pulls_in_no_jax():
         "flexflow_tpu_torch.kernels.layer_norm, "
         "flexflow_tpu_torch.search.machine_model, bench_torch, "
         "flexflow_tpu_torch.telemetry, flexflow_tpu_torch.scope.flightrec, "
-        "flexflow_tpu_torch.models.resnet, flexflow_tpu_torch.machine\n"
+        "flexflow_tpu_torch.models.resnet, flexflow_tpu_torch.machine, "
+        "flexflow_tpu_torch.parallel, flexflow_tpu_torch.parallel.spmd, "
+        "flexflow_tpu_torch.distributed, "
+        "flexflow_tpu_torch.entry, flexflow_tpu_torch.search.unity, "
+        "chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.')]\n"

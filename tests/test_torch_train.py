@@ -504,12 +504,13 @@ def test_per_head_paths_give_every_parameter_the_jax_gradient(layout_run):
 
 def test_zoo_and_its_arithmetic_are_the_jax_packages():
     """Every tier of the port's zoo has the JAX package's configuration of
-    the same name, and the parameter count and FLOPs per token agree."""
+    the same name, and the parameter count, FLOPs per token and training
+    state bytes per chip (each update stage) agree."""
     from flexflow_tpu.models import transformer as jtr
     from flexflow_tpu_torch.models import transformer as ttr
 
     assert set(ttr.TRANSFORMER_LM_ZOO) == {"lm-smoke", "lm-base",
-                                           "lm-xxl-fsdp"}
+                                           "lm-xl-fsdp", "lm-xxl-fsdp"}
     fields = ("vocab_size", "hidden_size", "num_heads", "num_layers",
               "mlp_ratio", "sequence_length", "attention_impl")
     for name, tc in ttr.TRANSFORMER_LM_ZOO.items():
@@ -520,6 +521,10 @@ def test_zoo_and_its_arithmetic_are_the_jax_packages():
                 == jtr.transformer_lm_param_count(jc)), name
         assert (ttr.transformer_lm_flops_per_token(tc)
                 == jtr.transformer_lm_flops_per_token(jc)), name
+        for stage, shards in ((0, 1), (2, 4), (3, 4), (3, 1)):
+            assert (ttr.transformer_lm_state_bytes_per_chip(
+                tc, 2, stage, shards) == jtr.transformer_lm_state_bytes_per_chip(
+                jc, 2, stage, shards)), (name, stage, shards)
     xxl = ttr.TRANSFORMER_LM_ZOO["lm-xxl-fsdp"]
     assert xxl.hidden_size // xxl.num_heads == 128
 
