@@ -139,12 +139,32 @@ Phases, each fatal on failure:
      rank, tp's flash kernels on 8 of the 16 heads; per rank the median
      step, busy share of a profiled step and peak memory. Gloo moves
      every collective through host memory: its step times are not the
-     port's speed on a mesh.
+     port's speed on a mesh;
+ 17. the Unity search on lm-base at full width (12 layers, 8 x 512,
+     bf16; search_torch.py): the launch counts set to 0, then
+     `calibrate_graph(top_k=4)` measures the four most expensive distinct
+     ops on the card (CUDA graphs of each op's forward and of its forward
+     and backward, replayed between CUDA events): 4 ops, the attention
+     node among them, K5, K6 and K7 launched on the "sm90" variant
+     (counted per replay); each measured forward at least its roofline
+     bound (its FLOPs at 989 TFLOP/s, or its inputs, weights and outputs
+     moved once at 3.35 TB/s), the attention node's at least phase 8's K5
+     time; then the joint search (budget 6, parameter parallelism) over
+     the H100 model of one device, dp 4, dp 2 x tp 2 and tp 4: each a
+     plan and a predicted step, logged with the unforced weight-update
+     decision at dp 4 and the one-device prediction beside phase 6's
+     measured step (the predictions' accuracy is logged, not gated).
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
-6 steps, on dp N, dp N/2 x tp 2 and tp N, stages 2 and 3; rank 0 prints
-every rank's runs, the card line and {"ok": ..., "world": N} last.
+6 steps, on dp N, dp N/2 x tp 2 and tp N, stages 2 and 3; then, in bf16,
+dp N with no update flag (the update decision priced, as the JAX
+package decides it) and the search's own plan (`--budget 6
+--enable-parameter-parallel --calibrate 4 --search-mesh-shapes` on dp
+N/2 x tp 2: rank 0 calibrates on its card, searches the mesh's
+factorizations and broadcasts the mesh and plan), each held to one rank;
+rank 0 prints every rank's runs (the chosen mesh and plan among them),
+the card line and {"ok": ..., "world": N} last.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -2586,7 +2606,8 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
     # eager: the first step warms up; captured: the second captures too
     med = statistics.median(step_ms[2 if captured else 1:])
     numbers = {
-        "name": name, "dtype": dtype, "mesh": list(mesh), "device": device,
+        "name": name, "dtype": dtype, "mesh": list(ff.mesh.shape.values()),
+        "device": device,
         "captures": getattr(step, "captures", 0), "losses": losses,
         "step_ms": step_ms, "median_step_ms": med,
         "tokens_per_s_per_chip": (TRAIN_BATCH * lm.sequence_length
@@ -2595,8 +2616,14 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
                                  if on_card else None),
         "launches": launches, "flash_variants": variants,
         "flash_heads": sorted(set(heads)),
+        "attn_tp": attn_tp(ff),
+        "plan_source": ff._plan_source,
+        "plan": {n: {w: str(spec) for w, spec in ov["weights"].items()}
+                 for n, ov in (ff._strategy or {}).items()
+                 if ov["weights"]},
         "update_sharding": {k: ff._update_sharding.get(k)
-                            for k in ("enabled", "stage", "shards")}}
+                            for k in ("enabled", "stage", "shards",
+                                      "reason")}}
     if prof is not None:
         numbers.update(
             device_busy_ms=prof["device_busy_ms"],
@@ -2605,6 +2632,24 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
     masters = _full_masters(ff)
     del ff, step
     return numbers, masters, initial
+
+
+def attn_tp(ff) -> int:
+    """How many ways the plan splits the attention heads: the model axis's
+    size where an attention node's query weight rides it, else 1."""
+    from flexflow_tpu_torch.fftype import OperatorType
+
+    for node in ff.graph.topo_order():
+        if (node.op_type == OperatorType.OP_MULTIHEAD_ATTENTION
+                and "model" in str(node.weight_axes.get("wq"))):
+            return int(ff.mesh.shape["model"])
+    return 1
+
+
+# the search's runs of the mesh: its budget (search_torch.BUDGET) and, on
+# the card, how many ops rank 0 calibrates first
+SEARCH_FLAGS = ("--budget", "6", "--enable-parameter-parallel")
+SEARCH_CALIBRATE = 4
 
 
 def mesh_agree(got: dict, want: dict, initial: dict, got_losses: list,
@@ -2632,15 +2677,20 @@ def mesh_agree(got: dict, want: dict, initial: dict, got_losses: list,
 
 
 def mesh_check(device: str, lm, steps: int, captured: bool,
-               stage3: bool = True) -> dict:
+               stage3: bool = True, search: bool = False) -> dict:
     """Every run of this rank under the process group already started:
     per dtype one rank alone, then dp over the world, dp / 2 x tp 2 (a
     world of 4 or more), tp over the world (where it divides the heads),
     each held to one rank by `mesh_agree`; in bf16 dp under stage 2 (and
-    stage 3 when `stage3`) bit-equal to replicated dp. On the card every
-    run must launch K1, K4 and K5-K7 (and, captured, capture once); the
-    flash kernels must see heads / tp heads. Returns the runs, the checks
-    and the failed ones (`failures`)."""
+    stage 3 when `stage3`) bit-equal to replicated dp. With `search`, in
+    bf16 also dp over the world with no update flag (the decision
+    priced) and the Unity search's plan (SEARCH_FLAGS with
+    --search-mesh-shapes, from dp / 2 x tp 2 on a world of 4 or more; on
+    the card rank 0 calibrates SEARCH_CALIBRATE ops first), each held to
+    one rank. On the card every run must launch K1, K4 and K5-K7 (and,
+    captured, capture once); the flash kernels must see heads / (the
+    plan's attention split) heads. Returns the runs, the checks and the
+    failed ones (`failures`)."""
     import torch
     import torch.distributed as dist
 
@@ -2673,7 +2723,16 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
         if one is None:
             continue
         runs.append(one)
-        for name, mesh, flags, tp in plans:
+        extra = []
+        if search and dtype == "bf16":
+            start = ((world // 2, 2, 1, 1) if world % 2 == 0 and world > 2
+                     else (world, 1, 1, 1))
+            calib = ("--calibrate", str(SEARCH_CALIBRATE)) if on_card else ()
+            extra = [(f"dp {world} priced", (world, 1, 1, 1), (), False),
+                     ("searched", start,
+                      SEARCH_FLAGS + calib + ("--search-mesh-shapes",),
+                      False)]
+        for name, mesh, flags, tp in plans + extra:
             r, masters, _ = attempt(name, dtype, mesh, flags, tp)
             if r is None:
                 continue
@@ -2699,7 +2758,7 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
             failures.append(f"{name}: masters differ from dp {world}'s")
         runs.append(r)
     for r in runs:
-        tp = r["mesh"][1]
+        tp = r["attn_tp"]
         if r["flash_heads"] != [lm.num_heads // tp]:
             failures.append(f"{r['name']} {r['dtype']}: flash kernels on "
                             f"{r['flash_heads']} heads, want "
@@ -2750,6 +2809,112 @@ def gloo_phase() -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------ phase 17
+
+SEARCH_TOP_K = 4
+CALIB_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def op_bound_ms(node, harness):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one op's forward as the calibration harness runs it: its FLOPs
+    at the bf16 peak, or each input, weight and output moved once (float
+    tensors at the harness's compute dtype, state at its own)."""
+    from flexflow_tpu_torch.fftype import dtype_to_torch
+
+    def nbytes(shape, dtype, compute=True):
+        dt = dtype_to_torch(dtype)
+        if compute and dt.is_floating_point and harness.compute_dtype:
+            dt = harness.compute_dtype
+        return float(np.prod(shape)) * dt.itemsize
+
+    moved = sum(nbytes(pt.shape.logical_shape, pt.dtype)
+                for pt in node.inputs + node.outputs)
+    moved += sum(nbytes(ws.shape, ws.dtype, ws.trainable)
+                 for ws in node.weight_specs)
+    flops = node.op_def.flops(
+        node.params, [pt.shape.logical_shape for pt in node.inputs],
+        [pt.shape.logical_shape for pt in node.outputs])
+    return bound(moved, flops, "bfloat16")
+
+
+def search_phase(train: dict, k5_ms: float) -> dict:
+    """Phase 17 (see the module note): calibration on the card, then the
+    joint search over the H100 model of four meshes."""
+    import search_torch
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.search.cost_model import _params_key
+
+    t0 = time.perf_counter()
+    ff = search_torch.build("cuda", lm_config().num_layers)
+    reset_counters()
+    cm, calib_s = search_torch.calibrate(ff, SEARCH_TOP_K)
+    launches = {k: counters()[k].launches for k in MESH_KERNELS}
+    variants = {k: dict(counters()[k].variants) for k in CALIB_KERNELS}
+    stats = dict(cm.calib_stats)
+    require(stats["measured"] == SEARCH_TOP_K,
+            f"phase 17: measured {stats}, want {SEARCH_TOP_K} ops")
+    for k in CALIB_KERNELS:
+        require(variants[k].get("sm90", 0) > 0 and launches[k] > 0,
+                f"phase 17: calibration launched {k} {launches[k]} times, "
+                f"variants {variants[k]}")
+    nodes: dict = {}
+    for n in ff.graph.topo_order():
+        nodes.setdefault(_params_key(n), n)
+    ops = []
+    for key, (fwd, bwd) in cm._calibration.items():
+        node = nodes[key]
+        b_ms, by = op_bound_ms(node, cm.harness)
+        ops.append({"op": key[0].name, "node": node.name,
+                    "in_shapes": [list(x) for x in key[2]],
+                    "fwd_ms": fwd * 1e3, "bwd_ms": bwd * 1e3,
+                    "fwd_bound_ms": b_ms, "bound_by": by})
+        require(fwd * 1e3 >= b_ms,
+                f"phase 17: {node.name}'s measured forward {fwd * 1e3:.5f} "
+                f"ms is under its bound {b_ms:.5f} ms")
+    mha = [o for o in ops if o["op"] == "OP_MULTIHEAD_ATTENTION"]
+    require(len(mha) == 1, f"phase 17: no attention node measured: {ops}")
+    require(mha[0]["fwd_ms"] >= k5_ms,
+            f"phase 17: the attention node's forward {mha[0]['fwd_ms']:.4f}"
+            f" ms is under phase 8's K5 alone ({k5_ms:.4f} ms)")
+    rows = search_torch.predict(ff, search_torch.BUDGET, cm._calibration)
+    for r in rows:
+        require(r["configs"] and r["predicted_ms"] > 0,
+                f"phase 17: the search on {r['mesh']} returned no plan")
+    del ff
+    gc.collect()
+    one = rows[0]["predicted_ms"]
+    return {"calibration": ops, "calibrate_s": calib_s, "stats": stats,
+            "launches": launches, "variants": variants, "meshes": rows,
+            "budget": search_torch.BUDGET,
+            "one_device_predicted_ms": one,
+            "phase6_median_step_ms": train["median_step_ms"],
+            "predicted_vs_phase6": one / train["median_step_ms"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def log_search(sr: dict):
+    for o in sr["calibration"]:
+        log(f"  measured {o['node']} ({o['op']}, in {o['in_shapes']}): "
+            f"forward {o['fwd_ms']:.4f} ms (bound {o['fwd_bound_ms']:.4f} "
+            f"by {o['bound_by']}), backward {o['bwd_ms']:.4f} ms")
+    log(f"  calibration {sr['calibrate_s']:.1f} s, {sr['stats']}; launches "
+        f"{sr['launches']}, variants {sr['variants']}")
+    for r in sr["meshes"]:
+        dec = r.get("update_sharding")
+        note = (f"; unforced update: stage {dec['stage']} "
+                f"({dec['reason']}, priced overlapped, runs serial)"
+                if dec else "")
+        log(f"  {r['mesh']}: predicted step {r['predicted_ms']:.3f} ms "
+            f"(dp plan {r['dp_plan_ms']:.3f}), plan {r['configs']}, "
+            f"search {r['search_s']:.1f} s, {r['evals']} evaluations, "
+            f"{r['cache_hits']} cache hits{note}")
+    log(f"  one device: predicted {sr['one_device_predicted_ms']:.3f} ms "
+        f"vs phase 6's measured {sr['phase6_median_step_ms']:.3f} ms "
+        f"({sr['predicted_vs_phase6']:.3f}x)")
+
+
 def log_mesh_runs(out: dict):
     rank = out["rank"]
     for r in out["runs"]:
@@ -2762,7 +2927,8 @@ def log_mesh_runs(out: dict):
             f"{r['max_memory_allocated']} B, losses "
             f"{[round(v, 7) for v in r['losses']]}, flash heads "
             f"{r['flash_heads']}, variants {r['flash_variants']}, update "
-            f"{r['update_sharding']}")
+            f"{r['update_sharding']}, plan ({r['plan_source']}) "
+            f"{r['plan']}")
     for key, c in out["checks"].items():
         log(f"  rank {rank} {key}: {c}")
 
@@ -2797,7 +2963,7 @@ def mesh_main(json_path: str) -> int:
     dist.barrier()
     out = mesh_check(f"cuda:{torch.cuda.current_device()}",
                      lm_config(layers=MESH_LAYERS), MESH_STEPS,
-                     captured=True)
+                     captured=True, search=True)
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -3037,6 +3203,12 @@ def main(argv: list[str]) -> int:
     gloo = gloo_phase()
     log_gloo(gloo)
 
+    log("== phase 17: the Unity search on lm-base at full width (12 "
+        "layers, 8 x 512, bf16): calibration on the card, then the joint "
+        "search over the H100 model of four meshes")
+    search = search_phase(train, nums["flash_attention_fwd"]["ms"])
+    log_search(search)
+
     # the run whose launches each row (and each case of a row) reports
     counted = {"train": train, "paged": runs["paged"],
                "contiguous": runs["contiguous"],
@@ -3097,7 +3269,7 @@ def main(argv: list[str]) -> int:
                   per_head_gradients=grads_ph,
                   lse_entry_max_abs_err=errs["flash_attention_with_lse"],
                   resnet50=rn, resnet50_eager=rn_e, telemetry=tel,
-                  nccl_world1=nccl, gloo_two_ranks=gloo,
+                  nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -3148,6 +3320,13 @@ def main(argv: list[str]) -> int:
                             "name", "dtype", "median_step_ms",
                             "device_busy_share", "max_memory_allocated")}
                             for r in gloo["ranks"][0]["runs"]]},
+                    "search": {
+                        "calibration": search["calibration"],
+                        "meshes": {r["mesh"]: {k: r[k] for k in (
+                            "predicted_ms", "dp_plan_ms", "configs",
+                            "search_s")} for r in search["meshes"]},
+                        "predicted_vs_phase6": search[
+                            "predicted_vs_phase6"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -20,7 +20,7 @@ model raises.
 
 from . import ops  # registers every OpDef
 from . import parallel  # registers the parallel ops' OpDefs
-from .config import FFConfig
+from .config import FFConfig, FFIterationConfig
 from .convert import load_params
 from .fftype import (
     ActiMode,
@@ -30,6 +30,7 @@ from .fftype import (
     LossType,
     MetricsType,
     OperatorType,
+    ParameterSyncType,
     PoolType,
     RegularizerMode,
 )
@@ -39,13 +40,15 @@ from .initializer import (
     Initializer,
     NormInitializer,
     UniformInitializer,
+    ZeroInitializer,
 )
-from .machine import MachineResource, MachineView, Mesh, MeshShape
-from .metrics import PerfMetrics
+from .machine import MachineResource, MachineView, Mesh, MeshShape, build_mesh
+from .metrics import Metrics, PerfMetrics
 from .model import FFModel
 from .optimizer import AdamOptimizer, Optimizer, SGDOptimizer
+from .parallel import Strategy
 from . import serving
 from . import telemetry  # tracer + run metrics + leveled logging
-from .tensor import Tensor
+from .tensor import ParallelDim, ParallelTensor, ParallelTensorShape, Tensor
 
 __version__ = "0.1.0"

@@ -1,24 +1,18 @@
-"""FFConfig: runtime configuration + CLI flag parsing (the port's slices).
+"""FFConfig: runtime configuration + CLI flag parsing (twin of
+`flexflow_tpu/config.py`).
 
-The twin of `flexflow_tpu/config.py`, cut to the flags the port's
-slices read: `-e/--epochs`, `-b`, `--lr` (also spelled
-`--learning-rate`), `--dtype`, `--seed`, `--flash-transposed`, the
-`--serve-*` flags, the tensor-op math policy, telemetry's
-`--telemetry-dir`, `--metrics-interval` and `--metrics-port`, and the
-mesh's: `--mesh data,model,pipe,seq` (or dcn first), `--nodes`,
-`--only-data-parallel`, `--weight-update-sharding[=stage2|stage3|off|on]`,
-`--no-weight-update-sharding`, `--import-strategy` and
-`--export-strategy`. The Unity search's flags
-(`--budget`, `--enable-parameter-parallel`, ...) are parsed as JAX parses
-them; compile raises, naming ROADMAP A7, where the JAX package would
-search (more than one device, no strategy given). Unknown flags are
-ignored, as the reference's tolerant argv scan does (among them
-`--no-overlap-collectives`: the port's rings have one schedule, each hop
-posted before the work on the block at hand), except the flags of
-paths the port does not have yet (`_NOT_PORTED`): asking for one raises,
-naming its ROADMAP item. New here: `device`, the torch device every
-tensor of a model lives on. It defaults to "cuda"; a run without a CUDA
-device must ask for "cpu" explicitly (see `resolve_device`).
+Every flag the JAX package's parser reads is either given its path here
+or refused: asking for a flag of a path the port does not have yet
+(`_NOT_PORTED`) raises, naming its ROADMAP item. The flags the JAX
+package parses but never reads are accepted and do nothing (`_INERT`),
+and so is `--no-overlap-collectives`: the port's rings have one
+schedule, each hop posted before the work on the block at hand, and the
+Unity search prices the weight-update pair overlapped, as the JAX
+package does by default (its runtime does not overlap it yet, ROADMAP
+G1). Other unknown flags are ignored, as the reference's tolerant argv
+scan does. New here: `device`, the torch device every tensor of a model
+lives on. It defaults to "cuda"; a run without a CUDA device must ask
+for "cpu" explicitly (see `resolve_device`).
 """
 
 from __future__ import annotations
@@ -48,6 +42,35 @@ _NOT_PORTED = {
     "--diagnostics": (False, "A10 (diagnostics/)"),
     "--elastic": (False, "A10 (elastic/)"),
     "--sanitize-numerics": (False, "A10 (sanitize.py)"),
+    "--warmstart-dir": (True, "A10 (warmstart/)"),
+    "--checkpoint-keep": (True, "A10 (resilience/ checkpoints)"),
+    "--health-abort-on": (True, "A10 (resilience/ health checks)"),
+    "--health-sample-every": (True, "A10 (resilience/ health checks)"),
+    "--drift-threshold": (True, "A10 (recompile.py drift recalibration)"),
+    "--watchdog-abort": (False, "A10 (scope/ hang watchdog)"),
+    "--watchdog-multiplier": (True, "A10 (scope/ hang watchdog)"),
+    "--flight-events": (True, "A10 (scope/ flight recorder)"),
+    "--replan-cooldown-steps": (True, "A10 (elastic/)"),
+    "--replan-horizon-steps": (True, "A10 (elastic/)"),
+    "--elastic-dry-run": (False, "A10 (elastic/)"),
+    "--no-verify-plan": (False, "A9 (analysis/ ffcheck)"),
+    "--no-verify-rules": (False, "A9 (analysis/ ffrules)"),
+    "--spmd-barrier": (False, "A9 (analysis/ ffsan)"),
+    "--serve-disaggregate": (False, "A11 (serving/disagg.py)"),
+    "--serve-prefill-chips": (True, "A11 (serving/disagg.py)"),
+    "--serve-draft-chips": (True, "A11 (serving/speculative.py)"),
+    "--serve-spec-k": (True, "A11 (serving/speculative.py)"),
+}
+
+# Flags the JAX package parses and never reads: accepted, no effect
+# (flag -> takes a value).
+_INERT = {
+    "--wd": True, "--printFreq": True, "-ll:cpu": True, "--dataset": True,
+    "--synthetic-input": False, "--fusion": False, "--taskgraph": True,
+    "--enable-propagation": False, "--segment-size": True,
+    "--max-num-segments": True, "--machine-model-version": True,
+    "--enable-inplace-optimizations": False,
+    "--simulator-workspace-size": True, "--no-overlap-collectives": False,
 }
 
 
@@ -107,24 +130,38 @@ class FFConfig:
     num_nodes: int = 1
     workers_per_node: int = 0
     # weight-update sharding (ZeRO stage 2 / 3): None = decided by the
-    # search (ROADMAP A7: raises with more than one data shard); the
+    # Unity search's pricing (search/unity.choose_update_sharding); the
     # flags force it (weight_update_stage None with sharding True: the
-    # stage the search prices, also A7)
+    # stage priced)
     weight_update_sharding: Optional[bool] = None
     weight_update_stage: Optional[int] = None
     only_data_parallel: bool = False
     import_strategy_file: str = ""
     export_strategy_file: str = ""
-    # the Unity search's knobs (ROADMAP A7): parsed, and compile raises
-    # where the JAX package would search
+    # --compgraph: the compiled PCG's DOT export, written at compile
+    export_strategy_computation_graph_file: str = ""
+    # the Unity search (search/): compile searches on a mesh of more than
+    # one device when a budget or a parallelism/substitution flag is set
     search_budget: int = 0
+    search_alpha: float = 1.2
+    search_overlap_backward_update: bool = False
+    search_num_nodes: Optional[int] = None
+    search_num_workers: Optional[int] = None
+    base_optimize_threshold: int = 10
+    perform_memory_search: bool = False
+    enable_sample_parallel: bool = False
     enable_parameter_parallel: bool = False
     enable_attribute_parallel: bool = False
     enable_substitutions: bool = False
     substitution_json_path: Optional[str] = None
+    # on-device calibration: measure the top-K distinct ops before
+    # searching; 0 = off
     search_calibrate: int = 0
     search_mesh_shapes: bool = False
     machine_model_file: str = ""
+    # -ll:fsize: bytes of device memory a device, the cap the search and
+    # the update-sharding decision price against (0: the chip's)
+    device_mem: float = 0.0
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
@@ -159,17 +196,6 @@ class FFConfig:
         sizes = [self.num_devices] + [1] * (len(self.mesh_axis_names) - 1)
         return MeshShape(tuple(sizes), self.mesh_axis_names)
 
-    def search_flags(self) -> list[str]:
-        """The Unity-search flags this config sets (JAX `do_search`'s
-        triggers)."""
-        return [flag for flag, on in (
-            ("--budget", self.search_budget > 0),
-            ("--enable-parameter-parallel", self.enable_parameter_parallel),
-            ("--enable-attribute-parallel", self.enable_attribute_parallel),
-            ("--enable-substitutions", self.enable_substitutions),
-            ("--substitution-json", bool(self.substitution_json_path)),
-        ) if on]
-
     def parse_args(self, argv: list[str]):
         i = 0
         while i < len(argv):
@@ -184,6 +210,9 @@ class FFConfig:
                 takes_value, item = _NOT_PORTED[a]
                 if not takes_value or _asks(val()):
                     raise not_ported(f"flag {a}", item)
+            elif a in _INERT:
+                if _INERT[a]:
+                    val()
             elif a in ("-e", "--epochs"):
                 self.epochs = int(val())
             elif a in ("-b", "--batch-size"):
@@ -206,7 +235,7 @@ class FFConfig:
                 self.mesh_axis_sizes = tuple(int(x) for x in val().split(","))
             elif a == "--nodes":
                 self.num_nodes = int(val())
-            elif a in ("-ll:gpu", "--workers-per-node"):
+            elif a in ("-ll:gpu", "-ll:tpu", "--workers-per-node"):
                 self.workers_per_node = int(val())
             elif a == "--only-data-parallel":
                 self.only_data_parallel = True
@@ -238,6 +267,24 @@ class FFConfig:
                 self.export_strategy_file = val()
             elif a in ("--budget", "--search-budget"):
                 self.search_budget = int(val())
+            elif a in ("--alpha", "--search-alpha"):
+                self.search_alpha = float(val())
+            elif a == "--search-overlap-backward-update":
+                self.search_overlap_backward_update = True
+            elif a == "--search-num-nodes":
+                self.search_num_nodes = int(val())
+            elif a == "--search-num-workers":
+                self.search_num_workers = int(val())
+            elif a == "--base-optimize-threshold":
+                self.base_optimize_threshold = int(val())
+            elif a == "--memory-search":
+                self.perform_memory_search = True
+            elif a == "--enable-sample-parallel":
+                self.enable_sample_parallel = True
+            elif a == "-ll:fsize":
+                self.device_mem = float(val()) * 1024 * 1024
+            elif a == "--compgraph":
+                self.export_strategy_computation_graph_file = val()
             elif a == "--enable-parameter-parallel":
                 self.enable_parameter_parallel = True
             elif a == "--enable-attribute-parallel":
@@ -319,3 +366,14 @@ def resolve_device(config: FFConfig) -> torch.device:
             dev = torch.device("cuda", lr)
             torch.cuda.set_device(dev)
     return dev
+
+
+class FFIterationConfig:
+    """Per-iteration config (reference config.h:162-167): seq_length
+    enables truncated-sequence batches."""
+
+    def __init__(self):
+        self.seq_length = -1
+
+    def reset(self):
+        self.seq_length = -1

@@ -313,6 +313,18 @@ class CapturedStep:
                     and id(x) not in graph.held_ids else x, graph.out)
 
 
+def dtype_policy(config: FFConfig, device: torch.device) -> tuple:
+    """(compute_dtype, matmul_dtype) of a model: compute_dtype != None ->
+    bf16/fp16 activations over fp32 master weights; matmul_dtype -> the
+    tensor-op input cast for fp32 matmuls, on CUDA (the JAX package
+    applies it on the TPU)."""
+    compute = (dtype_to_torch(config.computation_dtype)
+               if config.computation_dtype is not None else None)
+    matmul = (torch.bfloat16 if config.allow_tensor_op_math_conversion
+              and torch.device(device).type == "cuda" else None)
+    return compute, matmul
+
+
 def _write_back(state: dict, new_state: dict) -> dict:
     """Donation of the state: the step's new state written into the
     given state's tensors where it is not already there."""
@@ -393,16 +405,7 @@ class Executor:
         self._train_step = None
         self._eval_step = None
         self._forward_fn = None
-        # mixed precision: compute_dtype != None -> bf16/fp16 activations
-        # over fp32 master weights; matmul_dtype -> the tensor-op input cast
-        # for fp32 matmuls, on CUDA (the JAX package applies it on the TPU)
-        self.compute_dtype = (
-            dtype_to_torch(config.computation_dtype)
-            if config.computation_dtype is not None else None)
-        self.matmul_dtype = (
-            torch.bfloat16
-            if config.allow_tensor_op_math_conversion and device.type == "cuda"
-            else None)
+        self.compute_dtype, self.matmul_dtype = dtype_policy(config, device)
         # the serving weight cache: (node, weight) -> (master, its
         # _version when seen, its compute-dtype copy or, without a compute
         # dtype, the master); `weight_refreshes` counts the entries made

@@ -177,6 +177,20 @@ class OperatorType(enum.IntEnum):
     OP_FUSED_PARALLEL = 88
 
 
+class UnportedOperatorType(enum.IntEnum):
+    """Operator types of the JAX package that the port has no op for yet,
+    with the JAX package's values. The Unity search names them (the MoE
+    fusion rewrite, the pipeline blocks' configs, the non-compute kinds),
+    but no graph of the port holds one."""
+
+    OP_WEIGHT = 2
+    OP_NOOP = 3
+    OP_GROUP_BY = 25  # ROADMAP A12 (ops/moe.py)
+    OP_AGGREGATE = 27  # A12
+    OP_EXPERTS = 29  # A12
+    OP_PIPE_BLOCKS = 30  # A8 (ops/pipeline_blocks.py)
+
+
 # the parallel ops: PCG nodes that change a tensor's placement, not its
 # values (runtime identity; the executor moves the data)
 PARALLEL_OP_TYPES = frozenset(

@@ -43,6 +43,12 @@ class GlorotUniformInitializer(Initializer):
 
 
 @dataclass
+class ZeroInitializer(Initializer):
+    def __call__(self, gen, shape, dtype, device):
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+@dataclass
 class ConstantInitializer(Initializer):
     value: float = 0.0
 

@@ -10,10 +10,12 @@ layer list to a graph, builds the mesh (`--mesh`, over the
 torch.distributed world) and places every tensor: data parallel by
 default (batch over `data`, weights replicated), under a strategy where
 one is given (`set_strategy`, `--import-strategy`); the weight update
-runs replicated or sharded (ZeRO stage 2/3) as the flags force it. The
-Unity search (ROADMAP A7) is not ported: where the JAX package would
-search, compile raises. Every rank is given the same global arrays, as
-JAX's single-controller `fit` is, and keeps its own rows. `fit` is the JAX package's
+runs replicated or sharded (ZeRO stage 2/3), as the Unity search prices
+it or the flags force it. Where the JAX package searches (a budget or a
+parallelism flag on a mesh of more than one device), rank 0 runs the
+Unity search (search/) and every rank applies its plan. Every rank is
+given the same global arrays, as JAX's single-controller `fit` is, and
+keeps its own rows. `fit` is the JAX package's
 loop (1660) over the executor's train step (a CUDA graph replayed per
 batch on the card, as JAX replays one jitted executable) with its
 telemetry hooks (`--telemetry-dir`, `enable_telemetry`: spans, step
@@ -33,7 +35,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .config import FFConfig, not_ported, resolve_device
+from .config import FFConfig, FFIterationConfig, not_ported, resolve_device
 from .executor import Executor
 from .fftype import (
     ActiMode,
@@ -146,6 +148,9 @@ class FFModel:
         self._strategy = None
         self._plan_source = "none"
         self._update_sharding = None
+        # (UnitySearch, choice) of the search this rank ran, else None
+        self._search_result = None
+        self.iter_config = FFIterationConfig()
 
     # ================================================== tensor creation
 
@@ -697,41 +702,62 @@ class FFModel:
                 tensor_to_out[t_out.tensor_guid] = (node, i)
         self.graph = g
 
-        # --- mesh + strategy (JAX model.py 825-880, without the search)
-        shape = self.config.mesh_shape()
-        search = self.config.search_flags()
-        if (self._strategy is None and not self.config.import_strategy_file
-                and not self.config.only_data_parallel
-                and shape.num_devices > 1 and search):
-            raise not_ported(
-                f"the Unity search ({', '.join(search)} on a mesh of "
-                f"{shape.num_devices} devices; pass a strategy or "
-                f"--only-data-parallel)", "A7 (Unity search)")
-        self.mesh = self._build_mesh(shape)
+        # --- mesh + strategy (JAX model.py 825-1230)
+        cfg = self.config
+        self.mesh = self._build_mesh(cfg.mesh_shape())
         if self._strategy is not None:
             self._plan_source = "manual"
-        elif self.config.import_strategy_file:
-            imported = Strategy.load(self.config.import_strategy_file)
+        elif cfg.import_strategy_file:
+            imported = Strategy.load(cfg.import_strategy_file)
             try:
                 imported.validate(g, self.mesh)
             except ValueError as e:
                 raise ValueError(
                     f"--import-strategy "
-                    f"{self.config.import_strategy_file}: {e}") from e
+                    f"{cfg.import_strategy_file}: {e}") from e
             self._strategy = imported.overrides
             self._plan_source = "import"
-        if self._plan_source == "none":
+        do_search = (
+            self._strategy is None
+            and not cfg.only_data_parallel
+            and self.mesh.size > 1
+            and (cfg.search_budget > 0
+                 or cfg.enable_parameter_parallel
+                 or cfg.enable_attribute_parallel
+                 or cfg.enable_substitutions
+                 or bool(cfg.substitution_json_path)))
+        logits_node = tensor_to_out[self.layers[-1].outputs[0].tensor_guid][0]
+        search_cost_model = None
+        if do_search:
+            logits_node._is_logits = True  # rewrites carry the marker
+            search_cost_model = self._search(g)
+        elif self._plan_source == "none":
             self._plan_source = "default"
         self._assign_strategy()
-        if self.config.export_strategy_file:
+        if cfg.export_strategy_file:
             from .distributed import is_coordinator
 
             if is_coordinator():
-                Strategy(self._strategy or {}).save(
-                    self.config.export_strategy_file)
-        logits_node = tensor_to_out[self.layers[-1].outputs[0].tensor_guid][0]
-        self._update_sharding = choose_update_sharding(g, self.mesh,
-                                                       self.config)
+                Strategy(self._strategy or {}).save(cfg.export_strategy_file)
+        if cfg.export_strategy_computation_graph_file:
+            from .distributed import is_coordinator
+            from .pcg.graph import export_dot
+
+            if is_coordinator():
+                export_dot(g, cfg.export_strategy_computation_graph_file)
+
+        # --- weight-update sharding: the update-dimension half of the
+        # search, decided on the placed graph with the search's cost model
+        # (calibrated on rank 0) and adopted from rank 0 on every rank of
+        # the mesh, so every rank places the same update layout
+        self._update_sharding = choose_update_sharding(
+            g, self.mesh, cfg, cost_model=search_cost_model,
+            opt_slots=self.optimizer.num_slots)
+        if self.mesh.size > 1:
+            from .distributed import broadcast_json, is_coordinator
+
+            self._update_sharding = broadcast_json(
+                self._update_sharding if is_coordinator() else None)
         self.executor = Executor(g, self.config, self.device, logits_node,
                                  self.loss_type, self.metrics, self.optimizer,
                                  mesh=self.mesh,
@@ -746,6 +772,109 @@ class FFModel:
         self._counters = self.metrics.zero_counters(self.device)
         self._goodput_anchor = self._goodput()
         self._compiled = True
+
+    def _search(self, g: Graph):
+        """The Unity search where the JAX package's `do_search` holds (JAX
+        model.py:872-1100): a budget or a parallelism/substitution flag on
+        a mesh of more than one device. The port's devices are ranks, so it
+        takes the JAX package's multi-process branch: rank 0 calibrates (on
+        its card: `--calibrate K`) and searches, jointly over rewrites and
+        placements (`joint_graph_optimize`), or also over the mesh's
+        factorizations (`--search-mesh-shapes`); the plan is broadcast and
+        every rank applies it to the graph as built, in its logical-rank
+        form (`UnitySearch.to_strategy`). The warm-start plan cache the
+        JAX package consults first (`restore_plan`/`store_plan`) is ROADMAP
+        A10 and left out. Returns the cost model (rank 0's calibrated),
+        which the update-sharding decision prices with."""
+        from . import telemetry
+        from .distributed import (
+            broadcast_json,
+            is_coordinator,
+            run_search_on_host0,
+        )
+        from .machine import AXIS_DATA, AXIS_MODEL, AXIS_SEQ, MeshShape
+        from .search.cost_model import CostModel, OpHarness
+        from .search.joint import joint_graph_optimize
+        from .search.machine_model import (
+            machine_model_for_mesh,
+            machine_model_from_file,
+        )
+        from .search.mesh_search import search_mesh_shapes
+
+        cfg = self.config
+        machine = (machine_model_from_file(cfg.machine_model_file, self.mesh)
+                   if cfg.machine_model_file
+                   else machine_model_for_mesh(self.mesh,
+                                               num_hosts=cfg.num_nodes))
+        cost_model = CostModel(machine, opt_slots=self.optimizer.num_slots)
+        cost_model.harness = OpHarness.of(cfg, self.device)
+        if (cfg.weight_update_sharding
+                and cfg.computation_mode == CompMode.COMP_MODE_TRAINING):
+            # a forced sharded update is priced by the placement search
+            # itself (the auto decision comes after it); overlapped, as
+            # the JAX package prices it by default (the port's sync is
+            # not overlapped yet: ROADMAP G1)
+            cost_model.update_sharding = True
+            cost_model.param_gather = cfg.weight_update_stage == 3
+            cost_model.overlap_update = True
+        ms = cfg.mesh_shape()
+        search_axes = (AXIS_DATA, AXIS_MODEL)
+        if cfg.search_mesh_shapes:
+            # (the JAX package also searches `pipe` for a PIPE_BLOCKS
+            # stack: ROADMAP A8)
+            fixed = {a: n for a, n in zip(ms.axis_names, ms.axis_sizes)
+                     if n > 1 and a not in search_axes}
+            if fixed:
+                raise ValueError(
+                    f"--search-mesh-shapes factorizes the device count "
+                    f"over {search_axes} on a single slice; drop the flag "
+                    f"or the extra mesh axes {sorted(fixed)}")
+        if cfg.search_calibrate > 0:
+            ring_axes = [ax for ax in (AXIS_SEQ,)
+                         if dict(self.mesh.shape).get(ax, 1) > 1]
+            if ring_axes:
+                # collective: every rank takes part in timing the hop
+                hops = cost_model.calibrate_collectives(self.mesh, ring_axes)
+                telemetry.event("calibrate_collectives", axes=ring_axes,
+                                measured=hops)
+        found: dict = {}
+
+        def search():
+            if cfg.search_calibrate > 0:
+                # the dominant ops measured on this rank's device, so the
+                # search prices from measurements, not the mfu guess
+                with telemetry.span("compile.calibrate"):
+                    cost_model.calibrate_graph(g, top_k=cfg.search_calibrate)
+                    telemetry.event("calibrate", top_k=cfg.search_calibrate,
+                                    **cost_model.calib_stats)
+            if cfg.search_mesh_shapes:
+                factory = None
+                if cfg.machine_model_file:
+                    def factory(mesh):
+                        return machine_model_from_file(
+                            cfg.machine_model_file, mesh)
+                shape, _, choice, us, _ = search_mesh_shapes(
+                    g, self.mesh.size, cfg, axes=search_axes,
+                    chip=machine.chip, num_hosts=cfg.num_nodes,
+                    calibrated=cost_model, machine_factory=factory)
+                found["mesh"] = shape
+            else:
+                _, choice, us = joint_graph_optimize(g, self.mesh, cfg,
+                                                     cost_model)
+            self._search_result = (us, choice)
+            return us.to_strategy(choice)
+
+        mode = "mesh_shapes" if cfg.search_mesh_shapes else "joint"
+        with telemetry.span("compile.search", mode=mode):
+            self._strategy = run_search_on_host0(search)
+        if cfg.search_mesh_shapes:
+            shape = broadcast_json(found if is_coordinator() else None)["mesh"]
+            sizes = {a: 1 for a in ms.axis_names}
+            sizes.update(shape)
+            self.mesh = self._build_mesh(MeshShape(
+                tuple(sizes[a] for a in ms.axis_names), ms.axis_names))
+        self._plan_source = "search" if is_coordinator() else "broadcast"
+        return cost_model
 
     def _build_mesh(self, shape):
         """The mesh of `shape` over the torch.distributed world (JAX

@@ -22,7 +22,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..fftype import ActiMode, AggrMode, DataType, OperatorType as OT, PoolType
+from ..fftype import (
+    ActiMode,
+    AggrMode,
+    DataType,
+    OperatorType as OT,
+    PoolType,
+    RegularizerMode,
+)
 from .base import OpDef, WeightSpec, matmul_cast, register_op, weak_scalar
 
 
@@ -60,6 +67,11 @@ class LinearParams:
     use_bias: bool = True
     activation: ActiMode = ActiMode.AC_MODE_NONE
     data_type: DataType = DataType.DT_FLOAT
+    # the JAX package's fields, at their defaults there too (its dense
+    # drops the regularizer): they keep repr(params), the search's
+    # calibration key, the same in both packages
+    kernel_reg_type: RegularizerMode = RegularizerMode.REG_MODE_NONE
+    kernel_reg_lambda: float = 0.0
 
 
 def _linear_infer(p: LinearParams, in_shapes):

@@ -34,11 +34,22 @@ def _unflat(keys, values) -> dict:
 
 
 class Optimizer:
+    @property
+    def num_slots(self) -> int:
+        """Optimizer state entries per weight (the search's memory
+        model): SGD 1 with momentum (0 without), Adam 2."""
+        return 1
+
     def init(self, params):
         raise NotImplementedError
 
     def update(self, grads, params, slots, step):
         raise NotImplementedError
+
+    def next(self):
+        """Per-iteration hook (reference Optimizer::next, where Adam folds
+        its beta^t factors); nothing to do here: `step` is passed to
+        `update`."""
 
     def set_learning_rate(self, lr: float):
         if not hasattr(self, "lr"):
@@ -52,6 +63,10 @@ class SGDOptimizer(Optimizer):
     momentum: float = 0.0
     nesterov: bool = False
     weight_decay: float = 0.0
+
+    @property
+    def num_slots(self) -> int:
+        return 1 if self.momentum > 0.0 else 0
 
     def init(self, params):
         if self.momentum == 0.0:
@@ -82,6 +97,10 @@ class AdamOptimizer(Optimizer):
     beta2: float = 0.999
     weight_decay: float = 0.0
     epsilon: float = 1e-8
+
+    @property
+    def num_slots(self) -> int:
+        return 2  # m and v
 
     @property
     def lr(self) -> float:

@@ -1,8 +1,9 @@
-"""Parallel computation graph (twin of `flexflow_tpu/pcg/graph.py`, no
-`native`).
+"""Parallel computation graph (twin of `flexflow_tpu/pcg/graph.py`).
 
 Nodes, multi-edges (src, dst, src_idx, dst_idx), a deterministic
-topological order and the DOT export. Compute ops and the parallel ops
+topological order, the structural hash and bottleneck cuts the Unity
+search reads (`find_bottlenecks` through the native core, with its
+Python fallback) and the DOT export. Compute ops and the parallel ops
 (`is_parallel_op`) are both nodes. A node's `outputs` are ParallelTensors
 carrying the mesh axes each output takes (`axis_assignment`), and
 `weight_axes` the PartitionSpec of each weight the plan shards (absent:
@@ -94,6 +95,15 @@ class Graph:
         self.in_edges[dst.guid].append(e)
         self.out_edges[src.guid].append(e)
 
+    def remove_node(self, node: OpNode):
+        for e in list(self.in_edges.get(node.guid, [])):
+            self.out_edges[e.src].remove(e)
+        for e in list(self.out_edges.get(node.guid, [])):
+            self.in_edges[e.dst].remove(e)
+        self.in_edges.pop(node.guid, None)
+        self.out_edges.pop(node.guid, None)
+        self.nodes.pop(node.guid, None)
+
     def sources(self) -> list[OpNode]:
         return [n for g, n in self.nodes.items() if not self.in_edges[g]]
 
@@ -121,6 +131,60 @@ class Graph:
         if len(order) != len(self.nodes):
             raise ValueError("graph has a cycle")
         return order
+
+    def hash(self) -> int:
+        """Structural hash for the search's dedup (reference Graph::hash):
+        op types and params, wired by input position."""
+        h = 0
+        node_hash = {}
+        for n in self.topo_order():
+            nh = hash((n.op_type, repr(n.params)))
+            for e in sorted(
+                self.in_edges[n.guid], key=lambda e: (e.dst_idx, e.src_idx)
+            ):
+                nh = nh * 31 + node_hash[e.src] * 7 + e.src_idx + e.dst_idx * 131
+                nh &= 0xFFFFFFFFFFFFFFFF
+            node_hash[n.guid] = nh
+            h = (h * 17 + nh) & 0xFFFFFFFFFFFFFFFF
+        return h
+
+    def __len__(self):
+        return len(self.nodes)
+
+
+def find_bottlenecks(graph: "Graph", order=None) -> list:
+    """Nodes every source-to-sink path crosses (the sequence-split points,
+    graph.cc find_bottleneck_node): the native core's scan, or the same
+    open-edges scan in Python without it."""
+    order = order if order is not None else graph.topo_order()
+    from .. import native
+
+    if native.available():
+        idx = {n.guid: i for i, n in enumerate(order)}
+        src, dst = [], []
+        for edges in graph.out_edges.values():
+            for e in edges:
+                src.append(idx[e.src])
+                dst.append(idx[e.dst])
+        mask = native.bottlenecks(len(order), src, dst)
+        if mask is not None:
+            return [n for i, n in enumerate(order) if mask[i]]
+    out = []
+    open_edges = 0
+    for i, n in enumerate(order):
+        open_edges -= len(graph.in_edges[n.guid])
+        if open_edges == 0 and i < len(order) - 1:
+            out.append(n)
+        open_edges += len(graph.out_edges[n.guid])
+    return out
+
+
+def is_expert_buffer(node: OpNode) -> bool:
+    """Expert-capacity buffers (group_by's outputs) have no batch dim: no
+    data-parallel default shards their dim 0."""
+    from ..fftype import UnportedOperatorType
+
+    return node.op_type == UnportedOperatorType.OP_GROUP_BY
 
 
 def export_dot(graph: "Graph", path: str | None = None) -> str:

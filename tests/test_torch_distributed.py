@@ -25,8 +25,9 @@ tensor-op math off on both sides:
   (`tests/test_parallel.py:183`) and training as JAX does;
 - `entry.dryrun_multichip(4)`, eval, the granular API and the data
   loader on the mesh, `distributed`'s JSON exchanges, and the refusals:
-  a mesh larger than the world, the search flags and the unforced update
-  decision on 4 devices (ROADMAP A7); `spawn` naming a rank that died.
+  a mesh larger than the world or smaller than it (the search flags and
+  the unforced update decision on 4 devices build); `spawn` naming a rank
+  that died.
 """
 
 import sys
@@ -442,10 +443,8 @@ def test_dryrun_granular_api_and_refusals_on_four_ranks():
         assert set(o["merged"]) == set(o["local"])
         assert o["too_big"].startswith(
             "ValueError: mesh needs 8 devices but only 4 available")
-        assert o["search"].startswith("NotImplementedError") \
-            and "A7" in o["search"]
-        assert o["unforced"].startswith("NotImplementedError") \
-            and "A7" in o["unforced"]
+        # the Unity search and the priced update decision (A7) build
+        assert o["search"] == "built" and o["unforced"] == "built"
         assert o["smaller"].startswith("ValueError: mesh of 2 devices")
     from flexflow_tpu_torch.entry import dryrun_multichip
 
@@ -481,7 +480,8 @@ def mesh_smoke_job(rank):
 
     lm = TransformerLMConfig(vocab_size=512, hidden_size=256, num_heads=4,
                              num_layers=2, sequence_length=128)
-    return chip_smoke.mesh_check("cpu", lm, steps=4, captured=False)
+    return chip_smoke.mesh_check("cpu", lm, steps=4, captured=False,
+                                 search=True)
 
 
 def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
@@ -490,12 +490,24 @@ def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
     CPU rehearsal at 2 layers of width 256: dp 4, dp 2 x tp 2 and tp 4
     held to one rank in f32 and bf16 by each master's change and each
     step's loss, stages 2 and 3 bit-equal to dp 4, the flash kernels'
-    heads cut by tp."""
+    heads cut by tp; in bf16 also dp 4 with the update decision priced
+    and the Unity search's plan over the mesh's factorizations (rank 0
+    searches and broadcasts), each held to one rank."""
     outs = _spawn(mesh_smoke_job)
     for o in outs:
         assert o["failures"] == [], o["failures"]
         names = [(r["name"], r["dtype"]) for r in o["runs"]]
         assert ("dp 4 stage 3", "bf16") in names and ("tp 4", "f32") in names
+        for key in ("dp 4 priced bf16", "searched bf16"):
+            assert o["checks"][key]["within_tolerance"], o["checks"][key]
+        runs = {r["name"]: r for r in o["runs"]}
+        assert runs["searched"]["plan_source"] == (
+            "search" if o["rank"] == 0 else "broadcast")
+        first = next(r for r in outs[0]["runs"] if r["name"] == "searched")
+        assert (runs["searched"]["plan"], runs["searched"]["mesh"]) == (
+            first["plan"], first["mesh"])
+        assert runs["dp 4 priced"]["update_sharding"]["reason"] in (
+            "replicated_cheaper", "overlap_bound", "memory_bound")
         assert {r["name"]: r["flash_heads"] for r in o["runs"]}["tp 4"] \
             == [1]
         for key in ("dp 4 f32", "tp 4 f32", "dp 2 x tp 2 bf16"):

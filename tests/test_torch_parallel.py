@@ -13,9 +13,8 @@ inputs:
   on the same model, and Strategy JSON written by either package read by
   the other, with `validate`'s verdicts;
 - the flags: `--mesh` (and `--nodes`) parsed into JAX's mesh shape, the
-  search flags raising (ROADMAP A7) only with more than one device, the
-  forced update-sharding decisions equal to JAX's and the unforced one
-  raising (A7);
+  search flags harmless on one device, the forced and unforced
+  update-sharding decisions equal to JAX's;
 - a mesh of one device built with no process group, a larger one
   refused; `set_strategy` and the parallel-op builders on one device.
 """
@@ -374,19 +373,32 @@ def test_forced_update_sharding_decides_as_jax(flags):
 
 
 def test_unforced_update_sharding_and_search_flags_raise_naming_a7():
-    """With more than one data shard the unforced decision (and the bare
-    --weight-update-sharding, whose stage JAX prices) raises naming A7;
-    on one shard, or for inference, it stays replicated without pricing.
-    The search flags raise naming A7 only on more than one device."""
+    """Since the Unity search is ported (A7), nothing here raises naming
+    A7: with more than one data shard the unforced decision (and the bare
+    --weight-update-sharding, whose stage is priced) gives the JAX
+    package's record; on one shard, or for inference, it stays replicated
+    without pricing. The search flags are harmless on one device and, on
+    more, reach the mesh (which needs its 4 ranks), as in JAX."""
+    from flexflow_tpu import machine as jm
+    from flexflow_tpu.search.unity import choose_update_sharding as jchoose
+
     from flexflow_tpu_torch.fftype import CompMode
     from flexflow_tpu_torch.search.unity import choose_update_sharding
 
+    keys = ("enabled", "stage", "shards", "axes", "forced", "forced_stage",
+            "reason")
     for argv in ([], ["--weight-update-sharding"]):
+        jff = _mlp("flexflow_tpu", argv=argv)
+        jff.config.mesh_axis_sizes = (4, 1, 1, 1)
+        jff.compile()
+        want = jchoose(jff.graph, jm.build_mesh(jm.MeshShape((4, 1, 1, 1))),
+                       jff.config)
         tff = _mlp("flexflow_tpu_torch", argv=argv)
         tff.compile()
-        with pytest.raises(NotImplementedError, match="A7"):
-            choose_update_sharding(tff.graph, _port_mesh((4, 1, 1, 1)),
-                                   tff.config)
+        tff.mesh = _port_mesh((4, 1, 1, 1))
+        tff._assign_strategy()
+        got = choose_update_sharding(tff.graph, tff.mesh, tff.config)
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
         one = choose_update_sharding(tff.graph, _port_mesh((1, 1, 1, 1)),
                                      tff.config)
         assert not one["enabled"] and one["reason"] == "no_grad_sync"
@@ -399,14 +411,12 @@ def test_unforced_update_sharding_and_search_flags_raise_naming_a7():
                  ["--substitution-json", "rules.json"]):
         one = _mlp("flexflow_tpu_torch", argv=flag)
         one.compile()  # one device: harmless, as in JAX
-        assert one.mesh.size == 1
-        many = _mlp("flexflow_tpu_torch", argv=flag + ["--mesh", "4,1,1,1"])
-        with pytest.raises(NotImplementedError, match="A7"):
-            many.compile()
-        dp = _mlp("flexflow_tpu_torch",
-                  argv=flag + ["--mesh", "4,1,1,1", "--only-data-parallel"])
-        with pytest.raises(ValueError, match="mesh needs 4 devices"):
-            dp.compile()  # past the search check: no 4 ranks here
+        assert one.mesh.size == 1 and one._plan_source == "default"
+        for extra in ([], ["--only-data-parallel"]):
+            many = _mlp("flexflow_tpu_torch",
+                        argv=flag + ["--mesh", "4,1,1,1"] + extra)
+            with pytest.raises(ValueError, match="mesh needs 4 devices"):
+                many.compile()  # no 4 ranks here
     for flag in (["--calibrate", "3"], ["--search-mesh-shapes"],
                  ["--machine-model-file", "m.json"]):
         ff = _mlp("flexflow_tpu_torch", argv=flag + ["--mesh", "4,1,1,1"])

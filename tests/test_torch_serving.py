@@ -239,13 +239,15 @@ def test_load_params_rejects_unknown_names(models):
 
 
 def test_no_source_imports_jax():
-    """No module of the port, nor chip_smoke.py or bench_torch.py,
+    """No module of the port, nor chip_smoke.py, bench_torch.py or
+    search_torch.py,
     imports jax or the JAX package (a lazy import inside a
     function included)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flexflow_tpu)(\.|\s|$)", re.M)
     sources = [os.path.join(REPO, "chip_smoke.py"),
-               os.path.join(REPO, "bench_torch.py")]
+               os.path.join(REPO, "bench_torch.py"),
+               os.path.join(REPO, "search_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO, "flexflow_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -265,7 +267,10 @@ def test_import_pulls_in_no_jax():
         "flexflow_tpu_torch.parallel, flexflow_tpu_torch.parallel.spmd, "
         "flexflow_tpu_torch.distributed, "
         "flexflow_tpu_torch.entry, flexflow_tpu_torch.search.unity, "
-        "chip_smoke\n"
+        "flexflow_tpu_torch.search.joint, "
+        "flexflow_tpu_torch.search.mesh_search, "
+        "flexflow_tpu_torch.search.substitution, "
+        "flexflow_tpu_torch.native, search_torch, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.')]\n"
