@@ -153,18 +153,41 @@ Phases, each fatal on failure:
      the H100 model of one device, dp 4, dp 2 x tp 2 and tp 4: each a
      plan and a predicted step, logged with the unforced weight-update
      decision at dp 4 and the one-device prediction beside phase 6's
-     measured step (the predictions' accuracy is logged, not gated).
+     measured step (the predictions' accuracy is logged, not gated);
+ 18. the pipelined lm-base (`build_transformer_lm_pipelined`: the 12
+     blocks one PipelineBlocks op, fused qkv, tanh GELU, plain LayerNorm;
+     flash; no pipe axis, so the stages run in order), bf16, SGD, fit
+     over one batch of 8 x 512 as phase 6, captured then eager: per step
+     24 launches of K5 (each block's forward and its recompute in the
+     backward), 12 of K6 and K7 ("sm90"), 1 of K1 and K4 (the final
+     LayerNorm), no plain version, a falling loss, the masters of both
+     modes equal (as phase 6), tokens/s, MFU (the graph's FLOPs, the
+     blocks' from `_pb_flops`), busy share and peak memory; its float32
+     gradients at 2 layers, kernels vs plain versions (phase 7's bound);
+     then the ring's block algebra at lm-base-seq4096's widths (1 x 16 x
+     4096 x 64 in 4 shards of 1024): for each shard, the ring body with
+     the hop replaced by that shard's arrival sequence of K/V blocks,
+     out and the q, k, v gradients held to whole-sequence flash (K5-K7),
+     causal, in float32 (1e-4) and bf16 (2e-2), counting the blocks' K5
+     (with lse) and K6/K7 (lse cotangent in delta) launches; and K5-K7
+     at the ring's block shape (diagonal and full), each held to its
+     plain version and timed beside SDPA.
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
-6 steps, on dp N, dp N/2 x tp 2 and tp N, stages 2 and 3; then, in bf16,
+4 steps, on dp N, dp N/2 x tp 2 and tp N, stages 2 and 3; then, in bf16,
 dp N with no update flag (the update decision priced, as the JAX
 package decides it) and the search's own plan (`--budget 6
 --enable-parameter-parallel --calibrate 4 --search-mesh-shapes` on dp
 N/2 x tp 2: rank 0 calibrates on its card, searches the mesh's
 factorizations and broadcasts the mesh and plan), each held to one rank;
-rank 0 prints every rank's runs (the chosen mesh and plan among them),
-the card line and {"ok": ..., "world": N} last.
+then, in float32 and bf16, 4 steps each: lm-base-seq4096 at 12 layers
+(batch 1 x 4096) on sp N (`sequence_parallel_attention`, ring
+attention) held to one rank of the same model with flash attention, and
+the pipelined lm-base (12 layers, 8 x 512, 2 P microbatches) on pp N
+and dp 2 x pp N/2 held to its one-rank run; rank 0 prints every rank's
+runs (the chosen mesh and plan among them), the card line and {"ok":
+..., "world": N} last.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -182,6 +205,7 @@ import re
 import statistics
 import sys
 import time
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
@@ -1308,13 +1332,38 @@ def lm_config(name: str = "lm-base", layers: int | None = None):
     return c if layers is None else dataclasses.replace(c, num_layers=layers)
 
 
+class LMBuild(NamedTuple):
+    """How an LM is built and what one training step of it launches a
+    layer: `builder` names its builder in `flexflow_tpu_torch.models`;
+    `k5_per_layer` flash forwards (the pipelined blocks recompute theirs
+    in the backward), `ln_per_layer` K1 and K4 calls (the pipelined
+    blocks normalise in plain float32), past the final LayerNorm's one;
+    `graph_flops` counts its MFU by the graph's own FLOPs (the ops'
+    `flops`, as `fit`'s MFU anchor does) in place of bench.py's formula."""
+    builder: str
+    k5_per_layer: int
+    ln_per_layer: int
+    graph_flops: bool
+
+    def into(self, ff, lm):
+        """Build `lm` into the model `ff`."""
+        from flexflow_tpu_torch import models
+
+        getattr(models, self.builder)(ff, lm)
+
+
+STANDARD = LMBuild("build_transformer_lm", 1, 2, False)
+PIPELINED = LMBuild("build_transformer_lm_pipelined", 2, 0, True)
+
+
 def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
                    transposed: bool = False, batch: int = TRAIN_BATCH,
-                   flags: tuple = ()):
-    """An LM (lm-base unless `lm` is given) compiled for training as
-    bench.py compiles lm-base: SGD(lr=0.01), sparse CE from logits, plus
-    the accuracy and CE metrics; `transposed` passes --flash-transposed,
-    `flags` any other FFConfig flags (phase 14: --telemetry-dir)."""
+                   flags: tuple = (), build: LMBuild = STANDARD):
+    """An LM (lm-base unless `lm` is given; built as `build` says)
+    compiled for training as bench.py compiles lm-base: SGD(lr=0.01),
+    sparse CE from logits, plus the accuracy and CE metrics; `transposed`
+    passes --flash-transposed, `flags` any other FFConfig flags (phase
+    14: --telemetry-dir)."""
     from flexflow_tpu_torch import (
         FFConfig,
         FFModel,
@@ -1322,7 +1371,6 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
         MetricsType,
         SGDOptimizer,
     )
-    from flexflow_tpu_torch.models import build_transformer_lm
 
     cfg = FFConfig()
     cfg.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
@@ -1331,7 +1379,7 @@ def build_train_lm(dtype: str, tensor_op_math: bool = True, lm=None,
                    + list(flags))
     cfg.allow_tensor_op_math_conversion = tensor_op_math
     ff = FFModel(cfg)
-    build_transformer_lm(ff, lm or lm_config())
+    build.into(ff, lm or lm_config())
     ff.compile(optimizer=SGDOptimizer(lr=0.01),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY,
@@ -1352,22 +1400,26 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_fused")
 
 
-def step_launches(layers: int, fused: bool) -> dict:
+def step_launches(layers: int, fused: bool,
+                  build: LMBuild = STANDARD) -> dict:
     """Kernel launches of one training step of an LM with `layers`
-    layers: K5 per layer, K8 (`fused`) or K6 and K7 per layer, and K1 and
-    K4 for the two LayerNorms of each layer and the final one."""
-    return {"flash_attention_fwd": layers,
+    layers: `build`'s K5 per layer, K8 (`fused`) or K6 and K7 per layer,
+    and K1 and K4 as many times a layer as `build` says and once for the
+    final LayerNorm."""
+    ln = build.ln_per_layer * layers + 1
+    return {"flash_attention_fwd": build.k5_per_layer * layers,
             "flash_attention_bwd_dq": 0 if fused else layers,
             "flash_attention_bwd_dkv": 0 if fused else layers,
             "flash_attention_bwd_fused": layers if fused else 0,
-            "layer_norm_fwd": 2 * layers + 1,
-            "layer_norm_bwd": 2 * layers + 1}
+            "layer_norm_fwd": ln,
+            "layer_norm_bwd": ln}
 
 
 def train_phase(lm=None, *, transposed=False, fused=False,
                 batch=TRAIN_BATCH, warmup=WARMUP_STEPS,
                 timed_steps=TIMED_STEPS, mode="captured",
-                keep_masters=False, flags: tuple = ()) -> dict:
+                keep_masters=False, flags: tuple = (),
+                build: LMBuild = STANDARD) -> dict:
     """An LM (lm-base unless `lm` is given), bf16, through `fit` over one
     repeated batch: `warmup` then `timed_steps` steps, the train step
     captured (the first call warms up, the second captures, the rest
@@ -1377,9 +1429,13 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     synchronised on both sides) through a wrapper on the executor's
     train step, which fit calls, and must launch `step_launches(layers,
     fused)`, the flash kernels on the layout the flags ask for. Then one
-    more step, profiled. `keep_masters` returns a copy of the masters
-    after the run (`masters`); `flags` go to FFConfig (phase 15: the
-    mesh)."""
+    more step, profiled, whose kernels the profiler must see as the
+    counters count them (one more where its record is one launch
+    short). `keep_masters` returns a copy of the masters
+    after fit's steps (`masters`); `flags` go to FFConfig (phase 15: the
+    mesh); `build` how the LM is built (phase 18: PIPELINED, whose MFU
+    counts the graph's own FLOPs: the PipelineBlocks op's `_pb_flops`,
+    full s^2 attention, the head, x3)."""
     import contextlib
 
     import torch
@@ -1398,7 +1454,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     # what the caller still holds (another run's masters) is not this run's
     held = torch.cuda.memory_allocated()
     ff = build_train_lm("bf16", lm=cfg, transposed=transposed, batch=batch,
-                        flags=flags)
+                        flags=flags, build=build)
     x, y = train_batch(cfg.vocab_size, batch, seq)
     steps = warmup + timed_steps
     xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
@@ -1450,7 +1506,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     require(len(losses) == steps, f"fit ran {len(losses)} steps")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = step_launches(layers, fused)
+    want = step_launches(layers, fused, build)
     want_layout = {k: ({layout: n} if n else {}) for k, n in want.items()
                    if k in FLASH_KERNELS}
     # every flash kernel on the wgmma/TMA variant
@@ -1470,21 +1526,49 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     timed = step_ms[warmup:]
     tokens = batch * seq
     tok_s = timed_steps * tokens / (sum(timed) / 1e3)
-    flops_tok = transformer_lm_flops_per_token(cfg)
+    flops_tok = (ff._goodput_anchor["flops_per_step"] / tokens
+                 if build.graph_flops
+                 else transformer_lm_flops_per_token(cfg))
     staged = ff._make_batch(x, y)
-    with eager() if mode == "eager" else contextlib.nullcontext():
-        prof, _ = profiled(lambda: step_fn(
-            ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
-            staged, ff._rng))
-    torch.cuda.synchronize()
-    require_seen(prof, per_step[-1], f"{mode} {layout} train step")
+    masters = ({n: {k: t.detach().clone() for k, t in ws.items()}
+                for n, ws in ff._params.items()} if keep_masters else None)
     metrics = ff.get_perf_metrics()
+    # the profiler's record has come up one launch short of the counters
+    # on an H100: 23 of 24 K5 in a replay of the pipelined LM's step, and
+    # 8 of 9 K1 in an eager lm-xxl step, whose wrapper counts a launch
+    # only once it has returned success: a record lost, not a launch. So
+    # each profiled step is held to the counters' count over that same
+    # step; a record one launch short is profiled once more (both kept in
+    # `profiled_attempts`) and the second must agree; a record over the
+    # count, or short by more, fails
+    attempts = []
+    for attempt in range(2):
+        before = {k: c[k].launches for k in DEVICE_KERNELS}
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            prof, _ = profiled(lambda: step_fn(
+                ff._params, ff._state, ff._opt_slots, ff._step,
+                ff._counters, staged, ff._rng))
+        torch.cuda.synchronize()
+        counted = {k: c[k].launches - before[k] for k in DEVICE_KERNELS}
+        seen = prof["kernel_launches"]
+        attempts.append({"seen": seen, "counted": counted})
+        require({k: counted[k] for k in want} == want,
+                f"{mode} {layout}: the profiled step launched {counted}, "
+                f"want {want}")
+        lost = sum(counted[k] - seen[k] for k in DEVICE_KERNELS)
+        if attempt or lost != 1 or any(seen[k] > counted[k]
+                                        for k in DEVICE_KERNELS):
+            break  # agreed, or no lost record explains it: checked below
+        log(f"  {mode} {layout}: profiled step {attempt}: the profiler saw "
+            f"{seen}, the counters count {counted}")
+    require_seen(prof, counted, f"{mode} {layout} train step")
     out = {
         "mode": mode,
         "model": (f"{cfg.hidden_size} hidden, {cfg.num_heads} heads of "
                   f"{cfg.hidden_size // cfg.num_heads}, {layers} layers, seq "
                   f"{seq}, vocab {cfg.vocab_size}"),
         "layout": layout,
+        "builder": build.builder,
         "batch": batch,
         "steps": steps,
         "timed_steps": timed_steps,
@@ -1508,14 +1592,14 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         "launches_by_variant_per_step": per_variant[-1],
         "launches_per_step": per_step[-1],
         "profiled_step": prof,
+        "profiled_attempts": attempts,
         "train_accuracy": metrics.get_accuracy(),
         "train_mean_loss": metrics.get_mean_loss(),
         "mesh_axes": dict(ff.mesh.shape),
         "update_sharding": dict(ff._update_sharding),
     }
     if keep_masters:
-        out["masters"] = {n: {k: t.detach().clone() for k, t in ws.items()}
-                          for n, ws in ff._params.items()}
+        out["masters"] = masters
     del ff, staged, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -1576,7 +1660,8 @@ def log_modes(name: str, cap: dict, eag: dict, median_key: str):
 
 
 def grad_phase(lm=None, *, transposed=False, fused=False,
-               batch=TRAIN_BATCH, dtype="fp32") -> dict:
+               batch=TRAIN_BATCH, dtype="fp32",
+               build: LMBuild = STANDARD) -> dict:
     """The same weights in float32 (no tensor-op rounding; or `dtype`
     "bf16", the training path's bf16 activations): one train step's
     gradients of an LM (lm-base unless `lm` is given) with the kernels vs
@@ -1591,12 +1676,12 @@ def grad_phase(lm=None, *, transposed=False, fused=False,
     cfg = lm or lm_config()
     bound_rel = GRAD_RTOL if dtype == "fp32" else GRAD_RTOL_BF16
     ff = build_train_lm(dtype, tensor_op_math=dtype != "fp32", lm=cfg,
-                        transposed=transposed, batch=batch)
+                        transposed=transposed, batch=batch, build=build)
     xs, labels = ff._make_batch(*train_batch(cfg.vocab_size, batch,
                                              cfg.sequence_length))
     ex = ff.executor
     c = counters()
-    want = step_launches(cfg.num_layers, fused)
+    want = step_launches(cfg.num_layers, fused, build)
     names = tuple(want)
 
     def grads(count):
@@ -1639,6 +1724,7 @@ def grad_phase(lm=None, *, transposed=False, fused=False,
     gc.collect()
     torch.cuda.empty_cache()
     return {"layers": cfg.num_layers, "batch": batch, "dtype": dtype,
+            "builder": build.builder,
             "layout": "transposed" if transposed else "packed",
             "worst_tensor": name, "max_abs_diff": err,
             "relative_to_largest": rel, "bound_relative": bound_rel,
@@ -2485,7 +2571,9 @@ MESH_TOL = {"f32": dict(delta_rel=1e-3, loss_rel=2e-6),
             "bf16": dict(delta_rel=1e-1, loss_rel=1e-3)}
 DELTA_FLOOR = 1e-2
 GLOO_LAYERS, GLOO_STEPS = 2, 3
-MESH_LAYERS, MESH_STEPS = 4, 6
+# the torchrun run: lm-base at 4 layers for the dp / tp / stage runs; at
+# its 12 layers for sp (lm-base-seq4096) and the pipelined pp runs
+MESH_LAYERS, MESH_STEPS = 4, 4
 MESH_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
@@ -2523,11 +2611,14 @@ def _full_masters(ff) -> dict:
 
 def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
              flags: tuple = (), tp: bool = False, steps: int = GLOO_STEPS,
-             captured: bool = False):
+             captured: bool = False, sp: bool = False,
+             build: LMBuild = STANDARD, batch: int = TRAIN_BATCH):
     """One training run of `lm` on this rank on `device`: the global batch
-    of `train_batch` (each data rank keeps its rows), `steps` SGD steps
-    through fit, each timed, captured or under executor.eager(); on the
-    card one more step profiled. `tp` sets megatron_transformer. Returns
+    of `train_batch` (`batch` rows; each data rank keeps its rows),
+    `steps` SGD steps through fit, each timed, captured or under
+    executor.eager(); on the card one more step profiled. `tp` sets
+    megatron_transformer, `sp` sequence_parallel_attention; `build` how
+    the LM is built (PIPELINED: 2 P microbatches). Returns
     (its numbers, its masters after the run, its initial masters)."""
     import contextlib
     import importlib
@@ -2543,27 +2634,31 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
     )
     from flexflow_tpu_torch.executor import eager
     from flexflow_tpu_torch.kernels import counters, reset_counters
-    from flexflow_tpu_torch.models import build_transformer_lm
-    from flexflow_tpu_torch.parallel import megatron_transformer
+    from flexflow_tpu_torch.parallel import (
+        megatron_transformer,
+        sequence_parallel_attention,
+    )
 
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     cfg = FFConfig(device=device)
     cfg.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
-                    "--seed", str(SEED), "-b", str(TRAIN_BATCH), "--mesh",
+                    "--seed", str(SEED), "-b", str(batch), "--mesh",
                     ",".join(map(str, mesh)), *flags])
     cfg.allow_tensor_op_math_conversion = dtype == "bf16"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ff = FFModel(cfg)
-    build_transformer_lm(ff, lm)
+    build.into(ff, lm)
     if tp:
         ff.set_strategy(megatron_transformer(ff))
+    if sp:
+        ff.set_strategy(sequence_parallel_attention(ff))
     ff.compile(optimizer=SGDOptimizer(lr=0.01),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY])
     initial = _full_masters(ff)
-    x, y = train_batch(lm.vocab_size, seq=lm.sequence_length)
+    x, y = train_batch(lm.vocab_size, batch, lm.sequence_length)
     xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
     ys = np.concatenate([y] * steps)
     step = ff.executor.build_train_step()
@@ -2582,17 +2677,24 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
     flash_attention = importlib.import_module(
         "flexflow_tpu_torch.kernels.flash_attention")
     packed = flash_attention.flash_attention_packed
+    with_lse = flash_attention.flash_attention_with_lse
 
     def seen(q, k, v, *, num_heads, **kw):
         heads.append(num_heads)
         return packed(q, k, v, num_heads=num_heads, **kw)
 
+    def seen_lse(q, k, v, **kw):  # ring attention's blocks
+        heads.append(q.shape[1])
+        return with_lse(q, k, v, **kw)
+
     ff.executor._train_step = timed
     reset_counters()
     with (contextlib.nullcontext() if captured else eager()), \
             mock.patch.object(flash_attention, "flash_attention_packed",
-                              seen):
-        ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+                              seen), \
+            mock.patch.object(flash_attention, "flash_attention_with_lse",
+                              seen_lse):
+        ff.fit(xs, ys, epochs=1, batch_size=batch, shuffle=False,
                verbose=False)
         launches = {k: counters()[k].launches for k in MESH_KERNELS}
         variants = {k: dict(counters()[k].variants) for k in FLASH_KERNELS}
@@ -2610,8 +2712,12 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
         "device": device,
         "captures": getattr(step, "captures", 0), "losses": losses,
         "step_ms": step_ms, "median_step_ms": med,
-        "tokens_per_s_per_chip": (TRAIN_BATCH * lm.sequence_length
+        "tokens_per_s_per_chip": (batch * lm.sequence_length
                                   / (med / 1e3) / ff.mesh.size),
+        "batch": batch, "seq": lm.sequence_length,
+        "layers": lm.num_layers, "heads": lm.num_heads,
+        "rules": sorted({r["kind"] for r in getattr(
+            ff.executor, "_rules", {}).values()}),
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_card else None),
         "launches": launches, "flash_variants": variants,
@@ -2677,7 +2783,8 @@ def mesh_agree(got: dict, want: dict, initial: dict, got_losses: list,
 
 
 def mesh_check(device: str, lm, steps: int, captured: bool,
-               stage3: bool = True, search: bool = False) -> dict:
+               stage3: bool = True, search: bool = False, seq_lm=None,
+               pipe_lm=None) -> dict:
     """Every run of this rank under the process group already started:
     per dtype one rank alone, then dp over the world, dp / 2 x tp 2 (a
     world of 4 or more), tp over the world (where it divides the heads),
@@ -2687,10 +2794,15 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
     priced) and the Unity search's plan (SEARCH_FLAGS with
     --search-mesh-shapes, from dp / 2 x tp 2 on a world of 4 or more; on
     the card rank 0 calibrates SEARCH_CALIBRATE ops first), each held to
-    one rank. On the card every run must launch K1, K4 and K5-K7 (and,
-    captured, capture once); the flash kernels must see heads / (the
-    plan's attention split) heads. Returns the runs, the checks and the
-    failed ones (`failures`)."""
+    one rank. With `seq_lm` (lm-base at a long sequence, batch 1), per
+    dtype: sp over the world (`sequence_parallel_attention`, ring
+    attention) held to one rank of the same model with flash attention;
+    with `pipe_lm`, per dtype: the pipelined LM on pp over the world and
+    dp 2 x pp world / 2 held to its one-rank run (2 P microbatches).
+    On the card every run must launch K1, K4 and K5-K7 (and, captured,
+    capture once); the flash kernels must see heads / (the plan's
+    attention split) heads. Returns the runs, the
+    checks and the failed ones (`failures`)."""
     import torch
     import torch.distributed as dist
 
@@ -2705,12 +2817,12 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
         plans.append((f"tp {world}", (1, world, 1, 1), off, True))
     failures, runs, checks = [], [], {}
 
-    def attempt(name, dtype, mesh, flags=(), tp=False):
+    def attempt(name, dtype, mesh, flags=(), tp=False, model=None, **kw):
         # a run that raises does so on every rank alike (the same program
         # on the same shapes), so the ranks stay in step past it
         try:
-            return mesh_run(name, lm, device, dtype, mesh, flags, tp, steps,
-                            captured)
+            return mesh_run(name, model or lm, device, dtype, mesh, flags,
+                            tp, steps, captured, **kw)
         except Exception as e:
             failures.append(f"{name} {dtype}: {type(e).__name__}: "
                             f"{str(e)[:300]}")
@@ -2757,12 +2869,48 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
         if not same:
             failures.append(f"{name}: masters differ from dp {world}'s")
         runs.append(r)
+    families = []
+    if seq_lm is not None and seq_lm.sequence_length % world == 0:
+        # one rank with exact (flash) attention, then sp over the world
+        one = dataclasses.replace(seq_lm, attention_impl="flash")
+        ring = dataclasses.replace(seq_lm, attention_impl="ring")
+        families.append((f"seq {seq_lm.sequence_length}", one, dict(
+            batch=1), [(f"sp {world}", (1, 1, 1, world), ring, dict(
+                batch=1, sp=True))]))
+    if pipe_lm is not None and pipe_lm.num_layers % world == 0:
+        kw = dict(build=PIPELINED)
+        plans_pp = [(f"pp {world}", (1, 1, world, 1), pipe_lm, kw)]
+        if world % 2 == 0 and world > 2:
+            plans_pp.append((f"dp 2 x pp {world // 2}",
+                             (2, 1, world // 2, 1), pipe_lm, kw))
+        families.append(("pipelined", pipe_lm, kw, plans_pp))
+    for label, one_lm, one_kw, fam_plans in families:
+        for dtype in ("f32", "bf16"):
+            one, ref, initial = attempt(f"one rank ({label})", dtype,
+                                        (1, 1, 1, 1), off, model=one_lm,
+                                        **one_kw)
+            if one is None:
+                continue
+            runs.append(one)
+            for name, mesh, model, kw in fam_plans:
+                r, masters, _ = attempt(name, dtype, mesh, off, model=model,
+                                        **kw)
+                if r is None:
+                    continue
+                key = f"{name} {dtype}"
+                checks[key] = mesh_agree(masters, ref, initial, r["losses"],
+                                         one["losses"], MESH_TOL[dtype])
+                if not checks[key]["within_tolerance"]:
+                    failures.append(f"{key} vs one rank: {checks[key]}")
+                runs.append(r)
+            del ref, initial
+            gc.collect()
     for r in runs:
         tp = r["attn_tp"]
-        if r["flash_heads"] != [lm.num_heads // tp]:
+        if r["flash_heads"] != [r["heads"] // tp]:
             failures.append(f"{r['name']} {r['dtype']}: flash kernels on "
                             f"{r['flash_heads']} heads, want "
-                            f"{[lm.num_heads // tp]}")
+                            f"{[r['heads'] // tp]}")
         if on_card and not all(r["launches"].values()):
             failures.append(f"{r['name']} {r['dtype']}: launches "
                             f"{r['launches']}")
@@ -2915,6 +3063,217 @@ def log_search(sr: dict):
         f"({sr['predicted_vs_phase6']:.3f}x)")
 
 
+# ------------------------------------------------------------ phase 18
+# lm-base-seq4096 (JAX bench.py's long-context leg, 1237-1240): lm-base's
+# widths at seq 4096, batch 1; the ring's block on sp 4 is (1, 16, 1024,
+# 64) a shard
+RING_SHARDS, RING_SEQ = 4, 4096
+RING_CASES = ("ring diagonal", "ring off-diagonal")
+
+
+def ring_phase(dev) -> dict:
+    """Phase 18(b): the ring's block algebra at lm-base-seq4096's widths
+    on one card. For each of the 4 shard indices, `_ring_local`'s body
+    (`_block_attention`, `_merge_block`, the causal skip `_live`) with the
+    hop replaced by that shard's arrival sequence (at step k the block of
+    shard (idx - k) mod 4); autograd through the blocks sums each K/V
+    block's gradient over the shards that held it, which the reverse hops
+    do on a mesh. Out and the q, k, v gradients under a random cotangent
+    against whole-sequence `flash_attention` (K5, K6, K7), causal, in
+    float32 (TOL 1e-4) and bf16 (2e-2). Each live block launches K5 with
+    its lse and, in the backward, K6 and K7 with the lse's cotangent from
+    the merge folded into delta: 10 blocks a dtype (4 diagonal, 6 below
+    it). Each case's launches are read from the counters as they happen,
+    around each block's forward call and around its flash node's backward
+    (hooks before and after the node), and must be one K5, K6 and K7 a
+    block."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import ring_attention as ra
+
+    c = counters()
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "flash_attention_bwd_fused")
+    n, s_loc = RING_SHARDS, RING_SEQ // RING_SHARDS
+    errs, worst = {}, {}
+    launches = {case: dict.fromkeys(names, 0) for case in RING_CASES}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        q, k, v, do = flash_inputs(dev, dtype, 1, RING_SEQ, RING_SEQ, HEADS,
+                                   HEAD_DIM, SEED + 70, "transposed")
+        scale = HEAD_DIM ** -0.5
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ref = fa.flash_attention(*leaves, causal=True, scale=scale)
+        torch.autograd.backward(ref, do)
+        want = [ref.detach()] + [t.grad for t in leaves]
+        torch.cuda.synchronize()
+
+        def rows(t, i):
+            return t[:, :, i * s_loc:(i + 1) * s_loc]
+
+        def snap():
+            return {m: c[m].launches for m in names}
+
+        def since(before):
+            return {m: c[m].launches - before[m] for m in names}
+
+        def tally(case, delta):
+            for m, k in delta.items():
+                ran[case][m] += k
+
+        # each case's launches as they happen: around each block's
+        # forward, and around its flash node's backward (pre- and post-
+        # hooks on the node; the engine runs one node at a time)
+        ran = {case: dict.fromkeys(names, 0) for case in RING_CASES}
+        bwd_nodes = {case: 0 for case in RING_CASES}
+
+        def watch(node, case):
+            held = {}
+
+            def pre(grad_outputs):
+                held["before"] = snap()
+
+            def post(grad_inputs, grad_outputs):
+                tally(case, since(held.pop("before")))
+                bwd_nodes[case] += 1
+
+            node.register_prehook(pre)
+            node.register_hook(post)
+
+        n0 = snap()
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        blocks = {case: 0 for case in RING_CASES}
+        outs = []
+        for idx in range(n):
+            o = torch.zeros((1, HEADS, s_loc, HEAD_DIM), dtype=torch.float32,
+                            device=dev)
+            lse = torch.full((1, HEADS, s_loc), float("-inf"),
+                             dtype=torch.float32, device=dev)
+            for step in range(n):
+                if not ra._live(step, idx, True):
+                    continue
+                src = (idx - step) % n
+                case = RING_CASES[step > 0]
+                blocks[case] += 1
+                before = snap()
+                o_blk, lse_blk = ra._block_attention(
+                    rows(leaves[0], idx), rows(leaves[1], src),
+                    rows(leaves[2], src), causal=step == 0, scale=scale)
+                tally(case, since(before))
+                watch(lse_blk.grad_fn, case)
+                o, lse = ra._merge_block(o, lse, o_blk, lse_blk)
+            outs.append(o.to(dtype))
+        got_out = torch.cat(outs, dim=2)
+        torch.autograd.backward(got_out, do)
+        torch.cuda.synchronize()
+        total = since(n0)
+        # K6 + K7 a block past one tile (every block of seq 4096 / 4)
+        fused = int(s_loc <= fa.SINGLE_TILE)
+        per_block = dict(zip(names, (1, 1 - fused, 1 - fused, fused)))
+        require(sum(blocks.values()) == n * (n + 1) // 2
+                and bwd_nodes == blocks and total == {
+                    m: sum(r[m] for r in ran.values()) for m in names},
+                f"ring blocks {dn}: {blocks}, backward nodes {bwd_nodes}, "
+                f"launches {total}, by case {ran}")
+        for case, nb in blocks.items():
+            require(ran[case] == {m: nb * k for m, k in per_block.items()},
+                    f"ring {case} {dn}: {nb} blocks launched {ran[case]}")
+            for m in names:
+                launches[case][m] += ran[case][m]
+        got = [got_out.detach()] + [t.grad for t in leaves]
+        for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+            errs[f"{name} {dn}"] = check_close(
+                "ring block algebra", a, w, dn, worst)
+        del q, k, v, do, leaves, ref, want, got, got_out, outs
+        torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "launches": launches,
+            "shape": f"(1, {HEADS}, {RING_SEQ}, {HEAD_DIM}) in {n} shards "
+                     f"of {s_loc}"}
+
+
+def ring_kernel_numbers(dev, errs) -> dict:
+    """K5, K6 and K7 at the ring's block shape, (1, 16, 1024, 64) bf16 on
+    the transposed layout: the diagonal block (causal) and a block below
+    it (every key live), the backward's delta carrying an lse cotangent;
+    each held to its plain version on the first input set (TOL; the error
+    into `errs` as "<row> @ <case>"), then timed cycling over four input
+    sets. Library yardsticks, timed only:
+    SDPA on the same block and the device time of its backward's kernels
+    (dq, dk, dv together). Returns {row: {case: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    b, h, s, d = 1, HEADS, RING_SEQ // RING_SHARDS, HEAD_DIM
+    rows = b * h * s * 4
+    act = b * h * s * d * 2
+    out: dict = {}
+    for case, causal in zip(RING_CASES, (True, False)):
+        kw = dict(num_heads=None, causal=causal)
+        g = torch.Generator().manual_seed(SEED + 80)
+        sets, lib_sets = [], []
+        for i in range(4):
+            q, k, v, do = flash_inputs(dev, bf16, b, s, s, h, d,
+                                       SEED + 80 + i, "transposed")
+            o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            g_lse = torch.randn(b, h, s, generator=g).to(dev)
+            sets.append((q, k, v, do, lse,
+                         fa.flash_delta(do, o, None) - g_lse))
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            lib_sets.append((F.scaled_dot_product_attention(
+                *leaves, is_causal=causal), leaves, do))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        lib_fwd = time_ms(lambda o, leaves, g: F.scaled_dot_product_attention(
+            *leaves, is_causal=causal), lib_sets)[0]
+        lib_bwd = sdpa_backward_device_ms(lib_sets)
+        for row, kern, plain, nbytes, ops, lib in (
+                ("flash_attention_fwd (per-head)",
+                 lambda q, k, v, *_: fa.flash_attention_fwd(q, k, v, **kw),
+                 lambda q, k, v, *_: fa.flash_attention_fwd_plain(
+                     q, k, v, **kw), 4 * act + rows, 4 * d * pairs, lib_fwd),
+                ("flash_attention_bwd_dq (per-head)",
+                 lambda *a: fa.flash_attention_bwd_dq(*a, **kw),
+                 lambda *a: fa.flash_attention_bwd_dq_plain(*a, **kw),
+                 5 * act + 2 * rows, 6 * d * pairs, lib_bwd),
+                ("flash_attention_bwd_dkv (per-head)",
+                 lambda *a: fa.flash_attention_bwd_dkv(*a, **kw),
+                 lambda *a: fa.flash_attention_bwd_dkv_plain(*a, **kw),
+                 6 * act + 2 * rows, 8 * d * pairs, lib_bwd)):
+            for a, w in zip(_tensors(kern(*sets[0])),
+                            _tensors(plain(*sets[0]))):
+                check_close(f"{row} @ {case}", a, w, "bfloat16", errs)
+            numbers = timed(kern, plain, None, sets, None,
+                            *bound(nbytes, ops, "bfloat16"))
+            numbers.update(
+                library_ms=lib,
+                library_is=(("" if causal else "non-") + "causal sdpa"
+                            + ("" if row.startswith("flash_attention_fwd")
+                               else " backward (dq, dk, dv together), "
+                                    "device time of its kernels")),
+                shape=(f"({b}, {h}, {s}, {d}) transposed "
+                       f"{'causal' if causal else 'full'} bf16"
+                       + ("" if row.startswith("flash_attention_fwd")
+                          else ", lse cotangent in delta")))
+            out.setdefault(row, {})[case] = numbers
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tensors(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def log_ring(r: dict):
+    log(f"  ring block algebra {r['shape']} vs whole-sequence flash, "
+        f"causal: max abs err {r['max_abs_err']}; block launches "
+        f"{r['launches']}")
+
+
 def log_mesh_runs(out: dict):
     rank = out["rank"]
     for r in out["runs"]:
@@ -2958,12 +3317,16 @@ def mesh_main(json_path: str) -> int:
     rank, world = dist.get_rank(), dist.get_world_size()
     if rank == 0:
         log(f"== the mesh: {world} ranks over NCCL, lm-base at full width "
-            f"({MESH_LAYERS} layers), captured")
+            f"({MESH_LAYERS} layers; sp: seq {RING_SEQ}, pp: the pipelined "
+            f"LM, 12 layers), captured")
         build_kernels()  # once, before the ranks' first use
     dist.barrier()
     out = mesh_check(f"cuda:{torch.cuda.current_device()}",
                      lm_config(layers=MESH_LAYERS), MESH_STEPS,
-                     captured=True, search=True)
+                     captured=True, search=True,
+                     seq_lm=dataclasses.replace(
+                         lm_config(), sequence_length=RING_SEQ),
+                     pipe_lm=lm_config())
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -3098,7 +3461,7 @@ def main(argv: list[str]) -> int:
     log_train(train_e)
     train["captured_vs_eager"] = captured_vs_eager(train, train_e)
     log_modes("lm-base train", train, train_e, "median_step_ms")
-    log(f"  masters after {train['steps'] + 1} steps, captured vs eager: "
+    log(f"  masters after {train['steps']} steps, captured vs eager: "
         f"{train['captured_vs_eager']}")
 
     log("== phase 7: training gradients, float32, kernels vs plain")
@@ -3188,7 +3551,7 @@ def main(argv: list[str]) -> int:
     del p6_masters
     log_train(nccl)
     log(f"  backend {nccl['backend']}, mesh {nccl['mesh_axes']}, update "
-        f"{nccl['update_sharding']}; masters after {nccl['steps'] + 1} "
+        f"{nccl['update_sharding']}; masters after {nccl['steps']} "
         f"steps vs phase 6's: {nccl['vs_phase6']}")
     coll = nccl["collectives"]
     log(f"  collectives captured in a CUDA graph over one rank (sync_grad's "
@@ -3209,11 +3572,39 @@ def main(argv: list[str]) -> int:
     search = search_phase(train, nums["flash_attention_fwd"]["ms"])
     log_search(search)
 
+    log("== phase 18: the pipelined lm-base (12 layers, 8 x 512, bf16, "
+        "SGD, no pipe axis: the stages in order), captured then eager; its "
+        "float32 gradients at 2 layers; the ring's block algebra at "
+        f"lm-base-seq{RING_SEQ} widths")
+    train_pp = train_phase(keep_masters=True, build=PIPELINED)
+    log_train(train_pp)
+    train_ppe = train_phase(mode="eager", keep_masters=True,
+                            build=PIPELINED)
+    log_train(train_ppe)
+    train_pp["captured_vs_eager"] = captured_vs_eager(train_pp, train_ppe)
+    log_modes("pipelined lm-base train", train_pp, train_ppe,
+              "median_step_ms")
+    log(f"  masters after {train_pp['steps']} steps, captured vs "
+        f"eager: {train_pp['captured_vs_eager']}")
+    grads_pp = grad_phase(lm_config(layers=2), build=PIPELINED)
+    log_grads(grads_pp)
+    ring = ring_phase(dev)
+    log_ring(ring)
+    for row, cases in ring_kernel_numbers(dev, errs).items():
+        nums[row].update(cases)
+    # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
+    # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
+    for row in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"):
+        nums[row] = {"train": nums[row], "pipelined lm-base": nums[row]}
+
     # the run whose launches each row (and each case of a row) reports
     counted = {"train": train, "paged": runs["paged"],
                "contiguous": runs["contiguous"],
                "lm-base transposed": train_t, "lm-xxl packed": train_x,
-               "lm-xxl transposed": train_xt}
+               "lm-xxl transposed": train_xt, "pipelined lm-base": train_pp,
+               **{case: {"launches": n} for case, n in
+                  ring["launches"].items()}}
     rows = []
     for row, counter, route, source, replaces, run_key in KERNELS:
         run = counted[run_key]
@@ -3270,6 +3661,8 @@ def main(argv: list[str]) -> int:
                   lse_entry_max_abs_err=errs["flash_attention_with_lse"],
                   resnet50=rn, resnet50_eager=rn_e, telemetry=tel,
                   nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
+                  pipelined=train_pp, pipelined_eager=train_ppe,
+                  pipelined_gradients=grads_pp, ring_blocks=ring,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -3327,6 +3720,12 @@ def main(argv: list[str]) -> int:
                             "search_s")} for r in search["meshes"]},
                         "predicted_vs_phase6": search[
                             "predicted_vs_phase6"]},
+                    "pipelined": {m: summary(t) for m, t in (
+                        ("captured", train_pp), ("eager", train_ppe))},
+                    "pipelined_captured_vs_eager": train_pp[
+                        "captured_vs_eager"],
+                    "pipelined_gradients": grads_pp,
+                    "ring_blocks": ring,
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -3,14 +3,17 @@
 - `entry()`: the tiny Transformer LM's forward on one device, and its
   example arguments.
 - `dryrun_multichip(n)`: one full training step of the tiny LM over an
-  n-device mesh, data x tensor parallel (`megatron_transformer`), on the
-  ranks of the torch.distributed world. Started by `torchrun
-  --nproc-per-node n` it runs on each rank's card; with `device="cpu"`
-  and no such world it spawns n gloo ranks on the CPU (the JAX entry
-  respawns itself onto a virtual n-device CPU mesh); asked for a card
-  with no such world, it raises. The JAX dry run also runs a sequence-parallel leg
-  (ring attention) and a fused-MoE leg: asking for them here (`legs`)
-  raises, naming ROADMAP A8 and A12.
+  n-device mesh, data x tensor x sequence parallel as the JAX dry run
+  factors it (tp divides the heads, sp takes the next small prime, the
+  rest is dp; the sequence scaled by sp, ring attention where sp > 1;
+  `megatron_transformer`), on the ranks of the torch.distributed world.
+  Started by `torchrun --nproc-per-node n` it runs on each rank's card;
+  with `device="cpu"` and no such world it spawns n gloo ranks on the
+  CPU (the JAX entry respawns itself onto a virtual n-device CPU mesh);
+  asked for a card with no such world, it raises. The "sp" leg runs the
+  same LM under `sequence_parallel_attention` too, so its activations
+  stay split over the sequence between the attention layers. The JAX
+  dry run's fused-MoE leg (`legs` "moe") raises, naming ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -77,41 +80,60 @@ def entry(device: str = "cuda"):
 
 
 def _factor_mesh(n: int, num_heads: int):
-    """n devices as dp x tp: tp the first small prime dividing both n and
-    the head count, the rest dp (the JAX dry run's sp factor is folded
-    into dp: ring attention is ROADMAP A8)."""
+    """n devices as dp x tp x sp (JAX `__graft_entry__._factor_mesh`): tp
+    the first small prime dividing both n and the head count, sp the
+    first small prime dividing what is left, the rest dp."""
+    tp = 1
     for f in (2, 3, 5, 7):
         if n % f == 0 and num_heads % f == 0:
-            return n // f, f
-    return n, 1
+            tp = f
+            n //= f
+            break
+    sp = 1
+    for f in (2, 3, 5, 7):
+        if n % f == 0:
+            sp = f
+            n //= f
+            break
+    return n, tp, sp
 
 
-def _dryrun_rank(rank: int, n_devices: int, device: str) -> float:
-    from .parallel import megatron_transformer
+def _dryrun_rank(rank: int, n_devices: int, device: str,
+                 legs=("lm",)):
+    from .parallel import megatron_transformer, sequence_parallel_attention
 
     _clean_argv()
-    dp, tp = _factor_mesh(n_devices, _DRYRUN_NUM_HEADS)
-    seq, batch = 128, 2 * dp
-    ff, c = _lm_setup(batch, seq, mesh_axes=(dp, tp, 1, 1),
-                      strategy_fns=(megatron_transformer,), device=device,
-                      flags=("--weight-update-sharding=off",))
-    step = ff.executor.build_train_step()
-    rs = np.random.RandomState(0)
-    toks = rs.randint(0, c.vocab_size, (batch, seq)).astype(np.int32)
-    pos = np.tile(np.arange(seq, dtype=np.int32), (batch, 1))
-    labels = rs.randint(0, c.vocab_size, (batch, seq, 1)).astype(np.int32)
-    staged = ff._make_batch({"tokens": toks, "positions": pos}, labels)
-    out = step(ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
-               staged, ff._rng)
-    loss = float(out[-1])
-    if rank == 0:
-        print(f"dryrun LM ok: mesh dp={dp} tp={tp}, loss={loss:.4f}")
-    return loss
+    dp, tp, sp = _factor_mesh(n_devices, _DRYRUN_NUM_HEADS)
+    seq, batch = 128 * sp, 2 * dp
+    losses = []
+    for leg in legs:
+        fns = (megatron_transformer,)
+        if leg == "sp":
+            fns += (sequence_parallel_attention,)
+        ff, c = _lm_setup(batch, seq, mesh_axes=(dp, tp, 1, sp),
+                          attention_impl="ring" if sp > 1 else "xla",
+                          strategy_fns=fns, device=device,
+                          flags=("--weight-update-sharding=off",))
+        step = ff.executor.build_train_step()
+        rs = np.random.RandomState(0)
+        toks = rs.randint(0, c.vocab_size, (batch, seq)).astype(np.int32)
+        pos = np.tile(np.arange(seq, dtype=np.int32), (batch, 1))
+        labels = rs.randint(0, c.vocab_size,
+                            (batch, seq, 1)).astype(np.int32)
+        staged = ff._make_batch({"tokens": toks, "positions": pos}, labels)
+        out = step(ff._params, ff._state, ff._opt_slots, ff._step,
+                   ff._counters, staged, ff._rng)
+        losses.append(float(out[-1]))
+        if rank == 0:
+            print(f"dryrun LM ok ({leg} leg): mesh dp={dp} tp={tp} "
+                  f"sp={sp}, loss={losses[-1]:.4f}")
+    return losses[0] if len(losses) == 1 else tuple(losses)
 
 
 def dryrun_multichip(n_devices: int, legs=("lm",), device: str = "cuda"):
-    """One training step of the tiny LM over `n_devices` ranks, dp x tp;
-    returns each rank's loss. Without a process group of `n_devices`
+    """One training step of the tiny LM over `n_devices` ranks, dp x tp
+    x sp, per leg of `legs` ("lm", "sp"); returns each rank's loss (a
+    tuple of them, one a leg, for more than one leg). Without a process group of `n_devices`
     ranks it spawns them on the CPU (gloo) when `device` is "cpu", and
     raises for any other device: it never moves a run the caller asked
     for on a card onto the CPU."""
@@ -120,17 +142,15 @@ def dryrun_multichip(n_devices: int, legs=("lm",), device: str = "cuda"):
 
     from .config import not_ported
 
+    legs = tuple(legs)
     for leg in legs:
-        if leg == "sp":
-            raise not_ported("dryrun_multichip's sequence-parallel leg "
-                             "(ring attention)", "A8 (ring attention)")
         if leg == "moe":
             raise not_ported("dryrun_multichip's expert-parallel MoE leg",
                              "A12 (ops/moe.py)")
-        if leg != "lm":
+        if leg not in ("lm", "sp"):
             raise ValueError(f"unknown dry-run leg {leg!r}")
     if dist.is_initialized() and dist.get_world_size() == n_devices:
-        return [_dryrun_rank(dist.get_rank(), n_devices, device)]
+        return [_dryrun_rank(dist.get_rank(), n_devices, device, legs)]
     if torch.device(device).type != "cpu":
         raise ValueError(
             f"dryrun_multichip({n_devices}) on {device!r} needs a process "
@@ -139,4 +159,4 @@ def dryrun_multichip(n_devices: int, legs=("lm",), device: str = "cuda"):
             f"spawned here, with device=\"cpu\")")
     from .distributed import spawn
 
-    return spawn(_dryrun_rank, n_devices, n_devices, "cpu")
+    return spawn(_dryrun_rank, n_devices, n_devices, "cpu", legs)

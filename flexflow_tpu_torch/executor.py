@@ -34,15 +34,22 @@ blocks of the tensors (the sharded half, JAX 171-440, 554-741, 920-990):
 each node's output stays in the placement the plan gave it (`_plan`),
 moved between placements by `parallel/spmd.py`'s collectives where the
 JAX executor's sharding constraints let XLA insert them. A node runs
-batch-local (its inputs' batch rows only), elementwise on any
-placement, or whole (inputs and weights gathered); a Linear pair,
-attention and an embedding whose weights the plan shards run the
-Megatron way on this rank's columns, rows or heads, with the all-reduce
-of a row-parallel product in the forward and of a column-parallel
-input's gradient in the backward. Each rank keeps the sum of its own
-rows' weight gradients; `sync_grads` reduces them over the axes
-`grad_sync_axes` names by one reduce-scatter then an all-gather (an
-all-reduce for a weight with no shardable dim). Under weight-update
+batch-local (its inputs' batch rows only), on the rows of its output's
+leading dims where a plan splits the sequence too and the op works on
+each token alone (`_token_local`), elementwise on any placement, or
+whole (inputs and weights gathered); a Linear pair, attention and an
+embedding whose weights the plan shards run the Megatron way on this
+rank's columns, rows or heads, with the all-reduce of a row-parallel
+product in the forward and of a column-parallel input's gradient in the
+backward. Ring attention runs on this rank's block of the sequence over
+`seq` whatever the plan gives its input (`_mha_rule`); the pipelined
+block stack on its stage's blocks, the input and output whole over
+`pipe` (`_pipe_rule`). The loss runs on the logits' rows, the sequence
+split where they are, normalised by the whole batch's positions. Each
+rank keeps the sum of its own rows' weight gradients; `sync_grads`
+reduces them over the axes `grad_sync_axes` names by one reduce-scatter
+then an all-gather (an all-reduce for a weight with no shardable dim),
+the axes its rules ran it split over among them. Under weight-update
 sharding the masters and slots live 1/dp at rest (`update_specs`): stage
 2 gathers each weight at its first use in a step, stage 3 at every use
 by the ring all-gather, the copy dropped after the op and gathered again
@@ -353,6 +360,27 @@ _ROW_INDEPENDENT = _ELEMENTWISE | {
     OT.OP_MULTIHEAD_ATTENTION, OT.OP_BATCHMATMUL, OT.OP_TOPK}
 
 
+def _token_local(node: OpNode) -> bool:
+    """Whether the op works on each position of its leading dims alone,
+    reading only the last dim (features): a Linear, a per-index
+    embedding lookup, a LayerNorm or softmax over the last dim, an
+    elementwise op. Its output's rows over any of the leading dims are
+    then the op on the same rows of its inputs."""
+    from .fftype import AggrMode
+
+    op, p = node.op_type, node.params
+    nd = len(node.output_shapes[0]) if node.output_shapes else 0
+    if op in _ELEMENTWISE or op == OT.OP_LINEAR:
+        return True
+    if op == OT.OP_EMBEDDING:
+        return p.aggr == AggrMode.AGGR_MODE_NONE
+    if op == OT.OP_LAYERNORM:
+        return all(a % nd == nd - 1 for a in p.axes)
+    if op == OT.OP_SOFTMAX:
+        return p.dim % nd == nd - 1
+    return False
+
+
 def _batch_local(node: OpNode) -> bool:
     """Whether the op on a block of rows gives the same rows of its
     output: true of row-independent ops, and of the ops that work along
@@ -465,11 +493,23 @@ class Executor:
         for node in self.order:
             for i, pt in enumerate(node.outputs):
                 self._layout[(node.guid, i)] = self._norm(pt.axis_assignment)
+        # the axes each owner's weight gradients are partial sums over:
+        # its output's, and the rows its rules run on (ring attention
+        # runs on this rank's sequence rows whatever the plan gives its
+        # output)
+        partial_of: dict[str, set] = {}
+        for node in self.order:
+            if node.op_type == OT.OP_INPUT:
+                continue
+            rule = self._rules[node.guid] = self._node_rule(node)
+            owner = getattr(node, "weight_source", None) or node.name
+            partial_of.setdefault(owner, set()).update(rule["partial"])
         for node in self.order:
             if getattr(node, "weight_source", None):
                 continue
             out_axes = (layout_axes(self._layout[(node.guid, 0)])
                         if node.outputs else set())
+            out_axes = out_axes | partial_of.get(node.name, set())
             for ws in node.weight_specs:
                 if not ws.trainable:
                     continue
@@ -484,7 +524,7 @@ class Executor:
         for node in self.order:
             if node.op_type == OT.OP_INPUT:
                 continue
-            rule = self._node_rule(node)
+            rule = self._rules[node.guid]
             owner = getattr(node, "weight_source", None) or node.name
             owner_node = self._by_name[owner]
             rule["mask"] = {}
@@ -503,11 +543,13 @@ class Executor:
                 rule["mask"][ws.name] = tuple(sorted(sync_axes - partial))
             for g in rule["groups"]:
                 mesh.group(g)
-            self._rules[node.guid] = rule
         logits = self._layout[(self.logits_node.guid, 0)]
-        # the loss runs on the logits' batch rows; labels are staged so
-        self._loss_layout = (logits[0],) + ((),) * (len(logits) - 1)
-        self._batch_group = mesh.group(logits[0])
+        # the loss runs on the logits' rows (every dim but the classes:
+        # the batch, and the sequence where a plan splits it); labels
+        # are staged so, and the loss and metrics are summed over them
+        self._loss_layout = tuple(logits[:-1]) + ((),)
+        self._loss_axes = tuple(ax for entry in logits[:-1] for ax in entry)
+        self._batch_group = mesh.group(self._loss_axes)
 
     def _in_layouts(self, node: OpNode) -> list:
         out = [None] * len(self.graph.in_edges[node.guid])
@@ -539,6 +581,8 @@ class Executor:
             rule = self._mha_rule(node, ins, wl)
         elif node.op_type == OT.OP_EMBEDDING:
             rule = self._embedding_rule(node, ins, wl)
+        elif node.op_type == OT.OP_PIPE_BLOCKS:
+            rule = self._pipe_rule(node, ins, wl)
         if rule is None:
             rule = self._generic_rule(node, ins, outs, wl)
         rule.setdefault("gather_w", ())
@@ -576,26 +620,62 @@ class Executor:
         return None
 
     def _mha_rule(self, node, ins, wl):
+        """Attention's rows: the batch as its inputs have it; the
+        sequence whole, or, for ring attention on a mesh with a `seq`
+        axis, this rank's block of it over `seq` (the ring's group),
+        whatever the plan gives the inputs; the features whole. Head
+        parallel where the plan shards the projections by heads (the
+        Megatron pattern), else the weights gathered whole."""
+        from .machine import AXIS_SEQ
         from .parallel.spmd import layout_axes
 
         p = node.params
+        ring = p.impl == "ring" and self.mesh.shape.get(AXIS_SEQ, 1) > 1
+        seq = (AXIS_SEQ,) if ring else ()
+        run = [(l[0], seq) + ((),) * (len(l) - 2) for l in ins]
+        nat = [run[0]]
+        lead_axes = set().union(*(layout_axes(l[:-1]) for l in run))
         a = wl["wq"][1]
         n = self.mesh.axes_size(a)
         want = {"wq": ((), a), "wk": ((), a), "wv": ((), a), "wo": (a, ())}
         if p.use_bias:
             want.update(bq=(a,), bk=(a,), bv=(a,), bo=((),))
-        lead_axes = set().union(*(layout_axes(l[:-1]) for l in ins))
         if (not a or any(wl[w] != v for w, v in want.items())
                 or p.num_heads % n or set(a) & lead_axes):
-            return None
+            if not ring:
+                return None
+            # ring attention with the weights whole on every rank
+            return dict(kind="ring", run=run, nat=nat,
+                        gather_w=tuple(w for w, l in wl.items() if any(l)),
+                        partial=lead_axes)
         # head parallel: this rank's heads, the output projection's
         # partial sum all-reduced, then its bias
-        return dict(kind="mha", run=[l[:-1] + ((),) for l in ins],
-                    nat=[ins[0][:-1] + ((),)], enter=a, reduce=a,
+        return dict(kind="mha", run=run, nat=nat, enter=a, reduce=a,
                     params=dataclasses.replace(
                         p, num_heads=p.num_heads // n,
                         embed_dim=p.embed_dim // n),
                     partial=lead_axes)
+
+    def _pipe_rule(self, node, ins, wl):
+        """The pipelined block stack: its weights sharded over `pipe` on
+        the layer dim (each stage its L/P blocks), its input and output
+        whole over `pipe` and split over the batch as its input is; the
+        schedule moves the activations between stages itself. A weight
+        whole over a pipe axis would need its gradient summed over the
+        stages, which the schedule does not do: such a plan raises."""
+        from .machine import AXIS_PIPE
+
+        batch = tuple(ax for ax in ins[0][0] if ax != AXIS_PIPE)
+        lay = (batch,) + ((),) * (len(ins[0]) - 1)
+        pipe = self.mesh.shape.get(AXIS_PIPE, 1) > 1
+        if pipe and not all(l[0] == (AXIS_PIPE,) and not any(l[1:])
+                            for l in wl.values()):
+            raise NotImplementedError(
+                f"{node.name}: on a mesh with a pipe axis the stacked "
+                f"block weights run sharded over 'pipe' on their layer "
+                f"dim only (the plan gives {wl})")
+        return dict(kind="pipe", run=[lay], nat=[lay],
+                    partial=set(batch))
 
     def _embedding_rule(self, node, ins, wl):
         from .fftype import AggrMode
@@ -611,10 +691,15 @@ class Executor:
                     partial=layout_axes(ins[0]))
 
     def _generic_rule(self, node, ins, outs, wl):
-        """Batch-local where the op's rows are independent and the plan
-        shards the output's batch dim; elementwise ops on the output's own
-        placement; any other op whole on every rank (its weight gradient
-        then full on each: masked)."""
+        """Elementwise ops on the output's own placement (first: a
+        sequence-split operand must not be gathered by the batch rule);
+        an op that works on each token alone (`_token_local`) on the rows
+        of the output's leading dims, where the plan splits one past the
+        batch; batch-local where the op's rows are independent and the
+        plan shards the output's batch dim; any other op whole on every
+        rank (its weight gradient then full on each: masked)."""
+        from .parallel.spmd import layout_axes
+
         gather_w = tuple(w for w, l in wl.items() if any(l))
         out0 = outs[0] if outs else ()
         batch = out0[0] if out0 else ()
@@ -627,6 +712,24 @@ class Executor:
         def batch_only(layout):
             return (batch,) + ((),) * (len(layout) - 1)
 
+        if (node.op_type in _ELEMENTWISE and len(outs) == 1
+                and all(tuple(s) == tuple(node.output_shapes[0])
+                        for s in node.input_shapes)):
+            return dict(kind="elementwise", run=[out0] * len(ins),
+                        nat=[out0], gather_w=gather_w,
+                        partial=layout_axes(out0))
+        lead = out0[:-1]
+        if (len(outs) == 1 and any(lead[1:]) and not out0[-1]
+                and _token_local(node)):
+            # every token on its own (the sequence-parallel trunk): the
+            # rows of the output's leading dims, the features whole
+            nl = len(lead)
+            run = [lead + ((),) * (len(l) - nl)
+                   if tuple(node.input_shapes[i][:nl])
+                   == tuple(node.output_shapes[0][:nl]) else rep(l)
+                   for i, l in enumerate(ins)]
+            return dict(kind="rows", run=run, nat=[out0],
+                        gather_w=gather_w, partial=layout_axes(lead))
         if batch and _batch_local(node) and all(
                 len(o) and o[0] == batch for o in outs):
             run = [batch_only(l) if len(l) and node.input_shapes[i][0] == rows
@@ -634,14 +737,6 @@ class Executor:
             return dict(kind="batch", run=run,
                         nat=[batch_only(o) for o in outs],
                         gather_w=gather_w, partial=set(batch))
-        if (node.op_type in _ELEMENTWISE and len(outs) == 1
-                and all(tuple(s) == tuple(node.output_shapes[0])
-                        for s in node.input_shapes)):
-            from .parallel.spmd import layout_axes
-
-            return dict(kind="elementwise", run=[out0] * len(ins),
-                        nat=[out0], gather_w=gather_w,
-                        partial=layout_axes(out0))
         return dict(kind="whole", run=[rep(l) for l in ins],
                     nat=[rep(o) for o in outs], gather_w=gather_w)
 
@@ -860,7 +955,8 @@ class Executor:
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
                         matmul_dtype=self.matmul_dtype,
-                        flash_packed=self.config.flash_packed_layout)
+                        flash_packed=self.config.flash_packed_layout,
+                        mesh=self.mesh)
         gathered: dict = {}
         for node in self.order:
             if node.op_type == OT.OP_INPUT:
@@ -1088,7 +1184,8 @@ class Executor:
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
                         matmul_dtype=self.matmul_dtype,
-                        flash_packed=self.config.flash_packed_layout)
+                        flash_packed=self.config.flash_packed_layout,
+                        mesh=self.mesh)
         for node in self.order:
             if node.op_type == OT.OP_INPUT:
                 vals[(node.guid, 0)] = (
@@ -1122,27 +1219,29 @@ class Executor:
 
     def stage_labels(self, labels) -> torch.Tensor:
         """Host labels -> this rank's rows of them on the device (the
-        logits' batch placement)."""
+        placement of the logits' rows)."""
         import numpy as np
 
         y = torch.as_tensor(np.asarray(labels))
         if self.spmd:
             from .parallel.spmd import take_local
 
-            y = take_local(y, (self._loss_layout[0],) + ((),) * (y.dim() - 1),
-                           self.mesh)
+            rows = self._loss_layout[:-1]
+            y = take_local(y, tuple(rows[i] if i < len(rows) else ()
+                                    for i in range(y.dim())), self.mesh)
         return y.to(self.device)
 
     def _loss_logits(self, logits):
-        """The logits on the loss's placement (batch rows only) and the
-        number of row blocks the batch is cut into."""
+        """The logits on the loss's placement (this rank's rows, the
+        classes whole) and the number of row blocks the rows are cut
+        into."""
         if not self.spmd:
             return logits, 1
         from .parallel.spmd import redistribute
 
         lay = self._layout[(self.logits_node.guid, 0)]
         return (redistribute(logits, lay, self._loss_layout, self.mesh),
-                self.mesh.axes_size(self._loss_layout[0]))
+                self.mesh.axes_size(self._loss_axes))
 
     @torch.no_grad()
     def add_metrics(self, counters, logits, labels, scce_sum=None):
@@ -1194,8 +1293,10 @@ class Executor:
             logits, new_state = self._apply(p, state, xc, training=True,
                                             rng=rng, seq_length=seq_length)
             logits, shards = self._loss_logits(logits)
-            lval, ce_sum = loss_terms(self.loss_type, logits, labels,
-                                      self.last_op_is_softmax, shards)
+            lval, ce_sum = loss_terms(
+                self.loss_type, logits, labels, self.last_op_is_softmax,
+                shards, self.mesh.axes_size(self._loss_layout[0])
+                if self.spmd else 1)
             return lval, (logits, new_state, ce_sum)
 
         return loss_fn

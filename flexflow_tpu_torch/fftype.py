@@ -132,6 +132,7 @@ class OperatorType(enum.IntEnum):
     OP_CONCAT = 22
     OP_SPLIT = 23
     OP_EMBEDDING = 24
+    OP_PIPE_BLOCKS = 30
     OP_RESHAPE = 31
     OP_REVERSE = 32
     OP_TRANSPOSE = 33
@@ -180,7 +181,7 @@ class OperatorType(enum.IntEnum):
 class UnportedOperatorType(enum.IntEnum):
     """Operator types of the JAX package that the port has no op for yet,
     with the JAX package's values. The Unity search names them (the MoE
-    fusion rewrite, the pipeline blocks' configs, the non-compute kinds),
+    fusion rewrite, the non-compute kinds),
     but no graph of the port holds one."""
 
     OP_WEIGHT = 2
@@ -188,7 +189,6 @@ class UnportedOperatorType(enum.IntEnum):
     OP_GROUP_BY = 25  # ROADMAP A12 (ops/moe.py)
     OP_AGGREGATE = 27  # A12
     OP_EXPERTS = 29  # A12
-    OP_PIPE_BLOCKS = 30  # A8 (ops/pipeline_blocks.py)
 
 
 # the parallel ops: PCG nodes that change a tensor's placement, not its

@@ -61,14 +61,19 @@ def softmax_xent_sum(logits2d: torch.Tensor,
 
 
 def loss_terms(loss_type: LossType, logits, labels,
-               last_op_is_softmax: bool, shards: int = 1):
+               last_op_is_softmax: bool, shards: int = 1,
+               batch_shards: int | None = None):
     """(scalar loss, reusable sparse-CE sum or None): the CE sum (f32,
     before averaging) goes to Metrics, so the counter does not reduce the
     logits a second time. `logits` may be one of `shards` equal blocks of
-    the batch's rows (a rank of a mesh): the loss is then this block's
-    share of the whole batch's mean, and the shares sum to it."""
+    the rows (a rank of a mesh; the batch cut into `batch_shards` of them,
+    the default all, the sequence into the rest): the loss is then this
+    block's share of the whole batch's, and the shares sum to it (the
+    sparse CE is a mean over every position, the others over the
+    batch)."""
     lt = LossType(loss_type)
-    b = logits.shape[0] * shards
+    batch_shards = shards if batch_shards is None else batch_shards
+    b = logits.shape[0] * batch_shards
     if lt == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
         # every leading position is a sample (LM: (b, s, vocab) logits with
         # (b, s, 1) labels)
@@ -82,7 +87,7 @@ def loss_terms(loss_type: LossType, logits, labels,
             ce_sum = softmax_xent_sum(flat, lab)
         return ce_sum / (flat.shape[0] * shards), ce_sum
     return _loss_value_rest(lt, logits, labels, last_op_is_softmax, b,
-                            shards), None
+                            batch_shards), None
 
 
 def loss_value(loss_type: LossType, logits, labels,

@@ -141,9 +141,23 @@ class _Group:
         # position j holds chunk `order[j]` of ours (None: the same order)
         order = [ranks.index(r) for r in sorted(ranks)]
         self.order = None if order == list(range(self.size)) else order
+        self.opened = False
 
     def global_rank(self, index: int) -> int:
         return self.ranks[index % self.size]
+
+    def open(self, device):
+        """A collective of every rank of the group, once, before its first
+        one-sided send: NCCL makes a group's communicator at its first
+        operation, which must then hold every rank (a first batched send
+        of some of them hangs). Call it where every rank of the group
+        does, outside a CUDA graph's capture."""
+        if not self.opened:
+            import torch
+            import torch.distributed as dist
+
+            dist.all_reduce(torch.zeros(1, device=device), group=self.pg)
+            self.opened = True
 
 
 class Mesh:

@@ -85,7 +85,6 @@ from .tensor import Tensor
 # FFModel methods of the JAX package that the port has not got yet, by
 # ROADMAP item: calling one raises, naming its item
 _NOT_PORTED_METHODS = {
-    "pipeline_blocks": "A8 (pipeline)",
     **dict.fromkeys(("enable_checkpointing", "save_checkpoint",
                      "load_checkpoint", "set_fault_hook"),
                     "A10 (resilience/)"),
@@ -548,6 +547,28 @@ class FFModel:
         return self._add_layer(OT.OP_CAST, p, [input], name,
                                data_type=DataType(dtype)).outputs[0]
 
+    def pipeline_blocks(
+        self,
+        input: Tensor,
+        num_layers: int,
+        num_heads: int,
+        mlp_ratio: int = 4,
+        num_microbatches: int = 0,
+        causal: bool = True,
+        attention_impl: str = "xla",
+        name: str = "",
+    ) -> Tensor:
+        """L stacked pre-LN transformer blocks as one op whose layer dim
+        shards over the `pipe` mesh axis: the fill/drain pipeline of
+        parallel/pipeline.py on a mesh with a pipe axis, the sequential
+        stack otherwise."""
+        from .ops import PipelineBlocksParams
+
+        p = PipelineBlocksParams(num_layers, num_heads, mlp_ratio,
+                                 num_microbatches, causal, attention_impl)
+        return self._add_layer(OT.OP_PIPE_BLOCKS, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
     # ================================================== parallel ops
     # (reference src/parallel_ops/*; inserted explicitly or by a strategy)
 
@@ -792,7 +813,13 @@ class FFModel:
             is_coordinator,
             run_search_on_host0,
         )
-        from .machine import AXIS_DATA, AXIS_MODEL, AXIS_SEQ, MeshShape
+        from .machine import (
+            AXIS_DATA,
+            AXIS_MODEL,
+            AXIS_PIPE,
+            AXIS_SEQ,
+            MeshShape,
+        )
         from .search.cost_model import CostModel, OpHarness
         from .search.joint import joint_graph_optimize
         from .search.machine_model import (
@@ -820,8 +847,10 @@ class FFModel:
         ms = cfg.mesh_shape()
         search_axes = (AXIS_DATA, AXIS_MODEL)
         if cfg.search_mesh_shapes:
-            # (the JAX package also searches `pipe` for a PIPE_BLOCKS
-            # stack: ROADMAP A8)
+            # a PIPE_BLOCKS stack makes the pipe axis searchable too: the
+            # dp-vs-pp decision is taken across factorizations
+            if any(n.op_type == OT.OP_PIPE_BLOCKS for n in g.topo_order()):
+                search_axes = search_axes + (AXIS_PIPE,)
             fixed = {a: n for a, n in zip(ms.axis_names, ms.axis_sizes)
                      if n > 1 and a not in search_axes}
             if fixed:
@@ -891,8 +920,9 @@ class FFModel:
         top."""
         import warnings
 
-        from .machine import batch_axes_for
+        from .machine import AXIS_PIPE, batch_axes_for
         from .parallel.ops import derive_parallel_assignment
+        from .tensor import PartitionSpec
 
         batch_axes = batch_axes_for(dict(self.mesh.shape))
         batch_deg = self.mesh.axes_size(batch_axes)
@@ -919,6 +949,14 @@ class FFModel:
                             and dims[0].size % batch_deg == 0):
                         assignment[0] = batch_axes
                     pt.assign_axes(tuple(assignment))
+            if (node.op_type == OT.OP_PIPE_BLOCKS
+                    and self.mesh.shape.get(AXIS_PIPE, 1) > 1):
+                # the stacked block weights shard their layer dim over
+                # `pipe`: each stage stores only its layers (and their
+                # masters and slots), the layout the schedule runs on
+                for ws in node.weight_specs:
+                    node.weight_axes.setdefault(ws.name, PartitionSpec(
+                        AXIS_PIPE, *([None] * (len(ws.shape) - 1))))
             for i, spec_axes in ov.get("outputs", {}).items():
                 node.outputs[i].assign_axes(spec_axes)
             node.weight_axes.update(ov.get("weights", {}))

@@ -10,6 +10,7 @@ from .transformer import (
     TransformerLMConfig,
     build_transformer_lm,
     build_transformer_lm_decode,
+    build_transformer_lm_pipelined,
     transformer_lm_flops_per_token,
     transformer_lm_param_count,
     transformer_lm_state_bytes_per_chip,
@@ -24,6 +25,7 @@ __all__ = [
     "TransformerLMConfig",
     "build_transformer_lm",
     "build_transformer_lm_decode",
+    "build_transformer_lm_pipelined",
     "transformer_lm_flops_per_token",
     "transformer_lm_param_count",
     "transformer_lm_state_bytes_per_chip",

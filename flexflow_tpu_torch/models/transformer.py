@@ -5,7 +5,9 @@ Token + position embedding, pre-LN causal blocks with residuals, an exact
 GELU MLP, a final LayerNorm and a vocab head. The layer names are the JAX
 package's, so weights copied by name (`convert.load_params`) make both
 packages compute the same function, and the serving engine's decode graph
-adopts the trained weights by name.
+adopts the trained weights by name. `build_transformer_lm_pipelined`
+puts the block stack into one PipelineBlocks op (its own block function)
+whose layers shard over the `pipe` mesh axis.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ class TransformerLMConfig:
     mlp_ratio: int = 4
     sequence_length: int = 512
     dtype: DataType = DataType.DT_FLOAT
-    attention_impl: str = "flash"  # xla | flash
+    attention_impl: str = "flash"  # xla | flash | ring
 
 
 def _lm_trunk(ff, c: TransformerLMConfig, h, attention):
@@ -111,6 +113,32 @@ def build_transformer_lm_decode(ff, config: TransformerLMConfig | None = None,
     h = ff.add(h, hp, name="embed_add")
     logits = _lm_trunk(ff, c, h, attention)
     return tokens, pos, logits
+
+
+def build_transformer_lm_pipelined(ff, config: TransformerLMConfig | None = None,
+                                   batch_size: int | None = None,
+                                   num_microbatches: int = 0):
+    """The LM with its block stack as one PipelineBlocks op, whose layer
+    dim shards over the `pipe` mesh axis (parallel/pipeline.py). The
+    block is the op's own (fused qkv, tanh GELU, plain LayerNorm), so
+    this is a different function from `build_transformer_lm`'s trunk;
+    on a mesh with no pipe axis the same op runs its blocks in order.
+    Returns (tokens_input, logits)."""
+    c = config or TransformerLMConfig()
+    bs = batch_size or ff.config.batch_size
+    tokens = ff.create_tensor((bs, c.sequence_length), DataType.DT_INT32,
+                              name="tokens")
+    h = ff.embedding(tokens, c.vocab_size, c.hidden_size, name="wte")
+    pos = ff.create_tensor((bs, c.sequence_length), DataType.DT_INT32,
+                           name="positions")
+    hp = ff.embedding(pos, c.sequence_length, c.hidden_size, name="wpe")
+    h = ff.add(h, hp, name="embed_add")
+    h = ff.pipeline_blocks(h, c.num_layers, c.num_heads, c.mlp_ratio,
+                           num_microbatches=num_microbatches, causal=True,
+                           attention_impl=c.attention_impl, name="blocks")
+    h = ff.layer_norm(h, [2], name="ln_f")
+    logits = ff.dense(h, c.vocab_size, use_bias=False, name="lm_head")
+    return tokens, logits
 
 
 def transformer_lm_param_count(c: TransformerLMConfig) -> int:

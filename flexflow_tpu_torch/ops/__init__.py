@@ -22,6 +22,7 @@ from .core import (
     SoftmaxParams,
 )
 from .elementwise import ElementBinaryParams, ElementUnaryParams
+from .pipeline_blocks import PipelineBlocksParams
 from .inc_attention import (
     IncMultiHeadAttentionParams,
     PagedIncMultiHeadAttentionParams,
@@ -56,6 +57,7 @@ __all__ = [
     "OpContext",
     "OpDef",
     "PagedIncMultiHeadAttentionParams",
+    "PipelineBlocksParams",
     "Pool2DParams",
     "ReduceParams",
     "ReshapeParams",

@@ -13,8 +13,11 @@ projection. The core is chosen by `impl`, as in the JAX package:
   - "xla": `sdpa_xla`, the einsum softmax(QK^T)V in plain torch (the JAX
     package runs no Pallas kernel there either), autograd for the
     backward;
-  - "ring": ring attention over a sequence mesh axis, not ported (ROADMAP
-    A8); it raises.
+  - "ring": `parallel/ring_attention.ring_attention` on split heads over
+    `ctx.mesh`'s `seq` axis: the q, k, v blocks are this rank's rows of
+    the sequence, which the executor's ring rule gives it
+    (`executor._mha_rule`); with no mesh, or a seq axis of 1, it is
+    `sdpa_xla`, as in JAX.
 
 On a mesh whose plan shards the projections by heads
 (`megatron_transformer`), the executor calls this op with this rank's
@@ -34,7 +37,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import not_ported
 from ..fftype import DataType, OperatorType as OT
 from .base import OpDef, WeightSpec, register_op
 from .core import dense_dot
@@ -115,16 +117,18 @@ def _mha_forward(p: MultiHeadAttentionParams, inputs, weights, state, ctx):
         out = flash_attention_packed(q, k, v, num_heads=H, causal=p.causal,
                                      scale=scale)
         return [proj(out, weights["wo"], weights.get("bo"))], state
-    if p.impl == "ring":
-        raise not_ported("multihead_attention(impl='ring')",
-                         "A8 (parallel/ring_attention.py)")
 
     def split_heads(x):
         b, s, _ = x.shape
         return x.reshape(b, s, H, hd).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    if p.impl == "flash":
+    if p.impl == "ring":
+        from ..parallel.ring_attention import ring_attention
+
+        out = ring_attention(q, k, v, causal=p.causal, scale=scale,
+                             mesh=ctx.mesh)
+    elif p.impl == "flash":
         from ..kernels.flash_attention import flash_attention
 
         # the entry materializes these views as (b, h, s, d) copies: the

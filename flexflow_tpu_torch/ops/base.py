@@ -48,6 +48,10 @@ class OpContext:
     # (b, h, s, d) entry instead of the packed relayout-free one — the
     # kernel-layout ablation baseline (FFConfig.flash_packed_layout)
     flash_packed: bool = True
+    # the mesh of a rank of the executor's sharded half (None alone): the
+    # ops that move data themselves (ring attention over `seq`, the
+    # pipeline over `pipe`) take their groups from it
+    mesh: Any = None
 
 
 def matmul_cast(ctx: OpContext, *tensors):

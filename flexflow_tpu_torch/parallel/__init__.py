@@ -1,6 +1,5 @@
-"""Parallel ops, strategies, ring collectives and placement transitions
-(twin of `flexflow_tpu/parallel/`; `ring_attention.py` and `pipeline.py`
-are ROADMAP A8)."""
+"""Parallel ops, strategies, ring collectives, placement transitions, ring
+attention and the pipeline (twin of `flexflow_tpu/parallel/`)."""
 
 from .ops import (
     CombineParams,

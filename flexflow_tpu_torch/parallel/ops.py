@@ -210,25 +210,28 @@ def _ring_peers(perm: list, n: int, index: int) -> tuple[int, int]:
 
 
 class _Hop:
-    """One ring hop of `x`: posted at construction, the received block
+    """One ring hop of `x`, a tensor or a tuple of tensors moved together
+    (one batch of sends, then one of receives, in the same order on every
+    shard): posted at construction, the received block (or tuple)
     returned by `wait()`."""
 
-    def __init__(self, x: torch.Tensor, group, perm: list):
+    def __init__(self, x, group, perm: list):
         import torch.distributed as dist
 
         dst, src = _ring_peers(perm, group.size, group.index)
-        x = x.contiguous()
-        self.out = torch.empty_like(x)
-        self.reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, group.global_rank(dst), group.pg),
-            dist.P2POp(dist.irecv, self.out, group.global_rank(src),
-                       group.pg),
-        ])
+        self.many = isinstance(x, (tuple, list))
+        xs = [t.contiguous() for t in (x if self.many else (x,))]
+        self.out = [torch.empty_like(t) for t in xs]
+        self.reqs = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, t, group.global_rank(dst), group.pg)
+             for t in xs]
+            + [dist.P2POp(dist.irecv, o, group.global_rank(src), group.pg)
+               for o in self.out])
 
-    def wait(self) -> torch.Tensor:
+    def wait(self):
         for r in self.reqs:
             r.wait()
-        return self.out
+        return tuple(self.out) if self.many else self.out[0]
 
 
 def _axis_group(mesh, axis_name: str):

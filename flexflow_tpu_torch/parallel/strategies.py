@@ -11,9 +11,9 @@ a plan written by either package loads in the other.
 
 `megatron_transformer` pairs column- and row-parallel Linear layers and
 shards attention by heads; `sequence_parallel_attention` shards the
-sequence dim of 3-D activations (the assignment only: running
-impl="ring" attention is ROADMAP A8); `expert_parallel_moe` waits for the
-MoE ops (ROADMAP A12).
+sequence dim of 3-D activations (with impl="ring" attention, which the
+executor runs on each rank's rows of the sequence); `expert_parallel_moe`
+waits for the MoE ops (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -292,7 +292,8 @@ def _chain_between(src, dst, producer):
 def sequence_parallel_attention(model, seq_axis: str = AXIS_SEQ) -> Strategy:
     """Shard the sequence dim of 3-D activations over `seq_axis` (batch
     over data); tensors whose seq dim the seq degree does not divide keep
-    the default. Running it needs impl="ring" attention (ROADMAP A8)."""
+    the default. Attention keeps its rows split only as impl="ring"
+    (parallel/ring_attention.py); any other impl gathers the sequence."""
     seq_deg = 0
     cfg = getattr(model, "config", None)
     if cfg is not None:

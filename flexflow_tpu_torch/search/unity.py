@@ -149,7 +149,7 @@ class UnitySearch:
         # whole on the batch axes and the dp price correctly charges the
         # full pool per chip; the feature dim is the searched dim below)
         out = [dp]
-        if node.op_type == UOT.OP_PIPE_BLOCKS:
+        if node.op_type == OT.OP_PIPE_BLOCKS:
             from ..machine import AXIS_PIPE
 
             pipe_deg = self.axis_sizes.get(AXIS_PIPE, 1)
@@ -474,7 +474,7 @@ class UnitySearch:
             overlap_overhead += gs_overhead + pg_overhead
             compute_t = cm.forward_time + cm.backward_time
             if (cfg.name == "pp"
-                    and node.op_type == UOT.OP_PIPE_BLOCKS):
+                    and node.op_type == OT.OP_PIPE_BLOCKS):
                 # fill/drain bubble + stage hand-off pricing for the
                 # ppermute pipeline (parallel/pipeline.py): the ideal
                 # per-chip compute T/(data·P) (already reflected in

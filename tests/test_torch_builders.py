@@ -945,7 +945,7 @@ def test_export_dot_and_print_layers(capsys):
 
 
 @pytest.mark.parametrize("method", [
-    "pipeline_blocks", "enable_checkpointing", "save_checkpoint",
+    "enable_checkpointing", "save_checkpoint",
     "load_checkpoint", "set_fault_hook", "enable_diagnostics",
     "get_diagnostics", "enable_elastic", "profile_step", "moe", "experts",
     "group_by", "aggregate", "aggregate_spec", "cache"])

@@ -448,9 +448,8 @@ def test_dryrun_granular_api_and_refusals_on_four_ranks():
         assert o["smaller"].startswith("ValueError: mesh of 2 devices")
     from flexflow_tpu_torch.entry import dryrun_multichip
 
-    for leg, item in (("sp", "A8"), ("moe", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            dryrun_multichip(WORLD, legs=("lm", leg), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        dryrun_multichip(WORLD, legs=("lm", "moe"), device="cpu")
 
 
 def _abort_on_rank_one(rank):
@@ -480,8 +479,15 @@ def mesh_smoke_job(rank):
 
     lm = TransformerLMConfig(vocab_size=512, hidden_size=256, num_heads=4,
                              num_layers=2, sequence_length=128)
+    seq_lm = TransformerLMConfig(vocab_size=512, hidden_size=256,
+                                 num_heads=4, num_layers=2,
+                                 sequence_length=512)
+    pipe_lm = TransformerLMConfig(vocab_size=512, hidden_size=256,
+                                  num_heads=4, num_layers=4,
+                                  sequence_length=128)
     return chip_smoke.mesh_check("cpu", lm, steps=4, captured=False,
-                                 search=True)
+                                 search=True, seq_lm=seq_lm,
+                                 pipe_lm=pipe_lm)
 
 
 def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
@@ -492,7 +498,11 @@ def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
     step's loss, stages 2 and 3 bit-equal to dp 4, the flash kernels'
     heads cut by tp; in bf16 also dp 4 with the update decision priced
     and the Unity search's plan over the mesh's factorizations (rank 0
-    searches and broadcasts), each held to one rank."""
+    searches and broadcasts), each held to one rank; then, in both
+    dtypes, the LM at seq 512 on sp 4 (ring attention, the sequence
+    split four ways) held to one rank with flash attention, and the
+    pipelined LM at 4 layers on pp 4 and dp 2 x pp 2 held to its one-rank
+    run."""
     outs = _spawn(mesh_smoke_job)
     for o in outs:
         assert o["failures"] == [], o["failures"]
@@ -512,3 +522,13 @@ def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
             == [1]
         for key in ("dp 4 f32", "tp 4 f32", "dp 2 x tp 2 bf16"):
             assert o["checks"][key]["within_tolerance"], o["checks"][key]
+        # the sequence-parallel LM (ring attention) and the pipelined LM
+        # held to their one-rank runs in both dtypes
+        for name in ("sp 4", "pp 4", "dp 2 x pp 2"):
+            for dtype in ("f32", "bf16"):
+                c = o["checks"][f"{name} {dtype}"]
+                assert c["within_tolerance"], (name, dtype, c)
+        assert {r["name"]: r["flash_heads"] for r in o["runs"]}["sp 4"] \
+            == [4]
+        assert "ring" in runs["sp 4"]["rules"], runs["sp 4"]["rules"]
+        assert "pipe" in runs["pp 4"]["rules"], runs["pp 4"]["rules"]

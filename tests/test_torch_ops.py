@@ -7,6 +7,8 @@ The incremental-attention ops are checked on their output AND on the KV
 state they leave behind, including dead (scratch-bound) positions.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,16 +177,35 @@ def test_inc_attention_paged(q_len):
 def test_training_attention_forward_raises():
     """The MHA op's weights match the JAX op's by name (the decode replay
     adopts them); its training forward runs "flash" and "xla"
-    (tests/test_torch_train.py) and raises for "ring", naming its ROADMAP
-    item."""
+    (tests/test_torch_train.py) and "ring", which with no mesh is
+    `sdpa_xla` in both packages (the ring schedule itself:
+    tests/test_torch_ring.py). What raises, in both packages alike, is
+    ring attention inside the pipelined blocks, whose schedule does not
+    thread the seq axis."""
     p = tops.MultiHeadAttentionParams(E_, H_, causal=True, impl="ring")
+    jp = jops.MultiHeadAttentionParams(E_, H_, causal=True, impl="ring")
     x = torch.zeros(2, 4, E_)
     specs = tdef(TOT.OP_MULTIHEAD_ATTENTION).weights(p, [x.shape] * 3)
     assert [w.name for w in specs] == [w.name for w in jdef(
-        JOT.OP_MULTIHEAD_ATTENTION).weights(
-            jops.MultiHeadAttentionParams(E_, H_, causal=True),
-            [tuple(x.shape)] * 3)]
-    weights = {w.name: torch.zeros(w.shape) for w in specs}
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tdef(TOT.OP_MULTIHEAD_ATTENTION).forward(p, [x, x, x], weights,
-                                                 None, TCtx())
+        JOT.OP_MULTIHEAD_ATTENTION).weights(jp, [tuple(x.shape)] * 3)]
+    rs = np.random.RandomState(3)
+    weights = {w.name: rs.randn(*w.shape).astype(np.float32) * 0.3
+               for w in specs}
+    xs = rs.randn(2, 4, E_).astype(np.float32)
+    jo, _, to, _ = _run("OP_MULTIHEAD_ATTENTION", jp, p, [xs] * 3, weights)
+    np.testing.assert_allclose(to[0], jo[0], **TOL)
+    xla = dataclasses.replace(p, impl="xla")
+    _, _, to_xla, _ = _run("OP_MULTIHEAD_ATTENTION", jp, xla, [xs] * 3,
+                           weights)
+    np.testing.assert_array_equal(to[0], to_xla[0])
+    pb = tops.PipelineBlocksParams(2, H_, attention_impl="ring")
+    stacked = {w.name: torch.zeros(w.shape) for w in tdef(
+        TOT.OP_PIPE_BLOCKS).weights(pb, [x.shape])}
+    with pytest.raises(ValueError, match="ring attention needs the seq"):
+        tdef(TOT.OP_PIPE_BLOCKS).forward(pb, [x], stacked, None, TCtx())
+    with pytest.raises(ValueError, match="ring attention needs the seq"):
+        jdef(JOT.OP_PIPE_BLOCKS).forward(
+            jops.PipelineBlocksParams(2, H_, attention_impl="ring"),
+            [jnp.zeros((2, 4, E_))], {k: jnp.zeros(v.shape)
+                                      for k, v in stacked.items()},
+            None, JCtx())

@@ -434,6 +434,45 @@ def test_mesh_shape_search_over_eight_devices_matches_jax():
         _close(a[1], b[1], a[0])
 
 
+def pipelined_lm(pkg, layers=4):
+    """The tiny pipelined LM (build_transformer_lm_pipelined: the block
+    stack one PIPE_BLOCKS node), compiled on one device."""
+    mod, cfg = _config(pkg, batch=16)
+    models = _sub(pkg, "models")
+    ff = mod.FFModel(cfg)
+    models.build_transformer_lm_pipelined(ff, models.TransformerLMConfig(
+        vocab_size=64, hidden_size=128, num_heads=2, num_layers=layers,
+        sequence_length=32, attention_impl="xla"), batch_size=16,
+        num_microbatches=2)
+    ff.compile(optimizer=mod.SGDOptimizer(lr=0.05),
+               loss_type=mod.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff
+
+
+@pytest.mark.parametrize("layers", [4, 3], ids=["divisible", "odd"])
+def test_mesh_shape_search_over_the_pipe_axis_matches_jax(layers):
+    """A PIPE_BLOCKS stack makes `pipe` a searched axis (`model._search`):
+    the factorizations of 8 devices over data, model and pipe, each
+    priced with the pipeline's bubble and hops (a stack of 3 blocks
+    prunes the pipe shapes it does not divide), end on JAX's mesh and
+    Strategy JSON, every candidate at JAX's price."""
+    out = {}
+    for p in PKGS:
+        ff = pipelined_lm(p, layers)
+        mm = _sub(p, "search.machine_model")
+        shape, _, choice, us, results = _sub(
+            p, "search.mesh_search").search_mesh_shapes(
+                ff.graph, 8, ff.config, axes=("data", "model", "pipe"),
+                chip=mm.CHIPS["v5p"])
+        out[p] = (shape, plan_json(us.to_strategy(choice)), results)
+    (sj, pj, rj), (st, pt, rt) = out.values()
+    assert (sj, pj) == (st, pt)
+    assert [r[0] for r in rj] == [r[0] for r in rt]
+    assert any(dict(r[0]).get("pipe", 1) > 1 for r in rt) == (layers == 4)
+    for a, b in zip(rj, rt):
+        _close(a[1], b[1], a[0])
+
+
 def test_lambda_memory_search_under_a_small_cap_matches_jax():
     """The lambda blend under -ll:fsize: every probe over the cap, so the
     bisection runs all its iterations; both packages end on the same

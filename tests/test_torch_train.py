@@ -703,12 +703,6 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
     ff, _, xs, y = _mlp("1")
     with pytest.raises(NotImplementedError, match="A10"):
         ff.fit(xs, y, pipeline_steps=2)
-    p = tops.MultiHeadAttentionParams(8, 2, causal=True, impl="ring")
-    x = torch.zeros(1, 4, 8)
-    w = {n: torch.zeros(8, 8) for n in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="A8"):
-        tdef(TOT.OP_MULTIHEAD_ATTENTION).forward(p, [x, x, x], w, None,
-                                                 TCtx())
 
 
 SEARCH_FLAGS = {
