@@ -171,7 +171,36 @@ Phases, each fatal on failure:
      causal, in float32 (1e-4) and bf16 (2e-2), counting the blocks' K5
      (with lse) and K6/K7 (lse cotangent in delta) launches; and K5-K7
      at the ring's block shape (diagonal and full), each held to its
-     plain version and timed beside SDPA.
+     plain version and timed beside SDPA;
+ 19. lm-base at full width (12 layers, 8 x 512 a batch, bf16, SGD)
+     through `fit` with checkpoints and chunks, over 2 shuffled epochs of
+     8 distinct batches: (a) the per-step fit, then pipeline_steps 4 and
+     3 (3+3+2: a ragged tail), each chunk one CUDA-graph replay over
+     batches the prefetch thread staged: per-step losses and every
+     master, slot, step, counter and the generator bit-equal to the
+     per-step fit's, 16 steps' launches of K1, K4 and K5-K7 in each run
+     and n steps' in each chunk replay, one capture per signature, the
+     run's own peak memory at most 1.1x the per-step run's; (b) killed by
+     a FaultInjector after step 10 with --checkpoint-dir (a fresh temp
+     dir) and --checkpoint-every 4, per step and in chunks of 4 (the
+     fault inside a chunk), and a SIGTERM the process sends itself from
+     step 6's hook (drained at step 7 with a final snapshot); the
+     per-step killed model resumes in this process (its captured step's
+     captures unchanged across the restore), then a fresh process (this
+     script with --resume-child) compiles with --auto-resume and
+     finishes each run: every state tensor bit-equal to (a)'s per-step
+     run; the checkpoint's bytes from its manifest, each save's
+     blocking slice, the writer's serialize and commit times and each
+     restore's time logged; (c) an async save between two replays, two
+     more replays queued at once: the committed masters equal a host
+     copy taken synchronously at that step; (d) two gloo ranks on the
+     card compile lm-base (2 layers) under the search (--budget 6
+     --enable-parameter-parallel --calibrate 4, rank 0 calibrating on the
+     card) against one --warmstart-dir: the cold compile searches, the
+     warm one takes the plan cache with 0 evaluations (and checkpoints
+     its first step), a third with --auto-resume on that checkpoint
+     directory restores the plan from the manifest; compile wall times
+     and time to the first step logged.
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
@@ -185,9 +214,13 @@ then, in float32 and bf16, 4 steps each: lm-base-seq4096 at 12 layers
 (batch 1 x 4096) on sp N (`sequence_parallel_attention`, ring
 attention) held to one rank of the same model with flash attention, and
 the pipelined lm-base (12 layers, 8 x 512, 2 P microbatches) on pp N
-and dp 2 x pp N/2 held to its one-rank run; rank 0 prints every rank's
-runs (the chosen mesh and plan among them), the card line and {"ok":
-..., "world": N} last.
+and dp 2 x pp N/2 held to its one-rank run; then phase 19's leg
+(`mesh_resume_check`): lm-base at 4 layers saved under dp N at stage 3
+(the shards gathered by the save), restored under dp N/2 x tp 2 and on
+one rank with the masters bit-equal to the saved ones, the next 2 steps
+held to one rank's, and a SIGTERM sent to rank 0 alone stopping every
+rank at the same step; rank 0 prints every rank's runs (the chosen mesh
+and plan among them), the card line and {"ok": ..., "world": N} last.
 
 It exits non-zero, printing no result, without a CUDA device. The last
 line is {"ok": true, "device": {...}}; the line before it lists the
@@ -2923,6 +2956,145 @@ def mesh_check(device: str, lm, steps: int, captured: bool,
             "checks": checks, "failures": failures}
 
 
+def mesh_resume_check(device: str, lm, steps: int, captured: bool) -> dict:
+    """Phase 19's torchrun leg on this rank of the process group already
+    started: `lm` in bf16 trains `steps` steps at dp world under stage 3
+    (the masters sharded at rest) and saves (the save gathers the shards
+    in this thread, rank 0 writes); dp world/2 x tp 2 restores it, its
+    whole masters bit-equal to the saved ones, and takes 2 more steps,
+    held by `mesh_agree` to one rank that restores the same checkpoint
+    and takes the same steps. Then a SIGTERM sent to rank 0 alone (from
+    its step-2 hook): every rank stops at step 3 (the flag is agreed over
+    the group) with one final snapshot. Returns the numbers, the checks
+    and the failed ones."""
+    import contextlib
+    import signal
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.distributed import broadcast_json, gather_json
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.parallel import megatron_transformer
+    from flexflow_tpu_torch.resilience import latest_checkpoint
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    root = broadcast_json({"root": tempfile.mkdtemp(prefix="mesh_ck_")}
+                          if rank == 0 else None)["root"]
+    x, y = train_batch(lm.vocab_size, TRAIN_BATCH, lm.sequence_length)
+    failures, checks, numbers = [], {}, {}
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+
+    def model(mesh, flags, tp=False):
+        cfg = FFConfig(device=device)
+        cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED), "-b",
+                        str(TRAIN_BATCH), "--mesh",
+                        ",".join(map(str, mesh)), *flags])
+        ff = FFModel(cfg)
+        STANDARD.into(ff, lm)
+        if tp:
+            ff.set_strategy(megatron_transformer(ff))
+        ff.compile(optimizer=SGDOptimizer(lr=0.01),
+                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   metrics=[MetricsType.METRICS_ACCURACY])
+        return ff
+
+    def fit(ff, n):
+        step = ff.executor.build_train_step()
+        losses = []
+
+        def record(*args):
+            out = step(*args)
+            losses.append(float(out[-1]))
+            return out
+
+        ff.executor._train_step = record
+        with contextlib.nullcontext() if captured else eager():
+            ff.fit({k: np.concatenate([v] * n) for k, v in x.items()},
+                   np.concatenate([y] * n), epochs=1,
+                   batch_size=TRAIN_BATCH, shuffle=False, verbose=False)
+        ff.executor._train_step = step
+        return losses
+
+    t0 = time.perf_counter()
+    off = "--weight-update-sharding=off"
+    try:
+        saved = model((world, 1, 1, 1), ("--weight-update-sharding=stage3",))
+        fit(saved, steps)
+        ck = os.path.join(root, "stage3")
+        sync()
+        t_s = time.perf_counter()
+        saved.save_checkpoint(ck)
+        numbers["save_s"] = time.perf_counter() - t_s
+        whole = _full_masters(saved)
+        numbers["saved_stage"] = saved._update_sharding.get("stage")
+        numbers["local_of_whole"] = (
+            saved._params["l0_ffn1"]["kernel"].numel(),
+            int(whole["l0_ffn1.kernel"].numel()))
+        del saved
+        gc.collect()
+        ref_losses = None
+        for name, mesh, tp in (("one rank", (1, 1, 1, 1), False),
+                               (f"dp {world // 2} x tp 2",
+                                (world // 2, 2, 1, 1), True)):
+            ff = model(mesh, (off,), tp)
+            t_r = time.perf_counter()
+            ff.load_checkpoint(ck)
+            numbers[f"restore_s {name}"] = time.perf_counter() - t_r
+            got = _full_masters(ff)
+            same = [k for k, v in whole.items() if not torch.equal(got[k], v)]
+            checks[f"restored {name}"] = {"bitwise_equal": not same,
+                                          "differ": same[:4]}
+            if same:
+                failures.append(f"restored {name}: masters differ from the "
+                                f"saved ones at {same[:4]}")
+            losses = fit(ff, 2)
+            masters = _full_masters(ff)
+            if ref_losses is None:
+                ref_losses, ref = losses, masters
+            else:
+                c = checks[f"{name} after restore"] = mesh_agree(
+                    masters, ref, whole, losses, ref_losses, MESH_TOL["bf16"])
+                if not c["within_tolerance"]:
+                    failures.append(f"{name} after restore vs one rank: {c}")
+            del ff
+            gc.collect()
+        del ref, whole
+        # SIGTERM to rank 0 alone
+        ff = model((world, 1, 1, 1), (off, "--checkpoint-dir",
+                                      os.path.join(root, "sigterm")))
+        if rank == 0:
+            ff.set_fault_hook(lambda s: os.kill(os.getpid(), signal.SIGTERM)
+                              if s == 2 else None)
+        fit(ff, 6)
+        stopped = [o["step"] for o in gather_json({"step": ff._py_step()})]
+        last = latest_checkpoint(os.path.join(root, "sigterm"))
+        checks["sigterm to rank 0"] = {"stopped": stopped, "latest": last}
+        if stopped != [3] * world or not (last or "").endswith("00000003"):
+            failures.append(f"sigterm to rank 0: ranks stopped at {stopped},"
+                            f" latest {last}")
+        del ff
+    except Exception as e:  # every rank fails alike: the same program
+        failures.append(f"resume leg: {type(e).__name__}: {str(e)[:300]}")
+    dist.barrier()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rank": rank, "world": world, "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "numbers": numbers,
+            "checks": checks, "failures": failures}
+
+
 def gloo_rank(rank: int, stage3: bool) -> dict:
     """Phase 16 on one of the two ranks: `mesh_check` on cuda:0, eager,
     lm-base at GLOO_LAYERS layers."""
@@ -3264,6 +3436,569 @@ def ring_kernel_numbers(dev, errs) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 19
+
+# 2 epochs of 8 distinct batches (16 steps); checkpoints every 4 steps; a
+# fault after step 10, a SIGTERM sent from step 6's hook
+P19_EPOCHS, P19_BATCHES = 2, 8
+P19_EVERY, P19_KILL, P19_SIGTERM = 4, 10, 6
+P19_CHUNKS = (4, 3)
+# the chunked step's peak memory against the per-step one's: the graph
+# pool gives what one step frees to the next inside the capture, so the
+# peak must not grow with the chunk length (the staged (n, batch, ...)
+# inputs are kilobytes)
+P19_PEAK_RATIO = 1.1
+# phase 19(d): lm-base at full width, 2 layers, on two gloo ranks of the
+# one card: the Unity search runs on rank 0 (calibrating 4 ops there)
+WARM_LAYERS = 2
+WARM_FLAGS = ("--mesh", "2,1,1,1", "--budget", "6",
+              "--enable-parameter-parallel", "--calibrate", "4",
+              "--weight-update-sharding=off")
+
+
+def p19_data(lm, batch: int):
+    """P19_BATCHES distinct batches of random tokens and labels."""
+    rs = np.random.RandomState(SEED + 19)
+    n, seq = P19_BATCHES * batch, lm.sequence_length
+    toks = rs.randint(0, lm.vocab_size, (n, seq)).astype(np.int32)
+    pos = np.tile(np.arange(seq, dtype=np.int32), (n, 1))
+    labels = rs.randint(0, lm.vocab_size, (n, seq, 1)).astype(np.int32)
+    return {"tokens": toks, "positions": pos}, labels
+
+
+def state_of(ff) -> dict:
+    """Every trajectory-defining tensor of a one-rank model (masters,
+    optimizer slots, step, metric counters, the generator's state), by
+    its checkpoint path, copied."""
+    from flexflow_tpu_torch.resilience.checkpointer import flatten_tree
+    from flexflow_tpu_torch.resilience.reshard import model_state_tree
+
+    return {k: v.detach().clone() for k, v in
+            flatten_tree(model_state_tree(ff)).items()}
+
+
+def state_diff(got: dict, want: dict) -> list:
+    """The paths whose tensors are not bit-equal (or are missing)."""
+    import torch
+
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or got[k].shape != want[k].shape
+                  or not torch.equal(got[k].to(want[k].device), want[k]))
+
+
+def checkpoint_bytes(path: str) -> int:
+    """The bytes of a checkpoint's leaves, from its manifest."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    size = {"bfloat16": 2}
+    return sum(int(np.prod(m["shape"])) * size.get(
+        m["dtype"], np.dtype(m["dtype"]).itemsize) for m in leaves.values())
+
+
+class P19Run(NamedTuple):
+    ff: object
+    numbers: dict
+    steps: dict  # chunk length -> the step fit ran (1: the train step)
+
+
+def p19_fit(device: str, lm, batch: int, pipeline_steps: int,
+            flags: tuple = (), hook=None, ff=None,
+            dtype: str = "bf16") -> P19Run:
+    """One phase-19 fit of `lm` (bf16, SGD, `batch` rows): P19_EPOCHS
+    shuffled epochs of P19_BATCHES batches, `pipeline_steps` at a time.
+    Each call of the step fit runs (the train step, or a chunk) is
+    wrapped: its loss(es), its device time (CUDA events) and the launches
+    it added are kept. A fault `hook` may stop the fit (SimulatedPreemption
+    is caught: `killed`). Given `ff`, fits that model again (a resume).
+    `dtype`: "bf16" (over f32 masters) or "f32"."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.resilience import (
+        ResilienceManager, SimulatedPreemption)
+
+    on_card = torch.device(device).type == "cuda"
+    held = 0
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what the caller still holds (an earlier run's model and state)
+        # is not this run's
+        held = torch.cuda.memory_allocated()
+    if ff is None:
+        ff = build_train_lm(dtype, lm=lm, batch=batch,
+                            flags=("--device", device, *flags))
+    x, y = p19_data(lm, batch)
+    ex, c = ff.executor, counters()
+    losses, events, launches, steps = [], [], [], {}
+
+    def watched(n, fn):
+        def call(*args):
+            before = {k: c[k].launches for k in MESH_KERNELS}
+            ev = ((torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  if on_card else None)
+            if ev:
+                ev[0].record()
+            out = fn(*args)
+            if ev:
+                ev[1].record()
+            events.append((n, ev))
+            losses.append(out[-1].reshape(-1))
+            launches.append({k: c[k].launches - before[k]
+                             for k in MESH_KERNELS})
+            return out
+        return call
+
+    if pipeline_steps == 1:
+        steps[1] = ex._train_step or ex.build_train_step()
+        ex._train_step = watched(1, steps[1])
+    else:
+        build = ex.build_chunked_train_step
+        wrapped = {}
+
+        def chunked(n):
+            if n not in wrapped:
+                steps[n] = build(n)
+                wrapped[n] = watched(n, steps[n])
+            return wrapped[n]
+
+        ex.build_chunked_train_step = chunked
+    saves, commits = [], []
+    if any(f == "--checkpoint-dir" for f in flags) and ff._resilience is None:
+        ff._resilience = ResilienceManager.from_config(ff)
+    if ff._resilience is not None:
+        mgr, ck = ff._resilience, ff._resilience.checkpointer
+        mgr_save, ck_write = mgr.save, ck._write
+
+        def save(step, cursor=None, blocking=False):
+            t0 = time.perf_counter()
+            mgr_save(step, cursor, blocking)
+            saves.append({"step": step, "blocking": blocking,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "snapshot_ms": ck._snapshot_s * 1e3})
+
+        def write(*args, **kw):
+            before = ck.last_write
+            ck_write(*args, **kw)
+            if ck.last_write is not before:  # committed (not aborted)
+                commits.append(dict(ck.last_write))
+
+        mgr.save, ck._write = save, write
+    ff.set_fault_hook(hook)
+    reset_counters()
+    killed = False
+    t0 = time.perf_counter()
+    try:
+        ff.fit(x, y, epochs=P19_EPOCHS, batch_size=batch, shuffle=True,
+               verbose=False, pipeline_steps=pipeline_steps)
+    except SimulatedPreemption:
+        killed = True
+    if on_card:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ex.__dict__.pop("build_chunked_train_step", None)
+    if ex._train_step is not None and 1 in steps:
+        ex._train_step = steps[1]
+    # a signature's first call warms up and its second captures: only
+    # later calls are replays
+    seen: dict = {}
+    replay_ms = []
+    for n, ev in events:
+        seen[n] = seen.get(n, 0) + 1
+        if ev and seen[n] > 2:
+            replay_ms.append(ev[0].elapsed_time(ev[1]) / n)
+    numbers = {
+        "pipeline_steps": pipeline_steps, "killed": killed,
+        "steps_run": sum(int(v.numel()) for v in losses),
+        "py_step": ff._py_step(), "wall_s": wall_s,
+        "losses": [float(v) for t in losses for v in t.tolist()],
+        "replay_ms_per_step": replay_ms,
+        "median_replay_ms_per_step": (statistics.median(replay_ms)
+                                      if replay_ms else None),
+        "captures": {n: getattr(s, "captures", 0) for n, s in steps.items()},
+        "launches": {k: c[k].launches for k in MESH_KERNELS},
+        "launches_per_call": {n: launches[i] for i, (n, _) in
+                              enumerate(events)},
+        "max_memory_allocated": (torch.cuda.max_memory_allocated() - held
+                                 if on_card else None),
+        "saves": saves, "commits": commits}
+    return P19Run(ff, numbers, steps)
+
+
+def chunk_check(device: str, lm, batch: int, dtype: str = "bf16"):
+    """Phase 19(a): the per-step fit, then pipeline_steps 4 and 3 (the
+    ragged tail), bit for bit: per-step losses and every state tensor.
+    Each run launches 16 steps' kernels, each chunk replay n steps'
+    worth; a signature captures once; the chunked peak memory at most
+    P19_PEAK_RATIO of the per-step one's. Returns the numbers and the
+    per-step run (its model, its steps) and its final state: the later
+    parts compare with them."""
+    plain = p19_fit(device, lm, batch, 1, dtype=dtype)
+    want = state_of(plain.ff)
+    step = step_launches(lm.num_layers, False)
+    total = P19_EPOCHS * P19_BATCHES
+    out = {"plain": plain.numbers}
+    require(plain.numbers["steps_run"] == total,
+            f"phase 19(a): the per-step fit ran {plain.numbers['steps_run']}"
+            f" steps")
+    on_card = plain.numbers["max_memory_allocated"] is not None
+    for n in P19_CHUNKS:
+        run = p19_fit(device, lm, batch, n, dtype=dtype)
+        r = out[f"chunks of {n}"] = run.numbers
+        diff = state_diff(state_of(run.ff), want)
+        require(r["losses"] == plain.numbers["losses"],
+                f"phase 19(a): chunks of {n}: losses {r['losses']} vs "
+                f"per-step {plain.numbers['losses']}")
+        require(not diff, f"phase 19(a): chunks of {n}: not bit-equal to "
+                f"the per-step fit at {diff[:8]} (a kernel or library "
+                f"call summing in a varying order breaks this)")
+        if on_card:
+            want_total = {k: total * step[k] for k in MESH_KERNELS}
+            require(r["launches"] == want_total,
+                    f"phase 19(a): chunks of {n}: launches "
+                    f"{r['launches']}, want {want_total}")
+            for m, per in r["launches_per_call"].items():
+                require(per == {k: m * step[k] for k in MESH_KERNELS},
+                        f"phase 19(a): a chunk of {m} launched {per}")
+            require(all(v == 1 for v in r["captures"].values()),
+                    f"phase 19(a): chunks of {n}: captures {r['captures']}")
+            ratio = (r["max_memory_allocated"]
+                     / plain.numbers["max_memory_allocated"])
+            r["peak_vs_per_step"] = ratio
+            require(ratio <= P19_PEAK_RATIO,
+                    f"phase 19(a): chunks of {n}: peak memory "
+                    f"{r['max_memory_allocated']} B, {ratio:.3f}x the "
+                    f"per-step fit's")
+        del run
+        gc.collect()
+    return out, plain, want
+
+
+def resume_child(job: dict) -> dict:
+    """Phase 19(b)'s fresh process: each resume of `job["resumes"]`
+    compiles the LM with --checkpoint-dir DIR --auto-resume, fits to the
+    end (its pipeline_steps) and compares every state tensor with the
+    reference (`torch.save`d by the parent from its per-step run)."""
+    import torch
+
+    from flexflow_tpu_torch.models import TransformerLMConfig
+
+    lm = TransformerLMConfig(**job["lm"])
+    want = torch.load(job["reference"])
+    results = []
+    for r in job["resumes"]:
+        t0 = time.perf_counter()
+        run = p19_fit(job["device"], lm, job["batch"], r["pipeline_steps"],
+                      flags=("--checkpoint-dir", r["dir"], "--auto-resume"),
+                      dtype=job["dtype"])
+        ff = run.ff
+        diff = state_diff({k: v.cpu() for k, v in state_of(ff).items()},
+                          want)
+        results.append({
+            "name": r["name"], "diff": diff[:8], "py_step": ff._py_step(),
+            "steps_run": run.numbers["steps_run"],
+            "restore_s": ff._resilience.last_restore_s,
+            "captures": run.numbers["captures"],
+            "wall_s": time.perf_counter() - t0})
+        del ff, run
+        gc.collect()
+    return {"resumes": results}
+
+
+def resume_check(device: str, lm, batch: int, plain, want: dict,
+                 dtype: str = "bf16") -> dict:
+    """Phase 19(b): killed runs, then resumed in a fresh process. Per
+    step: a FaultInjector after step P19_KILL (checkpoints every
+    P19_EVERY); chunks of 4, the fault inside a chunk; a SIGTERM sent to
+    the process from step P19_SIGTERM's hook, drained at the next
+    boundary with a final snapshot. The per-step killed model also
+    resumes in this process: its captured step's captures do not move
+    across the restore, and it ends equal to the per-step run. Then a
+    fresh process (this script with `--resume-child`) resumes each
+    directory to the end, every state tensor bit-equal to the per-step
+    run's."""
+    import signal
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.resilience import (
+        CheckpointPolicy, FaultInjector, latest_checkpoint, list_checkpoints)
+
+    root = tempfile.mkdtemp(prefix="p19b_")
+    flags = ("--checkpoint-every", str(P19_EVERY))
+    out = {}
+
+    def sigterm(step):
+        if step == P19_SIGTERM:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    cases = (("per-step kill", 1, FaultInjector(P19_KILL)),
+             ("chunks of 4, kill", 4, FaultInjector(P19_KILL)),
+             ("per-step SIGTERM", 1, sigterm))
+    dirs = {}
+    for name, n, hook in cases:
+        d = dirs[name] = os.path.join(root, name.replace(" ", "_"))
+        run = p19_fit(device, lm, batch, n, ("--checkpoint-dir", d, *flags),
+                      hook=hook, dtype=dtype)
+        r = out[name] = run.numbers
+        last = latest_checkpoint(d)
+        require(last is not None, f"phase 19(b): {name}: no checkpoint")
+        with open(os.path.join(last, "manifest.json")) as f:
+            cursor = json.load(f)["extras"]["cursor"]
+        r.update(checkpoints=[os.path.basename(p)
+                              for p in list_checkpoints(d)],
+                 cursor=cursor, bytes=checkpoint_bytes(last))
+        if hook is sigterm:
+            require(not r["killed"] and r["py_step"] == P19_SIGTERM + n
+                    and last.endswith(f"{P19_SIGTERM + n:08d}")
+                    and r["saves"] and r["saves"][-1]["blocking"],
+                    f"phase 19(b): {name}: stopped at {r['py_step']}, "
+                    f"latest {last}")
+        else:
+            require(r["killed"] and hook.fired,
+                    f"phase 19(b): {name}: the fault did not fire")
+            require(cursor["batch"] % n == 0,
+                    f"phase 19(b): {name}: cursor {cursor} off a chunk edge")
+        if name == "per-step kill":
+            # in this process: restore in place and finish the run
+            step = run.steps[1]
+            before = getattr(step, "captures", 0)
+            ff = run.ff
+            ff.config.auto_resume, ff._auto_resumed = True, False
+            # no more saves: the fresh process resumes this directory
+            ff._resilience.policy = CheckpointPolicy()
+            again = p19_fit(device, lm, batch, 1, ff=ff, dtype=dtype)
+            diff = state_diff(state_of(ff), want)
+            r["in_process"] = {
+                "captures_before": before,
+                "captures_after": getattr(step, "captures", 0),
+                "restore_s": ff._resilience.last_restore_s,
+                "steps_run": again.numbers["steps_run"], "diff": diff[:8]}
+            require(not diff, f"phase 19(b): in-process resume not "
+                    f"bit-equal at {diff[:8]}")
+            require(r["in_process"]["captures_after"] == before,
+                    f"phase 19(b): captures moved across the restore: "
+                    f"{r['in_process']}")
+            del again
+        del run
+        gc.collect()
+    ref_path = os.path.join(root, "reference.pt")
+    torch.save({k: v.cpu() for k, v in want.items()}, ref_path)
+    job = {"device": device, "lm": dataclasses.asdict(lm), "batch": batch,
+           "dtype": dtype, "reference": ref_path,
+           "resumes": [{"name": name, "dir": dirs[name], "pipeline_steps": n}
+                       for name, n, _ in cases]}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+         "--resume-child", json.dumps(job)],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    require(proc.returncode == 0, f"phase 19(b): the fresh process "
+            f"failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh["process_s"] = time.perf_counter() - t0
+    out["fresh_process"] = fresh
+    total = P19_EPOCHS * P19_BATCHES
+    for r in fresh["resumes"]:
+        require(not r["diff"] and r["py_step"] == total,
+                f"phase 19(b): {r['name']}: the fresh process ended at "
+                f"step {r['py_step']}, not bit-equal at {r['diff']}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def torn_check(device: str, plain, lm, batch: int) -> dict:
+    """Phase 19(c): right after a replay, an async save (its copy queued
+    behind the replay, an event marking its end), then two more replays
+    at once, which write the masters in place while the writer thread
+    serializes; the committed masters equal a host copy taken
+    synchronously after the first replay, bit for bit, and the later
+    replays did change them."""
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.resilience import (
+        AsyncCheckpointer, latest_checkpoint, load_checkpoint)
+    from flexflow_tpu_torch.resilience.reshard import logical_state_tree
+
+    ff = plain.ff
+    step = plain.steps[1]
+    x, y = p19_data(lm, batch)
+    staged = ff._make_batch({k: v[:batch] for k, v in x.items()}, y[:batch])
+
+    def replay():
+        (ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+         _) = step(ff._params, ff._state, ff._opt_slots, ff._step,
+                   ff._counters, staged, ff._rng)
+
+    replay()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    host = {f"['params'][{n!r}][{k!r}]": t.detach().cpu().clone()
+            for n, ws in ff._params.items() for k, t in ws.items()}
+    root = tempfile.mkdtemp(prefix="p19c_")
+    ck = AsyncCheckpointer(root)
+    t0 = time.perf_counter()
+    ck.save(ff._py_step(), logical_state_tree(ff),
+            extras={"rng_kind": "torch"})
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    replay()
+    replay()  # queued while the writer serializes
+    ck.wait()
+    flat, _ = load_checkpoint(latest_checkpoint(root))
+    torn = [k for k, v in host.items() if not torch.equal(
+        v, torch.as_tensor(np.asarray(flat[k])))]
+    moved = sum(not torch.equal(ff._params[n][k].cpu(),
+                                host[f"['params'][{n!r}][{k!r}]"])
+                for n, ws in ff._params.items() for k in ws)
+    require(not torn, f"phase 19(c): the snapshot is torn at {torn[:8]}")
+    require(moved > 0, "phase 19(c): the later replays changed no master")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return {"masters": len(host), "torn": torn, "masters_moved": moved,
+            "issue_ms": issue_ms, "write": ck.last_write}
+
+
+class count_evals:
+    """Counts the Unity search's evaluations and joint searches in this
+    process (rank 0's)."""
+
+    def __enter__(self):
+        import flexflow_tpu_torch.search.joint as joint
+        import flexflow_tpu_torch.search.unity as unity
+
+        self.evals = self.searches = 0
+        self._undo = [(unity.UnitySearch, "evaluate",
+                       unity.UnitySearch.evaluate),
+                      (joint, "joint_graph_optimize",
+                       joint.joint_graph_optimize)]
+        ev, opt = self._undo[0][2], self._undo[1][2]
+
+        def evaluate(us, *a, **kw):
+            self.evals += 1
+            return ev(us, *a, **kw)
+
+        def search(*a, **kw):
+            self.searches += 1
+            return opt(*a, **kw)
+
+        unity.UnitySearch.evaluate = evaluate
+        joint.joint_graph_optimize = search
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._undo:
+            setattr(obj, name, fn)
+        return False
+
+
+def warm_rank(rank: int, root: str, device: str, lm_kw: dict) -> dict:
+    """Phase 19(d) on one of two gloo ranks: lm-base compiled three times
+    under the search (WARM_FLAGS): cold and warm against one
+    --warmstart-dir (each then fits one step, eager: gloo is not
+    captured; the warm one checkpoints it), then with --auto-resume on
+    that checkpoint directory. Per compile: the wall time, the plan's
+    source, rank 0's search evaluations, and time to the first step from
+    the telemetry summary."""
+    import torch
+
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.models import TransformerLMConfig
+    from flexflow_tpu_torch.telemetry import deactivate, read_jsonl
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    sys.argv = sys.argv[:1]  # FFConfig reads the command line
+    lm = TransformerLMConfig(**lm_kw)
+    ws, ck = os.path.join(root, "ws"), os.path.join(root, "ck")
+    x, y = train_batch(lm.vocab_size, TRAIN_BATCH, lm.sequence_length)
+    out = {}
+    for tag, extra in (("cold", ("--warmstart-dir", ws)),
+                       ("warm", ("--warmstart-dir", ws, "--checkpoint-dir",
+                                 ck, "--checkpoint-every", "1")),
+                       ("resume", ("--warmstart-dir", ws, "--checkpoint-dir",
+                                   ck, "--auto-resume"))):
+        tdir = os.path.join(root, f"tel_{tag}_{rank}")
+        t0 = time.perf_counter()
+        with count_evals() as spy:
+            ff = build_train_lm("bf16", lm=lm, flags=(
+                "--device", device, "--telemetry-dir", tdir, *WARM_FLAGS,
+                *extra))
+        compile_s = time.perf_counter() - t0
+        with eager():
+            ff.fit(x, y, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+                   verbose=False)
+        deactivate()
+        recs = read_jsonl(os.path.join(tdir, "metrics.jsonl"))
+        summary = next((r for r in reversed(recs)
+                        if r["kind"] == "summary"), {})
+        out[tag] = {"plan_source": ff._plan_source, "evals": spy.evals,
+                    "searches": spy.searches, "compile_s": compile_s,
+                    "time_to_first_step_s": summary.get(
+                        "time_to_first_step_s"),
+                    "fingerprint": ff._plan_fingerprint,
+                    "py_step": ff._py_step()}
+        del ff
+        gc.collect()
+    return out
+
+
+def warm_check(device: str, lm) -> dict:
+    """Phase 19(d): `warm_rank` on two gloo ranks; rank 0's second
+    compile comes from the plan cache with 0 search evaluations, the
+    third from the checkpoint's plan record."""
+    import tempfile
+
+    from flexflow_tpu_torch.distributed import spawn
+
+    root = tempfile.mkdtemp(prefix="p19d_")
+    t0 = time.perf_counter()
+    ranks = spawn(warm_rank, 2, root, device, dataclasses.asdict(lm),
+                  timeout=900)
+    r0 = ranks[0]
+    require(r0["cold"]["plan_source"] == "search"
+            and r0["cold"]["evals"] > 0,
+            f"phase 19(d): the cold compile: {r0['cold']}")
+    require(r0["warm"]["plan_source"] == "cache"
+            and r0["warm"]["evals"] == 0 and r0["warm"]["searches"] == 0,
+            f"phase 19(d): the warm compile: {r0['warm']}")
+    require(r0["resume"]["plan_source"] == "checkpoint"
+            and r0["resume"]["evals"] == 0,
+            f"phase 19(d): the --auto-resume compile: {r0['resume']}")
+    require(all(r["warm"]["plan_source"] == "broadcast" for r in ranks[1:]),
+            f"phase 19(d): rank 1: {ranks[1]['warm']}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+
+
+def phase19(device: str, lm, batch: int, warm_lm,
+            dtype: str = "bf16") -> dict:
+    """Phase 19 (a)-(d) of `lm` on `device` (the card: lm-base at full
+    width in bf16; the CPU test: a tiny LM), `warm_lm` for (d)."""
+    t0 = time.perf_counter()
+    chunks, plain, want = chunk_check(device, lm, batch, dtype)
+    resume = resume_check(device, lm, batch, plain, want, dtype)
+    torn = torn_check(device, plain, lm, batch)
+    del plain, want
+    gc.collect()
+    # two gloo ranks share the card, each naming it (phase 16's way)
+    warm = warm_check("cuda:0" if device.startswith("cuda") else device,
+                      warm_lm)
+    return {"chunks": chunks, "resume": resume, "torn": torn, "warm": warm,
+            "wall_s": time.perf_counter() - t0}
+
+
 def _tensors(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
@@ -3327,6 +4062,10 @@ def mesh_main(json_path: str) -> int:
                      seq_lm=dataclasses.replace(
                          lm_config(), sequence_length=RING_SEQ),
                      pipe_lm=lm_config())
+    out["resume"] = mesh_resume_check(
+        f"cuda:{torch.cuda.current_device()}",
+        lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
+    out["failures"] = out["failures"] + out["resume"]["failures"]
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -3339,11 +4078,61 @@ def mesh_main(json_path: str) -> int:
     if rank == 0:
         for o in outs:
             log_mesh_runs(o)
+            log_mesh_resume(o["resume"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
               flush=True)
     return 1 if bad else 0
+
+
+def log_mesh_resume(r: dict):
+    log(f"  rank {r['rank']} resume leg ({r['layers']} layers, bf16): "
+        f"{r['numbers']}; checks {r['checks']}")
+
+
+def log_phase19(p: dict, phase6_ms: float):
+    """Phase 19's figures, each run on its own line."""
+    ch = p["chunks"]
+    for name, r in ch.items():
+        med = r["median_replay_ms_per_step"]
+        peak = r["max_memory_allocated"]
+        if "peak_vs_per_step" in r:
+            peak = f"{peak} B ({r['peak_vs_per_step']:.4f}x per-step)"
+        log(f"  19(a) {name}: {r['steps_run']} steps in {r['wall_s']:.2f} "
+            f"s, replay device time a step {med} ms (phase 6 median step "
+            f"{phase6_ms:.3f}), captures {r['captures']}, launches per "
+            f"call {r['launches_per_call']}, peak {peak}")
+    for name, r in p["resume"].items():
+        if name == "fresh_process":
+            continue
+        blocking = [round(v["ms"], 3) for v in r["saves"]]
+        snap = [round(v["snapshot_ms"], 3) for v in r["saves"]]
+        writes = [(round(c["serialize_s"], 3), round(c["commit_s"], 4))
+                  for c in r["commits"]]
+        log(f"  19(b) {name}: stopped at step {r['py_step']} (killed "
+            f"{r['killed']}), committed {r['checkpoints']}, cursor "
+            f"{r['cursor']}, {r['bytes']} bytes a checkpoint; blocking "
+            f"slice of each save {blocking} ms (snapshot {snap} ms) vs "
+            f"phase 6's step {phase6_ms:.3f} ms; writer serialize / commit "
+            f"{writes} s" + (f"; in-process restore {r['in_process']}"
+                             if "in_process" in r else ""))
+    fresh = p["resume"]["fresh_process"]
+    log(f"  19(b) fresh process ({fresh['process_s']:.1f} s): "
+        + "; ".join(f"{r['name']}: restore {r['restore_s']:.3f} s, ran "
+                    f"{r['steps_run']} steps to {r['py_step']}, captures "
+                    f"{r['captures']}, bit-equal {not r['diff']}"
+                    for r in fresh["resumes"]))
+    t = p["torn"]
+    log(f"  19(c) async save issued in {t['issue_ms']:.3f} ms between "
+        f"replays, 2 replays queued behind it moved {t['masters_moved']} "
+        f"of {t['masters']} masters, the committed ones equal the "
+        f"synchronous copy; write {t['write']}")
+    for rank, r in enumerate(p["warm"]["ranks"]):
+        log(f"  19(d) rank {rank}: " + "; ".join(
+            f"{tag}: plan {v['plan_source']}, {v['evals']} evals, compile "
+            f"{v['compile_s']:.2f} s, time to first step "
+            f"{v['time_to_first_step_s']}" for tag, v in r.items()))
 
 
 def log_train(t: dict):
@@ -3384,7 +4173,15 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", default="", help="also write every "
                         "number of the run, as JSON, to this file")
-    json_path = parser.parse_args(argv).json
+    parser.add_argument("--resume-child", default="",
+                        help=argparse.SUPPRESS)  # phase 19(b)'s process
+    args = parser.parse_args(argv)
+    json_path = args.json
+    if args.resume_child:
+        sys.path.insert(0, REPO)
+        print(json.dumps(resume_child(json.loads(args.resume_child))),
+              flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -3592,6 +4389,14 @@ def main(argv: list[str]) -> int:
     log_ring(ring)
     for row, cases in ring_kernel_numbers(dev, errs).items():
         nums[row].update(cases)
+    log("== phase 19: lm-base at full width (12 layers, 8 x 512, bf16, "
+        "SGD) through fit with checkpoints and chunks: chunked vs "
+        "per-step, preempted and resumed, the snapshot's ordering, the "
+        "warm start")
+    p19 = phase19("cuda", lm_config(), TRAIN_BATCH,
+                  lm_config(layers=WARM_LAYERS))
+    log_phase19(p19, train["median_step_ms"])
+
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
     for row in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -3629,6 +4434,9 @@ def main(argv: list[str]) -> int:
         if by_variant is not None:
             n = dict(n, launches_by_variant=by_variant,
                      variant_sources=VARIANT_SOURCES)
+        chunked = p19["chunks"]["chunks of 4"]["launches"]
+        if counter in chunked:
+            n = dict(n, phase19_chunked_launches=chunked[counter])
         rows.append(dict(
             name=row, route=route, source=source, replaces=replaces,
             launches=run["launches"][counter], max_abs_err=errs[row],
@@ -3663,7 +4471,7 @@ def main(argv: list[str]) -> int:
                   nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
-                  total_s=time.perf_counter() - t_start)
+                  phase19=p19, total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -3726,6 +4534,16 @@ def main(argv: list[str]) -> int:
                         "captured_vs_eager"],
                     "pipelined_gradients": grads_pp,
                     "ring_blocks": ring,
+                    "phase19": {
+                        "median_replay_ms_per_step": {
+                            k: v["median_replay_ms_per_step"]
+                            for k, v in p19["chunks"].items()},
+                        "peak": {k: v["max_memory_allocated"]
+                                 for k, v in p19["chunks"].items()},
+                        "checkpoint_bytes": p19["resume"][
+                            "per-step kill"]["bytes"],
+                        "warm_start": p19["warm"]["ranks"][0],
+                        "wall_s": p19["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -11,7 +11,11 @@ the decode attention and the LayerNorm forward and backward; telemetry/
 writes the JAX package's trace and run metrics. A model trains on a mesh
 of torch.distributed ranks (`--mesh`, one rank a device): data and tensor
 parallel, with the weight update replicated or sharded (ZeRO stage 2/3).
-It imports torch and numpy, never jax, and nothing of flexflow_tpu.
+`fit` checkpoints asynchronously and resumes from its newest checkpoint
+on the same or another mesh (resilience/), restores its plan from a
+warm-start cache (warmstart/) and runs chunks of steps as one replay
+(engine/). It imports torch and numpy, never jax, and nothing of
+flexflow_tpu.
 
 Every tensor lives on `FFConfig.device`, "cuda" unless the caller asks
 for "cpu"; without a CUDA device and without that request, building a
@@ -47,6 +51,7 @@ from .metrics import Metrics, PerfMetrics
 from .model import FFModel
 from .optimizer import AdamOptimizer, Optimizer, SGDOptimizer
 from .parallel import Strategy
+from . import resilience  # checkpoints, cross-mesh resume, preemption
 from . import serving
 from . import telemetry  # tracer + run metrics + leveled logging
 from .tensor import ParallelDim, ParallelTensor, ParallelTensorShape, Tensor

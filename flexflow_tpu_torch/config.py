@@ -31,28 +31,22 @@ from .machine import DEFAULT_AXES, MULTIHOST_AXES, MeshShape
 # value, ROADMAP item). A valued flag asks for its path unless the value
 # is 0 or empty.
 _NOT_PORTED = {
-    "--profiling": (False, "A10 (profiling)"),
-    "--checkpoint-dir": (True, "A10 (resilience/ checkpoints)"),
-    "--checkpoint-every": (True, "A10 (resilience/ checkpoints)"),
-    "--checkpoint-every-seconds": (True, "A10 (resilience/ checkpoints)"),
-    "--auto-resume": (False, "A10 (resilience/ auto-resume)"),
-    "--xprof-dir": (True, "A10 (scope/ device traces)"),
-    "--profile-every": (True, "A10 (scope/ op-grain profiling)"),
-    "--watchdog-timeout": (True, "A10 (scope/ hang watchdog)"),
-    "--diagnostics": (False, "A10 (diagnostics/)"),
-    "--elastic": (False, "A10 (elastic/)"),
-    "--sanitize-numerics": (False, "A10 (sanitize.py)"),
-    "--warmstart-dir": (True, "A10 (warmstart/)"),
-    "--checkpoint-keep": (True, "A10 (resilience/ checkpoints)"),
-    "--health-abort-on": (True, "A10 (resilience/ health checks)"),
-    "--health-sample-every": (True, "A10 (resilience/ health checks)"),
-    "--drift-threshold": (True, "A10 (recompile.py drift recalibration)"),
-    "--watchdog-abort": (False, "A10 (scope/ hang watchdog)"),
-    "--watchdog-multiplier": (True, "A10 (scope/ hang watchdog)"),
-    "--flight-events": (True, "A10 (scope/ flight recorder)"),
-    "--replan-cooldown-steps": (True, "A10 (elastic/)"),
-    "--replan-horizon-steps": (True, "A10 (elastic/)"),
-    "--elastic-dry-run": (False, "A10 (elastic/)"),
+    "--profiling": (False, "A10b (profiling)"),
+    "--xprof-dir": (True, "A10b (scope/ device traces)"),
+    "--profile-every": (True, "A10b (scope/ op-grain profiling)"),
+    "--watchdog-timeout": (True, "A10b (scope/ hang watchdog)"),
+    "--diagnostics": (False, "A10b (diagnostics/)"),
+    "--elastic": (False, "A10b (elastic/)"),
+    "--sanitize-numerics": (False, "A10b (sanitize.py)"),
+    "--health-abort-on": (True, "A10b (diagnostics/ health checks)"),
+    "--health-sample-every": (True, "A10b (diagnostics/ health checks)"),
+    "--drift-threshold": (True, "A10b (recompile.py drift recalibration)"),
+    "--watchdog-abort": (False, "A10b (scope/ hang watchdog)"),
+    "--watchdog-multiplier": (True, "A10b (scope/ hang watchdog)"),
+    "--flight-events": (True, "A10b (scope/ flight recorder)"),
+    "--replan-cooldown-steps": (True, "A10b (elastic/)"),
+    "--replan-horizon-steps": (True, "A10b (elastic/)"),
+    "--elastic-dry-run": (False, "A10b (elastic/)"),
     "--no-verify-plan": (False, "A9 (analysis/ ffcheck)"),
     "--no-verify-rules": (False, "A9 (analysis/ ffrules)"),
     "--spmd-barrier": (False, "A9 (analysis/ ffsan)"),
@@ -123,6 +117,19 @@ class FFConfig:
     # off)
     metrics_interval: float = 0.0
     metrics_port: int = 0
+    # resilience (resilience/): checkpoint_dir enables async checkpoints
+    # during fit, every N steps / T seconds; auto_resume restores the
+    # newest committed checkpoint (onto this run's mesh) before training
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    checkpoint_every_seconds: float = 0.0
+    checkpoint_keep: int = 3
+    auto_resume: bool = False
+    # engine/: fit runs chunks of N train steps as one CUDA-graph replay
+    # over batches a background thread staged (1: the per-step loop)
+    pipeline_steps: int = 1
+    # warmstart/: the persistent plan cache and calibration DB
+    warmstart_dir: str = ""
     # the mesh: `--mesh` sizes over mesh_axis_names (None: every rank of
     # the world on `data`); `--nodes` prepends the cross-host `dcn` axis
     mesh_axis_sizes: Optional[tuple[int, ...]] = None
@@ -220,9 +227,19 @@ class FFConfig:
             elif a in ("--lr", "--learning-rate"):
                 self.learning_rate = float(val())
             elif a == "--pipeline-steps":
-                if int(val()) > 1:
-                    raise not_ported("--pipeline-steps > 1 (the pipelined "
-                                     "lax.scan engine)", "A10 (engine/)")
+                self.pipeline_steps = int(val())
+            elif a == "--checkpoint-dir":
+                self.checkpoint_dir = val()
+            elif a == "--checkpoint-every":
+                self.checkpoint_every = int(val())
+            elif a == "--checkpoint-every-seconds":
+                self.checkpoint_every_seconds = float(val())
+            elif a == "--checkpoint-keep":
+                self.checkpoint_keep = int(val())
+            elif a == "--auto-resume":
+                self.auto_resume = True
+            elif a == "--warmstart-dir":
+                self.warmstart_dir = val()
             elif a == "--telemetry-dir":
                 self.telemetry_dir = val()
             elif a == "--metrics-interval":

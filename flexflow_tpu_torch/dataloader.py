@@ -2,7 +2,8 @@
 
 The full array stays in host memory as numpy; `next_batch` slices it
 round-robin with an epoch-stable order (sequential batches, `reset()` to
-restart). `FFModel.start_batch` or `fit` stages a batch on the device;
+restart; `state_dict`/`load_state_dict` save and restore the cursor).
+`FFModel.start_batch` or `fit` stages a batch on the device;
 `next_batch_sharded` stages it here: on a mesh, this rank's block of it,
 by the placement of the graph input of the loader's tensor (the whole
 batch for a tensor that is no graph input). Both carry the JAX loader's
@@ -25,6 +26,10 @@ class SingleDataLoader:
         self.num_samples = int(full_array.shape[0])
         self.batch_size = batch_tensor.dims[0]
         self.next_index = 0
+        # whether the tensor is a graph input, resolved once on first use:
+        # the graph cannot change after compile, so a scan of
+        # graph.sources() per batch would be pure overhead
+        self._is_input = None
 
     @property
     def num_batches(self) -> int:
@@ -32,6 +37,20 @@ class SingleDataLoader:
 
     def reset(self):
         self.next_index = 0
+
+    # ---- resumable cursor (resilience/): a checkpointed run restores the
+    # loader mid-epoch and the next batch is exactly the one the killed run
+    # would have issued
+    def state_dict(self) -> dict:
+        return {"next_index": int(self.next_index)}
+
+    def load_state_dict(self, state: dict):
+        idx = int(state["next_index"])
+        if idx < 0 or idx > self.num_samples:
+            raise ValueError(
+                f"dataloader cursor {idx} out of range for "
+                f"{self.num_samples} samples")
+        self.next_index = idx
 
     def next_batch(self, ffmodel=None) -> np.ndarray:
         with telemetry.span("data.next_batch"):
@@ -49,7 +68,9 @@ class SingleDataLoader:
             batch = self.next_batch()
             ex = self.ffmodel.executor
             name = self.batch_tensor.name
-            if ex is not None and any(
-                    n.name == name for n in ex.graph.sources()):
+            if self._is_input is None and ex is not None:
+                self._is_input = any(n.name == name
+                                     for n in ex.graph.sources())
+            if self._is_input:
                 return ex.stage_inputs({name: batch})[name]
             return torch.as_tensor(batch).to(self.ffmodel.device)

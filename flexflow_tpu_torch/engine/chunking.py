@@ -1,9 +1,8 @@
 """Chunk planning (a copy of `flexflow_tpu/engine/chunking.py`).
 
 The serving engine covers a prompt's prefill with `plan_chunks` and runs
-one chunk per iteration. In the JAX package the same planner also cuts an
-epoch into fused multi-step training dispatches; that engine is not
-ported (ROADMAP A10): the port's `fit` is the eager loop.
+one chunk per iteration; the pipelined engine (pipelined.py) cuts an
+epoch into chunks of train steps, each one CUDA-graph replay.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ the metric counters advance in place, and the incremental attention ops
 write the KV state in place, so every replay reads and writes the same
 tensors. `eager()` is the twin of `jax.disable_jit()`: under it a step
 runs op by op. On the CPU the steps are plain functions. The granular
-`build_forward` and the COW block copy stay eager, as does
-`fit(pipeline_steps > 1)`'s engine when it comes (ROADMAP A10).
+`build_forward` and the COW block copy stay eager.
+`build_chunked_train_step(n)` (the pipelined engine's, engine/) captures
+n train steps over staged `(n, batch, ...)` inputs in one graph.
 
 The decode step reads the parameters in the compute dtype from a cache
 (`compute_params`): each copy is cast once and again only when its master
@@ -431,6 +432,9 @@ class Executor:
         # a graph that ends in softmax hands probabilities to the loss
         self.last_op_is_softmax = logits_node.op_type == OT.OP_SOFTMAX
         self._train_step = None
+        # chunk length -> the step running that many train steps at once
+        # (build_chunked_train_step)
+        self._chunk_steps: dict[int, Any] = {}
         self._eval_step = None
         self._forward_fn = None
         self.compute_dtype, self.matmul_dtype = dtype_policy(config, device)
@@ -882,10 +886,9 @@ class Executor:
 
         return gather_params
 
-    def shard_batch(self, arrays: dict, specs: dict) -> dict:
-        """Host arrays -> this rank's blocks on the device, each by its
-        PartitionSpec in `specs` (absent: whole), the twin of JAX's
-        `shard_batch` (977)."""
+    def _host_blocks(self, arrays: dict, specs: dict) -> dict:
+        """Host arrays -> CPU tensors of this rank's block of each, by its
+        PartitionSpec in `specs` (absent: whole)."""
         from .parallel.spmd import take_local
         from .tensor import spec_assignment
 
@@ -895,8 +898,15 @@ class Executor:
             if self.spmd:
                 t = take_local(t, self._norm(spec_assignment(
                     specs.get(name), t.dim())), self.mesh)
-            out[name] = t.to(self.device)
+            out[name] = t
         return out
+
+    def shard_batch(self, arrays: dict, specs: dict) -> dict:
+        """Host arrays -> this rank's blocks on the device, each by its
+        PartitionSpec in `specs` (absent: whole), the twin of JAX's
+        `shard_batch` (977)."""
+        return {k: v.to(self.device)
+                for k, v in self._host_blocks(arrays, specs).items()}
 
     def _compute_weight(self, owner: str, wname: str, t: torch.Tensor,
                         cache: dict):
@@ -1210,15 +1220,17 @@ class Executor:
                 vals[(node.guid, i)] = out
         return vals[(self.logits_node.guid, 0)], new_state
 
-    def stage_inputs(self, xs: dict) -> dict:
-        """Host arrays -> tensors on the model's device; on a mesh this
-        rank's block of each, by its input node's placement."""
-        return self.shard_batch(xs, {
+    def host_inputs(self, xs: dict) -> dict:
+        """Host arrays -> CPU tensors of this rank's block of each (on a
+        mesh, by its input node's placement): what `stage_inputs` moves
+        to the device, and what the pipelined engine's prefetch thread
+        stages (engine/pipelined.py)."""
+        return self._host_blocks(xs, {
             n.name: n.outputs[0].partition_spec() for n in self.order
             if n.op_type == OT.OP_INPUT} if self.spmd else {})
 
-    def stage_labels(self, labels) -> torch.Tensor:
-        """Host labels -> this rank's rows of them on the device (the
+    def host_labels(self, labels) -> torch.Tensor:
+        """Host labels -> a CPU tensor of this rank's rows of them (the
         placement of the logits' rows)."""
         import numpy as np
 
@@ -1229,7 +1241,18 @@ class Executor:
             rows = self._loss_layout[:-1]
             y = take_local(y, tuple(rows[i] if i < len(rows) else ()
                                     for i in range(y.dim())), self.mesh)
-        return y.to(self.device)
+        return y
+
+    def stage_inputs(self, xs: dict) -> dict:
+        """Host arrays -> tensors on the model's device; on a mesh this
+        rank's block of each, by its input node's placement."""
+        return {k: v.to(self.device)
+                for k, v in self.host_inputs(xs).items()}
+
+    def stage_labels(self, labels) -> torch.Tensor:
+        """Host labels -> this rank's rows of them on the device (the
+        placement of the logits' rows)."""
+        return self.host_labels(labels).to(self.device)
 
     def _loss_logits(self, logits):
         """The logits on the loss's placement (this rank's rows, the
@@ -1360,6 +1383,47 @@ class Executor:
         self._train_step = self._compiled("train_step", self.train_step,
                                           held=(0, 1, 2, 3, 4, 6))
         return self._train_step
+
+    def build_chunked_train_step(self, num_steps: int):
+        """`num_steps` train iterations as ONE step (the twin of JAX's
+        chunked `lax.scan` executable, `executor.py:751-784`): on the card
+        one CUDA graph per batch signature, the held tensors and the
+        generator as in `build_train_step`. The generator is registered
+        once and its offset advances through the capture step by step,
+        so a replay draws what `num_steps` single-step replays draw. The
+        graph's pool gives the memory one step frees to the next step
+        inside the capture, so its peak does not grow with
+        `num_steps`. The step returns (params, state, opt_slots, step,
+        counters, the per-step loss vector), the first five updated in
+        place. Cached
+        per chunk length: an epoch tail shorter than the pipeline depth
+        costs one more capture, once."""
+        num_steps = int(num_steps)
+        if num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+        cached = self._chunk_steps.get(num_steps)
+        if cached is not None:
+            return cached
+
+        def chunk_step(params, state, opt_slots, step, counters, batches,
+                       rng=None):
+            # one train_step after another over the staged batches (each
+            # input and the labels with a leading num_steps axis): the
+            # math is the per-step loop's
+            xs, ys = batches
+            losses = []
+            for i in range(num_steps):
+                out = self.train_step(
+                    params, state, opt_slots, step, counters,
+                    ({k: v[i] for k, v in xs.items()}, ys[i]), rng)
+                losses.append(out[5])
+            return (params, state, opt_slots, step, counters,
+                    torch.stack(losses))
+
+        fn = self._compiled(f"chunk_step[{num_steps}]", chunk_step,
+                            held=(0, 1, 2, 3, 4, 6))
+        self._chunk_steps[num_steps] = fn
+        return fn
 
     def build_eval_step(self):
         """The eval step: metrics of a batch added into `counters` in

@@ -15,16 +15,20 @@ it or the flags force it. Where the JAX package searches (a budget or a
 parallelism flag on a mesh of more than one device), rank 0 runs the
 Unity search (search/) and every rank applies its plan. Every rank is
 given the same global arrays, as JAX's single-controller `fit` is, and
-keeps its own rows. `fit` is the JAX package's
-loop (1660) over the executor's train step (a CUDA graph replayed per
-batch on the card, as JAX replays one jitted executable) with its
-telemetry hooks (`--telemetry-dir`, `enable_telemetry`: spans, step
-records, the MFU anchor) and without its checkpoint, diagnostics,
-elastic, sanitizer and scope hooks: the flags that ask for those raise
-(config.py), as does `pipeline_steps > 1` (the pipelined lax.scan engine,
-ROADMAP A10). The training state
-(masters, optimizer slots, step, metric counters) is updated in place,
-the twin of the JAX step's donation.
+keeps its own rows; the search consults the warm-start plan cache
+(`--warmstart-dir`) and the newest checkpoint's plan (`--auto-resume`)
+first (warmstart/). `fit` is the JAX package's loop (1660) over the
+executor's train step (a CUDA graph replayed per batch on the card, as
+JAX replays one jitted executable), or with `pipeline_steps > 1` over
+chunks of steps, each one replay (engine/), with its telemetry hooks
+(`--telemetry-dir`, `enable_telemetry`: spans, step records, the MFU
+anchor) and its resilience half (resilience/: `--checkpoint-dir`,
+async atomic checkpoints, `--auto-resume` from the absolute (epoch,
+batch) cursor, the SIGTERM drain with a final snapshot, the fault hook).
+Its diagnostics, elastic, sanitizer and scope hooks are not ported: the
+flags that ask for those raise (config.py, ROADMAP A10b). The training
+state (masters, optimizer slots, step, metric counters) is updated in
+place, the twin of the JAX step's donation.
 """
 
 from __future__ import annotations
@@ -85,13 +89,10 @@ from .tensor import Tensor
 # FFModel methods of the JAX package that the port has not got yet, by
 # ROADMAP item: calling one raises, naming its item
 _NOT_PORTED_METHODS = {
-    **dict.fromkeys(("enable_checkpointing", "save_checkpoint",
-                     "load_checkpoint", "set_fault_hook"),
-                    "A10 (resilience/)"),
     **dict.fromkeys(("enable_diagnostics", "get_diagnostics"),
-                    "A10 (diagnostics/)"),
-    "enable_elastic": "A10 (elastic/)",
-    "profile_step": "A10 (scope/)",
+                    "A10b (diagnostics/)"),
+    "enable_elastic": "A10b (elastic/)",
+    "profile_step": "A10b (scope/)",
     **dict.fromkeys(("moe", "experts", "group_by", "aggregate",
                      "aggregate_spec", "cache"), "A12 (ops/moe.py)"),
 }
@@ -149,6 +150,19 @@ class FFModel:
         self._update_sharding = None
         # (UnitySearch, choice) of the search this rank ran, else None
         self._search_result = None
+        # warm start (warmstart/): the manager of --warmstart-dir, the
+        # plan's structural fingerprint (set where a search could run) and
+        # the plan record every checkpoint embeds
+        self._warmstart = None
+        self._plan_fingerprint = None
+        self._plan_record = None
+        # resilience (resilience/): the checkpoint manager, the per-step
+        # fault hook, whether --auto-resume already restored this model,
+        # and the (absolute epoch, batch) a resume starts from
+        self._resilience = None
+        self._fault_hook = None
+        self._auto_resumed = False
+        self._resume_cursor = None
         self.iter_config = FFIterationConfig()
 
     # ================================================== tensor creation
@@ -651,7 +665,7 @@ class FFModel:
                     strategy_nodes=sorted(self._strategy)
                     if self._strategy else [],
                     plan_source=self._plan_source,
-                    plan_fingerprint=None,
+                    plan_fingerprint=self._plan_fingerprint,
                     sanitize_numerics=False,
                     spmd_barrier="off",
                 )
@@ -726,6 +740,10 @@ class FFModel:
         # --- mesh + strategy (JAX model.py 825-1230)
         cfg = self.config
         self.mesh = self._build_mesh(cfg.mesh_shape())
+        if cfg.warmstart_dir and self._warmstart is None:
+            from .warmstart import WarmStartManager
+
+            self._warmstart = WarmStartManager(self, cfg.warmstart_dir)
         if self._strategy is not None:
             self._plan_source = "manual"
         elif cfg.import_strategy_file:
@@ -755,6 +773,17 @@ class FFModel:
         elif self._plan_source == "none":
             self._plan_source = "default"
         self._assign_strategy()
+        if self._plan_fingerprint is not None:
+            # the plan record every checkpoint of this model carries:
+            # --auto-resume restores the plan from the manifest
+            # (warmstart._checkpoint_plan) instead of searching again
+            self._plan_record = {
+                "structural_fingerprint": self._plan_fingerprint,
+                "plan_source": self._plan_source,
+                "strategy": Strategy(self._strategy or {}).to_json(),
+                "mesh_axes": {k: int(v)
+                              for k, v in self.mesh.shape.items()},
+            }
         if cfg.export_strategy_file:
             from .distributed import is_coordinator
 
@@ -798,15 +827,17 @@ class FFModel:
         """The Unity search where the JAX package's `do_search` holds (JAX
         model.py:872-1100): a budget or a parallelism/substitution flag on
         a mesh of more than one device. The port's devices are ranks, so it
-        takes the JAX package's multi-process branch: rank 0 calibrates (on
-        its card: `--calibrate K`) and searches, jointly over rewrites and
+        takes the JAX package's multi-process branch: rank 0 consults the
+        warm start first (`restore_plan`: the newest checkpoint's plan
+        under `--auto-resume`, then the `--warmstart-dir` plan cache, whose
+        fingerprint needs the calibration), else calibrates (on its card:
+        `--calibrate K`) and searches, jointly over rewrites and
         placements (`joint_graph_optimize`), or also over the mesh's
-        factorizations (`--search-mesh-shapes`); the plan is broadcast and
-        every rank applies it to the graph as built, in its logical-rank
-        form (`UnitySearch.to_strategy`). The warm-start plan cache the
-        JAX package consults first (`restore_plan`/`store_plan`) is ROADMAP
-        A10 and left out. Returns the cost model (rank 0's calibrated),
-        which the update-sharding decision prices with."""
+        factorizations (`--search-mesh-shapes`), and stores the plan
+        (`store_plan`); the plan is broadcast and every rank applies it to
+        the graph as built, in its logical-rank form
+        (`UnitySearch.to_strategy`). Returns the cost model (rank 0's
+        calibrated), which the update-sharding decision prices with."""
         from . import telemetry
         from .distributed import (
             broadcast_json,
@@ -820,6 +851,7 @@ class FFModel:
             AXIS_SEQ,
             MeshShape,
         )
+        from .parallel.strategies import Strategy
         from .search.cost_model import CostModel, OpHarness
         from .search.joint import joint_graph_optimize
         from .search.machine_model import (
@@ -827,6 +859,8 @@ class FFModel:
             machine_model_from_file,
         )
         from .search.mesh_search import search_mesh_shapes
+        from .telemetry import log as fflog
+        from .warmstart import restore_plan, store_plan
 
         cfg = self.config
         machine = (machine_model_from_file(cfg.machine_model_file, self.mesh)
@@ -867,15 +901,36 @@ class FFModel:
                 telemetry.event("calibrate_collectives", axes=ring_axes,
                                 measured=hops)
         found: dict = {}
+        calibrated = [False]
+
+        def calibrate():
+            # the dominant ops measured on this rank's device, so the
+            # search prices from measurements, not the mfu guess; once
+            # (the warm start's fingerprint runs it before the search)
+            if calibrated[0] or cfg.search_calibrate <= 0:
+                return
+            calibrated[0] = True
+            with telemetry.span("compile.calibrate"):
+                cost_model.calibrate_graph(g, top_k=cfg.search_calibrate)
+                telemetry.event("calibrate", top_k=cfg.search_calibrate,
+                                **cost_model.calib_stats)
 
         def search():
-            if cfg.search_calibrate > 0:
-                # the dominant ops measured on this rank's device, so the
-                # search prices from measurements, not the mfu guess
-                with telemetry.span("compile.calibrate"):
-                    cost_model.calibrate_graph(g, top_k=cfg.search_calibrate)
-                    telemetry.event("calibrate", top_k=cfg.search_calibrate,
-                                    **cost_model.calib_stats)
+            cur = {k: int(v) for k, v in self.mesh.shape.items()}
+            warm = restore_plan(self, g, cost_model, calibrate)
+            if (warm is not None and warm[1] and warm[1] != cur
+                    and not cfg.search_mesh_shapes):
+                # a plan for another factorization applies only where the
+                # mesh is searched (and rebuilt from the broadcast)
+                fflog.warning("warmstart: cached plan's mesh %s != this "
+                              "mesh %s — re-searching", warm[1], cur)
+                warm = None
+            if warm is not None:
+                self._plan_source = warm[2]
+                found["mesh"] = warm[1] or cur
+                return Strategy(warm[0])
+            calibrate()
+            orig_names = {n.name for n in g.topo_order()}
             if cfg.search_mesh_shapes:
                 factory = None
                 if cfg.machine_model_file:
@@ -891,7 +946,15 @@ class FFModel:
                 _, choice, us = joint_graph_optimize(g, self.mesh, cfg,
                                                      cost_model)
             self._search_result = (us, choice)
-            return us.to_strategy(choice)
+            strategy = us.to_strategy(choice)
+            self._strategy = strategy.overrides
+            self._plan_source = "search"
+            # the mesh the plan was found for is recorded with it (the
+            # mesh itself is rebuilt on every rank after the broadcast)
+            store_plan(self, meta={"mode": mode, "evals": us.evals},
+                       replay_names=orig_names,
+                       mesh_axes=found.get("mesh"))
+            return strategy
 
         mode = "mesh_shapes" if cfg.search_mesh_shapes else "joint"
         with telemetry.span("compile.search", mode=mode):
@@ -902,7 +965,8 @@ class FFModel:
             sizes.update(shape)
             self.mesh = self._build_mesh(MeshShape(
                 tuple(sizes[a] for a in ms.axis_names), ms.axis_names))
-        self._plan_source = "search" if is_coordinator() else "broadcast"
+        if not is_coordinator():
+            self._plan_source = "broadcast"
         return cost_model
 
     def _build_mesh(self, shape):
@@ -1022,29 +1086,66 @@ class FFModel:
              + self._epoch_base + epoch) % (2 ** 32))
         return rs.permutation(num_samples)
 
+    def enable_checkpointing(self, directory: str, every_n_steps: int = 0,
+                             every_t_seconds: float = 0.0, keep: int = 3):
+        """Attach the resilience subsystem (resilience/): async snapshots
+        every N steps / T seconds during fit, a SIGTERM drain to a final
+        snapshot, and `auto_resume`-able committed checkpoints. The
+        programmatic twin of --checkpoint-dir/--checkpoint-every."""
+        from .resilience import CheckpointPolicy, ResilienceManager
+
+        self._resilience = ResilienceManager(
+            self, directory,
+            CheckpointPolicy(every_n_steps=every_n_steps,
+                             every_t_seconds=every_t_seconds),
+            keep=keep)
+        return self._resilience
+
+    def set_fault_hook(self, hook):
+        """Install a per-step failure-injection hook (resilience/fault.py):
+        called with the global step after each optimizer step (each chunk's
+        steps at its boundary) and checkpoint decision; raising simulates
+        mid-fit death. Test-only."""
+        self._fault_hook = hook
+
+    def _py_step(self) -> int:
+        """The optimizer steps taken (a host read of the step counter)."""
+        return int(self._step)
+
     def fit(self, x, y: np.ndarray, epochs: int = -1, batch_size: int = -1,
             shuffle: bool = True, verbose: bool = True,
             pipeline_steps: Optional[int] = None):
-        """The training loop: per epoch an order from `_epoch_order`, then
-        one train step per full batch (a tail shorter than a batch is
-        dropped, as in JAX). Logs one line per epoch (`telemetry.log`:
-        info when verbose, else debug).
+        """The training loop (JAX `model.py:1660-2110`): per epoch an order
+        from `_epoch_order`, then one train step per full batch (a tail
+        shorter than a batch is dropped, as in JAX). Logs one line per
+        epoch (`telemetry.log`: info when verbose, else debug).
+
+        Preemption-safe, as JAX's: policy-gated async checkpoints between
+        steps (--checkpoint-dir, --checkpoint-every), a SIGTERM drain with
+        a final snapshot (the flag agreed over the ranks), and
+        --auto-resume from the newest committed checkpoint's absolute
+        (epoch, batch) cursor, at most once a model. With `pipeline_steps
+        > 1` (or --pipeline-steps) the epochs run through the pipelined
+        engine (engine/): chunks of N steps, each one CUDA-graph replay
+        over batches a background thread staged, with checkpoints and
+        preemption at chunk boundaries; bit-identical to the per-step loop.
 
         With telemetry on (--telemetry-dir / enable_telemetry) every step
         emits a `step` span around a `data_wait` span and a JSONL record
-        splitting its wall time into data wait and device time (JAX
-        `model.py:1927-2003`). A captured step's replay is one
-        asynchronous launch, so on the card the step's window ends with
-        a stream synchronisation, only when telemetry is on: its time is
-        then the device's step, and the next batch's staging is its own
-        data wait (the staging copies from pageable memory wait for the
-        stream anyway, so the synchronisation removes no overlap)."""
+        splitting its wall time into data wait, device time and the
+        blocking slice of any save (JAX `model.py:1927-2003`; per step
+        from the chunk window in pipelined mode). A captured step's replay
+        is one asynchronous launch, so on the card the step's window ends
+        with a stream synchronisation, only when telemetry is on: its time
+        is then the device's step, and the next batch's staging is its own
+        data wait."""
         if not self._compiled:
             raise RuntimeError("call compile() before fit()")
-        if pipeline_steps is not None and int(pipeline_steps) > 1:
-            raise not_ported("fit(pipeline_steps > 1), the pipelined "
-                             "lax.scan engine,", "A10 (engine/)")
+        import contextlib
+
         from . import telemetry
+        from .resilience.fault import SimulatedPreemption
+        from .resilience.policy import PreemptionHandler
         from .telemetry import log as fflog
 
         if self._telemetry is None and self.config.telemetry_dir:
@@ -1069,55 +1170,182 @@ class FFModel:
         x_dict = self._as_input_dict(x)
         num_samples = y.shape[0]
         num_batches = num_samples // batch_size
-        step_fn = self.executor._train_step or self.executor.build_train_step()
+        if pipeline_steps is None:
+            pipeline_steps = self.config.pipeline_steps
+        pipeline_steps = max(1, int(pipeline_steps))
+        engine = step_fn = None
+        if pipeline_steps > 1:
+            from .engine import PipelinedEngine
+
+            engine = PipelinedEngine(self, pipeline_steps)
+        else:
+            step_fn = (self.executor._train_step
+                       or self.executor.build_train_step())
         sync = (torch.cuda.current_stream(self.device).synchronize
                 if tel is not None and self.device.type == "cuda" else None)
+
+        resil = self._resilience
+        if resil is None and self.config.checkpoint_dir:
+            from .resilience import ResilienceManager
+
+            resil = self._resilience = ResilienceManager.from_config(self)
+        start_epoch = 0
+        if (resil is not None and self.config.auto_resume
+                and not self._auto_resumed):
+            # at most once per model object: a second fit() (one fit a
+            # keras epoch) must NOT rewind live state to the checkpoint
+            self._auto_resumed = True
+            # peek before restoring: a checkpoint older than this model's
+            # live progress is rejected without rewinding anything
+            peek = resil.peek_latest()
+            if peek is not None:
+                path, extras = peek
+                cur = extras.get("cursor") or {}
+                abs_epoch = int(cur.get("epoch", 0))
+                if abs_epoch < self._epoch_base:
+                    import warnings
+
+                    warnings.warn(
+                        f"auto-resume: checkpoint {path} is older than "
+                        f"this model's live progress (epoch {abs_epoch} < "
+                        f"{self._epoch_base}) — ignored", stacklevel=2)
+                else:
+                    with telemetry.span("resume.restore", path=path):
+                        resil.restore_path(path)
+                    start_epoch = abs_epoch - self._epoch_base
+                    # the batch offset sticks to its ABSOLUTE epoch, which
+                    # a later fit call may be the one to reach
+                    self._resume_cursor = (
+                        abs_epoch, int(cur.get("batch", 0)))
+                    telemetry.instant("resume", path=path, epoch=abs_epoch)
+                    telemetry.event("resume", path=path, epoch=abs_epoch,
+                                    batch=int(cur.get("batch", 0)))
+        py_step = self._py_step()
         # labels shaped (N, seq, ...) carry seq tokens per example
         tokens_per_example = int(np.prod(y.shape[1:])) if y.ndim > 1 else 1
-        py_step = int(self._step)
-        try:
-            for epoch in range(epochs):
-                abs_e = self._epoch_base + epoch
-                order = self._epoch_order(num_samples, epoch, shuffle)
-                t0 = time.time()
-                for b in range(num_batches):
-                    t_it0 = time.perf_counter() if tel is not None else 0.0
-                    with telemetry.span("step", step=py_step + 1):
-                        with telemetry.span("data_wait"):
-                            idx = order[b * batch_size:(b + 1) * batch_size]
-                            batch = self._make_batch(
-                                {k: v[idx] for k, v in x_dict.items()},
-                                y[idx])
-                        data_wait = (time.perf_counter() - t_it0
-                                     if tel is not None else 0.0)
-                        (self._params, self._state, self._opt_slots,
-                         self._step, self._counters, _) = step_fn(
-                            self._params, self._state, self._opt_slots,
-                            self._step, self._counters, batch, self._rng)
-                        py_step += 1
-                        if sync is not None:
-                            sync()
-                    if tel is not None:
-                        tel.record_step(
-                            py_step, abs_e, time.perf_counter() - t_it0,
-                            data_wait, 0.0, batch_size, tokens_per_example)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                dt = time.time() - t0
-                thru = num_batches * batch_size / dt
-                epoch_log(f"epoch {epoch}: {self.get_perf_metrics()} "
-                          f"ELAPSED TIME = {dt:.4f}s, THROUGHPUT = "
-                          f"{thru:.2f} samples/s")
-                telemetry.event("epoch", epoch=abs_e, duration_s=dt,
-                                examples_per_sec=thru)
-            self._epoch_base += epochs
-        finally:
-            if tel is not None:
-                # artifacts exist however fit ends: summary, then trace
-                tel.write_summary()
-                tel.write_metrics_snapshot(reason="fit_end")
-                tel.flush()
-                telemetry.deactivate(tel)
+        preempt = PreemptionHandler() if resil is not None else None
+        preempted = False
+        with contextlib.ExitStack() as stack:
+            if preempt is not None:
+                stack.enter_context(preempt)
+            try:
+                for epoch in range(start_epoch, epochs):
+                    abs_e = self._epoch_base + epoch
+                    order = self._epoch_order(num_samples, epoch, shuffle)
+                    t0 = time.time()
+                    b0 = 0
+                    if (self._resume_cursor is not None
+                            and abs_e >= self._resume_cursor[0]):
+                        if abs_e == self._resume_cursor[0]:
+                            b0 = self._resume_cursor[1]
+                            if b0 >= num_batches and b0 > 0:
+                                import warnings
+
+                                warnings.warn(
+                                    f"resume cursor batch {b0} does not "
+                                    f"fit {num_batches} batches (batch "
+                                    f"size changed?) — restarting the "
+                                    f"epoch", stacklevel=2)
+                                b0 = 0
+                        self._resume_cursor = None
+                    if engine is not None:
+                        py_step, preempted = engine.run_epoch(
+                            x_dict=x_dict, y=y, order=order, b0=b0,
+                            num_batches=num_batches,
+                            batch_size=batch_size, abs_e=abs_e,
+                            py_step=py_step, tel=tel, resil=resil,
+                            preempt=preempt, fault_hook=self._fault_hook,
+                            tokens_per_example=tokens_per_example)
+                        if preempted:
+                            fflog.warning(
+                                "preempted at step %d (chunk boundary): "
+                                "final checkpoint committed, stopping "
+                                "fit", py_step)
+                            return
+                        b_first = num_batches  # the epoch ran in chunks
+                    else:
+                        b_first = b0
+                    for b in range(b_first, num_batches):
+                        t_it0 = time.perf_counter() if tel is not None else 0.0
+                        with telemetry.span("step", step=py_step + 1):
+                            with telemetry.span("data_wait"):
+                                idx = order[b * batch_size:(b + 1) * batch_size]
+                                batch = self._make_batch(
+                                    {k: v[idx] for k, v in x_dict.items()},
+                                    y[idx])
+                            data_wait = (time.perf_counter() - t_it0
+                                         if tel is not None else 0.0)
+                            (self._params, self._state, self._opt_slots,
+                             self._step, self._counters, _) = step_fn(
+                                self._params, self._state, self._opt_slots,
+                                self._step, self._counters, batch, self._rng)
+                            py_step += 1
+                            if sync is not None:
+                                sync()
+                            # the cursor names the NEXT batch to run on
+                            # resume; epochs are ABSOLUTE (since compile)
+                            if b + 1 >= num_batches:
+                                cursor = {"epoch": abs_e + 1, "batch": 0}
+                            else:
+                                cursor = {"epoch": abs_e, "batch": b + 1}
+                            t_save0 = (time.perf_counter()
+                                       if tel is not None else 0.0)
+                            if resil is not None:
+                                if preempt.poll():
+                                    # the notice: drain the in-flight save,
+                                    # then one final synchronous snapshot
+                                    telemetry.instant("preempted",
+                                                      step=py_step)
+                                    resil.finalize(py_step, cursor,
+                                                   final_save=True)
+                                    preempted = True
+                                else:
+                                    resil.maybe_save(py_step, cursor)
+                        if tel is not None:
+                            now = time.perf_counter()
+                            # the blocking slice of the step's save (none
+                            # without checkpointing)
+                            save_lat = (now - t_save0 if resil is not None
+                                        else 0.0)
+                            tel.record_step(
+                                py_step, abs_e, now - t_it0, data_wait,
+                                save_lat, batch_size, tokens_per_example)
+                        if self._fault_hook is not None:
+                            self._fault_hook(py_step)
+                        if preempted:
+                            telemetry.event("preempted", step=py_step)
+                            fflog.warning(
+                                "preempted at step %d: final checkpoint "
+                                "committed, stopping fit", py_step)
+                            return
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    dt = time.time() - t0
+                    thru = (num_batches - b0) * batch_size / dt
+                    epoch_log(f"epoch {epoch}: {self.get_perf_metrics()} "
+                              f"ELAPSED TIME = {dt:.4f}s, THROUGHPUT = "
+                              f"{thru:.2f} samples/s")
+                    telemetry.event("epoch", epoch=abs_e, duration_s=dt,
+                                    examples_per_sec=thru)
+            except SimulatedPreemption:
+                # injected death: die exactly as a real kill would: no
+                # drain, no final save, and the in-flight async write must
+                # not commit after the "kill"
+                if resil is not None:
+                    resil.checkpointer.abort()
+                raise
+            else:
+                # the next fit() continues the absolute epoch count
+                self._epoch_base += epochs
+                if resil is not None:
+                    resil.finalize()
+            finally:
+                if tel is not None:
+                    # artifacts exist however fit ends: summary, then trace
+                    tel.write_summary()
+                    tel.write_metrics_snapshot(reason="fit_end")
+                    tel.flush()
+                    telemetry.deactivate(tel)
 
     def eval(self, x, y, batch_size: int = -1) -> PerfMetrics:
         if not self._compiled:
@@ -1195,14 +1423,16 @@ class FFModel:
 
     def set_learning_rate(self, lr: float):
         """Change the optimizer's learning rate. The rate is a constant of
-        the captured train step, so the step is dropped and the next batch
-        captures anew (JAX retraces, `model.py:2208`)."""
+        the captured train and chunk steps, so they are dropped and the
+        next batch captures anew (JAX retraces, `model.py:2208`)."""
         if not self._compiled:
             raise RuntimeError("call compile() before set_learning_rate()")
         if float(lr) == float(self.optimizer.lr):
             return
         self.optimizer.set_learning_rate(lr)
         self.executor._train_step = None
+        # the chunked steps hold the same rate constant
+        self.executor._chunk_steps.clear()
 
     def get_perf_metrics(self) -> PerfMetrics:
         return PerfMetrics(self._counters, self.metrics)
@@ -1287,6 +1517,39 @@ class FFModel:
                       f"out={[t.dims for t in l.outputs]}")
 
     # ================================================== serving
+
+    # ================================================== checkpoints
+
+    def save_checkpoint(self, path: str):
+        """Synchronous atomic checkpoint of the full training state into
+        the checkpoint root `path` (resilience/checkpointer.py). Returns
+        the committed checkpoint directory."""
+        from .resilience import ResilienceManager
+
+        # keep=0: explicit save_checkpoint calls never prune
+        mgr = ResilienceManager(self, path, keep=0)
+        mgr.save(self._py_step(), blocking=True)
+        return mgr.checkpointer.last_committed
+
+    def load_checkpoint(self, path: str):
+        """Restore the newest committed checkpoint under root `path` (or a
+        single checkpoint dir) in place, resharding onto this model's mesh
+        and plan: the saving run's mesh may differ
+        (resilience/reshard.py)."""
+        import os
+
+        from .resilience import latest_checkpoint, restore_model
+
+        target = path
+        if not os.path.exists(os.path.join(path, "manifest.json")):
+            found = latest_checkpoint(path)
+            if found is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoint under {path!r} (expected a "
+                    f"step_*/manifest.json layout)")
+            target = found
+        restore_model(self, target)
+        return self
 
     def serve(self, **kwargs):
         """Build a ServingEngine on this model: the decode graph of the

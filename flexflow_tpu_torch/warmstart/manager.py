@@ -1,0 +1,296 @@
+"""WarmStartManager: the persistent compile cache, orchestrated (twin of
+`flexflow_tpu/warmstart/manager.py`).
+
+Layer 1 — **plan cache** (plan_cache.py): the winning Strategy + mesh
+shape, content-addressed by the full fingerprint. A hit skips the search
+entirely (0 search evaluations) and replays the plan through the same
+machinery `--import-strategy` uses.
+
+Layer 2 — **calibration DB** (calibration_db.py): persisted on-card op
+measurements, loaded before the search so `calibrate_graph` only measures
+misses.
+
+Layer 3 in the JAX package is XLA's persistent executable cache. The card
+has no counterpart: a CUDA graph does not outlive its process, and the
+kernels are built once into `flexflow_tpu_torch/_build/` already, so
+`enable_executable_cache` says so and returns False.
+
+`restore_plan` / `store_plan` are the two hooks the compile's search
+calls (on rank 0, which broadcasts the plan); everything here is
+fail-soft (a broken cache warns and compiles fresh).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from .. import telemetry
+from ..telemetry import log as fflog
+from .calibration_db import CalibrationDB
+from .fingerprint import (
+    calibration_fingerprint,
+    full_fingerprint,
+    structural_fingerprint,
+)
+from .plan_cache import PlanCache
+
+def enable_executable_cache(directory: str) -> bool:
+    """The JAX package points XLA's persistent compilation cache under
+    `directory` here. The port has no executable to persist: a captured
+    step is a CUDA graph, which lives and dies with its process, and the
+    CUDA kernels are compiled once into `flexflow_tpu_torch/_build/`. So
+    the layer is off, as the JAX one is on a backend without the cache,
+    and the log says why. Never raises."""
+    fflog.info(
+        "warmstart: no persistent executable cache under %s (CUDA graphs "
+        "do not outlive their process; kernels are built once into "
+        "_build/) — plan/calibration layers still active", directory)
+    return False
+
+
+class WarmStartManager:
+    """One model's handle on a warm-start directory."""
+
+    def __init__(self, model, directory: str):
+        self.model = model
+        self.directory = os.path.abspath(directory)
+        self.plan_cache = PlanCache(self.directory)
+        self.calibration_db = CalibrationDB(self.directory, model.device)
+        self.executable_cache_on = enable_executable_cache(self.directory)
+        self.structural_fp: Optional[str] = None
+        self.full_fp: Optional[str] = None
+        self.calibration_loaded = 0
+
+    # ------------------------------------------------------------ fingerprint
+
+    def prepare(self, graph, cost_model, calibrate_fn) -> str:
+        """Load the calibration DB, run (miss-only) calibration, and
+        compute this compile's full fingerprint. Returns the full
+        fingerprint and stashes both on the manager."""
+        with telemetry.span("warmstart.calibration_load"):
+            self.calibration_loaded = self.calibration_db.load_into(
+                cost_model)
+        calibrate_fn()
+        sfp = self.model._plan_fingerprint
+        cfp = calibration_fingerprint(cost_model, graph)
+        self.structural_fp = sfp
+        self.full_fp = full_fingerprint(sfp, cfp)
+        return self.full_fp
+
+    # ------------------------------------------------------------ plan layer
+
+    def lookup_plan(self, graph):
+        """(overrides, mesh_axes) for the prepared fingerprint, validated
+        against `graph` and the plan's own mesh — or None (miss). A plan
+        that fails validation is stale (the fingerprint SHOULD have caught
+        the change, so also say which components to suspect) and reads as
+        a miss."""
+        entry = self.plan_cache.lookup(self.full_fp)
+        if entry is None:
+            return None
+        try:
+            return _decode_validated_plan(
+                self.model, graph, entry["strategy"],
+                entry.get("mesh_axes"))
+        except (ValueError, KeyError, TypeError, AttributeError) as e:
+            fflog.warning(
+                "warmstart: cached plan %s does not apply to this compile "
+                "(%s) — re-searching", self.full_fp[:16], e)
+            return None
+
+    def store_plan(self, overrides: dict, mesh_axes: dict,
+                   meta: Optional[dict] = None) -> None:
+        """Persist the searched plan + calibration DB (coordinator only)."""
+        from ..distributed import is_coordinator
+        from ..parallel.strategies import Strategy
+
+        if self.full_fp is None or not is_coordinator():
+            return
+        with telemetry.span("warmstart.store"):
+            self.plan_cache.store(
+                self.full_fp, Strategy(overrides or {}).to_json(),
+                mesh_axes, structural_fingerprint=self.structural_fp or "",
+                meta=meta)
+            if self._cost_model is not None:
+                self.calibration_db.save_from(self._cost_model)
+
+    # stashed by restore_plan so store_plan can persist its measurements
+    _cost_model = None
+
+
+def _decode_validated_plan(model, graph, strategy_json, mesh_axes_raw):
+    """Stored plan (strategy JSON + mesh axes) → (overrides, mesh_axes),
+    validated against the mesh the plan will actually run on (a
+    mesh-shape-searched plan carries its winning factorization; an empty
+    mesh_axes means the current mesh). The ONE decode+validate gate both
+    restore paths — plan cache and checkpoint manifest — go through.
+    `Strategy.validate` holds the JAX verifier's checks (axis reuse,
+    oversharding, indivisibility, unknown nodes/weights/axes), so
+    cache, checkpoint and import adoption all pass them. Raises ValueError/
+    KeyError/TypeError/AttributeError on anything stale or malformed;
+    callers convert that to a miss + re-search, never a crash."""
+    from ..parallel.strategies import Strategy
+    from ..search.mesh_search import MeshSpec
+
+    strat = Strategy.from_json(strategy_json)
+    mesh_axes = {k: int(v) for k, v in (mesh_axes_raw or {}).items()}
+    names = model.config.mesh_shape().axis_names
+    unknown = sorted(set(mesh_axes) - set(names))
+    if unknown:
+        raise ValueError(
+            f"plan mesh axes {unknown} not in this config's mesh axis "
+            f"names {sorted(names)}")
+    sizes = {a: 1 for a in names}
+    if mesh_axes:
+        sizes.update(mesh_axes)
+    else:
+        sizes.update({k: int(v) for k, v in model.mesh.shape.items()})
+    strat.validate(graph, MeshSpec(sizes))
+    return strat.overrides, mesh_axes
+
+
+def _checkpoint_plan(model, structural_fp: str, graph):
+    """The plan recorded in the newest committed checkpoint's manifest,
+    when its structural fingerprint matches this compile — the
+    `--auto-resume` fast path: weights restore in fit, the PLAN restores
+    here, and no search runs in between. None on any mismatch."""
+    cfg = model.config
+    if not (cfg.auto_resume and cfg.checkpoint_dir):
+        return None
+    import json
+
+    from ..resilience.checkpointer import latest_checkpoint
+
+    path = latest_checkpoint(cfg.checkpoint_dir)
+    if path is None:
+        return None
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            plan = (json.load(f).get("extras") or {}).get("plan")
+    except (OSError, ValueError):
+        return None
+    if not isinstance(plan, dict):
+        return None
+    if plan.get("structural_fingerprint") != structural_fp:
+        fflog.info(
+            "warmstart: checkpoint %s plan fingerprint differs from this "
+            "compile (graph/mesh/config/device changed) — searching fresh",
+            path)
+        return None
+    try:
+        return _decode_validated_plan(model, graph, plan["strategy"],
+                                      plan.get("mesh_axes"))
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        fflog.warning(
+            "warmstart: checkpoint plan in %s does not apply (%s) — "
+            "searching fresh", path, e)
+        return None
+
+
+def restore_plan(model, graph, cost_model, calibrate_fn):
+    """The compile-time warm-start decision. Returns
+    (strategy overrides, plan mesh_axes, source) with source in
+    {"checkpoint", "cache"}, or None (→ run the search).
+
+    Side effects: stashes the structural fingerprint on the model (the
+    checkpoint-manifest plan key), and — when `--warmstart-dir` is set —
+    attaches a WarmStartManager, loads the calibration DB, and runs the
+    (miss-only) calibration so the full fingerprint exists for both the
+    lookup here and the store after a search."""
+    mesh_axes_now = {k: int(v) for k, v in model.mesh.shape.items()}
+    sfp = structural_fingerprint(
+        graph, mesh_axes_now, model.config,
+        opt_slots=cost_model.opt_slots, mfu=cost_model.mfu)
+    model._plan_fingerprint = sfp
+
+    # 1) the interrupted run's own plan, recorded in its checkpoint
+    with telemetry.span("warmstart.plan_lookup", layer="checkpoint"):
+        ck = _checkpoint_plan(model, sfp, graph)
+    if ck is not None:
+        overrides, mesh_axes = ck
+        telemetry.instant("warmstart.plan_hit", source="checkpoint")
+        telemetry.inc("warmstart_plan_lookups_total", result="hit",
+                      source="checkpoint")
+        telemetry.event("warmstart", plan="hit", source="checkpoint",
+                        fingerprint=sfp)
+        fflog.info("warmstart: plan restored from checkpoint manifest "
+                   "(no search)")
+        return overrides, mesh_axes, "checkpoint"
+
+    # 2) the persistent plan cache
+    if not model.config.warmstart_dir:
+        return None
+    warm = model._warmstart
+    if warm is None:
+        warm = model._warmstart = WarmStartManager(
+            model, model.config.warmstart_dir)
+    warm._cost_model = cost_model
+    warm.prepare(graph, cost_model, calibrate_fn)
+    stats = getattr(cost_model, "calib_stats", None) or {}
+    with telemetry.span("warmstart.plan_lookup", layer="cache"):
+        hit = warm.lookup_plan(graph)
+    telemetry.counter("warmstart.calibration", {
+        "loaded": warm.calibration_loaded,
+        "measured": stats.get("measured", 0),
+        "cache_hits": stats.get("cache_hits", 0)})
+    if hit is None:
+        telemetry.instant("warmstart.plan_miss")
+        telemetry.inc("warmstart_plan_lookups_total", result="miss",
+                      source="cache")
+        telemetry.event(
+            "warmstart", plan="miss", fingerprint=warm.full_fp,
+            calibration_loaded=warm.calibration_loaded,
+            calibration_measured=stats.get("measured", 0),
+            calibration_cache_hits=stats.get("cache_hits", 0),
+            executable_cache=warm.executable_cache_on)
+        return None
+    overrides, mesh_axes = hit
+    telemetry.instant("warmstart.plan_hit", source="cache")
+    telemetry.inc("warmstart_plan_lookups_total", result="hit",
+                  source="cache")
+    telemetry.event(
+        "warmstart", plan="hit", source="cache",
+        fingerprint=warm.full_fp,
+        calibration_loaded=warm.calibration_loaded,
+        calibration_measured=stats.get("measured", 0),
+        calibration_cache_hits=stats.get("cache_hits", 0),
+        executable_cache=warm.executable_cache_on)
+    fflog.info("warmstart: plan cache hit %s — search skipped",
+               warm.full_fp[:16])
+    return overrides, mesh_axes, "cache"
+
+
+def store_plan(model, meta: Optional[dict] = None,
+               replay_names=None, mesh_axes: Optional[dict] = None) -> None:
+    """Persist the just-searched plan under the fingerprint computed by
+    restore_plan. No-op when warm start is off or the fingerprint was
+    never prepared (multi-host non-coordinators, import paths).
+
+    `mesh_axes` is the mesh the plan was found for (default: the
+    model's), where a mesh-shape search picked another factorization.
+
+    `replay_names` is the PRE-rewrite graph's node-name set: a
+    substitution-rewritten winner's strategy is keyed by rewritten-graph
+    names that a fresh compile's graph will never contain, so caching it
+    would just produce a validation-failed miss (plus a misleading
+    warning) on every restart — skip the plan entry, keep the
+    calibration DB (its measurements replay fine)."""
+    warm = model._warmstart
+    if warm is None or warm.full_fp is None:
+        return
+    overrides = model._strategy or {}
+    if replay_names is not None and not set(overrides) <= set(replay_names):
+        from ..distributed import is_coordinator
+
+        rewritten = sorted(set(overrides) - set(replay_names))
+        fflog.info(
+            "warmstart: winning plan is keyed by rewritten-graph nodes "
+            "%s — plan not cached (a fresh compile could not replay it); "
+            "calibration DB still persisted", rewritten[:4])
+        if warm._cost_model is not None and is_coordinator():
+            warm.calibration_db.save_from(warm._cost_model)
+        return
+    if mesh_axes is None:
+        mesh_axes = {k: int(v) for k, v in model.mesh.shape.items()}
+    warm.store_plan(overrides, mesh_axes, meta=meta)

@@ -952,7 +952,8 @@ def test_export_dot_and_print_layers(capsys):
 def test_unported_model_methods_raise_naming_their_item(method):
     """Every public FFModel method of the JAX package is in the port or
     raises, naming its ROADMAP item; other missing names stay
-    AttributeErrors."""
+    AttributeErrors. The resilience methods listed here are ported
+    (A10's training half): they are methods of the port's FFModel."""
     from flexflow_tpu import FFModel as JModel
     from flexflow_tpu_torch.model import _NOT_PORTED_METHODS
 
@@ -960,9 +961,12 @@ def test_unported_model_methods_raise_naming_their_item(method):
     public = {m for m in dir(JModel) if not m.startswith("_")}
     ported = {m for m in public if m in type(tff).__dict__}
     assert public - ported == set(_NOT_PORTED_METHODS)
-    with pytest.raises(NotImplementedError,
-                       match=_NOT_PORTED_METHODS[method].split()[0]):
-        getattr(tff, method)()
+    if method in _NOT_PORTED_METHODS:
+        with pytest.raises(NotImplementedError,
+                           match=_NOT_PORTED_METHODS[method].split()[0]):
+            getattr(tff, method)()
+    else:
+        assert method in ported and callable(getattr(tff, method))
     with pytest.raises(AttributeError):
         tff.no_such_method
     tff.init_operators()

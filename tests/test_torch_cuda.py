@@ -21,7 +21,9 @@ wgmma/TMA K5 and K7 (the "sm90" variant) at small versions of the
 phase-2 shapes, the entries' routing of causal s_q > s_k to sdpa_xla, and
 the executor's captured steps (CUDA graphs) held to their eager selves:
 token streams, masters, metrics and kernel counts, and a capture that
-reads the host raising with nothing run.
+reads the host raising with nothing run; and the chunked step (n train
+steps in one graph) and an in-place restore, each with dropout drawing
+from the generator the graphs hold, bit-equal to the per-step run.
 """
 
 import contextlib
@@ -1256,3 +1258,141 @@ def test_pool2d_pad_above_half_window_on_card(cuda, pool, dtype):
     if pool == "POOL_AVG":  # a corner window holds one input entry of 9
         torch.testing.assert_close(yg[:, :, 0, 0], x[:, :, 0, 0].float() / 9,
                                    **tol)
+
+
+# ------------------------------------------------------------ resilience
+
+
+def _dropout_mlp(argv=()):
+    """dense -> relu -> dropout -> dense -> softmax on the card, f32,
+    SGD with momentum; seeded weights; dropout draws from the model's
+    generator, which the captured steps hold."""
+    from flexflow_tpu_torch import (ActiMode, FFConfig, FFModel, LossType,
+                                    SGDOptimizer)
+
+    sys.argv = ["test", *argv]
+    cfg = FFConfig(device="cuda")
+    cfg.batch_size = 16
+    ff = FFModel(cfg)
+    x = ff.create_tensor((16, 64), name="x")
+    t = ff.dense(x, 256, ActiMode.AC_MODE_RELU, name="fc1")
+    t = ff.dropout(t, 0.5, name="drop")
+    t = ff.softmax(ff.dense(t, 10, name="fc2"), name="sm")
+    ff.compile(optimizer=SGDOptimizer(lr=0.05, momentum=0.9),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff
+
+
+def _dropout_data():
+    import numpy as np
+
+    rs = np.random.RandomState(7)
+    return (rs.randn(128, 64).astype(np.float32),
+            rs.randint(0, 10, (128, 1)).astype(np.int32))
+
+
+def _state(ff) -> dict:
+    from flexflow_tpu_torch.resilience.checkpointer import snapshot_to_host
+    from flexflow_tpu_torch.resilience.reshard import model_state_tree
+
+    return snapshot_to_host(model_state_tree(ff))
+
+
+@pytest.mark.cuda
+def test_captured_generator_takes_a_restored_state(cuda):
+    """A generator a CUDA graph holds, set back to a saved state
+    (`set_state`, as a checkpoint restore does), makes the next replays
+    draw the masks they drew after that state, as `set_offset` does."""
+    from flexflow_tpu_torch import ops
+    from flexflow_tpu_torch.executor import CapturedStep
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+
+    op = ops.get_op_def(OT.OP_DROPOUT)
+    p = ops.DropoutParams(0.5)
+
+    def fn(x, gen):
+        (y,), _ = op.forward(p, [x], {}, None,
+                             ops.OpContext(training=True, rng=gen))
+        return y * 1.0
+
+    x = torch.ones(64, 128, device=cuda)
+    step = CapturedStep("dropout", fn, cuda, held=(1,))
+    g = torch.Generator(cuda).manual_seed(5)
+    for _ in range(3):  # warm-up, capture, replay
+        step(x, g)
+    saved, offset = g.get_state(), g.get_offset()
+    first = [step(x, g) for _ in range(2)]
+    g.set_state(saved)
+    assert g.get_offset() == offset
+    assert all(torch.equal(u, v) for u, v in zip(first, [
+        step(x, g) for _ in range(2)]))
+    g.set_offset(offset)
+    assert all(torch.equal(u, v) for u, v in zip(first, [
+        step(x, g) for _ in range(2)]))
+    assert step.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline_steps", [4, 3])
+def test_captured_chunks_draw_the_per_step_masks(cuda, pipeline_steps):
+    """Two shuffled epochs of 8 batches per step and in chunks (each one
+    CUDA graph of n steps holding the generator once): every master, slot,
+    counter and the generator's state equal bit for bit; one capture per
+    chunk length."""
+    x, y = _dropout_data()
+    runs = {}
+    for n in (1, pipeline_steps):
+        ff = _dropout_mlp()
+        ff.fit(x, y, epochs=2, batch_size=16, verbose=False,
+               pipeline_steps=n)
+        torch.cuda.synchronize()
+        runs[n] = ff
+    a, b = _state(runs[1]), _state(runs[pipeline_steps])
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    chunks = runs[pipeline_steps].executor._chunk_steps
+    assert sorted(chunks) == ([4] if pipeline_steps == 4 else [2, 3])
+    assert all(s.captures == 1 for s in chunks.values())
+
+
+@pytest.mark.cuda
+def test_restore_in_place_keeps_the_graphs_and_the_generator(cuda,
+                                                            tmp_path):
+    """Killed after step 6 (checkpoints every 4), the same model restored
+    in place by --auto-resume: its captured step does not capture again,
+    the generator the graph holds reaches the next replay with the
+    restored offset, and the run ends bit-equal to the uninterrupted one
+    (masters, slots, counters, generator). The kill waits for step 4's
+    write first: a write still in flight at a kill is discarded, and this
+    model's steps take less than a write."""
+    from flexflow_tpu_torch.resilience import (
+        CheckpointPolicy, SimulatedPreemption, latest_checkpoint)
+
+    x, y = _dropout_data()
+    ref = _dropout_mlp()
+    ref.fit(x, y, epochs=2, batch_size=16, verbose=False)
+    ff = _dropout_mlp(["--checkpoint-dir", str(tmp_path / "ck"),
+                       "--checkpoint-every", "4"])
+
+    def kill(step):
+        if step == 6:
+            ff._resilience.checkpointer.wait()
+            raise SimulatedPreemption(step)
+
+    ff.set_fault_hook(kill)
+    with pytest.raises(SimulatedPreemption):
+        ff.fit(x, y, epochs=2, batch_size=16, verbose=False)
+    assert latest_checkpoint(str(tmp_path / "ck")).endswith("00000004")
+    step = ff.executor._train_step
+    assert step.captures == 1
+    ff.set_fault_hook(None)
+    ff._resilience.policy = CheckpointPolicy()
+    ff.config.auto_resume, ff._auto_resumed = True, False
+    ff.fit(x, y, epochs=2, batch_size=16, verbose=False)
+    torch.cuda.synchronize()
+    assert ff._resilience.last_restore_s is not None
+    assert ff.executor._train_step is step and step.captures == 1
+    a, b = _state(ref), _state(ff)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

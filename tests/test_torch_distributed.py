@@ -490,6 +490,34 @@ def mesh_smoke_job(rank):
                                  pipe_lm=pipe_lm)
 
 
+def mesh_resume_job(rank):
+    import chip_smoke
+    from flexflow_tpu_torch.models import TransformerLMConfig
+
+    lm = TransformerLMConfig(vocab_size=512, hidden_size=256, num_heads=4,
+                             num_layers=2, sequence_length=128)
+    return chip_smoke.mesh_resume_check("cpu", lm, steps=2, captured=False)
+
+
+def test_mesh_resume_leg_passes_on_four_cpu_ranks():
+    """Phase 19's torchrun leg (`chip_smoke.mesh_resume_check`) on 4 gloo
+    ranks, at 2 layers of width 256: saved at dp 4 under stage 3 (each
+    rank holding 1/4 of a master), restored at dp 2 x tp 2 and on one
+    rank with the masters bit-equal to the saved ones, the next 2 steps
+    held to one rank's by MESH_TOL; a SIGTERM to rank 0 alone stops every
+    rank at step 3 with one final snapshot."""
+    outs = _spawn(mesh_resume_job)
+    for o in outs:
+        assert o["failures"] == [], o["failures"]
+        c = o["checks"]
+        assert c["restored one rank"]["bitwise_equal"]
+        assert c["restored dp 2 x tp 2"]["bitwise_equal"]
+        assert c["dp 2 x tp 2 after restore"]["within_tolerance"]
+        assert c["sigterm to rank 0"]["stopped"] == [3] * WORLD
+        local, whole = o["numbers"]["local_of_whole"]
+        assert o["numbers"]["saved_stage"] == 3 and local * 4 == whole
+
+
 def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
     """The mesh smoke's checks (`chip_smoke.mesh_check`: phase 16 on one
     card, the whole run under torchrun on N cards) on 4 gloo ranks, its

@@ -656,12 +656,17 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
     cfg.parse_args(["-e", "3", "--lr", "0.5", "--learning-rate", "0.25",
                     "--pipeline-steps", "1", "--profile-every", "0"])
     assert (cfg.epochs, cfg.learning_rate) == (3, 0.25)
-    for argv, item in ((["--pipeline-steps", "4"], "A10"),
-                       (["--xprof-dir", "t"], "A10"),
-                       (["--checkpoint-dir", "c"], "A10"),
+    # the resilience, warm-start and engine flags run (A10's first half)
+    cfg.parse_args(["--pipeline-steps", "4", "--checkpoint-dir", "c",
+                    "--checkpoint-every", "2", "--checkpoint-every-seconds",
+                    "30", "--checkpoint-keep", "2", "--auto-resume",
+                    "--warmstart-dir", "ws"])
+    assert (cfg.pipeline_steps, cfg.checkpoint_dir, cfg.checkpoint_every,
+            cfg.checkpoint_every_seconds, cfg.checkpoint_keep,
+            cfg.auto_resume, cfg.warmstart_dir) == (4, "c", 2, 30.0, 2,
+                                                    True, "ws")
+    for argv, item in ((["--xprof-dir", "t"], "A10"),
                        (["--sanitize-numerics"], "A10"),
-                       (["--warmstart-dir", "/tmp/ws"], "A10"),
-                       (["--checkpoint-keep", "2"], "A10"),
                        (["--health-abort-on", "nan_loss"], "A10"),
                        (["--health-sample-every", "4"], "A10"),
                        (["--drift-threshold", "0.2"], "A10"),
@@ -702,7 +707,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
         load_rule_collection(str(rules), mesh, config=cfg)
     ff, _, xs, y = _mlp("1")
     with pytest.raises(NotImplementedError, match="A10"):
-        ff.fit(xs, y, pipeline_steps=2)
+        ff.enable_diagnostics(str(tmp_path))
 
 
 SEARCH_FLAGS = {
@@ -752,14 +757,14 @@ def test_compgraph_writes_the_dot_at_compile(monkeypatch, tmp_path):
 # the JAX package's public names the port does not have yet, each with
 # its ROADMAP item; a later slice that ports one drops it here
 SURFACE_GAPS = {
-    "": {"resilience": "A10"},
+    "": {},
     "ServingEngine": {
         "admit_prefilled": "A11", "extract_kv": "A11",
         "kv_bytes_per_layer": "A11", "kv_pool_layers": "A11",
-        "enable_autoscale": "A10", "metrics_summary": "A10",
-        "note_drain": "A10", "profile_step": "A10",
-        "record_completion": "A10", "replan_mesh": "A10",
-        "reset_stats": "A10"},
+        "enable_autoscale": "A10b", "metrics_summary": "A10b",
+        "note_drain": "A10b", "profile_step": "A10b",
+        "record_completion": "A10b", "replan_mesh": "A10b",
+        "reset_stats": "A10b"},
 }
 
 
