@@ -200,7 +200,36 @@ Phases, each fatal on failure:
      warm one takes the plan cache with 0 evaluations (and checkpoints
      its first step), a third with --auto-resume on that checkpoint
      directory restores the plan from the manifest; compile wall times
-     and time to the first step logged.
+     and time to the first step logged;
+ 20. the observability half on lm-base at full width (12 layers, 8 x
+     512, bf16, SGD, captured): (a) --telemetry-dir --diagnostics,
+     health every step, --calibrate 4, 3 + 10 steps: no alert, the
+     doctor's verdict "healthy", strategy_report.json naming the card
+     and its per-op costs reproducing its total, the recorded median
+     step within 15% of phase 6's; 12 more steps under
+     --health-sample-every 4 fetch the loss on 1 step of 4; (b) the
+     sanitizer off and on, 6 steps: the masters bit-equal, the replay
+     time with probes on vs off; a NaN planted in the first LINEAR,
+     MULTIHEAD_ATTENTION and LAYERNORM node and in the loss, forward and
+     backward, per step (at step 2) and in chunks of 4 (at step 10): the
+     device table names (op, phase, step) each time, one capture a
+     signature; --health-abort-on nan_loss in chunks of 4: HealthAbort,
+     the nan_loss alert naming the op, flight.json, the prefetch thread
+     stopped; (c) --profile-every 4: the sampled steps run eagerly under
+     torch.profiler, the report's profile section satisfies its
+     attribution identity with at least 90% of the device time
+     attributed, the five ops with the most measured time beside their
+     predicted_s, the masters bit-equal to (a)'s; (d) the drift
+     prediction planted at half phase 6's step with recalibration armed:
+     one advisory, one recalibration on the card, one more capture, the
+     masters bit-equal to (a)'s; (e) --watchdog-timeout 1 and a 3 s stall
+     from the fault hook: the watchdog fires once, flight.json, the
+     heartbeats name this rank; (f) phase 3's paged run with telemetry:
+     the same streams, the median pure-decode step within 15% of phase
+     3's, metrics_summary's TTFT / TBT / queue-wait / end-to-end
+     percentiles, the engine's profile_step satisfying its identity; (g)
+     --profiling: the per-op table of lm-base at 1 layer timed on the
+     card, headed by it.
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
@@ -219,7 +248,12 @@ and dp 2 x pp N/2 held to its one-rank run; then phase 19's leg
 (the shards gathered by the save), restored under dp N/2 x tp 2 and on
 one rank with the masters bit-equal to the saved ones, the next 2 steps
 held to one rank's, and a SIGTERM sent to rank 0 alone stopping every
-rank at the same step; rank 0 prints every rank's runs (the chosen mesh
+rank at the same step; then phase 20's leg (`mesh_diag_check`): lm-base at 4 layers at dp N
+with --diagnostics, a NaN in rank 1's forward alone and a rule firing on
+rank 1 alone (per step and in chunks of 2) stopping every rank at the
+same step with HealthAbort, and a 3 s stall inside rank 2's step under
+--watchdog-timeout 1 whose heartbeats name rank 2;
+rank 0 prints every rank's runs (the chosen mesh
 and plan among them), the card line and {"ok": ..., "world": N} last.
 
 It exits non-zero, printing no result, without a CUDA device. The last
@@ -921,7 +955,8 @@ def halfway_parity(dev, errs):
 # ------------------------------------------------------------ phases 3-5
 
 
-def build_lm():
+def build_lm(flags: tuple = ()):
+    """lm-base for serving (phases 3-5; phase 20(f) with `flags`)."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models import (
         TRANSFORMER_LM_ZOO,
@@ -933,7 +968,7 @@ def build_lm():
                     "--serve-slots", str(SLOTS),
                     "--serve-max-seq", str(MAX_SEQ),
                     "--serve-prefill-chunk", str(CHUNK),
-                    "--serve-kv-block-size", str(BLOCK)])
+                    "--serve-kv-block-size", str(BLOCK), *flags])
     ff = FFModel(cfg)
     build_transformer_lm(ff, TRANSFORMER_LM_ZOO["lm-base"])
     ff.compile()
@@ -1085,7 +1120,8 @@ def graph_ready(run, slots: int) -> bool:
                for sig, g in run._graphs.items())
 
 
-def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
+def serve_phase(ff, layout, prompts, vocab, mode="captured",
+                telemetry: bool = False, profile: bool = True) -> dict:
     """Drive one serving run through `engine.generate(prompts)`, its
     decode step captured (one CUDA graph per q width) or, `mode` "eager",
     under `executor.eager()`: the launch counts are set to 0 just before
@@ -1093,8 +1129,15 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
     timed through a wrapper on the engine's `step`; the first pure-decode
     one that replays a graph (eager: the first) is profiled instead, and
     its time and tokens are left out of the rate and the medians; so are
-    the steps that warmed up or captured a width. Returns the run's
-    numbers."""
+    the steps that warmed up or captured a width. A profiler's record one
+    launch short of the counters' count over the same step (a record
+    lost, as `train_phase` explains) is profiled once more on the next
+    pure-decode step, which must agree. With `telemetry` (phase
+    20(f)) no step is profiled by this script (phase 3 holds the same
+    model's kernels to the profiler's record): the engine's
+    `metrics_summary` after the run. `profile` False (phase 20(f)'s runs
+    without telemetry, timed beside the runs with it) profiles no step
+    either. Returns the run's numbers."""
     import contextlib
 
     import torch
@@ -1108,6 +1151,8 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
     c = counters()
     step = eng.step
     decode_ms, per_step, profiled = [], {}, {}
+    decode_done = []  # requests each timed pure-decode step completed
+    attempts = []  # each profiled step: what the profiler saw, counted
     steps = 0
 
     def graphs():
@@ -1122,16 +1167,26 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
                        and not any(s.prefilling for s in sched.slots))
         g0 = graphs()
         t0 = time.perf_counter()
-        if (pure_decode and not profiled
+        if (profile and not telemetry and pure_decode
+                and not profiled.get("final")
                 and (mode == "eager" or graph_ready(run, SLOTS))):
             profiled["numbers"], done = profile_step(eng, step)
-            profiled["s"] = time.perf_counter() - t0
-            profiled["tokens"] = eng._decode_tokens - tokens0
+            profiled["s"] = (profiled.get("s", 0.0)
+                             + time.perf_counter() - t0)
+            profiled["tokens"] = (profiled.get("tokens", 0)
+                                  + eng._decode_tokens - tokens0)
+            seen = profiled["numbers"]["kernel_launches"]
+            counted = {k: c[k].launches - before[k] for k in seen}
+            attempts.append({"seen": seen, "counted": counted})
+            lost = sum(counted[k] - seen[k] for k in seen)
+            profiled["final"] = (len(attempts) > 1 or lost != 1 or any(
+                seen[k] > counted[k] for k in seen))
             return done
         done = step()  # ends in the sampled tokens' copy to the host
         dt = (time.perf_counter() - t0) * 1e3
         if eng._prefill_calls == calls0 and graphs() == g0:
             decode_ms.append(dt)
+            decode_done.append(len(done))
             per_step.update({k: v.launches - before[k]
                              for k, v in c.items()})
         return done
@@ -1146,9 +1201,11 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
     launches = {k: v.launches for k, v in c.items()}
     plain = {k: v.plain_calls for k, v in c.items()}
 
-    require(bool(profiled), f"{layout}: no pure-decode step was profiled")
-    require_seen(profiled["numbers"], per_step,
-                 f"{layout} {mode} pure-decode step")
+    if profile and not telemetry:
+        require(profiled.get("final", False),
+                f"{layout}: no pure-decode step was profiled")
+        require_seen(profiled["numbers"], per_step,
+                     f"{layout} {mode} pure-decode step")
     # a width captures once: a graph that no longer holds its tensors
     # (a state not written back, say) would capture again every step
     require(run.captures <= len(run._graphs),
@@ -1181,12 +1238,16 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
         "wall_s": wall,
         # every sampled token over the run's wall time, both without the
         # profiled step
-        "decode_tokens_per_s": ((st["decode_tokens"] - profiled["tokens"])
-                                / (wall - profiled["s"])),
+        "decode_tokens_per_s": ((st["decode_tokens"]
+                                 - profiled.get("tokens", 0))
+                                / (wall - profiled.get("s", 0.0))),
         "median_decode_step_ms": statistics.median(decode_ms),
+        "decode_step_ms": decode_ms,
+        "decode_step_completions": decode_done,
         "launches": launches,
         "launches_per_decode_step": per_step,
-        "profiled_decode_step": profiled["numbers"],
+        "profiled_decode_step": profiled.get("numbers"),
+        "profiled_attempts": attempts,
         "streams": streams,
     }
     if layout == "paged":
@@ -1196,6 +1257,8 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured") -> dict:
         if not (st["prefix_shared_tokens"] > 0 and st["cow_copies"] > 0):
             raise AssertionError(f"paged: no prefix hit or no COW copy: "
                                  f"{st}")
+    if telemetry:
+        out["metrics_summary"] = eng.metrics_summary()
     del eng
     torch.cuda.empty_cache()
     return out
@@ -3095,6 +3158,165 @@ def mesh_resume_check(device: str, lm, steps: int, captured: bool) -> dict:
             "checks": checks, "failures": failures}
 
 
+def mesh_diag_check(device: str, lm, captured: bool) -> dict:
+    """Phase 20's torchrun leg on this rank of the process group already
+    started: `lm` in bf16 at dp world through fit with --diagnostics
+    (each rank its own telemetry dir), 6 steps of phase 6's batch:
+    (a) a NaN planted in rank 1's forward alone (its executor's fault on
+    the first LINEAR from device step 2) under --health-abort-on
+    nan_loss: every rank raises HealthAbort at step 3 (the loss is the
+    batch's, summed over the ranks) and none hangs; (b) a rule that
+    fires on rank 1 alone at step 3, per step and in chunks of 2: every
+    rank raises HealthAbort at that step edge, the others by the abort
+    flag agreed in the step edge's all-reduce (`peer_abort`); (c) a 3 s
+    stall inside rank 2's step 4 (its graph warmed up, captured and
+    replayed before) under --watchdog-timeout 1 (--watchdog-multiplier
+    2), one telemetry dir for all ranks: the watchdogs that fire in the
+    stall (their last step 3 or 4) name rank 2 from the heartbeats.
+    Returns the numbers, the checks and the failed ones."""
+    import contextlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.diagnostics import HealthAbort
+    from flexflow_tpu_torch.diagnostics.health import (
+        Alert, Rule, default_rules)
+    from flexflow_tpu_torch.distributed import broadcast_json, gather_json
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.telemetry import deactivate, read_jsonl
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    root = broadcast_json({"root": tempfile.mkdtemp(prefix="mesh_diag_")}
+                          if rank == 0 else None)["root"]
+    x, y = train_batch(lm.vocab_size, TRAIN_BATCH, lm.sequence_length)
+    xs = {k: np.concatenate([v] * 6) for k, v in x.items()}
+    ys = np.concatenate([y] * 6)
+    failures, checks, numbers = [], {}, {}
+
+    class RankRule(Rule):
+        """Fires at step 3 on rank 1 alone."""
+        name = "rank_local"
+
+        def _check(self, rec):
+            if rank == 1 and rec["step"] == 3:
+                return Alert(rule=self.name, level="error", step=3,
+                             message="a rank-local rule")
+            return None
+
+    def model(flags, tdir):
+        cfg = FFConfig(device=device)
+        cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED), "-b",
+                        str(TRAIN_BATCH), "--mesh", f"{world},1,1,1",
+                        "--weight-update-sharding=off", "--telemetry-dir",
+                        tdir, *flags])
+        ff = FFModel(cfg)
+        STANDARD.into(ff, lm)
+        ff.compile(optimizer=SGDOptimizer(lr=0.01),
+                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   metrics=[MetricsType.METRICS_ACCURACY])
+        return ff
+
+    def fit(ff, pipeline_steps=1):
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if captured else eager():
+            try:
+                ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH,
+                       shuffle=False, verbose=False,
+                       pipeline_steps=pipeline_steps)
+                out = {"raised": None}
+            except HealthAbort as e:
+                out = {"raised": e.alert.rule, "alert_step": e.alert.step}
+        deactivate()
+        out.update(step=ff._py_step(), s=time.perf_counter() - t0)
+        return gather_json(out)
+
+    t0 = time.perf_counter()
+    try:
+        # (a) NaN in rank 1's forward alone
+        ff = model(("--diagnostics", "--health-abort-on", "nan_loss"),
+                   os.path.join(root, f"nan_{rank}"))
+        first_linear = next(n.name for n in ff.graph.topo_order()
+                            if n.op_type.name == "OP_LINEAR")
+        if rank == 1:
+            ff.executor.set_numeric_fault(first_linear, "fwd", 2)
+        got = fit(ff)
+        checks["nan on rank 1"] = got
+        if [(g["raised"], g["alert_step"], g["step"]) for g in got] != [
+                ("nan_loss", 3, 3)] * world:
+            failures.append(f"nan on rank 1: {got}")
+        del ff
+        # (b) a rule of rank 1 alone, per step and in chunks of 2
+        for n, stop in ((1, 3), (2, 4)):
+            ff = model((), os.path.join(root, f"rule{n}_{rank}"))
+            ff.enable_diagnostics(rules=default_rules(ff.config)
+                                  + [RankRule()], abort_on=("rank_local",))
+            got = fit(ff, n)
+            checks[f"rank-local rule, chunks of {n}"] = got
+            want = [("rank_local" if r == 1 else "peer_abort", stop)
+                    for r in range(world)]
+            if [(g["raised"], g["step"]) for g in got] != want:
+                failures.append(f"rank-local rule, chunks of {n}: {got}")
+            del ff
+        # (c) a 3 s stall inside rank 2's step 4
+        wd_dir = os.path.join(root, "wd")
+        ff = model(("--diagnostics", "--watchdog-timeout", "1",
+                    "--watchdog-multiplier", "2"), wd_dir)
+        step = ff.executor.build_train_step()
+        calls, woke = [0], [None]
+
+        def stalled(*args):
+            out = step(*args)
+            calls[0] += 1
+            if rank == 2 and calls[0] == 4:
+                time.sleep(3.0)
+                woke[0] = time.time()
+            return out
+
+        ff.executor._train_step = stalled
+        got = fit(ff)
+        ff.executor._train_step = step
+        woke_t = gather_json({"woke": woke[0]})[2]["woke"]
+        # a firing in the stall, before rank 2 woke: rank 2's (its last
+        # step 3) or another's (its last step 4); a watchdog whose
+        # deadline outlasts the stall (slow steps) fires after it, when
+        # every heartbeat says step 4, and is no sample
+        alerts = [a for a in read_jsonl(os.path.join(wd_dir, "alerts.jsonl"))
+                  if a.get("rule") == "hang_watchdog"
+                  and (a.get("step") or 0) >= 3 and a["t"] < woke_t]
+        flight = json.load(open(os.path.join(wd_dir, "flight.json")))
+        named = sorted({a.get("lagging_host") for a in alerts})
+        checks["stall on rank 2"] = {
+            "runs": got, "watchdog_alerts": len(alerts),
+            "lagging_named": named,
+            "fired_after_s": [a["t"] - woke_t + 3.0 for a in alerts],
+            "flight": {k: flight["watchdog"][k] for k in (
+                "lagging_host", "last_step", "stalled_s", "deadline_s")}}
+        numbers["stall_fit_s"] = [g["s"] for g in got]
+        if (not alerts or named != [2]
+                or any(g["step"] != 6 for g in got)):
+            failures.append(f"stall on rank 2: {checks['stall on rank 2']}")
+        del ff
+    except Exception as e:  # every rank fails alike: the same program
+        failures.append(f"diag leg: {type(e).__name__}: {str(e)[:300]}")
+    dist.barrier()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rank": rank, "world": world, "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "numbers": numbers,
+            "checks": checks, "failures": failures}
+
+
 def gloo_rank(rank: int, stage3: bool) -> dict:
     """Phase 16 on one of the two ranks: `mesh_check` on cuda:0, eager,
     lm-base at GLOO_LAYERS layers."""
@@ -3999,6 +4221,628 @@ def phase19(device: str, lm, batch: int, warm_lm,
             "wall_s": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------ phase 20
+
+# 20(a) and 20(d): the drift threshold. The H100 model's calibrated price
+# of lm-base's one-card step reads ~0.685x the card's (phase 17), an
+# error EMA of ~0.46 that the JAX default of 0.5 leaves no margin above
+P20_DRIFT = "0.75"
+# 20(b): the planted fault's device step: the third step of a per-step
+# fit (a replay), and inside the third chunk of 4 (a chunk graph's replay)
+P20_FAULT = {1: 2, 4: 10}
+P20_STEPS = {1: 4, 4: 12}
+# 20(c): the attributed share of the sampled step's device time
+P20_ATTRIBUTED = 0.90
+P20_LAYERS_PROFILING = 1  # 20(g): lm-base at 1 layer, every op timed
+
+
+def p20_data(lm, steps: int):
+    """Phase 6's batch, `steps` times."""
+    x, y = train_batch(lm.vocab_size)
+    return ({k: np.concatenate([v] * steps) for k, v in x.items()},
+            np.concatenate([y] * steps))
+
+
+def p20_masters(ff) -> dict:
+    return {f"{n}.{k}": t.detach().clone()
+            for n, ws in ff._params.items() for k, t in ws.items()}
+
+
+def p20_differ(a: dict, b: dict) -> list:
+    import torch
+
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def p20_fit(ff, steps: int, pipeline_steps: int = 1, timed=None):
+    """`steps` steps of phase 6's batch through fit (bf16, captured);
+    `timed`, a list, gets each per-step call's device ms (CUDA events)."""
+    import torch
+
+    if timed is not None:
+        step = ff.executor._train_step or ff.executor.build_train_step()
+
+        def watched(*args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(*args)
+            ev[1].record()
+            timed.append(ev)
+            return out
+
+        ff.executor._train_step = watched
+    x, y = p20_data(lm_config(), steps)
+    try:
+        ff.fit(x, y, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+               verbose=False, pipeline_steps=pipeline_steps)
+    finally:
+        torch.cuda.synchronize()
+        if timed is not None:
+            ff.executor._train_step = step
+
+
+def p20_reset(ff):
+    """Fresh training state from the seed, no fault (the steps are
+    dropped: the next fit captures anew)."""
+    import torch
+
+    ex = ff.executor
+    ex.set_numeric_fault(None)
+    ff._params, ff._state = ex.init_variables(ff.config.seed)
+    ff._opt_slots = ff.optimizer.init(ff._params)
+    ff._step = torch.zeros((), dtype=torch.int32, device=ff.device)
+    ff._counters = ff.metrics.zero_counters(ff.device)
+    ff._rng = torch.Generator(ff.device).manual_seed(ff.config.seed)
+
+
+def p20_free():
+    import torch
+
+    from flexflow_tpu_torch import telemetry
+
+    telemetry.deactivate()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def diag_phase(base: dict, root: str) -> dict:
+    """20(a): lm-base, bf16, captured, 3 warm-up and 10 timed steps with
+    --telemetry-dir, --diagnostics, health every step, --calibrate 4 (the
+    report prices the adopted plan with the card's measurements) and
+    --drift-threshold P20_DRIFT. Fatal: no alert or advisory, the doctor's
+    verdict "healthy"; the report names the card and its per-op costs
+    reproduce its total; the recorded median step within 15% of phase
+    6's; then 12 more steps under --health-sample-every 4: the rules see
+    one record of 4 steps, the loss fetched on 1 step of 4."""
+    from flexflow_tpu_torch.diagnostics import verify_report_total
+    from flexflow_tpu_torch.diagnostics.doctor import diagnose
+    from flexflow_tpu_torch.search.machine_model import card_line
+    from flexflow_tpu_torch.telemetry import read_jsonl
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    tdir = os.path.join(root, "a")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    t0 = time.perf_counter()
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--calibrate", "4",
+        "--drift-threshold", P20_DRIFT))
+    compile_s = time.perf_counter() - t0
+    # the watched fit's launches, counted from 0 just before it: K1, K4
+    # and K5-K7 a step, as phase 6's
+    reset_counters()
+    p20_fit(ff, steps)
+    want = {k: n * steps for k, n in
+            step_launches(lm_config().num_layers, False).items()}
+    launches = {k: counters()[k].launches for k in want}
+    require(launches == want,
+            f"20(a): the watched fit launched {launches}, want {want}")
+    masters = p20_masters(ff)
+    diag = ff.get_diagnostics()
+    natural_ema = diag.drift.error_ema
+    alerts = read_jsonl(os.path.join(tdir, "alerts.jsonl"))
+    require(alerts == [], f"20(a): a clean run's alerts {alerts}")
+    d = diagnose(tdir)
+    require(d["verdict"] == "healthy", f"20(a): verdict {d['verdict']}")
+    rep = json.load(open(os.path.join(tdir, "strategy_report.json")))
+    card = card_line()
+    require(rep.get("card") == card,
+            f"20(a): the report names {rep.get('card')!r}, not {card!r}")
+    total = verify_report_total(rep)
+    require(abs(total / rep["total_predicted_s"] - 1) <= 1e-9,
+            f"20(a): report total {rep['total_predicted_s']} != "
+            f"{total} from its ops")
+    recs = [r for r in read_jsonl(os.path.join(tdir, "metrics.jsonl"))
+            if r["kind"] == "step"]
+    median_s = statistics.median(r["step_time_s"]
+                                 for r in recs[WARMUP_STEPS:steps])
+    rel = median_s / (base["median_step_ms"] / 1e3)
+    require(abs(rel - 1) <= TELEMETRY_RTOL,
+            f"20(a): median step {1e3 * median_s:.3f} ms vs phase 6's "
+            f"{base['median_step_ms']:.3f}")
+
+    class Spy:
+        name = "spy"
+
+        def __init__(self):
+            self.records = []
+
+        def check(self, rec):
+            self.records.append((rec["step"], rec["loss"]))
+
+    spy = Spy()
+    diag.health.rules.append(spy)
+    ff.config.health_sample_every = 4
+    # the loss fetches (host reads of a device scalar) fit's health path
+    # makes: one a sampled step
+    fetched = [0]
+
+    import torch
+
+    real_float = torch.Tensor.__float__
+
+    def counted_float(t):
+        if sys._getframe(1).f_code.co_name == "_health_step":
+            fetched[0] += 1
+        return real_float(t)
+
+    with mock.patch.object(torch.Tensor, "__float__", counted_float):
+        p20_fit(ff, 12)
+    sampled = [s for s in range(steps + 1, steps + 13) if s % 4 == 0]
+    require([s for s, _ in spy.records] == sampled
+            and all(loss is not None for _, loss in spy.records)
+            and fetched[0] == len(sampled),
+            f"20(a): --health-sample-every 4 gave records {spy.records} "
+            f"and {fetched[0]} loss fetches over 12 steps")
+    out = {"compile_s": compile_s, "verdict": d["verdict"],
+           "launches": launches,
+           "mode": rep["mode"], "card": rep.get("card"),
+           "predicted_ms": 1e3 * rep["total_predicted_s"],
+           "recorded_median_step_ms": 1e3 * median_s,
+           "vs_phase6": rel, "natural_drift_ema": natural_ema,
+           "sample_every_4": {"records": len(spy.records),
+                              "loss_fetches": fetched[0], "steps": 12}}
+    del ff, diag
+    p20_free()
+    return out, masters
+
+
+def sanitize_phase(root: str) -> dict:
+    """20(b): lm-base, bf16, captured, 6 steps with the sanitizer off and
+    on: the masters bit-equal (the probes are identities), the median
+    replay with probes on against off. Then on the sanitized model, a NaN
+    planted in the first LINEAR, MULTIHEAD_ATTENTION and LAYERNORM node
+    and in the loss, forward and backward, per step (at step 2, a
+    replay) and in chunks of 4 (at step 10, inside the third chunk's
+    replay): the device table names (op, phase, step) each time. Then
+    --telemetry-dir --diagnostics --health-abort-on nan_loss in chunks of
+    4, the LINEAR's forward poisoned at step 10: HealthAbort, the
+    nan_loss alert names the op, phase and step, flight.json says
+    HealthAbort, and the prefetch thread has stopped."""
+    import threading
+
+    import torch
+
+    from flexflow_tpu_torch import sanitize
+    from flexflow_tpu_torch.diagnostics import HealthAbort
+    from flexflow_tpu_torch.telemetry import read_jsonl
+
+    out = {"replay_ms": {}}
+    masters = {}
+    for on in (False, True):
+        ff = build_train_lm("bf16", flags=(
+            ("--sanitize-numerics",) if on else ()))
+        timed = []
+        p20_fit(ff, 6, timed=timed)
+        masters[on] = p20_masters(ff)
+        key = "on" if on else "off"
+        out["replay_ms"][key] = statistics.median(
+            a.elapsed_time(b) for a, b in timed[2:])
+        # one more replay profiled: what the probes' kernels take
+        prof, _ = profiled(lambda: p20_fit(ff, 1))
+        out.setdefault("kernels", {})[key] = {
+            "device_ms": prof["device_busy_ms"],
+            "launches": prof["device_kernels"], "top": prof["top"][:6]}
+        if not on:
+            del ff
+            p20_free()
+    differ = p20_differ(masters[False], masters[True])
+    require(not differ, f"20(b): masters with the sanitizer on differ at "
+                        f"{differ[:4]}")
+    out["probe_overhead"] = out["replay_ms"]["on"] / out["replay_ms"]["off"]
+    del masters
+    op_types = {"LINEAR": "OP_LINEAR", "MULTIHEAD_ATTENTION":
+                "OP_MULTIHEAD_ATTENTION", "LAYERNORM": "OP_LAYERNORM"}
+    targets = {c: next(n.name for n in ff.graph.topo_order()
+                       if n.op_type.name == t) for c, t in op_types.items()}
+    targets["loss"] = "loss"
+    matrix = {}
+    for cls, target in targets.items():
+        for phase in ("fwd", "bwd"):
+            for n in (1, 4):
+                p20_reset(ff)
+                ff.executor.set_numeric_fault(target, phase, P20_FAULT[n])
+                sanitize.get_monitor().reset()
+                p20_fit(ff, P20_STEPS[n], pipeline_steps=n)
+                info = sanitize.get_monitor().first_nonfinite()
+                got = (info or {}).get("op"), (info or {}).get(
+                    "phase"), (info or {}).get("step")
+                matrix[f"{cls} {phase} chunks of {n}"] = got
+                require(got == (target, phase, P20_FAULT[n]),
+                        f"20(b): {cls} {phase} chunks of {n}: localized "
+                        f"{got}, planted ({target}, {phase}, "
+                        f"{P20_FAULT[n]})")
+                steps = ff.executor._chunk_steps if n > 1 else {
+                    1: ff.executor._train_step}
+                captures = [getattr(s, "captures", None)
+                            for s in steps.values()]
+                require(captures == [1],
+                        f"20(b): {cls} {phase} chunks of {n}: captures "
+                        f"{captures}")
+    out["matrix"] = matrix
+    del ff
+    p20_free()
+    tdir = os.path.join(root, "b")
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--sanitize-numerics",
+        "--health-abort-on", "nan_loss"))
+    ff.executor.set_numeric_fault(targets["LINEAR"], "fwd", P20_FAULT[4])
+    raised = None
+    try:
+        p20_fit(ff, P20_STEPS[4], pipeline_steps=4)
+    except HealthAbort as e:
+        raised = e.alert.to_record()
+    p20_free()
+    require(raised is not None, "20(b): no HealthAbort")
+    nan = [a for a in read_jsonl(os.path.join(tdir, "alerts.jsonl"))
+           if a.get("rule") == "nan_loss"]
+    want = {"op": targets["LINEAR"], "phase": "fwd",
+            "at_step": P20_FAULT[4]}
+    require(len(nan) == 1 and nan[0].get("details") == want,
+            f"20(b): nan_loss alerts {nan}, want details {want}")
+    flight = json.load(open(os.path.join(tdir, "flight.json")))
+    require(flight["reason"] == "HealthAbort",
+            f"20(b): flight.json reason {flight['reason']}")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("ff-prefetch") and t.is_alive()]
+    require(not alive, f"20(b): prefetch threads alive: {alive}")
+    out["abort"] = {"alert": raised, "stopped_at": ff._py_step(),
+                    "flight_events": len(flight["events"])}
+    del ff
+    p20_free()
+    return out
+
+
+def scope_phase(root: str, masters: dict) -> dict:
+    """20(c): phase 20(a)'s run (13 steps) with --profile-every 4: steps
+    4, 8 and 12 run eagerly under torch.profiler; the report's profile
+    section (the last) satisfies the attribution identity within its
+    slop, P20_ATTRIBUTED of its device time or more is attributed to the
+    ops and runtime scopes; the five ops with the most measured time
+    against their predicted_s; the masters bit-equal to 20(a)'s."""
+    from flexflow_tpu_torch.scope.attribution import verify_profile_section
+
+    tdir = os.path.join(root, "c")
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--calibrate", "4",
+        "--drift-threshold", P20_DRIFT, "--profile-every", "4"))
+    t0 = time.perf_counter()
+    p20_fit(ff, WARMUP_STEPS + TIMED_STEPS)
+    fit_s = time.perf_counter() - t0
+    differ = p20_differ(masters, p20_masters(ff))
+    require(not differ, f"20(c): masters with --profile-every differ from "
+                        f"20(a)'s at {differ[:4]}")
+    rep = json.load(open(os.path.join(tdir, "strategy_report.json")))
+    prof = rep.get("profile") or {}
+    problems = verify_profile_section(prof) if prof else ["no section"]
+    require(prof.get("step") == 12 and prof.get("mode") == "eager_sampled"
+            and not problems, f"20(c): profile section {problems} "
+                              f"(step {prof.get('step')})")
+    attributed = prof["attributed_s"]
+    share = attributed / (attributed + prof["unattributed_s"])
+    loss_s = prof["extras"].get("loss", 0.0)
+    top = sorted(prof["ops"], key=lambda r: -r["measured_s"])[:5]
+    out = {"fit_s": fit_s, "step": prof["step"],
+           "device_time_ms": 1e3 * prof["device_time_s"],
+           "attributed_ms": 1e3 * attributed,
+           "unattributed_ms": 1e3 * prof["unattributed_s"],
+           "attributed_share": share,
+           "share_without_the_loss_scope": (attributed - loss_s) / (
+               attributed + prof["unattributed_s"]),
+           "parallelism": prof["parallelism"],
+           "extras_ms": {k: 1e3 * v for k, v in prof["extras"].items()},
+           "top5": [{"op": r["name"], "measured_ms": 1e3 * r["measured_s"],
+                     "fwd_ms": 1e3 * r["fwd_s"], "bwd_ms": 1e3 * r["bwd_s"],
+                     "predicted_ms": 1e3 * r.get("predicted_s", 0.0)}
+                    for r in top],
+           "train_step_captures": getattr(ff.executor._train_step,
+                                          "captures", None),
+           "unattributed_top": ff._scope_prof.last_attr[
+               "unattributed_top"]}
+    log(f"  20(c) unattributed: {out['unattributed_top']}")
+    require(share >= P20_ATTRIBUTED,
+            f"20(c): {100 * share:.1f}% of the sampled step's device time "
+            f"attributed (< {100 * P20_ATTRIBUTED:.0f}%)")
+    require(out["train_step_captures"] == 1,
+            f"20(c): {out['train_step_captures']} captures")
+    del ff
+    p20_free()
+    return out
+
+
+def drift_phase(root: str, masters: dict, base: dict) -> dict:
+    """20(d): phase 20(a)'s run with the drift monitor's prediction
+    planted at half phase 6's measured step and its recalibration armed:
+    exactly one advisory, one recalibration on the card (the 4 dominant
+    ops timed again), one more capture of the train step, no advisory
+    after it; the masters bit-equal to 20(a)'s."""
+    from flexflow_tpu_torch.telemetry import read_jsonl
+
+    tdir = os.path.join(root, "d")
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--calibrate", "4",
+        "--drift-threshold", P20_DRIFT))
+    diag = ff.enable_diagnostics(recalibrate=True)
+    planted = base["median_step_ms"] / 2e3
+    diag.drift.set_prediction(planted)
+    us = ff._replay_search[0]
+    calls, real = [], us.cm.calibrate_graph
+
+    def counted(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    us.cm.calibrate_graph = counted
+    first = ff.executor.build_train_step()
+    p20_fit(ff, WARMUP_STEPS + TIMED_STEPS)
+    second = ff.executor._train_step
+    advisories = [a for a in read_jsonl(os.path.join(tdir, "alerts.jsonl"))
+                  if a.get("rule") == "costmodel_drift"]
+    differ = p20_differ(masters, p20_masters(ff))
+    out = {"planted_ms": 1e3 * planted, "advisories": len(advisories),
+           "advisory_step": [a["step"] for a in advisories],
+           "recalibrations": len(calls),
+           "recalibrated_ms": 1e3 * diag.drift.predicted_s,
+           "error_ema_after": diag.drift.error_ema,
+           "captures": [getattr(first, "captures", None),
+                        None if second is first
+                        else getattr(second, "captures", None)]}
+    require(len(advisories) == 1 and calls == [
+        {"top_k": 4, "remeasure": True}] and out["captures"] == [1, 1],
+        f"20(d): {out}")
+    require(not differ, f"20(d): masters after the recalibration differ "
+                        f"from 20(a)'s at {differ[:4]}")
+    del ff, diag, us
+    p20_free()
+    return out
+
+
+def watchdog_phase(root: str) -> dict:
+    """20(e): lm-base, 6 steps with --telemetry-dir and --watchdog-timeout
+    1, a 3 s stall from the fault hook after step 3: the watchdog fires
+    once, flight.json says why, and its heartbeats name this rank. The
+    deadline is max(timeout, multiplier x the inter-beat EMA), and the
+    EMA holds the interval of the step that captured the graph (0.15 to
+    over 0.37 s on an H100's host): at the default multiplier of 10 it
+    passed 3 s on a slow host and the stall went unseen, so this run
+    takes --watchdog-multiplier 1 and its deadline is the timeout."""
+    from flexflow_tpu_torch.telemetry import read_jsonl
+
+    tdir = os.path.join(root, "e")
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--watchdog-timeout",
+        "1", "--watchdog-multiplier", "1"))
+    ff.set_fault_hook(lambda s: time.sleep(3.0) if s == 3 else None)
+    p20_fit(ff, 6)
+    flight = json.load(open(os.path.join(tdir, "flight.json")))
+    wd = flight.get("watchdog") or {}
+    hang = [a for a in read_jsonl(os.path.join(tdir, "alerts.jsonl"))
+            if a.get("rule") == "hang_watchdog"]
+    out = {"fired": len(hang), "reason": flight["reason"],
+           "stalled_s": wd.get("stalled_s"), "deadline_s":
+           wd.get("deadline_s"), "last_step": wd.get("last_step"),
+           "lagging_host": wd.get("lagging_host"),
+           "heartbeats": wd.get("hosts")}
+    require(len(hang) == 1 and flight["reason"] == "watchdog"
+            and wd.get("lagging_host") == 0 and wd.get("last_step") == 3
+            and os.path.exists(os.path.join(tdir, "heartbeats",
+                                            "host-0.json")),
+            f"20(e): {out}")
+    del ff
+    p20_free()
+    return out
+
+
+def profiling_phase() -> dict:
+    """20(g): --profiling's per-op table of lm-base at 1 layer, timed on
+    the card by the cost model's harness: headed by the card's line, a
+    row for every compute op, each with a forward time."""
+    import io
+
+    from flexflow_tpu_torch.profiling import (print_operator_profile,
+                                              profile_operators_json)
+    from flexflow_tpu_torch.search.cost_model import OpHarness
+    from flexflow_tpu_torch.search.machine_model import card_line
+
+    ff = build_train_lm("bf16", lm=lm_config(layers=P20_LAYERS_PROFILING))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rows = print_operator_profile(ff.graph, file=buf, harness=OpHarness.of(
+        ff.config, ff.device))
+    took = time.perf_counter() - t0
+    text = buf.getvalue()
+    compute = [n.name for n in ff.graph.topo_order()
+               if n.inputs and n.op_type.name != "OP_INPUT"]
+    require(text.startswith(f"per-operator profile on {card_line()}")
+            and [r[0] for r in rows] == compute
+            and all(r[2] > 0 for r in rows),
+            f"20(g): table {text[:200]!r}, rows {[r[0] for r in rows]} "
+            f"vs ops {compute}")
+    out = {"s": took, "ops": len(rows),
+           "top": profile_operators_json(ff.graph, rows=rows)[:5]}
+    del ff
+    p20_free()
+    return out
+
+
+def phase20(train: dict, paged: dict, ff_serve_flags=()) -> dict:
+    """Phase 20: the observability half of the port on lm-base at full
+    width (12 layers, 8 x 512, bf16 over f32 masters, SGD, captured):
+    20(a) diagnostics, (b) the sanitizer, (c) sampled op profiles, (d)
+    drift and its recalibration, (e) the hang watchdog, (f) serving's
+    telemetry on phase 3's paged run, (g) --profiling. Each check fatal."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p20_")
+    t0 = time.perf_counter()
+    try:
+        out, took = {}, {}
+
+        def run(key, fn, *args):
+            t = time.perf_counter()
+            r = fn(*args)
+            took[key] = time.perf_counter() - t
+            return r
+
+        out["a"], masters = run("a", diag_phase, train, root)
+        out["b"] = run("b", sanitize_phase, root)
+        out["c"] = run("c", scope_phase, root, masters)
+        out["d"] = run("d", drift_phase, root, masters, train)
+        del masters
+        p20_free()
+        out["e"] = run("e", watchdog_phase, root)
+        out["f"] = run("f", serving_telemetry_phase, root, paged)
+        out["g"] = run("g", profiling_phase)
+        out["took_s"] = took
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        p20_free()
+
+
+def serving_profile_step(ff, prompt: list[int]) -> dict:
+    """The serving engine's own profile_step of one request's first
+    iteration (eager), on an engine that has served it once, its
+    attribution identity fatal."""
+    from flexflow_tpu_torch.scope.attribution import verify_profile_section
+
+    eng = ff.serve(kv_layout="paged", max_new_tokens=NEW_TOKENS)
+    eng.generate([prompt])  # warm: the profiled step is not a first one
+    eng.submit(prompt)
+    section = eng.profile_step()
+    eng.run_until_drained()
+    problems = verify_profile_section(section)
+    require(section["source"] == "serving" and not problems,
+            f"serving profile_step: {problems}")
+    attributed = section["attributed_s"]
+    return {"device_time_ms": 1e3 * section["device_time_s"],
+            "attributed_ms": 1e3 * attributed,
+            "attributed_share": attributed / max(
+                1e-12, attributed + section["unattributed_s"]),
+            "ops_measured": sum(r["measured_s"] > 0 for r in section["ops"])}
+
+
+def serving_telemetry_phase(root: str, paged: dict) -> dict:
+    """20(f): phase 3's paged run (captured) with --telemetry-dir: the
+    same token streams as phase 3; metrics_summary's p50/p95/p99 of TTFT,
+    TBT, queue wait and end to end. The step's cost: phase 3's run is
+    repeated here without telemetry, on a model built the same way, in
+    the order without, with, with, without, twice, after one untimed
+    run of each, no step profiled, and the median pure-decode step of
+    the runs with telemetry must lie within 15% of that of the runs
+    without. The step is host-bound and
+    its host time moves 5-20% between phases of one call (phase 3's own
+    median is printed beside it), so the runs it is held to are timed
+    in the same minute. Then the engine's profile_step (one iteration,
+    eagerly) satisfies the attribution identity."""
+    ff_on = build_lm(flags=("--telemetry-dir", os.path.join(root, "f")))
+    ff_off = build_lm()
+    vocab = ff_on.layers[-1].params.out_channels
+    prompts = make_prompts(vocab)
+    arms = {"off": [], "on": []}
+    # a first run of each model is not timed: every timed run comes
+    # after its model has served once
+    for i, arm in enumerate(("on", "off") + ("off", "on", "on", "off") * 2):
+        r = (serve_phase(ff_on, "paged", prompts, vocab, telemetry=True)
+             if arm == "on" else
+             serve_phase(ff_off, "paged", prompts, vocab, profile=False))
+        require(r["streams"] == paged["streams"],
+                f"20(f): the streams of a run {arm} telemetry differ "
+                f"from phase 3's")
+        if i >= 2:
+            arms[arm].append(r)
+        gc.collect()  # each run starts with the last one's engine gone
+    summ = arms["on"][0]["metrics_summary"]
+    med = {arm: statistics.median(
+        [t for r in runs for t in r["decode_step_ms"]])
+        for arm, runs in arms.items()}
+    rel = med["on"] / med["off"]
+    # the same over the steps that completed no request (with telemetry
+    # a completion also writes and flushes a serve.done record)
+    quiet = {arm: statistics.median(
+        [t for r in runs for t, d in zip(r["decode_step_ms"],
+                                         r["decode_step_completions"])
+         if not d])
+        for arm, runs in arms.items()}
+    lat = {f"{s}_{q}_s": summ.get(f"{s}_{q}_s")
+           for s in ("ttft", "tbt", "queue_wait", "e2e")
+           for q in ("p50", "p95", "p99")}
+    out = {"median_decode_step_ms": med["on"],
+           "median_decode_step_ms_off": med["off"],
+           "runs_ms": {arm: [r["median_decode_step_ms"] for r in runs]
+                       for arm, runs in arms.items()},
+           "vs_off": rel,
+           "quiet_steps_vs_off": quiet["on"] / quiet["off"],
+           "vs_phase3": med["on"] / paged["median_decode_step_ms"],
+           "off_vs_phase3": med["off"] / paged["median_decode_step_ms"],
+           "latency_s": lat,
+           "requests_completed": summ["requests_completed"]}
+    require(all(v is not None and v >= 0 for v in lat.values()),
+            f"20(f): metrics_summary percentiles {lat}")
+    require(abs(rel - 1) <= TELEMETRY_RTOL,
+            f"20(f): median pure-decode step {med['on']:.3f} ms with "
+            f"telemetry vs {med['off']:.3f} without (runs {out['runs_ms']})")
+    out["profile_step"] = serving_profile_step(ff_on, prompts[0])
+    del ff_on, ff_off
+    p20_free()
+    return out
+
+
+def log_phase20(p: dict):
+    a, b, c, d, e, f, g = (p[k] for k in "abcdefg")
+    log(f"  (a) diagnostics: verdict {a['verdict']}, report {a['mode']} "
+        f"naming {a['card']!r}, predicted {a['predicted_ms']:.3f} ms; "
+        f"recorded median step {a['recorded_median_step_ms']:.3f} ms "
+        f"({a['vs_phase6']:.4f} of phase 6's); natural drift EMA "
+        f"{a['natural_drift_ema']:.4f}; --health-sample-every 4: "
+        f"{a['sample_every_4']}")
+    log(f"  (b) sanitizer: median replay off {b['replay_ms']['off']:.3f} "
+        f"ms, on {b['replay_ms']['on']:.3f} ms ({b['probe_overhead']:.4f}"
+        f"x); masters bit-equal; a profiled replay's kernels "
+        f"{b['kernels']}; localized {b['matrix']}; abort {b['abort']}")
+    log(f"  (c) scope: step {c['step']} device window "
+        f"{c['device_time_ms']:.3f} ms, attributed {c['attributed_ms']:.3f}"
+        f" ms ({100 * c['attributed_share']:.2f}%), unattributed "
+        f"{c['unattributed_ms']:.3f}; extras {c['extras_ms']}; top five "
+        f"{c['top5']}")
+    log(f"  (d) drift: {d}")
+    log(f"  (e) watchdog: {e}")
+    log(f"  (f) serving: median pure-decode step "
+        f"{f['median_decode_step_ms']:.3f} ms with telemetry, "
+        f"{f['median_decode_step_ms_off']:.3f} without ({f['vs_off']:.4f}"
+        f"x, {f['quiet_steps_vs_off']:.4f}x over steps that complete "
+        f"no request; runs off, on, on, off, twice {f['runs_ms']}); "
+        f"phase 3's x "
+        f"{f['vs_phase3']:.4f} / {f['off_vs_phase3']:.4f}; latency "
+        f"{f['latency_s']}; profile_step {f['profile_step']}")
+    log(f"  (g) --profiling: {g['ops']} ops in {g['s']:.1f} s; top "
+        f"{g['top']}")
+    log(f"  phase 20's parts took {p['took_s']} s")
+
+
 def _tensors(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
@@ -4065,7 +4909,11 @@ def mesh_main(json_path: str) -> int:
     out["resume"] = mesh_resume_check(
         f"cuda:{torch.cuda.current_device()}",
         lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
-    out["failures"] = out["failures"] + out["resume"]["failures"]
+    out["diag"] = mesh_diag_check(
+        f"cuda:{torch.cuda.current_device()}",
+        lm_config(layers=MESH_LAYERS), captured=True)
+    out["failures"] = (out["failures"] + out["resume"]["failures"]
+                       + out["diag"]["failures"])
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -4079,6 +4927,7 @@ def mesh_main(json_path: str) -> int:
         for o in outs:
             log_mesh_runs(o)
             log_mesh_resume(o["resume"])
+            log_mesh_resume(o["diag"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
@@ -4396,6 +5245,12 @@ def main(argv: list[str]) -> int:
     p19 = phase19("cuda", lm_config(), TRAIN_BATCH,
                   lm_config(layers=WARM_LAYERS))
     log_phase19(p19, train["median_step_ms"])
+    log("== phase 20: the observability half on lm-base at full width (12 "
+        "layers, 8 x 512, bf16, SGD, captured): diagnostics, the sanitizer, "
+        "sampled op profiles, drift, the hang watchdog, serving's "
+        "telemetry, --profiling")
+    p20 = phase20(train, runs["paged"])
+    log_phase20(p20)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -4471,7 +5326,8 @@ def main(argv: list[str]) -> int:
                   nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
-                  phase19=p19, total_s=time.perf_counter() - t_start)
+                  phase19=p19, phase20=p20,
+                  total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -4544,6 +5400,16 @@ def main(argv: list[str]) -> int:
                             "per-step kill"]["bytes"],
                         "warm_start": p19["warm"]["ranks"][0],
                         "wall_s": p19["wall_s"]},
+                    "phase20": {
+                        "natural_drift_ema": p20["a"]["natural_drift_ema"],
+                        "recorded_vs_phase6": p20["a"]["vs_phase6"],
+                        "sanitizer_replay_ms": p20["b"]["replay_ms"],
+                        "attributed_share": p20["c"]["attributed_share"],
+                        "drift": {k: p20["d"][k] for k in (
+                            "advisories", "recalibrations", "captures")},
+                        "serving_telemetry_vs_off": p20["f"]["vs_off"],
+                        "serving_vs_phase3": p20["f"]["vs_phase3"],
+                        "wall_s": p20["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -31,19 +31,7 @@ from .machine import DEFAULT_AXES, MULTIHOST_AXES, MeshShape
 # value, ROADMAP item). A valued flag asks for its path unless the value
 # is 0 or empty.
 _NOT_PORTED = {
-    "--profiling": (False, "A10b (profiling)"),
-    "--xprof-dir": (True, "A10b (scope/ device traces)"),
-    "--profile-every": (True, "A10b (scope/ op-grain profiling)"),
-    "--watchdog-timeout": (True, "A10b (scope/ hang watchdog)"),
-    "--diagnostics": (False, "A10b (diagnostics/)"),
     "--elastic": (False, "A10b (elastic/)"),
-    "--sanitize-numerics": (False, "A10b (sanitize.py)"),
-    "--health-abort-on": (True, "A10b (diagnostics/ health checks)"),
-    "--health-sample-every": (True, "A10b (diagnostics/ health checks)"),
-    "--drift-threshold": (True, "A10b (recompile.py drift recalibration)"),
-    "--watchdog-abort": (False, "A10b (scope/ hang watchdog)"),
-    "--watchdog-multiplier": (True, "A10b (scope/ hang watchdog)"),
-    "--flight-events": (True, "A10b (scope/ flight recorder)"),
     "--replan-cooldown-steps": (True, "A10b (elastic/)"),
     "--replan-horizon-steps": (True, "A10b (elastic/)"),
     "--elastic-dry-run": (False, "A10b (elastic/)"),
@@ -117,6 +105,34 @@ class FFConfig:
     # off)
     metrics_interval: float = 0.0
     metrics_port: int = 0
+    # --profiling: the per-op table (profiling.py), timed on the model's
+    # device once per compile; xprof_dir: fit (and the serving loop) run
+    # under torch.profiler, its Chrome trace exported there
+    profiling: bool = False
+    xprof_dir: str = ""
+    # diagnostics (diagnostics/, needs telemetry): the strategy report
+    # at compile, the cost-model drift monitor and the health rules
+    # during fit. drift_threshold: the EMA of |measured - predicted| /
+    # predicted step time above which a drift advisory fires;
+    # health_abort_on: rules that stop fit (HealthAbort) instead of
+    # warning; health_sample_every: the per-step loss fetch every K-th
+    # step, the rules then seeing one K-step-averaged record a window
+    diagnostics: bool = False
+    drift_threshold: float = 0.5
+    health_abort_on: tuple[str, ...] = ()
+    health_sample_every: int = 1
+    # sanitize.py: a device-side finiteness probe on every op output and
+    # its cotangent, so a NaN is named by (op, fwd|bwd, step)
+    sanitize_numerics: bool = False
+    # scope/: --profile-every K profiles every K-th step (attributed to
+    # the PCG's ops); the hang watchdog fires when no step boundary lands
+    # within max(timeout, step EMA x multiplier) (0: off); the flight
+    # recorder's ring (always on; 0 disables)
+    profile_every: int = 0
+    watchdog_timeout: float = 0.0
+    watchdog_multiplier: float = 10.0
+    watchdog_abort: bool = False
+    flight_events: int = 256
     # resilience (resilience/): checkpoint_dir enables async checkpoints
     # during fit, every N steps / T seconds; auto_resume restores the
     # newest committed checkpoint (onto this run's mesh) before training
@@ -246,6 +262,31 @@ class FFConfig:
                 self.metrics_interval = float(val())
             elif a == "--metrics-port":
                 self.metrics_port = int(val())
+            elif a == "--profiling":
+                self.profiling = True
+            elif a == "--xprof-dir":
+                self.xprof_dir = val()
+            elif a == "--diagnostics":
+                self.diagnostics = True
+            elif a == "--drift-threshold":
+                self.drift_threshold = float(val())
+            elif a == "--health-abort-on":
+                self.health_abort_on = tuple(
+                    r.strip() for r in val().split(",") if r.strip())
+            elif a == "--health-sample-every":
+                self.health_sample_every = int(val())
+            elif a == "--sanitize-numerics":
+                self.sanitize_numerics = True
+            elif a == "--profile-every":
+                self.profile_every = int(val())
+            elif a == "--watchdog-timeout":
+                self.watchdog_timeout = float(val())
+            elif a == "--watchdog-multiplier":
+                self.watchdog_multiplier = float(val())
+            elif a == "--watchdog-abort":
+                self.watchdog_abort = True
+            elif a == "--flight-events":
+                self.flight_events = int(val())
             elif a == "--seed":
                 self.seed = int(val())
             elif a == "--mesh":

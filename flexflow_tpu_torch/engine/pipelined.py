@@ -22,11 +22,15 @@ chunks:
     is never overwritten.
   - **deferred metrics sync**: ONE host fetch per chunk (the loss vector)
     and only under telemetry, whose per-step records are reconstructed
-    from the chunk window (device time attributed as chunk/N).
+    from the chunk window (device time attributed as chunk/N), and with
+    diagnostics (`diag`, JAX `engine/pipelined.py:126-291`) the health
+    records too: each step's loss from the vector, the drift monitor fed
+    chunk/N, the checkpoint staleness clock once a chunk.
 
-Periodic work (checkpoints, preemption drain, fault hooks) runs at chunk
-boundaries only, so the resume cursor always lands on a chunk edge. The
-JAX engine's health and diagnostics hooks (`diag`) are ROADMAP A10b.
+Periodic work (checkpoints, preemption drain, a health abort agreed over
+the ranks, fault hooks, the watchdog's beat) runs at chunk boundaries
+only, so the resume cursor always lands on a chunk edge; on HealthAbort
+the prefetch thread is shut down like on every other exit.
 """
 
 from __future__ import annotations
@@ -135,12 +139,16 @@ class PipelinedEngine:
     def run_epoch(self, *, x_dict: dict, y, order, b0: int,
                   num_batches: int, batch_size: int, abs_e: int,
                   py_step: int, tel, resil, preempt, fault_hook,
-                  tokens_per_example: int) -> tuple[int, bool]:
+                  tokens_per_example: int, diag=None,
+                  watchdog=None) -> tuple[int, bool]:
         """Run batches [b0, num_batches) of one epoch in fused chunks.
         Mutates the model's training state in place (exactly like the
-        per-step loop) and returns (py_step, preempted).
-        SimulatedPreemption propagates to fit's handler; the prefetch
+        per-step loop) and returns (py_step, preempted). HealthAbort and
+        SimulatedPreemption propagate to fit's handlers; the prefetch
         thread is shut down on every exit path."""
+        from ..model import peer_abort
+        from ..scope import flightrec
+
         model = self.model
         chunks = plan_chunks(b0, num_batches, self.pipeline_steps)
         if not chunks:
@@ -178,7 +186,14 @@ class PipelinedEngine:
                         # records are timed to the chunk's end
                         loss_host = losses.detach().float().cpu().numpy()
                 t_run1 = time.perf_counter()
+                # a chunk that warmed up or captured its graph is no
+                # sample of the chunk's time: its records keep the losses
+                warming = getattr(chunk_fn, "last_call", "replay") not in (
+                    "replay", "eager")
                 py_step += n
+                flightrec.note_step(py_step)
+                if watchdog is not None:
+                    watchdog.beat(py_step)
                 end_b = start_b + n
                 # the cursor names the NEXT batch to run on resume, always
                 # a chunk edge; epochs are ABSOLUTE (since compile)
@@ -186,8 +201,28 @@ class PipelinedEngine:
                     cursor = {"epoch": abs_e + 1, "batch": 0}
                 else:
                     cursor = {"epoch": abs_e, "batch": end_b}
+                abort = None
+                if diag is not None:
+                    abort = self._health_records(
+                        diag=diag, resil=resil, n=n, step0=py_step - n + 1,
+                        abs_e=abs_e, t_chunk0=t_chunk0, t_pop1=t_pop1,
+                        t_run1=t_run1, loss_host=loss_host,
+                        warming=warming)
+                if preempt is not None:
+                    preempt.poll(abort=abort is not None)
+                if abort is not None or (preempt is not None
+                                         and preempt.aborted):
+                    if tel is not None:
+                        t_now = time.perf_counter()
+                        self._synthesize_step_records(
+                            tel=tel, n=n, step0=py_step - n + 1,
+                            abs_e=abs_e, t_chunk0=t_chunk0, t_pop1=t_pop1,
+                            t_run1=t_now, t_save1=t_now, loss_host=None,
+                            batch_size=batch_size,
+                            tokens_per_example=tokens_per_example)
+                    raise abort or peer_abort(diag, py_step)
                 if resil is not None:
-                    if preempt is not None and preempt.poll():
+                    if preempt is not None and preempt.preempted:
                         # the running chunk completed (a replay cannot be
                         # interrupted): drain the in-flight async save and
                         # take the one final synchronous snapshot here
@@ -216,6 +251,47 @@ class PipelinedEngine:
         return py_step, False
 
     # ------------------------------------------------------------ telemetry
+
+    def _health_records(self, *, diag, resil, n: int, step0: int,
+                        abs_e: int, t_chunk0: float, t_pop1: float,
+                        t_run1: float, loss_host: Optional[np.ndarray],
+                        warming: bool):
+        """The health and drift records of one chunk's steps (JAX
+        `_synthesize_step_records`' diag half): each step's loss from the
+        chunk's loss vector, its timings the chunk window's over n (device
+        time chunk/N; the window ends before the boundary's save). A
+        chunk that warmed up or captured reports its losses only: its
+        timings would seed the spike and drift baselines wrong. Returns
+        the HealthAbort an abort-listed rule raised (the caller agrees it
+        over the ranks first), else None."""
+        from ..diagnostics.health import HealthAbort
+
+        data_wait = (t_pop1 - t_chunk0) / n
+        step_time = (t_run1 - t_chunk0) / n
+        if resil is not None:
+            # the staleness clock advances once a chunk (saves only
+            # happen at boundaries)
+            diag.note_checkpoint_commit(resil.last_commit_walltime())
+        for i in range(n):
+            loss_i = (float(loss_host[i]) if loss_host is not None
+                      else None)
+            rec = {
+                "step": step0 + i, "epoch": abs_e, "t": time.time(),
+                "step_time_s": None if warming else step_time,
+                "data_wait_s": None if warming else data_wait,
+                "save_latency_s": None if warming else 0.0,
+                "device_time_s": None if warming else max(
+                    0.0, step_time - data_wait),
+                "loss": loss_i,
+            }
+            # the probes carried each step of the chunk, so localization
+            # names the step inside it
+            rec.update(self.model._nonfinite_localization(loss_i))
+            try:
+                diag.on_step(rec)
+            except HealthAbort as e:
+                return e
+        return None
 
     def _synthesize_step_records(self, *, tel, n: int, step0: int,
                                  abs_e: int, t_chunk0: float, t_pop1: float,

@@ -58,6 +58,17 @@ for the backward (saved-tensor hooks); the gather's backward is the same
 reduce-scatter, so every stage sums the same elements in the same order
 and the trajectories are bit-equal.
 
+Observability (JAX 454-524, 592-735): with `--sanitize-numerics` every
+op output, and the loss, passes a probe (`sanitize.probe`) before its
+consumers read it, folding its finiteness and its cotangent's into this
+executor's device table; `set_numeric_fault` plants a NaN in one op's
+output or cotangent from a step on. Under `scoped()` (a sampled profile)
+the steps run eagerly with a `torch.profiler.record_function` range
+around each op's forward and around the runtime scopes (`grad_sync`,
+`param_gather`, `weight_update` or `weight_update_shard`, `metrics`,
+and `loss`, which the JAX package's loss has none of), the twins of the
+JAX executor's `jax.named_scope`s; otherwise no range is opened. `drop_steps` drops every built step with its graphs.
+
 Float settings: TF32 is switched off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) when an executor is built, so
@@ -231,6 +242,10 @@ class CapturedStep:
         self.stream = torch.cuda.Stream(device)
         self._graphs: dict[tuple, Any] = {}  # signature -> _Graph or None
         self.captures = 0
+        # what the last call did: "warm-up", "capture" (then a replay),
+        # "replay" or "eager" (under `eager()`); a caller timing its calls
+        # (fit's health records) leaves the first two out
+        self.last_call = ""
 
     def _split(self, args):
         held = [x for i, a in enumerate(args) if i in self.held
@@ -241,17 +256,21 @@ class CapturedStep:
 
     def __call__(self, *args):
         if _EAGER_DEPTH:
+            self.last_call = "eager"
             return self.fn(*args)
         held, staged = self._split(args)
         sig = _signature(staged)
         if sig not in self._graphs:
             self._graphs[sig] = None
+            self.last_call = "warm-up"
             return self._warm_up(args)
         graph = self._graphs[sig]
+        self.last_call = "replay"
         if graph is None or not graph.holds(held):
             self._graphs[sig] = None  # frees a stale graph's pool first
             del graph
             graph = self._graphs[sig] = self._capture(args, held)
+            self.last_call = "capture"
         return self._replay(graph, args)
 
     def _warm_up(self, args):
@@ -283,8 +302,12 @@ class CapturedStep:
         cs = counters()
         before = {n: c.state() for n, c in cs.items()}
         try:
+            # thread_local: another thread's legitimate calls (the chunk
+            # prefetcher's pinned allocations and event waits) do not
+            # invalidate this thread's capture
             with torch.cuda.graph(graph, pool=self.pool,
-                                  stream=self.stream):
+                                  stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(*static)
         except Exception as exc:
             for n, c in cs.items():
@@ -438,6 +461,17 @@ class Executor:
         self._eval_step = None
         self._forward_fn = None
         self.compute_dtype, self.matmul_dtype = dtype_policy(config, device)
+        # --sanitize-numerics (sanitize.py): a probe on every op output,
+        # folding its finiteness into this executor's device table;
+        # set_numeric_fault's (op, phase, step) fault, else None
+        self.sanitize_numerics = bool(config.sanitize_numerics)
+        self._numeric_fault: Optional[tuple] = None
+        self._probes = None
+        if self.sanitize_numerics:
+            self._probes = self._probe_table()
+        # op and runtime ranges (torch.profiler.record_function) are
+        # opened only while a profile is taken (`scoped`)
+        self._scoped = False
         # the serving weight cache: (node, weight) -> (master, its
         # _version when seen, its compute-dtype copy or, without a compute
         # dtype, the master); `weight_refreshes` counts the entries made
@@ -846,8 +880,11 @@ class Executor:
 
     @torch.no_grad()
     def full_weight(self, owner: str, wname: str, local: torch.Tensor):
-        """The whole weight from this rank's at-rest block (collective)."""
-        if not self.spmd:
+        """The whole weight from this rank's at-rest block (collective). A
+        0-d tensor of a weight that is not 0-d (SGD's scalar slot at
+        momentum 0) is whole on every rank already."""
+        if not self.spmd or (local.dim() == 0
+                             and len(self.weight_shape(owner, wname))):
             return local
         from .parallel.spmd import redistribute
 
@@ -921,8 +958,9 @@ class Executor:
         if self.update_stage < 3 and key in cache:
             return cache[key]
         axes, dim = self._sync[key]
-        w = ParamGather.apply(t, self.mesh.group(axes), dim,
-                              self.update_stage >= 3)
+        with self._scope("param_gather"):
+            w = ParamGather.apply(t, self.mesh.group(axes), dim,
+                                  self.update_stage >= 3)
         if self.update_stage < 3:
             cache[key] = w
         return w
@@ -938,29 +976,22 @@ class Executor:
         from .parallel.spmd import sync_grad
 
         out = {}
-        for n, ws in grads.items():
-            mine = out[n] = {}
-            for k, g in ws.items():
-                axes, dim = self._sync.get((n, k), ((), None))
-                if (n, k) in self.update_specs or not axes:
-                    mine[k] = g
-                else:
-                    mine[k] = sync_grad(g, self.mesh.group(axes), dim)
+        with self._scope("grad_sync"):
+            for n, ws in grads.items():
+                mine = out[n] = {}
+                for k, g in ws.items():
+                    axes, dim = self._sync.get((n, k), ((), None))
+                    if (n, k) in self.update_specs or not axes:
+                        mine[k] = g
+                    else:
+                        mine[k] = sync_grad(g, self.mesh.group(axes), dim)
         return out
 
     def _apply_spmd(self, params, state, inputs, *, training, rng,
-                    seq_length):
+                    seq_length, step=None):
         """`_apply` on this rank's blocks: each node's inputs moved to the
         placement its rule runs on, its weights to their compute
         placement, its raw outputs on to the plan's."""
-        from .parallel.spmd import (
-            mask_grad,
-            redistribute,
-            reduce_backward,
-            reduce_forward,
-        )
-
-        mesh = self.mesh
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
@@ -974,60 +1005,77 @@ class Executor:
                     self._local_constant(node) if node.constant is not None
                     else inputs[node.name])
                 continue
-            rule = self._rules[node.guid]
-            src = [None] * len(self.graph.in_edges[node.guid])
-            lays = self._in_layouts(node)
-            for e in self.graph.in_edges[node.guid]:
-                src[e.dst_idx] = vals[(e.src, e.src_idx)]
-            ins, entered = [], {}
-            for x, lay, run in zip(src, lays, rule["run"]):
-                key = (id(x), run)
-                if key not in entered:
-                    y = redistribute(x, lay, run, mesh)
-                    if rule["enter"]:
-                        y = reduce_backward(y, mesh.group(rule["enter"]))
-                    entered[key] = y
-                ins.append(entered[key])
-            wsrc = getattr(node, "weight_source", None) or node.name
-            weights, regather = {}, []
-            for k, t in params.get(wsrc, {}).items():
-                w = self._compute_weight(wsrc, k, t, gathered)
-                if k in rule["gather_w"]:
-                    base = self._wlayout(self._by_name[wsrc],
-                                         self._weight_spec(wsrc, k))
-                    w = redistribute(w, base, ((),) * len(base), mesh)
-                w = mask_grad(w, rule["mask"].get(k, ()), mesh)
-                weights[k] = w
-                if self.update_stage >= 3 and (wsrc, k) in self.update_specs:
-                    regather.append(k)
-            # a row-parallel product's bias is added after its all-reduce
-            tail = self._cast_compute(
-                {"bias": weights.pop(rule["bias"])}
-                if rule["bias"] in weights else {})
-            weights = dict(self._cast_compute(weights))
-            weights.update(new_state.get(wsrc, {}))
-            with self._dropping(wsrc, [k for k in regather if k in weights],
-                                weights, params.get(wsrc, {})):
-                outs, op_state = node.op_def.forward(
-                    rule["params"], ins, weights, new_state.get(node.name),
-                    ctx)
-            if op_state:
-                new_state.setdefault(node.name, {}).update(op_state)
-            outs = list(outs)
-            if rule["reduce"]:
-                y = reduce_forward(outs[0], mesh.group(rule["reduce"]))
-                b = tail.get("bias")
-                if b is not None:
-                    y = y + b.to(y.dtype)
-                if rule["kind"] == "row":
-                    from .ops.core import apply_activation
-
-                    y = apply_activation(y, node.params.activation)
-                outs[0] = y
-            for i, out in enumerate(outs):
-                vals[(node.guid, i)] = redistribute(
-                    out, rule["nat"][i], self._layout[(node.guid, i)], mesh)
+            with self._scope(node.name):
+                outs = self._node_spmd(node, params, new_state, vals,
+                                       gathered, ctx)
+            for i, out in enumerate(self._outputs(node, outs, step)):
+                vals[(node.guid, i)] = out
         return vals[(self.logits_node.guid, 0)], new_state
+
+    def _node_spmd(self, node, params, new_state, vals, gathered, ctx):
+        """One node of `_apply_spmd`: its outputs in the plan's
+        placements (its op state written into `new_state`)."""
+        from .parallel.spmd import (
+            mask_grad,
+            redistribute,
+            reduce_backward,
+            reduce_forward,
+        )
+
+        mesh = self.mesh
+        rule = self._rules[node.guid]
+        src = [None] * len(self.graph.in_edges[node.guid])
+        lays = self._in_layouts(node)
+        for e in self.graph.in_edges[node.guid]:
+            src[e.dst_idx] = vals[(e.src, e.src_idx)]
+        ins, entered = [], {}
+        for x, lay, run in zip(src, lays, rule["run"]):
+            key = (id(x), run)
+            if key not in entered:
+                y = redistribute(x, lay, run, mesh)
+                if rule["enter"]:
+                    y = reduce_backward(y, mesh.group(rule["enter"]))
+                entered[key] = y
+            ins.append(entered[key])
+        wsrc = getattr(node, "weight_source", None) or node.name
+        weights, regather = {}, []
+        for k, t in params.get(wsrc, {}).items():
+            w = self._compute_weight(wsrc, k, t, gathered)
+            if k in rule["gather_w"]:
+                base = self._wlayout(self._by_name[wsrc],
+                                     self._weight_spec(wsrc, k))
+                w = redistribute(w, base, ((),) * len(base), mesh)
+            w = mask_grad(w, rule["mask"].get(k, ()), mesh)
+            weights[k] = w
+            if self.update_stage >= 3 and (wsrc, k) in self.update_specs:
+                regather.append(k)
+        # a row-parallel product's bias is added after its all-reduce
+        tail = self._cast_compute(
+            {"bias": weights.pop(rule["bias"])}
+            if rule["bias"] in weights else {})
+        weights = dict(self._cast_compute(weights))
+        weights.update(new_state.get(wsrc, {}))
+        with self._dropping(wsrc, [k for k in regather if k in weights],
+                            weights, params.get(wsrc, {})):
+            outs, op_state = node.op_def.forward(
+                rule["params"], ins, weights, new_state.get(node.name),
+                ctx)
+        if op_state:
+            new_state.setdefault(node.name, {}).update(op_state)
+        outs = list(outs)
+        if rule["reduce"]:
+            y = reduce_forward(outs[0], mesh.group(rule["reduce"]))
+            b = tail.get("bias")
+            if b is not None:
+                y = y + b.to(y.dtype)
+            if rule["kind"] == "row":
+                from .ops.core import apply_activation
+
+                y = apply_activation(y, node.params.activation)
+            outs[0] = y
+        return [redistribute(out, rule["nat"][i],
+                             self._layout[(node.guid, i)], mesh)
+                for i, out in enumerate(outs)]
 
     @contextlib.contextmanager
     def _dropping(self, owner: str, keys: list, weights: dict, shards: dict):
@@ -1077,6 +1125,109 @@ class Executor:
         return t if tuple(shape) == tuple(t.shape) else t[
             tuple(slice(0, s) for s in shape)]
 
+
+    # --------------------------------------------- sanitizer and profiling
+
+    def _probe_table(self):
+        """The sanitizer's device table: a probe per op output (JAX's
+        label, `name` or `name#out<i>`, and topo index) and the loss's,
+        one past the last op."""
+        from .sanitize import ProbeTable, get_monitor
+
+        labels, topos = [], []
+        for topo, node in enumerate(self.order):
+            if node.op_type == OT.OP_INPUT:
+                continue
+            for i in range(len(node.outputs)):
+                labels.append(node.name if i == 0
+                              else f"{node.name}#out{i}")
+                topos.append(topo)
+        labels.append("loss")
+        topos.append(len(self.order))
+        table = ProbeTable(labels, topos, self.device)
+        get_monitor().attach(table)
+        return table
+
+    def drop_steps(self):
+        """Drop every built step (train, eval, forward, chunked), each
+        with its CUDA graphs and their memory pools: the next call builds
+        and captures it anew."""
+        self._train_step = None
+        self._eval_step = None
+        self._forward_fn = None
+        self._chunk_steps.clear()
+
+    def set_numeric_fault(self, op: Optional[str], phase: str = "fwd",
+                          step: int = 0):
+        """Install (or clear, op=None) a numeric fault: the named op's
+        output (or its cotangent, phase="bwd"; op "loss" targets the
+        scalar loss) goes NaN from global step `step` on (JAX
+        `executor.py:454`). Test/debug hook for the sanitizer's
+        localization matrix — the built steps are dropped so the next
+        call captures with the fault in it."""
+        if op is not None:
+            if phase not in ("fwd", "bwd"):
+                raise ValueError(f"phase must be fwd|bwd, got {phase!r}")
+            if op != "loss" and all(n.name != op for n in self.order):
+                raise ValueError(f"no op named {op!r} in the graph")
+        self._numeric_fault = (
+            None if op is None else (op, phase, int(step)))
+        self.drop_steps()
+
+    def _maybe_poison(self, x, name: str, step, phase: str):
+        """Apply the installed numeric fault to tensor `name`, for the
+        given phase only: a fwd fault before the probe (the probe sees
+        the poisoned value), a bwd fault after it (the probe's backward
+        sees the poisoned cotangent)."""
+        fault = self._numeric_fault
+        if fault is None or fault[0] != name or fault[1] != phase:
+            return x
+        from . import sanitize
+
+        at = fault[2]
+        if phase == "fwd":
+            return sanitize.inject_nonfinite(x, step, at)
+        return sanitize.inject_grad_nonfinite(x, step, at)
+
+    def _instrument(self, out, name: str, label: str, step, first: bool):
+        """An op output (or the loss) through the fault and the probe."""
+        if first and self._numeric_fault is not None:
+            out = self._maybe_poison(out, name, step, "fwd")
+        if self._probes is not None:
+            from . import sanitize
+
+            out = sanitize.probe(out, self._probes, label)
+        if first and self._numeric_fault is not None:
+            out = self._maybe_poison(out, name, step, "bwd")
+        return out
+
+    def flush_probes(self, step=None):
+        """The sanitizer's probes of the pass that just ran folded into
+        its table with `step` (None: a step-less pass). Nothing when the
+        sanitizer is off."""
+        if self._probes is not None:
+            self._probes.flush(step)
+
+    @contextlib.contextmanager
+    def scoped(self):
+        """Run the steps eagerly with a `record_function` range around
+        each op's forward and each runtime scope (the twin of the JAX
+        executor's `jax.named_scope`s): a profiled step's kernels are then
+        attributable (scope/attribution.py). A CUDA-graph replay would
+        show its kernels with no range, so the step runs op by op: the
+        same function, the same kernels. Off, no range is opened."""
+        prev = self._scoped
+        self._scoped = True
+        try:
+            with eager():
+                yield
+        finally:
+            self._scoped = prev
+
+    def _scope(self, name: str):
+        if not self._scoped:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
 
     # ------------------------------------------------------------ variables
 
@@ -1180,16 +1331,28 @@ class Executor:
                 shape, value, dtype=dt, device=self.device)
         return t
 
+    def _outputs(self, node: OpNode, outs, step):
+        """A node's outputs through the fault and the sanitizer's probes
+        (each output before its consumers read it), where either is on."""
+        if self._probes is None and self._numeric_fault is None:
+            return outs
+        return [self._instrument(out, node.name, node.name if i == 0
+                                 else f"{node.name}#out{i}", step, i == 0)
+                for i, out in enumerate(outs)]
+
     def _apply(self, params, state, inputs, *, training: bool = False,
-               rng=None, seq_length: int = -1):
+               rng=None, seq_length: int = -1, step=None):
         """Run the graph forward. Returns (logits, new_state). Autograd
         records it unless the caller runs it under `no_grad`. `rng` is the
         torch.Generator dropout draws from (training only); `seq_length`
-        reaches the ops' context (batch_matmul's truncation). On a mesh,
-        `_apply_spmd`: the logits are this rank's block."""
+        reaches the ops' context (batch_matmul's truncation); `step` (the
+        step tensor, None on step-less passes) feeds the sanitizer's
+        probes and the fault injector. On a mesh, `_apply_spmd`: the
+        logits are this rank's block."""
         if self.spmd:
             return self._apply_spmd(params, state, inputs, training=training,
-                                    rng=rng, seq_length=seq_length)
+                                    rng=rng, seq_length=seq_length,
+                                    step=step)
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
@@ -1208,15 +1371,17 @@ class Executor:
             # tied weights read the source node's parameter set; autograd
             # then sums every use's gradient into that one set
             wsrc = getattr(node, "weight_source", None) or node.name
-            # the compute-dtype cast at the consumer: each node casts only
-            # its own weights (state stays fp32 — ops own its handling)
-            weights = dict(self._cast_compute(params.get(wsrc, {})))
-            weights.update(new_state.get(wsrc, {}))
-            outs, op_state = node.op_def.forward(
-                node.params, ins, weights, new_state.get(node.name), ctx)
+            with self._scope(node.name):
+                # the compute-dtype cast at the consumer: each node casts
+                # only its own weights (state stays fp32 — ops own its
+                # handling)
+                weights = dict(self._cast_compute(params.get(wsrc, {})))
+                weights.update(new_state.get(wsrc, {}))
+                outs, op_state = node.op_def.forward(
+                    node.params, ins, weights, new_state.get(node.name), ctx)
             if op_state:
                 new_state.setdefault(node.name, {}).update(op_state)
-            for i, out in enumerate(outs):
+            for i, out in enumerate(self._outputs(node, outs, step)):
                 vals[(node.guid, i)] = out
         return vals[(self.logits_node.guid, 0)], new_state
 
@@ -1302,24 +1467,30 @@ class Executor:
     # ------------------------------------------------------------ training
 
     def make_loss_fn(self, state, x_inputs, labels, rng=None,
-                     seq_length: int = -1):
+                     seq_length: int = -1, step=None):
         """The mixed-precision loss closure of the train step and of the
         granular `FFModel.backward`: the inputs are cast to the compute
         dtype once, each node casts its own weights inside `_apply`, and
         the cast's backward takes every gradient back to the f32 master.
         The logits stay in the compute dtype (the loss reduces them in
-        f32). Returns loss_fn(params) -> (loss, (logits, new_state,
-        ce_sum))."""
+        f32). `step` (the train step's step tensor) reaches the
+        sanitizer's probes and the fault injector; the loss has its own
+        probe, one past the last op in topo order. Returns
+        loss_fn(params) -> (loss, (logits, new_state, ce_sum))."""
         xc = self._cast_compute(x_inputs)
 
         def loss_fn(p):
             logits, new_state = self._apply(p, state, xc, training=True,
-                                            rng=rng, seq_length=seq_length)
-            logits, shards = self._loss_logits(logits)
-            lval, ce_sum = loss_terms(
-                self.loss_type, logits, labels, self.last_op_is_softmax,
-                shards, self.mesh.axes_size(self._loss_layout[0])
-                if self.spmd else 1)
+                                            rng=rng, seq_length=seq_length,
+                                            step=step)
+            with self._scope("loss"):
+                logits, shards = self._loss_logits(logits)
+                lval, ce_sum = loss_terms(
+                    self.loss_type, logits, labels, self.last_op_is_softmax,
+                    shards, self.mesh.axes_size(self._loss_layout[0])
+                    if self.spmd else 1)
+            if self._probes is not None or self._numeric_fault is not None:
+                lval = self._instrument(lval, "loss", "loss", step, True)
             return lval, (logits, new_state, ce_sum)
 
         return loss_fn
@@ -1353,16 +1524,23 @@ class Executor:
         more. `rng` is the model's torch.Generator, which dropout draws
         from and advances (the JAX step takes a fresh key per step)."""
         x_inputs, labels = batch
-        loss_fn = self.make_loss_fn(state, x_inputs, labels, rng)
+        loss_fn = self.make_loss_fn(state, x_inputs, labels, rng,
+                                    step=step)
         lval, (logits, new_state, ce_sum), grads = self.value_and_grad(
             loss_fn, params)
+        self.flush_probes(step)
         grads = self.sync_grads(grads)
         _write_back(state, self._restore_state_dtypes(new_state))
-        params, opt_slots = self.optimizer.update(grads, params, opt_slots,
-                                                  step)
+        # a sharded update (stages 2/3) touches only this rank's shard of
+        # each master: JAX's `weight_update_shard` scope
+        with self._scope("weight_update_shard" if self.update_specs
+                         else "weight_update"):
+            params, opt_slots = self.optimizer.update(grads, params,
+                                                      opt_slots, step)
         with torch.no_grad():
             step.add_(1)
-        self.add_metrics(counters, logits.detach(), labels, ce_sum)
+        with self._scope("metrics"):
+            self.add_metrics(counters, logits.detach(), labels, ce_sum)
         return (params, state, opt_slots, step, counters,
                 self.global_loss(lval))
 
@@ -1434,6 +1612,7 @@ class Executor:
             x_inputs, labels = batch
             logits, _ = self._apply(params, state,
                                     self._cast_compute(x_inputs))
+            self.flush_probes()
             return self.add_metrics(counters, self._loss_logits(logits)[0],
                                     labels)
 
@@ -1454,6 +1633,7 @@ class Executor:
                                             self._cast_compute(x_inputs),
                                             training=training, rng=rng,
                                             seq_length=seq_length)
+            self.flush_probes()
             return logits, _write_back(
                 state, self._restore_state_dtypes(new_state))
 
@@ -1482,6 +1662,7 @@ class Executor:
             xs = {k: v.to(dev) for k, v in x_inputs.items()}
             logits, new_state = self._apply(params, state,
                                             self._cast_compute(xs))
+            self.flush_probes()
             slots = logits.shape[0]
             sel = logits[torch.arange(slots, device=dev),
                          read_idx.to(dev).long()].float()  # (slots, vocab)

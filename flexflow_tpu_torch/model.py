@@ -24,9 +24,14 @@ chunks of steps, each one replay (engine/), with its telemetry hooks
 (`--telemetry-dir`, `enable_telemetry`: spans, step records, the MFU
 anchor) and its resilience half (resilience/: `--checkpoint-dir`,
 async atomic checkpoints, `--auto-resume` from the absolute (epoch,
-batch) cursor, the SIGTERM drain with a final snapshot, the fault hook).
-Its diagnostics, elastic, sanitizer and scope hooks are not ported: the
-flags that ask for those raise (config.py, ROADMAP A10b). The training
+batch) cursor, the SIGTERM drain with a final snapshot, the fault hook)
+and its observability half (JAX 1476-1640, 1700-2098): diagnostics
+(`--diagnostics`, `enable_diagnostics`: the strategy report, the drift
+monitor, the health rules with `--health-abort-on` agreed over the
+ranks), the sanitizer (`--sanitize-numerics`), sampled op-grain profiles
+(`--profile-every`, `profile_step`), the hang watchdog, the flight
+recorder, `--profiling` and `--xprof-dir`. The elastic re-planner is not
+ported: its flags and `enable_elastic` raise (ROADMAP A10b). The training
 state (masters, optimizer slots, step, metric counters) is updated in
 place, the twin of the JAX step's donation.
 """
@@ -89,13 +94,26 @@ from .tensor import Tensor
 # FFModel methods of the JAX package that the port has not got yet, by
 # ROADMAP item: calling one raises, naming its item
 _NOT_PORTED_METHODS = {
-    **dict.fromkeys(("enable_diagnostics", "get_diagnostics"),
-                    "A10b (diagnostics/)"),
     "enable_elastic": "A10b (elastic/)",
-    "profile_step": "A10b (scope/)",
     **dict.fromkeys(("moe", "experts", "group_by", "aggregate",
                      "aggregate_spec", "cache"), "A12 (ops/moe.py)"),
 }
+
+
+def peer_abort(diag, step: int):
+    """The HealthAbort of a rank whose own rules did not fire at `step`
+    while another rank's abort-listed rule did (agreed at the step edge:
+    `PreemptionHandler.poll`), its alert sunk like any other."""
+    from .diagnostics.health import Alert, HealthAbort
+
+    alert = Alert(rule="peer_abort", level="error", step=int(step),
+                  message=(f"a rule of --health-abort-on fired on another "
+                           f"rank at step {step}: every rank stops here"),
+                  action="abort")
+    if diag is not None:
+        diag.health.alerts.append(alert)
+        diag._sink_alert(alert)
+    return HealthAbort(alert)
 
 
 class FFModel:
@@ -163,6 +181,18 @@ class FFModel:
         self._fault_hook = None
         self._auto_resumed = False
         self._resume_cursor = None
+        # diagnostics (diagnostics/): the manager, the plan's predicted
+        # step makespan (the drift monitor's reference) and, where no
+        # search ran here, the (UnitySearch, choice) the strategy report
+        # reconstructed for the adopted plan (a recalibration's handle)
+        self._diagnostics = None
+        self._predicted_step_s = None
+        self._replay_search = None
+        # ffscope (scope/): the sampled step profiler; --profiling's table
+        # printed for this compile
+        self._scope_prof = None
+        self._profiled = False
+        self._diag_warned = False
         self.iter_config = FFIterationConfig()
 
     # ================================================== tensor creation
@@ -666,9 +696,14 @@ class FFModel:
                     if self._strategy else [],
                     plan_source=self._plan_source,
                     plan_fingerprint=self._plan_fingerprint,
-                    sanitize_numerics=False,
+                    sanitize_numerics=bool(self.config.sanitize_numerics),
                     spmd_barrier="off",
                 )
+                diag = self._maybe_enable_diagnostics()
+                if diag is not None:
+                    # the strategy report and the drift monitor's
+                    # reference, inside the session's window
+                    diag.on_compile()
         finally:
             if tel is not None:
                 tel.flush()
@@ -821,6 +856,7 @@ class FFModel:
         self._step = torch.zeros((), dtype=torch.int32, device=self.device)
         self._counters = self.metrics.zero_counters(self.device)
         self._goodput_anchor = self._goodput()
+        self._profiled = False
         self._compiled = True
 
     def _search(self, g: Graph):
@@ -1138,14 +1174,32 @@ class FFModel:
         is one asynchronous launch, so on the card the step's window ends
         with a stream synchronisation, only when telemetry is on: its time
         is then the device's step, and the next batch's staging is its own
-        data wait."""
+        data wait.
+
+        The observability hooks (JAX `model.py:1700-2098`): with
+        diagnostics (--diagnostics, `enable_diagnostics`) the health rules
+        and the drift monitor see a record every `--health-sample-every`
+        K steps (the loss fetched only then; the window's averages); a
+        rule in --health-abort-on stops fit with HealthAbort, agreed over
+        the ranks in the all-reduce that agrees SIGTERM, so every rank
+        stops at the same step. The health record's window ends before
+        the step's save (the save's blocking slice is in metrics.jsonl).
+        --sanitize-numerics names the first non-finite (op, phase, step)
+        in the nan_loss alert; --profile-every K / `profile_step()` runs
+        a sampled step eagerly under torch.profiler and attributes its
+        device time to the ops; --watchdog-timeout starts the hang
+        watchdog; --xprof-dir runs the whole fit under torch.profiler; the
+        flight recorder (--flight-events) is dumped on SIGTERM, a health
+        abort, an injected death or any other exception."""
         if not self._compiled:
             raise RuntimeError("call compile() before fit()")
         import contextlib
 
         from . import telemetry
+        from .diagnostics.health import HealthAbort
         from .resilience.fault import SimulatedPreemption
         from .resilience.policy import PreemptionHandler
+        from .scope import flightrec
         from .telemetry import log as fflog
 
         if self._telemetry is None and self.config.telemetry_dir:
@@ -1162,7 +1216,38 @@ class FFModel:
             if self.config.metrics_interval or self.config.metrics_port:
                 tel.start_exporter(interval_s=self.config.metrics_interval,
                                    port=self.config.metrics_port)
+        if self.config.sanitize_numerics:
+            # a fresh fit gets a fresh provenance window: an earlier
+            # (diverged) fit's reports must not win this run's
+            from . import sanitize
+
+            sanitize.get_monitor().reset()
+        diag = self._maybe_enable_diagnostics()
+        if diag is not None and diag.report is None:
+            # diagnostics attached after compile: the report and the
+            # drift monitor now
+            diag.on_compile()
+        # ffscope: the flight recorder's ring, sampled op-grain profiles,
+        # the hang watchdog
+        flightrec.configure(capacity=self.config.flight_events or None,
+                            enabled=self.config.flight_events > 0)
+        scope_prof = self._scope_prof
+        if scope_prof is None and self.config.profile_every > 0:
+            scope_prof = self._ensure_step_profiler()
+        watchdog = self._start_watchdog(tel, diag)
         epoch_log = fflog.info if verbose else fflog.debug
+        if self.config.profiling and not self._profiled:
+            # --profiling: the per-op table, once per compile; its rows
+            # also land in the report's `profile` section
+            from .profiling import (print_operator_profile,
+                                    profile_section_from_rows)
+            from .search.cost_model import OpHarness
+
+            rows = print_operator_profile(
+                self.graph, harness=OpHarness.of(self.config, self.device))
+            self._profiled = True
+            if diag is not None and rows:
+                diag.on_profile(profile_section_from_rows(rows))
         if epochs < 0:
             epochs = self.config.epochs
         if batch_size < 0:
@@ -1173,16 +1258,15 @@ class FFModel:
         if pipeline_steps is None:
             pipeline_steps = self.config.pipeline_steps
         pipeline_steps = max(1, int(pipeline_steps))
-        engine = step_fn = None
+        engine = None
         if pipeline_steps > 1:
             from .engine import PipelinedEngine
 
             engine = PipelinedEngine(self, pipeline_steps)
-        else:
-            step_fn = (self.executor._train_step
-                       or self.executor.build_train_step())
         sync = (torch.cuda.current_stream(self.device).synchronize
                 if tel is not None and self.device.type == "cuda" else None)
+        health_every = max(1, int(self.config.health_sample_every))
+        health_win = [0.0, 0.0, 0]  # step-time / data-wait sums, count
 
         resil = self._resilience
         if resil is None and self.config.checkpoint_dir:
@@ -1223,11 +1307,37 @@ class FFModel:
         py_step = self._py_step()
         # labels shaped (N, seq, ...) carry seq tokens per example
         tokens_per_example = int(np.prod(y.shape[1:])) if y.ndim > 1 else 1
-        preempt = PreemptionHandler() if resil is not None else None
+        # ffscope attribution joins trace ranges back to these names: the
+        # report's op set (when diagnostics wrote one) is the contract
+        prof_names = None
+        if scope_prof is not None:
+            if diag is not None and diag.report is not None:
+                prof_names = [o["name"] for o in diag.report["ops"]]
+            else:
+                prof_names = [n.name for n in self.graph.topo_order()]
+        if diag is not None and resil is not None:
+            # staleness clock starts at fit start; every commit re-feeds it
+            diag.note_checkpoint_commit(time.time())
+        from .distributed import process_count
+
+        # the flags agreed over the ranks at each step (or chunk) edge:
+        # SIGTERM (with checkpointing) and a health abort (with
+        # diagnostics on a mesh), in one all-reduce
+        preempt = None
+        if resil is not None:
+            preempt = PreemptionHandler()
+        elif diag is not None and process_count() > 1:
+            preempt = PreemptionHandler(signals=())
         preempted = False
         with contextlib.ExitStack() as stack:
             if preempt is not None:
                 stack.enter_context(preempt)
+            if self.config.xprof_dir:
+                # the whole fit under torch.profiler, its Chrome trace
+                # exported to --xprof-dir
+                from .scope.profile import xprof_trace
+
+                stack.enter_context(xprof_trace(self.config.xprof_dir))
             try:
                 for epoch in range(start_epoch, epochs):
                     abs_e = self._epoch_base + epoch
@@ -1253,19 +1363,26 @@ class FFModel:
                             x_dict=x_dict, y=y, order=order, b0=b0,
                             num_batches=num_batches,
                             batch_size=batch_size, abs_e=abs_e,
-                            py_step=py_step, tel=tel, resil=resil,
-                            preempt=preempt, fault_hook=self._fault_hook,
-                            tokens_per_example=tokens_per_example)
+                            py_step=py_step, tel=tel, diag=diag,
+                            resil=resil, preempt=preempt,
+                            fault_hook=self._fault_hook,
+                            tokens_per_example=tokens_per_example,
+                            watchdog=watchdog)
                         if preempted:
                             fflog.warning(
                                 "preempted at step %d (chunk boundary): "
                                 "final checkpoint committed, stopping "
                                 "fit", py_step)
+                            flightrec.dump("sigterm")
                             return
                         b_first = num_batches  # the epoch ran in chunks
                     else:
                         b_first = b0
                     for b in range(b_first, num_batches):
+                        # built anew after a recompile (RecompileState,
+                        # a drift recalibration) dropped the step
+                        step_fn = (self.executor._train_step
+                                   or self.executor.build_train_step())
                         t_it0 = time.perf_counter() if tel is not None else 0.0
                         with telemetry.span("step", step=py_step + 1):
                             with telemetry.span("data_wait"):
@@ -1275,23 +1392,70 @@ class FFModel:
                                     y[idx])
                             data_wait = (time.perf_counter() - t_it0
                                          if tel is not None else 0.0)
-                            (self._params, self._state, self._opt_slots,
-                             self._step, self._counters, _) = step_fn(
-                                self._params, self._state, self._opt_slots,
-                                self._step, self._counters, batch, self._rng)
+                            capturing = (
+                                scope_prof is not None
+                                and scope_prof.should_capture(py_step + 1)
+                                and scope_prof.begin(py_step + 1))
+                            with (self.executor.scoped() if capturing
+                                  else contextlib.nullcontext()):
+                                (self._params, self._state, self._opt_slots,
+                                 self._step, self._counters, lval) = step_fn(
+                                    self._params, self._state,
+                                    self._opt_slots, self._step,
+                                    self._counters, batch, self._rng)
                             py_step += 1
-                            if sync is not None:
+                            if capturing:
+                                # the step's device work inside the capture
+                                if self.device.type == "cuda":
+                                    torch.cuda.synchronize(self.device)
+                                section = scope_prof.end(py_step,
+                                                         prof_names)
+                                if section is not None and diag is not None:
+                                    diag.on_profile(section)
+                            elif sync is not None:
                                 sync()
+                            flightrec.note_step(py_step)
+                            if watchdog is not None:
+                                watchdog.beat(py_step)
                             # the cursor names the NEXT batch to run on
                             # resume; epochs are ABSOLUTE (since compile)
                             if b + 1 >= num_batches:
                                 cursor = {"epoch": abs_e + 1, "batch": 0}
                             else:
                                 cursor = {"epoch": abs_e, "batch": b + 1}
+                            abort = None
+                            if diag is not None:
+                                # a step that warmed up or captured its
+                                # graph, or ran under the profiler, is no
+                                # sample of the step's time
+                                timed = not capturing and getattr(
+                                    step_fn, "last_call", "replay") in (
+                                        "replay", "eager")
+                                abort = self._health_step(
+                                    diag, resil, py_step, abs_e, health_every,
+                                    health_win, lval, t_it0, data_wait,
+                                    timed)
                             t_save0 = (time.perf_counter()
                                        if tel is not None else 0.0)
+                            if preempt is not None:
+                                preempt.poll(abort=abort is not None)
+                                if preempt.aborted:
+                                    if tel is not None:
+                                        tel.record_step(
+                                            py_step, abs_e,
+                                            t_save0 - t_it0, data_wait,
+                                            0.0, batch_size,
+                                            tokens_per_example)
+                                    raise abort or peer_abort(diag, py_step)
+                            elif abort is not None:
+                                if tel is not None:
+                                    tel.record_step(
+                                        py_step, abs_e, t_save0 - t_it0,
+                                        data_wait, 0.0, batch_size,
+                                        tokens_per_example)
+                                raise abort
                             if resil is not None:
-                                if preempt.poll():
+                                if preempt.preempted:
                                     # the notice: drain the in-flight save,
                                     # then one final synchronous snapshot
                                     telemetry.instant("preempted",
@@ -1317,6 +1481,7 @@ class FFModel:
                             fflog.warning(
                                 "preempted at step %d: final checkpoint "
                                 "committed, stopping fit", py_step)
+                            flightrec.dump("sigterm")
                             return
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -1331,8 +1496,26 @@ class FFModel:
                 # injected death: die exactly as a real kill would: no
                 # drain, no final save, and the in-flight async write must
                 # not commit after the "kill"
+                flightrec.dump("SimulatedPreemption")
                 if resil is not None:
                     resil.checkpointer.abort()
+                raise
+            except HealthAbort:
+                # a rule of --health-abort-on fired (here or on another
+                # rank): stop with the artifacts; drain the in-flight save
+                # but take no final snapshot of a NaN'd model
+                flightrec.dump("HealthAbort")
+                if resil is not None:
+                    resil.finalize()
+                fflog.error(
+                    "fit aborted by diagnostics at step %d (see %s)",
+                    self._py_step(),
+                    diag.alerts_path if diag else "alerts.jsonl")
+                raise
+            except BaseException as e:
+                # anything else that kills the fit (an executor error, the
+                # watchdog's interrupt) leaves the flight record behind
+                flightrec.dump(type(e).__name__)
                 raise
             else:
                 # the next fit() continues the absolute epoch count
@@ -1340,12 +1523,62 @@ class FFModel:
                 if resil is not None:
                     resil.finalize()
             finally:
+                if watchdog is not None:
+                    watchdog.stop()
+                if scope_prof is not None:
+                    scope_prof.abandon()  # a capture left open by a raise
                 if tel is not None:
                     # artifacts exist however fit ends: summary, then trace
+                    if diag is not None:
+                        diag.on_fit_end()
                     tel.write_summary()
                     tel.write_metrics_snapshot(reason="fit_end")
                     tel.flush()
                     telemetry.deactivate(tel)
+
+    def _health_step(self, diag, resil, py_step: int, abs_e: int,
+                     health_every: int, win: list, lval, t_it0: float,
+                     data_wait: float, timed: bool = True):
+        """The diagnostics of one eager step (JAX `model.py:1985-2041`):
+        the step joins the health window; on a sampled step (every
+        `--health-sample-every` K) the loss is fetched, the only sync
+        diagnostics add, and the rules and the drift monitor see ONE
+        record with the window's averages (K = 1: the step's own). A step
+        that is no sample of the step time (`timed` False: its graph
+        warmed up or captured, or it ran under the profiler) adds its
+        loss but not its times, as the JAX engine's chunk that compiled;
+        a window of no timed step carries no times. Returns the
+        HealthAbort an abort-listed rule raised (the caller agrees it
+        over the ranks before raising), else None."""
+        from .diagnostics.health import HealthAbort
+
+        sampled = py_step % health_every == 0
+        loss_val = float(lval) if sampled else None
+        if timed:
+            win[0] += time.perf_counter() - t_it0
+            win[1] += data_wait
+            win[2] += 1
+        if not sampled:
+            return None
+        k = win[2]
+        times = {"step_time_s": None, "data_wait_s": None,
+                 "save_latency_s": None, "device_time_s": None}
+        if k:
+            w_t, w_dw = win[0] / k, win[1] / k
+            times = {"step_time_s": w_t, "data_wait_s": w_dw,
+                     "save_latency_s": 0.0,
+                     "device_time_s": max(0.0, w_t - w_dw)}
+        win[:] = [0.0, 0.0, 0]
+        rec = {"step": py_step, "epoch": abs_e, "t": time.time(),
+               **times, "loss": loss_val}
+        rec.update(self._nonfinite_localization(loss_val))
+        if resil is not None:
+            diag.note_checkpoint_commit(resil.last_commit_walltime())
+        try:
+            diag.on_step(rec)
+        except HealthAbort as e:
+            return e
+        return None
 
     def eval(self, x, y, batch_size: int = -1) -> PerfMetrics:
         if not self._compiled:
@@ -1400,6 +1633,7 @@ class FFModel:
                                              self._rng, seq_length)
         lval, (logits, _, ce_sum), grads = (
             self.executor.value_and_grad(loss_fn, self._params))
+        self.executor.flush_probes()
         self._grads = self.executor.sync_grads(grads)
         self._counters = self.executor.add_metrics(
             self._counters, logits.detach(), labels, ce_sum)
@@ -1500,6 +1734,158 @@ class FFModel:
     def get_telemetry(self):
         """The model's TelemetrySession, or None when telemetry is off."""
         return self._telemetry
+
+    def enable_diagnostics(self, directory: str = "",
+                           drift_threshold: Optional[float] = None,
+                           abort_on: Optional[Sequence[str]] = None,
+                           recalibrate: bool = False, rules=None):
+        """Attach the diagnostics subsystem (diagnostics/): the strategy
+        explain report at compile, online cost-model drift monitoring and
+        run-health anomaly rules during fit, artifacts next to the
+        telemetry session's (strategy_report.json/md, alerts.jsonl). The
+        programmatic twin of --diagnostics (JAX `model.py:1476`);
+        `directory` enables telemetry there first when no session exists
+        yet. A second call applies what can change live (the abort set,
+        the drift threshold, recalibration)."""
+        from .diagnostics import DiagnosticsManager
+        from .telemetry import log as fflog
+
+        if directory:
+            self.enable_telemetry(directory)
+        elif self._telemetry is None and self.config.telemetry_dir:
+            self.enable_telemetry(self.config.telemetry_dir)
+        if self._telemetry is None:
+            raise ValueError(
+                "diagnostics requires telemetry: pass a directory, set "
+                "--telemetry-dir, or call enable_telemetry() first")
+        if self._diagnostics is None:
+            self._diagnostics = DiagnosticsManager(
+                self, self._telemetry,
+                drift_threshold=(self.config.drift_threshold
+                                 if drift_threshold is None
+                                 else drift_threshold),
+                abort_on=tuple(self.config.health_abort_on
+                               if abort_on is None else abort_on),
+                recalibrate=recalibrate, rules=rules)
+        elif (drift_threshold is not None or abort_on is not None
+                or recalibrate or rules is not None):
+            diag = self._diagnostics
+            if abort_on is not None:
+                diag.health.set_abort_on(tuple(abort_on))
+            if drift_threshold is not None:
+                diag.drift_threshold = float(drift_threshold)
+                if diag.drift is not None:
+                    diag.drift.threshold = float(drift_threshold)
+            if recalibrate:
+                from .diagnostics.drift import make_recalibration_state
+
+                diag._recalibrate = True
+                if diag.drift is not None \
+                        and diag.drift.recompile_state is None:
+                    diag.drift.recompile_state = \
+                        make_recalibration_state(self)
+            if rules is not None:
+                fflog.warning(
+                    "enable_diagnostics: custom rules ignored — this "
+                    "model's diagnostics manager already runs its rule "
+                    "set (pass rules on the FIRST enable_diagnostics "
+                    "call)")
+        return self._diagnostics
+
+    def get_diagnostics(self):
+        """The model's DiagnosticsManager, or None when diagnostics is
+        off."""
+        return self._diagnostics
+
+    def _maybe_enable_diagnostics(self):
+        """Config-driven lazy attach (--diagnostics); without
+        --telemetry-dir it warns once instead of silently doing
+        nothing."""
+        from .telemetry import log as fflog
+
+        if self._diagnostics is not None or not self.config.diagnostics:
+            return self._diagnostics
+        if self._telemetry is None and not self.config.telemetry_dir:
+            if not self._diag_warned:
+                self._diag_warned = True
+                fflog.warning(
+                    "--diagnostics ignored: no --telemetry-dir (the "
+                    "report/alert artifacts need a telemetry directory)")
+            return None
+        return self.enable_diagnostics()
+
+    def _ensure_step_profiler(self):
+        """The model's ffscope StepProfiler (scope/profile.py), made on
+        first use from config (--profile-every; trace dirs under
+        <telemetry-dir>/ffscope when there is a telemetry dir)."""
+        if self._scope_prof is None:
+            import os
+
+            from .scope.profile import StepProfiler
+
+            root = (os.path.join(self.config.telemetry_dir, "ffscope")
+                    if self.config.telemetry_dir else None)
+            self._scope_prof = StepProfiler(
+                every=self.config.profile_every, trace_root=root)
+        return self._scope_prof
+
+    def profile_step(self):
+        """Arm a one-shot op-grain profile: the next fit step runs eagerly
+        under torch.profiler and its attributed per-op device time lands
+        in strategy_report.json's `profile` section (the programmatic
+        twin of --profile-every K)."""
+        self._ensure_step_profiler().arm()
+
+    def _nonfinite_localization(self, loss_val) -> dict:
+        """The sanitizer's (op, phase, step) of a non-finite loss, as
+        extra keys of the health record (NaNLossRule folds them into its
+        alert). Empty when the loss is finite, the sanitizer is off or
+        nothing was localized. Reads the probe tables (one copy each),
+        only on this already-dead path."""
+        import math as _math
+
+        if (loss_val is None or _math.isfinite(loss_val)
+                or not self.config.sanitize_numerics):
+            return {}
+        from . import sanitize
+
+        info = sanitize.get_monitor().first_nonfinite()
+        if info is None:
+            return {}
+        return {"nonfinite_op": info["op"],
+                "nonfinite_phase": info["phase"],
+                "nonfinite_step": info["step"]}
+
+    def _start_watchdog(self, tel, diag):
+        """--watchdog-timeout: the hang watchdog (scope/watchdog.py),
+        started, its heartbeats under the telemetry (else checkpoint)
+        dir, a firing recorded as a `hang_watchdog` alert when
+        diagnostics are on. None when off."""
+        if self.config.watchdog_timeout <= 0:
+            return None
+        from .distributed import process_index
+        from .scope.watchdog import HangWatchdog
+
+        wd_dir = (tel.directory if tel is not None
+                  else self.config.telemetry_dir
+                  or self.config.checkpoint_dir or None)
+
+        def _wd_alert(info, _diag=diag):
+            if _diag is not None:
+                _diag._alerts.record(
+                    "alert", rule="hang_watchdog", level="error",
+                    step=info.get("last_step"),
+                    stalled_s=info.get("stalled_s"),
+                    deadline_s=info.get("deadline_s"),
+                    lagging_host=info.get("lagging_host"),
+                    message="hang watchdog fired: no step-boundary "
+                            "progress (flight.json dumped)")
+
+        return HangWatchdog(
+            timeout_s=self.config.watchdog_timeout,
+            multiplier=self.config.watchdog_multiplier,
+            directory=wd_dir, host_index=process_index(),
+            abort=self.config.watchdog_abort, on_fire=_wd_alert).start()
 
     def export_dot(self, path: str = "") -> str:
         """Graph DOT export (reference --compgraph flag / print_dot)."""

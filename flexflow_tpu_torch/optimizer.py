@@ -70,7 +70,12 @@ class SGDOptimizer(Optimizer):
 
     def init(self, params):
         if self.momentum == 0.0:
-            return {"v": {}}
+            # a scalar zero per weight, as the JAX package keeps (its
+            # checkpoints carry them); `update` reads none of them
+            return {"v": {n: {k: torch.zeros((), dtype=t.dtype,
+                                             device=t.device)
+                              for k, t in ws.items()}
+                          for n, ws in params.items()}}
         return {"v": {n: {k: torch.zeros_like(t) for k, t in ws.items()}
                       for n, ws in params.items()}}
 

@@ -11,7 +11,9 @@ Under a process group of more than one rank the flag is agreed at each
 step boundary (`PreemptionHandler.poll`: one small all-reduce, MAX, over
 a gloo group on the host), so ranks whose signals land at different
 steps all stop at the same one; the JAX package reads each process's own
-flag.
+flag. The same all-reduce agrees a health abort (diagnostics/: a rule of
+--health-abort-on that fired on one rank alone), so every rank raises
+HealthAbort at the same step and none is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -105,6 +107,9 @@ class PreemptionHandler:
         self._flag = threading.Event()
         self._previous: dict = {}
         self._group = None
+        self._abort = False
+        # set by `poll`: some rank asked to abort at this boundary
+        self.aborted = False
 
     @property
     def preempted(self) -> bool:
@@ -114,21 +119,27 @@ class PreemptionHandler:
         """Programmatic preemption notice (tests / external schedulers)."""
         self._flag.set()
 
-    def poll(self) -> bool:
+    def poll(self, abort: bool = False) -> bool:
         """The flag, agreed over the process group (collective: every
         rank calls it at the same step boundary): true on every rank once
-        any rank got the notice."""
+        any rank got the notice. `abort`: this rank's health rules asked
+        to stop; `aborted` is then set on every rank, by the same
+        all-reduce."""
         from ..distributed import process_count
 
+        self._abort = self._abort or bool(abort)
         if process_count() <= 1:
+            self.aborted = self._abort
             return self.preempted
         import torch
         import torch.distributed as dist
 
-        flag = torch.tensor([1 if self.preempted else 0], dtype=torch.int32)
+        flag = torch.tensor([1 if self.preempted else 0,
+                             1 if self._abort else 0], dtype=torch.int32)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
         if int(flag[0]):
             self._flag.set()
+        self.aborted = bool(int(flag[1]))
         return self.preempted
 
     def _handle(self, signum, frame):

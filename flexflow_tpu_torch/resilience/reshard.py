@@ -45,15 +45,21 @@ RNG_KIND = "torch"
 _WEIGHT_SECTIONS = ("params", "state", "opt_slots")
 
 
-def _weight_of(executor, path: tuple):
+def _weight_of(executor, path: tuple, leaf=None):
     """(node, weight) a leaf of the weight sections belongs to, or None:
-    its last two keys, where the executor has that weight."""
+    its last two keys, where the executor has that weight. A 0-d `leaf`
+    of a weight that is not 0-d (SGD's scalar slot at momentum 0) is no
+    weight's block: it is kept whole on every rank."""
     if (executor is None or len(path) < 3
             or path[0] not in _WEIGHT_SECTIONS):
         return None
     owner, wname = path[-2], path[-1]
     node = executor._by_name.get(owner)
-    if node is None or not any(ws.name == wname for ws in node.weight_specs):
+    ws = (None if node is None else
+          next((w for w in node.weight_specs if w.name == wname), None))
+    if ws is None:
+        return None
+    if leaf is not None and leaf.dim() == 0 and len(ws.shape) > 0:
         return None
     return owner, wname
 
@@ -87,7 +93,7 @@ def logical_state_tree(ffmodel) -> dict:
     ex = ffmodel.executor
 
     def whole(path, leaf):
-        w = _weight_of(ex, path)
+        w = _weight_of(ex, path, leaf)
         if w is None or not ex.spmd:
             return leaf
         return ex.full_weight(w[0], w[1], leaf)
@@ -118,7 +124,7 @@ def restore_tree(template, flat_arrays: dict, prefix: str = "",
             missing.append(key)
             continue
         saved = flat_arrays[key]
-        w = _weight_of(executor, path)
+        w = _weight_of(executor, path, leaf)
         want = (tuple(executor.weight_shape(*w)) if w is not None
                 else tuple(leaf.shape))
         if tuple(saved.shape) != want:

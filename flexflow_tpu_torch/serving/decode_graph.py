@@ -45,10 +45,24 @@ class ServingSpec:
 
 def _decode_config(model, spec: ServingSpec):
     """The decode compile's FFConfig: the trainer's, with the slot count
-    as its batch and the spec's layout."""
+    as its batch and the spec's layout, minus the subsystems that belong
+    to the training job (its telemetry session and diagnostics, its
+    checkpoints, its chunked fit, its strategy files), as the JAX
+    package's. The sanitizer carries over: the engine checks the decode
+    step's probes."""
     cfg = copy.copy(model.config)  # plain copy: __post_init__ re-parses argv
     cfg.batch_size = spec.slots
     cfg.serve_kv_layout = spec.kv_layout
+    cfg.telemetry_dir = ""
+    cfg.xprof_dir = ""
+    cfg.diagnostics = False
+    cfg.profiling = False
+    cfg.checkpoint_dir = ""
+    cfg.auto_resume = False
+    cfg.pipeline_steps = 1
+    cfg.import_strategy_file = ""
+    cfg.export_strategy_file = ""
+    cfg.export_strategy_computation_graph_file = ""
     return cfg
 
 

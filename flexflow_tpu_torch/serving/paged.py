@@ -136,6 +136,11 @@ class BlockManager:
         return self._live
 
     @property
+    def cached_blocks(self) -> int:
+        """Blocks the radix cache holds a pin on (live-shared or not)."""
+        return 0 if self.cache is None else len(self.cache.pinned)
+
+    @property
     def cached_only_blocks(self) -> int:
         """Cached blocks whose pin is the sole reference — the evictable
         set the admission gate can reclaim."""

@@ -46,6 +46,12 @@ class Request:
     matched_prefix_len: Optional[int] = None
 
     @property
+    def trace_id(self) -> str:
+        """Request-grain trace id threaded through every span/event of
+        this request's lifecycle (queued→admitted→prefill→tokens→done)."""
+        return f"req-{self.request_id}"
+
+    @property
     def ttft_s(self) -> Optional[float]:
         if self.first_token_t is None:
             return None
@@ -134,6 +140,10 @@ class ContinuousBatchingScheduler:
         return request
 
     # ------------------------------------------------------------ state
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.pending)
 
     @property
     def active_slots(self) -> list[Slot]:

@@ -151,7 +151,7 @@ class Tracer:
         a torn file; returns the path."""
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = f"{path}.tmp{os.getpid()}"  # ranks may share the dir
         with open(tmp, "w") as f:
             json.dump(self.to_dict(), f)
         os.replace(tmp, path)

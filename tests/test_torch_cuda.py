@@ -1396,3 +1396,105 @@ def test_restore_in_place_keeps_the_graphs_and_the_generator(cuda,
     a, b = _state(ref), _state(ff)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# ------------------------------------------------ observability on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline_steps", [1, 4])
+@pytest.mark.parametrize("phase", ["fwd", "bwd"])
+def test_sanitizer_table_inside_captured_steps_and_chunks(cuda, phase,
+                                                          pipeline_steps):
+    """--sanitize-numerics on the card: the probes fold into the device
+    table inside the captured step (a NaN planted at step 2, a replay)
+    and inside a chunk's graph (at step 6, in the second chunk of 4,
+    which captures and replays), which names (op, phase, step); the
+    masters, slots and
+    generator with probes on and no fault equal those with them off."""
+    from flexflow_tpu_torch import sanitize
+
+    x, y = _dropout_data()
+    x = x[:96] if pipeline_steps == 1 else x
+    y = y[:96] if pipeline_steps == 1 else y
+    fault = 2 if pipeline_steps == 1 else 6
+    states = []
+    for on in (False, True):
+        ff = _dropout_mlp(["--sanitize-numerics"] if on else [])
+        ff.fit(x, y, epochs=1, batch_size=16, verbose=False,
+               pipeline_steps=pipeline_steps)
+        torch.cuda.synchronize()
+        states.append(_state(ff))
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+    ff = _dropout_mlp(["--sanitize-numerics"])
+    ff.executor.set_numeric_fault("fc1", phase, fault)
+    sanitize.get_monitor().reset()
+    ff.fit(x, y, epochs=1, batch_size=16, verbose=False,
+           pipeline_steps=pipeline_steps)
+    torch.cuda.synchronize()
+    info = sanitize.get_monitor().first_nonfinite()
+    assert (info["op"], info["phase"], info["step"]) == ("fc1", phase,
+                                                         fault)
+    steps = (ff.executor._chunk_steps if pipeline_steps > 1
+             else {1: ff.executor._train_step})
+    assert all(s.captures == 1 for s in steps.values())
+
+
+@pytest.mark.cuda
+def test_profile_every_attributes_a_captured_fit_eagerly(cuda, tmp_path):
+    """--profile-every 3 on a captured fit: the sampled steps run eagerly
+    under torch.profiler (a replay's kernels have no host range), the
+    report's profile section attributes the card's kernels to the ops
+    (forward and backward) and satisfies its identity; the train step
+    captured once, and the run bit-equal to the unprofiled one."""
+    from flexflow_tpu_torch import telemetry
+    from flexflow_tpu_torch.scope.attribution import verify_profile_section
+
+    x, y = _dropout_data()
+    ref = _dropout_mlp()
+    ref.fit(x, y, epochs=1, batch_size=16, verbose=False)
+    tdir = tmp_path / "t"
+    ff = _dropout_mlp(["--telemetry-dir", str(tdir), "--diagnostics",
+                       "--profile-every", "3"])
+    ff.fit(x, y, epochs=1, batch_size=16, verbose=False)
+    torch.cuda.synchronize()
+    telemetry.deactivate()
+    import json
+
+    prof = json.load(open(tdir / "strategy_report.json"))["profile"]
+    assert prof["step"] == 6 and prof["mode"] == "eager_sampled"
+    assert verify_profile_section(prof) == []
+    rows = {r["name"]: r for r in prof["ops"]}
+    assert rows["fc1"]["fwd_s"] > 0 and rows["fc1"]["bwd_s"] > 0
+    share = prof["attributed_s"] / (prof["attributed_s"]
+                                    + prof["unattributed_s"])
+    assert share > 0.5, share
+    assert ff.executor._train_step.captures == 1
+    a, b = _state(ref), _state(ff)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_recompile_alter_captures_once_more(cuda):
+    """RecompileState.alter() drops the captured step with its graph: the
+    next fit captures exactly one more signature, and the trajectory is
+    bit-equal to a run that never recompiled."""
+    from flexflow_tpu_torch.recompile import RecompileState
+
+    x, y = _dropout_data()
+    ref = _dropout_mlp()
+    for _ in range(2):
+        ref.fit(x, y, epochs=1, batch_size=16, verbose=False)
+    ff = _dropout_mlp()
+    ff.fit(x, y, epochs=1, batch_size=16, verbose=False)
+    first = ff.executor._train_step
+    RecompileState(lambda m: True, lambda m: None, ff).alter()
+    ff.fit(x, y, epochs=1, batch_size=16, verbose=False)
+    torch.cuda.synchronize()
+    second = ff.executor._train_step
+    assert second is not first
+    assert first.captures == 1 and second.captures == 1
+    a, b = _state(ref), _state(ff)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -6,11 +6,13 @@ the per-step loop (losses, masters, slots, generator, step and metric
 counters over shuffled epochs) while running the epoch in ceil(B/N)
 chunks, and resumes across kills to the same trajectory. The step spy is
 the telemetry's per-step records plus a wrapper on the executor's
-`train_step`, which both loops call (the JAX test's diagnostics spy is
-ROADMAP A10b). On the CPU a chunk is its steps one after another; on the
-card it is one CUDA graph (chip_smoke.py phase 19). Left out with
-diagnostics (A10b): the health-abort and `--health-sample-every` tests
-and the doctor's verdict.
+`train_step`, which both loops call. On the CPU a chunk is its steps one
+after another; on the card it is one CUDA graph (chip_smoke.py phase 19).
+With diagnostics: a health abort mid-chunk shuts the prefetch thread
+down, `--health-sample-every` thins the eager loop's loss fetch to one
+record a window, the chunks' records carry every step's loss (the JAX
+test's diagnostics spy), and the doctor reads a healthy chunked run as
+healthy.
 """
 
 import json
@@ -333,3 +335,109 @@ def test_set_learning_rate_drops_the_chunked_steps():
     assert ff.executor.build_chunked_train_step(4) is fn
     ff.set_learning_rate(0.01)
     assert ff.executor._chunk_steps == {} and ff.optimizer.lr == 0.01
+
+
+# ===================================================================
+# diagnostics: the health abort, the sampling cadence, the doctor
+# ===================================================================
+
+class _StepSpy:
+    """A diagnostics rule that records every per-step record it sees."""
+
+    name = "step_spy"
+
+    def __init__(self):
+        self.records = []
+
+    def check(self, rec):
+        self.records.append((int(rec["step"]), rec.get("loss")))
+        return None
+
+
+def test_pipelined_health_abort_shuts_prefetcher_down(tmp_path):
+    """An abort-listed rule firing mid-chunk stops fit with HealthAbort
+    and the prefetch thread is joined, with chunks still staged."""
+    from flexflow_tpu_torch.diagnostics import HealthAbort
+    from flexflow_tpu_torch.diagnostics.health import Alert, Rule
+
+    class BoomRule(Rule):
+        name = "boom"
+
+        def _check(self, rec):
+            if rec["step"] >= 3:
+                return Alert(rule=self.name, level="warning",
+                             step=int(rec["step"]), message="boom")
+            return None
+
+    x, y = _data(128)
+    ff = _mlp()
+    ff.enable_diagnostics(str(tmp_path / "t"), rules=[BoomRule()],
+                          abort_on=("boom",))
+    with pytest.raises(HealthAbort) as ei:
+        ff.fit(x, y, epochs=2, batch_size=8, shuffle=True,
+               pipeline_steps=4)
+    assert ei.value.alert.step == 3
+    assert int(ff._step) == 4  # the chunk ran through
+    assert _no_prefetch_threads(), "prefetch thread leaked after HealthAbort"
+    doc = json.load(open(tmp_path / "t" / "flight.json"))
+    assert doc["reason"] == "HealthAbort"
+
+
+def test_health_sample_every_thins_loss_fetch(tmp_path):
+    """--health-sample-every 3: the loss is fetched on steps 3 and 6 only
+    and the rules see ONE record a 3-step window."""
+    x, y = _data(64)
+    ff = _mlp(argv=["--health-sample-every", "3"])
+    spy = _StepSpy()
+    ff.enable_diagnostics(str(tmp_path / "t"), rules=[spy])
+    ff.fit(x, y, epochs=1, batch_size=8, shuffle=True)  # 8 steps
+    assert [s for s, _ in spy.records] == [3, 6]
+    assert all(loss is not None for _, loss in spy.records)
+
+
+def test_health_sample_every_default_keeps_per_step_records(tmp_path):
+    x, y = _data(64)
+    ff = _mlp()
+    spy = _StepSpy()
+    ff.enable_diagnostics(str(tmp_path / "t"), rules=[spy])
+    ff.fit(x, y, epochs=1, batch_size=8, shuffle=True)
+    assert [s for s, _ in spy.records] == list(range(1, 9))
+    assert all(loss is not None for _, loss in spy.records)
+
+
+def test_chunked_health_records_carry_the_per_step_losses(tmp_path):
+    """The rules see every step of a chunk with its own loss: the losses
+    of the per-step fit, bit for bit (the diagnostics spy of JAX's
+    bit-identity test)."""
+    x, y = _data(64)
+    runs = []
+    for n in (1, 4, 3):
+        ff = _mlp()
+        spy = _StepSpy()
+        ff.enable_diagnostics(str(tmp_path / f"t{n}"), rules=[spy])
+        ff.fit(x, y, epochs=2, batch_size=8, shuffle=True,
+               pipeline_steps=n)
+        runs.append(spy.records)
+    assert [s for s, _ in runs[0]] == list(range(1, 17))
+    assert runs[1] == runs[0] and runs[2] == runs[0]
+
+
+def test_chunked_fit_leaves_a_healthy_run_for_the_doctor(tmp_path):
+    """A clean chunked fit with --diagnostics: the telemetry artifacts
+    (metrics.jsonl, alerts.jsonl, strategy_report.json) read as healthy
+    by the port's doctor and by the JAX package's."""
+    from flexflow_tpu.diagnostics.doctor import diagnose as jdiagnose
+    from flexflow_tpu_torch import telemetry
+    from flexflow_tpu_torch.diagnostics.doctor import diagnose
+
+    tdir = tmp_path / "t"
+    # 4 steps, two chunks: inside the drift monitor's 5-sample warm-up
+    # (the CPU runs the MLP far from the host entry's roofline price)
+    x, y = _data(64)
+    ff = _mlp(batch=16, argv=["--telemetry-dir", str(tdir),
+                              "--diagnostics"])
+    ff.fit(x, y, epochs=1, batch_size=16, shuffle=True, pipeline_steps=2)
+    telemetry.deactivate()
+    for d in (diagnose(str(tdir)), jdiagnose(str(tdir))):
+        assert d["verdict"] == "healthy"
+        assert d["steps"] == 4 and d["strategy_report"] is not None

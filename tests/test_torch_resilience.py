@@ -287,7 +287,7 @@ def _lm_data():
     return {"tokens": toks, "positions": pos}, labels
 
 
-def _lm(pkg, argv=()):
+def _lm(pkg, argv=(), momentum=0.9):
     sys.argv = ["test", *argv]
     mod = __import__(pkg)
     models = __import__(f"{pkg}.models", fromlist=["x"])
@@ -299,7 +299,7 @@ def _lm(pkg, argv=()):
     ff = mod.FFModel(cfg)
     models.build_transformer_lm(ff, models.TransformerLMConfig(**TINY),
                                 batch_size=LM_BATCH)
-    ff.compile(optimizer=mod.SGDOptimizer(lr=0.05, momentum=0.9),
+    ff.compile(optimizer=mod.SGDOptimizer(lr=0.05, momentum=momentum),
                loss_type=mod.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[mod.MetricsType.METRICS_ACCURACY,
                         mod.MetricsType
@@ -873,3 +873,75 @@ def test_phase19_checks_pass_on_the_cpu():
     assert [w[t]["plan_source"] for t in ("cold", "warm", "resume")] == [
         "search", "cache", "checkpoint"]
     assert w["warm"]["evals"] == w["resume"]["evals"] == 0
+
+
+# ===================================================================
+# C3: SGD at momentum 0, one checkpoint format both ways
+# ===================================================================
+
+@pytest.fixture(scope="module")
+def sgd0_runs(tmp_path_factory):
+    """The tiny LM under SGD with momentum 0 in both packages, from the
+    JAX model's weights, 2 steps each, checkpointed."""
+    from flexflow_tpu_torch import load_params
+
+    root = tmp_path_factory.mktemp("sgd0")
+    x, y = _lm_data()
+    half = ({k: v[:2 * LM_BATCH] for k, v in x.items()}, y[:2 * LM_BATCH])
+    jff = _lm("flexflow_tpu", momentum=0.0)
+    init = _jax_init(jff)
+    jff.fit(*half, epochs=1, batch_size=LM_BATCH, shuffle=False,
+            verbose=False)
+    jpath = jff.save_checkpoint(str(root / "jax"))
+    tff = _lm("flexflow_tpu_torch", momentum=0.0)
+    load_params(tff, init)
+    tff.fit(*half, epochs=1, batch_size=LM_BATCH, shuffle=False,
+            verbose=False)
+    tpath = tff.save_checkpoint(str(root / "port"))
+    return dict(jff=jff, jpath=jpath, tff=tff, tpath=tpath)
+
+
+def test_momentum_zero_checkpoints_restore_both_ways_bit_equal(sgd0_runs):
+    """C3: JAX's restore_tree takes the port's checkpoint of a momentum-0
+    SGD run, and the port's takes JAX's; each restore is bit-equal, leaf
+    for leaf, to the other package's restore of the same checkpoint (the
+    scalar slots included)."""
+    from flexflow_tpu.resilience import load_checkpoint as jload
+    from flexflow_tpu.resilience import restore_tree as jrestore
+    from flexflow_tpu.resilience.reshard import (
+        model_state_tree as jstate_tree)
+    from flexflow_tpu_torch.resilience import load_checkpoint, restore_tree
+    from flexflow_tpu_torch.resilience.checkpointer import flatten_tree
+    from flexflow_tpu_torch.resilience.reshard import model_state_tree
+
+    def port_restore(path):
+        ff = _lm("flexflow_tpu_torch", momentum=0.0)
+        flat, _ = load_checkpoint(path)
+        tmpl = model_state_tree(ff)
+        tmpl.pop("rng")
+        restore_tree(tmpl, flat, executor=ff.executor)
+        return {k: np.asarray(v.detach().cpu().float().numpy()
+                              if v.dtype == torch.bfloat16
+                              else v.detach().cpu().numpy())
+                for k, v in flatten_tree(tmpl).items()}
+
+    def jax_restore(path):
+        import jax
+
+        tmpl = jstate_tree(_lm("flexflow_tpu", momentum=0.0))
+        tmpl.pop("rng")
+        flat, _ = jload(path)
+        restored = jrestore(tmpl, flat)
+        leaves, _ = jax.tree_util.tree_flatten_with_path(restored)
+        return {jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves}
+
+    tff = sgd0_runs["tff"]
+    slot = tff._opt_slots["v"]["lm_head"]["kernel"]
+    assert slot.shape == () and not slot
+    for path in (sgd0_runs["tpath"], sgd0_runs["jpath"]):
+        t, j = port_restore(path), jax_restore(path)
+        assert set(t) == set(j)
+        assert any(k.startswith("['opt_slots']['v']") for k in t)
+        for k in t:
+            assert t[k].shape == j[k].shape, k
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)

@@ -10,6 +10,13 @@ tensor-op policy off on both sides (it applies on the accelerator only):
 greedy token streams must be identical, and the logits of one decode
 step agree to atol 1e-4.
 
+The serving telemetry (the engines' metrics planes): on the same request
+trace both engines' `metrics_summary` have the same keys (but the KV
+bytes a layer, ROADMAP A11) and the same counts, their histograms the
+same observation counts; the percentiles are there mid-run and after a
+drain, `reset_stats` opens a clean window, and with a telemetry dir the
+drain leaves the JAX package's `serve.*` records.
+
 Also here: no source of the port imports jax or flexflow_tpu, importing
 the port pulls in neither (checked in a subprocess, since this process
 imports both), and a model asked for no device raises without CUDA.
@@ -81,6 +88,127 @@ def test_greedy_streams_identical(models, layout):
     eng = tff.serve(**kw)
     assert eng.generate(PROMPTS) == want
     assert eng.stats()["requests_completed"] == len(PROMPTS)
+
+
+# the metrics_summary counts both engines must agree on (timings differ)
+_COUNTS = ("requests_completed", "decode_iterations", "decode_tokens",
+           "prefill_tokens", "prefill_calls", "no_token_requests", "slots",
+           "max_seq_len", "num_chips", "kv_layout", "kv_block_size",
+           "kv_pool_blocks", "kv_blocks_in_use_peak", "prefix_hit_rate",
+           "prefix_shared_tokens", "cow_copies", "prefix_cache",
+           "cross_time_hits", "radix_evictions", "radix_evicted_blocks",
+           "prefix_cached_blocks", "prefix_cached_only_blocks",
+           "kv_peak_vs_contiguous")
+
+
+def _hist_counts(eng) -> dict:
+    snap = eng.metrics.snapshot()
+    return {k: h["count"] for k, h in snap["histograms"].items()}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_metrics_summary_matches_jax(models, layout):
+    """Five requests through two slots (a shared prefix, mid-run
+    admission): both engines' metrics_summary has the same keys (the
+    port lacks the KV bytes a layer, A11; it adds the rates over the
+    engine and its device) and the same counts, every latency percentile
+    is there, and the histograms hold the same observation counts."""
+    jff, tff = models
+    prompts = PROMPTS + [[3, 7, 11, 2, 9]]
+    kw = dict(slots=2, max_new_tokens=6, prefill_chunk=4, kv_layout=layout)
+    out = {}
+    for name, ff in (("jax", jff), ("port", tff)):
+        eng = ff.serve(**kw)
+        eng.generate(prompts)
+        out[name] = (eng.metrics_summary(), _hist_counts(eng))
+    (js, jh), (ts, th) = out["jax"], out["port"]
+    assert set(js) - {"kv_hbm_bytes_per_layer"} == set(ts) - {
+        "device", "requests_per_sec", "decode_tokens_per_sec"}
+    for k in _COUNTS:
+        if k in js:
+            assert ts[k] == js[k], k
+    for short in ("queue_wait", "ttft", "tbt", "e2e"):
+        for q in ("p50", "p95", "p99", "max", "mean"):
+            assert ts[f"{short}_{q}_s"] >= 0.0, (short, q)
+    assert th == jh
+    assert th["serve_ttft_s"] == th["serve_e2e_s"] == len(prompts)
+    assert th["serve_tbt_s"] == ts["decode_tokens"] - len(prompts)
+
+
+def test_metrics_summary_mid_run_reset_and_drain_records(models, tmp_path):
+    """metrics_summary mid-run (cumulative histograms), reset_stats opens
+    a clean window, and with telemetry on the drain leaves serve.request
+    / serve.summary records and a serve_drain snapshot, as the JAX
+    engine's."""
+    from flexflow_tpu_torch import telemetry
+    from flexflow_tpu_torch.telemetry.recorder import read_jsonl
+
+    _, tff = models
+    tff.enable_telemetry(str(tmp_path))
+    try:
+        eng = tff.serve(slots=2, max_new_tokens=4, prefill_chunk=4)
+        for p in PROMPTS:
+            eng.submit(p)
+        for _ in range(4):
+            eng.step()
+        mid = eng.metrics_summary()
+        assert "ttft_p50_s" in mid and "queue_wait_p99_s" in mid
+        eng.run_until_drained()
+        assert eng.metrics_summary()["requests_completed"] == len(PROMPTS)
+        eng.reset_stats()
+        st = eng.metrics_summary()
+        assert st["requests_completed"] == 0 and "ttft_p50_s" not in st
+        assert _hist_counts(eng)["serve_ttft_s"] == 0
+        eng.generate([PROMPTS[0]])
+        assert eng.metrics_summary()["requests_completed"] == 1
+    finally:
+        tff._telemetry = None
+        telemetry.deactivate()
+    recs = read_jsonl(str(tmp_path / "metrics.jsonl"))
+    kinds = [r["kind"] for r in recs]
+    assert kinds.count("serve.request") == len(PROMPTS) + 1
+    assert kinds.count("serve.summary") == 2
+    assert "serve.compile" in kinds and "serve.stats_reset" in kinds
+    snaps = [r for r in recs if r["kind"] == "metrics_snapshot"]
+    assert snaps and snaps[-1]["reason"] == "serve_drain"
+    assert "serve_ttft_s" in snaps[-1]["metrics"]["histograms"]
+
+
+def test_serving_sanitizer_reports_a_nonfinite_decode_once(tmp_path):
+    """--sanitize-numerics in serving: a fault in a decode op surfaces as
+    ONE serve.nonfinite event per (op, phase), from the decode step's
+    probe table (step-less: step -1). Idle padding elements read the
+    position table one past its end, a NaN row by the JAX package's
+    `take` semantics (ops/core.embedding_lookup), so the position
+    embedding and its consumers report too, once each."""
+    from flexflow_tpu_torch import sanitize, telemetry
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+    from flexflow_tpu_torch.telemetry.recorder import read_jsonl
+
+    sys.argv = ["test", "--sanitize-numerics"]
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import (TransformerLMConfig,
+                                           build_transformer_lm)
+
+    cfg = FFConfig(device="cpu")
+    cfg.batch_size = 1
+    ff = FFModel(cfg)
+    build_transformer_lm(ff, TransformerLMConfig(**TINY), batch_size=1)
+    ff.compile()
+    ff.enable_telemetry(str(tmp_path))
+    eng = ff.serve(slots=2, max_new_tokens=3, prefill_chunk=4)
+    target = next(n.name for n in eng.decode_model.graph.topo_order()
+                  if n.op_type == OT.OP_LAYERNORM)
+    eng.decode_model.executor.set_numeric_fault(target, "fwd", 0)
+    eng._step_fn = eng.decode_model.executor.build_decode_step()
+    sanitize.get_monitor().reset()
+    eng.generate(PROMPTS[:2])
+    telemetry.deactivate()
+    events = [r for r in read_jsonl(str(tmp_path / "metrics.jsonl"))
+              if r["kind"] == "serve.nonfinite"]
+    assert {(e["op"], e["phase"]) for e in events} >= {(target, "fwd")}
+    assert len(events) == len({(e["op"], e["phase"]) for e in events})
+    assert all(e["step"] == -1 for e in sanitize.get_monitor().snapshot())
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -272,7 +400,13 @@ def test_import_pulls_in_no_jax():
         "flexflow_tpu_torch.search.substitution, "
         "flexflow_tpu_torch.native, search_torch, chip_smoke, "
         "flexflow_tpu_torch.resilience, flexflow_tpu_torch.warmstart, "
-        "flexflow_tpu_torch.engine, flexflow_tpu_torch.checkpoint\n"
+        "flexflow_tpu_torch.engine, flexflow_tpu_torch.checkpoint, "
+        "flexflow_tpu_torch.diagnostics, flexflow_tpu_torch.recompile, "
+        "flexflow_tpu_torch.sanitize, flexflow_tpu_torch.profiling, "
+        "flexflow_tpu_torch.scope.watchdog, flexflow_tpu_torch.scope.profile, "
+        "flexflow_tpu_torch.scope.attribution, "
+        "flexflow_tpu_torch.scope.kineto, "
+        "flexflow_tpu_torch.diagnostics.doctor\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.') or m == 'ml_dtypes']\n"

@@ -665,17 +665,25 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
             cfg.checkpoint_every_seconds, cfg.checkpoint_keep,
             cfg.auto_resume, cfg.warmstart_dir) == (4, "c", 2, 30.0, 2,
                                                     True, "ws")
-    for argv, item in ((["--xprof-dir", "t"], "A10"),
-                       (["--sanitize-numerics"], "A10"),
-                       (["--health-abort-on", "nan_loss"], "A10"),
-                       (["--health-sample-every", "4"], "A10"),
-                       (["--drift-threshold", "0.2"], "A10"),
-                       (["--watchdog-abort"], "A10"),
-                       (["--watchdog-multiplier", "5"], "A10"),
-                       (["--flight-events", "64"], "A10"),
-                       (["--replan-cooldown-steps", "3"], "A10"),
-                       (["--replan-horizon-steps", "3"], "A10"),
-                       (["--elastic-dry-run"], "A10"),
+    # the observability flags run (A10b's observability half), with the
+    # JAX package's values
+    cfg.parse_args(["--profiling", "--xprof-dir", "t", "--diagnostics",
+                    "--sanitize-numerics", "--health-abort-on",
+                    "nan_loss,step_spike", "--health-sample-every", "4",
+                    "--drift-threshold", "0.2", "--profile-every", "3",
+                    "--watchdog-timeout", "2.5", "--watchdog-abort",
+                    "--watchdog-multiplier", "5", "--flight-events", "64"])
+    assert (cfg.profiling, cfg.xprof_dir, cfg.diagnostics,
+            cfg.sanitize_numerics, cfg.health_abort_on,
+            cfg.health_sample_every, cfg.drift_threshold,
+            cfg.profile_every, cfg.watchdog_timeout, cfg.watchdog_abort,
+            cfg.watchdog_multiplier, cfg.flight_events) == (
+                True, "t", True, True, ("nan_loss", "step_spike"), 4, 0.2,
+                3, 2.5, True, 5.0, 64)
+    for argv, item in ((["--elastic"], "A10b"),
+                       (["--replan-cooldown-steps", "3"], "A10b"),
+                       (["--replan-horizon-steps", "3"], "A10b"),
+                       (["--elastic-dry-run"], "A10b"),
                        (["--no-verify-plan"], "A9"),
                        (["--no-verify-rules"], "A9"),
                        (["--spmd-barrier"], "A9"),
@@ -706,8 +714,10 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
     with pytest.raises(NotImplementedError, match="A9"):
         load_rule_collection(str(rules), mesh, config=cfg)
     ff, _, xs, y = _mlp("1")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ff.enable_diagnostics(str(tmp_path))
+    diag = ff.enable_diagnostics(str(tmp_path))
+    assert ff.get_diagnostics() is diag and diag.directory == str(tmp_path)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        ff.enable_elastic()
 
 
 SEARCH_FLAGS = {
@@ -761,10 +771,7 @@ SURFACE_GAPS = {
     "ServingEngine": {
         "admit_prefilled": "A11", "extract_kv": "A11",
         "kv_bytes_per_layer": "A11", "kv_pool_layers": "A11",
-        "enable_autoscale": "A10b", "metrics_summary": "A10b",
-        "note_drain": "A10b", "profile_step": "A10b",
-        "record_completion": "A10b", "replan_mesh": "A10b",
-        "reset_stats": "A10b"},
+        "enable_autoscale": "A10b", "replan_mesh": "A10b"},
 }
 
 
@@ -854,3 +861,90 @@ def test_flash_transposed_flag_reaches_the_attention_op(monkeypatch):
         ff.executor.build_forward()(ff._params, ff._state,
                                     ff.executor.stage_inputs(x), False)
         assert seen == [want] * TINY["num_layers"]
+
+
+def test_profile_operators_json(tmp_path, capsys, monkeypatch):
+    """--profiling's per-op table (profiling.py), timed on the model's
+    device through the cost model's harness: JSON rows hot ops first,
+    the printed table headed by the device, the per-op counters in the
+    trace, and the rows as the report's `standalone` profile section; a
+    --profiling fit prints the table once per compile (JAX
+    tests/test_telemetry.py:291). The harness's repetitions are cut to
+    (1, 2): the table's layout is under test, not the CPU's times."""
+    from flexflow_tpu_torch import telemetry
+    from flexflow_tpu_torch.search.cost_model import CostModel
+
+    monkeypatch.setattr(CostModel, "_REPS", (1, 2))
+    from flexflow_tpu_torch.profiling import (
+        print_operator_profile, profile_operators, profile_operators_json,
+        profile_section_from_rows)
+    from flexflow_tpu_torch.scope.attribution import verify_profile_section
+    from flexflow_tpu_torch.search.cost_model import OpHarness
+
+    ff, _, xs, y = _mlp("1")
+    harness = OpHarness.of(ff.config, ff.device)
+    rows = profile_operators(ff.graph, harness)
+    assert [r[0] for r in rows] == ["hidden", "out", "probs"]
+    recs = profile_operators_json(ff.graph, rows=rows)
+    assert recs and set(recs[0]) == {
+        "name", "op_type", "forward_s", "backward_s", "total_s"}
+    totals = [r["total_s"] for r in recs]
+    assert totals == sorted(totals, reverse=True)
+    for r in recs:
+        assert abs(r["total_s"] - (r["forward_s"] + r["backward_s"])) < 1e-12
+    sess = telemetry.activate(
+        telemetry.TelemetrySession(str(tmp_path / "prof")))
+    import io
+
+    buf = io.StringIO()
+    print_operator_profile(ff.graph, file=buf, sort_by_total=True,
+                           harness=harness)
+    telemetry.deactivate(sess)
+    assert buf.getvalue().startswith("per-operator profile on cpu")
+    assert "TOTAL" in buf.getvalue()
+    counters = [e for e in sess.tracer.to_dict()["traceEvents"]
+                if e["ph"] == "C" and e["name"].startswith("op_profile.")]
+    assert len(counters) == len(rows)
+    section = profile_section_from_rows(rows)
+    assert section["source"] == "standalone"
+    assert verify_profile_section(section) == []
+    # --profiling on a fit: the table once, into the report too
+    tdir = tmp_path / "tel"
+    ff.config.parse_args(["--profiling", "--telemetry-dir", str(tdir),
+                          "--diagnostics"])
+    capsys.readouterr()
+    for _ in range(2):
+        ff.fit(xs[:128], y[:128], epochs=1, verbose=False)
+    out = capsys.readouterr().out
+    assert out.count("per-operator profile on cpu") == 1
+    telemetry.deactivate()
+    import json
+
+    rep = json.load(open(tdir / "strategy_report.json"))
+    assert rep["profile"]["source"] == "standalone"
+    assert {r["name"] for r in rep["profile"]["ops"]} == {
+        "hidden", "out", "probs"}
+
+
+def test_sgd_momentum_zero_keeps_a_scalar_slot_per_weight():
+    """C3: SGD at momentum 0 keeps the JAX package's scalar zero per
+    weight (its checkpoints carry them), which the update reads none of;
+    num_slots stays 0."""
+    from flexflow_tpu import SGDOptimizer as JSGD
+    from flexflow_tpu_torch import SGDOptimizer
+
+    params = {"fc": {"kernel": torch.ones(3, 2), "bias": torch.ones(2)}}
+    slots = SGDOptimizer().init(params)
+    want = JSGD().init({"fc": {"kernel": jnp.ones((3, 2)),
+                               "bias": jnp.ones(2)}})
+    assert set(slots) == set(want) == {"v"}
+    for k in ("kernel", "bias"):
+        assert slots["v"]["fc"][k].shape == () and not slots["v"]["fc"][k]
+        assert np.asarray(want["v"]["fc"][k]).shape == ()
+    assert SGDOptimizer().num_slots == 0
+    grads = {"fc": {"kernel": torch.full((3, 2), 2.0),
+                    "bias": torch.full((2,), 2.0)}}
+    new, out = SGDOptimizer(lr=0.5).update(
+        grads, params, slots, torch.zeros((), dtype=torch.int32))
+    assert torch.equal(new["fc"]["kernel"], torch.zeros(3, 2))
+    assert out is slots and not slots["v"]["fc"]["kernel"]

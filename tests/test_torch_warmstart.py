@@ -15,8 +15,9 @@ changed graph does not adopt it; the calibration DB makes the warm
 compile measure nothing; the telemetry's warmstart records. Here: the two
 packages' `graph_signature` and `rules_fingerprint` agree on the tiny LM,
 Strategy validation, time to first step, and the executable-cache layer
-that the card has no counterpart for. The JAX test of the strategy
-report (diagnostics/) is ROADMAP A10b.
+that the card has no counterpart for. With --diagnostics the warm
+compile's strategy report describes the adopted plan (mode "replayed",
+the searched report's configs and predicted makespan).
 """
 
 import json
@@ -201,6 +202,29 @@ def warm_job(rank, tmp):
     out["warm_measured"] = measured
     out["warm_stats"] = (dict(ffw._warmstart._cost_model.calib_stats)
                          if ffw._warmstart._cost_model is not None else None)
+
+    # the strategy report of the adopted plan: searched cold, replayed
+    # warm (on the model axis, so the plan is not the data-parallel
+    # default; without --calibrate: a CPU-measured calibration can tip
+    # the joint search into a rewritten graph, whose searched report the
+    # replayed one cannot match, ROADMAP C4)
+    ws6 = os.path.join(tmp, "ws6")
+    for tag in ("cold", "warm"):
+        tdir = os.path.join(tmp, f"diag_{tag}_{rank}")
+        ffd = _build(["--mesh", "1,2,1,1"] + SEARCH_ARGV[2:] + [
+                                    "--warmstart-dir", ws6,
+                                    "--telemetry-dir", tdir,
+                                    "--diagnostics"])
+        deactivate()
+        rep = json.load(open(os.path.join(tdir, "strategy_report.json")))
+        out[f"report {tag}"] = {
+            "mode": rep["mode"], "plan_source": rep["plan_source"],
+            "configs": {o["name"]: o["config"] for o in rep["ops"]},
+            "total": rep["total_predicted_s"],
+            "search_result": ffd._search_result is not None,
+            "replay_total": (ffd._replay_search[0].evaluate(
+                ffd._replay_search[1])[0]
+                if ffd._replay_search is not None else None)}
 
     # telemetry: a miss record, then a hit
     ws5 = os.path.join(tmp, "ws5")
@@ -455,3 +479,20 @@ def test_device_signature_names_the_torch_toolchain():
         assert structural_fingerprint(ff.graph, axes, ff.config) != a
     finally:
         fp.device_signature = orig
+
+
+def test_warm_strategy_report_describes_adopted_plan(warm):
+    """With --diagnostics, the warm compile's report attributes the
+    ADOPTED plan (mode "replayed", the cold searched report's per-op
+    configs and predicted makespan), not the data-parallel fallback; the
+    reconstructed (UnitySearch, choice) is kept for a drift
+    recalibration."""
+    r0 = warm[0]
+    cold, warm0 = r0["report cold"], r0["report warm"]
+    assert cold["mode"] == "searched" and cold["plan_source"] == "search"
+    assert warm0["mode"] == "replayed" and warm0["plan_source"] == "cache"
+    assert warm0["configs"] == cold["configs"]
+    assert warm0["total"] == pytest.approx(cold["total"], rel=1e-9)
+    assert cold["search_result"] and not warm0["search_result"]
+    assert warm0["replay_total"] == pytest.approx(warm0["total"], rel=1e-9)
+    assert any(c.startswith("tp") for c in cold["configs"].values())
