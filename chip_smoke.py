@@ -1045,6 +1045,14 @@ def profiled(fn, patterns=None):
                   torch.cuda.Event(enable_timing=True))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the device side of the trace starts recording a moment after
+        # the profiler enters: an eager lm-xxl-fsdp step launched at once
+        # lost the records of its first four port kernels (3 K1, 1 K5).
+        # A synchronised kernel and a short wait first, outside the
+        # timed window, so fn's first kernels are recorded
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.005)
         t0 = time.perf_counter()
         start.record()
         done = fn()
@@ -1693,6 +1701,9 @@ def train_phase(lm=None, *, transposed=False, fused=False,
         "train_mean_loss": metrics.get_mean_loss(),
         "mesh_axes": dict(ff.mesh.shape),
         "update_sharding": dict(ff._update_sharding),
+        # the compile gate's verdict and its predicted per-chip memory
+        # (phase 21(b) holds it to this run's peak)
+        "analysis": analysis_record(ff._analysis),
     }
     if keep_masters:
         out["masters"] = masters
@@ -3113,6 +3124,17 @@ def mesh_resume_check(device: str, lm, steps: int, captured: bool) -> dict:
             t_r = time.perf_counter()
             ff.load_checkpoint(ck)
             numbers[f"restore_s {name}"] = time.perf_counter() - t_r
+            # the fftrans gate verified the restore before it wrote a
+            # tensor: its plan on the model, priced, with no error
+            tr = ff._transition or {}
+            an = tr.get("analysis") or {}
+            checks[f"transition {name}"] = {
+                "set": bool(tr), "errors": an.get("errors"),
+                "predicted_s": tr.get("predicted_s"),
+                "transfers": len(tr.get("transfers") or ())}
+            if not tr or an.get("errors"):
+                failures.append(f"restored {name}: transition "
+                                f"{checks[f'transition {name}']}")
             got = _full_masters(ff)
             same = [k for k, v in whole.items() if not torch.equal(got[k], v)]
             checks[f"restored {name}"] = {"bitwise_equal": not same,
@@ -3153,6 +3175,80 @@ def mesh_resume_check(device: str, lm, steps: int, captured: bool) -> dict:
         import shutil
 
         shutil.rmtree(root, ignore_errors=True)
+    return {"rank": rank, "world": world, "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "numbers": numbers,
+            "checks": checks, "failures": failures}
+
+
+def mesh_barrier_check(device: str, lm) -> dict:
+    """Phase 21(e) on this rank of the process group already started:
+    `lm` in bf16 at dp world/2 x tp 2 (Megatron) compiled with
+    --spmd-barrier: every rank's step fingerprint agrees with rank 0's
+    (status "ok", one fingerprint over the ranks); then the same compile
+    with rank 2 (else the last rank) alone on another numerics policy
+    (no tensor-op math): SPMDDivergenceError on every rank, rank 2 naming
+    the component, the others aborting in lockstep, and a barrier after
+    it returns (no rank hangs). Returns the numbers, the checks and the
+    failed ones."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.analysis.spmd import SPMDDivergenceError
+    from flexflow_tpu_torch.distributed import gather_json
+    from flexflow_tpu_torch.parallel import megatron_transformer
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    planted_rank = min(2, world - 1)
+    failures, checks, numbers = [], {}, {}
+
+    def compile_lm(plant: bool):
+        cfg = FFConfig(device=device)
+        cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED), "-b",
+                        str(TRAIN_BATCH), "--mesh",
+                        f"{world // 2},2,1,1", "--spmd-barrier"])
+        if plant and rank == planted_rank:
+            cfg.allow_tensor_op_math_conversion = False
+        ff = FFModel(cfg)
+        STANDARD.into(ff, lm)
+        ff.set_strategy(megatron_transformer(ff))
+        t0 = time.perf_counter()
+        ff.compile(optimizer=SGDOptimizer(lr=0.01),
+                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+        return ff, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    try:
+        ff, numbers["compile_s"] = compile_lm(False)
+        v = ff._spmd_barrier or {}
+        fps = [o["fp"] for o in gather_json(
+            {"fp": v.get("fingerprint"), "status": v.get("status")})]
+        checks["lockstep"] = {"status": v.get("status"),
+                              "one_fingerprint": len(set(fps)) == 1}
+        if v.get("status") != "ok" or len(set(fps)) != 1:
+            failures.append(f"--spmd-barrier lockstep: {v}, {fps}")
+        del ff
+        gc.collect()
+        raised = None
+        try:
+            compile_lm(True)
+        except SPMDDivergenceError as e:
+            raised = {"peer_mismatch": e.peer_mismatch,
+                      "names_numerics": "numerics" in str(e)}
+        dist.barrier()  # every rank got here: no hang
+        checks["planted"] = {"planted_rank": planted_rank,
+                             "raised": raised}
+        want_peer = rank != planted_rank
+        if raised is None or raised["peer_mismatch"] != want_peer or (
+                not want_peer and not raised["names_numerics"]):
+            failures.append(f"planted mismatch on rank {planted_rank}: "
+                            f"rank {rank} {raised}")
+    except Exception as e:  # every rank fails alike: the same program
+        failures.append(f"barrier leg: {type(e).__name__}: {str(e)[:300]}")
     return {"rank": rank, "world": world, "layers": lm.num_layers,
             "wall_s": time.perf_counter() - t0, "numbers": numbers,
             "checks": checks, "failures": failures}
@@ -4843,6 +4939,374 @@ def log_phase20(p: dict):
     log(f"  phase 20's parts took {p['took_s']} s")
 
 
+# ------------------------------------------------------------- phase 21
+
+# phase 21(c): the deepest stack of lm-xxl-fsdp the bisection may admit,
+# and how many depths past the gate's line it steps up under
+# --no-verify-plan looking for the card's
+P21_MAX_LAYERS = 64
+P21_STEP_UP = 4
+# phase 21(d): the mesh the generated registry is verified on (the JAX
+# package's CI mesh)
+P21_RULE_MESH = {"data": 2, "model": 4, "dcn": 1, "seq": 1}
+
+
+class _GateOnly(Exception):
+    """Raised in place of the compile's step after its gate: admitted."""
+
+
+def gate_only(lm, batch: int, flags: tuple = ()):
+    """`lm` compiled for training as `build_train_lm` compiles it, stopped
+    right after the compile gate (`analysis.verify_plan`), before
+    `init_variables` allocates a weight: (admitted, the gate's
+    AnalysisResult). Nothing reaches the card either way."""
+    import flexflow_tpu_torch.analysis as A
+
+    seen = {}
+    real = A.verify_plan
+
+    def gate(model, cost_model=None):
+        try:
+            seen["result"] = real(model, cost_model=cost_model)
+        except A.PlanVerificationError as e:
+            seen["result"] = e.result
+            raise
+        raise _GateOnly
+
+    with mock.patch.object(A, "verify_plan", gate):
+        try:
+            build_train_lm("bf16", lm=lm, batch=batch, flags=flags)
+        except _GateOnly:
+            return True, seen["result"]
+        except A.PlanVerificationError:
+            return False, seen["result"]
+    raise RuntimeError("the compile never reached its gate")
+
+
+def memory_terms(result) -> dict:
+    """The memory pass's per-chip terms, by name: JAX's (persistent:
+    masters, gradients, slots; activations retained for the backward;
+    the liveness peak), the port's own buffers, their sum (the peak the
+    gate holds to the cap) and the cost model's figure."""
+    d = result.by_code("memory_timeline")[0].details
+    out = {k: d.get(k) for k in (
+        "persistent_bytes", "activation_bytes", "gather_peak_bytes",
+        "peak_bytes", "peak_at", "cost_model_bytes", "hbm_cap_bytes",
+        "port_peak_bytes")}
+    out.update(d["port_terms"])
+    return out
+
+
+def analysis_record(result) -> dict:
+    """What a phase keeps of a compile gate's result."""
+    return {"summary": result.summary(), "elapsed_s": result.elapsed_s,
+            "errors": [str(f) for f in result.errors()],
+            "memory": memory_terms(result)}
+
+
+def device_draws():
+    """Phase 21(c)'s memory probes draw every weight on the card from one
+    generator seeded from SEED: the same tensors, shapes and dtypes as
+    the initializers' (which draw on the CPU and move, ~30 s for a
+    20-layer stack of lm-xxl-fsdp), so the same bytes are held."""
+    import contextlib
+
+    import torch
+
+    from flexflow_tpu_torch import initializer
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def uniform(_gen, shape, dtype, device, lo, hi):
+        return torch.empty(tuple(shape), dtype=dtype, device=device
+                           ).uniform_(lo, hi, generator=gen)
+
+    def normal(self, _gen, shape, dtype, device):
+        return torch.empty(tuple(shape), dtype=dtype, device=device
+                           ).normal_(self.mean, self.stddev, generator=gen)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(initializer, "_uniform", uniform))
+    stack.enter_context(mock.patch.object(initializer.NormInitializer,
+                                          "__call__", normal))
+    return stack
+
+
+def gate_child(job: dict) -> dict:
+    """Phase 21(c)'s fresh process (the parent's allocations out of the
+    way): lm-xxl-fsdp at full width, 4 x 2048, bf16, SGD(lr=0.01) as
+    phase 10 runs it. Bisect the depth on the gate alone (`gate_only`):
+    `d_ok` the deepest stack it admits. `d_ok` compiles and trains one
+    step; `d_ok + 1` compiles to a PlanVerificationError naming
+    oom_predicted with `torch.cuda.memory_allocated()` unchanged. Then,
+    under --no-verify-plan, at most P21_STEP_UP more depths compile and
+    train a step each: `d_ok + 1` gives the measured bytes a layer, which
+    place the card's line (the free memory at the start over that rate);
+    the depths beside it find the deepest stack that trains and the first
+    that raises OutOfMemoryError."""
+    import torch
+
+    from flexflow_tpu_torch.analysis import PlanVerificationError
+
+    torch.cuda.init()
+    free0, total = torch.cuda.mem_get_info()
+    base = lm_config(XXL)
+    batch = XXL_BATCH
+    x, y = train_batch(base.vocab_size, batch, base.sequence_length)
+    gates = {}
+
+    def admits(d: int) -> bool:
+        ok, res = gate_only(dataclasses.replace(base, num_layers=d), batch)
+        gates[d] = {"admitted": ok, "elapsed_s": res.elapsed_s,
+                    "errors": sorted({f.code for f in res.errors()}),
+                    "memory": memory_terms(res)}
+        return ok
+
+    t0 = time.perf_counter()
+    lo, hi = XXL_LAYERS, base.num_layers
+    require(admits(lo), f"phase 21(c): the gate refuses {lo} layers, "
+            f"which phase 10 trains")
+    while admits(hi):
+        require(hi < P21_MAX_LAYERS, f"phase 21(c): the gate admits "
+                f"{hi} layers")
+        lo, hi = hi, hi * 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if admits(mid):
+            lo = mid
+        else:
+            hi = mid
+    d_ok = lo
+    bisect_s = time.perf_counter() - t0
+
+    def one_step(d: int, flags=()):
+        """Compile `d` layers (the gate per `flags`) and fit one step:
+        (peak bytes allocated, None) or (None, the OOM's text)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ff = None
+        try:
+            with device_draws():
+                ff = build_train_lm("bf16", lm=dataclasses.replace(
+                    base, num_layers=d), batch=batch, flags=flags)
+            ff.fit(x, y, epochs=1, batch_size=batch, shuffle=False,
+                   verbose=False)
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated(), None
+        except torch.cuda.OutOfMemoryError as e:
+            return None, str(e).splitlines()[0][:200]
+        finally:
+            del ff
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    peak_ok, oom_ok = one_step(d_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    refused = None
+    try:
+        build_train_lm("bf16", lm=dataclasses.replace(
+            base, num_layers=d_ok + 1), batch=batch)
+    except PlanVerificationError as e:
+        refused = sorted({f.code for f in e.result.errors()})
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    runs = {}
+
+    def run(d: int):
+        peak, oom = one_step(d, ("--no-verify-plan",))
+        runs[d] = {"layers": d, "peak": peak, "oom": oom}
+        return oom is None
+
+    per_layer = None
+    if peak_ok is not None and run(d_ok + 1):
+        per_layer = runs[d_ok + 1]["peak"] - peak_ok
+        d = max(d_ok + 2, d_ok + 1 + int(
+            (free0 - runs[d_ok + 1]["peak"]) // max(per_layer, 1)))
+        # walk from the extrapolated line to where a stack that trains
+        # and one that runs out of memory sit side by side
+        while len(runs) < P21_STEP_UP:
+            if run(d):
+                if d + 1 in runs:
+                    break
+                d += 1
+            else:
+                if d - 1 in runs:
+                    break
+                d -= 1
+    fits = [d_ok] + [k for k, r in runs.items() if r["oom"] is None]
+    card_ok = max(fits)
+    card_oom = min((k for k, r in runs.items()
+                    if r["oom"] and k > card_ok), default=None)
+    peaks = {k: r["peak"] for k, r in runs.items() if r["peak"]}
+    return {"free_at_start": free0, "total": total, "gates": gates,
+            "d_ok": d_ok, "bisect_s": bisect_s,
+            "d_ok_peak": peak_ok, "d_ok_oom": oom_ok,
+            "refused_codes": refused, "allocated_before": before,
+            "allocated_after": after,
+            "step_up": [runs[k] for k in sorted(runs)],
+            "measured_bytes_per_layer": per_layer,
+            "card_ok_layers": card_ok, "card_oom_layers": card_oom,
+            "margin_layers": card_ok - d_ok,
+            "margin_bytes": (peaks.get(card_ok, peak_ok) - peak_ok
+                             if peak_ok is not None else None),
+            "steps_s": time.perf_counter() - t1}
+
+
+def rule_verdicts(result) -> dict:
+    """{rule: sorted (severity, code)} of an ffrules result."""
+    out: dict = {}
+    for f in result.findings:
+        out.setdefault(f.where, []).append((f.severity, f.code))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def phase21(train: dict, train_x: dict, first_verify_s: float) -> dict:
+    """Phase 21, the static analysis on the card: (a) lm-base at full
+    width compiled through the gate (no error; the report's `analysis`),
+    a second verify of it timed; (b) the memory pass's predicted peak
+    term by term beside phases 6's and 10's measured peaks; (c) where the
+    pass draws the line for lm-xxl-fsdp and where the card does
+    (`gate_child`, a fresh process); (d) the generated registry's ffrules
+    oracle on `cuda` (f32, TF32 off) against the same port's on the CPU,
+    rule by rule."""
+    import subprocess
+
+    import torch
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.analysis import verify_plan
+    from flexflow_tpu_torch.analysis.rules import verify_registry
+    from flexflow_tpu_torch.diagnostics.explain import build_strategy_report
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    t0 = time.perf_counter()
+    out = {}
+    # (a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ff = build_train_lm("bf16")
+    res = ff._analysis
+    require(res is not None and res.ok, f"phase 21(a): lm-base's gate: "
+            f"{res.render() if res is not None else 'did not run'}")
+    again = verify_plan(ff)
+    report = build_strategy_report(ff)
+    require("analysis" in report and report["analysis"]["errors"] == 0,
+            "phase 21(a): the report carries no clean analysis section")
+    out["a"] = {"summary": res.summary(),
+                "by_code": sorted({f.code for f in res.findings}),
+                "first_verify_s": first_verify_s,
+                "compile_verify_s": res.elapsed_s,
+                "second_verify_s": again.elapsed_s,
+                "memory": memory_terms(res)}
+    del ff, again, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)
+    out["b"] = {name: dict(run["analysis"]["memory"],
+                           measured=run["max_memory_allocated"],
+                           predicted_over_measured=(
+                               run["analysis"]["memory"]["port_peak_bytes"]
+                               / run["max_memory_allocated"]))
+                for name, run in (("lm-base", train), (XXL, train_x))}
+    # (c)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+         "--gate-child", "{}"],
+        capture_output=True, text=True, timeout=900, cwd=REPO)
+    require(proc.returncode == 0, f"phase 21(c): the child failed "
+            f"({proc.returncode}): {proc.stderr[-3000:]}")
+    c = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(c["d_ok_oom"] is None, f"phase 21(c): the pass admits "
+            f"{c['d_ok']} layers, which ran out of memory on the card: "
+            f"{c['d_ok_oom']} (the pass under-counts)")
+    require(c["refused_codes"] is not None
+            and "oom_predicted" in c["refused_codes"],
+            f"phase 21(c): {c['d_ok'] + 1} layers: {c['refused_codes']}")
+    require(c["allocated_after"] == c["allocated_before"],
+            f"phase 21(c): the refused compile allocated "
+            f"{c['allocated_after'] - c['allocated_before']} bytes")
+    out["c"] = c
+    # (d)
+    cfg = FFConfig(device="cuda")
+    cfg.parse_args(["-b", "8"])
+    c_before = {k: v.launches for k, v in counters().items()}
+    reset_counters()
+    t_d = time.perf_counter()
+    on_card = verify_registry(P21_RULE_MESH, cfg, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t_d
+    moved = {k: v.launches for k, v in counters().items() if v.launches}
+    t_d = time.perf_counter()
+    on_cpu = verify_registry(P21_RULE_MESH, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t_d
+    vc, vh = rule_verdicts(on_card), rule_verdicts(on_cpu)
+    differ = sorted(k for k in set(vc) | set(vh) if vc.get(k) != vh.get(k))
+    require(not differ, f"phase 21(d): verdicts on cuda and the CPU "
+            f"differ at {[(k, vc.get(k), vh.get(k)) for k in differ[:4]]}")
+    clean = on_card.by_code("rules_clean")
+    out["d"] = {"rules": clean[0].details["rules"] if clean else None,
+                "summary": on_card.summary(), "card_s": card_s,
+                "cpu_s": cpu_s, "launches": moved,
+                "launches_before": {k: n for k, n in c_before.items()
+                                    if n}}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_phase21(p: dict):
+    a, b, c, d = p["a"], p["b"], p["c"], p["d"]
+    s = a["summary"]
+    log(f"  (a) lm-base: {s['errors']} errors, {s['warnings']} warnings, "
+        f"{s['info']} info over {s['passes_run']}; codes {a['by_code']}; "
+        f"verify {a['compile_verify_s']:.4f} s in the compile, "
+        f"{a['second_verify_s']:.4f} s again, the process's first "
+        f"{a['first_verify_s']:.4f} s")
+
+    def gb(v):
+        return "-" if v is None else f"{v / 1e9:.3f}"
+
+    for name, m in b.items():
+        log(f"  (b) {name}: predicted port peak {gb(m['port_peak_bytes'])} "
+            f"GB = liveness peak {gb(m['peak_bytes'])} (at {m['peak_at']}; "
+            f"persistent {gb(m['persistent_bytes'])}, activations "
+            f"{gb(m['activation_bytes'])}) + bf16 weight copies "
+            f"{gb(m['bf16_weight_copies'])} + serving cache "
+            f"{gb(m['serving_weight_cache'])} + graph inputs "
+            f"{gb(m['graph_static_inputs'])}; cost model "
+            f"{gb(m['cost_model_bytes'])}; measured max_memory_allocated "
+            f"{gb(m['measured'])} GB ({m['predicted_over_measured']:.3f}x)")
+    log(f"  (c) {XXL}, 4 x 2048: the gate admits {c['d_ok']} layers "
+        f"(bisected in {c['bisect_s']:.1f} s over {sorted(c['gates'])}); "
+        f"{c['d_ok']} layers trained a step at {gb(c['d_ok_peak'])} GB; "
+        f"{c['d_ok'] + 1} refused with {c['refused_codes']}, allocated "
+        f"{c['allocated_before']} -> {c['allocated_after']} B; "
+        f"--no-verify-plan: "
+        + ", ".join(f"{s['layers']} layers " + (
+            "OOM" if s["oom"] else f"{gb(s['peak'])} GB")
+            for s in c["step_up"])
+        + f"; measured {gb(c['measured_bytes_per_layer'])} GB a layer; "
+        f"the card trains {c['card_ok_layers']} layers, runs out at "
+        f"{c['card_oom_layers']}: margin {c['margin_layers']} layers, "
+        f"{gb(c['margin_bytes'])} GB; card free at start "
+        f"{gb(c['free_at_start'])} of {gb(c['total'])} GB "
+        f"({c['steps_s']:.1f} s of steps)")
+    for dd in (c["d_ok"], c["d_ok"] + 1):
+        g = c["gates"].get(str(dd), c["gates"].get(dd))
+        if g:
+            log(f"      gate at {dd} layers: port peak "
+                f"{gb(g['memory']['port_peak_bytes'])} GB, cost model "
+                f"{gb(g['memory']['cost_model_bytes'])}, cap "
+                f"{gb(g['memory']['hbm_cap_bytes'])}: {g['errors']}")
+    log(f"  (d) ffrules oracle over {d['rules']} rules on cuda in "
+        f"{d['card_s']:.2f} s (CPU {d['cpu_s']:.2f} s), verdicts equal; "
+        f"launches {d['launches']}")
+    log(f"  phase 21 took {p['wall_s']:.1f} s")
+
+
 def _tensors(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
@@ -4909,11 +5373,16 @@ def mesh_main(json_path: str) -> int:
     out["resume"] = mesh_resume_check(
         f"cuda:{torch.cuda.current_device()}",
         lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
+    out["barrier"] = mesh_barrier_check(
+        f"cuda:{torch.cuda.current_device()}",
+        lm_config(layers=MESH_LAYERS))
+    # the diag leg last: its aborted steps leave captured graphs behind
     out["diag"] = mesh_diag_check(
         f"cuda:{torch.cuda.current_device()}",
         lm_config(layers=MESH_LAYERS), captured=True)
     out["failures"] = (out["failures"] + out["resume"]["failures"]
-                       + out["diag"]["failures"])
+                       + out["diag"]["failures"]
+                       + out["barrier"]["failures"])
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -4927,6 +5396,7 @@ def mesh_main(json_path: str) -> int:
         for o in outs:
             log_mesh_runs(o)
             log_mesh_resume(o["resume"])
+            log_mesh_resume(o["barrier"])
             log_mesh_resume(o["diag"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
@@ -5024,11 +5494,18 @@ def main(argv: list[str]) -> int:
                         "number of the run, as JSON, to this file")
     parser.add_argument("--resume-child", default="",
                         help=argparse.SUPPRESS)  # phase 19(b)'s process
+    parser.add_argument("--gate-child", default="",
+                        help=argparse.SUPPRESS)  # phase 21(c)'s process
     args = parser.parse_args(argv)
     json_path = args.json
     if args.resume_child:
         sys.path.insert(0, REPO)
         print(json.dumps(resume_child(json.loads(args.resume_child))),
+              flush=True)
+        return 0
+    if args.gate_child:
+        sys.path.insert(0, REPO)
+        print(json.dumps(gate_child(json.loads(args.gate_child))),
               flush=True)
         return 0
     import torch
@@ -5060,6 +5537,9 @@ def main(argv: list[str]) -> int:
 
     log("== phase 3/4: serving lm-base, bf16, paged then contiguous")
     ff = build_lm()
+    # the process's first compile gate: it parses the runtime sources
+    # its source-level checks read (cached for every later compile)
+    first_verify_s = ff._analysis.elapsed_s
     vocab = ff.layers[-1].params.out_channels
     prompts = make_prompts(vocab)
     runs, eager_runs = {}, {}
@@ -5251,6 +5731,12 @@ def main(argv: list[str]) -> int:
         "telemetry, --profiling")
     p20 = phase20(train, runs["paged"])
     log_phase20(p20)
+    log("== phase 21: the static analysis on the card: lm-base through the "
+        "compile gate; the memory pass's peak vs phases 6 and 10; where "
+        f"the pass and the card draw the line for {XXL} (4 x 2048); the "
+        "ffrules oracle on cuda vs the CPU")
+    p21 = phase21(train, train_x, first_verify_s)
+    log_phase21(p21)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -5326,7 +5812,7 @@ def main(argv: list[str]) -> int:
                   nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
-                  phase19=p19, phase20=p20,
+                  phase19=p19, phase20=p20, phase21=p21,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -5410,6 +5896,18 @@ def main(argv: list[str]) -> int:
                         "serving_telemetry_vs_off": p20["f"]["vs_off"],
                         "serving_vs_phase3": p20["f"]["vs_phase3"],
                         "wall_s": p20["wall_s"]},
+                    "phase21": {
+                        "verify_s": {k: p21["a"][k] for k in (
+                            "first_verify_s", "compile_verify_s",
+                            "second_verify_s")},
+                        "predicted_over_measured": {
+                            k: v["predicted_over_measured"]
+                            for k, v in p21["b"].items()},
+                        "d_ok": p21["c"]["d_ok"],
+                        "card_oom_layers": p21["c"]["card_oom_layers"],
+                        "margin_layers": p21["c"]["margin_layers"],
+                        "rules_on_cuda": p21["d"]["rules"],
+                        "wall_s": p21["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -35,9 +35,6 @@ _NOT_PORTED = {
     "--replan-cooldown-steps": (True, "A10b (elastic/)"),
     "--replan-horizon-steps": (True, "A10b (elastic/)"),
     "--elastic-dry-run": (False, "A10b (elastic/)"),
-    "--no-verify-plan": (False, "A9 (analysis/ ffcheck)"),
-    "--no-verify-rules": (False, "A9 (analysis/ ffrules)"),
-    "--spmd-barrier": (False, "A9 (analysis/ ffsan)"),
     "--serve-disaggregate": (False, "A11 (serving/disagg.py)"),
     "--serve-prefill-chips": (True, "A11 (serving/disagg.py)"),
     "--serve-draft-chips": (True, "A11 (serving/speculative.py)"),
@@ -182,9 +179,26 @@ class FFConfig:
     search_calibrate: int = 0
     search_mesh_shapes: bool = False
     machine_model_file: str = ""
-    # -ll:fsize: bytes of device memory a device, the cap the search and
-    # the update-sharding decision price against (0: the chip's)
+    # -ll:fsize: bytes of device memory a device, the cap the search,
+    # the update-sharding decision and the compile gate's memory pass
+    # price against (0: the chip's)
     device_mem: float = 0.0
+    # static plan verification (analysis/): the ffcheck pass pipeline runs
+    # at compile on every plan source, before any weight is allocated;
+    # errors abort the compile (PlanVerificationError) with the findings
+    # in strategy_report.json's analysis section, and a restore's
+    # transition is gated the same way. --no-verify-plan downgrades both
+    # to logged warnings.
+    verify_plan: bool = True
+    # ffrules (analysis/rules.py): every --substitution-json rule is
+    # verified at load (RuleVerificationError names the rule and the
+    # finding class); --no-verify-rules downgrades to a logged warning,
+    # the verdict still recorded in the report
+    verify_rules: bool = True
+    # the SPMD fingerprint barrier (analysis/spmd.py): right after the
+    # compile gate every rank compares a digest of its step's ingredients
+    # with rank 0's; a mismatch raises SPMDDivergenceError on every rank
+    spmd_barrier: bool = False
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
@@ -256,6 +270,12 @@ class FFConfig:
                 self.auto_resume = True
             elif a == "--warmstart-dir":
                 self.warmstart_dir = val()
+            elif a == "--no-verify-plan":
+                self.verify_plan = False
+            elif a == "--no-verify-rules":
+                self.verify_rules = False
+            elif a == "--spmd-barrier":
+                self.spmd_barrier = True
             elif a == "--telemetry-dir":
                 self.telemetry_dir = val()
             elif a == "--metrics-interval":

@@ -169,40 +169,50 @@ def _runner_ups(us, choice, chosen_cost: float, top_n: int = 3):
 
 
 def build_strategy_report(model) -> dict:
-    """Attribution of the compiled plan's predicted cost. Uses the search
-    state compile stashed (`model._search_result`); when the plan was not
-    searched locally (pure data parallel, imported/broadcast strategy) the
-    default-config assignment is evaluated instead and the report says so
-    (`mode: "dp_fallback"`)."""
+    """Attribution of the compiled plan's predicted cost, on the graph
+    that runs (`model.graph` as built, with the placements compile
+    applied). Uses the search state compile stashed
+    (`model._search_result`) where the search's graph IS that graph; a
+    joint search whose winner rewrote the graph broadcast only its
+    placements (`UnitySearch.to_strategy`), so that plan, like one adopted
+    without a local search, is reconstructed on the built graph (mode
+    "searched" / "replayed"); with no applied plan the default-config
+    assignment is evaluated and the report says so ("dp_fallback")."""
     from ..search.cost_model import CostModel, OpHarness
     from ..search.machine_model import card_line, machine_model_for_mesh
 
     upd = getattr(model, "_update_sharding", None) or {"enabled": False}
 
     sr = getattr(model, "_search_result", None)
-    if sr is not None:
+    if sr is not None and sr[0].graph is model.graph:
         us, choice = sr
         mode = "searched"
     else:
         from ..search.substitution import _logical_assignment
-        from ..search.unity import UnitySearch
+        from ..search.unity import NodeConfig, UnitySearch
 
-        machine = machine_model_for_mesh(
-            model.mesh, num_hosts=model.config.num_nodes)
-        opt_slots = (model.optimizer.num_slots
-                     if model.optimizer is not None else 1)
-        cm = CostModel(machine, opt_slots=opt_slots)
-        cm.harness = OpHarness.of(model.config, model.device)
-        warm = getattr(model, "_warmstart", None)
-        if warm is not None:
-            # price the reconstruction with the SAME persisted calibration
-            # the cold search consumed — a roofline-only cm would arm the
-            # drift monitor with a mispriced makespan and fire spurious
-            # advisories on every warm restart of a --calibrate'd job
-            warm.calibration_db.load_into(cm)
-        if model.config.search_calibrate > 0:
-            cm.calibrate_graph(model.graph,
-                               top_k=model.config.search_calibrate)
+        if sr is not None:
+            # the rewritten winner's cost model (calibrated on rank 0)
+            # prices its placements on the graph as built
+            cm = sr[0].cm
+        else:
+            machine = machine_model_for_mesh(
+                model.mesh, num_hosts=model.config.num_nodes)
+            opt_slots = (model.optimizer.num_slots
+                         if model.optimizer is not None else 1)
+            cm = CostModel(machine, opt_slots=opt_slots)
+            cm.harness = OpHarness.of(model.config, model.device)
+            warm = getattr(model, "_warmstart", None)
+            if warm is not None:
+                # price the reconstruction with the SAME persisted
+                # calibration the cold search consumed — a roofline-only
+                # cm would arm the drift monitor with a mispriced makespan
+                # and fire spurious advisories on every warm restart of a
+                # --calibrate'd job
+                warm.calibration_db.load_into(cm)
+            if model.config.search_calibrate > 0:
+                cm.calibrate_graph(model.graph,
+                                   top_k=model.config.search_calibrate)
         us = UnitySearch(model.graph, model.mesh, model.config, cm,
                          refine=False)
         # a plan adopted WITHOUT a local search (warm-start cache,
@@ -220,6 +230,7 @@ def build_strategy_report(model) -> dict:
             return {k: tuple(v) for k, v in specs.items()
                     if any(e for e in tuple(v))}
 
+        placed = set(getattr(model, "_strategy", None) or ())
         choice = {}
         matched = 0
         for n in us.order:
@@ -240,10 +251,18 @@ def build_strategy_report(model) -> dict:
                     score = 1 + (_sharded(dict(cfg.weight_specs)) == cur_w)
                     if score > best_score:
                         best_score, pick = score, cfg
+                if best_score < 2 and n.name in placed:
+                    # a placement no candidate family has: a rewrite
+                    # pinned it (joint.derive_pinned_configs' "xfer"),
+                    # and it runs as applied
+                    pick = NodeConfig("xfer", cur_out, tuple(sorted(
+                        cur_w.items(), key=lambda kv: kv[0])))
+                    best_score = 2
                 if best_score:
                     matched += 1
             choice[n.guid] = pick
-        mode = "replayed" if applied and matched else "dp_fallback"
+        mode = ("searched" if sr is not None
+                else "replayed" if applied and matched else "dp_fallback")
         # stash the reconstructed evaluation for the drift-recalibration
         # hook (make_recalibration_state falls back to it): warm-started
         # runs have _search_result=None, and without this the remeasure +

@@ -1057,7 +1057,9 @@ class Executor:
         weights.update(new_state.get(wsrc, {}))
         with self._dropping(wsrc, [k for k in regather if k in weights],
                             weights, params.get(wsrc, {})):
-            outs, op_state = node.op_def.forward(
+            # inside the caller's range (`_apply_spmd` opens
+            # `self._scope(node.name)` around this call)
+            outs, op_state = node.op_def.forward(  # fflint: ok unnamed_op_scope
                 rule["params"], ins, weights, new_state.get(node.name),
                 ctx)
         if op_state:

@@ -166,6 +166,12 @@ class FFModel:
         self._strategy = None
         self._plan_source = "none"
         self._update_sharding = None
+        # static analysis (analysis/): the compile gate's AnalysisResult,
+        # the --spmd-barrier verdict, and the verified TransitionPlan of
+        # the last restore (its JSON: the report's `transition` section)
+        self._analysis = None
+        self._spmd_barrier = None
+        self._transition = None
         # (UnitySearch, choice) of the search this rank ran, else None
         self._search_result = None
         # warm start (warmstart/): the manager of --warmstart-dir, the
@@ -697,7 +703,8 @@ class FFModel:
                     plan_source=self._plan_source,
                     plan_fingerprint=self._plan_fingerprint,
                     sanitize_numerics=bool(self.config.sanitize_numerics),
-                    spmd_barrier="off",
+                    spmd_barrier=(self._spmd_barrier or {}).get(
+                        "status", "off"),
                 )
                 diag = self._maybe_enable_diagnostics()
                 if diag is not None:
@@ -710,6 +717,7 @@ class FFModel:
                 telemetry.deactivate(tel)
 
     def _compile_impl(self, optimizer, loss_type, metrics, comp_mode):
+        from . import telemetry
         from .parallel.strategies import Strategy
         from .search.unity import choose_update_sharding
         from .tensor import ParallelTensor, ParallelTensorShape
@@ -843,11 +851,47 @@ class FFModel:
 
             self._update_sharding = broadcast_json(
                 self._update_sharding if is_coordinator() else None)
+            if search_cost_model is not None:
+                # the local cost model prices the ADOPTED mode (the
+                # compile gate's memory cross-check and the report read it)
+                search_cost_model.update_sharding = bool(
+                    self._update_sharding["enabled"])
+                search_cost_model.param_gather = (
+                    self._update_sharding.get("stage", 0) == 3)
+                search_cost_model.overlap_update = bool(
+                    self._update_sharding["enabled"])
         self.executor = Executor(g, self.config, self.device, logits_node,
                                  self.loss_type, self.metrics, self.optimizer,
                                  mesh=self.mesh,
                                  update_sharding=self._update_sharding)
+        # the realized record (the executor resolves the decision into
+        # per-weight specs): manifests, the report and the event describe
+        # what runs
         self._update_sharding = self.executor.update_sharding
+        telemetry.event(
+            "weight_update_decision",
+            enabled=self._update_sharding["enabled"],
+            stage=self._update_sharding.get("stage", 0),
+            shards=self._update_sharding.get("shards", 1),
+            reason=self._update_sharding.get("reason", ""))
+        # --- ffcheck compile gate (analysis/): the materialized plan
+        # verified on every plan source BEFORE init_variables allocates a
+        # weight (the executor built above holds none), so a predicted OOM
+        # or an invalid placement fails here with a structured report, not
+        # on the card. Errors raise unless --no-verify-plan.
+        from .analysis import verify_plan
+
+        verify_plan(self, cost_model=search_cost_model)
+        # --- the SPMD fingerprint barrier (--spmd-barrier): every rank's
+        # step ingredients against rank 0's before the first step; a
+        # diverged rank raises SPMDDivergenceError on every rank
+        self._spmd_barrier = None
+        if self.config.spmd_barrier:
+            from .analysis import spmd
+
+            with telemetry.span("compile.spmd_barrier"):
+                self._spmd_barrier = spmd.fingerprint_barrier(self)
+            telemetry.event("spmd_barrier", **self._spmd_barrier)
         self._params, self._state = self.executor.init_variables(
             self.config.seed)
         self._rng = torch.Generator(self.device).manual_seed(
@@ -1406,8 +1450,10 @@ class FFModel:
                             py_step += 1
                             if capturing:
                                 # the step's device work inside the capture
+                                # (a sampled profile's step: the drain is
+                                # the point)
                                 if self.device.type == "cuda":
-                                    torch.cuda.synchronize(self.device)
+                                    torch.cuda.synchronize(self.device)  # fflint: ok host_sync_in_loop
                                 section = scope_prof.end(py_step,
                                                          prof_names)
                                 if section is not None and diag is not None:
@@ -1483,8 +1529,9 @@ class FFModel:
                                 "committed, stopping fit", py_step)
                             flightrec.dump("sigterm")
                             return
+                    # once an epoch: its wall time needs its device work
                     if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
+                        torch.cuda.synchronize(self.device)  # fflint: ok host_sync_in_loop
                     dt = time.time() - t0
                     thru = (num_batches - b0) * batch_size / dt
                     epoch_log(f"epoch {epoch}: {self.get_perf_metrics()} "
@@ -1569,7 +1616,9 @@ class FFModel:
                      "save_latency_s": 0.0,
                      "device_time_s": max(0.0, w_t - w_dw)}
         win[:] = [0.0, 0.0, 0]
-        rec = {"step": py_step, "epoch": abs_e, "t": time.time(),
+        # a wall-clock stamp, not the stop of a timer pair (the window's
+        # times go to the diagnostics record below)
+        rec = {"step": py_step, "epoch": abs_e, "t": time.time(),  # fflint: ok raw_timer_in_hot_path
                **times, "loss": loss_val}
         rec.update(self._nonfinite_localization(loss_val))
         if resil is not None:

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 from ..config import not_ported
 from ..fftype import OperatorType as OT
 from ..machine import AXIS_DATA, AXIS_MODEL, AXIS_SEQ
-from ..tensor import PartitionSpec, spec_assignment
+from ..tensor import PartitionSpec
 
 
 @dataclass
@@ -98,51 +98,13 @@ class Strategy:
         ValueError listing every problem otherwise: unknown nodes, output
         indices and weights, rank mismatches, axes absent from the mesh,
         an axis on two dims of one assignment, oversharded and
-        indivisible dims (the JAX package's `analysis.verify_strategy`
-        checks)."""
-        axis_sizes = {k: int(v) for k, v in dict(mesh.shape).items()}
-        nodes = {n.name: n for n in graph.topo_order()}
-        problems: list[str] = []
-        for name, ov in self.overrides.items():
-            node = nodes.get(name)
-            if node is None:
-                problems.append(
-                    f"{name}: node not in this graph (plan exported from a "
-                    f"different model?)")
-                continue
-            for idx, assignment in (ov.get("outputs") or {}).items():
-                where = f"{name}:output{idx}"
-                if idx >= len(node.outputs):
-                    problems.append(f"{where}: output index out of range "
-                                    f"({len(node.outputs)} outputs)")
-                    continue
-                shape = node.outputs[idx].shape.logical_shape
-                if len(assignment) != len(shape):
-                    problems.append(
-                        f"{where}: assignment has {len(assignment)} dims, "
-                        f"tensor has {len(shape)}")
-                    continue
-                problems += assignment_problems(assignment, shape,
-                                                axis_sizes, where)
-            declared = {ws.name: ws for ws in node.weight_specs}
-            for wname, spec in (ov.get("weights") or {}).items():
-                where = f"{name}:{wname}"
-                ws = declared.get(wname)
-                if ws is None:
-                    problems.append(f"{where}: no weight named {wname!r} "
-                                    f"(has {sorted(declared)})")
-                    continue
-                if len(spec) > len(ws.shape):
-                    problems.append(
-                        f"{where}: spec has {len(spec)} dims, weight has "
-                        f"{len(ws.shape)}")
-                    continue
-                problems += assignment_problems(
-                    spec_assignment(spec, len(ws.shape)), ws.shape,
-                    axis_sizes, where)
-        if problems:
-            raise ValueError("strategy does not apply to this graph/mesh:\n  "
-                             + "\n  ".join(problems))
+        indivisible dims. Delegates to the ffcheck sharding verifier
+        (`analysis.verify_strategy`), the one gate the import path, the
+        warm-start plan cache and checkpoint plan adoption share, with
+        the JAX package's texts."""
+        from ..analysis import verify_strategy
+
+        verify_strategy(self.overrides, graph, mesh)
 
     def save(self, path: str):
         with open(path, "w") as f:
@@ -152,39 +114,6 @@ class Strategy:
     def load(path: str) -> "Strategy":
         with open(path) as f:
             return Strategy.from_json(json.load(f))
-
-
-def assignment_problems(assignment, shape, axis_sizes: dict,
-                        where: str) -> list[str]:
-    """One assignment against its tensor's shape and the mesh: unknown
-    axes, an axis on two dims, more shards than elements, a dim its
-    degree does not divide."""
-    problems = []
-    seen: dict[str, int] = {}
-    for dim, entry in enumerate(assignment or ()):
-        for ax in entry or ():
-            if ax not in axis_sizes:
-                problems.append(f"{where} dim {dim}: mesh axis {ax!r} not in "
-                                f"mesh {sorted(axis_sizes)}")
-            elif ax in seen:
-                problems.append(f"{where}: mesh axis {ax!r} used on dim "
-                                f"{seen[ax]} and dim {dim}")
-            else:
-                seen[ax] = dim
-    for i, entry in enumerate(assignment or ()):
-        degree = 1
-        for ax in entry or ():
-            degree *= axis_sizes.get(ax, 1)
-        if degree <= 1 or i >= len(shape) or shape[i] is None:
-            continue
-        if degree > shape[i]:
-            problems.append(f"{where} dim {i}: size {shape[i]} sharded "
-                            f"{degree} ways over {tuple(entry)}")
-        elif shape[i] % degree != 0:
-            problems.append(f"{where} dim {i}: size {shape[i]} not "
-                            f"divisible by degree {degree} over "
-                            f"{tuple(entry)}")
-    return problems
 
 
 def _act_assignment(ndims: int, batch_axes=(AXIS_DATA,), last_axes=()):

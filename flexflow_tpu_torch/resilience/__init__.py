@@ -8,7 +8,9 @@ training.
   package's file format, so a checkpoint of either package reads in the
   other;
 - `reshard`: restore a checkpoint saved under one mesh and plan onto
-  another, each rank its block of every whole array, written in place;
+  another, each rank its block of every whole array, written in place,
+  after the fftrans gate (`verify_restore_transition`) verified the
+  transition;
 - `policy`: CheckpointPolicy (every N steps / T seconds) and the SIGTERM
   PreemptionHandler that drains the in-flight save and writes a final
   snapshot;
@@ -16,8 +18,8 @@ training.
 - `manager`: ResilienceManager gluing the above into FFModel.fit, plus
   the `auto_resume` entry point.
 
-The JAX package's `migrate` (in-process migration between two plans) and
-its transition verifier are ROADMAP A10b and A9.
+The JAX package's `migrate` (in-process migration between two plans) is
+ROADMAP A10b.
 """
 
 from .checkpointer import (
@@ -30,7 +32,7 @@ from .checkpointer import (
 from .fault import FaultInjector, SimulatedPreemption
 from .manager import ResilienceManager, auto_resume
 from .policy import CheckpointPolicy, PreemptionHandler
-from .reshard import restore_model, restore_tree
+from .reshard import restore_model, restore_tree, verify_restore_transition
 
 __all__ = [
     "AsyncCheckpointer",
@@ -46,4 +48,5 @@ __all__ = [
     "load_checkpoint",
     "restore_model",
     "restore_tree",
+    "verify_restore_transition",
 ]

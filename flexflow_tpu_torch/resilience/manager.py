@@ -137,9 +137,10 @@ class ResilienceManager:
             extras = restore_model(self.ffmodel, path)
         self.last_restore_s = time.perf_counter() - t0
         telemetry.event("restore", path=path, duration_s=self.last_restore_s)
-        # the JAX package rewrites the strategy report here with the
-        # verified transition (resilience/migrate.py `_rewrite_report`);
-        # the report and the migration are ROADMAP A10b
+        # the fftrans gate put the verified TransitionPlan on the model:
+        # land it in strategy_report.json (the compile-time report
+        # predates the restore)
+        _rewrite_report(self.ffmodel)
         return extras
 
     def restore_latest(self) -> Optional[dict]:
@@ -151,6 +152,22 @@ class ResilienceManager:
         return restore_model(self.ffmodel, path)
 
     last_restore_s: Optional[float] = None
+
+
+def _rewrite_report(model) -> Optional[dict]:
+    """Re-write strategy_report.json after a restore so the `transition`
+    section lands next to the compile-time attribution (JAX
+    `resilience/migrate._rewrite_report`). No-op without diagnostics'
+    report or a telemetry session."""
+    session = getattr(model, "_telemetry", None)
+    if session is None:
+        return None
+    from ..diagnostics.explain import write_strategy_report
+
+    try:
+        return write_strategy_report(model, session.directory)
+    except Exception:  # a report must not fail a restore
+        return None
 
 
 def auto_resume(ffmodel, directory: Optional[str] = None) -> Optional[dict]:

@@ -20,11 +20,14 @@ the JAX package's is `jax.random.key_data`. It is the one leaf whose
 contents differ between the packages: restoring a checkpoint of the other
 kind raises, naming the leaf (no silent reseed).
 
-The JAX package gates every restore on the fftrans transition verifier
-(`verify_restore_transition`, `analysis/transition.py`: ROADMAP A9, not
-ported). Until it is, a restore here runs as JAX's does under
-`--no-verify-plan`: the strict key and shape checks of `restore_tree` are
-the gate, and `FFModel._transition` stays None.
+Every restore is gated on the fftrans transition verifier before any
+tensor is written (`verify_restore_transition`, analysis/transition.py):
+the checkpoint -> model TransitionPlan is built, priced and verified, an
+unverifiable mapping raises PlanVerificationError naming the leaf and the
+finding class, and the plan lands on `FFModel._transition` (the strategy
+report's `transition` section). Under `--no-verify-plan` the findings are
+logged and the strict key and shape checks of `restore_tree` stay the
+backstop.
 """
 
 from __future__ import annotations
@@ -43,6 +46,31 @@ RNG_KEY = "['rng']"
 RNG_KIND = "torch"
 
 _WEIGHT_SECTIONS = ("params", "state", "opt_slots")
+
+
+def verify_restore_transition(ffmodel, flat: dict, manifest: dict,
+                              label: str = "checkpoint"):
+    """The fftrans verify-before-apply gate (twin of the JAX package's):
+    build the checkpoint -> model TransitionPlan from the manifest, the
+    flat arrays and the restoring compile's placements, verify it (state
+    mapping, dtype/shape preservation, gather paths, transition-time
+    memory, schedule uniformity) and refuse an unverifiable mapping with a
+    PlanVerificationError naming the leaf and the finding class;
+    --no-verify-plan downgrades to warnings. The verified plan lands on
+    `ffmodel._transition`. Returns (plan, result)."""
+    from ..analysis import transition as fftrans
+    from ..search.machine_model import machine_model_for_mesh
+
+    cfg = ffmodel.config
+    machine = machine_model_for_mesh(ffmodel.mesh, num_hosts=cfg.num_nodes)
+    cap = cfg.device_mem if cfg.device_mem > 0 else machine.chip.hbm_bytes
+    plan = fftrans.build_transition_plan(
+        fftrans.PlanSide.from_checkpoint(flat, manifest, label=label),
+        fftrans.PlanSide.from_model(ffmodel, label="restoring-model"),
+        machine=machine, hbm_cap_bytes=cap)
+    result = fftrans.gate_transition(plan, cfg, label=label)
+    ffmodel._transition = plan.to_json(analysis=result)
+    return plan, result
 
 
 def _weight_of(executor, path: tuple, leaf=None):
@@ -165,6 +193,10 @@ def restore_model(ffmodel, path: str) -> dict:
         raise RuntimeError("compile() before restoring a checkpoint")
     flat, manifest = load_checkpoint(path)
     check_rng_kind(flat, manifest, path)
+    # fftrans verify-before-apply: a restore onto another mesh, plan or
+    # update stage is a plan transition, verified before any leaf is
+    # written (the checks below stay as the --no-verify-plan backstop)
+    verify_restore_transition(ffmodel, flat, manifest, label=path)
     saved_state_keys = [k for k in flat if k.startswith("['state']")]
     template = model_state_tree(ffmodel)
     template.pop("rng")

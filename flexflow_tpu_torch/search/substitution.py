@@ -1449,12 +1449,9 @@ def load_rule_collection(path: str, mesh,
         xfers.append(_GENERATORS[gen](int(rule.get("degree", default_deg)),
                                       **kw))
     if config is not None:
-        from ..config import not_ported
+        from ..analysis.rules import gate_loaded_rules
 
-        # the ffrules gate that verifies every loaded rule before the
-        # search may use it (JAX analysis/rules.gate_loaded_rules)
-        raise not_ported("verifying --substitution-json rules (ffrules)",
-                         "A9 (analysis/rules.py)")
+        gate_loaded_rules(xfers, mesh, config, path)
     return xfers
 
 

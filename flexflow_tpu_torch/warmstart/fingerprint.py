@@ -34,6 +34,8 @@ import hashlib
 import json
 import os
 
+from ..analysis.rules import rules_fingerprint
+
 # FFConfig fields that steer the search (and therefore the plan). A field
 # added to the search MUST be added here, or two configs that search
 # differently would share a fingerprint — when in doubt, include it.
@@ -164,63 +166,6 @@ def config_signature(config) -> dict:
     return sig
 
 
-# ------------------------------------------------ copied from analysis/rules
-
-def serialize_rule(xfer) -> dict:
-    """Canonical JSON-able description of a GraphXfer: structure, static
-    params, constraint specs where the JSON compiler recorded them, and
-    opaque-constraint counts (a copy of the JAX package's
-    `analysis/rules.serialize_rule`; ROADMAP A9 ports the module)."""
-    src_ix = {op: i for i, op in enumerate(xfer.src_ops)}
-    dst_ix = {op: i for i, op in enumerate(xfer.dst_ops)}
-
-    def ref(tx):
-        if tx.op is None:
-            return ["$", tx.idx]
-        if tx.op in src_ix:
-            return ["src", src_ix[tx.op], tx.idx]
-        if tx.op in dst_ix:
-            return ["dst", dst_ix[tx.op], tx.idx]
-        return ["?", -1, tx.idx]
-
-    def static_params(op):
-        mk = getattr(op, "make_params", None)
-        if mk is None:
-            return ""
-        try:
-            return repr(mk({}))
-        except Exception:
-            return "<match-dependent>"
-
-    return {
-        "name": xfer.name,
-        "src": [{
-            "op": op.op_type.name,
-            "in": [ref(t) for t in op.inputs],
-            "outs": len(op.outputs),
-            "constraints": (list(getattr(op, "_constraint_specs", ()))
-                            or len(op.constraints)),
-        } for op in xfer.src_ops],
-        "dst": [{
-            "op": op.op_type.name,
-            "in": [ref(t) for t in op.inputs],
-            "match": src_ix.get(op.match_src, -1),
-            "params": static_params(op),
-        } for op in xfer.dst_ops],
-        "map": [[ref(s), ref(d)] for s, d in xfer.mapped_outputs],
-    }
-
-
-def rules_fingerprint(xfers) -> str:
-    """Content hash of a rule set, order-free (entries sorted): a
-    changed/added/removed rule changes the plan address (a copy of the
-    JAX package's `analysis/rules.rules_fingerprint`)."""
-    entries = sorted(
-        json.dumps(serialize_rule(x), sort_keys=True) for x in xfers)
-    return hashlib.sha256(
-        json.dumps({"v": 1, "rules": entries}).encode()).hexdigest()
-
-
 def rules_signature(graph, mesh_axes: dict, config) -> str:
     """Content fingerprint of the substitution rule set THIS compile's
     search would rewrite with: the generated registry for this (mesh,
@@ -238,10 +183,13 @@ def rules_signature(graph, mesh_axes: dict, config) -> str:
     src_digest = _file_digest(getattr(_subs, "__file__", ""))
     try:
         if config.substitution_json_path:
-            xfers = _subs.load_rule_collection(
+            # fingerprint only: the search's own load site is the
+            # verifying gate for this file
+            xfers = _subs.load_rule_collection(  # fflint: ok unverified_rule_load
                 config.substitution_json_path, _MeshShim)
         else:
-            xfers = _subs.generate_all_pcg_xfers(_MeshShim, config, graph)
+            xfers = _subs.generate_all_pcg_xfers(  # fflint: ok unverified_rule_load
+                _MeshShim, config, graph)
         return f"{rules_fingerprint(xfers)}:{src_digest}"
     except Exception as e:
         # an unloadable rule file is its own distinct state (the compile

@@ -27,41 +27,6 @@ from ..telemetry import log as fflog
 _PLAN_VERSION = 1
 
 
-def strategy_json_problems(strategy_json: dict) -> list[str]:
-    """Graph-free sanity check of a serialized Strategy (the plan-cache
-    entry format): per-assignment axis reuse is detectable from the JSON
-    alone, so the cache can reject a poisoned entry without decoding it
-    against a graph. A copy of the JAX package's
-    `analysis/sharding.strategy_json_problems` (ROADMAP A9 ports the
-    module), each finding as its text."""
-    findings: list[str] = []
-
-    def reuse(ax, seen, dim, where):
-        findings.append(f"ERROR axis_reuse [{where}]: axis {ax!r} on dims "
-                        f"{seen[ax]} and {dim}")
-
-    for name, ov in (strategy_json.get("nodes") or {}).items():
-        for idx, assignment in (ov.get("outputs") or {}).items():
-            seen: dict = {}
-            for dim, entry in enumerate(assignment or []):
-                for ax in (entry or []):
-                    if ax in seen:
-                        reuse(ax, seen, dim, f"{name}:output{idx}")
-                    else:
-                        seen[ax] = dim
-        for wname, entries in (ov.get("weights") or {}).items():
-            seen = {}
-            for dim, entry in enumerate(entries or []):
-                axes = (entry if isinstance(entry, list)
-                        else [entry] if entry is not None else [])
-                for ax in axes:
-                    if ax in seen:
-                        reuse(ax, seen, dim, f"{name}:{wname}")
-                    else:
-                        seen[ax] = dim
-    return findings
-
-
 class PlanCache:
     def __init__(self, directory: str):
         self.directory = os.path.join(os.path.abspath(directory), "plans")
@@ -95,6 +60,8 @@ class PlanCache:
         # invalid placement detectable from the JSON alone; a poisoned or
         # hand-edited entry reads as a miss here, before Strategy.validate
         # sees it against the graph downstream
+        from ..analysis.sharding import strategy_json_problems
+
         problems = strategy_json_problems(entry["strategy"])
         if problems:
             fflog.warning(

@@ -10,8 +10,8 @@ cross-package checks.
   the makespan rule (`verify_report_total`), searched (the joint search
   over a virtual 4 x 2 mesh, overlapped sync too) and data-parallel
   fallback; the tiny LM's report and the searched MLP's equal JAX's key
-  for key and value for value (prices to 1e-9), but JAX's `analysis`
-  section (ffcheck, ROADMAP A9);
+  for key and value for value (prices to 1e-9), the `analysis` section
+  (ffcheck) finding for finding;
 - fit with diagnostics: an injected NaN gives the nan_loss alert and, in
   --health-abort-on, HealthAbort with the artifacts flushed; a clean run
   no health alert; without --diagnostics no report and no alerts;
@@ -356,10 +356,21 @@ def _searched_report(pkg, tmp_path, argv=()):
     return explain.write_strategy_report(ff, str(d)), d
 
 
+def _finding_keys(analysis: dict) -> list:
+    return [(f["pass"], f["severity"], f["code"], f.get("where", ""))
+            for f in analysis["findings"]]
+
+
 def _assert_reports_match(j, t):
-    """Key for key (but JAX's `analysis`), and value for value: strings
-    and ints equal, prices to 1e-9."""
-    assert set(j) - {"analysis"} == set(t)
+    """Key for key, and value for value: strings and ints equal, prices
+    to 1e-9; the `analysis` sections by their summary and each finding's
+    (pass, severity, code, where) (messages, details and the verify's
+    elapsed time are each package's own)."""
+    assert set(j) == set(t)
+    ja, ta = j["analysis"], t["analysis"]
+    for k in ("errors", "warnings", "info", "passes_run"):
+        assert ja[k] == ta[k], k
+    assert _finding_keys(ja) == _finding_keys(ta)
 
     def same(a, b, where):
         if isinstance(a, dict):
@@ -376,7 +387,8 @@ def _assert_reports_match(j, t):
             assert a == b, where
 
     for k in t:
-        same(j[k], t[k], k)
+        if k != "analysis":
+            same(j[k], t[k], k)
 
 
 @pytest.mark.parametrize("overlap", [False, True],
@@ -462,14 +474,15 @@ def _tiny_lm(pkg, argv=()):
 
 def test_tiny_lm_strategy_report_matches_jax(tmp_path):
     """The tiny LM's report, written at compile by --diagnostics in each
-    package: the JAX package's, key for key and value for value, but its
-    `analysis` section (ROADMAP A9)."""
+    package: the JAX package's, key for key and value for value, its
+    `analysis` section finding for finding."""
     reps = {}
     for pkg in PKGS:
         tdir = tmp_path / pkg
         _tiny_lm(pkg, ["--telemetry-dir", str(tdir), "--diagnostics"])
         reps[pkg] = json.load(open(tdir / "strategy_report.json"))
     assert "analysis" in reps["flexflow_tpu"]
+    assert "analysis" in reps["flexflow_tpu_torch"]
     _assert_reports_match(reps["flexflow_tpu"], reps["flexflow_tpu_torch"])
     assert verify_report_total(reps["flexflow_tpu_torch"]) == pytest.approx(
         reps["flexflow_tpu_torch"]["total_predicted_s"], rel=1e-9)

@@ -503,19 +503,47 @@ def test_mesh_resume_leg_passes_on_four_cpu_ranks():
     """Phase 19's torchrun leg (`chip_smoke.mesh_resume_check`) on 4 gloo
     ranks, at 2 layers of width 256: saved at dp 4 under stage 3 (each
     rank holding 1/4 of a master), restored at dp 2 x tp 2 and on one
-    rank with the masters bit-equal to the saved ones, the next 2 steps
-    held to one rank's by MESH_TOL; a SIGTERM to rank 0 alone stops every
-    rank at step 3 with one final snapshot."""
+    rank through the fftrans gate (the transition priced, no error) with
+    the masters bit-equal to the saved ones, the next 2 steps held to one
+    rank's by MESH_TOL; a SIGTERM to rank 0 alone stops every rank at
+    step 3 with one final snapshot."""
     outs = _spawn(mesh_resume_job)
     for o in outs:
         assert o["failures"] == [], o["failures"]
         c = o["checks"]
         assert c["restored one rank"]["bitwise_equal"]
         assert c["restored dp 2 x tp 2"]["bitwise_equal"]
+        for name in ("one rank", "dp 2 x tp 2"):
+            t = c[f"transition {name}"]
+            assert t["set"] and t["errors"] == 0 and t["predicted_s"] > 0
         assert c["dp 2 x tp 2 after restore"]["within_tolerance"]
         assert c["sigterm to rank 0"]["stopped"] == [3] * WORLD
         local, whole = o["numbers"]["local_of_whole"]
         assert o["numbers"]["saved_stage"] == 3 and local * 4 == whole
+
+
+def mesh_barrier_job(rank):
+    import chip_smoke
+    from flexflow_tpu_torch.models import TransformerLMConfig
+
+    lm = TransformerLMConfig(vocab_size=512, hidden_size=256, num_heads=4,
+                             num_layers=2, sequence_length=128)
+    return chip_smoke.mesh_barrier_check("cpu", lm)
+
+
+def test_mesh_barrier_leg_passes_on_four_cpu_ranks():
+    """Phase 21(e)'s torchrun leg (`chip_smoke.mesh_barrier_check`) on 4
+    gloo ranks: --spmd-barrier at dp 2 x tp 2 agrees on every rank; a
+    numerics policy planted on rank 2 alone raises SPMDDivergenceError
+    on every rank (rank 2 naming the component, the others in lockstep)
+    and no rank hangs."""
+    outs = _spawn(mesh_barrier_job)
+    for o in outs:
+        assert o["failures"] == [], o["failures"]
+        assert o["checks"]["lockstep"] == {"status": "ok",
+                                           "one_fingerprint": True}
+        raised = o["checks"]["planted"]["raised"]
+        assert raised["peer_mismatch"] is (o["rank"] != 2)
 
 
 def test_mesh_smoke_checks_pass_on_four_cpu_ranks():

@@ -666,10 +666,14 @@ def test_deprecated_checkpoint_api_roundtrips(tmp_path):
 
 def test_restore_rejects_architecture_mismatch(tmp_path):
     """A leaf of another shape raises naming it, before any tensor of the
-    model is written."""
+    model is written. As in the JAX package, the refusal comes from the
+    fftrans restore gate (PlanVerificationError naming the leaf and
+    state_shape_change); CheckpointCorruptError stays the backstop under
+    --no-verify-plan."""
     from flexflow_tpu_torch import (
         ActiMode, FFConfig, FFModel, LossType, MetricsType, SGDOptimizer,
     )
+    from flexflow_tpu_torch.analysis import PlanVerificationError
     from flexflow_tpu_torch.resilience import CheckpointCorruptError
 
     ff = _mlp()
@@ -687,7 +691,8 @@ def test_restore_rejects_architecture_mismatch(tmp_path):
                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                   metrics=[MetricsType.METRICS_ACCURACY])
     before = _state(other)
-    with pytest.raises(CheckpointCorruptError, match="shape"):
+    with pytest.raises((CheckpointCorruptError, PlanVerificationError),
+                       match="shape"):
         other.load_checkpoint(path)
     _assert_same_state(before, _state(other))
 

@@ -1,6 +1,6 @@
 """The port's ffscope (`flexflow_tpu_torch/scope/`: op-grain profiling
 over torch.profiler, the flight recorder, the hang watchdog): the twin of
-`tests/test_scope.py` (but its two lint tests, ROADMAP A9), on the CPU.
+`tests/test_scope.py`, on the CPU.
 
 - a synthetic Kineto trace (the JSON `torch.profiler` exports) decodes
   and attributes device time to PCG ops through `record_function`
@@ -20,7 +20,9 @@ over torch.profiler, the flight recorder, the hang watchdog): the twin of
   stall in Python is interrupted;
 - an injected single-op slowdown yields one op-grain drift advisory and
   the recalibration re-measures only that op;
-- the serving engine's profile_step and --xprof-dir.
+- the serving engine's profile_step and --xprof-dir;
+- the fflint `unnamed_op_scope` rule flags an op dispatch outside a
+  `record_function` range, and the port's tree has none.
 """
 
 import json
@@ -668,3 +670,51 @@ def test_config_flags_parse():
         assert cfg.watchdog_multiplier == 12.0
         assert cfg.watchdog_abort is True
         assert cfg.flight_events == 128
+
+
+# ----------------------------------------------------------------- lint
+
+def test_lint_unnamed_op_scope_matrix():
+    """A dispatch outside a record_function range flags (the port's
+    attribution joins kernels to those ranges), inside one (or pragma'd)
+    not; the range must wrap this dispatch, not live past a def; the path
+    gate exempts the calibration harness."""
+    from flexflow_tpu_torch.analysis.lint import lint_source
+
+    def lint(src, path="flexflow_tpu_torch/executor.py"):
+        return [f.code for f in lint_source(src, path=path,
+                                            select=("unnamed_op_scope",))]
+
+    bare = ("def fwd(node, ins):\n"
+            "    return node.op_def.forward(node.params, ins, {}, None, ctx)\n")
+    assert lint(bare) == ["unnamed_op_scope"]
+    ranged = ("def fwd(node, ins):\n"
+              "    with torch.profiler.record_function(node.name):\n"
+              "        return node.op_def.forward(node.params, ins, {},\n"
+              "                                   None, ctx)\n")
+    assert lint(ranged) == []
+    pragma = ("def fwd(node, ins):\n"
+              "    return node.op_def.forward(  # fflint: ok unnamed_op_scope\n"
+              "        node.params, ins, {}, None, ctx)\n")
+    assert lint(pragma) == []
+    nested = ("def outer(self, node, ins):\n"
+              "    with self._scope(node.name):\n"
+              "        def run(t):\n"
+              "            return node.op_def.forward(node.params, t, {},\n"
+              "                                       None, ctx)\n"
+              "        return run(ins)\n")
+    assert lint(nested) == ["unnamed_op_scope"]
+    assert lint(bare, path="flexflow_tpu_torch/search/cost_model.py") == []
+    assert lint(bare, path="flexflow_tpu_torch/ops/core.py") == [
+        "unnamed_op_scope"]
+
+
+def test_lint_repo_sweep_clean():
+    """Every op dispatch of the port is inside a range or carries a
+    justified pragma."""
+    from flexflow_tpu_torch.analysis.lint import lint_paths
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    findings = lint_paths([os.path.join(root, "flexflow_tpu_torch")],
+                          select=("unnamed_op_scope",))
+    assert findings == [], [str(f) for f in findings]

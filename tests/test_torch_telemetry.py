@@ -428,10 +428,9 @@ def test_dataloader_spans(tmp_path):
 
 
 # JAX records of subsystems the port does not have yet, by ROADMAP item
-_NOT_PORTED_KINDS = {
-    "weight_update_decision": "A6 (weight-update sharding)",
-    "plan_verify": "A9 (analysis/ plan verification)",
-}
+# (none since A9 brought plan_verify and the compile's
+# weight_update_decision)
+_NOT_PORTED_KINDS: dict = {}
 # the manifest's device fields: JAX's jax_backend, the port's torch and
 # CUDA versions and device kind (and `card` on the card)
 _JAX_MANIFEST_ONLY = {"jax_backend"}

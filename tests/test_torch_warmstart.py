@@ -429,7 +429,7 @@ def _tiny_lm(pkg):
 
 def test_graph_signature_and_rules_fingerprint_match_jax():
     """The two packages' graph_signature agree node for node on the tiny
-    LM, and the copied rules_fingerprint gives the JAX hash on the
+    LM, and the ported rules_fingerprint gives the JAX hash on the
     default rule set of a (2, 2) mesh."""
     import flexflow_tpu.search.substitution as jsubs
     from flexflow_tpu.analysis.rules import rules_fingerprint as jrules
@@ -496,3 +496,80 @@ def test_warm_strategy_report_describes_adopted_plan(warm):
     assert cold["search_result"] and not warm0["search_result"]
     assert warm0["replay_total"] == pytest.approx(warm0["total"], rel=1e-9)
     assert any(c.startswith("tp") for c in cold["configs"].values())
+
+
+REWRITE_ARGV = ["--mesh", "1,2,1,1", "--budget", "6",
+                "--enable-parameter-parallel"]
+
+
+def rewritten_report_job(rank, tmp):
+    """The tiny LM on (1, 2), cold then warm, with --diagnostics: on the
+    CPU machine model the joint search's winner is a rewritten graph
+    (parallel ops inserted, nodes pinned to "xfer" configs), and compile
+    applies its placements to the graph as built. Returns, per compile,
+    the report's per-op configs and analysis findings and the running
+    graph's placements."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models import (
+        TransformerLMConfig,
+        build_transformer_lm,
+    )
+    from flexflow_tpu_torch.search.substitution import _logical_assignment
+    from flexflow_tpu_torch.telemetry import deactivate
+
+    ws = os.path.join(tmp, "ws")
+    out = {}
+    for tag in ("cold", "warm"):
+        tdir = os.path.join(tmp, f"diag_{tag}_{rank}")
+        sys.argv = ["test", *REWRITE_ARGV, "--warmstart-dir", ws,
+                    "--telemetry-dir", tdir, "--diagnostics"]
+        config = FFConfig(device="cpu")
+        config.batch_size = 4
+        ff = FFModel(config)
+        build_transformer_lm(ff, TransformerLMConfig(
+            vocab_size=64, hidden_size=64, num_heads=2, num_layers=2,
+            sequence_length=16, attention_impl="xla"), batch_size=4)
+        ff.compile(optimizer=SGDOptimizer(lr=0.05),
+                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+        deactivate()
+        rep = json.load(open(os.path.join(tdir, "strategy_report.json")))
+        sr = ff._search_result
+        out[tag] = {
+            "mode": rep["mode"], "plan_source": rep["plan_source"],
+            "rewritten": sr is not None and sr[0].graph is not ff.graph,
+            "graph_nodes": sorted(n.name for n in ff.graph.topo_order()),
+            "configs": {o["name"]: o["config"] for o in rep["ops"]},
+            "placements": {
+                n.name: [[list(a) for a in _logical_assignment(pt)]
+                         for pt in n.outputs]
+                + [sorted((k, repr(v)) for k, v in n.weight_axes.items())]
+                for n in ff.graph.topo_order()},
+            "total": rep["total_predicted_s"],
+            "analysis": [(f["pass"], f["severity"], f["code"],
+                          f.get("where", ""))
+                         for f in rep["analysis"]["findings"]],
+        }
+    return out
+
+
+def test_rewritten_winner_reports_the_graph_that_runs(tmp_path):
+    """C4: after a joint search whose winner rewrote the graph, the cold
+    report describes the graph as built with the placements compile
+    applied (no node of the rewritten graph), and agrees with the warm
+    report of the same plan node for node: config names (some of them
+    the rewrite's "xfer"), placements, the predicted total and the
+    analysis section."""
+    from flexflow_tpu_torch.distributed import spawn
+
+    outs = spawn(rewritten_report_job, 2, str(tmp_path), timeout=300)
+    cold, warm = outs[0]["cold"], outs[0]["warm"]
+    assert cold["rewritten"] and cold["plan_source"] == "search"
+    assert warm["plan_source"] == "cache" and not warm["rewritten"]
+    assert cold["mode"] == "searched" and warm["mode"] == "replayed"
+    assert set(cold["configs"]) <= set(cold["graph_nodes"])
+    assert "xfer" in cold["configs"].values()
+    assert warm["configs"] == cold["configs"]
+    assert warm["placements"] == cold["placements"]
+    assert warm["total"] == pytest.approx(cold["total"], rel=1e-9)
+    assert warm["analysis"] == cold["analysis"]
+    assert outs[1]["cold"]["configs"] == cold["configs"]
