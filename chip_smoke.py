@@ -229,7 +229,21 @@ Phases, each fatal on failure:
      3's, metrics_summary's TTFT / TBT / queue-wait / end-to-end
      percentiles, the engine's profile_step satisfying its identity; (g)
      --profiling: the per-op table of lm-base at 1 layer timed on the
-     card, headed by it.
+     card, headed by it;
+ 22. elastic re-planning and in-process migration on lm-base at full
+     width: (a) fit --elastic with 20(d)'s planted prediction: one drift
+     decision with both payoff sides and the plan's origin, one more
+     capture if it migrated, the masters bit-equal to the same run
+     without --elastic, K1, K4 and K5-K7 a replay the same counts
+     before and after; (b) migrate_state between two compiled models,
+     with and without donation: predicted vs measured seconds, the peak
+     allocated, the masters landed bit-equal, the fidelity entry where
+     the move was priced; (c) --elastic-dry-run: a decision, the
+     executor kept; (d) phase 3's paged serving re-planned with
+     replan_mesh((1, 1, 1, 1)) after 8 steps: every stream equal to
+     phase 3's, K3 from the rebuilt graphs, the wall time split into
+     compile, migration, rebuild and recapture; 2 devices refused
+     naming A11.
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
@@ -252,7 +266,15 @@ rank at the same step; then phase 20's leg (`mesh_diag_check`): lm-base at 4 lay
 with --diagnostics, a NaN in rank 1's forward alone and a rule firing on
 rank 1 alone (per step and in chunks of 2) stopping every rank at the
 same step with HealthAbort, and a 3 s stall inside rank 2's step under
---watchdog-timeout 1 whose heartbeats name rank 2;
+--watchdog-timeout 1 whose heartbeats name rank 2; then phase 21's leg
+(`mesh_barrier_check`); then C5's (`mesh_c5_check`): a HealthAbort and
+an SPMDDivergenceError out of a captured fit on every rank, each caught,
+then no stream capturing, the aborted step freed, a fresh compile
+replaying, an all-reduce returning; then phase 22's (`mesh_elastic_check`):
+lm-base at 12 layers, dp N at stage 2, a forced shrink onto the first
+N/2 ranks (the others parked) bit-equal to a checkpoint-restart there, a
+regrow to dp N by the payoff, a count past the world declined, every rank
+leaving at the same step;
 rank 0 prints every rank's runs (the chosen mesh
 and plan among them), the card line and {"ok": ..., "world": N} last.
 
@@ -5307,6 +5329,606 @@ def log_phase21(p: dict):
     log(f"  phase 21 took {p['wall_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 22
+
+P22_HORIZON = "1000"  # --replan-horizon-steps of 22(a)
+# --replan-cooldown-steps of 22(a) and (c): the monitor's first advisory
+# can come at step 8 (steps 1-2 warm up and capture, 5 timed samples of
+# warm-up), which this admits; a second one needs 5 timed steps of the
+# re-planned step, more than the run has left
+P22_COOLDOWN = "6"
+
+
+def p22_counts(run) -> list:
+    """The kernel launches a replay of each graph of a captured step
+    adds, by graph."""
+    return [{k: d[0] for k, d in g.counts.items()}
+            for g in run._graphs.values() if g is not None]
+
+
+def elastic_drift_phase(root: str, base: dict) -> dict:
+    """22(a): lm-base through fit with --elastic and phase 20(d)'s
+    planted prediction (half phase 6's step): exactly one re-plan
+    decision, drift-triggered, carrying both payoff sides and the plan's
+    origin; if it migrated, the new executor's train step captured once
+    (one more capture), else the same step object; the masters after the
+    run bit-equal to the same run without --elastic (the plan re-searched
+    on one card is the running one); K1, K4 and K5-K7 a replay of the
+    step before and after the re-plan the same counts, each launched."""
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    ctl = build_train_lm("bf16")
+    p20_fit(ctl, steps)
+    want = p20_masters(ctl)
+    del ctl
+    p20_free()
+    tdir = os.path.join(root, "a")
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", tdir, "--diagnostics", "--calibrate", "4",
+        "--drift-threshold", P20_DRIFT, "--elastic",
+        "--replan-cooldown-steps", P22_COOLDOWN, "--replan-horizon-steps",
+        P22_HORIZON))
+    ff.get_diagnostics().drift.set_prediction(base["median_step_ms"] / 2e3)
+    first, old_ex = ff.executor.build_train_step(), ff.executor
+    # a replay's launches of each train step the run used, read at each
+    # step edge (a migration releases the old step's graphs)
+    replays = {}
+
+    def hook(step):
+        run = ff.executor._train_step
+        replays.setdefault(id(run), []).append(p22_counts(run))
+    ff.set_fault_hook(hook)
+    reset_counters()
+    p20_fit(ff, steps)
+    ff.set_fault_hook(None)
+    launches = {k: v.launches for k, v in counters().items() if v.launches}
+    decs = ff._elastic_decisions
+    require(len(decs) == 1, f"22(a): {len(decs)} decisions: {decs}")
+    d = decs[0]
+    require(d["trigger"] == "drift" and "lhs_s" in d and "rhs_s" in d
+            and "plan_origin" in d, f"22(a): decision {d}")
+    second = ff.executor._train_step
+    migrated = d["decision"] == "migrated"
+    if migrated:
+        require(ff.executor is not old_ex and second is not first
+                and (first.captures, second.captures) == (1, 1),
+                f"22(a): migrated, captures {first.captures} / "
+                f"{second.captures}")
+    else:
+        require(ff.executor is old_ex and second is first
+                and first.captures == 1, f"22(a): {d['decision']} but the "
+                f"step changed or captured {first.captures} times")
+    differ = p20_differ(want, p20_masters(ff))
+    require(not differ, f"22(a): masters differ from the run without "
+                        f"--elastic at {differ[:4]}")
+    per_replay = [replays[id(first)][-1], replays[id(second)][-1]]
+    require(all(len(c) == 1 for c in per_replay)
+            and per_replay[0] == per_replay[1],
+            f"22(a): a replay's launches before / after: {per_replay}")
+    need = step_launches(lm_config().num_layers, fused=False)
+    got = {k: per_replay[1][0].get(k, 0) for k in need}
+    require(all(launches.get(k, 0) > 0 for k, n in need.items() if n)
+            and got == need,
+            f"22(a): launches {launches}, a replay {got} (want {need})")
+    out = {"decision": {k: d.get(k) for k in (
+               "step", "trigger", "decision", "lhs_s", "rhs_s",
+               "predicted_migration_s", "fidelity_ratio",
+               "benefit_s_per_step", "horizon_steps", "plan_origin",
+               "research_s", "migration_measured_s", "migration_wall_s",
+               "measured_ema_s", "old_predicted_step_s",
+               "new_predicted_step_s", "total_s")},
+           "captures": [first.captures, second.captures],
+           "launches": launches, "per_replay": per_replay[1][0]}
+    del ff, first, second, old_ex
+    p20_free()
+    return out
+
+
+def migrate_phase(root: str) -> dict:
+    """22(b): `migrate_state` between two compiled lm-base models (the
+    source after 2 steps), without and with donation: fftrans's
+    predicted seconds beside the measured, the peak
+    max_memory_allocated during each, the masters landed bit-equal. The
+    warm-start DB holds a fidelity entry under the card's device kind
+    exactly where the move was priced (a move on one card is local
+    slices, priced 0 s, as the JAX package prices it: its measured /
+    predicted ratio has no value, so none is recorded; the torchrun
+    elastic leg's stage-2 shrink is priced and records one)."""
+    import torch
+
+    from flexflow_tpu_torch.elastic.payoff import _fidelity_key
+    from flexflow_tpu_torch.resilience import migrate_state
+    from flexflow_tpu_torch.warmstart.calibration_db import (
+        CalibrationDB, device_key, serialize_key)
+
+    wdir = os.path.join(root, "warm")
+    src = build_train_lm("bf16")
+    p20_fit(src, 2)
+    want = p20_masters(src)
+    out = {}
+    for donate in (False, True):
+        dst = build_train_lm("bf16", flags=("--warmstart-dir", wdir))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sec = migrate_state(src, dst, donate=donate)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        differ = p20_differ(want, p20_masters(dst))
+        require(not differ and sec["analysis"]["errors"] == 0,
+                f"22(b) donate={donate}: {sec['analysis']} differ "
+                f"{differ[:4]}")
+        out["donate" if donate else "copy"] = {
+            "predicted_s": sec["predicted_s"],
+            "measured_s": sec["measured_s"], "wall_s": wall,
+            "transfers": len(sec["transfers"]),
+            "allocated_before": before, "peak": peak,
+            "peak_over_before": peak - before,
+            "allocated_after": torch.cuda.memory_allocated()}
+        del dst
+    require(src._compiled is False, "22(b): the donated source still "
+                                    "counts as compiled")
+    db = CalibrationDB(wdir, torch.device("cuda"))
+    entry = (db._read().get("devices", {}).get(device_key(db.device), {})
+             .get(serialize_key(_fidelity_key())))
+    priced = [out[k]["predicted_s"] > 0 for k in ("copy", "donate")]
+    require(entry == (None if not any(priced)
+                      else [entry[0], float(sum(priced))]),
+            f"22(b): priced {priced}, fidelity entry in the warm-start "
+            f"DB {entry}")
+    out["fidelity_entry"] = {"device": device_key(db.device),
+                             "priced": priced, "entry": entry}
+    del src
+    p20_free()
+    return out
+
+
+def elastic_dry_run_phase(root: str, base: dict) -> dict:
+    """22(c): --elastic --elastic-dry-run with the planted prediction:
+    the decision recorded as a dry run, the executor object and its
+    captured step unchanged."""
+    ff = build_train_lm("bf16", flags=(
+        "--telemetry-dir", os.path.join(root, "c"), "--diagnostics",
+        "--drift-threshold", P20_DRIFT, "--elastic", "--elastic-dry-run",
+        "--replan-cooldown-steps", P22_COOLDOWN))
+    ff.get_diagnostics().drift.set_prediction(base["median_step_ms"] / 2e3)
+    first, ex = ff.executor.build_train_step(), ff.executor
+    p20_fit(ff, 9)
+    decs = ff._elastic_decisions
+    require(len(decs) == 1 and decs[0]["decision"] == "dry_run"
+            and ff.executor is ex and ex._train_step is first
+            and first.captures == 1,
+            f"22(c): {decs}, executor kept {ff.executor is ex}, captures "
+            f"{first.captures}")
+    out = {k: decs[0].get(k) for k in ("step", "would_migrate", "lhs_s",
+                                        "rhs_s", "total_s")}
+    del ff, first, ex
+    p20_free()
+    return out
+
+
+def elastic_serve_phase(prompts: list, want: list) -> dict:
+    """22(d): phase 3's paged lm-base serving (8 slots, 16 prompts):
+    `replan_mesh((1, 1, 1, 1))` after 8 steps with requests in flight;
+    every token stream equal to phase 3's undisturbed run, K3 launching
+    from the rebuilt step's graphs; the re-plan's wall time split into
+    the decode compile, the migration, the rebuild and the recapture (the
+    steps after it that warmed up or captured a width); a re-plan to a
+    decode mesh of 2 devices refused naming A11."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    ff = build_lm()
+    eng = ff.serve(kv_layout="paged", max_new_tokens=NEW_TOKENS)
+    reqs = [eng.submit(p) for p in prompts]
+    c = counters()
+    reset_counters()
+    for _ in range(8):
+        eng.step()
+    flight = sum(not r.finished for r in reqs)
+    k3 = c["paged_flash_decode_attention"].launches
+    old = eng._step_fn.captured
+    dec = eng.replan_mesh((1, 1, 1, 1))
+    run = eng._step_fn.captured
+    recapture_s, steps = 0.0, 0
+    while not all(r.finished for r in reqs):
+        t0 = time.perf_counter()
+        eng.step()
+        steps += 1
+        if run.last_call in ("warm-up", "capture"):
+            recapture_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in c.items() if v.launches}
+    streams = [list(r.generated) for r in reqs]
+    require(flight > 0 and dec["decision"] == "migrated",
+            f"22(d): {flight} in flight, {dec}")
+    require(streams == want, "22(d): token streams after the re-plan "
+                             "differ from phase 3's")
+    require(run is not old and run.captures > 0
+            and launches.get("paged_flash_decode_attention", 0) > k3
+            and launches.get("layer_norm_fwd", 0) > 0,
+            f"22(d): rebuilt step captures {run.captures}, K3 {k3} -> "
+            f"{launches}")
+    refused = None
+    try:
+        eng.replan_mesh((2, 1, 1, 1))
+    except NotImplementedError as e:
+        refused = str(e)
+    require(refused is not None and "A11" in refused
+            and eng.replan_decisions[-1]["decision"] == "failed",
+            f"22(d): a decode mesh of 2 devices: {refused}")
+    out = {"in_flight": flight, "steps_after": steps,
+           "captures_after": run.captures, "launches": launches,
+           "refused": refused,
+           "split_s": {"compile": dec["compile_s"],
+                       "migration": dec["migrate_s"],
+                       "rebuild": dec["rebuild_s"],
+                       "recapture": recapture_s},
+           "total_s": dec["total_s"],
+           "migration": {k: dec.get(k) for k in (
+               "predicted_migration_s", "migration_measured_s")}}
+    del eng, ff, run, old
+    p20_free()
+    return out
+
+
+def phase22(train: dict, prompts: list, paged_streams: list) -> dict:
+    """Phase 22: elastic re-planning and in-process migration on lm-base
+    at full width: (a) a drift re-plan through fit --elastic, (b)
+    migrate_state directly, (c) --elastic-dry-run, (d) the serving
+    engine's decode re-plan mid-decode. Each check fatal."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p22_")
+    t0 = time.perf_counter()
+    try:
+        out, took = {}, {}
+        for key, fn, args in (("a", elastic_drift_phase, (root, train)),
+                              ("b", migrate_phase, (root,)),
+                              ("c", elastic_dry_run_phase, (root, train)),
+                              ("d", elastic_serve_phase,
+                               (prompts, paged_streams))):
+            t = time.perf_counter()
+            out[key] = fn(*args)
+            took[key] = time.perf_counter() - t
+        out["took_s"] = took
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        p20_free()
+
+
+def log_phase22(p: dict):
+    a, b, c, d = p["a"], p["b"], p["c"], p["d"]
+    ad = a["decision"]
+    log(f"  (a) one {ad['trigger']} decision at step {ad['step']}: "
+        f"{ad['decision']} (lhs {ad['lhs_s']:.6g} s = predicted migration "
+        f"{ad['predicted_migration_s']:.6g} s x fidelity "
+        f"{ad['fidelity_ratio']:.4g}; rhs {ad['rhs_s']:.6g} s = benefit "
+        f"{ad['benefit_s_per_step']:.6g} s/step x {ad['horizon_steps']}), "
+        f"plan origin {ad['plan_origin']}, re-search {ad['research_s']:.3f} "
+        f"s, migration {ad['migration_measured_s']} s measured, total "
+        f"{ad['total_s']:.3f} s; captures {a['captures']}; a replay's "
+        f"launches before = after {a['per_replay']}; masters bit-equal to "
+        f"the run without --elastic")
+    for k in ("copy", "donate"):
+        m = b[k]
+        log(f"  (b) migrate_state ({k}): {m['transfers']} transfers, "
+            f"predicted {m['predicted_s']:.6g} s, measured "
+            f"{m['measured_s']:.6g} s (wall {m['wall_s']:.4f} s); "
+            f"allocated {m['allocated_before']} B before, peak "
+            f"{m['peak']} B (+{m['peak_over_before']}), after "
+            f"{m['allocated_after']} B")
+    log(f"  (b) fidelity in the warm-start DB: {b['fidelity_entry']}")
+    log(f"  (c) dry run at step {c['step']}: would migrate "
+        f"{c['would_migrate']} (lhs {c['lhs_s']:.6g} s, rhs "
+        f"{c['rhs_s']:.6g} s), executor and step kept")
+    s = d["split_s"]
+    log(f"  (d) replan_mesh((1,1,1,1)) with {d['in_flight']} requests in "
+        f"flight: {d['total_s']:.3f} s = compile {s['compile']:.3f} + "
+        f"migration {s['migration']:.3f} + rebuild {s['rebuild']:.4f}, "
+        f"then recapture {s['recapture']:.3f} s over the next steps; "
+        f"migration {d['migration']}; streams equal to phase 3's; K3 from "
+        f"the rebuilt graphs ({d['captures_after']} captures, launches "
+        f"{d['launches']}); 2 devices refused: {d['refused'][:80]}")
+    log(f"  phase 22 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------ the mesh: C5
+
+def mesh_model(device: str, lm, mesh: int, flags: tuple = (),
+               ranks=None, update: str = "off"):
+    """`lm` in bf16 at dp `mesh` on this rank's `device` (on `ranks` of
+    the world: a sub-mesh, the others parked), SGD, the update
+    replicated or sharded (`update`: --weight-update-sharding)."""
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+
+    cfg = FFConfig(device=device)
+    cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED), "-b",
+                    str(TRAIN_BATCH), "--mesh", f"{mesh},1,1,1",
+                    f"--weight-update-sharding={update}", *flags])
+    ff = FFModel(cfg)
+    if ranks is not None:
+        ff._mesh_ranks = list(ranks)
+    STANDARD.into(ff, lm)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY])
+    return ff
+
+
+def mesh_data(lm, steps: int):
+    x, y = train_batch(lm.vocab_size, TRAIN_BATCH, lm.sequence_length)
+    return ({k: np.concatenate([v] * steps) for k, v in x.items()},
+            np.concatenate([y] * steps))
+
+
+def mesh_c5_check(device: str, lm) -> dict:
+    """C5 on this rank (torchrun): a HealthAbort (a rule firing at step 3
+    on every rank, --health-abort-on) and an SPMDDivergenceError (raised
+    by every rank's fault hook after step 3) out of a captured fit at dp
+    world, each caught; then, in this process: no stream left capturing,
+    the aborted model's captured step (and with it its CUDA graphs)
+    freed by a collection, a fresh compile capturing and replaying its
+    step, and an all-reduce over the world returning the world size."""
+    import tempfile
+    import weakref
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.analysis.spmd import SPMDDivergenceError
+    from flexflow_tpu_torch.diagnostics import HealthAbort
+    from flexflow_tpu_torch.diagnostics.health import (
+        Alert, Rule, default_rules)
+    from flexflow_tpu_torch.distributed import broadcast_json, gather_json
+    from flexflow_tpu_torch.telemetry import deactivate
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    on_card = torch.device(device).type == "cuda"
+    root = broadcast_json({"root": tempfile.mkdtemp(prefix="mesh_c5_")}
+                          if rank == 0 else None)["root"]
+    xs, ys = mesh_data(lm, 6)
+    failures, checks = [], {}
+    t0 = time.perf_counter()
+
+    class AtStep3(Rule):
+        name = "at_step_3"
+
+        def _check(self, rec):
+            if rec["step"] == 3:
+                return Alert(rule=self.name, level="error", step=3,
+                             message="planted on every rank")
+            return None
+
+    def spmd_hook(step):
+        if step == 3:
+            raise SPMDDivergenceError({"step": step}, {"step": -1})
+
+    for kind in ("HealthAbort", "SPMDDivergenceError"):
+        ff = mesh_model(device, lm, world)
+        if kind == "HealthAbort":
+            ff.enable_diagnostics(os.path.join(root, f"{kind}_{rank}"),
+                                  rules=default_rules(ff.config)
+                                  + [AtStep3()], abort_on=("at_step_3",))
+        else:
+            ff.set_fault_hook(spmd_hook)
+        raised = None
+        try:
+            ff.fit(xs, ys, epochs=1, batch_size=TRAIN_BATCH,
+                   shuffle=False, verbose=False)
+        except (HealthAbort, SPMDDivergenceError) as e:
+            raised = type(e).__name__
+        deactivate()
+        step = ff.executor._train_step
+        capturing = False
+        if on_card:
+            with torch.cuda.stream(step.stream):
+                capturing = torch.cuda.is_current_stream_capturing()
+            capturing = capturing or torch.cuda.is_current_stream_capturing()
+        held = weakref.ref(step)
+        stopped_at = ff._py_step()
+        del ff, step
+        gc.collect()
+        fresh = mesh_model(device, lm, world)
+        fresh.fit(*mesh_data(lm, 3), epochs=1, batch_size=TRAIN_BATCH,
+                  shuffle=False, verbose=False)
+        replayed = getattr(fresh.executor._train_step, "last_call", "")
+        t = torch.ones(1, device=device)
+        dist.all_reduce(t)
+        got = {"raised": raised, "stopped_at": stopped_at,
+               "capturing": capturing, "graphs_freed": held() is None,
+               "fresh_last_call": replayed, "all_reduce": float(t.item())}
+        checks[kind] = got
+        want_call = "replay" if on_card else ""
+        if got != {"raised": kind, "stopped_at": 3, "capturing": False,
+                   "graphs_freed": True, "fresh_last_call": want_call,
+                   "all_reduce": float(world)}:
+            failures.append(f"C5 {kind}: {got}")
+        del fresh
+        gc.collect()
+    everyone = gather_json({"failures": failures})
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rank": rank, "world": world, "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "numbers": {},
+            "checks": checks, "failures": failures,
+            "all_ranks_ok": all(not e["failures"] for e in everyone)}
+
+
+# ------------------------------------------------- the mesh: elastic
+
+def mesh_elastic_check(device: str, lm, steps: int = 4) -> dict:
+    """The elastic leg on this rank (torchrun, N ranks): `lm` at dp N,
+    the update sharded at rest (stage 2: a move between two meshes
+    gathers, and fftrans prices it), captured, `steps` steps; then the
+    visible set drops to the first N/2 ranks: the count agreed over the world, a forced shrink at the next
+    fit's entry onto a sub-mesh of those ranks (the others parked), and
+    `steps` more steps there, the masters bit-equal to a
+    checkpoint-restart at dp N/2 on the same sub-mesh; then every rank
+    visible again: the payoff (horizon 10^6 steps, the strategy reports'
+    predicted step times) regrows to dp N and `steps` more steps run on
+    every rank; then a visible count of 2N, past the torchrun world:
+    declined with no search. Every rank leaves together (the same step,
+    the same decisions). Each phase's step time (the median of its
+    replayed steps, synchronised at each step edge), each migration's
+    measured and predicted seconds and its bytes on the wire
+    (predicted, and received by this rank); the fidelity entry the
+    priced shrink left in the warm-start DB (--warmstart-dir)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import broadcast_json, gather_json
+    from flexflow_tpu_torch.telemetry import deactivate
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = broadcast_json({"root": tempfile.mkdtemp(prefix="mesh_el_")}
+                          if rank == 0 else None)["root"]
+    half = list(range(world // 2))
+    vis = {"ranks": list(range(world))}
+    failures, numbers = [], {}
+    t0 = time.perf_counter()
+    warm = ("--warmstart-dir", os.path.join(root, "warm"))
+    ff = mesh_model(device, lm, world, warm, update="stage2")
+    ctrl = ff.enable_elastic(cooldown_steps=0, horizon_steps=10 ** 6,
+                             visible_devices_fn=lambda: vis["ranks"],
+                             capacity_check_every=1)
+
+    def fit(model, n, key):
+        """n steps through fit; the median step of those that replayed,
+        each timed between two synchronised step edges."""
+        marks = []
+
+        def hook(step):
+            sync()
+            marks.append((time.perf_counter(), getattr(
+                model.executor._train_step, "last_call", "eager")
+                if model.executor is not None else ""))
+        model.set_fault_hook(hook)
+        sync()
+        start = time.perf_counter()
+        model.fit(*mesh_data(lm, n), epochs=1, batch_size=TRAIN_BATCH,
+                  shuffle=False, verbose=False)
+        deactivate()
+        model.set_fault_hook(None)
+        prev, times = start, []
+        for t, call in marks:
+            if call in ("replay", "eager"):
+                times.append(1e3 * (t - prev))
+            prev = t
+        numbers[key] = {"steps_run": len(marks), "step_ms": times,
+                        "median_step_ms": (statistics.median(times)
+                                           if times else None)}
+
+    def migrations(since: int) -> list:
+        return [{k: d.get(k) for k in (
+                    "step", "decision", "forced", "new_mesh_axes",
+                    "lhs_s", "rhs_s", "predicted_migration_s",
+                    "migration_measured_s", "migration_wall_s",
+                    "moved_bytes", "research_s", "total_s", "reason")}
+                for d in ctrl.decisions[since:]]
+
+    fit(ff, steps, "dp_before")
+    ck = os.path.join(root, "ck")
+    ff.save_checkpoint(ck)
+    # the shrink
+    vis["ranks"] = half
+    n0 = len(ctrl.decisions)
+    fit(ff, steps, "shrunk")
+    shrink = migrations(n0)
+    numbers["shrink"] = shrink
+    parked = not ff.mesh.member
+    numbers["parked"] = parked
+    numbers["parked_polls"] = ctrl.parked_polls
+    if (len(shrink) != 1 or shrink[0]["decision"] != "migrated"
+            or not shrink[0]["forced"]
+            or parked != (rank not in half)):
+        failures.append(f"shrink: {shrink}, parked {parked}")
+    if rank == 0:
+        import types
+
+        from flexflow_tpu_torch.elastic.payoff import load_fidelity
+
+        # what a fresh process reads: the DB entry, no in-process EMA
+        reader = types.SimpleNamespace(
+            _warmstart=None, device=torch.device(device),
+            config=types.SimpleNamespace(warmstart_dir=warm[1]))
+        numbers["fidelity"] = list(load_fidelity(reader))
+        priced = (shrink[0]["predicted_migration_s"] or 0) > 0
+        if priced != (numbers["fidelity"][1] == 1):
+            failures.append(f"the priced shrink's fidelity entry in the "
+                            f"warm-start DB: {numbers['fidelity']}")
+    ctl = mesh_model(device, lm, len(half), ranks=half, update="stage2")
+    if ctl.mesh.member:
+        ctl.load_checkpoint(ck)
+        fit(ctl, steps, "restart")
+        differ = p20_differ(p20_masters(ctl), p20_masters(ff))
+        numbers["restart_differ"] = differ[:4]
+        if differ:
+            failures.append(f"shrink vs checkpoint-restart at dp "
+                            f"{len(half)}: differ at {differ[:4]}")
+    del ctl
+    gc.collect()
+    # the regrow
+    ff.enable_diagnostics(os.path.join(root, f"tel{rank}"),
+                          drift_threshold=1e9)
+    vis["ranks"] = list(range(world))
+    n0 = len(ctrl.decisions)
+    fit(ff, steps, "regrown")
+    grow = migrations(n0)
+    numbers["regrow"] = grow
+    if (not grow or grow[0]["decision"] != "migrated"
+            or grow[0]["forced"] or not ff.mesh.member
+            or dict(ff.mesh.shape)["data"] != world):
+        failures.append(f"regrow: {grow}")
+    # past the world
+    vis["ranks"] = list(range(2 * world))
+    n0, ex = len(ctrl.decisions), ff.executor
+    fit(ff, 1, "past")
+    past = migrations(n0)
+    numbers["past"] = past
+    if (not past or any(d["decision"] != "declined"
+                        or "past the torchrun world" not in d["reason"]
+                        or d["lhs_s"] is not None for d in past)
+            or ff.executor is not ex):
+        failures.append(f"past the world: {past}")
+    numbers["final_step"] = ff._py_step()
+    everyone = gather_json({"step": numbers["final_step"],
+                            "decisions": [d["decision"]
+                                          for d in ctrl.decisions]})
+    if len({json.dumps(e) for e in everyone}) != 1:
+        failures.append(f"the ranks left apart: {everyone}")
+    if numbers["final_step"] != 3 * steps + 1:
+        failures.append(f"final step {numbers['final_step']}")
+    del ff
+    gc.collect()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rank": rank, "world": world, "layers": lm.num_layers,
+            "wall_s": time.perf_counter() - t0, "numbers": numbers,
+            "checks": {}, "failures": failures}
+
+
 def _tensors(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
@@ -5370,19 +5992,21 @@ def mesh_main(json_path: str) -> int:
                      seq_lm=dataclasses.replace(
                          lm_config(), sequence_length=RING_SEQ),
                      pipe_lm=lm_config())
+    dev = f"cuda:{torch.cuda.current_device()}"
     out["resume"] = mesh_resume_check(
-        f"cuda:{torch.cuda.current_device()}",
-        lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
-    out["barrier"] = mesh_barrier_check(
-        f"cuda:{torch.cuda.current_device()}",
-        lm_config(layers=MESH_LAYERS))
-    # the diag leg last: its aborted steps leave captured graphs behind
-    out["diag"] = mesh_diag_check(
-        f"cuda:{torch.cuda.current_device()}",
-        lm_config(layers=MESH_LAYERS), captured=True)
+        dev, lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
+    # the legs in the order they had before C5 (a captured step's graph
+    # freed by a collection inside a later capture; held off since)
+    out["diag"] = mesh_diag_check(dev, lm_config(layers=MESH_LAYERS),
+                                  captured=True)
+    out["barrier"] = mesh_barrier_check(dev, lm_config(layers=MESH_LAYERS))
+    out["c5"] = mesh_c5_check(dev, lm_config(layers=MESH_LAYERS))
+    out["elastic"] = mesh_elastic_check(dev, lm_config())
     out["failures"] = (out["failures"] + out["resume"]["failures"]
                        + out["diag"]["failures"]
-                       + out["barrier"]["failures"])
+                       + out["barrier"]["failures"]
+                       + out["c5"]["failures"]
+                       + out["elastic"]["failures"])
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -5396,13 +6020,42 @@ def mesh_main(json_path: str) -> int:
         for o in outs:
             log_mesh_runs(o)
             log_mesh_resume(o["resume"])
-            log_mesh_resume(o["barrier"])
             log_mesh_resume(o["diag"])
+            log_mesh_resume(o["barrier"])
+            log_mesh_resume(o["c5"])
+            log_mesh_elastic(o["elastic"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
               flush=True)
     return 1 if bad else 0
+
+
+def log_mesh_elastic(r: dict):
+    n = r["numbers"]
+
+    def ms(key):
+        v = n.get(key, {}).get("median_step_ms")
+        return "-" if v is None else f"{v:.2f}"
+
+    def moves(key):
+        return "; ".join(
+            f"{d['decision']} at step {d['step']}"
+            + (f" to {d['new_mesh_axes']} (forced {d['forced']}): "
+               f"measured {d['migration_measured_s']} s (wall "
+               f"{d['migration_wall_s']} s) vs predicted "
+               f"{d['predicted_migration_s']} s, received "
+               f"{d['moved_bytes']} B, lhs {d['lhs_s']} rhs {d['rhs_s']}"
+               if d["decision"] == "migrated" else
+               f" ({d.get('reason')})")
+            for d in n.get(key, []))
+    log(f"  rank {r['rank']} elastic leg ({r['layers']} layers, bf16): "
+        f"step {ms('dp_before')} ms at dp {r['world']}, "
+        f"{ms('shrunk')} ms shrunk ({'parked, ' + str(n.get('parked_polls')) + ' agreements' if n.get('parked') else 'active'}), "
+        f"{ms('restart')} ms the restart, {ms('regrown')} ms regrown; "
+        f"shrink: {moves('shrink')}; regrow: {moves('regrow')}; past the "
+        f"world: {moves('past')}; final step {n.get('final_step')}; "
+        f"{r['wall_s']:.1f} s; failures {r['failures']}")
 
 
 def log_mesh_resume(r: dict):
@@ -5737,6 +6390,13 @@ def main(argv: list[str]) -> int:
         "ffrules oracle on cuda vs the CPU")
     p21 = phase21(train, train_x, first_verify_s)
     log_phase21(p21)
+    log("== phase 22: elastic re-planning and in-process migration on "
+        "lm-base at full width (12 layers, 8 x 512, bf16, SGD, captured): "
+        "a drift re-plan through fit --elastic, migrate_state, "
+        "--elastic-dry-run, the serving engine's decode re-plan "
+        "mid-decode")
+    p22 = phase22(train, prompts, runs["paged"]["streams"])
+    log_phase22(p22)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -5778,6 +6438,12 @@ def main(argv: list[str]) -> int:
         chunked = p19["chunks"]["chunks of 4"]["launches"]
         if counter in chunked:
             n = dict(n, phase19_chunked_launches=chunked[counter])
+        # phase 22's paths: the elastic fit (a) and the serving re-plan
+        # (d), each counted from 0
+        elastic = {k: p22[k]["launches"][counter] for k in ("a", "d")
+                   if counter in p22[k]["launches"]}
+        if elastic:
+            n = dict(n, phase22_launches=elastic)
         rows.append(dict(
             name=row, route=route, source=source, replaces=replaces,
             launches=run["launches"][counter], max_abs_err=errs[row],
@@ -5812,7 +6478,7 @@ def main(argv: list[str]) -> int:
                   nccl_world1=nccl, gloo_two_ranks=gloo, search=search,
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
-                  phase19=p19, phase20=p20, phase21=p21,
+                  phase19=p19, phase20=p20, phase21=p21, phase22=p22,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -5908,6 +6574,13 @@ def main(argv: list[str]) -> int:
                         "margin_layers": p21["c"]["margin_layers"],
                         "rules_on_cuda": p21["d"]["rules"],
                         "wall_s": p21["wall_s"]},
+                    "phase22": {
+                        "drift_decision": p22["a"]["decision"]["decision"],
+                        "migrate_s": {k: [p22["b"][k]["predicted_s"],
+                                          p22["b"][k]["measured_s"]]
+                                      for k in ("copy", "donate")},
+                        "serving_replan_split_s": p22["d"]["split_s"],
+                        "wall_s": p22["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

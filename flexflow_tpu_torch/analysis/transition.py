@@ -49,8 +49,8 @@ The plan serializes into strategy_report.json as a `transition` section:
 `verify_transition_total` recomputes `predicted_s` from the per-transfer
 entries ALONE (host hops serialize with everything, traffic on one mesh
 axis serializes, disjoint axes overlap). The in-process migration that
-executes a verified plan on live state (`resilience/migrate.py`) is
-ROADMAP A10b.
+executes a verified plan on live state is `resilience/migrate.py`
+(`migrate_state`), which the elastic re-planner (elastic/) drives.
 """
 
 from __future__ import annotations
@@ -488,8 +488,7 @@ def build_transition_plan(src: PlanSide, dst: PlanSide,
 
 def plan_model_transition(old, new) -> TransitionPlan:
     """TransitionPlan between two compiled FFModels over the same
-    logical PCG (the in-process migration that executes it is ROADMAP
-    A10b)."""
+    logical PCG (`resilience.migrate_state` executes it in-process)."""
     from ..search.machine_model import machine_model_for_mesh
 
     machine = machine_model_for_mesh(
@@ -751,9 +750,8 @@ _migrate_scan_cache: Optional[list] = None
 
 
 def _migrate_source_findings() -> list[Finding]:
-    """donated_reuse scan of resilience/migrate.py, cached per process
-    (sources.py pattern). The port has no migrate.py yet (ROADMAP A10b):
-    the scan finds nothing until it lands."""
+    """donated_reuse scan of resilience/migrate.py (the apply path of
+    every migration), cached per process (sources.py pattern)."""
     global _migrate_scan_cache
     if _migrate_scan_cache is None:
         import os

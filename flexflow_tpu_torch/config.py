@@ -31,10 +31,6 @@ from .machine import DEFAULT_AXES, MULTIHOST_AXES, MeshShape
 # value, ROADMAP item). A valued flag asks for its path unless the value
 # is 0 or empty.
 _NOT_PORTED = {
-    "--elastic": (False, "A10b (elastic/)"),
-    "--replan-cooldown-steps": (True, "A10b (elastic/)"),
-    "--replan-horizon-steps": (True, "A10b (elastic/)"),
-    "--elastic-dry-run": (False, "A10b (elastic/)"),
     "--serve-disaggregate": (False, "A11 (serving/disagg.py)"),
     "--serve-prefill-chips": (True, "A11 (serving/disagg.py)"),
     "--serve-draft-chips": (True, "A11 (serving/speculative.py)"),
@@ -199,6 +195,16 @@ class FFConfig:
     # compile gate every rank compares a digest of its step's ingredients
     # with rank 0's; a mismatch raises SPMDDivergenceError on every rank
     spmd_barrier: bool = False
+    # elastic re-planning (elastic/): the controller consumes drift
+    # advisories (with --diagnostics) and capacity deltas of the visible
+    # rank set, re-plans at a step boundary and migrates in place when
+    # the payoff rule says so; --replan-cooldown-steps spaces attempts,
+    # --replan-horizon-steps is the payoff horizon, --elastic-dry-run
+    # decides and records but never migrates
+    elastic: bool = False
+    replan_cooldown_steps: int = 50
+    replan_horizon_steps: int = 1000
+    elastic_dry_run: bool = False
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
@@ -258,6 +264,14 @@ class FFConfig:
                 self.learning_rate = float(val())
             elif a == "--pipeline-steps":
                 self.pipeline_steps = int(val())
+            elif a == "--elastic":
+                self.elastic = True
+            elif a == "--replan-cooldown-steps":
+                self.replan_cooldown_steps = int(val())
+            elif a == "--replan-horizon-steps":
+                self.replan_horizon_steps = int(val())
+            elif a == "--elastic-dry-run":
+                self.elastic_dry_run = True
             elif a == "--checkpoint-dir":
                 self.checkpoint_dir = val()
             elif a == "--checkpoint-every":

@@ -10,6 +10,13 @@ WORLD_SIZE), or from an explicit `coordinator_address`. The backend is
 one. After it, `FFConfig` reads the world size, `--mesh` lays the ranks
 over the mesh axes, and a plan decided on rank 0 reaches every rank as a
 serialized Strategy (`run_search_on_host0`).
+
+A model on a sub-mesh (an elastic shrink: `machine.build_mesh(...,
+ranks=...)`) scopes these helpers to the mesh's ranks (`set_scope`):
+`process_count`, `process_index`, `is_coordinator`, `barrier`,
+`broadcast_json` and `gather_json` then speak of its members only, over
+its host group, so the parked ranks reach none of them. `world_size`
+and `world_rank` stay the whole world's.
 """
 
 from __future__ import annotations
@@ -51,28 +58,71 @@ def initialize(
         world_size=int(num_processes), rank=int(process_id))
 
 
-def process_count() -> int:
+# the sub-mesh (machine.Mesh with `sub`) the helpers below are scoped
+# to, else None: the whole world
+_SCOPE = None
+
+
+def set_scope(mesh):
+    """Scope the helpers to the mesh a model was just placed on: its
+    ranks where it is a sub-mesh, the whole world where it spans it; a
+    plain mesh of one device (each rank its own) leaves the scope as it
+    is (a model's `_build_mesh` and an elastic rollback call it)."""
+    global _SCOPE
+    if getattr(mesh, "sub", False):
+        _SCOPE = mesh
+    elif mesh.size > 1:
+        _SCOPE = None
+
+
+def scope():
+    """The sub-mesh the helpers are scoped to, or None."""
+    return _SCOPE
+
+
+def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def process_index() -> int:
+def world_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    if _SCOPE is not None:
+        return len(_SCOPE.ranks)
+    return world_size()
+
+
+def process_index() -> int:
+    """This rank's index among the scope's ranks (-1 on a parked rank)."""
+    if _SCOPE is not None:
+        r = world_rank()
+        return _SCOPE.ranks.index(r) if r in _SCOPE.ranks else -1
+    return world_rank()
 
 
 def local_rank() -> int:
     """This process's device index on its host: `LOCAL_RANK` as torchrun
     sets it, else the global rank."""
-    return int(os.environ.get("LOCAL_RANK", process_index()))
+    return int(os.environ.get("LOCAL_RANK", world_rank()))
 
 
 def is_coordinator() -> bool:
     return process_index() == 0
 
 
+def _scope_args() -> dict:
+    """The group and source rank of a scoped collective."""
+    if _SCOPE is None:
+        return {}
+    return {"group": _SCOPE.host_group, "src": _SCOPE.ranks[0]}
+
+
 def barrier(name: str = "barrier"):
-    """World-wide synchronization point (a no-op in one process)."""
+    """Synchronization point of the scope's ranks (a no-op in one)."""
     if process_count() > 1:
-        dist.barrier()
+        dist.barrier(group=_scope_args().get("group"))
 
 
 _ERR_KEY = "__broadcast_error__"
@@ -98,7 +148,9 @@ def broadcast_json(payload: Optional[dict], max_bytes: int = 1 << 20) -> dict:
             box[0] = raw
         except Exception as e:
             box[0] = json.dumps({_ERR_KEY: f"{type(e).__name__}: {e}"})
-    dist.broadcast_object_list(box, src=0)
+    args = _scope_args()
+    dist.broadcast_object_list(box, src=args.get("src", 0),
+                               group=args.get("group"))
     data = json.loads(box[0])
     if isinstance(data, dict) and _ERR_KEY in data:
         raise RuntimeError(data[_ERR_KEY])
@@ -119,8 +171,25 @@ def gather_json(payload: dict, max_bytes: int = 1 << 20) -> list:
     except Exception:
         raw = "{}"
     out = [None] * process_count()
-    dist.all_gather_object(out, raw)
+    dist.all_gather_object(out, raw, group=_scope_args().get("group"))
     return [json.loads(r) for r in out]
+
+
+def share_object(payload, src: int, ranks: list, *meshes):
+    """`payload` (any picklable object) from world rank `src` to every
+    world rank of `ranks`: the whole world, or the ranks of one of the
+    sub-meshes `meshes` (over its host group). Collective over `ranks`;
+    an elastic re-plan's agreed decisions and plans travel this way."""
+    if len(ranks) <= 1:
+        return payload
+    group = None  # the whole world
+    if list(ranks) != list(range(world_size())):
+        group = next(m.host_group for m in meshes
+                     if getattr(m, "sub", False)
+                     and sorted(m.ranks) == sorted(ranks))
+    box = [payload]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
 
 
 def gather_merged_snapshot(session) -> dict:

@@ -28,9 +28,13 @@ chunks:
     chunk/N, the checkpoint staleness clock once a chunk.
 
 Periodic work (checkpoints, preemption drain, a health abort agreed over
-the ranks, fault hooks, the watchdog's beat) runs at chunk boundaries
-only, so the resume cursor always lands on a chunk edge; on HealthAbort
-the prefetch thread is shut down like on every other exit.
+the ranks, fault hooks, the watchdog's beat, the elastic controller's
+re-plans) runs at chunk boundaries only, so the resume cursor always
+lands on a chunk edge; on HealthAbort the prefetch thread is shut down
+like on every other exit. A re-plan that moved the model to another mesh
+changes each rank's block of a batch, so the prefetcher is restarted
+and stages the remaining chunks for the new executor; a rank an elastic
+shrink parked skips the chunks the others ran without it.
 """
 
 from __future__ import annotations
@@ -140,12 +144,13 @@ class PipelinedEngine:
                   num_batches: int, batch_size: int, abs_e: int,
                   py_step: int, tel, resil, preempt, fault_hook,
                   tokens_per_example: int, diag=None,
-                  watchdog=None) -> tuple[int, bool]:
+                  watchdog=None, elastic=None) -> tuple[int, bool]:
         """Run batches [b0, num_batches) of one epoch in fused chunks.
         Mutates the model's training state in place (exactly like the
         per-step loop) and returns (py_step, preempted). HealthAbort and
         SimulatedPreemption propagate to fit's handlers; the prefetch
         thread is shut down on every exit path."""
+        from ..elastic.controller import POLL
         from ..model import peer_abort
         from ..scope import flightrec
 
@@ -158,12 +163,22 @@ class PipelinedEngine:
             return self._stage_chunk(x_dict, y, order, c[0], c[1],
                                      batch_size)
 
-        prefetcher = ChunkPrefetcher(stage, chunks,
-                                     depth=self.prefetch_depth,
-                                     device=self.device)
+        prefetcher = None
         preempted = False
+        i = 0
         try:
-            for start_b, n in chunks:
+            while i < len(chunks):
+                start_b, n = chunks[i]
+                i += 1
+                if model._elastic_skip > 0:
+                    # parked by an elastic shrink: the chunks the active
+                    # ranks ran without this rank
+                    model._elastic_skip -= n
+                    continue
+                if prefetcher is None:
+                    prefetcher = ChunkPrefetcher(
+                        stage, chunks[i - 1:], depth=self.prefetch_depth,
+                        device=self.device)
                 t_chunk0 = time.perf_counter()
                 slot, staged, ready = prefetcher.get()
                 t_pop1 = time.perf_counter()
@@ -208,8 +223,16 @@ class PipelinedEngine:
                         abs_e=abs_e, t_chunk0=t_chunk0, t_pop1=t_pop1,
                         t_run1=t_run1, loss_host=loss_host,
                         warming=warming)
+                view, drift = POLL, None
                 if preempt is not None:
-                    preempt.poll(abort=abort is not None)
+                    preempt.poll(abort=abort is not None,
+                                 drift=(elastic is not None
+                                        and elastic.has_advisory),
+                                 capacity=(elastic.capacity_view()
+                                           if elastic is not None
+                                           else None))
+                    if elastic is not None:
+                        view, drift = preempt.capacity, preempt.drift
                 if abort is not None or (preempt is not None
                                          and preempt.aborted):
                     if tel is not None:
@@ -246,8 +269,19 @@ class PipelinedEngine:
                 if preempted:
                     telemetry.event("preempted", step=py_step)
                     return py_step, True
+                if elastic is not None and elastic.maybe_replan(
+                        py_step, capacity=view, drift=drift):
+                    # another mesh: each rank's block of a batch changed,
+                    # so the rest is staged anew for the new executor
+                    prefetcher.shutdown()
+                    prefetcher = None
+                    if preempt is not None:
+                        preempt.rebind()
+                    if model.mesh.member:
+                        py_step = model._py_step()
         finally:
-            prefetcher.shutdown()
+            if prefetcher is not None:
+                prefetcher.shutdown()
         return py_step, False
 
     # ------------------------------------------------------------ telemetry

@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import math
 import os
@@ -129,6 +130,21 @@ def eager():
 
 class CaptureError(RuntimeError):
     """A step could not be captured into a CUDA graph."""
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Hold Python's cyclic garbage collector off for the block (a CUDA
+    graph's capture): a finalizer it would run there (a dropped graph's
+    reset, a freed pool) is an operation the capture forbids. Cycles
+    made meanwhile are collected after it, as usual."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _leaves(tree) -> list:
@@ -230,6 +246,18 @@ class CapturedStep:
     it launches, which under capture happens once, with no launch on the
     device. So the capture's counts are taken back, and every replay adds
     them: the counters count device launches.
+
+    Python's cyclic garbage collector is held off while a capture runs
+    (`_no_collection`). A model lives in reference cycles (its
+    diagnostics manager holds it; a caught exception's traceback holds
+    the fit that raised), so a dropped model's graphs are freed by
+    whatever allocation next triggers a collection, and a graph reset
+    inside another capture is an operation the capture forbids: it
+    invalidates that capture, on some ranks and not others, and the
+    ranks that went on wait in a collective forever. A failed capture resets its own graph before it
+    raises, so nothing is left half captured. `release()` drops every
+    graph of the step at once, with their memory pools (an elastic
+    re-plan's old executor).
     """
 
     def __init__(self, name: str, fn, device: torch.device, held,
@@ -284,6 +312,11 @@ class CapturedStep:
                 x.record_stream(cur)
         return out
 
+    def release(self):
+        """Drop every captured graph (and its memory pool); the next call
+        of a signature warms up and captures anew."""
+        self._graphs.clear()
+
     def _capture(self, args, held) -> _Graph:
         from .kernels import counters
 
@@ -305,13 +338,14 @@ class CapturedStep:
             # thread_local: another thread's legitimate calls (the chunk
             # prefetcher's pinned allocations and event waits) do not
             # invalidate this thread's capture
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with _no_collection(), torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 out = self.fn(*static)
         except Exception as exc:
             for n, c in cs.items():
                 c.restore(before[n])
+            graph.reset()  # nothing half captured survives the raise
             raise CaptureError(
                 f"{self.name}: the CUDA-graph capture failed at "
                 f"{_culprit(exc)}. The step did not run. A captured step "

@@ -9,6 +9,14 @@ r at row-major position r of the axis grid, as JAX lays
 `jax.devices()[:n]` over it. A `Mesh` has the surface of JAX's (`shape`,
 `axis_names`, `size`, `devices`) plus what the executor needs: this
 rank's coordinates and a process group over any tuple of its axes.
+
+A sub-mesh lays the axis grid over an explicit list of world ranks
+(`build_mesh(..., ranks=...)`), the world's other ranks parked: only an
+elastic re-plan (elastic/), or a control run beside one, asks for it; a
+plain compile keeps the whole world. Making a group is collective over
+the world, so a sub-mesh makes every group it can need (one per set of
+its axes, and a host group for flags) in its constructor, which every
+world rank runs at the same point, parked ranks included.
 The executor keeps each rank's local blocks and moves them itself
 (`parallel/spmd.py`), so no DTensor placement stands in for JAX's
 `NamedSharding`. A mesh of one device needs no process group and runs
@@ -17,6 +25,7 @@ no collective.
 
 from __future__ import annotations
 
+import itertools
 import math
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -163,21 +172,60 @@ class _Group:
 class Mesh:
     """The global device mesh over the `torch.distributed` world (or one
     device with no process group). `shape` maps axis name -> size, in
-    order, as a JAX mesh's does."""
+    order, as a JAX mesh's does. `ranks` (a sub-mesh) are the world ranks
+    laid row-major over the axis grid; `member` says whether this rank
+    holds a device of it (`coords` is None on a parked rank)."""
 
-    def __init__(self, mesh_shape: MeshShape, device, rank: int = 0):
+    def __init__(self, mesh_shape: MeshShape, device, rank: int = 0,
+                 ranks: Optional[list] = None):
         self.mesh_shape = mesh_shape
         self.shape = OrderedDict(zip(mesh_shape.axis_names,
                                      mesh_shape.axis_sizes))
         self.axis_names = tuple(mesh_shape.axis_names)
         self.device = device
         self.rank = rank
-        grid = np.arange(mesh_shape.num_devices).reshape(
-            mesh_shape.axis_sizes)
+        self.sub = ranks is not None
+        self.ranks = ([int(r) for r in ranks] if self.sub
+                      else list(range(mesh_shape.num_devices)))
+        grid = np.asarray(self.ranks).reshape(mesh_shape.axis_sizes)
         self.rank_grid = grid
-        self.coords = dict(zip(self.axis_names,
-                               (int(c) for c in np.argwhere(grid == rank)[0])))
+        self.member = rank in self.ranks
+        self.coords = (dict(zip(self.axis_names,
+                                (int(c) for c in
+                                 np.argwhere(grid == rank)[0])))
+                       if self.member else None)
         self._groups: dict[tuple, Optional[_Group]] = {}
+        # a sub-mesh's torch groups, by their sorted ranks, and the gloo
+        # group its members agree host flags over (None: one member)
+        self._pgs: dict[tuple, object] = {}
+        self.host_group = None
+        if self.sub and self.size > 1:
+            self._make_groups()
+
+    def _make_groups(self):
+        """Every torch group a sub-mesh can need, made on every world rank
+        in one order (collective): one per column of each set of its
+        axes of size > 1, then the members' gloo host group."""
+        import torch.distributed as dist
+
+        axes = [a for a in self.axis_names if self.shape[a] > 1]
+        for k in range(1, len(axes) + 1):
+            for sub in itertools.combinations(axes, k):
+                for col in self._columns(sub):
+                    key = tuple(sorted(col))
+                    if key not in self._pgs:
+                        self._pgs[key] = dist.new_group(list(key))
+        self.host_group = (self._pgs[tuple(sorted(self.ranks))]
+                           if dist.get_backend() == "gloo"
+                           else dist.new_group(sorted(self.ranks),
+                                               backend="gloo"))
+
+    def _columns(self, axes) -> list[list[int]]:
+        """The rank lists of the groups over `axes` (the first major)."""
+        order = list(axes) + [a for a in self.axis_names if a not in axes]
+        perm = [self.axis_names.index(a) for a in order]
+        g = self.rank_grid.transpose(perm).reshape(self.axes_size(axes), -1)
+        return [[int(r) for r in g[:, col]] for col in range(g.shape[1])]
 
     @property
     def size(self) -> int:
@@ -197,38 +245,51 @@ class Mesh:
         a group is collective: every rank makes every group over the same
         axes, in one order, so the first call for a tuple of axes must
         come on every rank in the same sequence (the executor makes its
-        groups when it is built)."""
+        groups when it is built). A sub-mesh made its groups already."""
         axes = tuple(ax for ax in axes if self.shape.get(ax, 1) > 1)
         if not axes:
             return None
         if axes not in self._groups:
             import torch.distributed as dist
 
-            order = list(axes) + [a for a in self.axis_names
-                                  if a not in axes]
-            perm = [self.axis_names.index(a) for a in order]
-            g = self.rank_grid.transpose(perm).reshape(
-                self.axes_size(axes), -1)
             mine = None
-            for col in range(g.shape[1]):
-                ranks = [int(r) for r in g[:, col]]
-                pg = dist.new_group(ranks)
+            for ranks in self._columns(axes):
+                pg = (self._pgs[tuple(sorted(ranks))] if self.sub
+                      else dist.new_group(ranks))
                 if self.rank in ranks:
                     mine = _Group(pg, ranks, self.rank)
             self._groups[axes] = mine
         return self._groups[axes]
 
+    def all_group(self) -> Optional[_Group]:
+        """The group of every device of the mesh (None: one device)."""
+        return self.group(self.axis_names)
+
     def __repr__(self):
-        return f"Mesh({dict(self.shape)}, rank={self.rank})"
+        extra = f", ranks={self.ranks}" if self.sub else ""
+        return f"Mesh({dict(self.shape)}, rank={self.rank}{extra})"
 
 
-def build_mesh(shape: MeshShape, device=None) -> Mesh:
+# sub-meshes made in this process, by (sizes, names, ranks, device): a
+# re-plan onto a sub-mesh it ran on before makes no group again
+_SUB_MESHES: dict[tuple, Mesh] = {}
+
+
+def build_mesh(shape: MeshShape, device=None,
+               ranks: Optional[list] = None) -> Mesh:
     """The global mesh of `shape` over the process group's ranks (JAX
     `build_mesh`). It raises when the world holds fewer ranks than the
     mesh needs, and when a mesh of more than one device is asked for
     with no process group: the port never runs such a mesh on one
     device. A mesh of one device in a larger world is each rank's own
-    (the one-rank reference of a multi-rank run)."""
+    (the one-rank reference of a multi-rank run).
+
+    `ranks` lays the mesh over those world ranks, the others parked (an
+    elastic re-plan's sub-mesh; every world rank calls it at the same
+    point). A rank past the world is refused: a `torchrun` world cannot
+    grow inside its process group. Without `ranks` a mesh smaller than
+    the world is refused: every rank of a plain compile holds a
+    device."""
     import torch
     import torch.distributed as dist
 
@@ -236,6 +297,27 @@ def build_mesh(shape: MeshShape, device=None) -> Mesh:
         "cpu")
     n = shape.num_devices
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks is not None:
+        ranks = [int(r) for r in ranks]
+        if len(ranks) != n or len(set(ranks)) != n:
+            raise ValueError(
+                f"a mesh of {n} devices needs {n} distinct ranks, got "
+                f"{ranks}")
+        if min(ranks) < 0 or max(ranks) >= world:
+            raise ValueError(
+                f"mesh ranks {ranks} reach past the torchrun world of "
+                f"{world} ranks: a world cannot grow inside its process "
+                f"group (restart torchrun with more ranks)")
+        if ranks == list(range(world)):
+            ranks = None  # the whole world: the plain mesh
+        elif world > 1:
+            key = (tuple(shape.axis_sizes), tuple(shape.axis_names),
+                   tuple(ranks), str(device))
+            mesh = _SUB_MESHES.get(key)
+            if mesh is None:
+                mesh = _SUB_MESHES[key] = Mesh(shape, device,
+                                               dist.get_rank(), ranks)
+            return mesh
     if n == 1:
         return Mesh(shape, device)
     if not dist.is_initialized():

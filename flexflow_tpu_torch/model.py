@@ -30,10 +30,13 @@ and its observability half (JAX 1476-1640, 1700-2098): diagnostics
 monitor, the health rules with `--health-abort-on` agreed over the
 ranks), the sanitizer (`--sanitize-numerics`), sampled op-grain profiles
 (`--profile-every`, `profile_step`), the hang watchdog, the flight
-recorder, `--profiling` and `--xprof-dir`. The elastic re-planner is not
-ported: its flags and `enable_elastic` raise (ROADMAP A10b). The training
-state (masters, optimizer slots, step, metric counters) is updated in
-place, the twin of the JAX step's donation.
+recorder, `--profiling` and `--xprof-dir`, and the elastic re-planner
+(`--elastic`, `enable_elastic`: elastic/, JAX 1583-1608, 1842, 2048) at
+fit entry and each step or chunk edge, its decisions agreed over the
+ranks, a capacity shrink moving training onto a sub-mesh of the world
+with the other ranks parked until a regrow. The training state
+(masters, optimizer slots, step, metric counters) is updated in place,
+the twin of the JAX step's donation.
 """
 
 from __future__ import annotations
@@ -90,11 +93,13 @@ from .optimizer import Optimizer, SGDOptimizer
 from .pcg.graph import Graph, OpNode
 from .tensor import Tensor
 
+# ElasticController.maybe_replan's "check on your own cadence"
+from .elastic.controller import POLL
+
 
 # FFModel methods of the JAX package that the port has not got yet, by
 # ROADMAP item: calling one raises, naming its item
 _NOT_PORTED_METHODS = {
-    "enable_elastic": "A10b (elastic/)",
     **dict.fromkeys(("moe", "experts", "group_by", "aggregate",
                      "aggregate_spec", "cache"), "A12 (ops/moe.py)"),
 }
@@ -199,6 +204,17 @@ class FFModel:
         self._scope_prof = None
         self._profiled = False
         self._diag_warned = False
+        # elastic re-planning (elastic/): the controller (--elastic /
+        # enable_elastic) and its decision records; the world ranks of a
+        # sub-mesh (None: the whole world), the raw metrics argument a
+        # re-plan compiles with again, the plan's origin behind a
+        # "replan" source, and the steps a parked rank still skips
+        self._elastic = None
+        self._elastic_decisions = []
+        self._mesh_ranks = None
+        self._metrics_arg = ()
+        self._plan_origin = None
+        self._elastic_skip = 0
         self.iter_config = FFIterationConfig()
 
     # ================================================== tensor creation
@@ -707,7 +723,7 @@ class FFModel:
                         "status", "off"),
                 )
                 diag = self._maybe_enable_diagnostics()
-                if diag is not None:
+                if diag is not None and self.mesh.member:
                     # the strategy report and the drift monitor's
                     # reference, inside the session's window
                     diag.on_compile()
@@ -726,6 +742,9 @@ class FFModel:
             lr=self.config.learning_rate)
         self.loss_type = LossType(loss_type)
         self.metrics = Metrics.from_list(self.loss_type, list(metrics))
+        # the raw metrics argument, kept so an elastic replan can drive
+        # this same compile pipeline again with identical arguments
+        self._metrics_arg = tuple(metrics)
         self.config.computation_mode = comp_mode
         g = Graph()
         tensor_to_out: dict[int, tuple[OpNode, int]] = {}
@@ -783,6 +802,9 @@ class FFModel:
         # --- mesh + strategy (JAX model.py 825-1230)
         cfg = self.config
         self.mesh = self._build_mesh(cfg.mesh_shape())
+        if not self.mesh.member:
+            self._park()
+            return
         if cfg.warmstart_dir and self._warmstart is None:
             from .warmstart import WarmStartManager
 
@@ -816,6 +838,15 @@ class FFModel:
         elif self._plan_source == "none":
             self._plan_source = "default"
         self._assign_strategy()
+        hint = getattr(self, "_plan_source_hint", None)
+        if hint is not None:
+            # elastic replan: the recompile's outcome is relabeled so
+            # every consumer (plan record, compile event, report, ffcheck
+            # context) sees plan_source "replan"; the underlying origin
+            # (search/cache/broadcast/...) is kept for the decision record
+            self._plan_origin = self._plan_source
+            self._plan_source = hint
+            self._plan_source_hint = None
         if self._plan_fingerprint is not None:
             # the plan record every checkpoint of this model carries:
             # --auto-resume restores the plan from the manifest
@@ -1051,10 +1082,33 @@ class FFModel:
 
     def _build_mesh(self, shape):
         """The mesh of `shape` over the torch.distributed world (JAX
-        `_build_mesh`, model.py:2251)."""
+        `_build_mesh`, model.py:2251), or over `_mesh_ranks` of it (an
+        elastic re-plan's sub-mesh); the distributed helpers' scope
+        follows it (`distributed.set_scope`)."""
+        from .distributed import set_scope
         from .machine import build_mesh
 
-        return build_mesh(shape, self.device)
+        mesh = build_mesh(shape, self.device, ranks=self._mesh_ranks)
+        set_scope(mesh)
+        return mesh
+
+    def _park(self):
+        """This rank holds no device of the new mesh (an elastic shrink
+        parked it): no executor and no state of its own; the step count
+        it stopped at stays for the controller (elastic/controller.py
+        keeps the rank in the world's agreement until a regrow)."""
+        step = None if self._step is None else int(self._step)
+        self.executor = None
+        self._params = self._state = self._opt_slots = None
+        self._counters = None
+        self._step = None if step is None else torch.tensor(
+            step, dtype=torch.int32)
+        self._strategy = None
+        self._plan_source = "parked"
+        self._plan_source_hint = None
+        self._predicted_step_s = None
+        self._goodput_anchor = None
+        self._compiled = True
 
     def _assign_strategy(self):
         """Mesh axes of every op output and weight (JAX model.py:1319):
@@ -1267,10 +1321,11 @@ class FFModel:
 
             sanitize.get_monitor().reset()
         diag = self._maybe_enable_diagnostics()
-        if diag is not None and diag.report is None:
+        if diag is not None and diag.report is None and self.mesh.member:
             # diagnostics attached after compile: the report and the
             # drift monitor now
             diag.on_compile()
+        elastic = self._maybe_enable_elastic(diag)
         # ffscope: the flight recorder's ring, sampled op-grain profiles,
         # the hang watchdog
         flightrec.configure(capacity=self.config.flight_events or None,
@@ -1349,6 +1404,12 @@ class FFModel:
                     telemetry.event("resume", path=path, epoch=abs_epoch,
                                     batch=int(cur.get("batch", 0)))
         py_step = self._py_step()
+        if elastic is not None:
+            # fit-entry check: a withdrawn or restored fleet re-plans
+            # BEFORE the first step; a parked rank waits for a regrow
+            elastic.enter_fit(py_step)
+            if self.mesh.member:
+                py_step = self._py_step()
         # labels shaped (N, seq, ...) carry seq tokens per example
         tokens_per_example = int(np.prod(y.shape[1:])) if y.ndim > 1 else 1
         # ffscope attribution joins trace ranges back to these names: the
@@ -1362,15 +1423,17 @@ class FFModel:
         if diag is not None and resil is not None:
             # staleness clock starts at fit start; every commit re-feeds it
             diag.note_checkpoint_commit(time.time())
-        from .distributed import process_count
+        from .distributed import process_count, world_size
 
         # the flags agreed over the ranks at each step (or chunk) edge:
-        # SIGTERM (with checkpointing) and a health abort (with
-        # diagnostics on a mesh), in one all-reduce
+        # SIGTERM (with checkpointing), a health abort (with diagnostics
+        # on a mesh) and the elastic controller's drift flag and capacity
+        # checks (on a world of more than one rank), in one all-reduce
         preempt = None
         if resil is not None:
             preempt = PreemptionHandler()
-        elif diag is not None and process_count() > 1:
+        elif ((diag is not None and process_count() > 1)
+              or (elastic is not None and world_size() > 1)):
             preempt = PreemptionHandler(signals=())
         preempted = False
         with contextlib.ExitStack() as stack:
@@ -1411,7 +1474,7 @@ class FFModel:
                             resil=resil, preempt=preempt,
                             fault_hook=self._fault_hook,
                             tokens_per_example=tokens_per_example,
-                            watchdog=watchdog)
+                            watchdog=watchdog, elastic=elastic)
                         if preempted:
                             fflog.warning(
                                 "preempted at step %d (chunk boundary): "
@@ -1423,8 +1486,14 @@ class FFModel:
                     else:
                         b_first = b0
                     for b in range(b_first, num_batches):
+                        if self._elastic_skip > 0:
+                            # parked by an elastic shrink: the steps the
+                            # active ranks ran without this rank
+                            self._elastic_skip -= 1
+                            continue
                         # built anew after a recompile (RecompileState,
-                        # a drift recalibration) dropped the step
+                        # a drift recalibration, an elastic re-plan)
+                        # dropped the step
                         step_fn = (self.executor._train_step
                                    or self.executor.build_train_step())
                         t_it0 = time.perf_counter() if tel is not None else 0.0
@@ -1483,8 +1552,18 @@ class FFModel:
                                     timed)
                             t_save0 = (time.perf_counter()
                                        if tel is not None else 0.0)
+                            view, drift = POLL, None
                             if preempt is not None:
-                                preempt.poll(abort=abort is not None)
+                                preempt.poll(
+                                    abort=abort is not None,
+                                    drift=(elastic is not None
+                                           and elastic.has_advisory),
+                                    capacity=(elastic.capacity_view()
+                                              if elastic is not None
+                                              else None))
+                                if elastic is not None:
+                                    view, drift = (preempt.capacity,
+                                                   preempt.drift)
                                 if preempt.aborted:
                                     if tel is not None:
                                         tel.record_step(
@@ -1522,6 +1601,17 @@ class FFModel:
                                 save_lat, batch_size, tokens_per_example)
                         if self._fault_hook is not None:
                             self._fault_hook(py_step)
+                        if (elastic is not None and not preempted
+                                and elastic.maybe_replan(
+                                    py_step, capacity=view, drift=drift)):
+                            # the re-plan moved executor + state at this
+                            # step boundary: the loop's step is rebuilt
+                            # from the new executor, the flags agreed
+                            # over the new mesh's ranks
+                            if preempt is not None:
+                                preempt.rebind()
+                            if self.mesh.member:
+                                py_step = self._py_step()
                         if preempted:
                             telemetry.event("preempted", step=py_step)
                             fflog.warning(
@@ -1529,6 +1619,8 @@ class FFModel:
                                 "committed, stopping fit", py_step)
                             flightrec.dump("sigterm")
                             return
+                    if not self.mesh.member:
+                        continue  # parked: no step of this epoch ran here
                     # once an epoch: its wall time needs its device work
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)  # fflint: ok host_sync_in_loop
@@ -1570,6 +1662,9 @@ class FFModel:
                 if resil is not None:
                     resil.finalize()
             finally:
+                if elastic is not None:
+                    # the parked ranks leave their wait with this rank
+                    elastic.release()
                 if watchdog is not None:
                     watchdog.stop()
                 if scope_prof is not None:
@@ -1862,6 +1957,34 @@ class FFModel:
                     "report/alert artifacts need a telemetry directory)")
             return None
         return self.enable_diagnostics()
+
+    def enable_elastic(self, **kwargs):
+        """Attach the elastic re-planning controller (elastic/) to this
+        model — the programmatic twin of --elastic. kwargs pass through
+        to ElasticController (cooldown_steps, horizon_steps, dry_run,
+        visible_devices_fn for tests, capacity_check_every). Reuses /
+        attaches diagnostics when configured so the drift trigger stream
+        is live. On a mesh, every rank calls it at the same point."""
+        from .elastic import ElasticController
+
+        diag = self._maybe_enable_diagnostics()
+        self._elastic = ElasticController(self, diag, **kwargs)
+        return self._elastic
+
+    def _maybe_enable_elastic(self, diag):
+        """Config-driven lazy attach (--elastic), mirroring the
+        diagnostics lazy attach; an existing controller (enable_elastic)
+        is reused, picking up diagnostics if it attached later."""
+        if self._elastic is not None:
+            if diag is not None and self._elastic.diag is None:
+                self._elastic.attach_diagnostics(diag)
+            return self._elastic
+        if not self.config.elastic:
+            return None
+        from .elastic import ElasticController
+
+        self._elastic = ElasticController(self, diag)
+        return self._elastic
 
     def _ensure_step_profiler(self):
         """The model's ffscope StepProfiler (scope/profile.py), made on

@@ -16,10 +16,10 @@ training.
   snapshot;
 - `fault`: deterministic kill-after-step-K injection for tests;
 - `manager`: ResilienceManager gluing the above into FFModel.fit, plus
-  the `auto_resume` entry point.
-
-The JAX package's `migrate` (in-process migration between two plans) is
-ROADMAP A10b.
+  the `auto_resume` entry point;
+- `migrate`: `migrate_state`, the in-process migration of live state
+  between two compiled plans (the elastic re-planner's apply half), over
+  the meshes' own process groups.
 """
 
 from .checkpointer import (
@@ -31,6 +31,7 @@ from .checkpointer import (
 )
 from .fault import FaultInjector, SimulatedPreemption
 from .manager import ResilienceManager, auto_resume
+from .migrate import MigrationError, migrate_state
 from .policy import CheckpointPolicy, PreemptionHandler
 from .reshard import restore_model, restore_tree, verify_restore_transition
 
@@ -39,6 +40,7 @@ __all__ = [
     "CheckpointCorruptError",
     "CheckpointPolicy",
     "FaultInjector",
+    "MigrationError",
     "PreemptionHandler",
     "ResilienceManager",
     "SimulatedPreemption",
@@ -46,6 +48,7 @@ __all__ = [
     "latest_checkpoint",
     "list_checkpoints",
     "load_checkpoint",
+    "migrate_state",
     "restore_model",
     "restore_tree",
     "verify_restore_transition",

@@ -14,6 +14,10 @@ steps all stop at the same one; the JAX package reads each process's own
 flag. The same all-reduce agrees a health abort (diagnostics/: a rule of
 --health-abort-on that fired on one rank alone), so every rank raises
 HealthAbort at the same step and none is left waiting in a collective.
+With an elastic controller (elastic/) it also agrees a drift advisory,
+and at the controller's capacity checks it runs over the whole world,
+parked ranks included, carrying each rank's visible set (the MIN is
+agreed): no rank re-plans where another does not.
 """
 
 from __future__ import annotations
@@ -80,11 +84,12 @@ class CheckpointPolicy:
 
 # the host group the preemption flag is agreed over, made once per world
 # (making a group is collective: every rank makes it at its first fit
-# with checkpointing, in the same order)
+# with checkpointing, or its elastic controller, in the same order)
 _FLAG_GROUP: dict = {}
 
 
-def _flag_group():
+def world_flag_group():
+    """The whole world's host group (None: the default group is gloo)."""
     import torch.distributed as dist
 
     if dist.get_backend() == "gloo":
@@ -93,6 +98,25 @@ def _flag_group():
     if world not in _FLAG_GROUP:
         _FLAG_GROUP[world] = dist.new_group(backend="gloo")
     return _FLAG_GROUP[world]
+
+
+def _flag_group():
+    """The host group of the ranks running the model: a sub-mesh's
+    members (distributed.scope), else the world's."""
+    from ..distributed import scope
+
+    sub = scope()
+    return sub.host_group if sub is not None else world_flag_group()
+
+
+def agree_max(values: list, group) -> list:
+    """One all-reduce (MAX) of small ints over a host group."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return [int(v) for v in t.tolist()]
 
 
 class PreemptionHandler:
@@ -108,8 +132,12 @@ class PreemptionHandler:
         self._previous: dict = {}
         self._group = None
         self._abort = False
-        # set by `poll`: some rank asked to abort at this boundary
+        # set by `poll`: some rank asked to abort at this boundary; some
+        # rank holds an elastic drift advisory; the agreed capacity view
+        # of an elastic check (elastic/triggers.CapacityView)
         self.aborted = False
+        self.drift = False
+        self.capacity = None
 
     @property
     def preempted(self) -> bool:
@@ -119,28 +147,45 @@ class PreemptionHandler:
         """Programmatic preemption notice (tests / external schedulers)."""
         self._flag.set()
 
-    def poll(self, abort: bool = False) -> bool:
+    def poll(self, abort: bool = False, drift: bool = False,
+             capacity=None) -> bool:
         """The flag, agreed over the process group (collective: every
         rank calls it at the same step boundary): true on every rank once
         any rank got the notice. `abort`: this rank's health rules asked
         to stop; `aborted` is then set on every rank, by the same
-        all-reduce."""
-        from ..distributed import process_count
+        all-reduce, as `drift` is where any rank holds an elastic drift
+        advisory. `capacity` (an elastic capacity check: this rank's
+        `CapacityView`) runs the all-reduce over the whole world, where
+        parked ranks wait for it, and `capacity` becomes the agreed
+        view."""
+        from ..distributed import process_count, world_size
 
         self._abort = self._abort or bool(abort)
-        if process_count() <= 1:
+        flags = [1 if self.preempted else 0, 1 if self._abort else 0,
+                 1 if drift else 0]
+        on_world = capacity is not None and world_size() > 1
+        if not on_world and process_count() <= 1:
             self.aborted = self._abort
+            self.drift = bool(drift)
+            self.capacity = capacity
             return self.preempted
-        import torch
-        import torch.distributed as dist
-
-        flag = torch.tensor([1 if self.preempted else 0,
-                             1 if self._abort else 0], dtype=torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
-        if int(flag[0]):
+        vals = flags + (capacity.encode(world_size()) if on_world else [])
+        out = agree_max(vals, world_flag_group() if on_world
+                        else self._group)
+        if out[0]:
             self._flag.set()
-        self.aborted = bool(int(flag[1]))
+        self.aborted = bool(out[1])
+        self.drift = bool(out[2])
+        self.capacity = (type(capacity).decode(out[3:], world_size())
+                         if on_world else capacity)
         return self.preempted
+
+    def rebind(self):
+        """Agree over the ranks of the model's mesh as it is now (after an
+        elastic re-plan moved it)."""
+        from ..distributed import process_count
+
+        self._group = _flag_group() if process_count() > 1 else None
 
     def _handle(self, signum, frame):
         self._flag.set()

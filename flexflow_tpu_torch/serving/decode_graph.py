@@ -12,7 +12,7 @@ verbatim under the same name, so the trained parameters transfer by
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -41,21 +41,26 @@ class ServingSpec:
     # cross-request radix prefix cache; None defers to
     # config.serve_prefix_cache. False = live sharing only.
     prefix_cache: Optional[bool] = None
+    # extra FFConfig fields applied to the decode compile only (a decode
+    # mesh re-plan's {"mesh_axis_sizes": ...})
+    config_overrides: dict = field(default_factory=dict)
 
 
 def _decode_config(model, spec: ServingSpec):
     """The decode compile's FFConfig: the trainer's, with the slot count
     as its batch and the spec's layout, minus the subsystems that belong
     to the training job (its telemetry session and diagnostics, its
-    checkpoints, its chunked fit, its strategy files), as the JAX
-    package's. The sanitizer carries over: the engine checks the decode
-    step's probes."""
+    checkpoints, its chunked fit, its strategy files, its elastic
+    controller: the ENGINE owns decode-mesh elasticity), as the JAX
+    package's, plus `spec.config_overrides`. The sanitizer carries over:
+    the engine checks the decode step's probes."""
     cfg = copy.copy(model.config)  # plain copy: __post_init__ re-parses argv
     cfg.batch_size = spec.slots
     cfg.serve_kv_layout = spec.kv_layout
     cfg.telemetry_dir = ""
     cfg.xprof_dir = ""
     cfg.diagnostics = False
+    cfg.elastic = False
     cfg.profiling = False
     cfg.checkpoint_dir = ""
     cfg.auto_resume = False
@@ -63,6 +68,10 @@ def _decode_config(model, spec: ServingSpec):
     cfg.import_strategy_file = ""
     cfg.export_strategy_file = ""
     cfg.export_strategy_computation_graph_file = ""
+    for k, v in (spec.config_overrides or {}).items():
+        if not hasattr(cfg, k):
+            raise ValueError(f"config_overrides: FFConfig has no field {k!r}")
+        setattr(cfg, k, v)
     return cfg
 
 

@@ -35,13 +35,24 @@ eagerly), --xprof-dir runs the drain loop under torch.profiler, and with
 --sanitize-numerics each decode step's probes are checked
 (`_check_numerics`: a `serve.nonfinite` event once per op and phase).
 The token fetch already syncs every step, so none of these adds a sync.
-Elastic re-planning, KV handoff and the speculative engine of the JAX
-package are later slices of the port.
+
+Elastic decode-mesh scaling (JAX 234-350): `enable_autoscale` (or the
+trainer's --elastic) polls the visible device set between steps and
+`replan_mesh` re-plans the decode model onto another factorization: a
+fresh decode compile, a verified `migrate_state` of the params and the
+KV pools, the decode step rebuilt (its graphs captured anew per q width,
+in one pool) with the block-copy function; the scheduler, block manager,
+page tables and generator carry over untouched, so in-flight token
+streams go on where they were. A decode mesh of more than one device is
+serving on a mesh (ROADMAP A11): `replan_mesh` to one refuses before it
+compiles anything, recording a `failed` decision. KV handoff and the
+speculative engine of the JAX package are later slices of the port.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Optional, Sequence
 
@@ -185,6 +196,129 @@ class ServingEngine:
                 self.telemetry.start_exporter(
                     interval_s=cfg.metrics_interval,
                     port=cfg.metrics_port)
+        # elastic decode-mesh scaling (--elastic): poll the visible
+        # device set between steps and grow/shrink the decode mesh via
+        # replan_mesh; in-flight requests ride through untouched
+        self._capacity_watcher = None
+        self._steps_since_capacity_check = 0
+        self.replan_decisions: list[dict] = []
+        if getattr(cfg, "elastic", False):
+            self.enable_autoscale()
+
+    def enable_autoscale(self, visible_devices_fn=None,
+                         check_every: int = 16):
+        """Arm between-steps capacity watching on the decode mesh: when
+        the visible device set no longer matches it, the engine re-plans
+        to the factorization CapacityWatcher proposes (grow or shrink).
+        `visible_devices_fn` is injectable for tests; by default the
+        engine sees the one card it serves on. Each process's engine
+        decides alone: serving is one process's (no world agreement)."""
+        from ..elastic import CapacityWatcher
+
+        self._capacity_watcher = CapacityWatcher(
+            self.decode_model,
+            visible_devices_fn or (lambda: [self.decode_model.device]),
+            check_every=max(1, int(check_every)))
+        return self._capacity_watcher
+
+    def _maybe_autoscale(self):
+        """step() preamble: consume one capacity delta if the watcher
+        sees one. Runs OUTSIDE the per-token device call — a re-plan
+        happens between scheduler iterations, never inside one."""
+        w = self._capacity_watcher
+        if w is None:
+            return
+        self._steps_since_capacity_check += 1
+        delta = w.check(self._steps_since_capacity_check)
+        if delta is None or delta.new_axes is None:
+            return
+        self.replan_mesh(delta.new_axes, trigger="capacity")
+
+    # ------------------------------------------------------------ replan
+
+    def replan_mesh(self, mesh_axis_sizes, trigger: str = "manual") -> dict:
+        """Grow/shrink the decode mesh between scheduler iterations: a
+        fresh decode compile at the new factorization (full verifier
+        gate) followed by a verified, priced `migrate_state` of the live
+        decode state — params AND the KV pools, whose geometry does not
+        depend on the mesh, so every in-flight slot's cache rows move
+        bit-exactly — then the decode step rebuilt on the new executor
+        (its CUDA graphs, every q width in one pool, captured anew at
+        their next calls) and the block-copy function. The scheduler,
+        block manager, page tables and generator are host-side or the
+        engine's own and carry over untouched: in-flight token streams
+        continue exactly where they were. A decode mesh of more than one
+        device is serving on a mesh (ROADMAP A11): refused before any
+        compile, with a `failed` decision. Returns the decision record
+        (also in `self.replan_decisions` and the `replan` telemetry
+        event stream); `compile_s`, `migrate_s` and `rebuild_s` split its
+        wall time."""
+        import copy as _copy
+
+        from ..config import not_ported
+        from ..resilience.migrate import migrate_state
+
+        axes = tuple(int(s) for s in mesh_axis_sizes)
+        old_dec = self.decode_model
+        with self._active():
+            t0 = time.perf_counter()
+            decision = {
+                "trigger": str(trigger), "scope": "serving",
+                "old_mesh_axes": {k: int(v)
+                                  for k, v in old_dec.mesh.shape.items()},
+                "new_axes": list(axes),
+            }
+            spec2 = _copy.copy(self.spec)
+            spec2.config_overrides = dict(self.spec.config_overrides or {})
+            spec2.config_overrides["mesh_axis_sizes"] = axes
+            try:
+                if math.prod(axes) > 1:
+                    raise not_ported(
+                        f"replan_mesh to a decode mesh of "
+                        f"{math.prod(axes)} devices (a sharded KV cache)",
+                        "A11 (serving extras: serving on a mesh)")
+                with telemetry.span("serve.replan", trigger=trigger):
+                    new_dec, max_seq = build_decode_model(self.model, spec2)
+                    decision["research_s"] = decision["compile_s"] = (
+                        time.perf_counter() - t0)
+                    t_m0 = time.perf_counter()
+                    migrate_state(old_dec, new_dec)
+                    decision["migrate_s"] = time.perf_counter() - t_m0
+            except Exception as e:
+                decision["decision"] = "failed"
+                decision["error"] = f"{type(e).__name__}: {e}"
+                telemetry.event("replan", **decision)
+                self.replan_decisions.append(decision)
+                raise
+            # swap the device surface; everything host-side (scheduler,
+            # slots, block manager, stats) carries over untouched
+            t_r0 = time.perf_counter()
+            old_run = getattr(self._step_fn, "captured", None)
+            if old_run is not None:
+                old_run.release()  # the old graphs and their pool
+            self.decode_model = new_dec
+            self.max_seq_len = max_seq
+            self._step_fn = new_dec.executor.build_decode_step()
+            if self.block_manager is not None:
+                self._copy_fn = new_dec.executor.build_block_copy()
+            self.num_chips = int(new_dec.mesh.size)
+            if self._capacity_watcher is not None:
+                self._capacity_watcher.model = new_dec
+            trans = new_dec._transition or {}
+            decision.update({
+                "decision": "migrated",
+                "new_mesh_axes": {k: int(v)
+                                  for k, v in new_dec.mesh.shape.items()},
+                "predicted_migration_s": trans.get("predicted_s"),
+                "migration_measured_s": trans.get("measured_s"),
+                "plan_origin": getattr(new_dec, "_plan_origin", None)
+                or new_dec._plan_source,
+                "rebuild_s": time.perf_counter() - t_r0,
+                "total_s": time.perf_counter() - t0,
+            })
+            telemetry.event("replan", **decision)
+        self.replan_decisions.append(decision)
+        return decision
 
     # ------------------------------------------------------------ session
 
@@ -465,6 +599,7 @@ class ServingEngine:
         that completed during this iteration."""
         sched = self.scheduler
         done_before = len(sched.completed)
+        self._maybe_autoscale()
         with self._active():
             feed = self.next_feed()
             if feed is None:

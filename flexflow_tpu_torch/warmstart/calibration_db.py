@@ -37,10 +37,14 @@ def serialize_key(key) -> str:
 
 
 def deserialize_key(s: str):
-    from ..fftype import OperatorType
+    """The key `serialize_key` wrote; a kind the port has no op for (the
+    elastic fidelity entry's OP_NOOP) keeps the JAX package's name."""
+    from ..fftype import OperatorType, UnportedOperatorType
 
     op_name, params_repr, shapes = json.loads(s)
-    return (OperatorType[op_name], params_repr,
+    kind = (OperatorType[op_name] if op_name in OperatorType.__members__
+            else UnportedOperatorType[op_name])
+    return (kind, params_repr,
             tuple(tuple(int(d) for d in shape) for shape in shapes))
 
 

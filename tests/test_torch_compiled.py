@@ -526,3 +526,130 @@ def test_bench_torch_on_the_cpu_prints_the_metric_line():
     np.testing.assert_allclose(
         last["value"], detail["batch"] * detail["seq"] / detail["step_ms"]
         * 1e3)
+
+
+# ------------------------------------------ C5: state after an abort
+
+
+def test_no_collection_holds_the_collector_off_inside_a_capture():
+    """`_no_collection` (around every CUDA-graph capture): no automatic
+    collection inside, the collector's state restored after, also when
+    the block raises, and left off where it was off."""
+    import gc
+
+    assert gc.isenabled()
+    with texec._no_collection():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(ValueError):
+        with texec._no_collection():
+            raise ValueError("a failed capture")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with texec._no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def _mlp_abort(tmp_path, pipeline_steps):
+    """The MLP fit with a rule that fires at step 2 in --health-abort-on:
+    the fit raises HealthAbort there."""
+    from flexflow_tpu_torch import (
+        ActiMode, FFConfig, FFModel, LossType, SGDOptimizer,
+    )
+    from flexflow_tpu_torch.diagnostics.health import (
+        Alert, Rule, default_rules)
+
+    class AtStep2(Rule):
+        name = "at_step_2"
+
+        def _check(self, rec):
+            if rec["step"] == 2:
+                return Alert(rule=self.name, level="error", step=2,
+                             message="planted")
+            return None
+
+    sys.argv = ["test"]
+    cfg = FFConfig(device="cpu")
+    cfg.batch_size = 8
+    ff = FFModel(cfg)
+    x = ff.create_tensor((8, 16), name="x")
+    t = ff.dense(x, 32, ActiMode.AC_MODE_RELU, name="fc1")
+    ff.softmax(ff.dense(t, 4, name="fc2"), name="sm")
+    ff.compile(optimizer=SGDOptimizer(lr=0.05),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    ff.enable_diagnostics(str(tmp_path / f"t{pipeline_steps}"),
+                          rules=default_rules(ff.config) + [AtStep2()],
+                          abort_on=("at_step_2",))
+    rs = np.random.RandomState(0)
+    xs = {"x": rs.randn(48, 16).astype(np.float32)}
+    ys = rs.randint(0, 4, (48, 1)).astype(np.int32)
+    return ff, xs, ys
+
+
+@pytest.mark.parametrize("pipeline_steps", [1, 2])
+def test_aborted_fit_is_freed_only_by_a_collection(tmp_path,
+                                                   pipeline_steps):
+    """C5's mechanism, as far as the CPU shows it: a model whose fit
+    raised HealthAbort (per step and in chunks), caught and let go, is
+    cyclic garbage (the diagnostics manager and the model hold each
+    other; the exception's traceback holds fit's frame): nothing frees
+    it, or on the card its executor's CUDA graphs, until the collector
+    runs, at whatever allocation triggers it, which on the card was
+    inside the next capture. `_no_collection` keeps that collection out
+    of a capture; here it frees the model afterwards, and the same
+    process compiles and fits a fresh one."""
+    import gc
+    import weakref
+
+    from flexflow_tpu_torch.diagnostics import HealthAbort
+
+    ff, xs, ys = _mlp_abort(tmp_path, pipeline_steps)
+    gc.collect()
+    gc.disable()
+    try:
+        with pytest.raises(HealthAbort) as ei:
+            ff.fit(xs, ys, epochs=1, batch_size=8, shuffle=False,
+                   verbose=False, pipeline_steps=pipeline_steps)
+        assert ei.value.alert.rule == "at_step_2"
+        assert ff._py_step() == 2
+        model, executor = weakref.ref(ff), weakref.ref(ff.executor)
+        del ei, ff
+        with texec._no_collection():
+            assert [[] for _ in range(50_000)]  # no collection in here
+            assert model() is not None and executor() is not None
+    finally:
+        gc.enable()
+    gc.collect()
+    assert model() is None and executor() is None
+    again, xs, ys = _mlp_abort(tmp_path / "again", pipeline_steps)
+    again._diagnostics.health.abort_on = frozenset()
+    again.fit(xs, ys, epochs=1, batch_size=8, shuffle=False, verbose=False,
+              pipeline_steps=pipeline_steps)
+    assert again._py_step() == 6
+
+
+def test_exception_inside_a_step_leaves_the_executor_usable(tmp_path):
+    """An error raised inside the train step (a failing op) stops fit;
+    the executor keeps its step and the same model fits on."""
+    ff, xs, ys = _mlp_abort(tmp_path, 1)
+    ff._diagnostics.health.abort_on = frozenset()
+    step = ff.executor.build_train_step()
+    calls = [0]
+
+    def failing(*args):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("an op failed")
+        return step(*args)
+
+    ff.executor._train_step = failing
+    with pytest.raises(RuntimeError, match="an op failed"):
+        ff.fit(xs, ys, epochs=1, batch_size=8, shuffle=False, verbose=False)
+    assert ff._py_step() == 2 and ff.executor._train_step is failing
+    ff.executor._train_step = step
+    ff.fit(xs, ys, epochs=1, batch_size=8, shuffle=False, verbose=False)
+    assert ff._py_step() == 8

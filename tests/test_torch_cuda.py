@@ -1498,3 +1498,41 @@ def test_recompile_alter_captures_once_more(cuda):
     a, b = _state(ref), _state(ff)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_graph_in_a_dropped_cycle_survives_a_later_capture(cuda):
+    """C5: a captured step left in a reference cycle (as an aborted
+    model's is) and dropped just before a second step's capture, which
+    allocates enough Python objects to make the cyclic collector due:
+    the capture succeeds and its replays are right (a graph reset inside
+    a capture is forbidden and invalidates it); a collection after it
+    frees the dropped step."""
+    import gc
+    import weakref
+
+    from flexflow_tpu_torch.executor import CapturedStep
+
+    x = torch.ones(256, device=cuda)
+    old = CapturedStep("old", lambda t: t * 2.0, cuda, held=())
+    for _ in range(3):
+        old(x)
+    assert old.captures == 1
+    keep = []
+
+    def allocating(t):
+        keep.append([[] for _ in range(300_000)])  # collections due
+        return t + 1.0
+
+    new = CapturedStep("new", allocating, cuda, held=())
+    first = new(x)  # the warm-up, eager
+    gc.collect()
+    cycle = [old]
+    cycle.append(cycle)
+    dropped = weakref.ref(old)
+    del old, cycle
+    outs = [first] + [new(x) for _ in range(2)]  # capture, then replay
+    assert new.captures == 1
+    assert all(torch.equal(o, x + 1.0) for o in outs)
+    gc.collect()
+    assert dropped() is None

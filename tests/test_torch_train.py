@@ -687,11 +687,27 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
                     "--spmd-barrier"])
     assert (cfg.verify_plan, cfg.verify_rules, cfg.spmd_barrier) == (
         False, False, True)
-    for argv, item in ((["--elastic"], "A10b"),
-                       (["--replan-cooldown-steps", "3"], "A10b"),
-                       (["--replan-horizon-steps", "3"], "A10b"),
-                       (["--elastic-dry-run"], "A10b"),
-                       (["--serve-disaggregate"], "A11"),
+    # the elastic flags run (A10b's migration and elastic half), with
+    # the JAX package's defaults and values
+    from flexflow_tpu import FFConfig as JConfig
+
+    jcfg = JConfig()
+    assert (cfg.elastic, cfg.replan_cooldown_steps, cfg.replan_horizon_steps,
+            cfg.elastic_dry_run) == (
+                jcfg.elastic, jcfg.replan_cooldown_steps,
+                jcfg.replan_horizon_steps, jcfg.elastic_dry_run) == (
+                    False, 50, 1000, False)
+    elastic = ["--elastic", "--replan-cooldown-steps", "3",
+               "--replan-horizon-steps", "7", "--elastic-dry-run"]
+    cfg.parse_args(elastic)
+    jcfg.parse_args(elastic)
+    assert (cfg.elastic, cfg.replan_cooldown_steps, cfg.replan_horizon_steps,
+            cfg.elastic_dry_run) == (
+                jcfg.elastic, jcfg.replan_cooldown_steps,
+                jcfg.replan_horizon_steps, jcfg.elastic_dry_run) == (
+                    True, 3, 7, True)
+    cfg.elastic = cfg.elastic_dry_run = False
+    for argv, item in ((["--serve-disaggregate"], "A11"),
                        (["--serve-prefill-chips", "2"], "A11"),
                        (["--serve-draft-chips", "1"], "A11"),
                        (["--serve-spec-k", "4"], "A11")):
@@ -724,8 +740,11 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
     ff, _, xs, y = _mlp("1")
     diag = ff.enable_diagnostics(str(tmp_path))
     assert ff.get_diagnostics() is diag and diag.directory == str(tmp_path)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ff.enable_elastic()
+    from flexflow_tpu_torch.elastic import ElasticController
+
+    ctrl = ff.enable_elastic(cooldown_steps=2)
+    assert isinstance(ctrl, ElasticController) and ff._elastic is ctrl
+    assert diag.elastic is ctrl and ctrl.cooldown_steps == 2
 
 
 SEARCH_FLAGS = {
@@ -778,8 +797,7 @@ SURFACE_GAPS = {
     "": {},
     "ServingEngine": {
         "admit_prefilled": "A11", "extract_kv": "A11",
-        "kv_bytes_per_layer": "A11", "kv_pool_layers": "A11",
-        "enable_autoscale": "A10b", "replan_mesh": "A10b"},
+        "kv_bytes_per_layer": "A11", "kv_pool_layers": "A11"},
 }
 
 

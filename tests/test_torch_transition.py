@@ -1,7 +1,6 @@
 """The port's fftrans (`flexflow_tpu_torch/analysis/transition.py`) and its
-restore gate against the JAX package's, on the CPU: the twin of
-`tests/test_transition.py` (but its migrate_state tests: the in-process
-migration is ROADMAP A10b).
+restore gate and its in-process migration against the JAX package's, on
+the CPU: the twin of `tests/test_transition.py`.
 
 - the (dp 4 stage 3) -> (dp 2 x tp 2) transition of the MLP, the port's
   on 4 gloo ranks, the JAX package's on its virtual mesh, both priced
@@ -17,7 +16,17 @@ migration is ROADMAP A10b).
   x tp 2 with a clean transition on every rank; a poisoned leaf dtype is
   refused naming the leaf and the class before any tensor is written,
   and --no-verify-plan downgrades it; the strategy report of an
-  auto-resumed run carries the `transition` section.
+  auto-resumed run carries the `transition` section;
+- `migrate_state` (resilience/migrate.py) on the same 4 gloo ranks, from
+  the JAX model's initial weights: dp 4 stage 3 -> dp 2 x tp 2 and dp 4
+  -> dp 2 x tp 2 stage 2 (the JAX test's second case goes to dp 4 x tp
+  2, 8 devices) land the bits of a checkpoint-restart and keep the
+  continued trajectory bit-exact, the first within 1e-5 of the JAX
+  package's migrated run; an architecture mismatch is refused naming the
+  leaf before a tensor moves; the report carries the `transition`
+  section; `donate=True` frees each source and lands the same bits; the
+  fftrans donation scan of the port's migrate.py finds nothing, and
+  finds a donated reuse planted in a copy.
 """
 
 import json
@@ -29,6 +38,15 @@ import pytest
 
 DP4 = (4, 1, 1, 1)
 DP2_TP2 = (2, 2, 1, 1)
+ONE = (1, 1, 1, 1)
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# (name, old flags, new mesh, new flags) of the migrate_state cases
+MIGRATE_CASES = (
+    ("stage3_dp4->off_dp2tp2", ("--weight-update-sharding=stage3",),
+     DP2_TP2, ()),
+    ("off_dp4->stage2_dp2tp2", (), DP2_TP2,
+     ("--weight-update-sharding=stage2",)),
+)
 PKGS = ("flexflow_tpu", "flexflow_tpu_torch")
 REL = 1e-9
 
@@ -118,10 +136,80 @@ def fuzz_cases(pkg, old, new, machine_file) -> dict:
     return out
 
 
-def transition_job(rank, tmp, machine_file):
+def _data(n=16, seed=0):
+    rs = np.random.RandomState(seed)
+    x = {"x": rs.randn(n, 16).astype(np.float32)}
+    y = rs.randint(0, 4, (n, 1)).astype(np.int32)
+    return x, y
+
+
+def _fit(ff, seed=0):
+    x, y = _data(seed=seed)
+    ff.fit(x, y, epochs=1, batch_size=8, shuffle=False, verbose=False)
+    return ff
+
+
+def _whole(ff) -> dict:
+    """Every leaf of a port model's training state, whole (collective
+    over its mesh), as numpy."""
+    from flexflow_tpu_torch.resilience.checkpointer import (
+        _keystr, tree_items)
+    from flexflow_tpu_torch.resilience.reshard import (
+        _weight_of, model_state_tree)
+
+    ex, out = ff.executor, {}
+    for path, t in tree_items(model_state_tree(ff)):
+        w = _weight_of(ex, path, t)
+        whole = ex.full_weight(*w, t) if w is not None else t
+        out[_keystr(path)] = whole.detach().cpu().numpy().copy()
+    return out
+
+
+def _same(a: dict, b: dict) -> list:
+    """The keys whose arrays differ (by bits), or are missing."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b
+                  or not np.array_equal(a[k], b[k]))
+
+
+def migrate_cases(tmp, init) -> dict:
+    """The migrate_state cases on this rank: migrated vs restored from a
+    checkpoint, before and after one more epoch each."""
+    from flexflow_tpu_torch import load_params
+    from flexflow_tpu_torch.resilience import migrate_state
+
+    out = {}
+    for name, old_args, new_mesh, new_args in MIGRATE_CASES:
+        pkg = "flexflow_tpu_torch"
+        old = _mlp(pkg, DP4, old_args)
+        load_params(old, init)
+        _fit(old)
+        ck = os.path.join(tmp, f"mig_{name}")
+        old.save_checkpoint(ck)
+        ctrl = _mlp(pkg, new_mesh, new_args)
+        ctrl.load_checkpoint(ck)
+        mig = _mlp(pkg, new_mesh, new_args)
+        section = migrate_state(old, mig)
+        case = {"errors": section["analysis"]["errors"],
+                "measured_s": section["measured_s"],
+                "moved_bytes": section["moved_bytes"],
+                "stages": (old._update_sharding.get("stage", 0),
+                           mig._update_sharding.get("stage", 0)),
+                "landed": _same(_whole(ctrl), _whole(mig))}
+        _fit(ctrl, seed=1)
+        _fit(mig, seed=1)
+        case["continued"] = _same(_whole(ctrl), _whole(mig))
+        case["params"] = {k: v for k, v in _whole(mig).items()
+                          if k.startswith("['params']")}
+        out[name] = case
+    return out
+
+
+def transition_job(rank, tmp, machine_file, init):
     """On 4 gloo ranks: the MLP at dp 4 stage 3 and at dp 2 x tp 2, the
     plan between them and the fuzzer over it; then a checkpoint of the
-    first restored into the second through the gate."""
+    first restored into the second through the gate; then the
+    migrate_state cases."""
     pkg = "flexflow_tpu_torch"
     old = _mlp(pkg, DP4, ["--weight-update-sharding=stage3"])
     new = _mlp(pkg, DP2_TP2)
@@ -136,6 +224,7 @@ def transition_job(rank, tmp, machine_file):
     old.save_checkpoint(root)
     new.load_checkpoint(root)
     out["restored"] = new._transition
+    out["migrate"] = migrate_cases(tmp, init)
     return out
 
 
@@ -149,14 +238,28 @@ def pair(tmp_path_factory):
     machine_file = os.path.join(tmp, "machine.json")
     with open(machine_file, "w") as f:
         json.dump({"chip": "v5p"}, f)
-    outs = spawn(transition_job, 4, tmp, machine_file, timeout=300)
     old = _mlp("flexflow_tpu", DP4, ["--weight-update-sharding=stage3"])
+    init = {n: {k: np.asarray(v) for k, v in ws.items()}
+            for n, ws in old._params.items()}
+    outs = spawn(transition_job, 4, tmp, machine_file, init, timeout=300)
     new = _mlp("flexflow_tpu", DP2_TP2)
     T = _trans("flexflow_tpu")
     plan = _plan("flexflow_tpu", old, new, machine_file)
     jax_side = {"section": json.loads(json.dumps(
                     plan.to_json(analysis=T.verify_transition(plan)))),
                 "fuzz": fuzz_cases("flexflow_tpu", old, new, machine_file)}
+    # the JAX package's migration of the first case, from the same
+    # initial weights
+    from flexflow_tpu.resilience import migrate_state
+
+    import jax.tree_util as jtu
+
+    mig = _mlp("flexflow_tpu", DP2_TP2)
+    migrate_state(_fit(old), mig)
+    _fit(mig, seed=1)
+    jax_side["migrated"] = {
+        "['params']" + jtu.keystr(p): np.asarray(v)
+        for p, v in jtu.tree_flatten_with_path(mig._params)[0]}
     return outs, jax_side
 
 
@@ -371,3 +474,140 @@ def test_auto_resumed_report_carries_transition(tmp_path):
     assert t["analysis"]["errors"] == 0
     assert verify_transition_total(t) == pytest.approx(t["predicted_s"],
                                                        rel=REL, abs=1e-15)
+
+
+# ----------------------------------------------------- migrate_state
+
+
+@pytest.mark.parametrize("case", [c[0] for c in MIGRATE_CASES])
+def test_migrate_bit_exact_vs_checkpoint_restart(pair, case):
+    """The acceptance property on every rank: the in-process migration
+    lands the SAME bits as a checkpoint-restart of the same state, and
+    the continued trajectory stays bit-exact, across mesh factorization
+    and ZeRO stage toggles, with SGD-momentum slots in play."""
+    outs, _ = pair
+    want_stages = {"stage3_dp4->off_dp2tp2": (3, 0),
+                   "off_dp4->stage2_dp2tp2": (0, 2)}[case]
+    for o in outs:
+        c = o["migrate"][case]
+        assert c["errors"] == 0 and c["measured_s"] >= 0
+        assert c["stages"] == want_stages
+        assert c["landed"] == [] and c["continued"] == []
+    # the stage-3 masters moved over the wire (gathered whole)
+    if want_stages[0] == 3:
+        assert all(o["migrate"][case]["moved_bytes"] > 0 for o in outs)
+
+
+def test_migrated_run_matches_jax(pair):
+    """dp 4 stage 3 -> dp 2 x tp 2 from the JAX model's initial weights:
+    the port's migrated and continued run within 1e-5 of the JAX
+    package's."""
+    outs, jax_side = pair
+    got = outs[0]["migrate"]["stage3_dp4->off_dp2tp2"]["params"]
+    want = jax_side["migrated"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, **F32_TOL, err_msg=k)
+
+
+def test_migrate_refuses_architecture_mismatch():
+    """A new model whose graph differs is an unverifiable mapping: the
+    gate raises PlanVerificationError NAMING the leaf and class before
+    any live state moves."""
+    from flexflow_tpu_torch import (
+        ActiMode, FFConfig, FFModel, LossType, SGDOptimizer,
+    )
+    from flexflow_tpu_torch.analysis import PlanVerificationError
+    from flexflow_tpu_torch.resilience import migrate_state
+
+    old = _fit(_mlp("flexflow_tpu_torch", ONE))
+    sys.argv = ["test"]
+    config = FFConfig(device="cpu")
+    config.mesh_axis_sizes = ONE
+    config.batch_size = 8
+    other = FFModel(config)
+    x = other.create_tensor((8, 16), name="x")
+    t = other.dense(x, 48, ActiMode.AC_MODE_RELU, name="fc1")  # 48 != 32
+    t = other.dense(t, 4, name="fc2")
+    other.softmax(t, name="sm")
+    other.compile(optimizer=SGDOptimizer(lr=0.05, momentum=0.9),
+                  loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    before = _params(other)
+    with pytest.raises(PlanVerificationError,
+                       match="state_shape_change.*fc1"):
+        migrate_state(old, other)
+    after = _params(other)
+    assert all(np.array_equal(before[k], after[k]) for k in before)
+
+
+def test_migrate_report_carries_transition_section(tmp_path):
+    """strategy_report.json gains the `transition` section after a
+    migration: the identity reproduces, no error, measured seconds."""
+    from flexflow_tpu_torch.analysis.transition import (
+        verify_transition_total,
+    )
+    from flexflow_tpu_torch.resilience import migrate_state
+
+    old = _fit(_mlp("flexflow_tpu_torch", ONE))
+    new = _mlp("flexflow_tpu_torch", ONE)
+    new.enable_telemetry(str(tmp_path / "tel"))
+    new.enable_diagnostics()
+    migrate_state(old, new)
+    with open(tmp_path / "tel" / "strategy_report.json") as f:
+        t = json.load(f).get("transition")
+    assert t is not None and t["transfers"]
+    assert t["analysis"]["errors"] == 0
+    assert verify_transition_total(t) == pytest.approx(t["predicted_s"],
+                                                       rel=REL, abs=1e-15)
+    assert t.get("measured_s") is not None
+
+
+def test_migrate_donate_frees_sources_and_lands_the_same_bits():
+    """donate=True: each source tensor's storage is released once its
+    transfer is queued, the old model is no longer compiled, and the new
+    model holds the bits of a migration without donation."""
+    from flexflow_tpu_torch.resilience import migrate_state
+
+    pkg = "flexflow_tpu_torch"
+    old = _fit(_mlp(pkg, ONE))
+    keep = _mlp(pkg, ONE)
+    migrate_state(old, keep)
+    want = _whole(keep)
+    given = _mlp(pkg, ONE)
+    sources = [t for ws in old._params.values() for t in ws.values()]
+    migrate_state(old, given, donate=True)
+    assert _same(want, _whole(given)) == []
+    assert all(t.untyped_storage().nbytes() == 0 for t in sources)
+    assert old._compiled is False
+
+
+def test_migrate_source_scan_finds_a_planted_donated_reuse(tmp_path,
+                                                           monkeypatch):
+    """The fftrans migration_donation pass lints the port's
+    resilience/migrate.py: clean; a copy with a donated reuse planted
+    (an alias of a held argument read after the replay) is found."""
+    import shutil
+
+    from flexflow_tpu_torch.analysis import sources
+    from flexflow_tpu_torch.analysis import transition as T
+
+    monkeypatch.setattr(T, "_migrate_scan_cache", None)
+    assert T._migrate_source_findings() == []
+    root = tmp_path / "pkg"
+    (root / "resilience").mkdir(parents=True)
+    src = os.path.join(sources.package_root(), "resilience", "migrate.py")
+    shutil.copy(src, root / "resilience" / "migrate.py")
+    with open(root / "resilience" / "migrate.py", "a") as f:
+        f.write(
+            "\n\ndef _planted(new, batch):\n"
+            "    before = new._params\n"
+            "    new.executor._train_step(new._params, new._state,\n"
+            "                             new._opt_slots, new._step,\n"
+            "                             new._counters, batch, new._rng)\n"
+            "    return before\n")
+    monkeypatch.setattr(sources, "package_root", lambda: str(root))
+    monkeypatch.setattr(T, "_migrate_scan_cache", None)
+    found = T._migrate_source_findings()
+    assert [f.code for f in found] == ["donated_reuse"]
+    assert "new._params" in found[0].message
+    monkeypatch.setattr(T, "_migrate_scan_cache", None)
