@@ -242,8 +242,27 @@ Phases, each fatal on failure:
      executor kept; (d) phase 3's paged serving re-planned with
      replan_mesh((1, 1, 1, 1)) after 8 steps: every stream equal to
      phase 3's, K3 from the rebuilt graphs, the wall time split into
-     compile, migration, rebuild and recapture; 2 devices refused
-     naming A11.
+     compile, migration, rebuild and recapture; 2 devices refused (past
+     the one-rank world);
+ 23. the serving extras on lm-base at full width (8 slots, phase 3's 16
+     prompts, 64 new tokens, paged): (a) speculative decoding with a
+     seed-clone drafter (lm-base, the target's weights; its KV paged, a
+     private run of blocks a slot), forced to speculate at k_max 4: in
+     float32 every stream equal to phase 4's plain float32 paged stream,
+     every proposal accepted; in bf16 the streams equal to phase 3's
+     counted, the first divergence with the plain run's top-2 logit
+     margin there; the verify step's ms at each q width, the draft and
+     decode steps' ms, accepted tokens a round, tokens/s against plain,
+     K3's launches from the drafter and from the target, the verify
+     graphs captured; (b) lm-base-draft (its own random weights) under
+     the honest payoff gate in float32: the decisions with both sides of
+     the inequality and the acceptance EMA, every stream equal to plain;
+     (c) the KV inject path on one card, float32: phase 3's prompts
+     prefilled by one engine, their blocks lifted as device tensors
+     (`extract_kv`) and admitted into a second (`admit_prefilled`):
+     every stream equal to phase 4's plain float32 paged stream, the
+     blocks injected, each inject's ms, and `kv_bytes_per_layer` equal
+     to the pool tensors' bytes.
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
@@ -274,7 +293,17 @@ replaying, an all-reduce returning; then phase 22's (`mesh_elastic_check`):
 lm-base at 12 layers, dp N at stage 2, a forced shrink onto the first
 N/2 ranks (the others parked) bit-equal to a checkpoint-restart there, a
 regrow to dp N by the payoff, a count past the world declined, every rank
-leaving at the same step;
+leaving at the same step; then the serving leg (`mesh_serve_check`,
+lm-base at 12 layers, float32, paged, 8 slots, phase 3's 16 prompts,
+every stream held to the rank's one-rank engine): (e) serving on a mesh
+at tp N and dp 2 x tp N/2 (Megatron plans: heads and the KV pools'
+features over `model`, the pools replicated over `data`), the per-rank
+decode step and its NCCL ms, then dp 2 on ranks [0, 2) re-planned
+mid-decode to dp 2 x tp N/2 over the world; (f) prefill on ranks
+[0, N/2) and decode on [N/2, N), the KV rows handed device to device
+over NCCL, each handoff's blocks, bytes and measured vs predicted
+seconds, then one ratio shift; (g) speculation with lm-base-draft on the
+last N/2 ranks (--serve-draft-chips), forced;
 rank 0 prints every rank's runs (the chosen mesh
 and plan among them), the card line and {"ok": ..., "world": N} last.
 
@@ -286,6 +315,7 @@ kernels as JSON. `--json PATH` also writes every number of the run there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -977,22 +1007,28 @@ def halfway_parity(dev, errs):
 # ------------------------------------------------------------ phases 3-5
 
 
-def build_lm(flags: tuple = ()):
-    """lm-base for serving (phases 3-5; phase 20(f) with `flags`)."""
+def build_lm(flags: tuple = (), tier: str = "lm-base",
+             device: str = "cuda", layers: int | None = None, lm=None):
+    """lm-base for serving (phases 3-5; phase 20(f) with `flags`; phase
+    23 and the serving leg also another tier, device, depth or config
+    `lm`)."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models import (
         TRANSFORMER_LM_ZOO,
         build_transformer_lm,
     )
 
-    cfg = FFConfig()
+    cfg = FFConfig(device=device)
     cfg.parse_args(["--dtype", "bf16", "--seed", str(SEED),
                     "--serve-slots", str(SLOTS),
                     "--serve-max-seq", str(MAX_SEQ),
                     "--serve-prefill-chunk", str(CHUNK),
                     "--serve-kv-block-size", str(BLOCK), *flags])
     ff = FFModel(cfg)
-    build_transformer_lm(ff, TRANSFORMER_LM_ZOO["lm-base"])
+    lm = lm or TRANSFORMER_LM_ZOO[tier]
+    if layers is not None:
+        lm = dataclasses.replace(lm, num_layers=layers)
+    build_transformer_lm(ff, lm)
     ff.compile()
     return ff
 
@@ -1305,14 +1341,16 @@ def f32_engine(ff, layout):
         cfg.computation_dtype, cfg.allow_tensor_op_math_conversion = saved
 
 
-def top2_at(ff, layout, tokens) -> list:
+def top2_at(ff, layout, tokens, f32: bool = True) -> list:
     """The two largest float32 logits (value, token) after `tokens`, from
-    one request of `tokens` as its prompt, in `layout`."""
+    one request of `tokens` as its prompt, in `layout` (`f32` False: the
+    bf16 run's logits)."""
     import torch
 
     from flexflow_tpu_torch.executor import eager
 
-    eng = f32_engine(ff, layout)
+    eng = (f32_engine(ff, layout) if f32
+           else ff.serve(kv_layout=layout, max_new_tokens=NEW_TOKENS))
     ex = eng.decode_model.executor
     seen = {}
     apply, step_fn = ex._apply, eng._step_fn
@@ -1349,7 +1387,7 @@ def f32_stream_check(ff, prompts) -> dict:
 
     from flexflow_tpu_torch.executor import eager
 
-    streams = {}
+    streams, rate = {}, {}
     for layout in ("paged", "contiguous"):
         for mode in ("captured", "eager"):
             eng = f32_engine(ff, layout)
@@ -1357,7 +1395,10 @@ def f32_stream_check(ff, prompts) -> dict:
                 with eager():
                     streams[layout, mode] = eng.generate(prompts)
             else:
+                t0 = time.perf_counter()
                 streams[layout, mode] = eng.generate(prompts)
+                rate[layout] = (eng.stats()["decode_tokens"]
+                                / (time.perf_counter() - t0))
             del eng
             torch.cuda.empty_cache()
         require(streams[layout, "captured"] == streams[layout, "eager"],
@@ -1365,7 +1406,9 @@ def f32_stream_check(ff, prompts) -> dict:
                 f"differ")
     a, b = streams["paged", "captured"], streams["contiguous", "captured"]
     out = {"identical": sum(x == y for x, y in zip(a, b)),
-           "requests": len(prompts), "captured_equals_eager": True}
+           "requests": len(prompts), "captured_equals_eager": True,
+           # phase 23 holds the speculative float32 streams to these
+           "paged_streams": a, "decode_tokens_per_s": rate}
     for i, (x, y) in enumerate(zip(a, b)):
         if x != y:
             t = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
@@ -5556,11 +5599,12 @@ def elastic_serve_phase(prompts: list, want: list) -> dict:
     refused = None
     try:
         eng.replan_mesh((2, 1, 1, 1))
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
-    require(refused is not None and "A11" in refused
+    require(refused is not None and "only 1 available" in refused
             and eng.replan_decisions[-1]["decision"] == "failed",
-            f"22(d): a decode mesh of 2 devices: {refused}")
+            f"22(d): a decode mesh of 2 devices past the one-rank world: "
+            f"{refused}")
     out = {"in_flight": flight, "steps_after": steps,
            "captures_after": run.captures, "launches": launches,
            "refused": refused,
@@ -5636,8 +5680,515 @@ def log_phase22(p: dict):
         f"then recapture {s['recapture']:.3f} s over the next steps; "
         f"migration {d['migration']}; streams equal to phase 3's; K3 from "
         f"the rebuilt graphs ({d['captures_after']} captures, launches "
-        f"{d['launches']}); 2 devices refused: {d['refused'][:80]}")
+        f"{d['launches']}); 2 devices refused past the one-rank world: "
+        f"{d['refused'][:80]}")
     log(f"  phase 22 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------------ phase 23
+
+SPEC_K = 4
+
+
+@contextlib.contextmanager
+def float32(*models):
+    """The models' serving compiles in float32 (no bf16 compute, no
+    tensor-op math) inside the block."""
+    saved = [(m.config.computation_dtype,
+              m.config.allow_tensor_op_math_conversion) for m in models]
+    for m in models:
+        m.config.computation_dtype = None
+        m.config.allow_tensor_op_math_conversion = False
+    try:
+        yield
+    finally:
+        for m, (cd, tm) in zip(models, saved):
+            m.config.computation_dtype = cd
+            m.config.allow_tensor_op_math_conversion = tm
+
+
+def force_speculation(eng):
+    """Every eligible round speculates at the cap (the JAX package's test
+    harness `_force_speculation`) once the gate's first round has run
+    plain decode to measure it (`calibrate_decode`): the all-accept
+    extreme needs sustained speculation whatever the payoff gate would
+    decide, and the target's own q = 1 decode runs K3 in that round."""
+    honest = eng._decide
+
+    def always(k_cap):
+        if eng._decode_cost_s is None:
+            return honest(k_cap)
+        d = {"k": min(eng.k_max, k_cap), "reason": "bootstrap",
+             "chosen": "speculate" if k_cap >= 1 else "decode",
+             "would_speculate": k_cap >= 1,
+             "acceptance_ema": float(eng.acceptance_ema),
+             "acceptance_samples": int(eng.acceptance_samples)}
+        eng._decision_counts[d["chosen"]] += 1
+        eng.decisions.append(d)
+        return d
+
+    eng._decide = always
+
+
+def first_divergence(got: list, want: list) -> dict | None:
+    """The first request whose stream differs, and where."""
+    for i, (x, y) in enumerate(zip(got, want)):
+        if x != y:
+            t = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
+            return {"request": i, "step": t, "got": x[t], "want": y[t]}
+    return None
+
+
+def spec_run(ff, draft, prompts, force: bool, f32: bool) -> dict:
+    """One speculative serve of `prompts` (paged, 8 slots, k_max 4),
+    its launch counts set to 0 just before generate and read just after,
+    the drafter's counted apart (each drafter call's delta); the verify,
+    draft and target decode calls' times by width, the calls that warmed
+    up or captured a graph left out."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    ctx = float32(ff, draft) if f32 else contextlib.nullcontext()
+    with ctx:
+        eng = ff.serve(kv_layout="paged", max_new_tokens=NEW_TOKENS,
+                       speculate=True, draft_model=draft, spec_k=SPEC_K)
+    if force:
+        force_speculation(eng)
+    c = counters()
+    drafter = eng.drafter.engine
+    times = {"verify": {}, "draft": {}, "decode": {}}
+    drafted: dict = {}
+
+    def timed(fn, kind, run_of):
+        def call(*a):
+            t0 = time.perf_counter()
+            before = ({k: v.launches for k, v in c.items()}
+                      if kind == "draft" else None)
+            out = fn(*a)
+            dt = (time.perf_counter() - t0) * 1e3
+            run = run_of()
+            q = int(np.asarray(a[0]).shape[1])
+            if run is None or run.last_call == "replay":
+                times[kind].setdefault(q, []).append(dt)
+            if before is not None:
+                for k, v in c.items():
+                    drafted[k] = drafted.get(k, 0) + v.launches - before[k]
+            return out
+        return call
+
+    drafter._device_step = timed(drafter._device_step, "draft",
+                                 lambda: drafter._step_fn.captured)
+    eng._device_step = timed(eng._device_step, "decode",
+                             lambda: eng._step_fn.captured)
+    run_verify = eng._run_verify
+    eng._run_verify = timed(run_verify, "verify",
+                            lambda: eng._verify_fn.captured)
+    reset_counters()
+    t0 = time.perf_counter()
+    streams = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in c.items() if v.launches}
+    plain = {k: v.plain_calls for k, v in c.items() if v.plain_calls}
+    st = eng.stats()
+    sp = st["speculation"]
+    require(not plain, f"23: plain versions ran: {plain}")
+    target = {k: n - drafted.get(k, 0) for k, n in launches.items()}
+    out = {
+        "streams": streams, "wall_s": wall,
+        "decode_tokens_per_s": st["decode_tokens"] / wall,
+        "launches": launches,
+        "drafter_launches": {k: n for k, n in drafted.items() if n},
+        "target_launches": {k: n for k, n in target.items() if n},
+        "verify_graphs": getattr(eng._verify_fn.captured, "captures", 0),
+        "verify_widths": sorted(times["verify"]),
+        "ms": {kind: {str(q): statistics.median(v)
+                      for q, v in sorted(by.items())}
+               for kind, by in times.items()},
+        "rounds": sp["rounds"], "draft_tokens": sp["draft_tokens"],
+        "accepted_tokens": sp["accepted_tokens"],
+        "emitted_tokens": sp["emitted_tokens"],
+        "accepted_per_round": sp["accepted_tokens"] / max(1, sp["rounds"]),
+        "acceptance_ema": sp["acceptance_ema"],
+        "decision_counts": sp["decision_counts"],
+        "payoff": [d for d in eng.decisions if d["reason"] == "payoff"][:6],
+        "pair_key": eng.pair_key,
+    }
+    eng.release_drafter()
+    eng._release_graphs()
+    del eng, drafter
+    torch.cuda.empty_cache()
+    return out
+
+
+def inject_phase(ff, prompts, want) -> dict:
+    """23(c), float32: every prompt prefilled by one engine (one token
+    each), its prompt-extent blocks lifted by the pre-release hook as
+    device tensors (`extract_kv`), then admitted into a second engine
+    (`admit_prefilled`, FCFS as slots free) that decodes the rest: every
+    stream equal to the plain float32 engine's (phase 4). The injects
+    timed on the card."""
+    import torch
+
+    from flexflow_tpu_torch.serving.scheduler import Request
+
+    with float32(ff):
+        pre = ff.serve(kv_layout="paged", max_new_tokens=1)
+        dec = ff.serve(kv_layout="paged", max_new_tokens=NEW_TOKENS)
+    stash = {}
+
+    def hook(slot, req):
+        stash[req.request_id] = pre.extract_kv(slot.index, len(req.prompt))
+
+    pre._pre_release_hook = hook
+    first = [pre.submit(p) for p in prompts]
+    pre.run_until_drained()
+    inject_ms, blocks = [], []
+    rows = dec._inject_rows
+
+    def timed_inject(b, k, v):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows(b, k, v)
+        torch.cuda.synchronize()
+        # a bucket's first two calls warm up and capture its graph
+        inject_ms.append(((time.perf_counter() - t0) * 1e3,
+                          getattr(dec._inject_fn.captured, "last_call",
+                                  "replay")))
+
+    dec._inject_rows = timed_inject
+    reqs = []
+    for r in first:
+        req = Request(prompt=list(r.prompt), max_new_tokens=NEW_TOKENS)
+        req.generated.append(r.generated[0])
+        reqs.append(req)
+    queue = list(zip(reqs, first))
+    while queue or not dec.scheduler.drained:
+        while queue:
+            req, done = queue[0]
+            k, v = stash[done.request_id]
+            got = dec.admit_prefilled(req, req.generated[-1], k, v)
+            if got is None:
+                break
+            blocks.append(got)
+            queue.pop(0)
+        dec.step()
+    streams = [r.generated for r in reqs]
+    require(streams == want, "23(c): the injected float32 streams differ "
+                             "from plain decode's: "
+            f"{first_divergence(streams, want)}")
+    name = dec.kv_pool_layers()[0]
+    pool = dec.decode_model._state[name]["pool_k"]
+    replays = [ms for ms, call in inject_ms if call == "replay"]
+    out = {"requests": len(reqs), "blocks_injected": blocks,
+           "inject_ms": [ms for ms, _ in inject_ms],
+           "inject_calls": [call for _, call in inject_ms],
+           "median_inject_replay_ms": (statistics.median(replays)
+                                       if replays else None),
+           "inject_graphs": getattr(dec._inject_fn.captured, "captures",
+                                    0),
+           "kv_bytes_per_layer": dec.kv_bytes_per_layer(),
+           "pool_bytes_per_layer": 2 * pool.numel() * pool.element_size()}
+    require(out["kv_bytes_per_layer"] == out["pool_bytes_per_layer"],
+            f"23(c): kv_bytes_per_layer {out['kv_bytes_per_layer']} vs the "
+            f"pools' {out['pool_bytes_per_layer']} B")
+    del pre, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase23(prompts: list, plain: dict, f32_plain: list,
+            f32_rate: float) -> dict:
+    """Phase 23: the serving extras on lm-base at full width (8 slots,
+    phase 3's 16 prompts, paged): (a) speculation with a seed-clone
+    drafter (lm-base, the target's weights) forced at k_max 4, float32
+    streams equal to plain decode's (fatal), bf16 streams counted; (b)
+    lm-base-draft (its own random weights) under the honest payoff gate,
+    float32 streams equal to plain (fatal), every decision recorded; (c)
+    the KV inject path between two engines, float32. Each check
+    fatal."""
+    import torch
+
+    t0 = time.perf_counter()
+    ff = build_lm()
+    clone = build_lm()  # the same seed and names: the same weights
+    out = {"a": {}}
+    out["a"]["f32"] = a32 = spec_run(ff, clone, prompts, force=True,
+                                     f32=True)
+    require(a32["streams"] == f32_plain,
+            f"23(a) float32: speculative streams differ from plain decode: "
+            f"{first_divergence(a32['streams'], f32_plain)}")
+    require(a32["accepted_tokens"] == a32["draft_tokens"] > 0,
+            f"23(a): a seed clone rejected a proposal: {a32}")
+    out["a"]["bf16"] = a16 = spec_run(ff, clone, prompts, force=True,
+                                      f32=False)
+    a16["equal_streams"] = sum(x == y for x, y in
+                               zip(a16["streams"], plain["streams"]))
+    div = first_divergence(a16["streams"], plain["streams"])
+    if div is not None:
+        i, t = div["request"], div["step"]
+        top = top2_at(ff, "paged", list(prompts[i])
+                      + plain["streams"][i][:t], f32=False)
+        div["plain_top2"] = top
+        div["plain_margin"] = top[0][0] - top[1][0]
+    a16["first_divergence"] = div
+    a32["plain_decode_tokens_per_s"] = f32_rate
+    a16["plain_decode_tokens_per_s"] = plain["decode_tokens_per_s"]
+    for r in (a32, a16):
+        require(r["drafter_launches"].get("paged_flash_decode_attention",
+                                          0) > 0
+                and r["target_launches"].get(
+                    "paged_flash_decode_attention", 0) > 0
+                and r["verify_graphs"] > 0,
+                f"23(a): K3 from the drafter and the target, verify graphs: "
+                f"{r['drafter_launches']}, {r['target_launches']}, "
+                f"{r['verify_graphs']}")
+    del clone
+    draft = build_lm(tier="lm-base-draft")
+    out["b"] = b = spec_run(ff, draft, prompts, force=False, f32=True)
+    b["plain_decode_tokens_per_s"] = f32_rate
+    require(b["streams"] == f32_plain,
+            f"23(b) float32: speculative streams differ from plain decode: "
+            f"{first_divergence(b['streams'], f32_plain)}")
+    del draft
+    out["c"] = inject_phase(ff, prompts, f32_plain)
+    for r in (a32, a16, b):
+        r.pop("streams")
+    del ff
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_phase23(p: dict):
+    for name, r in (("(a) float32", p["a"]["f32"]),
+                    ("(a) bf16", p["a"]["bf16"]), ("(b) float32", p["b"])):
+        log(f"  {name}: {r['rounds']} speculative rounds, "
+            f"{r['accepted_tokens']} of {r['draft_tokens']} drafted tokens "
+            f"accepted ({r['accepted_per_round']:.2f} a round), emitted "
+            f"{r['emitted_tokens']}, acceptance EMA "
+            f"{r['acceptance_ema']:.3f}, decisions {r['decision_counts']}; "
+            f"{r['decode_tokens_per_s']:.1f} decode tokens/s vs plain "
+            f"{r['plain_decode_tokens_per_s']:.1f}; ms by width: verify "
+            f"{r['ms']['verify']}, draft {r['ms']['draft']}, decode "
+            f"{r['ms']['decode']}; K3 drafter "
+            f"{r['drafter_launches'].get('paged_flash_decode_attention')}, "
+            f"target {r['target_launches'].get('paged_flash_decode_attention')}; "
+            f"verify graphs {r['verify_graphs']} (widths "
+            f"{r['verify_widths']})")
+        if r.get("payoff"):
+            log(f"    payoff decisions: " + "; ".join(
+                f"k {d['k']}: lhs {d['lhs_s']:.6g} s vs rhs "
+                f"{d['rhs_s']:.6g} s (a {d['acceptance_ema']:.3f}) -> "
+                f"{d['chosen']}" for d in r["payoff"]))
+    a16 = p["a"]["bf16"]
+    log(f"  (a) bf16 streams equal to plain: {a16['equal_streams']} of 16; "
+        f"first divergence {a16['first_divergence']}")
+    c = p["c"]
+    log(f"  (c) {c['requests']} prompts injected: blocks "
+        f"{c['blocks_injected']}, inject ms "
+        f"{[round(x, 3) for x in c['inject_ms']]} (calls "
+        f"{c['inject_calls']}; median replay "
+        f"{c['median_inject_replay_ms']} ms; {c['inject_graphs']} "
+        f"graphs); kv_bytes_per_layer "
+        f"{c['kv_bytes_per_layer']} B = the pools' "
+        f"{c['pool_bytes_per_layer']} B")
+    log(f"  phase 23 took {p['wall_s']:.1f} s")
+
+
+# ------------------------------------------------------- the mesh: serving
+
+def serve_timed(eng, prompts, profile: bool) -> dict:
+    """`eng.generate(prompts)` with each pure-decode step that replayed
+    timed (the median), and on the card the 8th pure-decode step
+    profiled: its NCCL kernels' device ms."""
+    sched = eng.scheduler
+    step = eng.step
+    ms, prof, seen = [], {}, [0]
+    run = eng._step_fn.captured if eng.member else None
+
+    def timed():
+        pure = (not sched.pending
+                and not any(s.prefilling for s in sched.slots))
+        if pure:
+            seen[0] += 1
+        if pure and profile and seen[0] == 8:
+            numbers, done = profiled(step, {"nccl": "nccl"})
+            prof.update(nccl_ms=numbers["matched"]["nccl"]["ms"],
+                        nccl_kernels=numbers["matched"]["nccl"]["count"],
+                        step_ms=numbers["wall_ms_profiled"],
+                        busy=numbers["device_busy_share"])
+            return done
+        t0 = time.perf_counter()
+        done = step()
+        if pure and (run is None or run.last_call == "replay"):
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return done
+
+    eng.step = timed
+    t0 = time.perf_counter()
+    streams = eng.generate(prompts)
+    wall = time.perf_counter() - t0
+    eng.step = step
+    return {"streams": streams, "wall_s": wall,
+            "median_decode_step_ms": (statistics.median(ms) if ms
+                                      else None),
+            "decode_tokens_per_s": eng.stats()["decode_tokens"] / wall,
+            **prof}
+
+
+def mesh_serve_check(device: str, lm=None, draft_lm=None,
+                     tokens: int = NEW_TOKENS) -> dict:
+    """The serving leg of the torchrun run on this rank, float32 (lm-base
+    at full width and 12 layers by default, paged, 8 slots, phase 3's 16
+    prompts): (e) served at tp N and at dp 2 x tp N/2 (Megatron plans,
+    the KV pools' features over `model`), then at dp 2 on ranks [0, 2)
+    re-planned mid-decode to dp 2 x tp N/2 over the world; (f) prefill
+    on ranks [0, N/2) and decode on [N/2, N), the KV rows handed over
+    NCCL, then one ratio shift; (g) speculation with lm-base-draft on
+    the last N/2 ranks (--serve-draft-chips), forced. Every stream equal
+    to this rank's one-rank engine's. Returns the rank's numbers and
+    failures; no check stops the leg (the ranks stay in step)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel import megatron_transformer
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cuda = str(device).startswith("cuda")
+    failures, numbers = [], {}
+    t_leg = time.perf_counter()
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    one_card = ("--mesh", "1,1,1,1")  # each rank's own trained model
+    ff = build_lm(one_card, device=device, lm=lm)
+    vocab = ff.layers[-1].params.out_channels
+    prompts = make_prompts(vocab)
+    kw = dict(kv_layout="paged", max_new_tokens=tokens)
+    with float32(ff):
+        one = ff.serve(**kw)
+    numbers["one"] = r = serve_timed(one, prompts, cuda)
+    want = r.pop("streams")
+    del one
+    megatron = megatron_transformer(ff)
+    # (e) serving on a mesh
+    for name, axes in (("tp", (1, world, 1, 1)),
+                       ("dp2_tp", (2, world // 2, 1, 1))):
+        with float32(ff):
+            eng = ff.serve(strategy=megatron,
+                           config_overrides={"mesh_axis_sizes": axes}, **kw)
+        numbers[name] = r = serve_timed(eng, prompts, cuda)
+        r["mesh"] = {k: int(v) for k, v in eng.decode_model.mesh.shape
+                     .items()}
+        name0 = eng.kv_pool_layers()[0]
+        r["pool_local"] = list(eng.decode_model._state[name0]["pool_k"]
+                               .shape)
+        check(r.pop("streams") == want, f"(e) {name}: streams differ from "
+                                        f"one rank's")
+        eng._release_graphs()
+        del eng
+    with float32(ff):
+        eng = ff.serve(strategy=megatron, config_overrides={
+            "mesh_axis_sizes": (2, 1, 1, 1), "mesh_device_offset": 0}, **kw)
+        reqs = [eng.submit(p) for p in prompts]
+        for _ in range(8):
+            eng.step()
+        flight = sum(not q.finished for q in reqs)
+        dec = eng.replan_mesh((2, world // 2, 1, 1))
+    eng.run_until_drained()
+    check(flight > 0 and [q.generated for q in reqs] == want,
+          f"(e) replan dp 2 -> dp 2 x tp {world // 2}: {flight} in flight, "
+          f"streams equal {[q.generated for q in reqs] == want}")
+    numbers["replan"] = {k: dec.get(k) for k in (
+        "decision", "compile_s", "migrate_s", "rebuild_s", "total_s",
+        "predicted_migration_s", "migration_measured_s", "new_mesh_axes")}
+    numbers["replan"]["in_flight"] = flight
+    eng._release_graphs()
+    del eng
+    # (f) disaggregated prefill/decode
+    with float32(ff):
+        dis = ff.serve(disaggregate=True, prefill_chips=world // 2, **kw)
+    t0 = time.perf_counter()
+    got = dis.generate(prompts)
+    wall = time.perf_counter() - t0
+    check(got == want, "(f) disaggregated streams differ from one rank's")
+    node = next(n for n in dis.decode.decode_model.graph.topo_order()
+                if n.op_type.name == "OP_PAGED_INC_MULTIHEAD_ATTENTION")
+    block_bytes = (2 * 4 * node.params.block_size * node.params.embed_dim
+                   * len(dis.decode.kv_pool_layers()))
+    numbers["disagg"] = {
+        "wall_s": wall, "split": [dis.prefill_chips, dis.decode_chips],
+        "handoffs": [{"blocks": h["injected_blocks"],
+                      "prompt_blocks": h["prompt_blocks"],
+                      "bytes": h["injected_blocks"] * block_bytes,
+                      "measured_s": h["measured_s"],
+                      "predicted_s": h["predicted_s"]}
+                     for h in dis.handoffs]}
+    dis.rebalance_min_samples = 1
+    dis.rebalance_factor = 1e-4
+    with float32(ff):
+        shift = dis.maybe_rebalance(horizon_steps=10 ** 6)
+    again = dis.generate(prompts)
+    check(shift is not None and shift["decision"] == "migrated"
+          and again == want,
+          f"(f) ratio shift: {shift and shift['decision']}, streams equal "
+          f"{again == want}")
+    numbers["disagg"]["shift"] = shift and {k: shift.get(k) for k in (
+        "decision", "old_prefill_chips", "new_prefill_chips",
+        "predicted_migration_s", "migration_measured_s", "lhs_s", "rhs_s")}
+    numbers["disagg"]["split_after"] = [dis.prefill_chips, dis.decode_chips]
+    for side in (dis.prefill, dis.decode):
+        side._release_graphs()
+    del dis
+    # (g) speculation, the drafter on its own ranks
+    draft = build_lm(one_card, device=device, lm=draft_lm,
+                     tier="lm-base-draft")
+    with float32(ff, draft):
+        eng = ff.serve(speculate=True, draft_model=draft,
+                       draft_chips=world // 2, **kw)
+    force_speculation(eng)
+    t0 = time.perf_counter()
+    got = eng.generate(prompts)
+    sp = eng.stats()["speculation"]
+    numbers["speculate"] = {
+        "wall_s": time.perf_counter() - t0,
+        "target_ranks": list(eng.decode_model.mesh.ranks),
+        "drafter_ranks": list(eng.drafter.engine.decode_model.mesh.ranks),
+        **{k: sp[k] for k in ("rounds", "draft_tokens", "accepted_tokens",
+                              "emitted_tokens")}}
+    check(got == want and sp["rounds"] > 0,
+          f"(g) speculative streams equal {got == want}, rounds "
+          f"{sp['rounds']}")
+    eng.release_drafter()
+    eng._release_graphs()
+    del eng, draft, ff
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"rank": rank, "world": world, "failures": failures,
+            "numbers": numbers, "wall_s": time.perf_counter() - t_leg}
+
+
+def log_mesh_serve(r: dict):
+    n = r["numbers"]
+
+    def step(k):
+        v = n[k]
+        return (f"{v['median_decode_step_ms']} ms a decode step, NCCL "
+                f"{v.get('nccl_ms')} ms ({v.get('nccl_kernels')} kernels) "
+                f"of a profiled step, {v['decode_tokens_per_s']:.1f} "
+                f"tokens/s")
+
+    d = n["disagg"]
+    log(f"  rank {r['rank']} serving leg: one rank {step('one')}; tp "
+        f"{step('tp')} (pool {n['tp']['pool_local']}); dp2 x tp "
+        f"{step('dp2_tp')}; replan {n['replan']}; disagg "
+        f"{d['split']} -> {d['split_after']} in {d['wall_s']:.2f} s, "
+        f"handoffs {d['handoffs'][:4]}, shift {d['shift']}; speculate "
+        f"{n['speculate']}; {r['wall_s']:.1f} s; failures {r['failures']}")
 
 
 # ------------------------------------------------------ the mesh: C5
@@ -6002,11 +6553,13 @@ def mesh_main(json_path: str) -> int:
     out["barrier"] = mesh_barrier_check(dev, lm_config(layers=MESH_LAYERS))
     out["c5"] = mesh_c5_check(dev, lm_config(layers=MESH_LAYERS))
     out["elastic"] = mesh_elastic_check(dev, lm_config())
+    out["serve"] = mesh_serve_check(dev)
     out["failures"] = (out["failures"] + out["resume"]["failures"]
                        + out["diag"]["failures"]
                        + out["barrier"]["failures"]
                        + out["c5"]["failures"]
-                       + out["elastic"]["failures"])
+                       + out["elastic"]["failures"]
+                       + out["serve"]["failures"])
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -6024,6 +6577,7 @@ def mesh_main(json_path: str) -> int:
             log_mesh_resume(o["barrier"])
             log_mesh_resume(o["c5"])
             log_mesh_elastic(o["elastic"])
+            log_mesh_serve(o["serve"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
@@ -6220,6 +6774,7 @@ def main(argv: list[str]) -> int:
     log(f"  paged and contiguous streams identical for {same} of "
         f"{len(prompts)} requests (bf16)")
     f32_streams = f32_stream_check(ff, prompts)
+    f32_paged = f32_streams.pop("paged_streams")
     log(f"  float32: paged and contiguous streams identical for "
         f"{f32_streams['identical']} of {len(prompts)} requests; first "
         f"difference: {f32_streams.get('first_difference')}")
@@ -6397,6 +6952,13 @@ def main(argv: list[str]) -> int:
         "mid-decode")
     p22 = phase22(train, prompts, runs["paged"]["streams"])
     log_phase22(p22)
+    log("== phase 23: the serving extras on lm-base at full width (8 "
+        "slots, phase 3's 16 prompts, paged): speculation with a "
+        "seed-clone drafter forced (float32, bf16), lm-base-draft under "
+        "the honest payoff gate (float32), the KV inject path")
+    p23 = phase23(prompts, runs["paged"], f32_paged,
+                  f32_streams["decode_tokens_per_s"]["paged"])
+    log_phase23(p23)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -6444,6 +7006,16 @@ def main(argv: list[str]) -> int:
                    if counter in p22[k]["launches"]}
         if elastic:
             n = dict(n, phase22_launches=elastic)
+        # phase 23's paths: the speculative runs' drafter and target, and
+        # the inject path's decode
+        spec = {f"{name} {side}": r[f"{side}_launches"][counter]
+                for name, r in (("23(a) f32", p23["a"]["f32"]),
+                                ("23(a) bf16", p23["a"]["bf16"]),
+                                ("23(b) f32", p23["b"]))
+                for side in ("drafter", "target")
+                if counter in r[f"{side}_launches"]}
+        if spec:
+            n = dict(n, phase23_launches=spec)
         rows.append(dict(
             name=row, route=route, source=source, replaces=replaces,
             launches=run["launches"][counter], max_abs_err=errs[row],
@@ -6479,6 +7051,7 @@ def main(argv: list[str]) -> int:
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
                   phase19=p19, phase20=p20, phase21=p21, phase22=p22,
+                  phase23=p23,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -6581,6 +7154,18 @@ def main(argv: list[str]) -> int:
                                       for k in ("copy", "donate")},
                         "serving_replan_split_s": p22["d"]["split_s"],
                         "wall_s": p22["wall_s"]},
+                    "phase23": {
+                        "decode_tokens_per_s": {
+                            k: [r["decode_tokens_per_s"],
+                                r["plain_decode_tokens_per_s"]]
+                            for k, r in (("a f32", p23["a"]["f32"]),
+                                         ("a bf16", p23["a"]["bf16"]),
+                                         ("b f32", p23["b"]))},
+                        "bf16_equal_streams": p23["a"]["bf16"][
+                            "equal_streams"],
+                        "b_decisions": p23["b"]["decision_counts"],
+                        "inject_ms": p23["c"]["inject_ms"][:4],
+                        "wall_s": p23["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -41,6 +41,12 @@ BUILDER_CALLEES = {
     "build_chunked_train_step": ("chunk_fn",),
     "build_eval_step": ("eval_fn", "_eval_step"),
     "build_decode_step": ("_step_fn", "_decode_step"),
+    # speculative decoding's verify call: the target's KV state and the
+    # weights it reads are held, so the engine rebinds the state per call
+    "build_verify_step": ("_verify_fn", "_verify_step"),
+    # the disaggregated handoff's landing: the decode side's pools are
+    # held and written in place
+    "build_kv_inject": ("_inject_fn",),
 }
 
 _CAPTURE_CALLS = ("_compiled", "CapturedStep")

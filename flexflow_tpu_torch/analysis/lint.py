@@ -125,6 +125,9 @@ DONATED_CALLEES = {
     "_eval_step": (0, 1, 2),
     "_step_fn": (0, 1, 4),             # build_decode_step (KV state, gen)
     "_decode_step": (0, 1, 4),
+    "_verify_fn": (0, 1),               # build_verify_step (speculative)
+    "_verify_step": (0, 1),
+    "_inject_fn": (0,),                 # build_kv_inject (disagg handoff)
 }
 
 _HASH_FN_HINTS = ("fingerprint", "signature", "digest", "_sha", "hash")

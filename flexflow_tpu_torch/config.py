@@ -1,10 +1,8 @@
 """FFConfig: runtime configuration + CLI flag parsing (twin of
 `flexflow_tpu/config.py`).
 
-Every flag the JAX package's parser reads is either given its path here
-or refused: asking for a flag of a path the port does not have yet
-(`_NOT_PORTED`) raises, naming its ROADMAP item. The flags the JAX
-package parses but never reads are accepted and do nothing (`_INERT`),
+Every flag the JAX package's parser reads is given its path here. The
+flags the JAX package parses but never reads are accepted and do nothing (`_INERT`),
 and so is `--no-overlap-collectives`: the port's rings have one
 schedule, each hop posted before the work on the block at hand, and the
 Unity search prices the weight-update pair overlapped, as the JAX
@@ -27,16 +25,6 @@ import torch
 from .fftype import CompMode, DataType
 from .machine import DEFAULT_AXES, MULTIHOST_AXES, MeshShape
 
-# Flags of the JAX package whose paths are not ported: flag -> (takes a
-# value, ROADMAP item). A valued flag asks for its path unless the value
-# is 0 or empty.
-_NOT_PORTED = {
-    "--serve-disaggregate": (False, "A11 (serving/disagg.py)"),
-    "--serve-prefill-chips": (True, "A11 (serving/disagg.py)"),
-    "--serve-draft-chips": (True, "A11 (serving/speculative.py)"),
-    "--serve-spec-k": (True, "A11 (serving/speculative.py)"),
-}
-
 # Flags the JAX package parses and never reads: accepted, no effect
 # (flag -> takes a value).
 _INERT = {
@@ -47,13 +35,6 @@ _INERT = {
     "--enable-inplace-optimizations": False,
     "--simulator-workspace-size": True, "--no-overlap-collectives": False,
 }
-
-
-def _asks(value: str) -> bool:
-    try:
-        return float(value) != 0.0
-    except ValueError:
-        return value != ""
 
 
 def not_ported(what: str, item: str):
@@ -88,6 +69,21 @@ class FFConfig:
     serve_kv_block_size: int = 16
     serve_kv_blocks: int = 0
     serve_prefix_cache: int = 1
+    # disaggregated serving (serving/disagg.py): prefill and decode on
+    # disjoint sub-meshes of the torchrun world; serve_prefill_chips sizes
+    # the prefill side (0 -> half the ranks); serve_role marks which side
+    # a decode compile is for and joins the warm-start plan fingerprint
+    serve_disaggregate: bool = False
+    serve_prefill_chips: int = 0
+    serve_role: str = ""  # "" | "prefill" | "decode" | "draft"
+    # speculative decoding (serving/speculative.py): serve_draft_chips
+    # puts the drafter on the world's trailing ranks (0 -> colocated);
+    # serve_spec_k caps the draft length the payoff gate may choose
+    serve_draft_chips: int = 0
+    serve_spec_k: int = 4
+    # the first world rank a mesh lays its grid over: disjoint sub-meshes
+    # (the sides of a split) set it per side
+    mesh_device_offset: int = 0
     # observability (telemetry/): telemetry_dir enables the run-wide
     # tracer + JSONL metrics log (trace.json / metrics.jsonl under the dir)
     telemetry_dir: str = ""
@@ -249,11 +245,7 @@ class FFConfig:
                 i += 1
                 return argv[i]
 
-            if a in _NOT_PORTED:
-                takes_value, item = _NOT_PORTED[a]
-                if not takes_value or _asks(val()):
-                    raise not_ported(f"flag {a}", item)
-            elif a in _INERT:
+            if a in _INERT:
                 if _INERT[a]:
                     val()
             elif a in ("-e", "--epochs"):
@@ -414,6 +406,14 @@ class FFConfig:
                 self.serve_kv_blocks = int(val())
             elif a == "--serve-prefix-cache":
                 self.serve_prefix_cache = int(val())
+            elif a == "--serve-disaggregate":
+                self.serve_disaggregate = True
+            elif a == "--serve-prefill-chips":
+                self.serve_prefill_chips = int(val())
+            elif a == "--serve-draft-chips":
+                self.serve_draft_chips = int(val())
+            elif a == "--serve-spec-k":
+                self.serve_spec_k = int(val())
             elif a == "--allow-tensor-op-math-conversion":
                 self.allow_tensor_op_math_conversion = True
             elif a == "--dtype":

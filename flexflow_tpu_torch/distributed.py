@@ -21,6 +21,7 @@ and `world_rank` stay the whole world's.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Optional
 
@@ -78,6 +79,20 @@ def set_scope(mesh):
 def scope():
     """The sub-mesh the helpers are scoped to, or None."""
     return _SCOPE
+
+
+@contextlib.contextmanager
+def keep_scope():
+    """The helpers' scope as it was before the block, after it: a serving
+    engine's decode compile on a window of the world scopes them to the
+    window while it compiles, and leaves the caller's scope as it found
+    it."""
+    global _SCOPE
+    saved = _SCOPE
+    try:
+        yield
+    finally:
+        _SCOPE = saved
 
 
 def world_size() -> int:
@@ -189,6 +204,40 @@ def share_object(payload, src: int, ranks: list, *meshes):
                      and sorted(m.ranks) == sorted(ranks))
     box = [payload]
     dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+_WORLD_HOST = []
+
+
+def world_host_group():
+    """A gloo group over the whole world for host values (the default
+    group where the world runs gloo), made at its first call, which must
+    come on every rank at one point (the serving engines make it when
+    they are built). None in a world of one."""
+    if world_size() <= 1:
+        return None
+    if not _WORLD_HOST:
+        _WORLD_HOST.append(None if dist.get_backend() == "gloo"
+                           else dist.new_group(backend="gloo"))
+    return _WORLD_HOST[0]
+
+
+def host_broadcast(t, src: int):
+    """A CPU tensor from world rank `src` to every world rank, in place,
+    over the world's host group (collective over the world)."""
+    if world_size() > 1:
+        dist.broadcast(t, src=src, group=world_host_group())
+    return t
+
+
+def host_broadcast_object(obj, src: int):
+    """Any picklable object from world rank `src` to every world rank
+    over the world's host group (collective over the world)."""
+    if world_size() <= 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=world_host_group())
     return box[0]
 
 

@@ -655,6 +655,9 @@ class Executor:
             rule = self._embedding_rule(node, ins, wl)
         elif node.op_type == OT.OP_PIPE_BLOCKS:
             rule = self._pipe_rule(node, ins, wl)
+        elif node.op_type in (OT.OP_INC_MULTIHEAD_ATTENTION,
+                              OT.OP_PAGED_INC_MULTIHEAD_ATTENTION):
+            rule = self._kv_rule(node, ins, wl)
         if rule is None:
             rule = self._generic_rule(node, ins, outs, wl)
         rule.setdefault("gather_w", ())
@@ -662,7 +665,9 @@ class Executor:
         rule.setdefault("reduce", None)
         rule.setdefault("params", node.params)
         rule.setdefault("partial", set())
-        rule["bias"] = {"row": "bias", "mha": "bo"}.get(rule["kind"])
+        rule["bias"] = ({"row": "bias", "mha": "bo"}.get(rule["kind"])
+                        or ("bo" if rule["kind"] == "kv" and rule["reduce"]
+                            else None))
         rule["groups"] = [g for g in (rule["enter"], rule["reduce"]) if g]
         return rule
 
@@ -727,6 +732,60 @@ class Executor:
                         p, num_heads=p.num_heads // n,
                         embed_dim=p.embed_dim // n),
                     partial=lead_axes)
+
+    def _kv_rule(self, node, ins, wl):
+        """Incremental attention (the decode graph's KV ops) on a mesh,
+        the placement the JAX package gives it (`ops/inc_attention.py:
+        1-13`): this rank's slots, as its token input has them; its heads
+        where the plan shards the projections by heads (wq/wk/wv column,
+        wo row parallel: the partial output all-reduced, then `bo`), else
+        the projections gathered whole. The KV state rests as the plan
+        places it: its feature dim over the heads' axes, the paged pool's
+        block dims whole (replicated over the slots' axes: the new rows
+        are gathered over them before the write), the contiguous cache's
+        slot dim over the slots' axes or whole (then written like the
+        pool, and read at this rank's slot rows)."""
+        p = node.params
+        paged = node.op_type == OT.OP_PAGED_INC_MULTIHEAD_ATTENTION
+        slots = ins[0][0]
+        a = wl["wq"][1]
+        n = self.mesh.axes_size(a)
+        want = {"wq": ((), a), "wk": ((), a), "wv": ((), a), "wo": (a, ())}
+        if p.use_bias:
+            want.update(bq=(a,), bk=(a,), bv=(a,), bo=((),))
+        heads = (bool(a) and all(wl[w] == v for w, v in want.items())
+                 and p.num_heads % n == 0 and not set(a) & set(slots))
+        if not heads:
+            a = ()
+        ck = "pool_k" if paged else "cache_k"
+        st = wl[ck]
+        if wl["pool_v" if paged else "cache_v"] != st:
+            raise NotImplementedError(
+                f"{node.name}: the K and V state must rest alike "
+                f"({wl})")
+        if st[-1] != a or (paged and any(st[:-1])) or (
+                not paged and (st[1] or st[0] not in ((), slots))):
+            raise NotImplementedError(
+                f"{node.name}: the KV state must rest with its feature dim "
+                f"over the heads' axes {a or '()'} and its slot dim over the "
+                f"slots' axes {slots or '()'} or whole (the paged pool's "
+                f"block dims whole); the plan gives {st}")
+        split = not paged and st[0] == slots
+        group = None if split else self.mesh.group(slots)
+        kv = {"gather": group, "take": group if not paged else None}
+        run = [(slots,) + ((),) * (len(l) - 1) for l in ins]
+        rule = dict(kind="kv", run=run, nat=[run[0]],
+                    gather_w=tuple(w for w, l in wl.items()
+                                   if any(l) and w not in (
+                                       "cache_k", "cache_v", "pool_k",
+                                       "pool_v")),
+                    partial=set(slots), kv=kv)
+        if heads:
+            rule.update(gather_w=(), enter=a, reduce=a,
+                        params=dataclasses.replace(
+                            p, num_heads=p.num_heads // n,
+                            embed_dim=p.embed_dim // n))
+        return rule
 
     def _pipe_rule(self, node, ins, wl):
         """The pipelined block stack: its weights sharded over `pipe` on
@@ -1071,6 +1130,8 @@ class Executor:
                     y = reduce_backward(y, mesh.group(rule["enter"]))
                 entered[key] = y
             ins.append(entered[key])
+        if rule.get("kv") is not None:
+            ctx = dataclasses.replace(ctx, kv=rule["kv"])
         wsrc = getattr(node, "weight_source", None) or node.name
         weights, regather = {}, []
         for k, t in params.get(wsrc, {}).items():
@@ -1678,6 +1739,40 @@ class Executor:
 
     # ------------------------------------------------------------ serving
 
+    def _slot_logits(self, logits):
+        """The decode graph's logits at this rank's slot rows with the
+        vocab whole (gathered over the axes a column-parallel head splits
+        it by), and the group over the slots' axes (None: every slot
+        here)."""
+        if not self.spmd:
+            return logits, None
+        from .parallel.spmd import redistribute
+
+        lay = self._layout[(self.logits_node.guid, 0)]
+        rows = (lay[0],) + ((),) * (len(lay) - 1)
+        return (redistribute(logits, lay, rows, self.mesh),
+                self.mesh.group(lay[0]))
+
+    def _all_slots(self, x, group):
+        """A per-slot result of this rank's slots, gathered over the
+        slots' axes: every rank's scheduler advances on the same
+        tokens."""
+        if group is None:
+            return x
+        from .parallel.spmd import all_gather
+
+        return all_gather(x, group, 0)
+
+    def _decode_pool(self):
+        """The memory pool every serving graph of this executor shares
+        (the decode widths, the verify widths, the KV inject): one of
+        them replays at a time, its outputs cloned before the next."""
+        if self.device.type != "cuda":
+            return None
+        if getattr(self, "_serving_pool", None) is None:
+            self._serving_pool = torch.cuda.graph_pool_handle()
+        return self._serving_pool
+
     def build_decode_step(self):
         """ONE serving iteration: forward the decode graph (incremental
         attention reads and writes the KV state in place), then pick the
@@ -1687,9 +1782,16 @@ class Executor:
         jax.random key). The inputs may be on the host; only the (slots,)
         token vector leaves the device. The weights come from the serving
         weight cache (`compute_params`). On the card one CUDA graph per q
-        width (1 and the prefill buckets), all sharing one memory pool;
-        the returned step's `captured` is that `CapturedStep` (None on the
-        CPU)."""
+        width (1 and the prefill buckets), all sharing one memory pool
+        (and the NCCL calls of a mesh inside); the returned step's
+        `captured` is that `CapturedStep` (None on the CPU).
+
+        On a mesh `x_inputs` are this rank's blocks (`host_inputs`),
+        `read_idx` and `temperature` whole. Each rank draws the uniform
+        noise of every slot, (slots, vocab), from a generator seeded
+        alike, and uses its rows: the draws are one rank's. The (slots,)
+        token vector is gathered over the slots' axes, so every rank
+        returns it whole."""
 
         @torch.no_grad()
         def decode_body(params, state, x_inputs, read_idx, gen,
@@ -1699,22 +1801,25 @@ class Executor:
             logits, new_state = self._apply(params, state,
                                             self._cast_compute(xs))
             self.flush_probes()
-            slots = logits.shape[0]
-            sel = logits[torch.arange(slots, device=dev),
-                         read_idx.to(dev).long()].float()  # (slots, vocab)
-            t = temperature.to(dev).float()[:, None]
-            u = torch.rand(sel.shape, generator=gen, device=dev)
+            logits, group = self._slot_logits(logits)
+            n_all = read_idx.shape[0]
+            rows = logits.shape[0]
+            lo = group.index * rows if group is not None else 0
+            idx = read_idx.to(dev).long()[lo:lo + rows]
+            sel = logits[torch.arange(rows, device=dev),
+                         idx].float()  # (slots here, vocab)
+            t = temperature.to(dev).float()[lo:lo + rows, None]
+            u = torch.rand((n_all,) + tuple(sel.shape[1:]), generator=gen,
+                           device=dev)[lo:lo + rows]
             tiny = torch.finfo(torch.float32).tiny
             gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
             noisy = torch.where(t > 0.0, sel / t.clamp_min(1e-6) + gumbel, sel)
             next_tok = torch.argmax(noisy, dim=-1).to(torch.int32)
             return (_write_back(state, self._restore_state_dtypes(new_state)),
-                    next_tok)
+                    self._all_slots(next_tok, group))
 
-        run = self._compiled(
-            "decode_step", decode_body, held=(0, 1, 4),
-            pool=(torch.cuda.graph_pool_handle()
-                  if self.device.type == "cuda" else None))
+        run = self._compiled("decode_step", decode_body, held=(0, 1, 4),
+                             pool=self._decode_pool())
 
         def decode_step(params, state, x_inputs, read_idx, gen, temperature):
             return run(self.compute_params(params), state, x_inputs,
@@ -1722,6 +1827,71 @@ class Executor:
 
         decode_step.captured = run if isinstance(run, CapturedStep) else None
         return decode_step
+
+    def build_verify_step(self):
+        """Speculative decoding's verify call (JAX `executor.py:831-858`):
+        forward q = K+1 tokens per slot through the decode graph (the
+        incremental attention ops take (slots, q) positions, the chunked
+        prefill's multi-token path) and return EVERY row's greedy argmax,
+        (slots, q) int32, the KV state written in place. Row j is the
+        target's token for position `positions[s, j] + 1`; rejected rows
+        need no device-side rollback (the host rewinds its cursor). On
+        the card a `CapturedStep`, one graph per q width, sharing the
+        decode step's pool; on a mesh the argmax of this rank's slots is
+        gathered over the slots' axes."""
+
+        @torch.no_grad()
+        def verify_body(params, state, x_inputs):
+            dev = self.device
+            xs = {k: v.to(dev) for k, v in x_inputs.items()}
+            logits, new_state = self._apply(params, state,
+                                            self._cast_compute(xs))
+            self.flush_probes()
+            logits, group = self._slot_logits(logits)
+            toks = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            return (_write_back(state, self._restore_state_dtypes(new_state)),
+                    self._all_slots(toks, group))
+
+        run = self._compiled("verify_step", verify_body, held=(0, 1),
+                             pool=self._decode_pool())
+
+        def verify_step(params, state, x_inputs):
+            return run(self.compute_params(params), state, x_inputs)
+
+        verify_step.captured = run if isinstance(run, CapturedStep) else None
+        return verify_step
+
+    def build_kv_inject(self):
+        """The disaggregated handoff's landing (JAX `executor.py:888-917`):
+        write the rows `rows_k`/`rows_v`, (layers, B, block_size, embed
+        here), into the pool blocks `blocks` (B,) of every layer, in
+        sorted pool-layer order (the order the extracting side reads),
+        in place. The engine pads B to a power of two with (scratch,
+        zero-rows) pairs, so the set of shapes stays O(log blocks a
+        prompt). On the card a `CapturedStep`, one graph per B, sharing
+        the decode step's pool."""
+
+        @torch.no_grad()
+        def inject_body(state, blocks, rows_k, rows_v):
+            dev = self.device
+            idx = blocks.to(dev).long()
+            i = 0
+            for name in sorted(state):
+                ws = state[name]
+                if "pool_k" in ws:
+                    ws["pool_k"][idx] = rows_k[i].to(dev, ws["pool_k"].dtype)
+                    ws["pool_v"][idx] = rows_v[i].to(dev, ws["pool_v"].dtype)
+                    i += 1
+            return state
+
+        run = self._compiled("kv_inject", inject_body, held=(0,),
+                             pool=self._decode_pool())
+
+        def kv_inject(state, blocks, rows_k, rows_v):
+            return run(state, blocks, rows_k, rows_v)
+
+        kv_inject.captured = run if isinstance(run, CapturedStep) else None
+        return kv_inject
 
     def build_block_copy(self):
         """Copy-on-write support for the paged KV layout: duplicate pool

@@ -1088,7 +1088,13 @@ class FFModel:
         from .distributed import set_scope
         from .machine import build_mesh
 
-        mesh = build_mesh(shape, self.device, ranks=self._mesh_ranks)
+        ranks = self._mesh_ranks
+        off = int(self.config.mesh_device_offset or 0)
+        if ranks is None and off:
+            # a window of the world from `mesh_device_offset` (the
+            # sides of a split serve; JAX: jax.devices()[offset:])
+            ranks = list(range(off, off + shape.num_devices))
+        mesh = build_mesh(shape, self.device, ranks=ranks)
         set_scope(mesh)
         return mesh
 
@@ -1158,6 +1164,26 @@ class FFModel:
             for i, spec_axes in ov.get("outputs", {}).items():
                 node.outputs[i].assign_axes(spec_axes)
             node.weight_axes.update(ov.get("weights", {}))
+            if node.op_type in (OT.OP_INC_MULTIHEAD_ATTENTION,
+                                OT.OP_PAGED_INC_MULTIHEAD_ATTENTION):
+                self._kv_state_follows_heads(node)
+
+    @staticmethod
+    def _kv_state_follows_heads(node):
+        """A decode graph's KV state the plan leaves unplaced rests with
+        its feature dim over the axes its projections split the heads by
+        (the placement `Executor._kv_rule` runs on), the slot and block
+        dims whole."""
+        from .tensor import PartitionSpec
+
+        wq = node.weight_axes.get("wq")
+        heads = wq[1] if wq is not None and len(wq) > 1 else None
+        names = (("pool_k", "pool_v")
+                 if node.op_type == OT.OP_PAGED_INC_MULTIHEAD_ATTENTION
+                 else ("cache_k", "cache_v"))
+        for w in names:
+            if w not in node.weight_axes and heads is not None:
+                node.weight_axes[w] = PartitionSpec(None, None, heads)
 
     def _goodput(self) -> Optional[dict]:
         """The MFU anchor (JAX `model.py:1286-1314`): the ops' forward
@@ -2110,24 +2136,57 @@ class FFModel:
         return self
 
     def serve(self, **kwargs):
-        """Build a ServingEngine on this model: the decode graph of the
-        same layer list (causal attention becomes incremental attention
-        over a paged or contiguous KV cache), this model's weights adopted
+        """Build a ServingEngine on this model (JAX `model.py:2277-2332`):
+        the decode graph of the same layer list (causal attention becomes
+        incremental attention over a paged or contiguous KV cache, placed
+        by the plan on this model's mesh), this model's weights adopted
         by name, and continuous batching over a fixed slot set. kwargs
         override ServingSpec fields: slots, max_seq_len, prefill_chunk,
         max_new_tokens, kv_layout, kv_block_size, kv_num_blocks,
-        prefix_sharing, prefix_cache."""
+        prefix_sharing, prefix_cache, role, config_overrides, strategy.
+
+        `disaggregate=True` (or --serve-disaggregate) builds a
+        DisaggregatedServingEngine: prefill on the torchrun world's first
+        ranks and decode on the rest (serve_prefill_chips sizes the
+        prefill side), each request's KV handed over device to device.
+        `speculate=True, draft_model=<a compiled LM>` builds a
+        SpeculativeServingEngine: the drafter proposes K tokens a round
+        and the target verifies them in one call, gated by the
+        acceptance-calibrated payoff inequality; the token streams stay
+        those of plain decode (serve_draft_chips puts the drafter on the
+        world's last ranks)."""
         if not self._compiled:
             raise RuntimeError("call compile() before serve()")
-        if self.mesh.size > 1:
-            raise not_ported(
-                f"serve() on a mesh of {self.mesh.size} devices (a sharded "
-                f"KV cache)", "A11 (serving extras: serving on a mesh)")
-        for flag in ("disaggregate", "speculate"):
-            if kwargs.pop(flag, False):
-                raise NotImplementedError(
-                    f"serve({flag}=True) is not ported yet (ROADMAP queue "
-                    f"A11)")
+        from .distributed import world_size
+
+        # chip budgets past the world fail here, naming the flag
+        n_dev = world_size()
+        for flag, field in (("--serve-prefill-chips", "serve_prefill_chips"),
+                            ("--serve-draft-chips", "serve_draft_chips")):
+            chips = int(getattr(self.config, field, 0) or 0)
+            if chips >= n_dev:
+                raise ValueError(
+                    f"{flag}={chips} but only {n_dev} device(s) are "
+                    f"visible; both sides of the split need at least one "
+                    f"chip")
+        disaggregate = kwargs.pop("disaggregate",
+                                  bool(self.config.serve_disaggregate))
+        speculate = kwargs.pop("speculate", False)
+        if disaggregate and speculate:
+            raise ValueError(
+                "serve(): disaggregate=True and speculate=True are "
+                "mutually exclusive for now (speculative decoding of the "
+                "disaggregated decode pool is a ROADMAP item)")
+        if disaggregate:
+            kwargs.pop("draft_model", None)
+            from .serving import DisaggregatedServingEngine
+
+            return DisaggregatedServingEngine(self, **kwargs)
+        if speculate:
+            from .serving import SpeculativeServingEngine
+
+            return SpeculativeServingEngine(self, **kwargs)
+        kwargs.pop("draft_model", None)
         from .serving import ServingEngine
 
         return ServingEngine(self, **kwargs)

@@ -194,8 +194,20 @@ TRANSFORMER_LM_ZOO: dict = {
     "lm-smoke": TransformerLMConfig(
         vocab_size=512, hidden_size=128, num_heads=4, num_layers=2,
         sequence_length=128, attention_impl="xla"),
+    # speculative-decoding drafter for lm-smoke: the same vocab and
+    # positional extent (a drafter shares the target's tokenizer and
+    # reaches every position it decodes at), a quarter the width, half
+    # the depth
+    "lm-smoke-draft": TransformerLMConfig(
+        vocab_size=512, hidden_size=32, num_heads=2, num_layers=1,
+        sequence_length=128, attention_impl="xla"),
     "lm-base": TransformerLMConfig(
         vocab_size=32000, hidden_size=1024, num_heads=16, num_layers=12,
+        sequence_length=512),
+    # drafter for lm-base: about 20x smaller, sharing the 32k vocab and
+    # the 512-token extent
+    "lm-base-draft": TransformerLMConfig(
+        vocab_size=32000, hidden_size=256, num_heads=4, num_layers=4,
         sequence_length=512),
     # ~1.3B params: replicated Adam state ~21 GB
     "lm-xl-fsdp": TransformerLMConfig(

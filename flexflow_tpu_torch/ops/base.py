@@ -52,6 +52,13 @@ class OpContext:
     # ops that move data themselves (ring attention over `seq`, the
     # pipeline over `pipe`) take their groups from it
     mesh: Any = None
+    # incremental attention on a mesh (`Executor._kv_rule`): where the KV
+    # state holds every slot while this rank computes some of them, the
+    # group over the slots' axes (the new rows are gathered over it
+    # before the write, so every replica stays equal) and, for the
+    # contiguous cache, the group whose index picks this rank's slot rows
+    # to read; None alone or where the state's slots are this rank's
+    kv: Any = None
 
 
 def matmul_cast(ctx: OpContext, *tensors):

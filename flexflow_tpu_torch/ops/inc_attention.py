@@ -14,6 +14,14 @@ buffer donation (`executor.py:827-828`) to update it in place, the port
 writes the new rows with an in-place `index_put_` on the state tensors and
 returns the same tensors as the op's new state.
 
+On a mesh (the executor's `_kv_rule`) the op runs on this rank's slots
+and heads. The paged pool keeps its block dim whole (blocks are shared
+across slots by prefix reuse), so it is replicated over the slots' axes:
+the new rows of every slot are gathered over them before the write, the
+semantics of GSPMD's scatter into a replicated operand, and every replica
+stays equal. A contiguous cache whose slot dim is whole does the same and
+reads its rows of this rank's slots (`_slot_rows`).
+
 q_len == 1 (a pure decode iteration) goes through the decode kernels K2/K3
 (`kernels/flash_attention.py`), which read the f32 cache and round each
 element to the compute dtype as they load it; q_len > 1 (a prefill chunk)
@@ -39,6 +47,10 @@ class IncMultiHeadAttentionParams:
     num_heads: int
     max_seq_len: int  # real cache rows; row max_seq_len is the scratch row
     use_bias: bool = True
+    # the JAX package's decode-attention choice, kept so the params (and
+    # the plan and pair fingerprints hashing their repr) are its; the
+    # port's q_len == 1 path is the kernel on every device
+    impl: str = "auto"
 
 
 def _proj_weights(in_dim: int, embed_dim: int, use_bias: bool):
@@ -71,6 +83,30 @@ def _qkv(ctx, x, weights):
             _proj(ctx, x, weights["wv"], weights.get("bv")))
 
 
+def _gather_writes(ctx, *xs):
+    """The write's per-slot tensors of every slot (gathered over the
+    slots' axes) where the KV state is replicated over them; else as
+    given."""
+    kv = getattr(ctx, "kv", None)
+    group = kv.get("gather") if kv else None
+    if group is None:
+        return xs
+    from ..parallel.spmd import all_gather
+
+    return tuple(all_gather(x, group, 0) for x in xs)
+
+
+def _slot_rows(ctx, cache):
+    """This rank's slot rows of a contiguous cache that holds every
+    slot (a view: rows along dim 0 stay contiguous)."""
+    kv = getattr(ctx, "kv", None)
+    group = kv.get("take") if kv else None
+    if group is None:
+        return cache
+    n = cache.shape[0] // group.size
+    return cache.narrow(0, group.index * n, n)
+
+
 def _inc_mha_infer(p: IncMultiHeadAttentionParams, in_shapes):
     x, positions = in_shapes
     return [(x[0], x[1], p.embed_dim)]
@@ -100,27 +136,31 @@ def _inc_mha_forward(p: IncMultiHeadAttentionParams, inputs, weights,
     positions = positions.long()
     # position-indexed write; >= max_seq_len clips to the scratch row
     write_pos = positions.clamp(0, p.max_seq_len)
-    slot_idx = torch.arange(slots, device=x.device)[:, None].expand_as(write_pos)
     # scratch-bound elements write ZEROS: a pad element's hidden state can be
     # NaN (out-of-range position embedding) and the cache must stay finite
     live = (positions >= 0) & (positions < p.max_seq_len)
     kw = torch.where(live[..., None], k, torch.zeros_like(k))
     vw = torch.where(live[..., None], v, torch.zeros_like(v))
     # in place, where the JAX op's functional .at[].set rides a donated buffer
-    ck.index_put_((slot_idx, write_pos), kw.to(ck.dtype))
-    cv.index_put_((slot_idx, write_pos), vw.to(cv.dtype))
+    wpos, kw, vw = _gather_writes(ctx, write_pos, kw, vw)
+    slot_idx = torch.arange(wpos.shape[0], device=x.device)[:, None] \
+        .expand_as(wpos)
+    ck.index_put_((slot_idx, wpos), kw.to(ck.dtype))
+    cv.index_put_((slot_idx, wpos), vw.to(cv.dtype))
+    ck_read, cv_read = _slot_rows(ctx, ck), _slot_rows(ctx, cv)
 
     if q_len == 1:
         from ..kernels.flash_attention import flash_decode_attention
 
-        out = flash_decode_attention(q, ck, cv, write_pos[:, 0] + 1,
-                                     num_heads=H, scale=scale)
+        out = flash_decode_attention(q, ck_read, cv_read,
+                                     write_pos[:, 0] + 1, num_heads=H,
+                                     scale=scale)
     else:
         from ..kernels.flash_attention import decode_attention_reference
 
         out = decode_attention_reference(
-            q, ck.to(q.dtype), cv.to(q.dtype), write_pos, num_heads=H,
-            scale=scale)
+            q, ck_read.to(q.dtype), cv_read.to(q.dtype), write_pos,
+            num_heads=H, scale=scale)
     y = _proj(ctx, out, weights["wo"], weights.get("bo"))
     return [y], {"cache_k": ck, "cache_v": cv}
 
@@ -158,6 +198,7 @@ class PagedIncMultiHeadAttentionParams:
     block_size: int     # pool rows per block
     num_blocks: int     # physical pool blocks, block 0 = reserved scratch
     use_bias: bool = True
+    impl: str = "auto"  # the JAX package's field (see above)
 
     @property
     def blocks_per_slot(self) -> int:
@@ -208,8 +249,9 @@ def _paged_mha_forward(p: PagedIncMultiHeadAttentionParams, inputs, weights,
     kw = torch.where(live[..., None], k, torch.zeros_like(k))
     vw = torch.where(live[..., None], v, torch.zeros_like(v))
     # in place, where the JAX op's functional .at[].set rides a donated buffer
-    pk.index_put_((phys, offset), kw.to(pk.dtype))
-    pv.index_put_((phys, offset), vw.to(pv.dtype))
+    wphys, woff, kw, vw = _gather_writes(ctx, phys, offset, kw, vw)
+    pk.index_put_((wphys, woff), kw.to(pk.dtype))
+    pv.index_put_((wphys, woff), vw.to(pv.dtype))
 
     if q_len == 1:
         from ..kernels.flash_attention import paged_flash_decode_attention

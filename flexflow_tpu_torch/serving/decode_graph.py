@@ -41,9 +41,18 @@ class ServingSpec:
     # cross-request radix prefix cache; None defers to
     # config.serve_prefix_cache. False = live sharing only.
     prefix_cache: Optional[bool] = None
+    # which side of a split this decode compile serves ("" unified,
+    # "prefill", "decode", "draft"): it joins the warm-start plan
+    # fingerprint through config.serve_role, so the sides cache apart
+    role: str = ""
     # extra FFConfig fields applied to the decode compile only (a decode
-    # mesh re-plan's {"mesh_axis_sizes": ...})
+    # mesh re-plan's {"mesh_axis_sizes": ...}; a side's window,
+    # {"mesh_axis_sizes": ..., "mesh_device_offset": ...})
     config_overrides: dict = field(default_factory=dict)
+    # explicit decode-plan overrides (a Strategy or its overrides dict),
+    # applied with set_strategy (plan_source "manual"); None: the
+    # search, the plan cache or the data-parallel default
+    strategy: object = None
 
 
 def _decode_config(model, spec: ServingSpec):
@@ -57,6 +66,7 @@ def _decode_config(model, spec: ServingSpec):
     cfg = copy.copy(model.config)  # plain copy: __post_init__ re-parses argv
     cfg.batch_size = spec.slots
     cfg.serve_kv_layout = spec.kv_layout
+    cfg.serve_role = spec.role
     cfg.telemetry_dir = ""
     cfg.xprof_dir = ""
     cfg.diagnostics = False
@@ -138,6 +148,17 @@ def build_decode_model(model, spec: ServingSpec):
     paged = spec.kv_layout == "paged"
     num_blocks = resolve_pool_blocks(model, spec, max_seq) if paged else 0
     dec = FFModel(_decode_config(model, spec))
+    over = spec.config_overrides or {}
+    if "mesh_device_offset" in over:
+        # a side's window of the torchrun world: ranks [off, off + n),
+        # the world's other ranks parked (the whole world: the plain
+        # mesh); the window's end past the world is refused there
+        from ..distributed import world_size
+
+        if world_size() > 1:
+            off = int(over["mesh_device_offset"] or 0)
+            n = dec.config.mesh_shape().num_devices
+            dec._mesh_ranks = list(range(off, off + n))
 
     # inputs: (batch, seq, ...) -> (slots, 1, ...); the `positions` input
     # doubles as every attention layer's position feed
@@ -211,6 +232,8 @@ def build_decode_model(model, spec: ServingSpec):
         for t_out, d_out in zip(layer.outputs, new.outputs):
             tensor_map[t_out.tensor_guid] = d_out
 
+    if spec.strategy is not None:
+        dec.set_strategy(spec.strategy)
     dec.compile(comp_mode=CompMode.COMP_MODE_INFERENCE)
     return dec, max_seq
 
@@ -222,11 +245,22 @@ def adopt_params(dec, model) -> int:
     when it was built, and a later `fit` step, which updates the trained
     model's masters in place, reaches only an engine built after it. The
     KV caches keep their zero init. Returns the number of weights
-    adopted."""
+    adopted (0 on a rank the decode mesh parks: it holds none). On a
+    mesh each rank keeps its block of each weight (`local_weight`)."""
     moved = 0
+    trained = model._params
+    if model.executor is not None and model.executor.spmd:
+        # the trained masters whole, on every rank of the trained mesh
+        # (collective), parked decode ranks included
+        trained = {n: {w: model.executor.full_weight(n, w, t)
+                       for w, t in ws.items()} for n, ws in trained.items()}
+    if dec._params is None:
+        return moved
+    ex = dec.executor
     for node_name, ws in dec._params.items():
         for wname in ws:
-            src = model._params[node_name][wname]
+            src = ex.local_weight(node_name, wname,
+                                  trained[node_name][wname].to(dec.device))
             if tuple(src.shape) != tuple(ws[wname].shape):
                 raise ValueError(
                     f"{node_name}.{wname}: trained shape "

@@ -43,16 +43,30 @@ fresh decode compile, a verified `migrate_state` of the params and the
 KV pools, the decode step rebuilt (its graphs captured anew per q width,
 in one pool) with the block-copy function; the scheduler, block manager,
 page tables and generator carry over untouched, so in-flight token
-streams go on where they were. A decode mesh of more than one device is
-serving on a mesh (ROADMAP A11): `replan_mesh` to one refuses before it
-compiles anything, recording a `failed` decision. KV handoff and the
-speculative engine of the JAX package are later slices of the port.
+streams go on where they were.
+
+Serving on a mesh: the decode model is compiled on the trainer's mesh
+(or on `config_overrides`' window of the torchrun world); every rank
+runs the engine's host side alike, feeds the step its blocks of the
+inputs (`Executor.host_inputs`) and gets the whole token vector back
+(gathered over the slots' axes inside the step), so every rank's
+scheduler advances on the same tokens. A decode mesh that is a strict
+window of the world (a side of a split) parks the world's other ranks:
+they run the host side without a device call, and the window's first
+rank shares each call's tokens and seconds with them over the world's
+host group (`_spread_result`), so every rank of the world keeps the same
+host state and the sides of a split can hand requests to each other.
+
+The disaggregated hooks (JAX 163-168, 515-526, 557-659):
+`_pre_release_hook` lifts a completing slot's KV blocks before their
+release, `_suppress_completion_events` leaves the completion accounting
+to the decode side, and `extract_kv` / `admit_prefilled` /
+`_inject_rows` move a prompt's blocks between two engines' pools.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 import time
 from typing import Optional, Sequence
 
@@ -88,15 +102,18 @@ class ServingEngine:
             spec.prefix_cache = bool(cfg.serve_prefix_cache)
         self.model = model
         self.spec = spec
+        self.role = spec.role
         self.telemetry = model._telemetry
-        with self._active():
+        from ..distributed import keep_scope, world_host_group
+
+        world_host_group()  # collective at its first call: made here
+        with self._active(), keep_scope():
             t0 = time.perf_counter()
             with telemetry.span("serve.compile", slots=spec.slots):
                 self.decode_model, self.max_seq_len = build_decode_model(
                     model, spec)
                 self.adopted = adopt_params(self.decode_model, model)
-                self._step_fn = (
-                    self.decode_model.executor.build_decode_step())
+                self._bind_device_surface()
             telemetry.event(
                 "serve.compile", duration_s=time.perf_counter() - t0,
                 slots=spec.slots, max_seq_len=self.max_seq_len,
@@ -109,12 +126,11 @@ class ServingEngine:
                 self.telemetry.flush()
         self.scheduler = ContinuousBatchingScheduler(spec.slots,
                                                      self.max_seq_len)
-        self.num_chips = int(self.decode_model.mesh.size)
         self._gen: Optional[torch.Generator] = None  # Gumbel sampling
-        # paged layout: host-side block manager + the in-place COW copy;
-        # pool geometry comes from the BUILT op
+        # paged layout: host-side block manager (every rank's, parked
+        # ones too: the host side is the world's); pool geometry comes
+        # from the BUILT op
         self.block_manager = None
-        self._copy_fn = None
         if spec.kv_layout == "paged":
             attn = next(
                 n for n in self.decode_model.graph.topo_order()
@@ -124,7 +140,6 @@ class ServingEngine:
                 p.num_blocks, p.block_size, p.blocks_per_slot,
                 sharing=spec.prefix_sharing,
                 cross_time=bool(spec.prefix_cache))
-            self._copy_fn = self.decode_model.executor.build_block_copy()
         # graph input roles: exactly one token stream + the positions /
         # page-table feeds
         self._token_input = None
@@ -146,6 +161,15 @@ class ServingEngine:
 
             self._numerics_reported = {
                 (e["op"], e["phase"]) for e in get_monitor().snapshot()}
+        # disaggregation hooks (serving/disagg.py): the coordinator lifts
+        # a completing slot's KV BEFORE its blocks are released, and the
+        # prefill side leaves the completion accounting to the decode
+        # side, so the pair counts every request once
+        self._pre_release_hook = None
+        self._suppress_completion_events = False
+        # fixed page tables that bypass the block manager (a speculative
+        # drafter's private per-slot blocks), else None
+        self._private_tables: Optional[np.ndarray] = None
         # run accounting (stats())
         self._decode_iterations = 0
         self._decode_tokens = 0
@@ -205,6 +229,68 @@ class ServingEngine:
         if getattr(cfg, "elastic", False):
             self.enable_autoscale()
 
+    def _bind_device_surface(self):
+        """The device calls of the decode model as compiled: the decode
+        step and the COW copy where this rank holds a device of its mesh
+        (the KV inject is built at its first handoff); none on a rank
+        the mesh parks. `_spread`: the mesh is a strict window of a
+        larger world, whose other ranks get each call's result
+        (`_spread_result`)."""
+        dec = self.decode_model
+        self.member = bool(dec.mesh.member)
+        self.num_chips = int(dec.mesh.size)
+        self._spread = bool(getattr(dec.mesh, "sub", False))
+        self._step_fn = (dec.executor.build_decode_step()
+                         if self.member else None)
+        self._copy_fn = (dec.executor.build_block_copy()
+                         if self.member and self.spec.kv_layout == "paged"
+                         else None)
+        self._inject_fn = None
+
+    def _spread_result(self, out: Optional[np.ndarray], shape: tuple,
+               dt: float) -> tuple:
+        """A device call's result (an int array of `shape`) and its
+        seconds from the decode mesh's first rank to every rank of the
+        world, over its host group; every rank then books the same
+        seconds (the payoff gates of a split read them). Only on a
+        strict window of the world: elsewhere every rank computed the
+        result itself."""
+        if not self._spread:
+            return out, dt
+        from ..distributed import host_broadcast, world_rank
+
+        src = int(self.decode_model.mesh.ranks[0])
+        n = int(np.prod(shape))
+        buf = torch.zeros(n + 1, dtype=torch.float64)
+        if world_rank() == src:
+            buf[:n] = torch.as_tensor(np.asarray(out).reshape(-1),
+                                      dtype=torch.float64)
+            buf[n] = float(dt)
+        host_broadcast(buf, src)
+        return (buf[:n].numpy().astype(np.int32).reshape(shape),
+                float(buf[n]))
+
+    def _check_same_call(self, kind: str, width: int):
+        """Under --spmd-barrier (the mesh's debug check): every rank of
+        the world is about to make the same serving call, its kind and
+        width (the CUDA graph it captures or replays, with the mesh's
+        collectives inside), checked over the world's host group. The
+        ranks' host states are alike, so their bucket choices are; this
+        holds them to it."""
+        from ..distributed import world_host_group, world_size
+
+        if not self.decode_model.config.spmd_barrier or world_size() <= 1:
+            return
+        import torch.distributed as dist
+
+        got = [None] * world_size()
+        dist.all_gather_object(got, (kind, int(width)),
+                               group=world_host_group())
+        if len(set(got)) > 1:
+            raise RuntimeError(
+                f"serving: the ranks' next device calls differ (rank -> "
+                f"(call, width)): {dict(enumerate(got))}")
+
     def enable_autoscale(self, visible_devices_fn=None,
                          check_every: int = 16):
         """Arm between-steps capacity watching on the decode mesh: when
@@ -248,8 +334,9 @@ class ServingEngine:
         block manager, page tables and generator are host-side or the
         engine's own and carry over untouched: in-flight token streams
         continue exactly where they were. A decode mesh of more than one
-        device is serving on a mesh (ROADMAP A11): refused before any
-        compile, with a `failed` decision. Returns the decision record
+        device shards the KV state as its plan places it (the pools'
+        global geometry does not depend on the mesh). A failure records a
+        `failed` decision. Returns the decision record
         (also in `self.replan_decisions` and the `replan` telemetry
         event stream); `compile_s`, `migrate_s` and `rebuild_s` split its
         wall time."""
@@ -271,13 +358,11 @@ class ServingEngine:
             spec2 = _copy.copy(self.spec)
             spec2.config_overrides = dict(self.spec.config_overrides or {})
             spec2.config_overrides["mesh_axis_sizes"] = axes
+            from ..distributed import keep_scope
+
             try:
-                if math.prod(axes) > 1:
-                    raise not_ported(
-                        f"replan_mesh to a decode mesh of "
-                        f"{math.prod(axes)} devices (a sharded KV cache)",
-                        "A11 (serving extras: serving on a mesh)")
-                with telemetry.span("serve.replan", trigger=trigger):
+                with telemetry.span("serve.replan", trigger=trigger), \
+                        keep_scope():
                     new_dec, max_seq = build_decode_model(self.model, spec2)
                     decision["research_s"] = decision["compile_s"] = (
                         time.perf_counter() - t0)
@@ -293,15 +378,12 @@ class ServingEngine:
             # swap the device surface; everything host-side (scheduler,
             # slots, block manager, stats) carries over untouched
             t_r0 = time.perf_counter()
-            old_run = getattr(self._step_fn, "captured", None)
-            if old_run is not None:
-                old_run.release()  # the old graphs and their pool
+            self._release_graphs()  # the old graphs and their pool
             self.decode_model = new_dec
             self.max_seq_len = max_seq
-            self._step_fn = new_dec.executor.build_decode_step()
-            if self.block_manager is not None:
-                self._copy_fn = new_dec.executor.build_block_copy()
-            self.num_chips = int(new_dec.mesh.size)
+            self.spec = spec2
+            self._bind_device_surface()
+            self._share_generator()
             if self._capacity_watcher is not None:
                 self._capacity_watcher.model = new_dec
             trans = new_dec._transition or {}
@@ -319,6 +401,35 @@ class ServingEngine:
             telemetry.event("replan", **decision)
         self.replan_decisions.append(decision)
         return decision
+
+    def _release_graphs(self):
+        """Drop the CUDA graphs of this engine's device calls (a re-plan's
+        old executor, a dropped drafter): their memory goes with them."""
+        for fn in (self._step_fn, self._inject_fn):
+            run = getattr(fn, "captured", None)
+            if run is not None:
+                run.release()
+
+    def _share_generator(self):
+        """After a re-plan in a world of more than one rank: the sampling
+        generator's state from the new mesh's first rank to every rank,
+        so a rank the mesh brings in draws what the others draw."""
+        from ..distributed import (
+            host_broadcast_object,
+            world_rank,
+            world_size,
+        )
+
+        if world_size() <= 1:
+            return
+        src = int(self.decode_model.mesh.ranks[0])
+        state = (self._gen.get_state()
+                 if world_rank() == src and self._gen is not None else None)
+        state = host_broadcast_object(state, src)
+        if state is not None and self.member:
+            if self._gen is None:
+                self._gen = torch.Generator(device=self.decode_model.device)
+            self._gen.set_state(state)
 
     # ------------------------------------------------------------ session
 
@@ -376,7 +487,9 @@ class ServingEngine:
         """One decode-graph call's inputs on the host: the token stream,
         positions and, for the paged layout, the page tables."""
         xs = {self._token_input: tokens, "positions": positions}
-        if self.block_manager is not None:
+        if self._private_tables is not None:
+            xs["page_table"] = self._private_tables
+        elif self.block_manager is not None:
             mgr = self.block_manager
             xs["page_table"] = np.asarray(
                 [mgr.table(i) for i in range(self.spec.slots)], np.int32)
@@ -388,14 +501,14 @@ class ServingEngine:
         return self.decode_model.executor.stage_inputs(
             self._feed(tokens, positions))
 
-    def _run_step(self, tokens: np.ndarray, positions: np.ndarray,
-                  read_idx: np.ndarray) -> np.ndarray:
-        """One decode-graph call: the host inputs go to the step (into its
-        graph's buffers on the card), which updates the KV state in place;
-        returns the sampled tokens."""
+    def _device_step(self, tokens: np.ndarray, positions: np.ndarray,
+                     read_idx: np.ndarray) -> tuple:
+        """One decode-graph call on this rank's device: its blocks of the
+        host inputs go to the step (into its graph's buffers on the
+        card), which updates the KV state in place; returns the sampled
+        tokens of every slot and the call's seconds."""
         dec = self.decode_model
-        xs = {k: torch.as_tensor(v)
-              for k, v in self._feed(tokens, positions).items()}
+        xs = dec.executor.host_inputs(self._feed(tokens, positions))
         if self._gen is None:
             self._gen = torch.Generator(device=dec.device).manual_seed(
                 dec.config.seed)
@@ -408,13 +521,26 @@ class ServingEngine:
             torch.as_tensor(read_idx, dtype=torch.int32), self._gen,
             torch.as_tensor(temp))
         out = next_tok.cpu().numpy()  # waits for the device
-        dt = time.perf_counter() - t0  # fflint: ok raw_timer_in_hot_path
+        return out, time.perf_counter() - t0  # fflint: ok raw_timer_in_hot_path
+
+    def _run_step(self, tokens: np.ndarray, positions: np.ndarray,
+                  read_idx: np.ndarray) -> np.ndarray:
+        """One decode-graph call: this rank's device call (none on a rank
+        the mesh parks) and its result shared over the world where the
+        mesh is a window of it; returns the sampled tokens."""
+        self._check_same_call("decode", tokens.shape[1])
+        out, dt = (self._device_step(tokens, positions, read_idx)
+                   if self.member else (None, 0.0))
+        out, dt = self._spread_result(out, (self.spec.slots,), dt)
+        self._note_device_s(dt)
+        return out
+
+    def _note_device_s(self, dt: float):
         self._device_s += dt
         self._last_step_device_s = dt
         self._h_step_device.observe(dt)
-        if dec.config.sanitize_numerics:
+        if self.member and self.decode_model.config.sanitize_numerics:
             self._check_numerics()
-        return out
 
     def _check_numerics(self):
         """Sanitizer check after a decode step (--sanitize-numerics): the
@@ -447,15 +573,19 @@ class ServingEngine:
             req.request_id, len(req.prompt), req.max_new_tokens)
 
     def _apply_copies(self, copies):
-        """Run this iteration's COW copies on the pool state, in place.
-        (The JAX engine pads the vectors to a power of two to bound its
-        set of compiled executables; eager PyTorch compiles nothing.)"""
+        """Run this iteration's COW copies on the pool state, in place
+        (on every rank of the mesh: the pool is replicated over the
+        slots' axes). The JAX engine pads the vectors to a power of two
+        to bound its set of compiled executables; eager PyTorch compiles
+        nothing."""
         if not copies:
+            return
+        self._c_cow_copies.inc(len(copies))
+        if not self.member:
             return
         dec = self.decode_model
         src = torch.as_tensor([c.src for c in copies]).to(dec.device)
         dst = torch.as_tensor([c.dst for c in copies]).to(dec.device)
-        self._c_cow_copies.inc(len(copies))
         with telemetry.span("serve.cow_copy", blocks=len(copies)):
             dec._state = self._copy_fn(dec._state, src, dst)
 
@@ -471,8 +601,15 @@ class ServingEngine:
         self._apply_copies(copies)
 
     def _note_completion(self, slot, req: Request):
+        hook = self._pre_release_hook
+        if hook is not None:
+            hook(slot, req)
         if self.block_manager is not None:
             self.block_manager.release(slot.index)
+        if self._suppress_completion_events:
+            # a split's prefill side: the request is handed off, not
+            # done; the decode side records its completion once
+            return
         self.record_completion(req)
 
     def record_completion(self, req: Request):
@@ -497,6 +634,126 @@ class ServingEngine:
             matched_prefix_len=req.matched_prefix_len,
             total_s=(req.finish_t - req.submit_t
                      if req.finish_t is not None else None))
+
+    # ------------------------------------------------------------ disagg
+
+    def kv_pool_layers(self) -> list[str]:
+        """The pool-bearing state nodes in SORTED order: the layer axis of
+        `extract_kv` and the inject rows, so layer i's rows land in layer
+        i's pool on both sides of a handoff."""
+        return sorted(n.name for n in self.decode_model.graph.topo_order()
+                      if n.op_type == OT.OP_PAGED_INC_MULTIHEAD_ATTENTION)
+
+    def extract_kv(self, slot_index: int, num_tokens: int):
+        """A slot's prompt-extent KV blocks off this engine's pools:
+        (layers, blocks, block_size, embed here) K and V stacks. Unlike
+        the JAX package's, which hands host arrays over, these are
+        tensors on this rank's device (its head slice on a mesh): the
+        handoff does not stage through the host. The disaggregated
+        coordinator calls this from its pre-release hook, while the
+        completing slot's page table still maps the blocks."""
+        mgr = self.block_manager
+        nblk = -(-num_tokens // mgr.block_size)
+        idx = torch.as_tensor(mgr.table(slot_index)[:nblk],
+                              dtype=torch.long).to(self.decode_model.device)
+        st = self.decode_model._state
+        names = self.kv_pool_layers()
+        return (torch.stack([st[n]["pool_k"][idx] for n in names]),
+                torch.stack([st[n]["pool_v"][idx] for n in names]))
+
+    def admit_prefilled(self, req: Request, first_token: int,
+                        rows_k, rows_v) -> Optional[int]:
+        """Decode-side admission of a request whose prompt KV was computed
+        on the prefill side: reserve the worst case, take a free slot with
+        every prompt row accounted for, map any radix-cached prefix (a
+        cached extent costs NO injection), COW/allocate the uncovered
+        extent, inject the handed-off rows, and publish the prompt into
+        this side's cache. Returns the number of blocks injected (0: a
+        full prefix hit), or None when no slot or reservation is free —
+        the coordinator retries next iteration, FCFS order kept. `rows_k`
+        and `rows_v` may be None on a rank the mesh parks."""
+        sched = self.scheduler
+        mgr = self.block_manager
+        if mgr is None:
+            raise ValueError(
+                "disaggregated admission requires the paged KV layout")
+        if not sched.free_slots:
+            return None
+        if not mgr.reserve(req.request_id, len(req.prompt),
+                           req.max_new_tokens):
+            return None
+        slot = sched.admit_prefilled(req, first_token)
+        L = len(req.prompt)
+        injected = 0
+        with self._active():
+            telemetry.instant("serve.admitted", trace=req.trace_id,
+                              slot=slot.index, prefilled=True,
+                              queue_wait_s=req.queue_wait_s)
+            mgr.bind_reservation(req.request_id, slot.index)
+            matched = mgr.match_prefix(req.prompt)
+            skip = mgr.admit(slot.index, req.prompt)
+            req.matched_prefix_len = matched
+            self._h_matched_prefix.observe(matched)
+            (self._c_prefix_hits if skip else self._c_prefix_misses).inc()
+            if skip:
+                telemetry.instant(
+                    "serve.prefix_hit", slot=slot.index,
+                    shared_tokens=skip, matched_prefix_len=matched,
+                    prompt_tokens=L)
+            bs = mgr.block_size
+            nlb = -(-L // bs)
+            if matched < L:
+                # the partially matched tail block (if any) COWs here, so
+                # the injection below never writes a cached block
+                self._apply_copies(
+                    mgr.ensure_writable(slot.index, range(matched, L)))
+                lb0 = matched // bs
+                blocks = mgr.table(slot.index)[lb0:nlb]
+                self._check_same_call("inject", len(blocks))
+                if self.member:
+                    self._inject_rows(blocks, rows_k[:, lb0:nlb],
+                                      rows_v[:, lb0:nlb])
+                injected = nlb - lb0
+            mgr.register_prompt(slot.index, req.prompt)
+        return injected
+
+    def _inject_rows(self, blocks, rows_k, rows_v):
+        """One inject call (`Executor.build_kv_inject`), the block count
+        padded to a power of two with (scratch, zero-rows) pairs: one
+        graph per bucket on the card, like the JAX engine's executables."""
+        from .paged import SCRATCH_BLOCK
+
+        if self._inject_fn is None:
+            self._inject_fn = self.decode_model.executor.build_kv_inject()
+        b = 1
+        while b < len(blocks):
+            b *= 2
+        idx = torch.full((b,), SCRATCH_BLOCK, dtype=torch.int32)
+        idx[:len(blocks)] = torch.as_tensor(list(blocks), dtype=torch.int32)
+        shape = (rows_k.shape[0], b) + tuple(rows_k.shape[2:])
+        pk = rows_k.new_zeros(shape)
+        pv = rows_v.new_zeros(shape)
+        pk[:, :len(blocks)] = rows_k
+        pv[:, :len(blocks)] = rows_v
+        dec = self.decode_model
+        with telemetry.span("serve.kv_inject", blocks=len(blocks)):
+            dec._state = self._inject_fn(dec._state, idx, pk, pv)
+
+    def kv_bytes_per_layer(self) -> int:
+        """Resident KV bytes ONE attention layer holds under this engine's
+        layout (fp32, whole over the mesh): the pool for paged, counted
+        once however many page tables map its blocks, or the full
+        (slots, max_seq+1) region for contiguous (JAX
+        `serving/engine.py:1047`)."""
+        for n in self.decode_model.graph.topo_order():
+            if n.op_type == OT.OP_PAGED_INC_MULTIHEAD_ATTENTION:
+                p = n.params
+                return 2 * 4 * p.num_blocks * p.block_size * p.embed_dim
+            if n.op_type == OT.OP_INC_MULTIHEAD_ATTENTION:
+                p = n.params
+                return 2 * 4 * self.spec.slots * (p.max_seq_len + 1) \
+                    * p.embed_dim
+        return 0
 
     # ------------------------------------------------------------ iterate
 
@@ -612,39 +869,46 @@ class ServingEngine:
                 telemetry.span("serve.step", active=len(decoding))
             with span:
                 next_tok = self._run_step(tokens, positions, read_idx)
+            self._finish_step(feed, next_tok)
+        return sched.completed[done_before:]
 
-            # ---- prefill bookkeeping (the chunk's writes landed)
-            if pre is not None:
-                self._prefill_tokens += n
-                self._c_prefill_tok.inc(n)
-                self._prefill_calls += 1
-                pre.prefill_pos += n
-                req = pre.request
-                if pre.prefill_pos >= len(req.prompt):
-                    pre.length = len(req.prompt)
-                    pre.prefill_pos = None
-                    if self.block_manager is not None:
-                        self.block_manager.register_prompt(pre.index,
-                                                           req.prompt)
-                    # the final chunk's last live logits row samples the
-                    # request's first token (TTFT lands here)
-                    self._decode_tokens += 1
-                    prev_t = req.last_token_t
-                    if sched.note_token(pre, int(next_tok[pre.index])):
-                        self._note_completion(pre, req)
-                    self._observe_token(req, prev_t)
-            # ---- decode bookkeeping
-            if decoding:
-                self._decode_iterations += 1
-            for s in decoding:
-                s.length += 1
-                req = s.request
+    def _finish_step(self, feed, next_tok: np.ndarray):
+        """An iteration's host bookkeeping once its tokens are in: the
+        prefill chunk's progress (and the request's first token when it
+        was the last chunk), one token for every decoding slot."""
+        sched = self.scheduler
+        tokens, positions, read_idx, pre, start, n, decoding = feed
+        # ---- prefill bookkeeping (the chunk's writes landed)
+        if pre is not None:
+            self._prefill_tokens += n
+            self._c_prefill_tok.inc(n)
+            self._prefill_calls += 1
+            pre.prefill_pos += n
+            req = pre.request
+            if pre.prefill_pos >= len(req.prompt):
+                pre.length = len(req.prompt)
+                pre.prefill_pos = None
+                if self.block_manager is not None:
+                    self.block_manager.register_prompt(pre.index,
+                                                       req.prompt)
+                # the final chunk's last live logits row samples the
+                # request's first token (TTFT lands here)
                 self._decode_tokens += 1
                 prev_t = req.last_token_t
-                if sched.note_token(s, int(next_tok[s.index])):
-                    self._note_completion(s, req)
+                if sched.note_token(pre, int(next_tok[pre.index])):
+                    self._note_completion(pre, req)
                 self._observe_token(req, prev_t)
-        return sched.completed[done_before:]
+        # ---- decode bookkeeping
+        if decoding:
+            self._decode_iterations += 1
+        for s in decoding:
+            s.length += 1
+            req = s.request
+            self._decode_tokens += 1
+            prev_t = req.last_token_t
+            if sched.note_token(s, int(next_tok[s.index])):
+                self._note_completion(s, req)
+            self._observe_token(req, prev_t)
 
     def _observe_token(self, req: Request, prev_t):
         """Latency bookkeeping for one sampled token: the request's first
@@ -798,6 +1062,7 @@ class ServingEngine:
             "device_s": self._device_s,
             "plan_source": self.decode_model._plan_source,
             "kv_layout": self.spec.kv_layout,
+            "kv_hbm_bytes_per_layer": self.kv_bytes_per_layer(),
         }
         if self.block_manager is not None:
             mgr = self.block_manager

@@ -179,6 +179,28 @@ class ContinuousBatchingScheduler:
             out.append((slot, req))
         return out
 
+    def admit_prefilled(self, request: Request,
+                        first_token: int) -> Optional[Slot]:
+        """Admit a request whose prompt KV was computed ELSEWHERE (the
+        disaggregated prefill pool) straight into decode: the slot starts
+        with every prompt row accounted for (`length = len(prompt)`) and
+        the prefill-sampled first token as the next decode input —
+        `prefill_pos` stays None so the engine never re-prefills. Returns
+        None when no slot is free (the coordinator retries next step)."""
+        free = self.free_slots
+        if not free:
+            return None
+        slot = free[0]
+        slot.request = request
+        slot.length = len(request.prompt)
+        slot.last_token = int(first_token)
+        slot.prefill_pos = None
+        if request.admit_t is None:
+            request.admit_t = time.perf_counter()
+        self._admit_counter += 1
+        slot.admit_seq = self._admit_counter
+        return slot
+
     # ------------------------------------------------------------ completion
 
     def note_token(self, slot: Slot, token: int) -> bool:
@@ -214,3 +236,21 @@ class ContinuousBatchingScheduler:
             return True
         slot.last_token = int(token)
         return False
+
+    def note_tokens(self, slot: Slot, tokens: list[int]) -> tuple[int, bool]:
+        """Record a RUN of sampled tokens for `slot`'s request — the
+        speculative-decoding acceptance path, where one verify call
+        emits up to K+1 tokens at once. Applies the same per-token
+        completion rules as `note_token`, in the same order, stopping at
+        the first one that fires: plain decode would never have sampled
+        past it, so dropping the tail is exactly what keeps speculative
+        streams bit-identical. The engine advances `slot.length` before
+        each token lands, mirroring its one-token loop. Returns
+        (tokens_applied, finished)."""
+        applied = 0
+        for tok in tokens:
+            slot.length += 1
+            applied += 1
+            if self.note_token(slot, int(tok)):
+                return applied, True
+        return applied, False

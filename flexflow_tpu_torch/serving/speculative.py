@@ -1,0 +1,911 @@
+"""Speculative decoding: drafter/target co-placement + batched verify
+(twin of `flexflow_tpu/serving/speculative.py`).
+
+Decode is the serving latency floor — every generated token is one full
+target-model device call, so TBT cannot drop below one forward pass no
+matter how well the batch is packed. Speculative decoding (Leviathan et
+al., ICML '23 — PAPERS.md "Speculative decoding") breaks that floor: a
+small DRAFTER proposes K tokens and the target verifies all of them in
+ONE multi-token call; SpecInfer (Miao et al., ASPLOS '24, the FlexFlow
+lineage this repo reproduces) shows the drafter/target pair is itself a
+placement problem, which this module treats exactly that way.
+
+`model.serve(speculate=True, draft_model=...)` builds a
+SpeculativeServingEngine: the TARGET is a normal ServingEngine, the
+drafter a second decode compile of a small `TRANSFORMER_LM_ZOO`-tier LM
+sharing the tokenizer/vocab — its OWN plan (role "draft" joins the
+warm-start plan fingerprint, so drafter and target plans cache apart),
+placed either COLOCATED with the target (the default: on the target's
+card) or on a DISJOINT window of the torchrun world via
+`mesh_device_offset` (`--serve-draft-chips D` on a world of N ranks puts
+the drafter on ranks [N-D, N) and the target on [0, N-D);
+disagg.sub_mesh_axes carves the windows). Every rank of the world runs
+the host side alike; a side's ranks run its device calls, and its first
+rank shares what they give (the target's tokens each call, the drafter's
+proposals once a round) with the others over the world's host group.
+
+**The round.** For an all-greedy decode-only batch, each slot at cursor
+L feeds the drafter its uncovered true-token suffix (one uniform
+catch-up mechanism covering prompt prefill, tokens generated in plain
+rounds, and rejection bookkeeping), then proposes k_s tokens with q=1
+greedy calls. The target then runs ONE donated verify call
+(`Executor.build_verify_step`, bucketed by draft length) feeding
+q = 1 + max(k_s) tokens [last_token, d_1..d_k] at positions [L..L+k]
+against the SAME KV cache — the incremental-attention ops already take
+(slots, q) positions (the chunked-prefill multi-token path) — and
+returns every row's greedy argmax. Acceptance is the greedy
+longest-matching-prefix + 1 correction token: row j is exactly the
+token plain decode would sample after [.., d_1..d_j], so the emitted
+run out[0..m] is **bit-identical** to the unified engine's stream by
+construction (tests/test_torch_speculative.py pins both acceptance extremes against
+the port's plain engine and the JAX package's streams).
+
+**Rollback is a host-side cursor rewind.** Rejected tokens' KV rows are
+never erased on device: reads mask by position, and every row at or
+below a later call's query frontier is overwritten by that same call
+before it becomes readable — stale rows beyond the frontier are masked
+out. Paged safety: `ensure_writable` COWs any shared/pinned block
+before a verify write, the per-slot caps keep every written row inside
+the slot's admission reservation, and `register_prompt` publishes only
+the prompt extent — so a verify never touches a refcount>1 block and
+rejected rows die with the slot.
+
+**Priced, not hardcoded.** A per-(target, drafter) acceptance-rate EMA
+— calibrated online, persisted in the warm-start calibration DB under
+the JAX package's reserved key, so one DB serves both packages — feeds
+the payoff
+inequality
+
+    draft_cost + verify_cost  <  E[accepted] x decode_cost
+    K·draft_step_s + verify_step_s(K)  <  (Σ_{i=1..K} a^i) · decode_step_s
+
+evaluated per round over K = 1..k_max (measured per-bucket verify EMAs,
+with a cost_model prior for unmeasured buckets): the net-maximizing K
+wins, and the engine falls back to plain decode when speculation stops
+paying. Every decision lands in `strategy_report.json`'s `speculation`
+section, which the doctor re-verifies from the artifact alone. On a
+world of more than one rank, world rank 0's decision is every rank's
+(`_decide`): the ranks' clocks differ, their host states may not.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import telemetry
+from ..telemetry import log as fflog
+from .disagg import sub_mesh_axes
+from .engine import ServingEngine
+
+# reserved calibration-DB key family (never produced by _params_key: no
+# real op carries this params repr). Value is stored in the [fwd, bwd]
+# slots as [acceptance_rate, sample_count], keyed per (target, drafter)
+# decode-graph pair — the same reserved-key idiom as the migration
+# fidelity ratio (elastic/payoff.py).
+_ACCEPT_PARAMS = "__spec_acceptance__"
+_ACCEPT_SHAPES = ((1,),)
+
+DEFAULT_ACCEPTANCE = 0.5
+_ACCEPT_ALPHA = 0.1  # acceptance observations are plentiful (per slot/round)
+_COST_ALPHA = 0.25   # step-cost EMAs: smooth but responsive
+_PERSIST_EVERY = 64  # rounds between calibration-DB writes (+ note_drain)
+_MAX_DECISIONS = 256  # bounded decision log in the strategy report
+
+
+def _acceptance_key(pair: str):
+    from ..fftype import UnportedOperatorType
+
+    return (UnportedOperatorType.OP_NOOP, f"{_ACCEPT_PARAMS}:{pair}",
+            _ACCEPT_SHAPES)
+
+
+def pair_fingerprint(target_dec, draft_dec) -> str:
+    """Content address of the (target, drafter) pair the acceptance EMA
+    is calibrated FOR: hash of both decode graphs' signatures, the
+    drafter's in the JAX package's drafter layout (contiguous), so the
+    JAX package and the port address one calibration-DB entry. A new
+    drafter tier (or a retier of the target) misses conservatively and
+    recalibrates from the default, like every warm-start address."""
+    from ..warmstart.fingerprint import _sha, graph_signature
+
+    return _sha([graph_signature(target_dec.graph),
+                 _contiguous_signature(draft_dec)])[:16]
+
+
+def _contiguous_signature(dec) -> list:
+    """`graph_signature` of a decode graph as its contiguous-layout twin
+    would give it: a paged graph's page-table input and edges dropped,
+    its attention ops, params and KV state those of the contiguous op
+    (slots, max_seq_len + 1, embed)."""
+    from ..fftype import OperatorType as OT
+    from ..ops.inc_attention import IncMultiHeadAttentionParams
+    from ..warmstart.fingerprint import graph_signature
+
+    nodes = {n.name: n for n in dec.graph.topo_order()}
+    slots = int(dec.config.batch_size)
+    out = []
+    for entry in graph_signature(dec.graph):
+        if entry["name"] == "page_table":
+            continue
+        node = nodes[entry["name"]]
+        if node.op_type == OT.OP_PAGED_INC_MULTIHEAD_ATTENTION:
+            p = node.params
+            entry = dict(entry)
+            entry["op"] = OT.OP_INC_MULTIHEAD_ATTENTION.name
+            entry["params"] = repr(IncMultiHeadAttentionParams(
+                p.embed_dim, p.num_heads, p.max_seq_len, p.use_bias,
+                p.impl))
+            entry["weights"] = [
+                [w.replace("pool_", "cache_"),
+                 [slots, p.max_seq_len + 1, p.embed_dim], dt, tr]
+                if w.startswith("pool_") else [w, shape, dt, tr]
+                for w, shape, dt, tr in entry["weights"]]
+        entry["in"] = [e for e in entry["in"] if e[0] != "page_table"]
+        out.append(entry)
+    return out
+
+
+def load_acceptance(model, pair: str) -> tuple[float, int]:
+    """The (acceptance_rate, samples) for this pair: the in-process EMA
+    when one exists, else the persisted calibration-DB entry for this
+    device kind, else (DEFAULT_ACCEPTANCE, 0)."""
+    mem = getattr(model, "_spec_acceptance", {}).get(pair)
+    if mem is not None:
+        return float(mem[0]), int(mem[1])
+    from ..elastic.payoff import _calibration_db
+
+    db = _calibration_db(model)
+    if db is not None:
+        from ..warmstart.calibration_db import device_key, serialize_key
+
+        entry = (db._read().get("devices", {})
+                 .get(device_key(getattr(model, "device", None)), {})
+                 .get(serialize_key(_acceptance_key(pair))))
+        if entry is not None:
+            try:
+                rate, samples = float(entry[0]), int(entry[1])
+                if 0.0 <= rate <= 1.0:
+                    model._spec_acceptance = getattr(
+                        model, "_spec_acceptance", {})
+                    model._spec_acceptance[pair] = (rate, samples)
+                    return rate, samples
+            except (TypeError, ValueError, IndexError):
+                pass
+    return DEFAULT_ACCEPTANCE, 0
+
+
+def persist_acceptance(model, pair: str, rate: float, samples: int):
+    """Write the pair's acceptance EMA through to the warm-start
+    calibration DB (coordinator-only, fail-soft — a calibration write
+    must never fail a serving round)."""
+    model._spec_acceptance = getattr(model, "_spec_acceptance", {})
+    model._spec_acceptance[pair] = (float(rate), int(samples))
+    try:
+        from ..elastic.payoff import _calibration_db
+
+        db = _calibration_db(model)
+        if db is not None:
+            from ..distributed import is_coordinator
+
+            if is_coordinator():
+                import types
+
+                shim = types.SimpleNamespace(_calibration={
+                    _acceptance_key(pair): (float(rate), float(samples))})
+                db.save_from(shim)
+    except Exception as e:  # pragma: no cover - persistence is best-effort
+        fflog.warning("speculative: could not persist acceptance: %s", e)
+
+
+def expected_accepted(acceptance: float, k: int) -> float:
+    """E[accepted tokens | K drafted] under the i.i.d. per-token
+    acceptance model: Σ_{i=1..K} a^i. The doctor recomputes this
+    with the SAME accumulation order, so recorded decisions reproduce to
+    the float."""
+    expected = 0.0
+    x = 1.0
+    for _ in range(int(k)):
+        x *= float(acceptance)
+        expected += x
+    return expected
+
+
+class DrafterPlane:
+    """The drafter side of speculative decoding: a second ServingEngine
+    over the draft model (every slot's drafter cache is private — in the
+    paged layout a fixed run of pool blocks a slot — so the plane needs
+    no pool bookkeeping), driven directly at the device-call level. The scheduler state of record stays the
+    TARGET's; this plane only mirrors it through a per-slot cursor
+    `dlen` = drafter cache rows that hold true-sequence KV. One uniform
+    catch-up mechanism (feed tokens[dlen : L+1] in chunked calls) covers
+    prompt prefill, tokens generated in non-speculative rounds, slot
+    reuse, AND rejection bookkeeping — a rejected proposal just leaves
+    `dlen` lower, and the stale rows beyond it are overwritten before
+    any later query can attend them (same cursor-rewind argument as the
+    target's verify rollback)."""
+
+    def __init__(self, target: ServingEngine, draft_model,
+                 config_overrides: dict):
+        self.target = target
+        slots = target.spec.slots
+        from .decode_graph import infer_max_seq_len
+
+        draft_seq = infer_max_seq_len(draft_model)
+        if draft_seq < target.max_seq_len:
+            raise ValueError(
+                f"draft_model's positional table covers {draft_seq} "
+                f"rows but the target serves max_seq_len="
+                f"{target.max_seq_len}; the drafter must reach every "
+                f"position the target can decode at")
+        # the drafter's KV in the target's layout (the JAX package's is
+        # contiguous): paged, every slot owns a fixed run of blocks, its
+        # private cache through its own page table (no sharing, no COW,
+        # no block manager), so its q = 1 proposals run K3 as the
+        # target's decode does
+        paged = target.spec.kv_layout == "paged"
+        bs = target.spec.kv_block_size
+        width = -(-target.max_seq_len // bs)
+        layout = dict(kv_layout="paged", kv_block_size=bs,
+                      kv_num_blocks=slots * width + 1,
+                      prefix_sharing=False, prefix_cache=False) \
+            if paged else dict(kv_layout="contiguous")
+        self.engine = ServingEngine(
+            draft_model, slots=slots, max_seq_len=target.max_seq_len,
+            prefill_chunk=target.spec.prefill_chunk, role="draft",
+            config_overrides=dict(config_overrides or {}), **layout)
+        if paged:
+            self.engine._private_tables = np.arange(
+                1, slots * width + 1, dtype=np.int32).reshape(slots, width)
+        self.slots = slots
+        # per-slot drafter cursor: cache rows holding true-sequence KV
+        self.dlen = np.zeros((slots,), np.int64)
+        # per-slot request id the cursor belongs to (slot reuse under
+        # continuous batching resets the cursor, not the cache — stale
+        # rows are overwritten before they are readable)
+        self.owner = np.full((slots,), -1, np.int64)
+        self.step_calls = 0
+        self.device_s = 0.0
+        self.last_step_s = 0.0
+
+    def _step(self, tokens: np.ndarray, positions: np.ndarray,
+              read_idx: np.ndarray) -> Optional[np.ndarray]:
+        """One drafter decode call: temperature pinned to zero (greedy
+        proposals — acceptance compares argmax to argmax), read row per
+        slot from `read_idx`. None on a rank the drafter's mesh parks
+        (its proposals arrive once a round, `propose`)."""
+        eng = self.engine
+        eng._check_same_call("draft", tokens.shape[1])
+        if not eng.member:
+            return None
+        out, dt = eng._device_step(tokens, positions, read_idx)
+        self.step_calls += 1
+        self.device_s += dt
+        self.last_step_s = dt
+        return out
+
+    def propose(self, decoding, ks: dict[int, int]) -> tuple[dict, float]:
+        """Draft ks[i] tokens for every decoding slot i in `ks`: chunked
+        catch-up of the uncovered true-token suffix (the final fed token
+        — the target's last_token at position L — yields proposal d_1),
+        then k-1 batched single-token greedy calls. Returns
+        ({slot_index: [d_1..d_k]}, draft_device_seconds)."""
+        eng = self.engine
+        scratch = eng.max_seq_len  # contiguous scratch row
+        t_start = self.device_s
+        pending: dict[int, list[int]] = {}
+        offs: dict[int, int] = {}
+        for s in decoding:
+            if s.index not in ks:
+                continue
+            req = s.request
+            if self.owner[s.index] != req.request_id:
+                self.owner[s.index] = req.request_id
+                self.dlen[s.index] = 0
+            start = int(self.dlen[s.index])
+            pending[s.index] = [int(t) for t in req.tokens[start:s.length + 1]]
+            offs[s.index] = start
+        proposals: dict[int, list[int]] = {i: [] for i in pending}
+        # ---- catch-up: every slot advances together, one bucketed call
+        # per chunk; a slot whose feed drains mid-loop idles on scratch
+        # rows until the stragglers finish
+        while any(pending.values()):
+            widths = {i: min(len(p), eng.spec.prefill_chunk)
+                      for i, p in pending.items() if p}
+            q = eng._bucket(max(widths.values()))
+            tokens = np.zeros((self.slots, q), np.int32)
+            positions = np.full((self.slots, q), scratch, np.int32)
+            read_idx = np.zeros((self.slots,), np.int32)
+            took: dict[int, int] = {}
+            for i, p in pending.items():
+                n = min(len(p), q)
+                if n == 0:
+                    continue
+                tokens[i, :n] = p[:n]
+                positions[i, :n] = np.arange(offs[i], offs[i] + n,
+                                             dtype=np.int32)
+                read_idx[i] = n - 1
+                took[i] = n
+            out = self._step(tokens, positions, read_idx)
+            for i, n in took.items():
+                offs[i] += n
+                del pending[i][:n]
+                self.dlen[i] = offs[i]
+                if not pending[i] and out is not None:
+                    # the call's read row was this slot's last TRUE token
+                    # (position L) — its greedy sample is proposal d_1
+                    proposals[i].append(int(out[i]))
+        # ---- proposals d_2..d_k: q=1 greedy calls, batched across the
+        # slots still drafting (k_s varies per slot)
+        kmax = max(ks.values())
+        for j in range(1, kmax if eng.member else 1):
+            tokens = np.zeros((self.slots, 1), np.int32)
+            positions = np.full((self.slots, 1), scratch, np.int32)
+            read_idx = np.zeros((self.slots,), np.int32)
+            live = []
+            for s in decoding:
+                i = s.index
+                if i not in ks or ks[i] <= j:
+                    continue
+                tokens[i, 0] = proposals[i][j - 1]
+                positions[i, 0] = s.length + j
+                live.append(i)
+            if not live:
+                break
+            out = self._step(tokens, positions, read_idx)
+            for i in live:
+                proposals[i].append(int(out[i]))
+        return self._broadcast_proposals(proposals, ks,
+                                         self.device_s - t_start)
+
+    def _broadcast_proposals(self, proposals: dict, ks: dict,
+                             draft_s: float) -> tuple:
+        """The round's proposals and drafter seconds from the drafter
+        mesh's first rank to every rank of the world, once a round, over
+        its host group (only where the drafter's mesh is a strict window
+        of the world: the target's ranks hold none)."""
+        eng = self.engine
+        if not eng._spread:
+            return proposals, draft_s
+        from ..distributed import host_broadcast, world_rank
+
+        src = int(eng.decode_model.mesh.ranks[0])
+        kmax = max(ks.values())
+        buf = torch.full((self.slots * kmax + 1,), -1, dtype=torch.float64)
+        if world_rank() == src:
+            for i, d in proposals.items():
+                buf[i * kmax:i * kmax + len(d)] = torch.as_tensor(
+                    d, dtype=torch.float64)
+            buf[-1] = float(draft_s)
+        host_broadcast(buf, src)
+        got = buf[:-1].view(self.slots, kmax).long().tolist()
+        shared = {i: [t for t in got[i][:ks[i]] if t >= 0]
+                  for i in proposals}
+        draft_s = float(buf[-1])
+        if not eng.member:
+            self.device_s += draft_s
+        return shared, draft_s
+
+    def commit(self, slot, accepted: int, drafted: int, finished: bool):
+        """Post-verify cursor bookkeeping for one slot: rows holding
+        proposals d_1..d_{drafted-1} were written during this round's
+        proposal calls, and the first `accepted` of them are now TRUE
+        tokens — the cursor advances to L + 1 + min(accepted, drafted-1)
+        (the catch-up path re-feeds whatever the proposals missed:
+        correction and bonus tokens, like any other plain-round token).
+        A finished request releases the slot: drop ownership so the next
+        resident starts from a zero cursor."""
+        i = slot.index
+        if finished:
+            self.owner[i] = -1
+            self.dlen[i] = 0
+            return
+        # slot.length already advanced past the emitted run; the round's
+        # pre-verify cursor L is length - emitted = dlen - 1 by the
+        # catch-up invariant (dlen was L + 1 after propose)
+        base = int(self.dlen[i]) - 1
+        self.dlen[i] = base + 1 + min(int(accepted), max(0, drafted - 1))
+
+
+class SpeculativeServingEngine(ServingEngine):
+    """ServingEngine whose all-greedy decode-only rounds may run as
+    speculative rounds: drafter proposals + one batched verify call,
+    gated per round by the acceptance-calibrated payoff inequality (see
+    module docstring). Any round with admissions, an in-flight prefill
+    chunk, or a temperature>0 slot falls back to the base step verbatim
+    — the per-request token streams are order-identical either way, so
+    bit-identity holds across arbitrary interleavings."""
+
+    def __init__(self, model, draft_model=None, draft_chips=None,
+                 spec_k=None, **overrides):
+        if draft_model is None:
+            raise ValueError(
+                "serve(speculate=True) needs draft_model=<a compiled "
+                "FFModel sharing the target's tokenizer/vocab>")
+        cfg = model.config
+        if draft_chips is None:
+            draft_chips = int(getattr(cfg, "serve_draft_chips", 0) or 0)
+        self.draft_chips = int(draft_chips)
+        k_max = int(spec_k if spec_k is not None
+                    else getattr(cfg, "serve_spec_k", 4) or 4)
+        if k_max < 1:
+            raise ValueError(f"--serve-spec-k must be >= 1, got {k_max}")
+        self.k_max = k_max
+        user_over = dict(overrides.pop("config_overrides", None) or {})
+        draft_over: dict = {}
+        if self.draft_chips:
+            from ..distributed import world_size
+
+            total = world_size()
+            if not 0 < self.draft_chips < total:
+                raise ValueError(
+                    f"--serve-draft-chips must leave both the drafter "
+                    f"and the target at least one chip: got "
+                    f"{self.draft_chips} with {total} visible device(s)")
+            # disjoint windows: the target on the world's leading ranks,
+            # the drafter on its trailing ones (mesh_device_offset)
+            user_over.setdefault(
+                "mesh_axis_sizes",
+                sub_mesh_axes(model, total - self.draft_chips))
+            user_over.setdefault("mesh_device_offset", 0)
+            draft_over = {
+                "mesh_axis_sizes": sub_mesh_axes(draft_model,
+                                                 self.draft_chips),
+                "mesh_device_offset": total - self.draft_chips,
+            }
+        # colocated (draft_chips=0): no target overrides at all, so the
+        # target's plan shares the PLAIN serving engine's warm-start
+        # address — speculate=True costs no extra target search
+        super().__init__(model, config_overrides=user_over, **overrides)
+        with self._active():
+            t0 = time.perf_counter()
+            self.drafter = DrafterPlane(self, draft_model, draft_over)
+            self._verify_fn = (
+                self.decode_model.executor.build_verify_step()
+                if self.member else None)
+            telemetry.event(
+                "serve.speculate_compile",
+                duration_s=time.perf_counter() - t0,
+                draft_chips=self.draft_chips, k_max=self.k_max,
+                draft_plan_source=(
+                    self.drafter.engine.decode_model._plan_source),
+                draft_mesh_axes={
+                    k: int(v) for k, v in
+                    self.drafter.engine.decode_model.mesh.shape.items()})
+        self._check_vocab(draft_model)
+        # acceptance EMA, keyed per (target, drafter) decode-graph pair
+        # and persisted in the warm-start calibration DB
+        self.pair_key = pair_fingerprint(
+            self.decode_model, self.drafter.engine.decode_model)
+        self.acceptance_ema, self.acceptance_samples = load_acceptance(
+            model, self.pair_key)
+        # online step-cost EMAs feeding the payoff inequality; verify is
+        # bucketed by call width q (distinct widths are distinct
+        # executables with distinct costs)
+        self._decode_cost_s: Optional[float] = None
+        self._draft_cost_s: Optional[float] = None
+        self._verify_cost_s: dict[int, float] = {}
+        self._rounds_since_persist = 0
+        self.decisions: list[dict] = []
+        self._decision_counts = {"speculate": 0, "decode": 0}
+        self._spec_rounds = 0
+        self._spec_draft_tokens = 0
+        self._spec_accepted_tokens = 0
+        self._spec_emitted_tokens = 0
+        # metrics pre-created here — speculative rounds allocate no
+        # metric objects (the engine's overhead-guard invariant)
+        reg = self.metrics
+        self._h_spec_accept_rate = reg.histogram("serve_spec_accept_rate")
+        self._c_spec_rounds = reg.counter("serve_spec_rounds_total")
+        self._c_spec_draft_tok = reg.counter("serve_spec_draft_tokens_total")
+        self._c_spec_accepted_tok = reg.counter(
+            "serve_spec_accepted_tokens_total")
+
+    def _check_vocab(self, draft_model):
+        """The drafter must share the target's vocabulary — acceptance
+        compares token ids. The decode graphs' logits extents are the
+        ground truth for both."""
+        def vocab(dec):
+            node = dec.graph.topo_order()[-1]
+            return int(node.output_shapes[0][-1])
+
+        try:
+            tv, dv = vocab(self.decode_model), \
+                vocab(self.drafter.engine.decode_model)
+        except Exception:
+            return  # exotic head shapes: let the verify compare tokens
+        if tv != dv:
+            raise ValueError(
+                f"draft_model vocab {dv} != target vocab {tv}; "
+                f"speculative decoding needs a shared tokenizer")
+
+    # ------------------------------------------------------------ replan
+
+    def replan_mesh(self, mesh_axis_sizes, trigger: str = "manual") -> dict:
+        run = getattr(self._verify_fn, "captured", None)
+        out = super().replan_mesh(mesh_axis_sizes, trigger=trigger)
+        if run is not None:
+            run.release()  # the old verify graphs and their memory
+        # the base replan rebinds the decode/copy steps; the verify step
+        # is built on the new executor too
+        self._verify_fn = (self.decode_model.executor.build_verify_step()
+                           if self.member else None)
+        return out
+
+    # ------------------------------------------------------------ payoff
+
+    def _slot_draft_caps(self, decoding) -> dict[int, int]:
+        """Per-slot draft-length cap: never draft past the KV cache's
+        last real row or the request's remaining token budget (the +1
+        correction token is part of the budget), so every verify write
+        stays inside the slot's admission reservation."""
+        caps: dict[int, int] = {}
+        for s in decoding:
+            req = s.request
+            room_cache = self.max_seq_len - 1 - s.length
+            room_budget = req.max_new_tokens - len(req.generated) - 1
+            k = min(self.k_max, room_cache, room_budget)
+            if k > 0:
+                caps[s.index] = int(k)
+        return caps
+
+    def _verify_cost(self, k: int) -> tuple[float, str]:
+        """verify_step_s for a K-token draft (call width q = K+1): the
+        measured per-bucket EMA when the bucket has run, else the
+        cost_model prior scaled off the measured decode cost."""
+        q = 1 + int(k)
+        got = self._verify_cost_s.get(q)
+        if got is not None:
+            return got, "measured"
+        from ..search.cost_model import price_verify_scale
+
+        return float(self._decode_cost_s) * price_verify_scale(q), "assumed"
+
+    def _decide(self, k_cap: int) -> dict:
+        """One round's payoff decision. `no_headroom` (every decoding
+        slot at its cache edge or one token from its budget) forces
+        plain decode. Bootstrap phases: the first round always runs
+        plain decode to measure decode_step_s (`calibrate_decode`), the
+        next speculates unconditionally at the cap to measure
+        draft/verify costs (`bootstrap`); from then on the inequality
+        gates (`payoff`), evaluated at every K = 1..cap with the
+        net-maximizing candidate recorded. The record carries every
+        factor, so the doctor reproduces lhs/rhs/chosen from
+        the artifact alone."""
+        a = float(self.acceptance_ema)
+        d = {
+            "k": 0, "acceptance_ema": a,
+            "acceptance_samples": int(self.acceptance_samples),
+        }
+        if k_cap < 1:
+            d.update(reason="no_headroom", chosen="decode",
+                     would_speculate=False)
+        elif self._decode_cost_s is None:
+            d.update(reason="calibrate_decode", chosen="decode",
+                     would_speculate=False)
+        elif self._draft_cost_s is None:
+            d.update(k=min(self.k_max, k_cap), reason="bootstrap",
+                     chosen="speculate", would_speculate=True,
+                     decode_cost_s=float(self._decode_cost_s))
+        else:
+            best = None
+            for k in range(1, min(self.k_max, k_cap) + 1):
+                vcost, vsrc = self._verify_cost(k)
+                lhs = k * float(self._draft_cost_s) + vcost
+                exp = expected_accepted(a, k)
+                rhs = exp * float(self._decode_cost_s)
+                cand = {
+                    "k": k, "expected_accepted": exp,
+                    "draft_cost_s": float(self._draft_cost_s),
+                    "verify_cost_s": vcost, "verify_cost_source": vsrc,
+                    "decode_cost_s": float(self._decode_cost_s),
+                    "lhs_s": lhs, "rhs_s": rhs,
+                    "would_speculate": bool(lhs < rhs),
+                }
+                if best is None or (rhs - lhs) > (best["rhs_s"]
+                                                  - best["lhs_s"]):
+                    best = cand
+            d.update(best)
+            d.update(reason="payoff",
+                     chosen=("speculate" if d["would_speculate"]
+                             else "decode"))
+        from ..distributed import host_broadcast_object, world_size
+
+        if world_size() > 1:
+            # world rank 0's decision is every rank's: each rank's clock
+            # feeds its own cost EMAs
+            d = host_broadcast_object(d, 0)
+        self._decision_counts[d["chosen"]] += 1
+        self.decisions.append(d)
+        if len(self.decisions) > _MAX_DECISIONS:
+            del self.decisions[:len(self.decisions) - _MAX_DECISIONS]
+        return d
+
+    def _update_decode_cost(self, dt: float):
+        if dt <= 0:
+            return
+        if self._decode_cost_s is None:
+            self._decode_cost_s = float(dt)
+        else:
+            self._decode_cost_s = ((1 - _COST_ALPHA) * self._decode_cost_s
+                                   + _COST_ALPHA * float(dt))
+
+    def _update_draft_cost(self, per_call_s: float):
+        if per_call_s <= 0:
+            return
+        if self._draft_cost_s is None:
+            self._draft_cost_s = float(per_call_s)
+        else:
+            self._draft_cost_s = ((1 - _COST_ALPHA) * self._draft_cost_s
+                                  + _COST_ALPHA * float(per_call_s))
+
+    def _update_verify_cost(self, q: int, dt: float):
+        if dt <= 0:
+            return
+        cur = self._verify_cost_s.get(q)
+        self._verify_cost_s[q] = (float(dt) if cur is None else
+                                  (1 - _COST_ALPHA) * cur
+                                  + _COST_ALPHA * float(dt))
+
+    def _record_acceptance(self, rate: float):
+        rate = min(1.0, max(0.0, float(rate)))
+        if self.acceptance_samples == 0:
+            self.acceptance_ema = rate
+        else:
+            self.acceptance_ema = ((1 - _ACCEPT_ALPHA) * self.acceptance_ema
+                                   + _ACCEPT_ALPHA * rate)
+        self.acceptance_samples += 1
+        self._h_spec_accept_rate.observe(rate)
+
+    def _maybe_persist(self, force: bool = False):
+        self._rounds_since_persist += 1
+        if force or self._rounds_since_persist >= _PERSIST_EVERY:
+            self._rounds_since_persist = 0
+            if self.acceptance_samples > 0:
+                persist_acceptance(self.model, self.pair_key,
+                                   self.acceptance_ema,
+                                   self.acceptance_samples)
+
+    # ------------------------------------------------------------ iterate
+
+    def step(self) -> list:
+        """One scheduler iteration: speculative when the batch is an
+        all-greedy decode-only round AND the payoff gate approves; the
+        base chunked-prefill/admission/sampling step otherwise."""
+        sched = self.scheduler
+        decoding = [s for s in sched.slots if s.decoding]
+        plain = ((sched.pending and sched.free_slots)
+                 or any(s.prefilling for s in sched.slots)
+                 or not decoding
+                 or any(s.request.temperature > 0 for s in decoding))
+        if plain:
+            return super().step()
+        caps = self._slot_draft_caps(decoding)
+        decision = self._decide(max(caps.values()) if caps else 0)
+        if decision["chosen"] == "decode":
+            out = super().step()
+            # the round we just ran was decode-only at q=1 — exactly the
+            # decode_step_s the payoff inequality prices
+            self._update_decode_cost(self._last_step_device_s)
+            return out
+        return self._speculative_round(decoding, caps, decision)
+
+    def _run_verify(self, tokens: np.ndarray,
+                    positions: np.ndarray) -> np.ndarray:
+        """One batched verify call: the q = K+1 feeds staged exactly like
+        a decode step's, the verify step run (a CUDA graph per q on the
+        card; its failure to capture or launch raises: no round falls
+        back to plain decode for it), every row's greedy argmax (slots,
+        q) returned."""
+        dec = self.decode_model
+        out, dt = None, 0.0
+        self._check_same_call("verify", tokens.shape[1])
+        if self.member:
+            xs = dec.executor.host_inputs(self._feed(tokens, positions))
+            t0 = time.perf_counter()
+            dec._state, toks = self._verify_fn(dec._params, dec._state, xs)
+            out = toks.cpu().numpy()  # waits for the device
+            # this pair IS the verify-cost measurement (and the
+            # serve_step_device_s observation below); a span would
+            # double-record every speculative round
+            dt = time.perf_counter() - t0  # fflint: ok raw_timer_in_hot_path
+        out, dt = self._spread_result(out, tokens.shape, dt)
+        self._note_device_s(dt)
+        self._update_verify_cost(tokens.shape[1], dt)
+        return out
+
+    def _speculative_round(self, decoding, caps: dict[int, int],
+                           decision: dict) -> list:
+        sched = self.scheduler
+        done_before = len(sched.completed)
+        self._maybe_autoscale()
+        with self._active():
+            self._publish_slot_gauges([], decoding)
+            k_round = int(decision["k"])
+            ks = {i: min(c, k_round) for i, c in caps.items()}
+            drafts, draft_s = self.drafter.propose(decoding, ks)
+            total_drafted = sum(len(d) for d in drafts.values())
+            if total_drafted:
+                # per-proposal drafter cost: the payoff lhs prices
+                # draft_cost_s per drafted token (catch-up + proposal
+                # calls are all q=1 in steady state)
+                self._update_draft_cost(draft_s / total_drafted)
+            kmax = max((len(d) for d in drafts.values()), default=0)
+            q = 1 + kmax
+            tokens = np.zeros((self.spec.slots, q), np.int32)
+            positions = np.full((self.spec.slots, q), self.max_seq_len,
+                                np.int32)
+            writes: dict[int, range] = {}
+            pre_len: dict[int, int] = {}
+            for s in decoding:
+                d = drafts.get(s.index, ())
+                n = 1 + len(d)
+                tokens[s.index, 0] = s.last_token
+                if d:
+                    tokens[s.index, 1:n] = d
+                positions[s.index, :n] = np.arange(
+                    s.length, s.length + n, dtype=np.int32)
+                writes[s.index] = range(s.length, s.length + n)
+                pre_len[s.index] = s.length
+            # COW/allocate every written row BEFORE the call — a verify
+            # write can therefore never land on a refcount>1 or pinned
+            # block (the paged rollback-safety half of the invariant)
+            self._prepare_writes(writes)
+            with telemetry.span("serve.verify", active=len(decoding),
+                                draft_len=kmax):
+                out = self._run_verify(tokens, positions)
+            self._decode_iterations += 1
+            self._spec_rounds += 1
+            self._c_spec_rounds.inc()
+            round_accepted = 0
+            round_emitted = 0
+            for s in decoding:
+                req = s.request
+                d = drafts.get(s.index, ())
+                row = out[s.index]
+                m = 0
+                while m < len(d) and int(d[m]) == int(row[m]):
+                    m += 1
+                # greedy longest-matching-prefix + 1: rows 0..m-1 confirm
+                # the accepted proposals, row m is the correction (or the
+                # bonus token when every proposal matched) — exactly the
+                # tokens plain decode would sample, in order
+                emit = [int(row[j]) for j in range(m + 1)]
+                prev_t = req.last_token_t
+                applied, finished = sched.note_tokens(s, emit)
+                if finished:
+                    self._note_completion(s, req)
+                self._observe_spec_tokens(req, prev_t, applied)
+                self._decode_tokens += applied
+                round_emitted += applied
+                if d:
+                    round_accepted += m
+                    self._spec_draft_tokens += len(d)
+                    self._spec_accepted_tokens += m
+                    self._c_spec_draft_tok.inc(len(d))
+                    self._c_spec_accepted_tok.inc(m)
+                    self._record_acceptance(m / len(d))
+                    self.drafter.commit(s, m, len(d), finished)
+            self._spec_emitted_tokens += round_emitted
+            telemetry.event(
+                "serve.speculate", k=k_round, draft_len=kmax,
+                slots=len(decoding), draft_tokens=total_drafted,
+                accepted_tokens=round_accepted,
+                emitted_tokens=round_emitted,
+                acceptance_ema=self.acceptance_ema,
+                draft_device_s=draft_s,
+                verify_device_s=self._last_step_device_s)
+            self._maybe_persist()
+        return sched.completed[done_before:]
+
+    def _observe_spec_tokens(self, req, prev_t, n: int):
+        """TBT attribution for a verify-call run: the round emitted `n`
+        tokens for this slot in ONE device call, so the inter-token gap
+        divides evenly across them — n observations of gap/n, keeping
+        the TBT histogram's token count and total time both honest."""
+        if n <= 0:
+            return
+        self._c_tokens_out.inc(n)
+        if prev_t is None:  # defensive: decoding slots always have one
+            self._h_ttft.observe(req.ttft_s)
+            telemetry.instant("serve.first_token", trace=req.trace_id,
+                              ttft_s=req.ttft_s)
+            n -= 1
+            prev_t = req.first_token_t
+            if n <= 0:
+                return
+        gap = (req.last_token_t - prev_t) / n
+        for _ in range(n):
+            self._h_tbt.observe(gap)
+
+    # ------------------------------------------------------------ drain
+
+    def note_drain(self, wall_s: float):
+        super().note_drain(wall_s)
+        self._maybe_persist(force=True)
+        self._update_report()
+
+    def release_drafter(self):
+        """Drop the drafter's and the verify step's CUDA graphs (their
+        memory goes with them): an engine about to be dropped, or one
+        whose drafter is replaced."""
+        self.drafter.engine._release_graphs()
+        run = getattr(self._verify_fn, "captured", None)
+        if run is not None:
+            run.release()
+
+    def _update_report(self):
+        """Land the speculation section in strategy_report.json (the
+        disagg section's idiom): the doctor re-verifies every payoff
+        decision's arithmetic from this artifact alone."""
+        self.model._serving_speculation = self.speculation_section()
+        diag = getattr(self.model, "_diagnostics", None)
+        if diag is not None and getattr(diag, "report", None):
+            from ..diagnostics.explain import rewrite_strategy_report
+
+            diag.report["speculation"] = self.model._serving_speculation
+            rewrite_strategy_report(diag.report, diag.directory)
+
+    # ------------------------------------------------------------ stats
+
+    def speculation_section(self) -> dict:
+        dec = self.drafter.engine.decode_model
+        return {
+            "draft_chips": self.draft_chips,
+            "colocated": self.draft_chips == 0,
+            "k_max": self.k_max,
+            "pair_key": self.pair_key,
+            "acceptance_ema": float(self.acceptance_ema),
+            "acceptance_samples": int(self.acceptance_samples),
+            "costs": {
+                "decode_step_s": self._decode_cost_s,
+                "draft_step_s": self._draft_cost_s,
+                "verify_step_s": {str(q): v for q, v
+                                  in sorted(self._verify_cost_s.items())},
+            },
+            "rounds": self._spec_rounds,
+            "draft_tokens": self._spec_draft_tokens,
+            "accepted_tokens": self._spec_accepted_tokens,
+            "emitted_tokens": self._spec_emitted_tokens,
+            "decision_counts": dict(self._decision_counts),
+            "decisions": list(self.decisions),
+            "drafter": {
+                "plan_source": dec._plan_source,
+                "mesh_axes": {k: int(v)
+                              for k, v in dec.mesh.shape.items()},
+                "device_s": self.drafter.device_s,
+                "step_calls": self.drafter.step_calls,
+            },
+        }
+
+    def stats(self) -> dict:
+        out = super().stats()
+        drafted = self._spec_draft_tokens
+        out["speculation"] = {
+            "rounds": self._spec_rounds,
+            "draft_tokens": drafted,
+            "accepted_tokens": self._spec_accepted_tokens,
+            "emitted_tokens": self._spec_emitted_tokens,
+            "acceptance_rate": (self._spec_accepted_tokens / drafted
+                                if drafted else 0.0),
+            "acceptance_ema": float(self.acceptance_ema),
+            "draft_chips": self.draft_chips,
+            "k_max": self.k_max,
+            "decision_counts": dict(self._decision_counts),
+        }
+        return out
+
+    def reset_stats(self) -> None:
+        super().reset_stats()
+        # window tallies restart; the CALIBRATION state (acceptance EMA,
+        # step-cost EMAs, decision log) persists — a measured window
+        # should run on a warmed-up gate, not a cold one
+        self._spec_rounds = 0
+        self._spec_draft_tokens = 0
+        self._spec_accepted_tokens = 0
+        self._spec_emitted_tokens = 0
+        self.drafter.step_calls = 0
+        self.drafter.device_s = 0.0

@@ -1536,3 +1536,94 @@ def test_graph_in_a_dropped_cycle_survives_a_later_capture(cuda):
     assert all(torch.equal(o, x + 1.0) for o in outs)
     gc.collect()
     assert dropped() is None
+
+
+def _decoding_engine(monkeypatch):
+    """lm-smoke (2 heads, f32) served paged with every slot decoding."""
+    ff, lm = _smoke_lm(monkeypatch, "fp32")
+    eng = ff.serve(kv_layout="paged", max_new_tokens=32)
+    for p in _smoke_prompts(lm.vocab_size)[:4]:
+        eng.submit(p)
+    while not all(s.decoding for s in eng.scheduler.slots):
+        eng.step()
+    return eng, lm
+
+
+@pytest.mark.cuda
+def test_captured_verify_step_matches_eager_at_two_widths(cuda,
+                                                         monkeypatch):
+    """The speculative verify step (`Executor.build_verify_step`) at q = 2
+    and q = 4: warm-up, capture and replay from one KV state give the
+    eager call's (slots, q) argmax and KV rows bit for bit, one graph a
+    width in the decode step's pool."""
+    import numpy as np
+
+    from flexflow_tpu_torch import executor
+
+    eng, lm = _decoding_engine(monkeypatch)
+    dec = eng.decode_model
+    vf = dec.executor.build_verify_step()
+    lengths = np.asarray([s.length for s in eng.scheduler.slots])
+    # the blocks the widest call writes, allocated as the engine does
+    # before a verify (else a row lands in the shared scratch block)
+    eng._prepare_writes({i: range(int(n), int(n) + 4)
+                         for i, n in enumerate(lengths)})
+    start = {n: {k: v.clone() for k, v in ws.items()}
+             for n, ws in dec._state.items()}
+
+    def restore():
+        for n, ws in dec._state.items():
+            for k, v in ws.items():
+                v.copy_(start[n][k])
+
+    rs = np.random.RandomState(3)
+    for q in (2, 4):
+        tokens = rs.randint(0, lm.vocab_size, (4, q)).astype(np.int32)
+        positions = (lengths[:, None] + np.arange(q)).astype(np.int32)
+        xs = dec.executor.host_inputs(eng._feed(tokens, positions))
+        with executor.eager():
+            restore()
+            _, want = vf(dec._params, dec._state, xs)
+            want_kv = {n: {k: v.clone() for k, v in ws.items()}
+                       for n, ws in dec._state.items()}
+        for _ in range(3):  # warm-up, capture + replay, replay
+            restore()
+            _, got = vf(dec._params, dec._state, xs)
+            assert torch.equal(got.cpu(), want.cpu()) and got.shape == (4, q)
+            for n, ws in dec._state.items():
+                for k, v in ws.items():
+                    assert torch.equal(v, want_kv[n][k]), (q, n, k)
+    run = vf.captured
+    assert run.captures == 2 and len(run._graphs) == 2
+    assert run.pool is eng._step_fn.captured.pool
+
+
+@pytest.mark.cuda
+def test_kv_inject_pads_to_power_of_two_buckets(cuda, monkeypatch):
+    """The handoff's landing (`_inject_rows`): 3 blocks land in a bucket
+    of 4 and 5 in one of 8, the pad pairs writing zeros to the scratch
+    block only; each bucket's second call is a captured replay."""
+    from flexflow_tpu_torch.serving.paged import SCRATCH_BLOCK
+
+    eng, lm = _decoding_engine(monkeypatch)
+    dec = eng.decode_model
+    layers = eng.kv_pool_layers()
+    pool = dec._state[layers[0]]["pool_k"]
+    shape = (len(layers), 0) + tuple(pool.shape[1:])
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    free = [b for b in range(1, pool.shape[0])
+            if b not in {x for s in range(4) for x in
+                         eng.block_manager.table(s)}]
+    for n in (3, 3, 5, 5):
+        blocks = free[:n]
+        rk = torch.rand(shape[:1] + (n,) + shape[2:], generator=gen,
+                        device=cuda)
+        rv = torch.rand(rk.shape, generator=gen, device=cuda)
+        eng._inject_rows(blocks, rk, rv)
+        for i, name in enumerate(layers):
+            st = dec._state[name]
+            assert torch.equal(st["pool_k"][blocks], rk[i])
+            assert torch.equal(st["pool_v"][blocks], rv[i])
+            assert not st["pool_k"][SCRATCH_BLOCK].any()
+    run = eng._inject_fn.captured
+    assert run.captures == 2 and len(run._graphs) == 2  # buckets 4 and 8

@@ -28,9 +28,9 @@ abort check and the elastic leg) at 2 layers of width 128;
 and in one process, each against the JAX package: a sustained drift
 excursion gives exactly one re-plan, --elastic-dry-run decides but never
 migrates, the serving engine's decode re-plan keeps every in-flight token
-stream (equal to JAX's on the same weights) and refuses a decode mesh of 2
-devices naming A11, and the migration fidelity's EMA round-trips the
-warm-start calibration DB.
+stream (equal to JAX's on the same weights; the re-plan to DP2 runs on 2
+gloo ranks), and the migration fidelity's EMA round-trips the warm-start
+calibration DB.
 """
 
 import json
@@ -561,50 +561,69 @@ def _lm(pkg):
     return ff
 
 
-def test_serving_replan_preserves_inflight_token_streams():
-    """A decode re-plan between scheduler iterations (the JAX test moves
-    to 2 devices; the port's decode mesh is one card until A11, so it
-    re-plans onto a fresh one-card decode model): requests mid-decode
-    keep their KV state (migrated, verified) and finish with exactly the
-    tokens an undisturbed engine, and the JAX package's, produce. A
-    decode mesh of 2 devices is refused naming A11, recorded failed,
-    and the engine serves on."""
+def serving_replan_job(rank, params, prompts):
+    """One rank of the serving re-plan: mid-decode onto a fresh one-card
+    decode model, then onto DP2 over both gloo ranks, then drained."""
     from flexflow_tpu_torch import load_params
+
+    ff = _lm(PORT)
+    load_params(ff, params)
+    eng = ff.serve(slots=2, max_new_tokens=8, prefill_chunk=4)
+    reqs = [eng.submit(p) for p in prompts]
+    for _ in range(4):
+        eng.step()
+    mid = [list(r.generated) for r in reqs]
+    unfinished = any(not r.finished for r in reqs)
+    old = eng.decode_model
+    one = eng.replan_mesh(ONE, trigger="capacity")
+    fresh = eng.decode_model is not old
+    two = eng.replan_mesh(DP2, trigger="capacity")
+    for _ in range(64):
+        if all(r.finished for r in reqs):
+            break
+        eng.step()
+    return {"mid": mid, "unfinished": unfinished, "fresh": fresh,
+            "got": [list(r.generated) for r in reqs],
+            "decisions": [d["decision"] for d in eng.replan_decisions],
+            "last_is_two": eng.replan_decisions[-1] is two,
+            "keys": sorted({"compile_s", "migrate_s", "rebuild_s"}
+                           & set(one)),
+            "mesh": {k: int(v)
+                     for k, v in eng.decode_model.mesh.shape.items()},
+            "chips": eng.num_chips}
+
+
+def test_serving_replan_preserves_inflight_token_streams():
+    """A decode re-plan between scheduler iterations, on 2 gloo ranks (the
+    JAX test moves to 2 devices): mid-decode onto a fresh one-card decode
+    model, then onto DP2 over both ranks (the slots split over `data`,
+    the paged pool replicated over it); the requests keep their KV state
+    (migrated, verified) and finish with exactly the tokens an
+    undisturbed engine, and the JAX package's, produce."""
+    from flexflow_tpu_torch import load_params
+    from flexflow_tpu_torch.distributed import spawn
 
     prompts = [[3, 7, 11, 2, 5], [60, 1, 2]]
     j = _lm(JAX)
     want_jax = j.serve(slots=2, max_new_tokens=8,
                        prefill_chunk=4).generate(prompts)
+    params = {n: {k: np.asarray(v) for k, v in ws.items()}
+              for n, ws in j._params.items()}
     ff = _lm(PORT)
-    load_params(ff, {n: {k: np.asarray(v) for k, v in ws.items()}
-                     for n, ws in j._params.items()})
+    load_params(ff, params)
     want = ff.serve(slots=2, max_new_tokens=8,
                     prefill_chunk=4).generate(prompts)
     assert want == want_jax
 
-    eng = ff.serve(slots=2, max_new_tokens=8, prefill_chunk=4)
-    reqs = [eng.submit(p) for p in prompts]
-    for _ in range(4):
-        eng.step()
-    assert any(not r.finished for r in reqs)
-    mid = [list(r.generated) for r in reqs]
-    old = eng.decode_model
-    dec = eng.replan_mesh(ONE, trigger="capacity")
-    assert dec["decision"] == "migrated"
-    assert eng.decode_model is not old
-    assert eng.replan_decisions[-1] is dec
-    assert {"compile_s", "migrate_s", "rebuild_s"} <= set(dec)
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.replan_mesh(DP2, trigger="capacity")
-    assert eng.replan_decisions[-1]["decision"] == "failed"
-    for _ in range(64):
-        if all(r.finished for r in reqs):
-            break
-        eng.step()
-    got = [list(r.generated) for r in reqs]
-    assert got == want
-    for g, m in zip(got, mid):
-        assert g[:len(m)] == m
+    outs = spawn(serving_replan_job, 2, params, prompts, timeout=300)
+    for out in outs:
+        assert out["unfinished"] and out["fresh"] and out["last_is_two"]
+        assert out["decisions"] == ["migrated", "migrated"]
+        assert out["keys"] == ["compile_s", "migrate_s", "rebuild_s"]
+        assert out["mesh"]["data"] == 2 and out["chips"] == 2
+        assert out["got"] == want
+        for g, m in zip(out["got"], out["mid"]):
+            assert g[:len(m)] == m
 
 
 def test_migration_fidelity_ema_and_db_roundtrip(tmp_path):

@@ -509,8 +509,9 @@ def test_zoo_and_its_arithmetic_are_the_jax_packages():
     from flexflow_tpu.models import transformer as jtr
     from flexflow_tpu_torch.models import transformer as ttr
 
-    assert set(ttr.TRANSFORMER_LM_ZOO) == {"lm-smoke", "lm-base",
-                                           "lm-xl-fsdp", "lm-xxl-fsdp"}
+    assert set(ttr.TRANSFORMER_LM_ZOO) == {
+        "lm-smoke", "lm-smoke-draft", "lm-base", "lm-base-draft",
+        "lm-xl-fsdp", "lm-xxl-fsdp"} == set(jtr.TRANSFORMER_LM_ZOO)
     fields = ("vocab_size", "hidden_size", "num_heads", "num_layers",
               "mlp_ratio", "sequence_length", "attention_impl")
     for name, tc in ttr.TRANSFORMER_LM_ZOO.items():
@@ -707,12 +708,18 @@ def test_unported_paths_raise_naming_their_roadmap_item(monkeypatch,
                 jcfg.replan_horizon_steps, jcfg.elastic_dry_run) == (
                     True, 3, 7, True)
     cfg.elastic = cfg.elastic_dry_run = False
-    for argv, item in ((["--serve-disaggregate"], "A11"),
-                       (["--serve-prefill-chips", "2"], "A11"),
-                       (["--serve-draft-chips", "1"], "A11"),
-                       (["--serve-spec-k", "4"], "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            cfg.parse_args(argv)
+    # the serving extras' flags (A11) parse to the JAX package's values
+    serving = ["--serve-disaggregate", "--serve-prefill-chips", "2",
+               "--serve-draft-chips", "1", "--serve-spec-k", "3"]
+    fields = ("serve_disaggregate", "serve_prefill_chips",
+              "serve_draft_chips", "serve_spec_k", "serve_role",
+              "mesh_device_offset")
+    assert tuple(getattr(cfg, f) for f in fields) == tuple(
+        getattr(jcfg, f) for f in fields) == (False, 0, 0, 4, "", 0)
+    cfg.parse_args(serving)
+    jcfg.parse_args(serving)
+    assert tuple(getattr(cfg, f) for f in fields) == tuple(
+        getattr(jcfg, f) for f in fields) == (True, 2, 1, 3, "", 0)
     # the JAX package's inert flags are accepted, values consumed, and
     # --no-overlap-collectives stays ignored
     cfg.parse_args(["--wd", "0.1", "--dataset", "d", "--synthetic-input",
@@ -795,9 +802,7 @@ def test_compgraph_writes_the_dot_at_compile(monkeypatch, tmp_path):
 # its ROADMAP item; a later slice that ports one drops it here
 SURFACE_GAPS = {
     "": {},
-    "ServingEngine": {
-        "admit_prefilled": "A11", "extract_kv": "A11",
-        "kv_bytes_per_layer": "A11", "kv_pool_layers": "A11"},
+    "ServingEngine": {},
 }
 
 
