@@ -129,7 +129,7 @@ Phases, each fatal on failure:
      to its input (a sum over one rank);
  16. two gloo ranks spawned on the one card (each names cuda:0; NCCL
      takes no two ranks of one device), lm-base at full width and 2 of
-     its 12 layers, eager (gloo cannot be captured), 3 steps of phase 6's
+     its 12 layers, eager (gloo cannot be captured), 2 steps of phase 6's
      global batch through fit: in float32 (tensor-op math off) and bf16,
      one rank alone, then dp 2 and tp 2 (megatron_transformer) held to it
      by each master's change and each step's loss (MESH_TOL), and in
@@ -172,8 +172,8 @@ Phases, each fatal on failure:
      (with lse) and K6/K7 (lse cotangent in delta) launches; and K5-K7
      at the ring's block shape (diagonal and full), each held to its
      plain version and timed beside SDPA;
- 19. lm-base at full width (12 layers, 8 x 512 a batch, bf16, SGD)
-     through `fit` with checkpoints and chunks, over 2 shuffled epochs of
+ 19. lm-base at full width and 4 of its 12 layers (8 x 512 a batch,
+     bf16, SGD) through `fit` with checkpoints and chunks, over 2 shuffled epochs of
      8 distinct batches: (a) the per-step fit, then pipeline_steps 4 and
      3 (3+3+2: a ragged tail), each chunk one CUDA-graph replay over
      batches the prefetch thread staged: per-step losses and every
@@ -262,7 +262,28 @@ Phases, each fatal on failure:
      (`extract_kv`) and admitted into a second (`admit_prefilled`):
      every stream equal to phase 4's plain float32 paged stream, the
      blocks injected, each inject's ms, and `kv_bytes_per_layer` equal
-     to the pool tensors' bytes.
+     to the pool tensors' bytes;
+ 24. the MoE family, the zoo and the frontends: (a) the flat MoE (784 ->
+     5 experts, top 2 -> 10), unfused and fused (the stacked Experts op),
+     and the MoE encoder (hidden 64, 16 heads, 6 layers, seq 64, fused)
+     at MoeConfig's defaults and batch 64: in float32 one loss and
+     gradient evaluation on the card and on the CPU from the same weights
+     and batch, every routing (assignments, slots, kept copies) equal,
+     the gradients within 1e-3 of each layer's largest entry; then 4
+     steps through fit in float32 and bf16, captured and eager, the
+     masters bit-equal, per step the encoder's 12 K1 and 12 K4 launches
+     (hidden 64: a warp a row), none of a plain LayerNorm; median step,
+     samples/s, busy share, peak memory; (b) AlexNet (229 x 229),
+     Inception-v3 (299 x 299), CANDLE Uno (4192-wide towers) and
+     transformer.cc's model (12 x 1024, seq 512) in bf16, DLRM and XDL
+     (4 tables of 1M x 64, fp16 masters, as dlrm.cc) in float32, batch
+     64, 5 captured steps each: median step,
+     samples/s, busy share, peak memory; (c) examples/mnist_mlp.py and
+     examples/keras_mnist_mlp.py with flexflow_tpu replaced by
+     flexflow_tpu_torch, run as scripts on the card with their own 0.9
+     accuracy gate; a small torch CNN converted by torch_to_ff with its
+     weights installed, its logits equal to the torch module's on the
+     card (float32).
 
 Under torchrun with more than one rank (one a card, NCCL) it runs only
 the mesh (`mesh_main`): phase 16's checks, captured, lm-base at 4 layers,
@@ -303,7 +324,12 @@ mid-decode to dp 2 x tp N/2 over the world; (f) prefill on ranks
 [0, N/2) and decode on [N/2, N), the KV rows handed device to device
 over NCCL, each handoff's blocks, bytes and measured vs predicted
 seconds, then one ratio shift; (g) speculation with lm-base-draft on the
-last N/2 ranks (--serve-draft-chips), forced;
+last N/2 ranks (--serve-draft-chips), forced; then the MoE leg
+(`mesh_moe_check`): the dry run's "lm", "sp" and "moe" legs, and the MoE
+encoder (4 experts, alpha 0.5: tokens drop; float32, 5 steps) on ep N
+and dp 2 x ep N/2 (expert_parallel_moe) held to one rank by MESH_TOL's
+float32 bound and by the tokens the first step drops, each rank's step
+and NCCL ms logged;
 rank 0 prints every rank's runs (the chosen mesh
 and plan among them), the card line and {"ok": ..., "world": N} last.
 
@@ -717,13 +743,16 @@ def xxl_flash_case():
 # K4 parity shapes: lm-base's (tokens, hidden), a ragged one, and
 # lm-xxl-fsdp's (4 x 2048 tokens, hidden 4096: four warps a row)
 XXL_HIDDEN = 4096
+# and the MoE encoder's (64 x 64 tokens, hidden 64: a warp a row)
+MOE_LN = (64 * 64, 64)
 LN_BWD_SHAPES = [(8 * 512, EMBED), (4095, 1000),
-                 (XXL_BATCH * 2048, XXL_HIDDEN)]
+                 (XXL_BATCH * 2048, XXL_HIDDEN), MOE_LN]
 # K1's parity rows: the pure-decode and prefill-chunk calls at lm-base's
-# width, and the training rows of lm-base and lm-xxl-fsdp
+# width, and the training rows of lm-base, lm-xxl-fsdp and the MoE
+# encoder
 LN_FWD_SHAPES = ((SLOTS, EMBED), (SLOTS * CHUNK, EMBED),
                  (TRAIN_BATCH * TRAIN_SEQ, EMBED),
-                 (XXL_BATCH * 2048, XXL_HIDDEN))
+                 (XXL_BATCH * 2048, XXL_HIDDEN), MOE_LN)
 
 
 def flash_inputs(dev, dtype, b, s_q, s_k, heads, head_dim, seed,
@@ -1986,7 +2015,8 @@ def bound(nbytes: float, ops: float, dtype_name: str):
 # pure-decode call's (slots, 1024) rows are hot in L2 from the op before.
 LN_FWD_CASES = (("train", TRAIN_BATCH * TRAIN_SEQ, EMBED, 8),
                 ("lm-xxl packed", XXL_BATCH * 2048, XXL_HIDDEN, 2),
-                ("contiguous", SLOTS, EMBED, 1))
+                ("contiguous", SLOTS, EMBED, 1),
+                ("moe encoder", *MOE_LN, 8))
 
 
 def ln_fwd_numbers(dev) -> dict:
@@ -2094,11 +2124,15 @@ def train_kernel_numbers(dev) -> dict:
     n, e = b * s, h * d
     eps = 1e-5
 
-    # K4 at lm-base's rows (4 input sets) and lm-xxl-fsdp's (8192, 4096)
-    # (2 sets, 128 MB each)
-    for row, rows, width, n_sets in (
-            ("layer_norm_bwd", n, e, 4),
-            ("layer_norm_bwd (lm-xxl)", XXL_BATCH * 2048, XXL_HIDDEN, 2)):
+    # K4 at lm-base's rows (4 input sets), the MoE encoder's (4096, 64)
+    # (8 sets: 0.5 MB each) and lm-xxl-fsdp's (8192, 4096) (2 sets, 128
+    # MB each); the row's numbers by case where it has two
+    out["layer_norm_bwd"] = {}
+    for row, case, rows, width, n_sets in (
+            ("layer_norm_bwd", "train", n, e, 4),
+            ("layer_norm_bwd", "moe encoder", *MOE_LN, 8),
+            ("layer_norm_bwd (lm-xxl)", None, XXL_BATCH * 2048, XXL_HIDDEN,
+             2)):
         sets = []
         for i in range(n_sets):
             x, w, dy = ln_bwd_inputs(dev, bf16, rows, width, SEED + 30 + i)
@@ -2106,7 +2140,7 @@ def train_kernel_numbers(dev) -> dict:
             _, mean, rstd = torch.ops.aten.native_layer_norm(
                 x, [width], w, bias, eps)
             sets.append((x, w, dy, bias, mean, rstd))
-        out[row] = timed(
+        numbers = timed(
             lambda x, w, dy, *_: ln.layer_norm_bwd(x, w, dy, eps),
             lambda x, w, dy, *_: ln.layer_norm_bwd_plain(x, w, dy, eps),
             lambda x, w, dy, bias, mean, rstd, width=width:
@@ -2117,6 +2151,10 @@ def train_kernel_numbers(dev) -> dict:
             # written; ~16 f32 operations an element
             *bound(3 * rows * width * 2 + width * 2 + 2 * width * 4,
                    16 * rows * width, "float32"))
+        if case is None:
+            out[row] = numbers
+        else:
+            out[row][case] = dict(numbers, shape=f"({rows}, {width}) bf16")
         del sets
         torch.cuda.empty_cache()
 
@@ -2742,7 +2780,8 @@ def nccl_phase(p6_masters: dict) -> dict:
 MESH_TOL = {"f32": dict(delta_rel=1e-3, loss_rel=2e-6),
             "bf16": dict(delta_rel=1e-1, loss_rel=1e-3)}
 DELTA_FLOOR = 1e-2
-GLOO_LAYERS, GLOO_STEPS = 2, 3
+# (2 steps: the first warms up, both are held to one rank's)
+GLOO_LAYERS, GLOO_STEPS = 2, 2
 # the torchrun run: lm-base at 4 layers for the dp / tp / stage runs; at
 # its 12 layers for sp (lm-base-seq4096) and the pipelined pp runs
 MESH_LAYERS, MESH_STEPS = 4, 4
@@ -3834,6 +3873,8 @@ P19_PEAK_RATIO = 1.1
 # phase 19(d): lm-base at full width, 2 layers, on two gloo ranks of the
 # one card: the Unity search runs on rank 0 (calibrating 4 ops there)
 WARM_LAYERS = 2
+# phase 19's (a)-(c) on lm-base at full width and 4 of its 12 layers
+P19_LAYERS = 4
 WARM_FLAGS = ("--mesh", "2,1,1,1", "--budget", "6",
               "--enable-parameter-parallel", "--calibrate", "4",
               "--weight-update-sharding=off")
@@ -5997,6 +6038,674 @@ def log_phase23(p: dict):
     log(f"  phase 23 took {p['wall_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 24
+
+# 24(a): both MoE models at MoeConfig's defaults (moe.h: 5 experts, top 2,
+# alpha 2, lambda_bal 0.04; the encoder hidden 64, 16 heads, 6 layers) and
+# FFConfig's default batch; the encoder at its default sequence
+MOE_BATCH, MOE_SEQ = 64, 64
+MOE_KINDS = ("flat", "flat fused", "encoder")
+MOE_WARMUP, MOE_TIMED = 2, 2
+# the encoder's LayerNorm rows: K1 and K4 at (4096, 64)
+MOE_ROWS = MOE_BATCH * MOE_SEQ
+# the torchrun MoE leg: the encoder at 4 experts and a capacity factor
+# under the 2 x 4096 / 4 token copies an expert gets on average (drops)
+MESH_MOE = dict(num_exp=4, alpha=0.5)
+# on the card: a warm-up, a capture, then replays (the median's)
+MESH_MOE_STEPS = 5
+
+
+def moe_model(kind: str, dtype: str, device: str, cfg=None,
+              batch: int = MOE_BATCH, seq: int = MOE_SEQ, mesh=None,
+              ep: bool = False):
+    """One of phase 24's MoE models ("flat": the flat MNIST MoE, 784 ->
+    5 experts -> 10, its group_by / expert / aggregate trio unfused;
+    "flat fused": the stacked Experts op; "encoder": build_moe_encoder,
+    fused) compiled as bench.py compiles lm-base: SGD(lr=0.01), sparse
+    CE, accuracy; float32 with tensor-op math off, or bf16 over f32
+    masters. `mesh` and `ep` (expert_parallel_moe) for the mesh leg."""
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        MetricsType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.models import (
+        MoeConfig,
+        build_moe,
+        build_moe_encoder,
+    )
+    from flexflow_tpu_torch.parallel import expert_parallel_moe
+
+    c = FFConfig(device=device)
+    c.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
+                  "--seed", str(SEED), "-b", str(batch)]
+                 + (["--mesh", ",".join(map(str, mesh)),
+                     "--weight-update-sharding=off"] if mesh else []))
+    c.allow_tensor_op_math_conversion = dtype == "bf16"
+    ff = FFModel(c)
+    mc = cfg or MoeConfig()
+    if kind == "encoder":
+        build_moe_encoder(ff, mc, batch_size=batch, seq_length=seq,
+                          fused=True)
+    else:
+        build_moe(ff, mc, batch_size=batch, fused=kind == "flat fused")
+    if ep:
+        ff.set_strategy(expert_parallel_moe(ff))
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY])
+    return ff
+
+
+def moe_data(kind: str, steps: int, cfg=None, batch: int = MOE_BATCH,
+             seq: int = MOE_SEQ):
+    """`steps` distinct batches of random inputs and labels from the
+    seed."""
+    from flexflow_tpu_torch.models import MoeConfig
+
+    mc = cfg or MoeConfig()
+    rs = np.random.RandomState(SEED + 24)
+    n = batch * steps
+    shape = ((n, seq, mc.hidden_size) if kind == "encoder"
+             else (n, mc.in_dim))
+    return (rs.randn(*shape).astype(np.float32),
+            rs.randint(0, mc.num_classes, (n, 1)).astype(np.int32))
+
+
+def by_position(ff) -> dict:
+    """Every master, whole, keyed "<layer index>.<weight>" (two models
+    built in one process name their layers from one counter)."""
+    return {f"{i}.{w}": np.array(ff.get_weight(l.name, w), copy=True)
+            for i, l in enumerate(ff.layers) if l.name in ff._params
+            for w in ff._params[l.name]}
+
+
+def load_by_position(ff, weights: dict):
+    """`by_position`'s weights into `ff` (`load_params`)."""
+    from flexflow_tpu_torch import load_params
+
+    tree: dict = {}
+    for key, v in weights.items():
+        i, w = key.split(".", 1)
+        tree.setdefault(ff.layers[int(i)].name, {})[w] = v
+    load_params(ff, tree)
+
+
+@contextlib.contextmanager
+def moe_routes(out: list):
+    """Records each routing the MoE ops compute outside a capture
+    (`ops.moe.routing_slots`: the assignment, each copy's slot, which
+    copies the capacity keeps) into `out` as host arrays."""
+    import torch
+
+    from flexflow_tpu_torch.ops import moe
+
+    real = moe.routing_slots
+
+    def seen(assign, n, capacity):
+        slot, valid = real(assign, n, capacity)
+        if not (assign.is_cuda and torch.cuda.is_current_stream_capturing()):
+            out.append({"assign": assign.cpu().numpy().copy(),
+                        "slot": slot.cpu().numpy().copy(),
+                        "valid": valid.cpu().numpy().copy()})
+        return slot, valid
+
+    with mock.patch.object(moe, "routing_slots", seen):
+        yield out
+
+
+def moe_grad_check(kind: str) -> dict:
+    """24(a)'s float32 check of one MoE model: one loss and gradient
+    evaluation (eager) on the card and on the CPU from the same weights
+    and batch: every routing the ops computed (assignments, slots, kept
+    copies, hence the dropped count) exactly equal, the loss within
+    1e-4 relative, every gradient within GRAD_RTOL of its layer's
+    largest entry. Fatal."""
+    import torch
+
+    from flexflow_tpu_torch.executor import eager
+
+    out, routes, grads, losses = {}, {}, {}, {}
+    card = moe_model(kind, "f32", "cuda")
+    weights = by_position(card)
+    cpu = moe_model(kind, "f32", "cpu")
+    load_by_position(cpu, weights)
+    x, y = moe_data(kind, 1)
+    for name, ff in (("card", card), ("cpu", cpu)):
+        rec: list = []
+        with moe_routes(rec), eager():
+            ff.start_batch({"input": x}, y)
+            losses[name] = float(ff.backward())
+        routes[name] = rec
+        grads[name] = {f"{i}.{w}": t.detach().float().cpu()
+                       for i, l in enumerate(ff.layers)
+                       if l.name in ff._grads
+                       for w, t in ff._grads[l.name].items()}
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(len(routes["card"]) == len(routes["cpu"]) > 0,
+            f"24(a) {kind}: routings {len(routes['card'])} on the card, "
+            f"{len(routes['cpu'])} on the CPU")
+    for i, (a, b) in enumerate(zip(routes["card"], routes["cpu"])):
+        for k in ("assign", "slot", "valid"):
+            require(np.array_equal(a[k], b[k]),
+                    f"24(a) {kind}: routing {i}'s {k} differs between the "
+                    f"card and the CPU")
+    dropped = [int((~r["valid"]).sum()) for r in routes["card"]]
+    worst = (0.0, None)
+    layers: dict = {}
+    for key, g in grads["cpu"].items():
+        layers.setdefault(key.split(".")[0], []).append(key)
+    for keys in layers.values():
+        scale = max(float(grads["cpu"][k].abs().max()) for k in keys)
+        for k in keys:
+            rel = float((grads["card"][k] - grads["cpu"][k]).abs().max()
+                        ) / max(scale, 1e-30)
+            worst = max(worst, (rel, k))
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    require(worst[0] <= GRAD_RTOL,
+            f"24(a) {kind}: gradient {worst[1]} differs by {worst[0]:.3e} "
+            f"of its layer's largest entry (bound {GRAD_RTOL})")
+    require(loss_rel <= 1e-4, f"24(a) {kind}: loss card {losses['card']} "
+            f"vs cpu {losses['cpu']}")
+    out.update(losses=losses, loss_rel=loss_rel, grad_rel=worst[0],
+               worst_tensor=worst[1], routings=len(routes["card"]),
+               dropped=dropped,
+               token_copies=[int(r["valid"].size) for r in routes["card"]])
+    return out
+
+
+def moe_train(kind: str, dtype: str, mode: str, init: dict) -> dict:
+    """One MoE model from `init`'s weights through fit over
+    MOE_WARMUP + MOE_TIMED distinct batches, the train step captured or
+    (`mode` "eager") under executor.eager(): the launch counts set to 0
+    just before fit and read just after, each step timed; per step the
+    encoder's 12 K1 and 12 K4 launches (none on the flat models), no
+    plain LayerNorm, one capture (none eager), finite losses; then one
+    step profiled (busy share). Returns its numbers and masters."""
+    import torch
+
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ff = moe_model(kind, dtype, "cuda")
+    load_by_position(ff, init)
+    steps = MOE_WARMUP + MOE_TIMED
+    x, y = moe_data(kind, steps)
+    c = counters()
+    step_fn = ff.executor.build_train_step()
+    step_ms, per_step, losses = [], [], []
+
+    def timed_step(*args):
+        before = {k: v.launches for k, v in c.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[-1]))
+        per_step.append({k: v.launches - before[k] for k, v in c.items()})
+        return out
+
+    ff.executor._train_step = timed_step
+    reset_counters()
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        ff.fit({"input": x}, y, epochs=1, batch_size=MOE_BATCH,
+               shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in c.items() if v.launches}
+    plain = {k: v.plain_calls for k, v in c.items() if v.plain_calls}
+    require(step_fn.captures == (0 if mode == "eager" else 1),
+            f"24(a) {kind} {dtype} {mode}: {step_fn.captures} captures")
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"24(a) {kind} {dtype} {mode}: losses {losses}")
+    ln = 0
+    if kind == "encoder":
+        from flexflow_tpu_torch.models import MoeConfig
+
+        ln = 2 * MoeConfig().num_encoder_layers
+    want = {"layer_norm_fwd": ln, "layer_norm_bwd": ln}
+    for i, n in enumerate(per_step):
+        got = {k: n.get(k, 0) for k in want}
+        require(got == want, f"24(a) {kind} {dtype} {mode} step {i}: "
+                f"launches {got}, want {want}")
+    require(not plain, f"24(a) {kind} {dtype} {mode}: plain versions ran "
+            f"{plain}")
+    staged = ff._make_batch({"input": x[:MOE_BATCH]}, y[:MOE_BATCH])
+    masters: dict = {}  # by layer position, as compare_masters reads
+    for key, v in by_position(ff).items():
+        i, w = key.split(".", 1)
+        masters.setdefault(i, {})[w] = torch.from_numpy(v)
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        prof, _ = profiled(lambda: step_fn(
+            ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+            staged, ff._rng))
+    med = statistics.median(step_ms[MOE_WARMUP:])
+    tokens = MOE_BATCH * (MOE_SEQ if kind == "encoder" else 1)
+    out = {"model": kind, "dtype": dtype, "mode": mode, "batch": MOE_BATCH,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "samples_per_s": MOE_BATCH / (med / 1e3),
+           "tokens_per_s": tokens / (med / 1e3),
+           "device_busy_share": prof["device_busy_ms"] / med,
+           "profiled_kernel_launches": prof["kernel_launches"],
+           "top_kernels": prof["top"][:4],
+           "max_memory_allocated": torch.cuda.max_memory_allocated() - held,
+           "launches": launches, "launches_per_step": per_step[-1],
+           "masters": masters}
+    del ff, staged, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase() -> dict:
+    """24(a): for each MoE model, the float32 card-vs-CPU check, then
+    float32 and bf16 runs, captured and eager from the same weights,
+    their masters bit-equal."""
+    out = {}
+    for kind in MOE_KINDS:
+        r = out[kind] = {"f32_vs_cpu": moe_grad_check(kind)}
+        init = by_position(moe_model(kind, "f32", "cpu"))
+        for dtype in ("f32", "bf16"):
+            cap = moe_train(kind, dtype, "captured", init)
+            eag = moe_train(kind, dtype, "eager", init)
+            require(cap["launches"] == eag["launches"],
+                    f"24(a) {kind} {dtype}: launches captured "
+                    f"{cap['launches']} vs eager {eag['launches']}")
+            same = compare_masters(cap.pop("masters"), eag.pop("masters"))
+            require(same["bitwise_equal"],
+                    f"24(a) {kind} {dtype}: captured and eager masters "
+                    f"differ: {same}")
+            r[dtype] = {"captured": cap, "eager": eag,
+                        "captured_vs_eager": same}
+    return out
+
+
+# 24(b): the zoo at the published widths, FFConfig's default batch
+ZOO_WARMUP, ZOO_TIMED = 2, 3
+ZOO_BATCH = 64
+# SGD's rate: transformer.cc's model (12 attention + relu-dense blocks,
+# no residual, no normalization) regressing random targets overflows at
+# 0.01 in three steps (MSE 169 -> 6.7e5 -> nan); the zoo's steps are
+# timed, so one small rate for all
+ZOO_LR = 1e-4
+ZOO = (
+    # (name, builder, its arguments, loss, dtype). DLRM and XDL train
+    # their float16 tables as masters (dlrm.cc's create_emb), which the
+    # compile gate refuses under a bf16 policy (master_bypass), so they
+    # run float32 with the tables float16, as the reference does
+    ("alexnet", "build_alexnet", dict(image_hw=229), "scce", "bf16"),
+    ("inception-v3", "build_inception_v3", dict(image_hw=299), "scce",
+     "bf16"),
+    ("dlrm", "build_dlrm", {}, "mse", "f32"),
+    ("xdl", "build_xdl", {}, "mse", "f32"),
+    ("candle-uno", "build_candle_uno", {}, "mse", "bf16"),
+    ("transformer", "build_transformer", {}, "mse", "bf16"),
+)
+
+
+def zoo_batch(ff, rs):
+    """Random inputs for every input of `ff` (ids within their table) and
+    labels for its output (classes, or values in [0, 1))."""
+    xs = {}
+    for t in ff._input_tensors:
+        if "INT" in t.dtype.name:
+            table = next(l for l in ff.layers if t in l.inputs)
+            xs[t.name] = rs.randint(0, table.params.num_entries,
+                                    t.dims).astype(np.int64)
+        else:
+            xs[t.name] = rs.randn(*t.dims).astype(np.float32)
+    return xs
+
+
+def zoo_run(name: str, builder: str, kw: dict, loss: str,
+            dtype: str) -> dict:
+    """One zoo model at its published widths, bf16 over f32 masters (or
+    float32: `dtype`), SGD(lr=ZOO_LR), through fit over one repeated batch: ZOO_WARMUP +
+    ZOO_TIMED steps, the train step captured once, finite losses; the
+    median step, samples/s, the busy share of one profiled step, the
+    run's peak memory and the parameter count."""
+    import torch
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        SGDOptimizer,
+        models,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg = FFConfig()
+    cfg.parse_args(["--dtype", "fp32" if dtype == "f32" else dtype,
+                    "--seed", str(SEED), "-b", str(ZOO_BATCH)])
+    ff = FFModel(cfg)
+    getattr(models, builder)(ff, batch_size=ZOO_BATCH, **kw)
+    lt = (LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY if loss == "scce"
+          else LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    ff.compile(optimizer=SGDOptimizer(lr=ZOO_LR), loss_type=lt)
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(SEED + 25)
+    x = zoo_batch(ff, rs)
+    dims = ff.layers[-1].outputs[0].dims
+    y = (rs.randint(0, dims[-1], (ZOO_BATCH, 1)).astype(np.int32)
+         if loss == "scce" else rs.rand(*dims).astype(np.float32))
+    steps = ZOO_WARMUP + ZOO_TIMED
+    xs = {k: np.concatenate([v] * steps) for k, v in x.items()}
+    ys = np.concatenate([y] * steps)
+    step_fn = ff.executor.build_train_step()
+    step_ms, losses = [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out[-1]))
+        return out
+
+    ff.executor._train_step = timed_step
+    ff.fit(xs, ys, epochs=1, batch_size=ZOO_BATCH, shuffle=False,
+           verbose=False)
+    require(step_fn.captures == 1, f"24(b) {name}: {step_fn.captures} "
+            f"captures")
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"24(b) {name}: losses {losses}")
+    staged = ff._make_batch(x, y)
+    prof, _ = profiled(lambda: step_fn(
+        ff._params, ff._state, ff._opt_slots, ff._step, ff._counters,
+        staged, ff._rng))
+    med = statistics.median(step_ms[ZOO_WARMUP:])
+    out = {"model": name, "batch": ZOO_BATCH, "args": kw, "dtype": dtype,
+           "params": sum(t.numel() for ws in ff._params.values()
+                         for t in ws.values()),
+           "build_s": build_s, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": med, "samples_per_s": ZOO_BATCH / (med / 1e3),
+           "device_busy_share": prof["device_busy_ms"] / med,
+           "top_kernels": prof["top"][:4],
+           "max_memory_allocated": torch.cuda.max_memory_allocated() - held,
+           "wall_s": time.perf_counter() - t0}
+    del ff, staged, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_cnn():
+    """24(c)'s torch module (and the CPU test's): conv -> relu -> max
+    pool -> conv -> relu -> flatten -> linear, on 1 x 28 x 28 images."""
+    import torch.nn as nn
+
+    return nn.Sequential(
+        nn.Conv2d(1, 4, 3, padding=1), nn.ReLU(), nn.MaxPool2d(2),
+        nn.Conv2d(4, 8, 3, padding=1), nn.ReLU(), nn.Flatten(),
+        nn.Linear(8 * 14 * 14, 10))
+
+
+EXAMPLES = (("mnist_mlp.py", ("-b", "64", "-e", "2")),
+            ("keras_mnist_mlp.py", ("-b", "64")))
+
+
+def example_run(name: str, flags: tuple) -> dict:
+    """`examples/<name>` with `flexflow_tpu` replaced by
+    `flexflow_tpu_torch` and nothing else changed, run as a script on the
+    card (its default device) in a temporary directory: exit 0, its own
+    accuracy gate passed, the final accuracy at least 0.9."""
+    import subprocess
+    import tempfile
+
+    src = open(os.path.join(REPO, "examples", name)).read()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p24_") as tmp:
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write(src.replace("flexflow_tpu", "flexflow_tpu_torch"))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, path, *flags], cwd=REPO,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        wall = time.perf_counter() - t0
+    require(p.returncode == 0, f"24(c) {name}: exit {p.returncode}: "
+            f"{p.stdout[-800:]} {p.stderr[-1500:]}")
+    m = re.search(r"final accuracy: ([0-9.]+)", p.stdout)
+    require(m is not None and float(m.group(1)) >= 0.9,
+            f"24(c) {name}: {p.stdout[-800:]}")
+    return {"example": name, "flags": list(flags),
+            "accuracy": float(m.group(1)), "wall_s": wall}
+
+
+def cnn_check() -> dict:
+    """24(c): `small_cnn` converted by torch_to_ff onto a model on the
+    card, its weights installed: the port's outputs against the torch
+    module's on the card, float32 (TOL's)."""
+    import torch
+
+    from flexflow_tpu_torch import (
+        FFConfig,
+        FFModel,
+        LossType,
+        SGDOptimizer,
+    )
+    from flexflow_tpu_torch.torch_frontend import PyTorchModel
+
+    torch.manual_seed(SEED)
+    net = small_cnn().eval()
+    cfg = FFConfig()
+    cfg.parse_args(["-b", "8"])
+    # float32 products, as the torch module's (no bf16 tensor-op inputs)
+    cfg.allow_tensor_op_math_conversion = False
+    ff = FFModel(cfg)
+    x = ff.create_tensor((8, 1, 28, 28), name="x")
+    conv = PyTorchModel(net)
+    (out,) = conv.torch_to_ff(ff, [x])
+    ff.compile(optimizer=SGDOptimizer(lr=0.0),
+               loss_type=LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    conv.install_weights(ff)
+    xin = np.random.RandomState(SEED + 26).randn(8, 1, 28, 28).astype(
+        np.float32)
+    ff.start_batch({"x": xin}, np.zeros((8, 10), np.float32))
+    got = ff.forward().float().cpu()
+    with torch.no_grad():
+        want = net.to("cuda")(torch.from_numpy(xin).cuda()).cpu()
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, **TOL["float32"]),
+            f"24(c) the converted CNN's logits differ by {err:.3e}")
+    return {"layers": [l.op_type.name for l in ff.layers],
+            "device": str(ff.device), "max_abs_err": err,
+            "tolerance": TOL["float32"]}
+
+
+def phase24() -> dict:
+    """Phase 24: (a) the MoE family, (b) the zoo, (c) the frontends."""
+    t0 = time.perf_counter()
+    took = {}
+    t = time.perf_counter()
+    a = moe_phase()
+    took["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b = {z[0]: zoo_run(*z) for z in ZOO}
+    took["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    c = {"examples": [example_run(n, f) for n, f in EXAMPLES],
+         "cnn": cnn_check()}
+    took["c"] = time.perf_counter() - t
+    return {"a": a, "b": b, "c": c, "took_s": took,
+            "wall_s": time.perf_counter() - t0}
+
+
+def log_phase24(p: dict):
+    for kind, r in p["a"].items():
+        g = r["f32_vs_cpu"]
+        log(f"  (a) {kind}: f32 card vs CPU: loss rel {g['loss_rel']:.2e}, "
+            f"gradients {g['grad_rel']:.2e} of a layer's largest "
+            f"({g['worst_tensor']}), {g['routings']} routings equal, "
+            f"dropped {g['dropped']} of {g['token_copies']} token copies")
+        for dtype in ("f32", "bf16"):
+            cap, eag = r[dtype]["captured"], r[dtype]["eager"]
+            log(f"    {dtype}: captured median {cap['median_step_ms']:.3f} "
+                f"ms ({cap['samples_per_s']:.0f} samples/s, busy "
+                f"{100 * cap['device_busy_share']:.1f}%, peak "
+                f"{cap['max_memory_allocated']} B), eager "
+                f"{eag['median_step_ms']:.3f} ms; launches a step "
+                f"{cap['launches_per_step']}; masters bit-equal "
+                f"{r[dtype]['captured_vs_eager']['bitwise_equal']}")
+    for name, r in p["b"].items():
+        log(f"  (b) {name} ({r['dtype']}, batch {r['batch']}, "
+            f"{r['params']} params): "
+            f"median step {r['median_step_ms']:.3f} ms, "
+            f"{r['samples_per_s']:.1f} samples/s, busy "
+            f"{100 * r['device_busy_share']:.1f}%, peak "
+            f"{r['max_memory_allocated']} B, build {r['build_s']:.1f} s")
+    for e in p["c"]["examples"]:
+        log(f"  (c) {e['example']} {' '.join(e['flags'])}: accuracy "
+            f"{e['accuracy']:.4f} in {e['wall_s']:.1f} s")
+    cnn = p["c"]["cnn"]
+    log(f"  (c) torch CNN on {cnn['device']}: max abs err "
+        f"{cnn['max_abs_err']:.3e} ({cnn['layers']})")
+    log(f"  phase 24 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------- the mesh: MoE
+
+def mesh_moe_check(device: str, cfg=None, batch: int = MOE_BATCH,
+                   seq: int = MOE_SEQ, steps: int = MESH_MOE_STEPS) -> dict:
+    """The torchrun MoE leg on this rank of the process group already
+    started: the dry run's legs ("lm", "sp", "moe"), then the MoE encoder
+    (`cfg`, by default MoeConfig's with MESH_MOE: 4 experts, alpha 0.5:
+    tokens drop) in float32, `steps` steps of distinct batches through
+    fit, captured on the card: one rank alone, then ep over the world
+    and dp 2 x ep world/2 (expert_parallel_moe), each from the one-rank
+    run's weights and held to it by `mesh_agree` (MESH_TOL's float32
+    delta_rel) and by the dropped count of the first step's routing;
+    per rank the median step and, on the card, its NCCL ms. Returns the
+    runs, the checks and the failed ones (`failures`)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.entry import dryrun_multichip
+    from flexflow_tpu_torch.models import MoeConfig
+
+    world = dist.get_world_size()
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mc = cfg or dataclasses.replace(MoeConfig(), **MESH_MOE)
+    failures, runs, checks = [], [], {}
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(world, legs=("lm", "sp", "moe"),
+                               device=device)[0]
+        if not all(np.isfinite(dry)):
+            failures.append(f"dry run losses {dry}")
+    except Exception as e:
+        dry = None
+        failures.append(f"dry run: {type(e).__name__}: {str(e)[:300]}")
+    meshes = [("one rank", (1, 1, 1, 1)), (f"ep {world}", (1, world, 1, 1))]
+    if world % 2 == 0 and world > 2:
+        meshes.append((f"dp 2 x ep {world // 2}", (2, world // 2, 1, 1)))
+    x, y = moe_data("encoder", steps, mc, batch, seq)
+    init = ref = one = None
+    for name, mesh in meshes:
+        try:
+            ff = moe_model("encoder", "f32", device, mc, batch, seq,
+                           mesh=mesh, ep=name != "one rank")
+            if init is None:
+                init = by_position(ff)
+            else:
+                load_by_position(ff, init)
+            step = ff.executor.build_train_step()
+            step_ms, losses, rec = [], [], []
+
+            def timed(*args, step=step, step_ms=step_ms, losses=losses):
+                sync()
+                t = time.perf_counter()
+                out = step(*args)
+                sync()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(out[-1]))
+                return out
+
+            ff.executor._train_step = timed
+            with moe_routes(rec):
+                ff.fit({"input": x}, y, epochs=1, batch_size=batch,
+                       shuffle=False, verbose=False)
+            sync()
+            r = {"name": name, "mesh": list(ff.mesh.shape.values()),
+                 "losses": losses, "step_ms": step_ms,
+                 # replays only: the first step warms up, the second
+                 # captures on the card
+                 "median_step_ms": statistics.median(
+                     step_ms[2 if on_card else 1:]),
+                 "captures": getattr(step, "captures", 0),
+                 "dropped": [int((~d["valid"]).sum()) for d in rec],
+                 "rules": sorted({ru["kind"] for ru in getattr(
+                     ff.executor, "_rules", {}).values()})}
+            if on_card:
+                staged = ff._make_batch({"input": x[:batch]}, y[:batch])
+                prof, _ = profiled(lambda: step(
+                    ff._params, ff._state, ff._opt_slots, ff._step,
+                    ff._counters, staged, ff._rng),
+                    patterns={"nccl": "(?i)nccl"})
+                r.update(device_busy_ms=prof["device_busy_ms"],
+                         nccl_ms=prof["matched"]["nccl"]["ms"])
+            masters = {k: torch.from_numpy(v)
+                       for k, v in by_position(ff).items()}
+            del ff, step
+            gc.collect()
+        except Exception as e:
+            failures.append(f"{name}: {type(e).__name__}: {str(e)[:300]}")
+            continue
+        runs.append(r)
+        if name == "one rank":
+            one, ref = r, masters
+            continue
+        if one is None:
+            continue
+        chk = mesh_agree(masters, ref, {k: torch.from_numpy(v)
+                                        for k, v in init.items()},
+                         r["losses"], one["losses"], MESH_TOL["f32"])
+        chk["dropped_equal"] = r["dropped"] == one["dropped"]
+        checks[name] = chk
+        if not (chk["within_tolerance"] and chk["dropped_equal"]):
+            failures.append(f"{name} vs one rank: {chk}, dropped "
+                            f"{r['dropped']} vs {one['dropped']}")
+        if "experts" not in r["rules"]:
+            failures.append(f"{name}: the Experts op ran by {r['rules']}")
+    if one is not None and not any(one["dropped"]):
+        failures.append(f"the one-rank run dropped no token: "
+                        f"{one['dropped']}")
+    for r in runs:
+        if on_card and r["captures"] != 1:
+            failures.append(f"{r['name']}: {r['captures']} captures")
+    return {"rank": dist.get_rank(), "world": world, "device": device,
+            "dry_run_losses": dry, "runs": runs, "checks": checks,
+            "wall_s": time.perf_counter() - t0, "failures": failures}
+
+
+def log_mesh_moe(r: dict):
+    log(f"  rank {r['rank']} MoE leg ({r['wall_s']:.1f} s): dry run losses "
+        f"{r['dry_run_losses']}")
+    for run in r["runs"]:
+        chk = r["checks"].get(run["name"], {})
+        log(f"    {run['name']} {run['mesh']}: median step "
+            f"{run['median_step_ms']:.3f} ms, NCCL "
+            f"{run.get('nccl_ms')} ms, dropped {run['dropped']}, "
+            f"delta_rel {chk.get('delta_rel')}, loss_rel "
+            f"{chk.get('loss_rel')}")
+
+
 # ------------------------------------------------------- the mesh: serving
 
 def serve_timed(eng, prompts, profile: bool) -> dict:
@@ -6554,12 +7263,14 @@ def mesh_main(json_path: str) -> int:
     out["c5"] = mesh_c5_check(dev, lm_config(layers=MESH_LAYERS))
     out["elastic"] = mesh_elastic_check(dev, lm_config())
     out["serve"] = mesh_serve_check(dev)
+    out["moe"] = mesh_moe_check(dev)
     out["failures"] = (out["failures"] + out["resume"]["failures"]
                        + out["diag"]["failures"]
                        + out["barrier"]["failures"]
                        + out["c5"]["failures"]
                        + out["elastic"]["failures"]
-                       + out["serve"]["failures"])
+                       + out["serve"]["failures"]
+                       + out["moe"]["failures"])
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -6578,6 +7289,7 @@ def mesh_main(json_path: str) -> int:
             log_mesh_resume(o["c5"])
             log_mesh_elastic(o["elastic"])
             log_mesh_serve(o["serve"])
+            log_mesh_moe(o["moe"])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
@@ -6926,11 +7638,12 @@ def main(argv: list[str]) -> int:
     log_ring(ring)
     for row, cases in ring_kernel_numbers(dev, errs).items():
         nums[row].update(cases)
-    log("== phase 19: lm-base at full width (12 layers, 8 x 512, bf16, "
+    log(f"== phase 19: lm-base at full width ({P19_LAYERS} of its 12 layers, "
+        "8 x 512, bf16, "
         "SGD) through fit with checkpoints and chunks: chunked vs "
         "per-step, preempted and resumed, the snapshot's ordering, the "
         "warm start")
-    p19 = phase19("cuda", lm_config(), TRAIN_BATCH,
+    p19 = phase19("cuda", lm_config(layers=P19_LAYERS), TRAIN_BATCH,
                   lm_config(layers=WARM_LAYERS))
     log_phase19(p19, train["median_step_ms"])
     log("== phase 20: the observability half on lm-base at full width (12 "
@@ -6959,6 +7672,11 @@ def main(argv: list[str]) -> int:
     p23 = phase23(prompts, runs["paged"], f32_paged,
                   f32_streams["decode_tokens_per_s"]["paged"])
     log_phase23(p23)
+    log("== phase 24: the MoE family (the flat MoE, fused and unfused, and "
+        "the MoE encoder at MoeConfig's defaults, batch 64), the rest of "
+        "the zoo at its published widths, the frontends")
+    p24 = phase24()
+    log_phase24(p24)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -6971,6 +7689,8 @@ def main(argv: list[str]) -> int:
                "contiguous": runs["contiguous"],
                "lm-base transposed": train_t, "lm-xxl packed": train_x,
                "lm-xxl transposed": train_xt, "pipelined lm-base": train_pp,
+               # K1 and K4 at the MoE encoder's rows: its bf16 captured run
+               "moe encoder": p24["a"]["encoder"]["bf16"]["captured"],
                **{case: {"launches": n} for case, n in
                   ring["launches"].items()}}
     rows = []
@@ -7051,7 +7771,7 @@ def main(argv: list[str]) -> int:
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
                   phase19=p19, phase20=p20, phase21=p21, phase22=p22,
-                  phase23=p23,
+                  phase23=p23, phase24=p24,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -7166,6 +7886,21 @@ def main(argv: list[str]) -> int:
                         "b_decisions": p23["b"]["decision_counts"],
                         "inject_ms": p23["c"]["inject_ms"][:4],
                         "wall_s": p23["wall_s"]},
+                    "phase24": {
+                        "moe": {f"{k} {d}": [
+                            r[d]["captured"]["median_step_ms"],
+                            r[d]["captured"]["samples_per_s"]]
+                            for k, r in p24["a"].items()
+                            for d in ("f32", "bf16")},
+                        "moe_grad_rel": {k: r["f32_vs_cpu"]["grad_rel"]
+                                         for k, r in p24["a"].items()},
+                        "zoo": {k: [r["median_step_ms"], r["samples_per_s"],
+                                    r["max_memory_allocated"]]
+                                for k, r in p24["b"].items()},
+                        "examples": {e["example"]: e["accuracy"]
+                                     for e in p24["c"]["examples"]},
+                        "cnn_max_abs_err": p24["c"]["cnn"]["max_abs_err"],
+                        "wall_s": p24["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

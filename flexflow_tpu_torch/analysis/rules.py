@@ -263,9 +263,18 @@ def _param_candidates(op_type: OT, env: dict, n_inputs: int,
         yield EmbeddingParams(env["V"], env["O"])
     elif op_type == OT.OP_CAST:
         yield CastParams(DataType.DT_FLOAT)
+    elif op_type == OT.OP_GROUP_BY:
+        from ..ops.moe import GroupByParams
+
+        for n in (2, 4, 3, 1, 5, 6, 7, 8):
+            yield GroupByParams(n, 1.0)
+    elif op_type == OT.OP_AGGREGATE:
+        from ..ops.moe import AggregateParams
+
+        gb_n = next((p.n for p in prior_params
+                     if hasattr(p, "n") and hasattr(p, "alpha")), 2)
+        yield AggregateParams(gb_n)
     else:
-        # (the MoE ops' Group_by / Aggregate have no twin yet: ROADMAP
-        # A12; a rule over them is reported uninstantiable)
         yield None
 
 
@@ -323,6 +332,16 @@ def _slot_template(op_type: OT, pos: int, env: dict, params):
         return (env["B"], env["C"], env["HW"], env["HW"]), f32
     if op_type == OT.OP_EMBEDDING:
         return (env["B"], env["S"]), i32
+    if op_type == OT.OP_GROUP_BY:
+        if pos == 1:
+            return (env["B"], env["K"]), i32
+        return (env["B"], env["F"]), f32
+    if op_type == OT.OP_AGGREGATE:
+        if pos in (1, 2):
+            return (env["B"], env["K"]), i32
+        if pos == 3:
+            return (env["B"], getattr(params, "n", 2)), f32
+        return (env["B"], env["K"]), f32
     return (env["B"], env["F"]), f32
 
 
@@ -656,6 +675,10 @@ def _check_oracle(xfer, env: dict, where: str,
             dst = graph.nodes[e.dst]
             if dst.op_type == OT.OP_EMBEDDING:
                 return dst.params.num_entries
+            if dst.op_type == OT.OP_GROUP_BY and e.dst_idx == 1:
+                return dst.params.n
+            if dst.op_type == OT.OP_AGGREGATE and e.dst_idx in (1, 2):
+                return dst.params.n
         return env["V"]
 
     inputs = {}

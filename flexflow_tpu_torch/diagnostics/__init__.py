@@ -19,7 +19,7 @@ Three coupled pieces on top of the telemetry substrate
    configurable warn/abort actions.
 
 Enable with `--diagnostics` (requires `--telemetry-dir`) or
-`model.enable_diagnostics()` (the keras callback is ROADMAP A12);
+`model.enable_diagnostics()` (or the keras `Diagnostics` callback);
 `doctor.diagnose` / `doctor.render` give a post-mortem of any telemetry
 dir.
 """

@@ -12,8 +12,10 @@
   CPU (the JAX entry respawns itself onto a virtual n-device CPU mesh);
   asked for a card with no such world, it raises. The "sp" leg runs the
   same LM under `sequence_parallel_attention` too, so its activations
-  stay split over the sequence between the attention layers. The JAX
-  dry run's fused-MoE leg (`legs` "moe") raises, naming ROADMAP A12.
+  stay split over the sequence between the attention layers. The "moe"
+  leg is the JAX dry run's dp x ep step (`__graft_entry__.py:174-195`):
+  the fused MoE under `expert_parallel_moe`, its experts over `model`
+  (ep = the LM's tp), the batch over `data`.
 """
 
 from __future__ import annotations
@@ -98,6 +100,41 @@ def _factor_mesh(n: int, num_heads: int):
     return n, tp, sp
 
 
+def _moe_step(dp: int, ep: int, batch: int, device: str) -> float:
+    """One training step of the fused MoE (4 experts, top 2, 32 -> 8)
+    at dp x ep, its experts over `model` (JAX `__graft_entry__.py:
+    174-195`); returns the step's loss."""
+    from . import FFConfig, FFModel, LossType, SGDOptimizer, load_params
+    from .models import MoeConfig, build_moe
+    from .parallel import expert_parallel_moe
+
+    config = FFConfig(device=device)
+    config.batch_size = batch
+    config.parse_args(["--weight-update-sharding=off"])
+    config.mesh_axis_sizes = (dp, ep, 1, 1)
+    ff = FFModel(config)
+    mc = MoeConfig(num_exp=4, num_select=2, in_dim=32, num_classes=8)
+    build_moe(ff, mc, batch_size=batch, fused=True)
+    ff.set_strategy(expert_parallel_moe(ff))
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    # weights drawn by layer position, so every process (whatever its
+    # layer counter named them) and every mesh steps from the same ones
+    rs = np.random.RandomState(0)
+    load_params(ff, {l.name: {
+        w: rs.uniform(-0.3, 0.3, ff.executor.weight_shape(l.name, w))
+        .astype(np.float32) for w in ff._params[l.name]}
+        for l in ff.layers if l.name in ff._params})
+    step = ff.executor.build_train_step()
+    rs = np.random.RandomState(1)
+    x = rs.randn(batch, 32).astype(np.float32)
+    y = rs.randint(0, 8, (batch, 1)).astype(np.int32)
+    staged = ff._make_batch({ff._input_tensors[0].name: x}, y)
+    out = step(ff._params, ff._state, ff._opt_slots, ff._step,
+               ff._counters, staged, ff._rng)
+    return float(out[-1])
+
+
 def _dryrun_rank(rank: int, n_devices: int, device: str,
                  legs=("lm",)):
     from .parallel import megatron_transformer, sequence_parallel_attention
@@ -107,6 +144,14 @@ def _dryrun_rank(rank: int, n_devices: int, device: str,
     seq, batch = 128 * sp, 2 * dp
     losses = []
     for leg in legs:
+        if leg == "moe":
+            # the dp x ep mesh of the same devices: ep = tp, the rest dp
+            losses.append(_moe_step(n_devices // tp, tp, 2 * (
+                n_devices // tp), device))
+            if rank == 0:
+                print(f"dryrun MoE ok: mesh dp={n_devices // tp} ep={tp}, "
+                      f"loss={losses[-1]:.4f}")
+            continue
         fns = (megatron_transformer,)
         if leg == "sp":
             fns += (sequence_parallel_attention,)
@@ -132,7 +177,8 @@ def _dryrun_rank(rank: int, n_devices: int, device: str,
 
 def dryrun_multichip(n_devices: int, legs=("lm",), device: str = "cuda"):
     """One training step of the tiny LM over `n_devices` ranks, dp x tp
-    x sp, per leg of `legs` ("lm", "sp"); returns each rank's loss (a
+    x sp, per leg of `legs` ("lm", "sp"; "moe": the fused MoE at dp x
+    ep); returns each rank's loss (a
     tuple of them, one a leg, for more than one leg). Without a process group of `n_devices`
     ranks it spawns them on the CPU (gloo) when `device` is "cpu", and
     raises for any other device: it never moves a run the caller asked
@@ -140,14 +186,9 @@ def dryrun_multichip(n_devices: int, legs=("lm",), device: str = "cuda"):
     import torch
     import torch.distributed as dist
 
-    from .config import not_ported
-
     legs = tuple(legs)
     for leg in legs:
-        if leg == "moe":
-            raise not_ported("dryrun_multichip's expert-parallel MoE leg",
-                             "A12 (ops/moe.py)")
-        if leg not in ("lm", "sp"):
+        if leg not in ("lm", "sp", "moe"):
             raise ValueError(f"unknown dry-run leg {leg!r}")
     if dist.is_initialized() and dist.get_world_size() == n_devices:
         return [_dryrun_rank(dist.get_rank(), n_devices, device, legs)]

@@ -488,6 +488,18 @@ class Executor:
         self.optimizer = optimizer
         # a graph that ends in softmax hands probabilities to the loss
         self.last_op_is_softmax = logits_node.op_type == OT.OP_SOFTMAX
+        # an AggregateSpec head (a trailing softmax looked through) emits
+        # one row per token copy, (k * b, dim) copy-major: the labels are
+        # replicated k times to score every expert's prediction (the
+        # reference replicates the label tensor at compile, model.cc:2875;
+        # JAX executor.py:125-140)
+        self.label_replication = 1
+        spec = logits_node
+        if spec.op_type == OT.OP_SOFTMAX and graph.in_edges[spec.guid]:
+            e = min(graph.in_edges[spec.guid], key=lambda e: e.dst_idx)
+            spec = graph.nodes[e.src]
+        if spec.op_type == OT.OP_AGG_SPEC:
+            self.label_replication = int(spec.input_shapes[0][1])
         self._train_step = None
         # chunk length -> the step running that many train steps at once
         # (build_chunked_train_step)
@@ -658,6 +670,8 @@ class Executor:
         elif node.op_type in (OT.OP_INC_MULTIHEAD_ATTENTION,
                               OT.OP_PAGED_INC_MULTIHEAD_ATTENTION):
             rule = self._kv_rule(node, ins, wl)
+        elif node.op_type == OT.OP_EXPERTS:
+            rule = self._experts_rule(node, ins, wl)
         if rule is None:
             rule = self._generic_rule(node, ins, outs, wl)
         rule.setdefault("gather_w", ())
@@ -807,6 +821,34 @@ class Executor:
                 f"dim only (the plan gives {wl})")
         return dict(kind="pipe", run=[lay], nat=[lay],
                     partial=set(batch))
+
+    def _experts_rule(self, node, ins, wl):
+        """The fused Experts op (expert parallelism, JAX `parallel/
+        strategies.py:298-315`): this rank's token rows, as its data
+        input has them, through this rank's block of the stacked experts,
+        where the plan shards their dim 0 (`kernel`, `bias`) and nothing
+        else. The op ranks the routing over the whole batch (`ctx.experts`
+        names the groups), the partial outputs over the experts' axes are
+        all-reduced, and the inputs' gradients over them too. Any other
+        plan runs whole; a count of experts the axes do not divide is
+        refused by the compile gate (`indivisible_dim`, as the JAX
+        package's refuses the split GSPMD would pad), and under
+        --no-verify-plan by `local_weight`."""
+        k, b = wl["kernel"], wl.get("bias")
+        tokens = ins[0][0]
+        ex = k[0]
+        if (any(k[1:]) or (b is not None and tuple(b) != (ex, ()))
+                or set(ex) & set(tokens)
+                or any(any(l[1:]) for l in ins)):
+            return None
+        if node.params.n % self.mesh.axes_size(ex):
+            return None
+        return dict(kind="experts",
+                    run=[(tokens,) + ((),) * (len(l) - 1) for l in ins],
+                    nat=[(tokens, ())], enter=ex or None,
+                    reduce=ex or None, partial=set(tokens),
+                    experts={"tokens": self.mesh.group(tokens),
+                             "experts": self.mesh.group(ex)})
 
     def _embedding_rule(self, node, ins, wl):
         from .fftype import AggrMode
@@ -969,7 +1011,15 @@ class Executor:
             return full
         from .parallel.spmd import take_local
 
-        return take_local(full, self._rest_layout(owner, wname), self.mesh)
+        rest = self._rest_layout(owner, wname)
+        for dim, entry in enumerate(rest):
+            if full.shape[dim] % self.mesh.axes_size(entry):
+                # the JAX package pads such a split (GSPMD); its compile
+                # gate and the port's refuse it (indivisible_dim)
+                raise ValueError(
+                    f"{owner}.{wname}: dim {dim} of size {full.shape[dim]} "
+                    f"does not divide over {entry}")
+        return take_local(full, rest, self.mesh)
 
     @torch.no_grad()
     def full_weight(self, owner: str, wname: str, local: torch.Tensor):
@@ -1081,7 +1131,7 @@ class Executor:
         return out
 
     def _apply_spmd(self, params, state, inputs, *, training, rng,
-                    seq_length, step=None):
+                    seq_length, step=None, aux=None):
         """`_apply` on this rank's blocks: each node's inputs moved to the
         placement its rule runs on, its weights to their compute
         placement, its raw outputs on to the plan's."""
@@ -1100,14 +1150,16 @@ class Executor:
                 continue
             with self._scope(node.name):
                 outs = self._node_spmd(node, params, new_state, vals,
-                                       gathered, ctx)
+                                       gathered, ctx, aux)
             for i, out in enumerate(self._outputs(node, outs, step)):
                 vals[(node.guid, i)] = out
         return vals[(self.logits_node.guid, 0)], new_state
 
-    def _node_spmd(self, node, params, new_state, vals, gathered, ctx):
+    def _node_spmd(self, node, params, new_state, vals, gathered, ctx,
+                   aux=None):
         """One node of `_apply_spmd`: its outputs in the plan's
-        placements (its op state written into `new_state`)."""
+        placements (its op state written into `new_state`, its auxiliary
+        loss appended to `aux` as this rank's share: `_pop_aux`)."""
         from .parallel.spmd import (
             mask_grad,
             redistribute,
@@ -1132,6 +1184,8 @@ class Executor:
             ins.append(entered[key])
         if rule.get("kv") is not None:
             ctx = dataclasses.replace(ctx, kv=rule["kv"])
+        if rule.get("experts") is not None:
+            ctx = dataclasses.replace(ctx, experts=rule["experts"])
         wsrc = getattr(node, "weight_source", None) or node.name
         weights, regather = {}, []
         for k, t in params.get(wsrc, {}).items():
@@ -1157,6 +1211,7 @@ class Executor:
             outs, op_state = node.op_def.forward(  # fflint: ok unnamed_op_scope
                 rule["params"], ins, weights, new_state.get(node.name),
                 ctx)
+        op_state = self._pop_aux(op_state, aux, rule)
         if op_state:
             new_state.setdefault(node.name, {}).update(op_state)
         outs = list(outs)
@@ -1437,19 +1492,45 @@ class Executor:
                                  else f"{node.name}#out{i}", step, i == 0)
                 for i, out in enumerate(outs)]
 
+    def _pop_aux(self, op_state, aux, rule=None):
+        """`op_state` without its `aux_loss` (the MoE load-balance term,
+        JAX `_apply`'s pop), which goes into `aux` where the caller
+        collects it. On a mesh it goes in as this rank's share, so the
+        loss summed over the batch's ranks counts it once and the
+        gradients sum to its own: an Experts op on this rank's token rows
+        gives its rows' share, whose gradient the all-reduce over the
+        experts' axes would count once a rank there (scaled down by
+        their size); an op that ran on the whole batch gives the whole
+        term on every rank (its value scaled down by the batch's ranks,
+        its gradient kept: each rank keeps its rows of it)."""
+        if not op_state or "aux_loss" not in op_state:
+            return op_state
+        op_state = dict(op_state)
+        a = op_state.pop("aux_loss")
+        if aux is not None:
+            if rule is not None and rule["kind"] == "experts":
+                n = self.mesh.axes_size(rule["enter"] or ())
+                a = a.detach() + (a - a.detach()) / n
+            elif rule is not None:
+                n = self.mesh.axes_size(self._loss_axes)
+                a = a.detach() / n + (a - a.detach())
+            aux.append(a)
+        return op_state
+
     def _apply(self, params, state, inputs, *, training: bool = False,
-               rng=None, seq_length: int = -1, step=None):
+               rng=None, seq_length: int = -1, step=None, aux=None):
         """Run the graph forward. Returns (logits, new_state). Autograd
         records it unless the caller runs it under `no_grad`. `rng` is the
         torch.Generator dropout draws from (training only); `seq_length`
         reaches the ops' context (batch_matmul's truncation); `step` (the
         step tensor, None on step-less passes) feeds the sanitizer's
-        probes and the fault injector. On a mesh, `_apply_spmd`: the
-        logits are this rank's block."""
+        probes and the fault injector; `aux`, a list, collects the ops'
+        auxiliary losses (the MoE load-balance terms). On a mesh,
+        `_apply_spmd`: the logits are this rank's block."""
         if self.spmd:
             return self._apply_spmd(params, state, inputs, training=training,
                                     rng=rng, seq_length=seq_length,
-                                    step=step)
+                                    step=step, aux=aux)
         vals: dict[tuple[int, int], Any] = {}
         new_state = {k: dict(v) for k, v in state.items()}
         ctx = OpContext(training=training, rng=rng, seq_length=seq_length,
@@ -1476,6 +1557,7 @@ class Executor:
                 weights.update(new_state.get(wsrc, {}))
                 outs, op_state = node.op_def.forward(
                     node.params, ins, weights, new_state.get(node.name), ctx)
+            op_state = self._pop_aux(op_state, aux)
             if op_state:
                 new_state.setdefault(node.name, {}).update(op_state)
             for i, out in enumerate(self._outputs(node, outs, step)):
@@ -1493,10 +1575,15 @@ class Executor:
 
     def host_labels(self, labels) -> torch.Tensor:
         """Host labels -> a CPU tensor of this rank's rows of them (the
-        placement of the logits' rows)."""
+        placement of the logits' rows), replicated `label_replication`
+        times first (an AggregateSpec head: JAX `expand_labels`)."""
         import numpy as np
 
-        y = torch.as_tensor(np.asarray(labels))
+        labels = np.asarray(labels)
+        if self.label_replication > 1:
+            labels = np.tile(labels, (self.label_replication,)
+                             + (1,) * (labels.ndim - 1))
+        y = torch.as_tensor(labels)
         if self.spmd:
             from .parallel.spmd import take_local
 
@@ -1577,15 +1664,19 @@ class Executor:
         xc = self._cast_compute(x_inputs)
 
         def loss_fn(p):
+            aux: list = []
             logits, new_state = self._apply(p, state, xc, training=True,
                                             rng=rng, seq_length=seq_length,
-                                            step=step)
+                                            step=step, aux=aux)
             with self._scope("loss"):
                 logits, shards = self._loss_logits(logits)
                 lval, ce_sum = loss_terms(
                     self.loss_type, logits, labels, self.last_op_is_softmax,
                     shards, self.mesh.axes_size(self._loss_layout[0])
                     if self.spmd else 1)
+                # the ops' auxiliary losses (JAX executor.py:506-518)
+                for a in aux:
+                    lval = lval + a.to(lval.dtype)
             if self._probes is not None or self._numeric_fault is not None:
                 lval = self._instrument(lval, "loss", "loss", step, True)
             return lval, (logits, new_state, ce_sum)

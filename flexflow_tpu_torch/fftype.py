@@ -132,6 +132,11 @@ class OperatorType(enum.IntEnum):
     OP_CONCAT = 22
     OP_SPLIT = 23
     OP_EMBEDDING = 24
+    OP_GROUP_BY = 25
+    OP_CACHE = 26
+    OP_AGGREGATE = 27
+    OP_AGG_SPEC = 28
+    OP_EXPERTS = 29
     OP_PIPE_BLOCKS = 30
     OP_RESHAPE = 31
     OP_REVERSE = 32
@@ -179,16 +184,12 @@ class OperatorType(enum.IntEnum):
 
 
 class UnportedOperatorType(enum.IntEnum):
-    """Operator types of the JAX package that the port has no op for yet,
-    with the JAX package's values. The Unity search names them (the MoE
-    fusion rewrite, the non-compute kinds),
-    but no graph of the port holds one."""
+    """Operator types of the JAX package that the port has no op for,
+    with the JAX package's values: the non-compute kinds, which the Unity
+    search names but no graph of the port holds."""
 
     OP_WEIGHT = 2
     OP_NOOP = 3
-    OP_GROUP_BY = 25  # ROADMAP A12 (ops/moe.py)
-    OP_AGGREGATE = 27  # A12
-    OP_EXPERTS = 29  # A12
 
 
 # the parallel ops: PCG nodes that change a tensor's placement, not its

@@ -58,6 +58,9 @@ class ConstantInitializer(Initializer):
 
 @dataclass
 class UniformInitializer(Initializer):
+    # the JAX package's (and the reference's) argument order: (seed, min,
+    # max); the draws come from the weight's own generator
+    seed: int = 0
     min_val: float = 0.0
     max_val: float = 1.0
 
@@ -67,6 +70,7 @@ class UniformInitializer(Initializer):
 
 @dataclass
 class NormInitializer(Initializer):
+    seed: int = 0
     mean: float = 0.0
     stddev: float = 1.0
 

@@ -63,8 +63,11 @@ from .fftype import (
 from .initializer import Initializer
 from .layer import Layer
 from .ops import (
+    AggregateParams,
+    AggregateSpecParams,
     BatchMatmulParams,
     BatchNormParams,
+    CacheParams,
     CastParams,
     ConcatParams,
     Conv2DParams,
@@ -72,7 +75,9 @@ from .ops import (
     ElementBinaryParams,
     ElementUnaryParams,
     EmbeddingParams,
+    ExpertsParams,
     GatherParams,
+    GroupByParams,
     IncMultiHeadAttentionParams,
     LayerNormParams,
     LinearParams,
@@ -98,11 +103,8 @@ from .elastic.controller import POLL
 
 
 # FFModel methods of the JAX package that the port has not got yet, by
-# ROADMAP item: calling one raises, naming its item
-_NOT_PORTED_METHODS = {
-    **dict.fromkeys(("moe", "experts", "group_by", "aggregate",
-                     "aggregate_spec", "cache"), "A12 (ops/moe.py)"),
-}
+# ROADMAP item: calling one raises, naming its item (none is left)
+_NOT_PORTED_METHODS: dict[str, str] = {}
 
 
 def peer_abort(diag, step: int):
@@ -613,6 +615,79 @@ class FFModel:
         return self._add_layer(OT.OP_CAST, p, [input], name,
                                data_type=DataType(dtype)).outputs[0]
 
+    # ------------------------------------------------ MoE family
+
+    def group_by(self, data: Tensor, assign: Tensor, n: int, alpha: float,
+                 name: str = "") -> list[Tensor]:
+        p = GroupByParams(n, alpha)
+        return self._add_layer(OT.OP_GROUP_BY, p, [data, assign], name,
+                               data_type=data.dtype).outputs
+
+    def aggregate(self, inputs: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        p = AggregateParams(n, lambda_bal)
+        return self._add_layer(OT.OP_AGGREGATE, p, list(inputs), name,
+                               data_type=inputs[4].dtype).outputs[0]
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        p = AggregateSpecParams(n, lambda_bal)
+        return self._add_layer(OT.OP_AGG_SPEC, p, list(inputs), name,
+                               data_type=inputs[4].dtype).outputs[0]
+
+    def cache(self, input: Tensor, num_batches: int, name: str = "") -> Tensor:
+        p = CacheParams(num_batches, input.dtype)
+        return self._add_layer(OT.OP_CACHE, p, [input], name,
+                               data_type=input.dtype).outputs[0]
+
+    def experts(
+        self,
+        input: Tensor,
+        gate_values: Tensor,
+        gate_assign: Tensor,
+        num_experts: int,
+        hidden_size: int,
+        alpha: float = 1.0,
+        lambda_bal: float = 0.0,
+        use_bias: bool = True,
+        activation: str = "relu",
+        name: str = "",
+    ) -> Tensor:
+        """The fused stacked-experts op: shard its kernel's dim 0 over
+        the `model` axis for expert parallelism (`expert_parallel_moe`)."""
+        p = ExpertsParams(num_experts, hidden_size, alpha, lambda_bal,
+                          use_bias, activation)
+        return self._add_layer(OT.OP_EXPERTS, p,
+                               [input, gate_values, gate_assign], name,
+                               data_type=input.dtype).outputs[0]
+
+    def moe(
+        self,
+        input: Tensor,
+        num_exp: int,
+        num_select: int,
+        expert_hidden_size: int,
+        alpha: float,
+        lambda_bal: float,
+        fused: bool = False,
+    ) -> Tensor:
+        """The MoE composite (reference src/ops/moe.cc:20-50): gate dense
+        -> softmax -> top-k -> group_by -> a dense per expert ->
+        aggregate; with fused=True the group_by / expert / aggregate trio
+        is the one stacked Experts op."""
+        gate_preds = self.dense(input, num_exp, ActiMode.AC_MODE_RELU)
+        gate_probs = self.softmax(gate_preds)
+        topk_values, topk_assign = self.top_k(gate_probs, num_select)
+        if fused:
+            return self.experts(input, topk_values, topk_assign, num_exp,
+                                expert_hidden_size, alpha, lambda_bal)
+        expert_inputs = self.group_by(input, topk_assign, num_exp, alpha)
+        expert_outputs = [
+            self.dense(ei, expert_hidden_size, ActiMode.AC_MODE_RELU)
+            for ei in expert_inputs]
+        agg_inputs = ([topk_values, topk_assign, topk_assign, gate_probs]
+                      + expert_outputs)
+        return self.aggregate(agg_inputs, num_exp, lambda_bal)
     def pipeline_blocks(
         self,
         input: Tensor,

@@ -1,7 +1,8 @@
-"""The flagship decoder-only Transformer LM (twin of
-`flexflow_tpu/models/transformer.py`).
+"""Transformer models (twin of `flexflow_tpu/models/transformer.py`):
+the reference benchmark model (`build_transformer`, transformer.cc) and
+the flagship decoder-only LM.
 
-Token + position embedding, pre-LN causal blocks with residuals, an exact
+The LM: token + position embedding, pre-LN causal blocks with residuals, an exact
 GELU MLP, a final LayerNorm and a vocab head. The layer names are the JAX
 package's, so weights copied by name (`convert.load_params`) make both
 packages compute the same function, and the serving engine's decode graph
@@ -14,7 +15,49 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..fftype import DataType
+from ..fftype import ActiMode, DataType
+
+
+@dataclass
+class TransformerConfig:
+    """The reference benchmark model's settings (transformer.cc:79-85)."""
+
+    hidden_size: int = 1024
+    embedding_size: int = 1024
+    num_heads: int = 16
+    num_layers: int = 12
+    sequence_length: int = 512
+
+
+def create_attention_encoder(ff, input, hidden_dim, num_heads, kdim, vdim,
+                             prefix=""):
+    """transformer.cc:33-45: MHA, then dense(hidden, relu, no bias) and
+    dense(hidden, no bias); no residuals or LayerNorm, as the reference."""
+    t = ff.multihead_attention(input, input, input, hidden_dim, num_heads,
+                               kdim, vdim, name=f"{prefix}attn")
+    t = ff.dense(t, hidden_dim, ActiMode.AC_MODE_RELU, use_bias=False,
+                 name=f"{prefix}ffn1")
+    return ff.dense(t, hidden_dim, use_bias=False, name=f"{prefix}ffn2")
+
+
+def build_transformer(ff, config: TransformerConfig | None = None,
+                      batch_size: int | None = None):
+    """The reference benchmark model (transformer.cc:112-160): a stack of
+    `create_attention_encoder` blocks on a (batch, seq, hidden) float
+    input and a dense(1) head. Returns (input_tensor, output_tensor);
+    the loss is LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE (transformer.cc:163)."""
+    c = config or TransformerConfig()
+    bs = batch_size or ff.config.batch_size
+    input = ff.create_tensor((bs, c.sequence_length, c.hidden_size),
+                             name="input")
+    t = input
+    for i in range(c.num_layers):
+        t = create_attention_encoder(
+            ff, t, c.hidden_size, c.num_heads,
+            c.hidden_size // c.num_heads, c.hidden_size // c.num_heads,
+            prefix=f"l{i}_")
+    t = ff.dense(t, 1, use_bias=False, name="head")
+    return input, t
 
 
 @dataclass

@@ -22,6 +22,13 @@ from .core import (
     SoftmaxParams,
 )
 from .elementwise import ElementBinaryParams, ElementUnaryParams
+from .moe import (
+    AggregateParams,
+    AggregateSpecParams,
+    CacheParams,
+    ExpertsParams,
+    GroupByParams,
+)
 from .pipeline_blocks import PipelineBlocksParams
 from .inc_attention import (
     IncMultiHeadAttentionParams,
@@ -40,8 +47,11 @@ from .shape_ops import (
 )
 
 __all__ = [
+    "AggregateParams",
+    "AggregateSpecParams",
     "BatchMatmulParams",
     "BatchNormParams",
+    "CacheParams",
     "CastParams",
     "ConcatParams",
     "Conv2DParams",
@@ -49,7 +59,9 @@ __all__ = [
     "ElementBinaryParams",
     "ElementUnaryParams",
     "EmbeddingParams",
+    "ExpertsParams",
     "GatherParams",
+    "GroupByParams",
     "IncMultiHeadAttentionParams",
     "LayerNormParams",
     "LinearParams",

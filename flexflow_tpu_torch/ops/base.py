@@ -59,6 +59,10 @@ class OpContext:
     # contiguous cache, the group whose index picks this rank's slot rows
     # to read; None alone or where the state's slots are this rank's
     kv: Any = None
+    # the Experts op on a mesh (`Executor._experts_rule`): the groups
+    # over its token rows' axes ("tokens": the routing is gathered over
+    # it) and over its stacked experts' axes ("experts"); None alone
+    experts: Any = None
 
 
 def matmul_cast(ctx: OpContext, *tensors):

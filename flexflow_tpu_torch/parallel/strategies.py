@@ -13,7 +13,8 @@ a plan written by either package loads in the other.
 shards attention by heads; `sequence_parallel_attention` shards the
 sequence dim of 3-D activations (with impl="ring" attention, which the
 executor runs on each rank's rows of the sequence); `expert_parallel_moe`
-waits for the MoE ops (ROADMAP A12).
+shards the stacked experts of the fused Experts op over `model` (the
+executor's `_experts_rule`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 
-from ..config import not_ported
 from ..fftype import OperatorType as OT
 from ..machine import AXIS_DATA, AXIS_MODEL, AXIS_SEQ
 from ..tensor import PartitionSpec
@@ -243,5 +243,17 @@ def sequence_parallel_attention(model, seq_axis: str = AXIS_SEQ) -> Strategy:
 
 
 def expert_parallel_moe(model, expert_axis: str = AXIS_MODEL) -> Strategy:
-    raise not_ported("parallel.expert_parallel_moe (the Experts op)",
-                     "A12 (ops/moe.py)")
+    """Shard the stacked-experts dim (0) of every Experts op's weights over
+    `expert_axis` (reference analog: attribute-parallel machine views over
+    the MoE expert ops, examples/cpp/mixture_of_experts)."""
+    s = Strategy()
+    layers = getattr(model, "layers", model)
+    for l in layers:
+        if l.op_type == OT.OP_EXPERTS:
+            for ws in _weight_specs(l):
+                nd = len(ws.shape)
+                s.set_weight(
+                    l.name, ws.name,
+                    PartitionSpec(expert_axis, *([None] * (nd - 1))),
+                )
+    return s

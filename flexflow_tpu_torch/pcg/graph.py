@@ -182,9 +182,9 @@ def find_bottlenecks(graph: "Graph", order=None) -> list:
 def is_expert_buffer(node: OpNode) -> bool:
     """Expert-capacity buffers (group_by's outputs) have no batch dim: no
     data-parallel default shards their dim 0."""
-    from ..fftype import UnportedOperatorType
+    from ..fftype import OperatorType
 
-    return node.op_type == UnportedOperatorType.OP_GROUP_BY
+    return node.op_type == OperatorType.OP_GROUP_BY
 
 
 def export_dot(graph: "Graph", path: str | None = None) -> str:

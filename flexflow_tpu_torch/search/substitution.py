@@ -1053,32 +1053,42 @@ def create_fuse_moe_trio(n: int) -> GraphXfer:
     Expert weights are re-initialized by the rewrite (the reference also
     rebuilds operators from the optimized PCG at compile, model.cc:2830+).
     """
+    from ..ops.moe import ExpertsParams
+
     x = GraphXfer(f"fuse_moe_trio[n={n}]")
     data = x.new_input(0)
     values = x.new_input(1)
     assign = x.new_input(2)
     probs = x.new_input(3)
 
-    gb = OpX(UOT.OP_GROUP_BY, (data, assign), num_outputs=n,
+    gb = OpX(OT.OP_GROUP_BY, (data, assign), num_outputs=n,
              constraints=(lambda node: node.params.n == n,))
     linears = [
         OpX(OT.OP_LINEAR, (TensorX(gb, i),),
             constraints=(lambda node: node.params.use_bias,))
         for i in range(n)
     ]
-    agg = OpX(UOT.OP_AGGREGATE, tuple(
+    agg = OpX(OT.OP_AGGREGATE, tuple(
         [values, assign, assign, probs] + [l.outputs[0] for l in linears]))
 
     def experts_params(m):
-        from ..config import not_ported
+        gbp = m[gb].params
+        aggp = m[agg].params
+        lps = [m[l].params for l in linears]
+        hidden = lps[0].out_channels
+        act = lps[0].activation
+        if any(p.out_channels != hidden or p.activation != act
+               for p in lps):
+            raise ValueError("fuse_moe_trio: experts disagree on shape/act")
+        act_name = {ActiMode.AC_MODE_RELU: "relu",
+                    ActiMode.AC_MODE_GELU: "gelu",
+                    ActiMode.AC_MODE_NONE: "none"}.get(act)
+        if act_name is None:
+            raise ValueError(f"fuse_moe_trio: unsupported activation {act}")
+        return ExpertsParams(n, hidden, gbp.alpha, aggp.lambda_bal,
+                             use_bias=True, activation=act_name)
 
-        # the fused op's params come from ops/moe.py, which the port does
-        # not have: the trio matches only a graph with group_by, whose op
-        # is not ported either
-        raise not_ported("the fused Experts op (ops/moe.py)",
-                         "A12 (ops/moe.py)")
-
-    experts = OpX(UOT.OP_EXPERTS, (data, values, assign),
+    experts = OpX(OT.OP_EXPERTS, (data, values, assign),
                   make_params=experts_params)
     x.src_ops = [gb] + linears + [agg]
     x.dst_ops = [experts]
@@ -1163,7 +1173,7 @@ def generate_all_pcg_xfers(mesh, config, graph: Optional[Graph] = None
     if graph is not None:
         seen_n = set()
         for node in graph.topo_order():
-            if node.op_type == UOT.OP_GROUP_BY and node.params.n not in seen_n:
+            if node.op_type == OT.OP_GROUP_BY and node.params.n not in seen_n:
                 seen_n.add(node.params.n)
                 xfers.append(create_fuse_moe_trio(node.params.n))
     sizes = dict(mesh.shape)

@@ -130,7 +130,7 @@ class UnitySearch:
         ndim = len(node.outputs[0].shape.dims) if node.outputs else 0
         batch_ok = (ndim > 0 and node.outputs and
                     node.outputs[0].shape.dims[0].size % max(1, self.batch_deg) == 0
-                    and node.op_type != UOT.OP_GROUP_BY)
+                    and node.op_type != OT.OP_GROUP_BY)
         dp = NodeConfig("dp", _dp_assign(ndim, batch_ok,
                                           batch_axes=self.batch_axes))
         if node.op_type == OT.OP_INC_MULTIHEAD_ATTENTION and batch_ok:
@@ -280,7 +280,7 @@ class UnitySearch:
                 if p.use_bias:
                     ws.append(("bias", PartitionSpec(AXIS_MODEL)))
                 out.append(NodeConfig("tp_conv", tuple(assign), tuple(ws)))
-        elif node.op_type == UOT.OP_EXPERTS and allow_attr:
+        elif node.op_type == OT.OP_EXPERTS and allow_attr:
             p = node.params
             if p.n % self.model_deg == 0:
                 ws = [("kernel", PartitionSpec(AXIS_MODEL, None, None))]

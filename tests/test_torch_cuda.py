@@ -23,7 +23,10 @@ the executor's captured steps (CUDA graphs) held to their eager selves:
 token streams, masters, metrics and kernel counts, and a capture that
 reads the host raising with nothing run; and the chunked step (n train
 steps in one graph) and an in-place restore, each with dropout drawing
-from the generator the graphs hold, bit-equal to the per-step run.
+from the generator the graphs hold, bit-equal to the per-step run; the
+MoE family's routing, the Experts op and the MoE models' gradients
+against the CPU in float32, and the MoE encoder's captured steps
+bit-equal to eager.
 """
 
 import contextlib
@@ -1627,3 +1630,69 @@ def test_kv_inject_pads_to_power_of_two_buckets(cuda, monkeypatch):
             assert not st["pool_k"][SCRATCH_BLOCK].any()
     run = eng._inject_fn.captured
     assert run.captures == 2 and len(run._graphs) == 2  # buckets 4 and 8
+
+
+# ------------------------------------------------------------ the MoE family
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "flat fused", "encoder"])
+def test_moe_routing_and_gradients_match_the_cpu(cuda, kind):
+    """Phase 24(a)'s float32 check: every routing equal to the CPU's
+    (assignments, slots, kept copies), the gradients within 1e-3 of each
+    layer's largest entry."""
+    import chip_smoke
+
+    sys.argv = ["test"]
+    out = chip_smoke.moe_grad_check(kind)
+    assert out["routings"] > 0 and out["grad_rel"] <= chip_smoke.GRAD_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+def test_experts_op_matches_the_cpu(cuda, activation):
+    """The fused Experts op at a capacity that drops tokens, float32 on
+    the card against the CPU: output, load-balance term and the data,
+    gate and weight gradients."""
+    from flexflow_tpu_torch.ops.base import OpContext, get_op_def
+    from flexflow_tpu_torch.ops.moe import ExpertsParams
+    from flexflow_tpu_torch.fftype import OperatorType
+
+    p = ExpertsParams(5, 48, 0.5, 0.04, True, activation)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(256, 32, generator=g)
+    gates = torch.rand(256, 2, generator=g)
+    assign = torch.stack([torch.randperm(5, generator=g)[:2]
+                          for _ in range(256)]).int()
+    kern = torch.randn(5, 32, 48, generator=g) * 0.1
+    bias = torch.randn(5, 48, generator=g) * 0.1
+    cot = torch.randn(256, 48, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in (x, gates, kern, bias)]
+        outs, st = get_op_def(OperatorType.OP_EXPERTS).forward(
+            p, [leaves[0], leaves[1], assign.to(dev)],
+            {"kernel": leaves[2], "bias": leaves[3]}, None, OpContext())
+        (outs[0] * cot.to(dev)).sum().add(st["aux_loss"]).backward()
+        res[dev] = [outs[0].detach().cpu(), st["aux_loss"].detach().cpu()] \
+            + [t.grad.cpu() for t in leaves]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_moe_captured_steps_match_eager_bitwise(cuda, dtype):
+    """The MoE encoder's captured train steps against the same steps
+    eager from the same weights: the masters bit-equal (the scatter and
+    gather move rows by a permutation: no float atomics)."""
+    import chip_smoke
+
+    sys.argv = ["test"]
+    init = chip_smoke.by_position(chip_smoke.moe_model("encoder", "f32",
+                                                       "cpu"))
+    cap = chip_smoke.moe_train("encoder", dtype, "captured", init)
+    eag = chip_smoke.moe_train("encoder", dtype, "eager", init)
+    assert cap["launches"] == eag["launches"]
+    assert chip_smoke.compare_masters(
+        cap.pop("masters"), eag.pop("masters"))["bitwise_equal"]

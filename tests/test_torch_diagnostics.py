@@ -1,6 +1,7 @@
 """The port's diagnostics (`flexflow_tpu_torch/diagnostics/`,
 `recompile.py`) against the JAX package's, on the CPU: the twins of
-`tests/test_diagnostics.py` (but the keras callback, ROADMAP A12) and the
+`tests/test_diagnostics.py` (the keras callback's twin is in
+`tests/test_torch_frontends.py`) and the
 cross-package checks.
 
 - the drift and health monitors on synthetic metric streams (injected NaN

@@ -23,7 +23,8 @@ tensor-op math off on both sides:
   weights at rest;
 - the repartition / combine builders giving JAX's partition specs
   (`tests/test_parallel.py:183`) and training as JAX does;
-- `entry.dryrun_multichip(4)`, eval, the granular API and the data
+- `entry.dryrun_multichip(4)` (its fused-MoE leg at dp 2 x ep 2 equal on
+  every rank and to the one-rank step), eval, the granular API and the data
   loader on the mesh, `distributed`'s JSON exchanges, and the refusals:
   a mesh larger than the world or smaller than it (the search flags and
   the unforced update decision on 4 devices build); `spawn` naming a rank
@@ -446,10 +447,15 @@ def test_dryrun_granular_api_and_refusals_on_four_ranks():
         # the Unity search and the priced update decision (A7) build
         assert o["search"] == "built" and o["unforced"] == "built"
         assert o["smaller"].startswith("ValueError: mesh of 2 devices")
-    from flexflow_tpu_torch.entry import dryrun_multichip
+    # the dry run's fused-MoE leg (dp 2 x ep 2 on the 4 ranks): finite,
+    # the same loss on every rank, and the one-rank step's
+    from flexflow_tpu_torch.entry import _moe_step, dryrun_multichip
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        dryrun_multichip(WORLD, legs=("lm", "moe"), device="cpu")
+    legs = dryrun_multichip(WORLD, legs=("lm", "moe"), device="cpu")
+    moe = [l[1] for l in legs]
+    assert np.isfinite(moe).all() and len(set(moe)) == 1, moe
+    np.testing.assert_allclose(moe[0], _moe_step(1, 1, 4, "cpu"),
+                               rtol=1e-5)
 
 
 def _abort_on_rank_one(rank):
