@@ -30,8 +30,9 @@ them. The device fixes the tier and the batch, as bench.py's CPU mode
 does: `--device cpu` runs the tiny lm-smoke tier at batch 4 (5 steps) so
 the tests can run the script; its numbers are the host's, not a
 device's. `--steps` and `--warmup` shorten a run. bench.py's other legs
-(long context, the fit loop, grad sync, sharding, serving) are not here:
-ROADMAP A6, A8, A10.
+(the fit loop, attention, grad sync, sharding, rules, warm start,
+migration, elastic, serving) are not here yet: ROADMAP A14; serving's
+standalone driver is serve_bench_torch.py.
 """
 
 from __future__ import annotations

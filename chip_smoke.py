@@ -635,7 +635,7 @@ def kernel_parity(dev) -> dict:
             x, s, b = ln_inputs(dev, dtype, rows, SEED + rows, width)
             n0 = c["layer_norm_fwd"].launches
             got = ln.layer_norm(x, s, b, 1e-5)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
             require(c["layer_norm_fwd"].launches == n0 + 1, "K1 not launched")
             err = check_close("layer_norm_fwd", got,
                               ln.layer_norm_plain(x, s, b, 1e-5), dn, errs)
@@ -646,7 +646,7 @@ def kernel_parity(dev) -> dict:
         q, k, v, lengths = decode_inputs(dev, dtype, SEED + 1)
         n0 = c["flash_decode_attention"].launches
         got = fa.flash_decode_attention(q, k, v, lengths, num_heads=HEADS)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
         require(c["flash_decode_attention"].launches == n0 + 1,
                 "K2 not launched")
         err = check_close(
@@ -663,7 +663,7 @@ def kernel_parity(dev) -> dict:
         n0 = c["paged_flash_decode_attention"].launches
         got = fa.paged_flash_decode_attention(q, pk, pv, table, lengths,
                                               num_heads=HEADS)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
         require(c["paged_flash_decode_attention"].launches == n0 + 1,
                 "K3 not launched")
         err = check_close(
@@ -907,7 +907,7 @@ def train_kernel_parity(dev, errs) -> dict:
             x, s, dy = ln_bwd_inputs(dev, dtype, n, d, SEED + n)
             n0 = c["layer_norm_bwd"].launches
             got = ln.layer_norm_bwd(x, s, dy, 1e-5)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
             require(c["layer_norm_bwd"].launches == n0 + 1,
                     "layer_norm_bwd not launched")
             want = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
@@ -1025,7 +1025,7 @@ def halfway_parity(dev, errs):
                 f"{name}: the halfway case cannot tell rounding on load")
         n0 = c[name].launches
         got = kernel(q, *args, num_heads=HEADS)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
         require(c[name].launches == n0 + 1, f"{tag} not launched")
         err = check_close(name, got, want, "bfloat16", errs)
         log(f"  {tag} {name} halfway-rounding case bfloat16: max abs err "
@@ -1253,7 +1253,7 @@ def serve_phase(ff, layout, prompts, vocab, mode="captured",
     def graphs():
         return len(run._graphs), run.captures
 
-    def timed_step():
+    def timed_step():  # fflint: ok raw_timer_in_hot_path (timing is the point)
         nonlocal steps
         steps += 1
         calls0, tokens0 = eng._prefill_calls, eng._decode_tokens
@@ -1661,7 +1661,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
     step_fn = ff.executor.build_train_step()
     losses, step_ms, per_step, per_layout, per_variant = [], [], [], [], []
 
-    def timed_step(*args):
+    def timed_step(*args):  # fflint: ok raw_timer_in_hot_path (timing is the point)
         before = {k: v.launches for k, v in c.items()}
         before_l = {k: dict(c[k].layouts) for k in FLASH_KERNELS}
         before_v = {k: dict(c[k].variants) for k in FLASH_KERNELS}
@@ -1746,7 +1746,7 @@ def train_phase(lm=None, *, transposed=False, fused=False,
             prof, _ = profiled(lambda: step_fn(
                 ff._params, ff._state, ff._opt_slots, ff._step,
                 ff._counters, staged, ff._rng))
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a profiled attempt)
         counted = {k: c[k].launches - before[k] for k in DEVICE_KERNELS}
         seen = prof["kernel_launches"]
         attempts.append({"seen": seen, "counted": counted})
@@ -2431,7 +2431,7 @@ def resnet_phase(mode: str = "captured", warmup: int = WARMUP_STEPS,
     step_fn = ff.executor.build_train_step()
     losses, step_ms = [], []
 
-    def timed_step(*args):
+    def timed_step(*args):  # fflint: ok raw_timer_in_hot_path (timing is the point)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step_fn(*args)
@@ -2719,7 +2719,7 @@ def nccl_collectives() -> dict:
     for _ in range(2):
         fill()
         graph.replay()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per replay)
         equal.append([bool(torch.equal(o, i)) for o, i in zip(outs, ins)])
     prof, _ = profiled(graph.replay, patterns={"nccl": "(?i)nccl"})
     require(all(all(e) for e in equal),
@@ -3702,7 +3702,7 @@ def ring_phase(dev) -> dict:
         ref = fa.flash_attention(*leaves, causal=True, scale=scale)
         torch.autograd.backward(ref, do)
         want = [ref.detach()] + [t.grad for t in leaves]
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
 
         def rows(t, i):
             return t[:, :, i * s_loc:(i + 1) * s_loc]
@@ -3761,7 +3761,7 @@ def ring_phase(dev) -> dict:
             outs.append(o.to(dtype))
         got_out = torch.cat(outs, dim=2)
         torch.autograd.backward(got_out, do)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a check per case)
         total = since(n0)
         # K6 + K7 a block past one tile (every block of seq 4096 / 4)
         fused = int(s_loc <= fa.SINGLE_TILE)
@@ -3873,8 +3873,9 @@ P19_PEAK_RATIO = 1.1
 # phase 19(d): lm-base at full width, 2 layers, on two gloo ranks of the
 # one card: the Unity search runs on rank 0 (calibrating 4 ops there)
 WARM_LAYERS = 2
-# phase 19's (a)-(c) on lm-base at full width and 4 of its 12 layers
-P19_LAYERS = 4
+# phase 19's (a)-(c) on lm-base at full width and 2 of its 12 layers
+# (the run's time keeps phase 25 inside it)
+P19_LAYERS = 2
 WARM_FLAGS = ("--mesh", "2,1,1,1", "--budget", "6",
               "--enable-parameter-parallel", "--calibrate", "4",
               "--weight-update-sharding=off")
@@ -4119,7 +4120,7 @@ def resume_child(job: dict) -> dict:
                       flags=("--checkpoint-dir", r["dir"], "--auto-resume"),
                       dtype=job["dtype"])
         ff = run.ff
-        diff = state_diff({k: v.cpu() for k, v in state_of(ff).items()},
+        diff = state_diff({k: v.cpu() for k, v in state_of(ff).items()},  # fflint: ok host_sync_in_loop (a check per resume)
                           want)
         results.append({
             "name": r["name"], "diff": diff[:8], "py_step": ff._py_step(),
@@ -4400,10 +4401,17 @@ def warm_check(device: str, lm) -> dict:
             f"phase 19(d): the --auto-resume compile: {r0['resume']}")
     require(all(r["warm"]["plan_source"] == "broadcast" for r in ranks[1:]),
             f"phase 19(d): rank 1: {ranks[1]['warm']}")
+    # check_warmstart_torch on rank 0's cold and warm metrics (phase 25(h))
+    rc, text = quiet_main("check_warmstart_torch", [
+        os.path.join(root, f"tel_{tag}_0", "metrics.jsonl")
+        for tag in ("cold", "warm")])
+    check = {"rc": rc, "line": text.strip().splitlines()[-1]}
+    require(rc == 0, f"phase 19(d): check_warmstart_torch: {text[-1500:]}")
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
-    return {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+    return {"ranks": ranks, "check_warmstart": check,
+            "wall_s": time.perf_counter() - t0}
 
 
 def phase19(device: str, lm, batch: int, warm_lm,
@@ -4888,12 +4896,14 @@ def profiling_phase() -> dict:
     return out
 
 
-def phase20(train: dict, paged: dict, ff_serve_flags=()) -> dict:
+def phase20(train: dict, paged: dict, ff_serve_flags=(),
+            keep_root: bool = False) -> dict:
     """Phase 20: the observability half of the port on lm-base at full
     width (12 layers, 8 x 512, bf16 over f32 masters, SGD, captured):
     20(a) diagnostics, (b) the sanitizer, (c) sampled op profiles, (d)
     drift and its recalibration, (e) the hang watchdog, (f) serving's
-    telemetry on phase 3's paged run, (g) --profiling. Each check fatal."""
+    telemetry on phase 3's paged run, (g) --profiling. Each check fatal.
+    `keep_root` leaves the telemetry dirs (`root`) for phase 25."""
     import shutil
     import tempfile
 
@@ -4919,9 +4929,11 @@ def phase20(train: dict, paged: dict, ff_serve_flags=()) -> dict:
         out["g"] = run("g", profiling_phase)
         out["took_s"] = took
         out["wall_s"] = time.perf_counter() - t0
+        out["root"] = root
         return out
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep_root:
+            shutil.rmtree(root, ignore_errors=True)
         p20_free()
 
 
@@ -5534,7 +5546,7 @@ def migrate_phase(root: str) -> dict:
     for donate in (False, True):
         dst = build_train_lm("bf16", flags=("--warmstart-dir", wdir))
         gc.collect()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # fflint: ok host_sync_in_loop (a peak per run)
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -6179,7 +6191,7 @@ def moe_grad_check(kind: str) -> dict:
             ff.start_batch({"input": x}, y)
             losses[name] = float(ff.backward())
         routes[name] = rec
-        grads[name] = {f"{i}.{w}": t.detach().float().cpu()
+        grads[name] = {f"{i}.{w}": t.detach().float().cpu()  # fflint: ok host_sync_in_loop (a check per device)
                        for i, l in enumerate(ff.layers)
                        if l.name in ff._grads
                        for w, t in ff._grads[l.name].items()}
@@ -6243,7 +6255,7 @@ def moe_train(kind: str, dtype: str, mode: str, init: dict) -> dict:
     step_fn = ff.executor.build_train_step()
     step_ms, per_step, losses = [], [], []
 
-    def timed_step(*args):
+    def timed_step(*args):  # fflint: ok raw_timer_in_hot_path (timing is the point)
         before = {k: v.launches for k, v in c.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6407,7 +6419,7 @@ def zoo_run(name: str, builder: str, kw: dict, loss: str,
     step_fn = ff.executor.build_train_step()
     step_ms, losses = [], []
 
-    def timed_step(*args):
+    def timed_step(*args):  # fflint: ok raw_timer_in_hot_path (timing is the point)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = step_fn(*args)
@@ -6458,6 +6470,65 @@ EXAMPLES = (("mnist_mlp.py", ("-b", "64", "-e", "2")),
             ("keras_mnist_mlp.py", ("-b", "64")))
 
 
+# the lines of `examples/unity_vs_dp.py` that pin the JAX package's
+# platform: the port takes its device from --device, so its copy of the
+# example leaves them out with the package import swapped
+JAX_PLATFORM_PIN = """    import jax
+
+    if jax.default_backend() == "cpu":
+        jax.config.update("jax_platforms", "cpu")
+"""
+
+
+def port_example_source(name: str) -> str:
+    """`examples/<name>` under the port: `flexflow_tpu` replaced by
+    `flexflow_tpu_torch`, and the JAX platform pin (an import of jax and
+    its use) left out; nothing else changed."""
+    src = open(os.path.join(REPO, "examples", name)).read()
+    src = src.replace(JAX_PLATFORM_PIN, "").replace("flexflow_tpu",
+                                                    "flexflow_tpu_torch")
+    if re.search(r"\bjax\b", src.replace("flexflow_tpu_torch", "")):
+        raise ValueError(f"examples/{name} uses jax beyond its platform "
+                         f"pin: the port's copy cannot run it")
+    return src
+
+
+def run_port_example(name: str, argv: list, workdir: str) -> dict:
+    """The port's copy of `examples/<name>` run in this process as
+    `__main__` with `argv`, its temporary files and its artifact under
+    `workdir` (every rank of a world runs it, its group already started:
+    the example itself starts none). Returns the artifact it wrote."""
+    import runpy
+    import tempfile
+
+    from flexflow_tpu_torch.distributed import world_rank
+
+    path = os.path.join(workdir, name)
+    if not os.path.exists(path):
+        with open(path + f".{os.getpid()}", "w") as f:
+            f.write(port_example_source(name))
+        os.replace(path + f".{os.getpid()}", path)
+    artifact = os.path.join(workdir, f"artifact_rank{world_rank()}.json")
+    old = (list(sys.argv), tempfile.tempdir,
+           os.environ.get("UNITY_VS_DP_ARTIFACT"))
+    sys.argv = [path, *argv]
+    tempfile.tempdir = workdir
+    os.environ["UNITY_VS_DP_ARTIFACT"] = artifact
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, tempfile.tempdir = old[0], old[1]
+        if old[2] is None:
+            os.environ.pop("UNITY_VS_DP_ARTIFACT", None)
+        else:
+            os.environ["UNITY_VS_DP_ARTIFACT"] = old[2]
+    with open(artifact) as f:
+        out = json.load(f)
+    with open(out["plan_file"]) as f:
+        out["plan"] = json.load(f)
+    return out
+
+
 def example_run(name: str, flags: tuple) -> dict:
     """`examples/<name>` with `flexflow_tpu` replaced by
     `flexflow_tpu_torch` and nothing else changed, run as a script on the
@@ -6501,7 +6572,7 @@ def cnn_check() -> dict:
     )
     from flexflow_tpu_torch.torch_frontend import PyTorchModel
 
-    torch.manual_seed(SEED)
+    torch.manual_seed(SEED)  # fflint: ok global_rng (nn.Module init draws from it)
     net = small_cnn().eval()
     cfg = FFConfig()
     cfg.parse_args(["-b", "8"])
@@ -6576,6 +6647,226 @@ def log_phase24(p: dict):
     log(f"  (c) torch CNN on {cnn['device']}: max abs err "
         f"{cnn['max_abs_err']:.3e} ({cnn['layers']})")
     log(f"  phase 24 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------------ phase 25
+
+# 25(d): serve_bench's shared-prefix trace at lm-base, in exact float32
+# (no bf16 input cast): the paired runs compute a token in calls of
+# different widths, so their streams are bit-identical only there
+P25_TRACE = ("--requests", "16", "--prompt-len", "64", "--max-new-tokens",
+             "32", "--no-tensor-op-math-conversion")
+# 25(e): three configs of the fidelity battery (a flash LM, the MLP, MoE)
+P25_FIDELITY = ("lm_h1024_s512_b8_flash", "mlp_unify_b64_h4096",
+                "moe_flat_b256_fused")
+
+
+def root_script(name: str):
+    """A root `*_torch.py` twin, imported (its `main(argv)` runs in this
+    process)."""
+    import importlib
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    return importlib.import_module(name)
+
+
+def counted(fn, *args):
+    """(fn(*args), the launches of each kernel it made), the counts read
+    just before and just after it."""
+    from flexflow_tpu_torch.kernels import counters
+
+    before = {k: c.launches for k, c in counters().items()}
+    out = fn(*args)
+    return out, {k: c.launches - before[k] for k, c in counters().items()
+                 if c.launches > before[k]}
+
+
+def quiet_main(name: str, argv: list):
+    """A twin's `main(argv)` with its output kept (printed only on a
+    failure): (exit code, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = root_script(name).main(list(argv))
+    return rc, buf.getvalue()
+
+
+def serve_bench_phase(root: str) -> dict:
+    """25(d): serve_bench_torch at lm-base (exact float32, flash): the
+    shared-prefix trace closed loop in both layouts, then open loop on
+    the paged layout at half the closed loop's paged req/s with bursts of
+    4, then speculation with a seed-clone drafter; each run's completions
+    bit-identical to its pair (the script's rule, exit 1 otherwise), K1,
+    K2 and K3 launched."""
+    import contextlib
+    import io
+
+    sb = root_script("serve_bench_torch")
+    out = {}
+
+    def bench(argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, payload = sb.bench(list(argv))
+        log(f"  25(d) serve_bench {' '.join(argv)}: exit {rc} in "
+            f"{time.perf_counter() - t:.1f} s")
+        require(rc == 0, f"25(d) serve_bench {' '.join(argv)}: exit {rc}: "
+                f"{buf.getvalue()[-1500:]}")
+        payload.pop("completions")
+        return payload
+
+    (closed, n) = counted(bench, P25_TRACE + ("--layout", "both"))
+    require(all(n.get(k, 0) > 0 for k in (
+        "layer_norm_fwd", "flash_decode_attention",
+        "paged_flash_decode_attention")),
+        f"25(d): K1, K2 and K3 not all launched: {n}")
+    out["closed"] = dict(closed, launches=n)
+    rate = 0.5 * closed["paged"]["requests_per_sec_per_chip"]
+    opened, n = counted(bench, P25_TRACE + (
+        "--layout", "paged", "--arrival-rate", f"{rate:.6f}",
+        "--burst", "4"))
+    out["open"] = dict(opened, launches=n)
+    spec, n = counted(bench, P25_TRACE + ("--speculate",))
+    out["speculate"] = dict(spec, launches=n)
+    return out
+
+
+def phase25(p19: dict, p20_root: str) -> dict:
+    """Phase 25: the JAX package's command-line surface as the port's
+    twins, each called in this process through `main(argv)` on the card:
+    (a) fflint_torch on the tree, clean; (b) ffcheck_torch --sources all
+    --self-test (one rank: the searched sources skipped), zero errors and
+    every class caught; (c) ffrules_torch, the oracle on cuda, zero
+    errors; (d) serve_bench_torch at lm-base (`serve_bench_phase`); (e)
+    cost_model_fidelity_torch on three of the battery, every number
+    finite; (f) run_ae_torch mlp and dlrm in dp, the MLP's gate met; (g)
+    run_doctor_torch --check on phase 20(a)'s telemetry dir; (h)
+    check_warmstart_torch on phase 19(d)'s cold and warm compiles (run
+    there). Each check fatal."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p25_")
+    t0 = time.perf_counter()
+    out, took = {}, {}
+
+    def run(key, fn, *args):
+        t = time.perf_counter()
+        r = fn(*args)
+        took[key] = time.perf_counter() - t
+        log(f"  25({key}) took {took[key]:.1f} s")
+        return r
+
+    try:
+        rc, text = run("a", quiet_main, "fflint_torch", [])
+        require(rc == 0, f"25(a) fflint_torch: exit {rc}: {text[-1500:]}")
+        out["a"] = {"rc": rc, "line": text.strip().splitlines()[-1]}
+
+        report = os.path.join(root, "ffcheck.json")
+        rc, text = run("b", quiet_main, "ffcheck_torch",
+                        ["--sources", "all", "--self-test", "--report",
+                         report])
+        require(rc == 0, f"25(b) ffcheck_torch: exit {rc}: {text[-1500:]}")
+        rep = json.load(open(report))
+        require(len(rep["self_test"]) == 12 and all(
+            e.get("errors", 0) == 0 for e in rep["sources"]),
+            f"25(b) ffcheck_torch report: {rep}")
+        out["b"] = {"sources": {e["plan_source"]: e.get("skipped", e.get(
+            "errors")) for e in rep["sources"]},
+            "self_test": len(rep["self_test"])}
+
+        report = os.path.join(root, "ffrules.json")
+        rc, text = run("c", quiet_main, "ffrules_torch",
+                        ["--report", report])
+        require(rc == 0, f"25(c) ffrules_torch: exit {rc}: {text[-1500:]}")
+        rep = json.load(open(report))
+        require(rep["device"] == "cuda" and rep["sweep"]["errors"] == 0,
+                f"25(c) ffrules_torch report: {rep}")
+        out["c"] = {"sweep": rep["sweep"], "self_test": len(rep["self_test"]),
+                    "load_gate": rep["load_gate"]}
+
+        out["d"] = run("d", serve_bench_phase, root)
+
+        report = os.path.join(root, "fidelity.json")
+        (rc, text), n = run("e", counted, quiet_main,
+                             "cost_model_fidelity_torch",
+                             [report, "--configs", ",".join(P25_FIDELITY)])
+        require(rc == 0, f"25(e) fidelity: exit {rc}: {text[-1500:]}")
+        rep = json.load(open(report))
+        require(all(np.isfinite(v) for r in rep["configs"]
+                    for k, v in r.items() if k != "name"),
+                f"25(e) fidelity: a number not finite: {rep}")
+        require(all(n.get(k, 0) > 0 for k in (
+            "layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
+            f"25(e): K1, K4, K5, K6 and K7 not all launched: {n}")
+        out["e"] = dict(rep, launches=n)
+
+        rc, text = run("f", quiet_main, "run_ae_torch",
+                        ["--models", "mlp,dlrm", "--modes", "dp"])
+        require(rc == 0, f"25(f) run_ae_torch: exit {rc}: {text[-1500:]}")
+        out["f"] = [json.loads(m) for m in re.findall(
+            r"^AE_RESULT (.*)$", text, re.M)]
+        mlp = [r for r in out["f"] if r["model"] == "mlp"]
+        require(len(out["f"]) == 2 and mlp and mlp[0]["accuracy"] >= 0.9,
+                f"25(f) run_ae_torch: {out['f']}")
+
+        tdir = os.path.join(p20_root, "a")
+        rc, text = run("g", quiet_main, "run_doctor_torch",
+                        [tdir, "--check", "--json"])
+        require(rc == 0, f"25(g) run_doctor_torch --check: exit {rc}: "
+                f"{text[-1500:]}")
+        out["g"] = {"rc": rc, "verdict": json.loads(text)["verdict"]}
+
+        warm = p19["warm"]["check_warmstart"]
+        require(warm["rc"] == 0, f"25(h) check_warmstart_torch: {warm}")
+        out["h"] = warm
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(p20_root, ignore_errors=True)
+    out["took_s"] = took
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_phase25(p: dict):
+    log(f"  (a) {p['a']['line']}")
+    log(f"  (b) ffcheck: sources {p['b']['sources']}, self-test classes "
+        f"caught {p['b']['self_test']}")
+    log(f"  (c) ffrules: {p['c']['sweep']['errors']} errors over the "
+        f"registry ({p['c']['sweep']['elapsed_s']:.1f} s, oracle on "
+        f"cuda), self-test classes {p['c']['self_test']}, load gate "
+        f"{p['c']['load_gate']}")
+    for key, r in p["d"].items():
+        for lay in ("paged", "contiguous", "spec"):
+            if lay not in r:
+                continue
+            s = r[lay]
+            log(f"  (d) {key} {lay}: {s['requests_per_sec_per_chip']:.3f} "
+                f"req/s/chip, {s['decode_tokens_per_sec_per_chip']:.1f} "
+                f"decode tokens/s/chip, TTFT p50/p95/p99 "
+                + "/".join(f"{1e3 * s.get(f'ttft_{q}_s', float('nan')):.2f}"
+                           for q in ("p50", "p95", "p99"))
+                + " ms, TBT p50/p95/p99 "
+                + "/".join(f"{1e3 * s.get(f'tbt_{q}_s', float('nan')):.2f}"
+                           for q in ("p50", "p95", "p99")) + " ms")
+        log(f"  (d) {key}: launches {r['launches']}; slots_at_fixed_hbm "
+            f"{r.get('slots_at_fixed_hbm')}")
+    for r in p["e"]["configs"]:
+        log(f"  (e) {r['name']}: measured {r['measured_ms']:.3f} ms, raw "
+            f"{r['predicted_ms']:.3f} ({r['rel_err']:+.2%}), calibrated "
+            f"{r['predicted_calibrated_ms']:.3f} "
+            f"({r['rel_err_calibrated']:+.2%})")
+    log(f"  (e) launches {p['e']['launches']}")
+    for r in p["f"]:
+        log(f"  (f) AE_RESULT {json.dumps(r)}")
+    log(f"  (g) run_doctor --check: exit {p['g']['rc']}, verdict "
+        f"{p['g']['verdict']}; (h) check_warmstart: {p['h']['line']}")
+    log(f"  phase 25 took {p['wall_s']:.1f} s ({p['took_s']})")
 
 
 # ------------------------------------------------------- the mesh: MoE
@@ -6704,6 +6995,120 @@ def log_mesh_moe(r: dict):
             f"{run.get('nccl_ms')} ms, dropped {run['dropped']}, "
             f"delta_rel {chk.get('delta_rel')}, loss_rel "
             f"{chk.get('loss_rel')}")
+
+
+# ------------------------------------------------------- the mesh: the CLIs
+
+# the AE leg's batches an epoch: each model's fit runs this many steps an
+# epoch, so its warm-up and capture do not dominate samples/s
+MESH_AE_BATCHES = 64
+# the unity_vs_dp leg: the example's defaults (hidden 4096, batch 64)
+# with the search over dp 2 x tp 2
+MESH_UNITY_FLAGS = ("--mesh", "2,2,1,1", "--budget", "8")
+
+
+def mesh_cli_check(device: str, ae_models: str = "",
+                   trace: tuple = P25_TRACE,
+                   unity_flags: tuple = MESH_UNITY_FLAGS) -> dict:
+    """The command-line legs of the torchrun run on this rank of the
+    process group already started, each twin in this process: (a)
+    run_ae_torch over the whole AE set, unity and dp, the MLP's gate; (b)
+    serve_bench_torch --disaggregate (prefill on the first half of the
+    world, decode on the rest) at lm-base on phase 25's trace, its
+    completions bit-identical to the unified engine's; (c)
+    examples/unity_vs_dp.py under the port (`run_port_example`): its
+    searched plan exported, replayed by import, the same on every rank.
+    A failed check is recorded in `failures`; the ranks stay in step.
+    On the CPU (a rehearsal on gloo ranks) `ae_models`, `trace` and
+    `unity_flags` cut the sizes."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import shared_tempdir
+
+    rank = dist.get_rank()
+    failures, out, took = [], {"rank": rank}, {}
+    on = ("--device", "cpu") if device == "cpu" else ()
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    t = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            root_script("run_ae_torch").main(
+                ["--batches", str(MESH_AE_BATCHES), *on]
+                + (["--models", ae_models] if ae_models else []))
+    except SystemExit as e:
+        check(False, f"run_ae_torch: {e.code}")
+    out["ae"] = [json.loads(m) for m in re.findall(
+        r"^AE_RESULT (.*)$", buf.getvalue(), re.M)]
+    n_ae = 2 * len(ae_models.split(",")) if ae_models else 16
+    if rank == 0:
+        check(len(out["ae"]) == n_ae, f"run_ae_torch: {len(out['ae'])} "
+              f"results of {n_ae}")
+    took["ae"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, payload = root_script("serve_bench_torch").bench(
+            trace + ("--disaggregate", *on))
+    check(rc == 0, f"serve_bench_torch --disaggregate: exit {rc}")
+    payload.pop("completions", None)
+    out["disagg"] = payload
+    took["disagg"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    workdir = shared_tempdir("chip_smoke_unity_")
+    with contextlib.redirect_stdout(io.StringIO()):
+        uvd = run_port_example("unity_vs_dp.py", [*unity_flags, *on],
+                               workdir)
+    plans = [None] * dist.get_world_size()
+    dist.all_gather_object(plans, uvd["plan"])
+    check(all(p == plans[0] for p in plans),
+          "unity_vs_dp: the ranks hold different plans")
+    out["unity_vs_dp"] = uvd
+    took["unity_vs_dp"] = time.perf_counter() - t
+    dist.barrier()
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["took_s"] = took
+    out["failures"] = failures
+    return out
+
+
+def log_mesh_cli(r: dict):
+    log(f"  rank {r['rank']} CLI legs ({r['took_s']}):")
+    for a in r["ae"]:
+        log(f"    AE_RESULT {json.dumps(a)}")
+    d = r["disagg"]
+    for lay in ("paged", "disagg"):
+        if lay in d:
+            s = d[lay]
+            log(f"    serve_bench {lay}: "
+                f"{s.get('requests_per_sec_per_chip', 0):.3f} req/s/chip, "
+                f"{s.get('decode_tokens_per_sec_per_chip', 0):.1f} decode "
+                f"tokens/s/chip, TTFT p50/p95/p99 "
+                + "/".join(str(s.get(f"ttft_{q}_s")) for q in
+                           ("p50", "p95", "p99"))
+                + " s, TBT p50/p95/p99 "
+                + "/".join(str(s.get(f"tbt_{q}_s")) for q in
+                           ("p50", "p95", "p99")) + " s")
+    if "disagg" in d:
+        log(f"    handoffs {d['disagg'].get('handoffs')}, predicted "
+            f"{d['disagg'].get('handoff_predicted_s')} s, measured "
+            f"{d['disagg'].get('handoff_measured_s')} s")
+    u = r["unity_vs_dp"]
+    log(f"    unity_vs_dp: dp {u['dp_samples_per_s']} samples/s, unity "
+        f"{u['unity_samples_per_s']}, replay "
+        f"{u['unity_replay_samples_per_s']} (speedup {u['speedup']}); "
+        f"plan {json.dumps(u['plan'])[:200]}")
 
 
 # ------------------------------------------------------- the mesh: serving
@@ -7010,7 +7415,7 @@ def mesh_c5_check(device: str, lm) -> dict:
         dist.all_reduce(t)
         got = {"raised": raised, "stopped_at": stopped_at,
                "capturing": capturing, "graphs_freed": held() is None,
-               "fresh_last_call": replayed, "all_reduce": float(t.item())}
+               "fresh_last_call": replayed, "all_reduce": float(t.item())}  # fflint: ok host_sync_in_loop (a check per kind)
         checks[kind] = got
         want_call = "replay" if on_card else ""
         if got != {"raised": kind, "stopped_at": 3, "capturing": False,
@@ -7225,7 +7630,7 @@ def log_gloo(g: dict):
         log_mesh_runs(out)
 
 
-def mesh_main(json_path: str) -> int:
+def mesh_main(json_path: str, legs: str = "all") -> int:
     """The mesh run, under `torchrun --nproc-per-node N` (N > 1 cards of
     one host): one rank a card over NCCL, `mesh_check` captured, lm-base
     at MESH_LAYERS layers. Rank 0 prints every rank's runs and checks,
@@ -7236,7 +7641,6 @@ def mesh_main(json_path: str) -> int:
     import torch.distributed as dist
 
     from flexflow_tpu_torch.distributed import initialize
-    from flexflow_tpu_torch.search.machine_model import card_line
 
     initialize(device="cuda")
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -7246,13 +7650,17 @@ def mesh_main(json_path: str) -> int:
             f"LM, 12 layers), captured")
         build_kernels()  # once, before the ranks' first use
     dist.barrier()
-    out = mesh_check(f"cuda:{torch.cuda.current_device()}",
+    dev = f"cuda:{torch.cuda.current_device()}"
+    if legs == "cli":
+        # the command-line legs alone (`--legs cli`)
+        out = {"cli": mesh_cli_check(dev)}
+        return mesh_finish(out, ["cli"], json_path, rank, world)
+    out = mesh_check(dev,
                      lm_config(layers=MESH_LAYERS), MESH_STEPS,
                      captured=True, search=True,
                      seq_lm=dataclasses.replace(
                          lm_config(), sequence_length=RING_SEQ),
                      pipe_lm=lm_config())
-    dev = f"cuda:{torch.cuda.current_device()}"
     out["resume"] = mesh_resume_check(
         dev, lm_config(layers=MESH_LAYERS), MESH_STEPS, captured=True)
     # the legs in the order they had before C5 (a captured step's graph
@@ -7264,13 +7672,22 @@ def mesh_main(json_path: str) -> int:
     out["elastic"] = mesh_elastic_check(dev, lm_config())
     out["serve"] = mesh_serve_check(dev)
     out["moe"] = mesh_moe_check(dev)
-    out["failures"] = (out["failures"] + out["resume"]["failures"]
-                       + out["diag"]["failures"]
-                       + out["barrier"]["failures"]
-                       + out["c5"]["failures"]
-                       + out["elastic"]["failures"]
-                       + out["serve"]["failures"]
-                       + out["moe"]["failures"])
+    out["cli"] = mesh_cli_check(dev)
+    return mesh_finish(out, ["resume", "diag", "barrier", "c5", "elastic",
+                             "serve", "moe", "cli"], json_path, rank, world)
+
+
+def mesh_finish(out: dict, legs: list, json_path: str, rank: int,
+                world: int) -> int:
+    """The mesh run's end on every rank: the legs' failures joined, each
+    rank's numbers written, rank 0 logging every rank's runs and checks,
+    the card line and the verdict last."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.search.machine_model import card_line
+
+    out["failures"] = out.get("failures", []) + [
+        f for leg in legs for f in out[leg]["failures"]]
     if json_path:
         root, ext = os.path.splitext(os.path.abspath(json_path))
         os.makedirs(os.path.dirname(root), exist_ok=True)
@@ -7282,14 +7699,17 @@ def mesh_main(json_path: str) -> int:
            for f in o["failures"]]
     if rank == 0:
         for o in outs:
-            log_mesh_runs(o)
-            log_mesh_resume(o["resume"])
-            log_mesh_resume(o["diag"])
-            log_mesh_resume(o["barrier"])
-            log_mesh_resume(o["c5"])
-            log_mesh_elastic(o["elastic"])
-            log_mesh_serve(o["serve"])
-            log_mesh_moe(o["moe"])
+            if "runs" in o:
+                log_mesh_runs(o)
+            for leg, fn in (("resume", log_mesh_resume),
+                            ("diag", log_mesh_resume),
+                            ("barrier", log_mesh_resume),
+                            ("c5", log_mesh_resume),
+                            ("elastic", log_mesh_elastic),
+                            ("serve", log_mesh_serve),
+                            ("moe", log_mesh_moe), ("cli", log_mesh_cli)):
+                if leg in legs:
+                    fn(o[leg])
         log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
@@ -7415,6 +7835,9 @@ def main(argv: list[str]) -> int:
                         help=argparse.SUPPRESS)  # phase 19(b)'s process
     parser.add_argument("--gate-child", default="",
                         help=argparse.SUPPRESS)  # phase 21(c)'s process
+    parser.add_argument("--legs", choices=("all", "cli"), default="all",
+                        help="under torchrun: every leg, or the "
+                        "command-line legs alone")
     args = parser.parse_args(argv)
     json_path = args.json
     if args.resume_child:
@@ -7435,7 +7858,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, REPO)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        return mesh_main(json_path)
+        return mesh_main(json_path, args.legs)
     from flexflow_tpu_torch.executor import set_float_policy
     from flexflow_tpu_torch.search.machine_model import card_line
 
@@ -7650,7 +8073,7 @@ def main(argv: list[str]) -> int:
         "layers, 8 x 512, bf16, SGD, captured): diagnostics, the sanitizer, "
         "sampled op profiles, drift, the hang watchdog, serving's "
         "telemetry, --profiling")
-    p20 = phase20(train, runs["paged"])
+    p20 = phase20(train, runs["paged"], keep_root=True)
     log_phase20(p20)
     log("== phase 21: the static analysis on the card: lm-base through the "
         "compile gate; the memory pass's peak vs phases 6 and 10; where "
@@ -7677,6 +8100,13 @@ def main(argv: list[str]) -> int:
         "the zoo at its published widths, the frontends")
     p24 = phase24()
     log_phase24(p24)
+    log("== phase 25: the command-line twins in process: fflint, ffcheck, "
+        "ffrules (oracle on cuda), serve_bench at lm-base (closed loop in "
+        "both layouts, open loop, speculation), cost_model_fidelity on "
+        "three of the battery, run_ae (mlp, dlrm; dp), run_doctor --check "
+        "on 20(a)'s dir, check_warmstart on 19(d)'s compiles")
+    p25 = phase25(p19, p20.pop("root"))
+    log_phase25(p25)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -7771,7 +8201,7 @@ def main(argv: list[str]) -> int:
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
                   phase19=p19, phase20=p20, phase21=p21, phase22=p22,
-                  phase23=p23, phase24=p24,
+                  phase23=p23, phase24=p24, phase25=p25,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -7901,6 +8331,22 @@ def main(argv: list[str]) -> int:
                                      for e in p24["c"]["examples"]},
                         "cnn_max_abs_err": p24["c"]["cnn"]["max_abs_err"],
                         "wall_s": p24["wall_s"]},
+                    "phase25": {
+                        "serve_bench": {
+                            f"{k} {lay}": [r[lay][m] for m in (
+                                "requests_per_sec_per_chip",
+                                "decode_tokens_per_sec_per_chip",
+                                "ttft_p95_s", "tbt_p95_s")]
+                            for k, r in p25["d"].items()
+                            for lay in ("paged", "contiguous", "spec")
+                            if lay in r},
+                        "fidelity": {r["name"]: [
+                            r["measured_ms"], r["rel_err"],
+                            r["rel_err_calibrated"]]
+                            for r in p25["e"]["configs"]},
+                        "run_ae": {r["model"]: r["samples_per_sec"]
+                                   for r in p25["f"]},
+                        "wall_s": p25["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

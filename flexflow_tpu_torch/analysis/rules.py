@@ -1070,10 +1070,12 @@ def gate_loaded_rules(xfers, mesh, config, path: str) -> AnalysisResult:
     """Verify externally-loaded (JSON) rules at load time. Errors raise
     RuleVerificationError naming rule + finding class unless
     --no-verify-rules, which downgrades to a logged warning; either way
-    the verdict is recorded for the compile report."""
+    the verdict is recorded for the compile report. The oracle runs on
+    the config's device."""
     from ..telemetry import log as fflog
 
-    result = verify_rules(xfers, mesh)
+    result = verify_rules(xfers, mesh,
+                          device=str(getattr(config, "device", "cpu")))
     # the compile pass (run) reuses these instead of re-loading the file
     result.rules_fingerprint = rules_fingerprint(xfers)
     result.rules_count = len(list(xfers))

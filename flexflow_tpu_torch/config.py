@@ -416,6 +416,9 @@ class FFConfig:
                 self.serve_spec_k = int(val())
             elif a == "--allow-tensor-op-math-conversion":
                 self.allow_tensor_op_math_conversion = True
+            elif a == "--no-tensor-op-math-conversion":
+                # exact float32 matmuls on the card (no bf16 input cast)
+                self.allow_tensor_op_math_conversion = False
             elif a == "--dtype":
                 d = val().lower()
                 table = {

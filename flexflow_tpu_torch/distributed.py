@@ -59,6 +59,27 @@ def initialize(
         world_size=int(num_processes), rank=int(process_id))
 
 
+def initialize_from_env(device: str = "cuda") -> bool:
+    """Start the process group from `torchrun`'s environment when it
+    names more than one rank and no group is started yet (a script that
+    may run alone or under `torchrun --nproc-per-node N`); True when a
+    group of more than one rank is up afterwards."""
+    if (not dist.is_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        initialize(device=device)
+    return world_size() > 1
+
+
+def shared_tempdir(prefix: str) -> str:
+    """A temporary directory every rank of the scope names alike: made on
+    the coordinator, its path broadcast (the ranks share a file
+    system)."""
+    import tempfile
+
+    path = tempfile.mkdtemp(prefix=prefix) if is_coordinator() else None
+    return broadcast_json({"path": path})["path"]
+
+
 # the sub-mesh (machine.Mesh with `sub`) the helpers below are scoped
 # to, else None: the whole world
 _SCOPE = None
@@ -299,18 +320,37 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class _PortTaken(RuntimeError):
+    """The rendezvous port went to another process between `free_port`
+    and the group's start."""
+
+
+# spawn's attempts, each on a fresh port
+SPAWN_PORT_TRIES = 3
+
+
 def spawn(fn, nprocs: int, *args, timeout: float = 600.0) -> list:
     """Run `fn(rank, *args)` in `nprocs` fresh processes joined in a gloo
     process group over localhost (the CPU twin of `torchrun
     --nproc-per-node`); returns their results in rank order, or raises
     with the first failing rank's traceback. `fn` must be importable (a
-    module-level function)."""
+    module-level function). A port another process took before the
+    group bound it starts the ranks again on a fresh one."""
+    for attempt in range(SPAWN_PORT_TRIES):
+        try:
+            return _spawn_once(fn, nprocs, args, timeout, free_port())
+        except _PortTaken:
+            if attempt == SPAWN_PORT_TRIES - 1:
+                raise
+
+
+def _spawn_once(fn, nprocs: int, args: tuple, timeout: float,
+                port: int) -> list:
     import multiprocessing as mp
     import queue as queue_mod
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = free_port()
     procs = [ctx.Process(target=_spawned,
                          args=(r, nprocs, port, fn, args, q), daemon=True)
              for r in range(nprocs)]
@@ -339,6 +379,8 @@ def spawn(fn, nprocs: int, *args, timeout: float = 600.0) -> list:
                         f"result in {timeout} s") from None
                 continue
             if not ok:
+                if not results and "EADDRINUSE" in out:
+                    raise _PortTaken(f"rank {rank}: port {port} taken")
                 raise RuntimeError(f"rank {rank} failed:\n{out}")
             results[rank] = out
     finally:

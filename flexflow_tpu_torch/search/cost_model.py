@@ -691,7 +691,10 @@ class CostModel:
                 return fn(*example_args)
 
         def loss_grad(out, wrt):
-            return torch.autograd.grad(out.float().square().sum(), wrt)
+            # an operand the output does not depend on differentiably (an
+            # expert assignment) has no gradient, as under jax.grad
+            return torch.autograd.grad(out.float().square().sum(), wrt,
+                                       allow_unused=True)
 
         fwd_t = self._timed(forward)
         out = fn(*example_args)
@@ -974,6 +977,12 @@ class OpHarness:
                          config.flash_packed_layout)
 
 
+# the inputs of the MoE ops that hold expert assignments (params.n
+# experts): the group_by's, the fused Experts op's, the aggregates'
+_ASSIGN_INPUTS = {OT.OP_GROUP_BY: (1,), OT.OP_EXPERTS: (2,),
+                  OT.OP_AGGREGATE: (1, 2), OT.OP_AGG_SPEC: (1, 2)}
+
+
 def _op_harness(node, harness: OpHarness):
     """(fn, example_args) running one op's unsharded forward on the
     harness's device (the sub-tensor construction of
@@ -998,6 +1007,13 @@ def _op_harness(node, harness: OpHarness):
         return torch.as_tensor(rs.randn(*shape), dtype=dt, device=device)
 
     ins = [_make(pt.shape.logical_shape, pt.dtype) for pt in node.inputs]
+    # an expert assignment input holds expert indices (in [0, n), at the
+    # tensor's own dtype): drawn as such, or the op reads out of bounds
+    for i in _ASSIGN_INPUTS.get(node.op_type, ()):
+        pt = node.inputs[i]
+        ins[i] = torch.as_tensor(
+            rs.randint(0, node.params.n, pt.shape.logical_shape),
+            dtype=dtype_to_torch(pt.dtype), device=device)
     trainable = {ws.name: _make(ws.shape, ws.dtype)
                  for ws in node.weight_specs if ws.trainable}
     state = {ws.name: _make(ws.shape, ws.dtype, compute=False)

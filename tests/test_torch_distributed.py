@@ -594,3 +594,26 @@ def test_mesh_smoke_checks_pass_on_four_cpu_ranks():
             == [4]
         assert "ring" in runs["sp 4"]["rules"], runs["sp 4"]["rules"]
         assert "pipe" in runs["pp 4"]["rules"], runs["pp 4"]["rules"]
+
+
+def rank_job(rank):
+    return rank
+
+
+def test_spawn_moves_past_a_taken_port(monkeypatch):
+    """A rendezvous port another process took between `free_port` and
+    the group's start (parallel test workers race for them) starts the
+    ranks again on a fresh port."""
+    import socket
+
+    from flexflow_tpu_torch import distributed as D
+
+    held = socket.socket()
+    held.bind(("localhost", 0))
+    held.listen()
+    ports = iter([held.getsockname()[1], D.free_port()])
+    monkeypatch.setattr(D, "free_port", lambda: next(ports))
+    try:
+        assert D.spawn(rank_job, 2, timeout=120) == [0, 1]
+    finally:
+        held.close()

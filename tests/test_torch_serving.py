@@ -23,6 +23,7 @@ the port pulls in neither (checked in a subprocess, since this process
 imports both), and a model asked for no device raises without CUDA.
 """
 
+import glob
 import os
 import re
 import subprocess
@@ -368,16 +369,25 @@ def test_load_params_rejects_unknown_names(models):
         load_params(tff, {"lm_head": {"kernel": np.zeros((2, 2))}})
 
 
+def _root_scripts() -> list:
+    """The root scripts that drive the port: every `*_torch.py`, the
+    card's smoke and its kernel sweep."""
+    return (sorted(glob.glob(os.path.join(REPO, "*_torch.py")))
+            + [os.path.join(REPO, "chip_smoke.py"),
+               os.path.join(REPO, "kernel_sweep.py")])
+
+
 def test_no_source_imports_jax():
-    """No module of the port, nor chip_smoke.py, bench_torch.py or
-    search_torch.py,
-    imports jax, the JAX package or ml_dtypes (a lazy import inside a
-    function included): the checkpointer decodes bfloat16 leaves itself."""
+    """No module of the port, nor any root script that drives it (every
+    `*_torch.py`, chip_smoke.py, kernel_sweep.py), imports jax, the JAX
+    package, anything under scripts/ or ml_dtypes (a lazy import inside
+    a function included): the checkpointer decodes bfloat16 leaves
+    itself."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flexflow_tpu|ml_dtypes)(\.|\s|$)", re.M)
-    sources = [os.path.join(REPO, "chip_smoke.py"),
-               os.path.join(REPO, "bench_torch.py"),
-               os.path.join(REPO, "search_torch.py")]
+        r"^\s*(import|from)\s+(jax|flexflow_tpu|ml_dtypes|scripts)"
+        r"(\.|\s|$)", re.M)
+    sources = _root_scripts()
+    assert len(sources) >= 12, sources  # the CLI twins among them
     for root, dirs, files in os.walk(os.path.join(REPO, "flexflow_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -408,7 +418,9 @@ def test_import_pulls_in_no_jax():
         "flexflow_tpu_torch.scope.watchdog, flexflow_tpu_torch.scope.profile, "
         "flexflow_tpu_torch.scope.attribution, "
         "flexflow_tpu_torch.scope.kineto, "
-        "flexflow_tpu_torch.diagnostics.doctor\n"
+        "flexflow_tpu_torch.diagnostics.doctor, "
+        + ", ".join(os.path.basename(p)[:-3] for p in _root_scripts())
+        + "\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flexflow_tpu' or "
         "m.startswith('flexflow_tpu.') or m == 'ml_dtypes']\n"
