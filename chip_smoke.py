@@ -4151,6 +4151,7 @@ def resume_check(device: str, lm, batch: int, plain, want: dict,
 
     import torch
 
+    from flexflow_tpu_torch.distributed import child_env
     from flexflow_tpu_torch.resilience import (
         CheckpointPolicy, FaultInjector, latest_checkpoint, list_checkpoints)
 
@@ -4222,7 +4223,8 @@ def resume_check(device: str, lm, batch: int, plain, want: dict,
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "chip_smoke.py"),
          "--resume-child", json.dumps(job)],
-        capture_output=True, text=True, timeout=600, cwd=REPO)
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=child_env())
     require(proc.returncode == 0, f"phase 19(b): the fresh process "
             f"failed ({proc.returncode}): {proc.stderr[-3000:]}")
     fresh = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -5297,6 +5299,7 @@ def phase21(train: dict, train_x: dict, first_verify_s: float) -> dict:
 
     from flexflow_tpu_torch import FFConfig
     from flexflow_tpu_torch.analysis import verify_plan
+    from flexflow_tpu_torch.distributed import child_env
     from flexflow_tpu_torch.analysis.rules import verify_registry
     from flexflow_tpu_torch.diagnostics.explain import build_strategy_report
     from flexflow_tpu_torch.kernels import counters, reset_counters
@@ -5334,7 +5337,8 @@ def phase21(train: dict, train_x: dict, first_verify_s: float) -> dict:
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "chip_smoke.py"),
          "--gate-child", "{}"],
-        capture_output=True, text=True, timeout=900, cwd=REPO)
+        capture_output=True, text=True, timeout=900, cwd=REPO,
+        env=child_env())
     require(proc.returncode == 0, f"phase 21(c): the child failed "
             f"({proc.returncode}): {proc.stderr[-3000:]}")
     c = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -6537,12 +6541,14 @@ def example_run(name: str, flags: tuple) -> dict:
     import subprocess
     import tempfile
 
+    from flexflow_tpu_torch.distributed import child_env
+
     src = open(os.path.join(REPO, "examples", name)).read()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p24_") as tmp:
         path = os.path.join(tmp, name)
         with open(path, "w") as f:
             f.write(src.replace("flexflow_tpu", "flexflow_tpu_torch"))
-        env = dict(os.environ)
+        env = child_env()
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         t0 = time.perf_counter()
         p = subprocess.run([sys.executable, path, *flags], cwd=REPO,
@@ -6867,6 +6873,223 @@ def log_phase25(p: dict):
     log(f"  (g) run_doctor --check: exit {p['g']['rc']}, verdict "
         f"{p['g']['verdict']}; (h) check_warmstart: {p['h']['line']}")
     log(f"  phase 25 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------------ phase 26
+
+# the legs of bench_torch.py phase 26 runs on one card
+P26_LEGS = ("seq4096", "fit_loop", "serving", "rules", "warmstart")
+# bench.py's keys of the lines those legs print on one device
+# (bench.py:1245-1257, 1274-1285, 1324-1368, 1418-1424, 1437-1443; the
+# payload's fields: 1449-1477), the serial-schedule keys left out, as
+# the card line each of the port's lines adds
+BENCH_LINE_KEYS = {
+    "transformer_lm_tokens_per_sec_per_chip_seq4096": {
+        "metric", "value", "unit", "vs_baseline", "ablation"},
+    "transformer_lm_fit_tokens_per_sec_eager": {"metric", "value", "unit"},
+    "transformer_lm_fit_tokens_per_sec_pipelined": {
+        "metric", "value", "pipeline_steps", "speedup_vs_eager_fit", "unit"},
+    "serving_requests_per_sec_per_chip": {"metric", "value", "unit"},
+    "serving_decode_tokens_per_sec_per_chip": {"metric", "value", "unit"},
+    "serving_paged_slots_at_fixed_hbm": {"metric", "value",
+                                         "prefix_hit_rate", "unit"},
+    "serving_spec_tbt_p95_s": {"metric", "value", "unified_tbt_p95_s",
+                               "acceptance_rate", "rounds", "unit"},
+    "rules_verify_wall_s": {"metric", "value", "rules", "fingerprint",
+                            "unit"},
+    "warmstart_time_to_first_step_s": {"metric", "cold", "warm", "speedup",
+                                       "unit"},
+    "transformer_lm_bench_payload": {"metric", *P26_LEGS},
+}
+BENCH_LEG_KEYS = {
+    "seq4096": {"flash_packed_tokens_per_sec",
+                "flash_transposed_tokens_per_sec", "packed_vs_transposed",
+                "ring_overlap_tokens_per_sec"},
+    "fit_loop": {"eager_tokens_per_sec", "pipelined_tokens_per_sec",
+                 "pipeline_steps", "speedup"},
+    "rules": {"fingerprint", "rules", "scope", "verify_wall_s"},
+    "warmstart": {"cold_time_to_first_step_s", "warm_time_to_first_step_s",
+                  "speedup"},
+}
+
+
+def bench_keys(d: dict) -> set:
+    return {k for k in d if "serial" not in k and k != "card"}
+
+
+def phase26() -> dict:
+    """Phase 26: bench_torch.py's one-card legs (`--legs seq4096,
+    fit_loop,serving,rules,warmstart`) through its `main` in this
+    process: exit 0, every result line JSON, each line's and each payload
+    field's keys bench.py's (the serial-schedule ablations aside), every
+    line carrying the card; the serving leg's paged and contiguous
+    float32 streams equal (the leg raises otherwise); the launches of
+    each leg counted (K5-K7 at seq 4096 in the seq4096 leg: there the
+    backward takes K6 + K7, the single-tile K8 only reaching 512 keys);
+    then bench_ablate_torch.py's step with no switch and with
+    ABL_FWD_ONLY, the forward-only step the shorter."""
+    import contextlib
+    import io
+
+    bt = root_script("bench_torch")
+    ba = root_script("bench_ablate_torch")
+    t0 = time.perf_counter()
+    launches, took = {}, {}
+
+    def counting(name, fn):
+        def leg(b):
+            t = time.perf_counter()
+            out, launches[name] = counted(fn, b)
+            took[name] = time.perf_counter() - t
+            return out
+        return leg
+
+    legs = {k: counting(k, bt.LEG_FNS[k]) for k in P26_LEGS}
+    buf = io.StringIO()
+    with mock.patch.dict(bt.LEG_FNS, legs), contextlib.redirect_stdout(buf):
+        rc = bt.main(["--legs", ",".join(P26_LEGS)])
+    text = buf.getvalue()
+    require(rc == 0, f"26: bench_torch exit {rc}: {text[-1500:]}")
+    # the result lines (the port's log lines, a warm-start note among
+    # them, share stdout)
+    lines = [json.loads(t) for t in text.splitlines() if t.startswith("{")]
+    got = {d["metric"]: d for d in lines}
+    require(list(got) == list(BENCH_LINE_KEYS),
+            f"26: lines {list(got)}, want {list(BENCH_LINE_KEYS)}")
+    for metric, want in BENCH_LINE_KEYS.items():
+        require(bench_keys(got[metric]) == want and got[metric].get("card"),
+                f"26: {metric} keys {sorted(got[metric])}, want "
+                f"{sorted(want)} and the card")
+    payload = got["transformer_lm_bench_payload"]
+    for leg, want in BENCH_LEG_KEYS.items():
+        have = payload[leg]["ablation"] if leg == "seq4096" else payload[leg]
+        require(bench_keys(have) == want,
+                f"26: {leg} keys {sorted(have)}, want {sorted(want)}")
+    sv = payload["serving"]
+    require(sv["disagg"].get("skipped", "").startswith("1 rank(s)")
+            and sv["spec"]["requests"] > 0 and sv["paged"]["prefix_hit_rate"]
+            > 0, f"26: serving {sv}")
+    seq = launches["seq4096"]
+    require(all(seq.get(k, 0) > 0 for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd")),
+        f"26: the seq4096 leg's launches {seq}")
+    require(all(launches["serving"].get(k, 0) > 0 for k in (
+        "flash_decode_attention", "paged_flash_decode_attention")),
+        f"26: the serving leg's launches {launches['serving']}")
+
+    t = time.perf_counter()
+    full = ba.run("cuda", env={})
+    fwd = ba.run("cuda", env={"ABL_FWD_ONLY": "1"})
+    took["ablate"] = time.perf_counter() - t
+    require(fwd["ms_per_step"] < full["ms_per_step"],
+            f"26: bench_ablate forward-only {fwd} not shorter than the "
+            f"step {full}")
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    return {"lines": lines, "launches": launches,
+            "ablate": {"step": full, "fwd_only": fwd},
+            "serving_streams_equal": True, "took_s": took,
+            "wall_s": time.perf_counter() - t0}
+
+
+def log_phase26(p: dict):
+    for d in p["lines"]:
+        if d["metric"] != "transformer_lm_bench_payload":
+            log(f"  {json.dumps(d)}")
+    pay = next(d for d in p["lines"]
+               if d["metric"] == "transformer_lm_bench_payload")
+    sv = pay["serving"]
+    log(f"  serving (f32): {sv['requests_per_sec_per_chip']} req/s/chip, "
+        f"{sv['decode_tokens_per_sec_per_chip']} decode tokens/s/chip, "
+        f"paged {json.dumps(sv['paged'])}; spec {json.dumps(sv['spec'])}")
+    for leg, n in p["launches"].items():
+        log(f"  {leg} launches {n}")
+    log(f"  bench_ablate: step {p['ablate']['step']['ms_per_step']} ms, "
+        f"forward only {p['ablate']['fwd_only']['ms_per_step']} ms")
+    log(f"  phase 26 took {p['wall_s']:.1f} s ({p['took_s']})")
+
+
+# ------------------------------------------------------- the mesh: bench
+
+MESH_BENCH_LEGS = ("seq4096", "grad_sync", "param_sharding", "migration",
+                   "elastic")
+
+
+def _finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_finite(v) for v in x)
+    return not isinstance(x, float) or np.isfinite(x)
+
+
+def mesh_bench_check(device: str, lm=None, steps: int | None = None) -> dict:
+    """The bench leg of the torchrun run on this rank of the started
+    group: bench_torch.py's multi-rank legs (seq4096 with the ring over
+    `seq`, grad_sync, param_sharding, migration, elastic) on the world,
+    lm-base at MESH_LAYERS layers, full width (on the CPU, a rehearsal on
+    gloo ranks, `lm` and `steps` cut the sizes). Each leg's numbers
+    printed, not skipped, every number finite, the migration verified,
+    the elastic leg decided; rank 0 keeps the lines bench_torch printed.
+    A failed check is recorded in `failures`."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    bt = root_script("bench_torch")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # "cuda" is this rank's card (LOCAL_RANK) in every model the legs build
+    b = bt.Bench("cuda" if device.startswith("cuda") else device,
+                 steps=steps, warmup=1 if steps else None, layers=MESH_LAYERS)
+    if lm is not None:
+        b.cfg = lm
+    failures, out, took = [], {"rank": rank}, {}
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    buf = io.StringIO()
+    for leg in MESH_BENCH_LEGS:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[leg] = bt.LEG_FNS[leg](b)
+        took[leg] = time.perf_counter() - t
+        check("skipped" not in out[leg], f"bench {leg}: {out[leg]}")
+        check(_finite(out[leg]), f"bench {leg}: a number not finite")
+    abl = out["seq4096"]["ablation"]
+    check(abl.get("ring_seq_shards") == world
+          and abl["ring_overlap_tokens_per_sec"] > 0,
+          f"bench seq4096: the ring {abl}")
+    for leg in ("grad_sync", "param_sharding"):
+        check(out[leg].get("update_shards", out[leg].get("shards")) == world,
+              f"bench {leg}: {out[leg]}")
+    check(out["migration"].get("errors") == 0
+          and out["migration"].get("transfers", 0) > 0,
+          f"bench migration: {out['migration']}")
+    check(out["elastic"].get("decision") is not None,
+          f"bench elastic: {out['elastic']}")
+    out["lines"] = [json.loads(t) for t in buf.getvalue().splitlines()
+                    if t.startswith("{")]
+    check(rank != 0 or len(out["lines"]) == len(MESH_BENCH_LEGS),
+          f"bench: rank 0 printed {len(out['lines'])} lines")
+    out["took_s"] = took
+    out["failures"] = failures
+    return out
+
+
+def log_mesh_bench(r: dict):
+    log(f"  rank {r['rank']} bench legs ({r['took_s']}):")
+    for d in r["lines"]:
+        log(f"    {json.dumps(d)}")
+    if r["rank"] == 0:
+        log(f"    microbenches: reduce-scatter "
+            f"{r['grad_sync']['rs_microbench']}, all-gather "
+            f"{r['param_sharding']['ag_microbench']}")
 
 
 # ------------------------------------------------------- the mesh: MoE
@@ -7651,10 +7874,11 @@ def mesh_main(json_path: str, legs: str = "all") -> int:
         build_kernels()  # once, before the ranks' first use
     dist.barrier()
     dev = f"cuda:{torch.cuda.current_device()}"
-    if legs == "cli":
-        # the command-line legs alone (`--legs cli`)
-        out = {"cli": mesh_cli_check(dev)}
-        return mesh_finish(out, ["cli"], json_path, rank, world)
+    if legs in ("cli", "bench"):
+        # the command-line legs or the bench legs alone (`--legs`)
+        check = mesh_cli_check if legs == "cli" else mesh_bench_check
+        return mesh_finish({legs: check(dev)}, [legs], json_path, rank,
+                           world)
     out = mesh_check(dev,
                      lm_config(layers=MESH_LAYERS), MESH_STEPS,
                      captured=True, search=True,
@@ -7673,8 +7897,10 @@ def mesh_main(json_path: str, legs: str = "all") -> int:
     out["serve"] = mesh_serve_check(dev)
     out["moe"] = mesh_moe_check(dev)
     out["cli"] = mesh_cli_check(dev)
+    out["bench"] = mesh_bench_check(dev)
     return mesh_finish(out, ["resume", "diag", "barrier", "c5", "elastic",
-                             "serve", "moe", "cli"], json_path, rank, world)
+                             "serve", "moe", "cli", "bench"], json_path,
+                       rank, world)
 
 
 def mesh_finish(out: dict, legs: list, json_path: str, rank: int,
@@ -7707,7 +7933,8 @@ def mesh_finish(out: dict, legs: list, json_path: str, rank: int,
                             ("c5", log_mesh_resume),
                             ("elastic", log_mesh_elastic),
                             ("serve", log_mesh_serve),
-                            ("moe", log_mesh_moe), ("cli", log_mesh_cli)):
+                            ("moe", log_mesh_moe), ("cli", log_mesh_cli),
+                            ("bench", log_mesh_bench)):
                 if leg in legs:
                     fn(o[leg])
         log(card_line())
@@ -7835,9 +8062,10 @@ def main(argv: list[str]) -> int:
                         help=argparse.SUPPRESS)  # phase 19(b)'s process
     parser.add_argument("--gate-child", default="",
                         help=argparse.SUPPRESS)  # phase 21(c)'s process
-    parser.add_argument("--legs", choices=("all", "cli"), default="all",
+    parser.add_argument("--legs", choices=("all", "cli", "bench"),
+                        default="all",
                         help="under torchrun: every leg, or the "
-                        "command-line legs alone")
+                        "command-line legs or the bench legs alone")
     args = parser.parse_args(argv)
     json_path = args.json
     if args.resume_child:
@@ -8107,6 +8335,12 @@ def main(argv: list[str]) -> int:
         "on 20(a)'s dir, check_warmstart on 19(d)'s compiles")
     p25 = phase25(p19, p20.pop("root"))
     log_phase25(p25)
+    log("== phase 26: bench_torch.py's one-card legs in process (lm-base "
+        "at seq 4096 packed and transposed, the fit loop, serving in "
+        "float32 with speculation, the rule registry, the warm start), "
+        "then bench_ablate_torch.py with no switch and forward only")
+    p26 = phase26()
+    log_phase26(p26)
 
     # the pipelined LM's flash calls are phase 8's packed (8, 512, 16 x
     # 64) case: its launches reported beside phase 6's under rows 7, 9, 10
@@ -8166,6 +8400,11 @@ def main(argv: list[str]) -> int:
                 if counter in r[f"{side}_launches"]}
         if spec:
             n = dict(n, phase23_launches=spec)
+        # phase 26's bench legs, each counted from its start
+        bench_legs = {leg: c[counter] for leg, c in p26["launches"].items()
+                      if counter in c}
+        if bench_legs:
+            n = dict(n, phase26_launches=bench_legs)
         rows.append(dict(
             name=row, route=route, source=source, replaces=replaces,
             launches=run["launches"][counter], max_abs_err=errs[row],
@@ -8201,7 +8440,7 @@ def main(argv: list[str]) -> int:
                   pipelined=train_pp, pipelined_eager=train_ppe,
                   pipelined_gradients=grads_pp, ring_blocks=ring,
                   phase19=p19, phase20=p20, phase21=p21, phase22=p22,
-                  phase23=p23, phase24=p24, phase25=p25,
+                  phase23=p23, phase24=p24, phase25=p25, phase26=p26,
                   total_s=time.perf_counter() - t_start)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
@@ -8347,6 +8586,12 @@ def main(argv: list[str]) -> int:
                         "run_ae": {r["model"]: r["samples_per_sec"]
                                    for r in p25["f"]},
                         "wall_s": p25["wall_s"]},
+                    "phase26": {
+                        "lines": {d["metric"]: d.get("value") for d in
+                                  p26["lines"] if "value" in d},
+                        "ablate_ms": {k: v["ms_per_step"] for k, v in
+                                      p26["ablate"].items()},
+                        "wall_s": p26["wall_s"]},
                     "total_s": detail["total_s"]}))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -204,9 +204,13 @@ class FFConfig:
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
-        if self.workers_per_node == 0:
-            from .distributed import process_count
+        from .distributed import initialize_from_env, process_count
 
+        # a script under torchrun joins its world here, once, as the JAX
+        # package's one controller sees every device: the script needs no
+        # call of its own (ROADMAP C8)
+        initialize_from_env(self.device)
+        if self.workers_per_node == 0:
             self.workers_per_node = max(
                 1, process_count() // max(1, self.num_nodes))
 

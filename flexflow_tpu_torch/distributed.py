@@ -7,7 +7,10 @@ multi-controller mode). `initialize` starts the process group: from the
 environment `torchrun` sets (`env://`: MASTER_ADDR, MASTER_PORT, RANK,
 WORLD_SIZE), or from an explicit `coordinator_address`. The backend is
 "nccl" for a CUDA device and "gloo" for the CPU unless the caller names
-one. After it, `FFConfig` reads the world size, `--mesh` lays the ranks
+one. `FFConfig` calls `initialize_from_env` when it is made, so a script
+under torchrun joins the world without a call of its own; a subprocess a
+rank starts gets `child_env()` and stays out of it. After it, `FFConfig`
+reads the world size, `--mesh` lays the ranks
 over the mesh axes, and a plan decided on rank 0 reaches every rank as a
 serialized Strategy (`run_search_on_host0`).
 
@@ -68,6 +71,22 @@ def initialize_from_env(device: str = "cuda") -> bool:
             and int(os.environ.get("WORLD_SIZE", "1")) > 1):
         initialize(device=device)
     return world_size() > 1
+
+
+# what torchrun (and `spawn`) tell a rank about its world: a process a
+# rank starts is left out of that world by an environment without them
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "GROUP_RANK", "GROUP_WORLD_SIZE", "ROLE_RANK",
+                 "ROLE_WORLD_SIZE", "ROLE_NAME", "MASTER_ADDR", "MASTER_PORT")
+
+
+def child_env() -> dict:
+    """This process's environment without torchrun's variables (nor
+    `TORCHELASTIC_*`): a subprocess a rank starts with it is a world of
+    its own, where an `FFConfig` starts no group (the group start in
+    `FFConfig` reads WORLD_SIZE)."""
+    return {k: v for k, v in os.environ.items()
+            if k not in TORCHRUN_VARS and not k.startswith("TORCHELASTIC_")}
 
 
 def shared_tempdir(prefix: str) -> str:

@@ -30,6 +30,7 @@ import os
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ import os
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRACE = ["--requests", "12", "--prompt-len", "16", "--max-new-tokens", "8",

@@ -31,6 +31,7 @@ from flexflow_tpu import optimizer as jopt
 from flexflow_tpu_torch import executor as texec
 from flexflow_tpu_torch import optimizer as topt
 from flexflow_tpu_torch.kernels import KernelCounter
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=64, hidden_size=128, num_heads=2, num_layers=2,

@@ -23,6 +23,7 @@ from hypothesis import strategies as st
 
 from flexflow_tpu_torch.kernels import flash_attention as fa
 from flexflow_tpu_torch.kernels import layer_norm as ln
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # csrc/decode_attention.cu: kMaxSplitKeys, kMaxSplitFloats, 128 threads
 MAX_SPLIT_KEYS, MAX_SPLIT_FLOATS, SPLIT_THREADS = 64, 4096, 128

@@ -42,6 +42,7 @@ from flexflow_tpu_torch.diagnostics import (
     verify_report_total,
 )
 from flexflow_tpu_torch.telemetry.recorder import MetricsRecorder, read_jsonl
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = ("flexflow_tpu", "flexflow_tpu_torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

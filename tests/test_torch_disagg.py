@@ -34,6 +34,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHARED = [1, 2, 3, 4, 5, 6, 7, 8, 9]
 PROMPTS = [SHARED, SHARED + [40, 41], [20, 21, 22], SHARED]

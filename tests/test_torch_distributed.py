@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 WORLD = 4

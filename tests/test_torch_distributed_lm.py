@@ -26,6 +26,7 @@ from test_torch_distributed import (
     assert_ranks_agree,
     port_state,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MESH = (2, 2, 1, 1)
 BATCH, SEQ, STEPS = 4, 128, 2

@@ -39,6 +39,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PORT, JAX = "flexflow_tpu_torch", "flexflow_tpu"
 DP4 = (4, 1, 1, 1)

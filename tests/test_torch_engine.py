@@ -24,6 +24,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mlp(batch=8, seed=0, argv=(), dropout=0.25):

@@ -21,6 +21,7 @@ import sys
 from types import SimpleNamespace
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CI_MESH = {"data": 2, "model": 4, "dcn": 1, "seq": 1}
 PKGS = ("flexflow_tpu", "flexflow_tpu_torch")

@@ -38,6 +38,7 @@ import torch
 
 from flexflow_tpu_torch.kernels import counters, reset_counters
 from flexflow_tpu_torch.kernels import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("flexflow_tpu.kernels.flash_attention")
 

@@ -19,6 +19,7 @@ from hypothesis import strategies as st
 
 from flexflow_tpu_torch.kernels import counters, reset_counters
 from flexflow_tpu_torch.kernels import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = torch.bfloat16
 

@@ -27,6 +27,7 @@ import torch
 from flexflow_tpu.kernels.layer_norm import fused_layer_norm_or_none
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.kernels import layer_norm as tln
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX kernels package re-exports a function named flash_attention
 jfa = importlib.import_module("flexflow_tpu.kernels.flash_attention")

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_builders import _compile_pair, _copy, _parity
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 MESH_TOL = dict(rtol=2e-5, atol=2e-5)

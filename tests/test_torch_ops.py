@@ -20,6 +20,7 @@ from flexflow_tpu.ops.base import OpContext as JCtx, get_op_def as jdef
 from flexflow_tpu_torch import ops as tops
 from flexflow_tpu_torch.fftype import ActiMode as TActi, OperatorType as TOT
 from flexflow_tpu_torch.ops.base import OpContext as TCtx, get_op_def as tdef
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -24,6 +24,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax():

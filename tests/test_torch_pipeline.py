@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 from test_torch_distributed import F32_TOL
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PIPE_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

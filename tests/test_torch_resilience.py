@@ -32,6 +32,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 # JAX's own bound for a resume onto another mesh (tests/test_resilience.py)

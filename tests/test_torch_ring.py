@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from test_torch_distributed import F32_TOL, port_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _spawn(fn, n, *args):

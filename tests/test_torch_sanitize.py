@@ -25,6 +25,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=64, hidden_size=32, num_heads=2, num_layers=2,
             sequence_length=16)

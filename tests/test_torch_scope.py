@@ -44,6 +44,7 @@ from flexflow_tpu_torch.scope.attribution import (
 from flexflow_tpu_torch.scope.flightrec import FlightRecorder
 from flexflow_tpu_torch.scope.watchdog import THREAD_NAME, HangWatchdog
 from flexflow_tpu_torch.telemetry.recorder import read_jsonl
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

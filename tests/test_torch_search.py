@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = ("flexflow_tpu", "flexflow_tpu_torch")
 REL = 1e-12

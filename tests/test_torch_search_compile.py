@@ -4,6 +4,7 @@ one rank.
 
 One spawn (`flexflow_tpu_torch.distributed.spawn`) runs two models, each
 from the JAX model's initial weights (`load_params`), float32:
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 - `--mesh 4,1,1,1` with no other flag (tests/test_weight_update.py's
   MLP, Adam): compile prices the weight-update decision, which must be the

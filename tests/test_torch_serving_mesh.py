@@ -34,6 +34,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=64, hidden_size=32, num_heads=4, num_layers=2,
             sequence_length=32, attention_impl="xla")

@@ -27,6 +27,7 @@ from flexflow_tpu_torch.scope import flightrec
 from flexflow_tpu_torch.telemetry import log as fflog
 from flexflow_tpu_torch.telemetry.recorder import MetricsRecorder, read_jsonl
 from flexflow_tpu_torch.telemetry.tracer import Tracer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

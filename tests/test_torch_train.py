@@ -54,6 +54,7 @@ from flexflow_tpu_torch.fftype import (
     OperatorType as TOT,
 )
 from flexflow_tpu_torch.ops.base import OpContext as TCtx, get_op_def as tdef
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 DTYPES = {

@@ -32,6 +32,7 @@ from flexflow_tpu.kernels.layer_norm import fused_layer_norm_or_none
 from flexflow_tpu_torch.kernels import counters, reset_counters
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.kernels import layer_norm as tln
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("flexflow_tpu.kernels.flash_attention")
 

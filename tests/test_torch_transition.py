@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DP4 = (4, 1, 1, 1)
 DP2_TP2 = (2, 2, 1, 1)

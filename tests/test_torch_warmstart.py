@@ -26,6 +26,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEARCH_ARGV = ["--mesh", "2,1,1,1", "--budget", "6",
                "--enable-parameter-parallel"]

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_builders import _copy, _grads_close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _ff(pkg, batch):
