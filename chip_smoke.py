@@ -344,6 +344,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import glob
 import json
 import os
 import re
@@ -2934,6 +2935,9 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
         "launches": launches, "flash_variants": variants,
         "flash_heads": sorted(set(heads)),
         "attn_tp": attn_tp(ff),
+        "batch_axes": list(input_batch_axes(ff)),
+        "model_groups": (ff.mesh._columns(("model",))
+                         if ff.mesh.shape.get("model", 1) > 1 else []),
         "plan_source": ff._plan_source,
         "plan": {n: {w: str(spec) for w, spec in ov["weights"].items()}
                  for n, ov in (ff._strategy or {}).items()
@@ -2949,6 +2953,16 @@ def mesh_run(name: str, lm, device: str, dtype: str, mesh: tuple,
     masters = _full_masters(ff)
     del ff, step
     return numbers, masters, initial
+
+
+def input_batch_axes(ff) -> tuple:
+    """The mesh axes the first input's batch dim rides (("dcn", "data")
+    under --nodes with a data axis)."""
+    from flexflow_tpu_torch.fftype import OperatorType
+
+    node = next(n for n in ff.graph.topo_order()
+                if n.op_type == OperatorType.OP_INPUT)
+    return tuple(node.outputs[0].axis_assignment[0])
 
 
 def attn_tp(ff) -> int:
@@ -6460,14 +6474,24 @@ def zoo_run(name: str, builder: str, kw: dict, loss: str,
 
 
 def small_cnn():
-    """24(c)'s torch module (and the CPU test's): conv -> relu -> max
-    pool -> conv -> relu -> flatten -> linear, on 1 x 28 x 28 images."""
+    """24(c)'s torch module (and the CPU test's): conv -> LayerNorm over
+    (C, H, W) -> relu -> max pool -> conv -> relu -> LayerNorm over W
+    without affine -> flatten -> linear, on 1 x 28 x 28 images. The
+    first LayerNorm's weights are drawn away from ones and zeros, so
+    only a conversion that installs them matches the module."""
+    import torch
     import torch.nn as nn
 
-    return nn.Sequential(
-        nn.Conv2d(1, 4, 3, padding=1), nn.ReLU(), nn.MaxPool2d(2),
-        nn.Conv2d(4, 8, 3, padding=1), nn.ReLU(), nn.Flatten(),
+    net = nn.Sequential(
+        nn.Conv2d(1, 4, 3, padding=1), nn.LayerNorm((4, 28, 28)),
+        nn.ReLU(), nn.MaxPool2d(2),
+        nn.Conv2d(4, 8, 3, padding=1), nn.ReLU(),
+        nn.LayerNorm(14, elementwise_affine=False), nn.Flatten(),
         nn.Linear(8 * 14 * 14, 10))
+    with torch.no_grad():
+        net[1].weight.normal_(1.0, 0.5)
+        net[1].bias.normal_(0.0, 0.5)
+    return net
 
 
 EXAMPLES = (("mnist_mlp.py", ("-b", "64", "-e", "2")),
@@ -7853,6 +7877,527 @@ def log_gloo(g: dict):
         log_mesh_runs(out)
 
 
+# ------------------------------------------------------ the mesh: nodes
+
+# the nodes leg (`--legs nodes`, then `--legs nodes-resume`): the world
+# launched as NODES torchrun nodes (`launch_nodes` runs them on the cards
+# of one host, each node its own CUDA_VISIBLE_DEVICES); its checkpoint
+# runs save every NODES_CK_EVERY steps, the first launch stopped after
+# NODES_CK_KILL of NODES_CK_STEPS steps, the second launch (a restart of
+# both nodes) running the rest; `launch_nodes` gives a node
+# NODES_PER_NODE cards and its first launch NODES_LAUNCH_S seconds (the
+# second half of them)
+NODES, NODES_PER_NODE, NODES_LAUNCH_S = 2, 2, 360.0
+NODES_CK_EVERY, NODES_CK_KILL, NODES_CK_STEPS = 2, 4, 6
+# the rehearsal's LM on the CPU (`--device cpu`: the tests' small LM)
+NODES_CPU_LM = dict(vocab_size=512, hidden_size=256, num_heads=4,
+                    num_layers=2, sequence_length=128)
+# the JAX package's refusal of the wall-clock trigger on a multi-process
+# world (flexflow_tpu/resilience/policy.py)
+SECONDS_REFUSAL = "every_t_seconds is not multi-host safe"
+
+
+def node_layout() -> dict:
+    """This rank's place in the launch, as torchrun tells it: its global
+    rank, its node (GROUP_RANK), its rank on the node (LOCAL_RANK), the
+    node count (GROUP_WORLD_SIZE) and size (LOCAL_WORLD_SIZE), and the
+    card it runs on."""
+    import torch
+    import torch.distributed as dist
+
+    env = os.environ
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "node": int(env.get("GROUP_RANK", 0)),
+           "local_rank": int(env.get("LOCAL_RANK", dist.get_rank())),
+           "nodes": int(env.get("GROUP_WORLD_SIZE", 1)),
+           "per_node": int(env.get("LOCAL_WORLD_SIZE",
+                                   dist.get_world_size())),
+           "visible": env.get("CUDA_VISIBLE_DEVICES", "")}
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(torch.cuda.current_device())
+        out["card"] = str(getattr(props, "pci_bus_id", None)
+                          or getattr(props, "uuid", ""))
+        out["device_index"] = torch.cuda.current_device()
+    return out
+
+
+def nodes_ck_data(lm):
+    """NODES_CK_STEPS distinct batches of TRAIN_BATCH rows (a resumed run
+    that read the wrong batch would part from the uninterrupted one)."""
+    return train_batch(lm.vocab_size, TRAIN_BATCH * NODES_CK_STEPS,
+                       lm.sequence_length)
+
+
+def nodes_ck_fit(ff, lm, captured: bool, hook=None) -> dict:
+    """One fit of the checkpoint runs over `nodes_ck_data`, unshuffled:
+    the steps it ran (their losses), whether `hook` stopped it
+    (SimulatedPreemption), and the commits this rank made (a rank commits
+    where it rewrites LATEST: the committer alone)."""
+    from flexflow_tpu_torch.executor import eager
+    from flexflow_tpu_torch.resilience import (
+        ResilienceManager, SimulatedPreemption)
+
+    x, y = nodes_ck_data(lm)
+    step = ff.executor.build_train_step()
+    losses, commits = [], []
+
+    def record(*args):
+        out = step(*args)
+        losses.append(float(out[-1]))
+        return out
+
+    ff.executor._train_step = record
+    if ff.config.checkpoint_dir and ff._resilience is None:
+        ff._resilience = ResilienceManager.from_config(ff)
+    if ff._resilience is not None:
+        ck = ff._resilience.checkpointer
+        write_latest = ck._write_latest
+
+        def latest(final):
+            commits.append(os.path.basename(final))
+            return write_latest(final)
+
+        ck._write_latest = latest
+    ff.set_fault_hook(hook)
+    killed = False
+    try:
+        with contextlib.nullcontext() if captured else eager():
+            ff.fit(x, y, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+                   verbose=False)
+    except SimulatedPreemption:
+        killed = True
+    ff.executor._train_step = step
+    return {"losses": losses, "killed": killed, "commits": commits,
+            "py_step": ff._py_step()}
+
+
+def nodes_ck_model(device: str, lm, flags: tuple):
+    """lm in bf16 at dcn NODES x dp over the world (--nodes), SGD, the
+    update replicated."""
+    import torch.distributed as dist
+
+    per = dist.get_world_size() // NODES
+    return mesh_model(device, lm, per, ("--nodes", str(NODES), *flags))
+
+
+def nodes_checkpoint_train(device: str, lm, root: str, captured: bool,
+                           failures: list) -> dict:
+    """(d), the first launch: NODES_CK_STEPS uninterrupted steps (their
+    masters saved by rank 0 as the reference), then the same model with
+    --checkpoint-every NODES_CK_EVERY stopped after NODES_CK_KILL steps
+    (a fault hook on every rank), then --checkpoint-every-seconds refused
+    with the JAX package's warning."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import gather_json
+    from flexflow_tpu_torch.resilience import (
+        FaultInjector, ResilienceManager, latest_checkpoint)
+
+    out = {}
+    ff = nodes_ck_model(device, lm, ())
+    run = nodes_ck_fit(ff, lm, captured)
+    masters = _full_masters(ff)
+    if dist.get_rank() == 0:
+        torch.save({"masters": masters, "losses": run["losses"]},
+                   os.path.join(root, "reference.pt"))
+    out["uninterrupted"] = {k: run[k] for k in ("losses", "py_step")}
+    del ff, masters
+    gc.collect()
+    ck_dir = os.path.join(root, "ck")
+    ff = nodes_ck_model(device, lm, (
+        "--checkpoint-dir", ck_dir, "--checkpoint-every",
+        str(NODES_CK_EVERY)))
+    hook = FaultInjector(NODES_CK_KILL)
+    run = nodes_ck_fit(ff, lm, captured, hook)
+    commits = [o["commits"] for o in gather_json({"commits":
+                                                  run["commits"]})]
+    last = latest_checkpoint(ck_dir)
+    out["stopped"] = {"killed": run["killed"], "py_step": run["py_step"],
+                      "steps": len(run["losses"]), "commits": commits,
+                      "latest": os.path.basename(last or "")}
+    want = [f"step_{s:08d}" for s in range(NODES_CK_EVERY,
+                                           NODES_CK_KILL + 1,
+                                           NODES_CK_EVERY)]
+    if (not run["killed"] or run["py_step"] != NODES_CK_KILL
+            or commits[0] != want or any(commits[1:])
+            or not (last or "").endswith(f"{NODES_CK_KILL:08d}")):
+        failures.append(f"(d) checkpointed run: {out['stopped']} (want "
+                        f"rank 0 alone committing {want})")
+    del ff
+    gc.collect()
+    ff = nodes_ck_model(device, lm, (
+        "--checkpoint-dir", os.path.join(root, "seconds"),
+        "--checkpoint-every-seconds", "1"))
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        mgr = ResilienceManager.from_config(ff)
+    said = [str(w.message) for w in seen
+            if SECONDS_REFUSAL in str(w.message)]
+    out["seconds_refused"] = {"warning": said[:1],
+                              "every_t_seconds": mgr.policy.every_t_seconds}
+    if not said or mgr.policy.every_t_seconds != 0.0:
+        failures.append(f"(d) --checkpoint-every-seconds not refused: "
+                        f"{out['seconds_refused']}")
+    del ff, mgr
+    gc.collect()
+    return out
+
+
+def nodes_checkpoint_resume(device: str, lm, root: str, captured: bool,
+                            failures: list) -> dict:
+    """(d), the second launch (both nodes restarted): the model with
+    --checkpoint-dir --auto-resume resumes at step NODES_CK_KILL and runs
+    the last steps, its masters bit-equal to the uninterrupted run's;
+    rank 0 alone commits the step-NODES_CK_STEPS checkpoint."""
+    import torch
+
+    from flexflow_tpu_torch.distributed import gather_json
+
+    ref = torch.load(os.path.join(root, "reference.pt"))
+    ff = nodes_ck_model(device, lm, (
+        "--checkpoint-dir", os.path.join(root, "ck"), "--checkpoint-every",
+        str(NODES_CK_EVERY), "--auto-resume"))
+    run = nodes_ck_fit(ff, lm, captured)
+    masters = _full_masters(ff)
+    differ = [k for k, v in ref["masters"].items()
+              if not torch.equal(masters[k], v)]
+    commits = [o["commits"] for o in gather_json({"commits":
+                                                  run["commits"]})]
+    tail = ref["losses"][NODES_CK_KILL:]
+    out = {"steps": len(run["losses"]), "py_step": run["py_step"],
+           "losses": run["losses"], "reference_losses": tail,
+           "differ": differ[:4], "bitwise_equal": not differ,
+           "restore_s": ff._resilience.last_restore_s, "commits": commits}
+    want = [f"step_{NODES_CK_STEPS:08d}"]
+    if (differ or run["py_step"] != NODES_CK_STEPS
+            or len(run["losses"]) != NODES_CK_STEPS - NODES_CK_KILL
+            or run["losses"] != tail or commits[0] != want
+            or any(commits[1:])):
+        failures.append(f"(d) resumed run: {out} (want the last "
+                        f"{NODES_CK_STEPS - NODES_CK_KILL} steps bit-equal"
+                        f", rank 0 alone committing {want})")
+    del ff
+    gc.collect()
+    return out
+
+
+def mesh_nodes_check(device: str, lm, steps: int, captured: bool,
+                     root: str, stage: str = "train") -> dict:
+    """The nodes leg on this rank of a world launched as NODES torchrun
+    nodes. Stage "train" (the first launch): per dtype one rank alone,
+    (a) --nodes NODES at dcn x dp (the batch over ("dcn", "data")) and
+    (b) at dcn x tp (Megatron inside a node), in bf16 also dp over the
+    world as one flat axis (the mesh run's dp) and (c) the Unity
+    search on dcn x model (SEARCH_FLAGS, on the card rank 0 calibrating
+    SEARCH_CALIBRATE ops first, then broadcasting its plan), each held to
+    one rank by `mesh_agree`; every rank runs the same plan, every model
+    group lies inside one node and no weight is split over dcn; then
+    (d)'s first launch (`nodes_checkpoint_train`). Stage "resume" (the
+    second launch): (d)'s resume (`nodes_checkpoint_resume`). `root` is
+    a directory every rank of both launches reads and writes. Returns
+    the runs, the checks and the failed ones."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.distributed import gather_json
+
+    t0 = time.perf_counter()
+    layout = node_layout()
+    world, rank = layout["world"], layout["rank"]
+    per = world // NODES
+    failures, runs, checks = [], [], {}
+    layouts = gather_json(layout)
+    checks["layout"] = layouts
+    if (layout["nodes"] != NODES or layout["per_node"] * NODES != world
+            or layout["node"] != rank // per
+            or layout["local_rank"] != rank % per):
+        failures.append(f"rank {rank}: launch layout {layout}, want "
+                        f"{NODES} nodes of {per}, node-major ranks")
+    cards = [o.get("card") for o in layouts]
+    if torch.device(device).type == "cuda" and len(set(cards)) != world:
+        failures.append(f"the ranks share cards: {cards}")
+    out = {"rank": rank, "world": world, "device": device,
+           "backend": dist.get_backend(), "layers": lm.num_layers,
+           "stage": stage, "layout": layout}
+    if stage == "resume":
+        try:
+            checks["(d) resumed"] = nodes_checkpoint_resume(
+                device, lm, root, captured, failures)
+        except Exception as e:  # every rank fails alike
+            failures.append(f"(d) resume: {type(e).__name__}: "
+                            f"{str(e)[:300]}")
+        return dict(out, runs=runs, checks=checks, failures=failures,
+                    wall_s=time.perf_counter() - t0)
+    on_card = torch.device(device).type == "cuda"
+    off = ("--weight-update-sharding=off",)
+    nodes = ("--nodes", str(NODES))
+    calib = ("--calibrate", str(SEARCH_CALIBRATE)) if on_card else ()
+    want_mesh = {"dcn": [NODES, per, 1, 1, 1], "tp": [NODES, 1, per, 1, 1]}
+
+    def attempt(name, dtype, mesh, flags=(), tp=False):
+        try:
+            return mesh_run(name, lm, device, dtype, mesh, flags, tp, steps,
+                            captured)
+        except Exception as e:  # every rank fails alike: the same program
+            failures.append(f"{name} {dtype}: {type(e).__name__}: "
+                            f"{str(e)[:300]}")
+            return None, None, None
+
+    for dtype in ("f32", "bf16"):
+        one, ref, initial = attempt("one rank", dtype, (1, 1, 1, 1), off)
+        if one is None:
+            continue
+        runs.append(one)
+        plans = [(f"(a) dcn {NODES} x dp {per}", (per, 1, 1, 1),
+                  nodes + off, False, "dcn"),
+                 (f"(b) dcn {NODES} x tp {per}", (1, per, 1, 1),
+                  nodes + off, True, "tp")]
+        if dtype == "bf16":
+            # dp over the same ranks as one flat axis (the mesh run's and
+            # phase 16's dp), then the search
+            plans[:0] = [(f"dp {world}", (world, 1, 1, 1), off, False, None)]
+            plans.append((f"(c) dcn {NODES} searched", (1, per, 1, 1),
+                          nodes + SEARCH_FLAGS + calib, False, "tp"))
+        for name, mesh, flags, tp, shape in plans:
+            r, masters, _ = attempt(name, dtype, mesh, flags, tp)
+            if r is None:
+                continue
+            key = f"{name} {dtype}"
+            checks[key] = mesh_agree(masters, ref, initial, r["losses"],
+                                     one["losses"], MESH_TOL[dtype])
+            if not checks[key]["within_tolerance"]:
+                failures.append(f"{key} vs one rank: {checks[key]}")
+            if shape is not None and r["mesh"] != want_mesh[shape]:
+                failures.append(f"{key}: mesh {r['mesh']}, want "
+                                f"{want_mesh[shape]}")
+            if shape == "dcn" and r["batch_axes"] != ["dcn", "data"]:
+                failures.append(f"{key}: the batch rides "
+                                f"{r['batch_axes']}, not (dcn, data)")
+            split = [g for g in r["model_groups"]
+                     if len({q // per for q in g}) != 1]
+            on_dcn = {n: w for n, ws in r["plan"].items()
+                      for w, spec in ws.items() if "dcn" in spec}
+            if split or on_dcn:
+                failures.append(f"{key}: model groups across nodes "
+                                f"{split}, weights over dcn {on_dcn}")
+            runs.append(r)
+        del ref, initial
+        gc.collect()
+    # every rank ran every plan alike (rank 0's searched, the others'
+    # broadcast)
+    plans_seen = gather_json({r["name"] + " " + r["dtype"]: r["plan"]
+                              for r in runs})
+    differ = sorted(k for o in plans_seen for k in o
+                    if o[k] != plans_seen[0].get(k))
+    checks["plans agree"] = {"differ": differ}
+    if differ:
+        failures.append(f"the ranks' plans differ at {differ}")
+    for r in runs:
+        tp = r["attn_tp"]
+        if r["flash_heads"] != [r["heads"] // tp]:
+            failures.append(f"{r['name']} {r['dtype']}: flash kernels on "
+                            f"{r['flash_heads']} heads, want "
+                            f"{[r['heads'] // tp]}")
+        if on_card and not all(r["launches"].values()):
+            failures.append(f"{r['name']} {r['dtype']}: launches "
+                            f"{r['launches']}")
+        if on_card and captured and r["captures"] != 1:
+            failures.append(f"{r['name']} {r['dtype']}: {r['captures']} "
+                            f"captures")
+    try:
+        checks["(d) first launch"] = nodes_checkpoint_train(
+            device, lm, root, captured, failures)
+    except Exception as e:  # every rank fails alike
+        failures.append(f"(d) first launch: {type(e).__name__}: "
+                        f"{str(e)[:300]}")
+    return dict(out, runs=runs, checks=checks, failures=failures,
+                wall_s=time.perf_counter() - t0)
+
+
+def log_mesh_nodes(r: dict):
+    lay = r["layout"]
+    log(f"  rank {r['rank']} node {lay['node']} local rank "
+        f"{lay['local_rank']} card {lay.get('card')} "
+        f"(CUDA_VISIBLE_DEVICES={lay['visible']}), stage {r['stage']} "
+        f"({r['wall_s']:.1f} s)")
+    if r["runs"]:
+        log_mesh_runs(r)
+    else:
+        for key, c in r["checks"].items():
+            log(f"  rank {r['rank']} {key}: {c}")
+
+
+def kill_tree(pid: int):
+    """SIGKILL a process and every process below it (torchrun starts its
+    workers in sessions of their own, so its process group misses
+    them), the children read from /proc."""
+    import signal
+
+    children: dict = {}
+    for stat in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(stat) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:  # gone meanwhile
+            continue
+        children.setdefault(int(fields[1]), []).append(
+            int(stat.split("/")[2]))
+    todo, tree = [pid], []
+    while todo:
+        q = todo.pop()
+        tree.append(q)
+        todo += children.get(q, [])
+    for q in tree:
+        try:
+            os.kill(q, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def launch_nodes(json_path: str, device: str = "cuda") -> int:
+    """The nodes leg as a fleet launches it, on this host: NODES
+    `torchrun --nnodes NODES --nproc-per-node NODES_PER_NODE` processes,
+    one a node, each on its own cards (CUDA_VISIBLE_DEVICES), meeting at
+    one c10d rendezvous on localhost: first `--legs nodes`
+    (NODES_LAUNCH_S seconds), then, both nodes restarted, `--legs
+    nodes-resume` (half of it), over one checkpoint directory. Each node's output goes to
+    `<json_path stem>_<legs>_node<k>.log`, NCCL's INIT/P2P/SHM/NET
+    lines (NCCL_DEBUG=INFO) to `..._nccl.<host>.<pid>` files beside it,
+    whose transports are printed. A launch past its time is killed with
+    its processes. With `device` "cpu" the rehearsal on gloo. Prints
+    rank 0's lines of each launch, the transports, the card line and the
+    verdict last; 0 when every rank of both launches passed."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.distributed import child_env, free_port
+    from flexflow_tpu_torch.search.machine_model import card_line
+
+    on_card = device.startswith("cuda")
+    nproc = NODES_PER_NODE
+    need = NODES * nproc
+    if on_card and torch.cuda.device_count() < need:
+        print(f"chip_smoke: --launch-nodes needs {need} cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
+    root = tempfile.mkdtemp(prefix="ff_nodes_")
+    stem = os.path.splitext(os.path.abspath(json_path or os.path.join(
+        tempfile.gettempdir(), "ff_nodes", "nodes.json")))[0]
+    os.makedirs(os.path.dirname(stem), exist_ok=True)
+    verdicts, transports, took = {}, set(), {}
+    for legs, limit in (("nodes", NODES_LAUNCH_S),
+                        ("nodes-resume", NODES_LAUNCH_S / 2)):
+        port = free_port()
+        t0 = time.monotonic()
+        procs = []
+        for node in range(NODES):
+            env = dict(child_env(), NCCL_DEBUG="INFO",
+                       NCCL_DEBUG_SUBSYS="INIT,P2P,SHM,NET",
+                       NCCL_DEBUG_FILE=f"{stem}_{legs}_nccl.%h.%p")
+            if on_card:
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    str(node * nproc + i) for i in range(nproc))
+            else:
+                env["OMP_NUM_THREADS"] = "1"
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--nnodes", str(NODES), "--node-rank", str(node),
+                   "--nproc-per-node", str(nproc), "--rdzv-backend", "c10d",
+                   "--rdzv-endpoint", f"localhost:{port}",
+                   os.path.join(REPO, "chip_smoke.py"), "--legs", legs,
+                   "--device", device, "--nodes-root", root,
+                   "--json", f"{stem}_{legs}.json"]
+            log_path = f"{stem}_{legs}_node{node}.log"
+            with open(log_path, "w") as f:
+                procs.append((subprocess.Popen(
+                    cmd, cwd=REPO, env=env, stdout=f,
+                    stderr=subprocess.STDOUT),
+                    log_path))
+            time.sleep(2.0)  # node 0 hosts the rendezvous store
+        codes = []
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, t0 + limit - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        for p, _ in procs:
+            if p.poll() is None:
+                kill_tree(p.pid)
+                p.wait()
+                codes.append(f"killed after {limit:.0f} s")
+            else:
+                codes.append(p.returncode)
+        took[legs] = round(time.monotonic() - t0, 1)
+        verdicts[legs] = codes
+        # rank 0's lines (node 0's log), the traces left out
+        with open(procs[0][1], errors="replace") as f:
+            for line in f:
+                if not line.startswith(("frame #", "[W", "W1", "[rank")):
+                    sys.stdout.write(line)
+        for path in glob.glob(f"{stem}_{legs}_nccl.*"):
+            with open(path, errors="replace") as f:
+                for line in f:
+                    m = re.search(r"via ((?:P2P|SHM|NET)/\S+)", line)
+                    if m:
+                        transports.add(m.group(1))
+        if any(c != 0 for c in codes):
+            break
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"NCCL transports between the ranks' cards: {sorted(transports)}")
+    if on_card:
+        log(card_line())
+    ok = (len(verdicts) == 2
+          and all(c == 0 for codes in verdicts.values() for c in codes))
+    print(json.dumps({"ok": ok, "exit_codes": verdicts, "took_s": took,
+                      "transports": sorted(transports)}), flush=True)
+    return 0 if ok else 1
+
+
+def nodes_main(json_path: str, legs: str, root: str,
+               device: str = "cuda") -> int:
+    """One launch of the nodes leg on this rank (`--legs nodes` or
+    `nodes-resume`, under one torchrun a node): on the cards lm-base at
+    MESH_LAYERS layers over NCCL, captured, rank 0 building the kernels
+    first; with `--device cpu` the rehearsal on gloo at NODES_CPU_LM,
+    eager. The world is joined as a fleet's script joins it, by its
+    first FFConfig (ROADMAP C8). Ends as the mesh run does
+    (`mesh_finish`)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.models import TransformerLMConfig
+
+    sys.argv = sys.argv[:1]  # FFConfig reads the command line
+    FFConfig(device=device)
+    require(dist.is_initialized()
+            and dist.get_world_size() == NODES * NODES_PER_NODE,
+            f"the nodes leg: FFConfig joined no world of "
+            f"{NODES * NODES_PER_NODE} ranks")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    on_card = device.startswith("cuda")
+    if rank == 0:
+        log(f"== the nodes leg ({legs}): {world} ranks over "
+            f"{dist.get_backend()}, "
+            + (f"lm-base at full width ({MESH_LAYERS} layers), captured"
+               if on_card else f"the rehearsal LM {NODES_CPU_LM}"))
+        if on_card:
+            build_kernels()  # once, before the ranks' first use
+    dist.barrier()
+    dev = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
+    lm = (lm_config(layers=MESH_LAYERS) if on_card
+          else TransformerLMConfig(**NODES_CPU_LM))
+    r = mesh_nodes_check(dev, lm, MESH_STEPS, captured=on_card, root=root,
+                         stage="train" if legs == "nodes" else "resume")
+    return mesh_finish({"nodes": r}, ["nodes"], json_path, rank, world,
+                       card=on_card)
+
+
 def mesh_main(json_path: str, legs: str = "all") -> int:
     """The mesh run, under `torchrun --nproc-per-node N` (N > 1 cards of
     one host): one rank a card over NCCL, `mesh_check` captured, lm-base
@@ -7904,7 +8449,7 @@ def mesh_main(json_path: str, legs: str = "all") -> int:
 
 
 def mesh_finish(out: dict, legs: list, json_path: str, rank: int,
-                world: int) -> int:
+                world: int, card: bool = True) -> int:
     """The mesh run's end on every rank: the legs' failures joined, each
     rank's numbers written, rank 0 logging every rank's runs and checks,
     the card line and the verdict last."""
@@ -7934,10 +8479,12 @@ def mesh_finish(out: dict, legs: list, json_path: str, rank: int,
                             ("elastic", log_mesh_elastic),
                             ("serve", log_mesh_serve),
                             ("moe", log_mesh_moe), ("cli", log_mesh_cli),
-                            ("bench", log_mesh_bench)):
+                            ("bench", log_mesh_bench),
+                            ("nodes", log_mesh_nodes)):
                 if leg in legs:
                     fn(o[leg])
-        log(card_line())
+        if card:
+            log(card_line())
         print(json.dumps({"ok": not bad, "failures": bad[:8],
                           "world": world, "backend": dist.get_backend()}),
               flush=True)
@@ -8062,10 +8609,22 @@ def main(argv: list[str]) -> int:
                         help=argparse.SUPPRESS)  # phase 19(b)'s process
     parser.add_argument("--gate-child", default="",
                         help=argparse.SUPPRESS)  # phase 21(c)'s process
-    parser.add_argument("--legs", choices=("all", "cli", "bench"),
+    parser.add_argument("--legs", choices=("all", "cli", "bench", "nodes",
+                                           "nodes-resume"),
                         default="all",
                         help="under torchrun: every leg, or the "
-                        "command-line legs or the bench legs alone")
+                        "command-line legs or the bench legs alone, or "
+                        "the nodes leg's first or second launch (a world "
+                        "launched as torchrun nodes)")
+    parser.add_argument("--nodes-root", default="",
+                        help="the directory both launches of the nodes "
+                        "leg share (its checkpoints)")
+    parser.add_argument("--launch-nodes", action="store_true",
+                        help="run the nodes leg as two torchrun nodes of "
+                        "two cards each on this host, both launches")
+    parser.add_argument("--device", default="cuda",
+                        help="with --launch-nodes or the nodes legs: cpu "
+                        "rehearses them on gloo at a small LM")
     args = parser.parse_args(argv)
     json_path = args.json
     if args.resume_child:
@@ -8080,11 +8639,18 @@ def main(argv: list[str]) -> int:
         return 0
     import torch
 
-    if not torch.cuda.is_available():
+    rehearsal = args.device == "cpu" and (
+        args.launch_nodes or args.legs in ("nodes", "nodes-resume"))
+    if not torch.cuda.is_available() and not rehearsal:
         print("chip_smoke: torch sees no CUDA device; this script runs "
               "only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.launch_nodes:
+        return launch_nodes(json_path, device=args.device)
+    if args.legs in ("nodes", "nodes-resume"):
+        return nodes_main(json_path, args.legs, args.nodes_root,
+                          args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         return mesh_main(json_path, args.legs)
     from flexflow_tpu_torch.executor import set_float_policy

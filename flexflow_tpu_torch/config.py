@@ -204,15 +204,25 @@ class FFConfig:
 
     def __post_init__(self):
         self.parse_args(sys.argv[1:])
-        from .distributed import initialize_from_env, process_count
+        from .distributed import (
+            initialize_from_env,
+            node_count,
+            process_count,
+            ranks_per_node,
+        )
 
         # a script under torchrun joins its world here, once, as the JAX
         # package's one controller sees every device: the script needs no
         # call of its own (ROADMAP C8)
         initialize_from_env(self.device)
         if self.workers_per_node == 0:
+            # launched over nodes (torchrun --nnodes): a node's ranks, as
+            # JAX's multi-controller run takes its host's devices; else
+            # the ranks divided over --nodes (a one-node emulation, JAX's
+            # virtual multi-host mesh)
             self.workers_per_node = max(
-                1, process_count() // max(1, self.num_nodes))
+                1, ranks_per_node() if node_count() > 1
+                else process_count() // max(1, self.num_nodes))
 
     @property
     def num_devices(self) -> int:
@@ -444,25 +454,22 @@ def resolve_device(config: FFConfig) -> torch.device:
     """The model's device. A CUDA device that is not there raises: the
     port never moves to the CPU unless the caller asked for it. Under a
     process group of more than one rank, "cuda" with no index is this
-    rank's card, `LOCAL_RANK` (as torchrun sets it): a rank with no card
-    of its own raises; two ranks share a card only when the caller names
-    it ("cuda:0")."""
+    rank's card, `distributed.card_index`'s (`LOCAL_RANK` as torchrun
+    sets it, else the global rank wrapped onto the node's cards, as
+    `distributed.initialize` sets it): a LOCAL_RANK with no card of its
+    own raises; two ranks share a card only when the caller names it
+    ("cuda:0")."""
     dev = torch.device(config.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"FFConfig.device is {config.device!r} but torch sees no CUDA "
             f"device; pass device='cpu' (or --device cpu) to run on the CPU")
     if dev.type == "cuda" and dev.index is None:
-        from .distributed import local_rank, process_count
+        from .distributed import card_index, process_count
 
         if process_count() > 1:
-            lr = local_rank()
-            if lr >= torch.cuda.device_count():
-                raise RuntimeError(
-                    f"rank with LOCAL_RANK {lr} has no card of its own "
-                    f"({torch.cuda.device_count()} visible); name the "
-                    f"device (FFConfig.device = 'cuda:0') to share one")
-            dev = torch.device("cuda", lr)
+            dev = torch.device("cuda",
+                               card_index(torch.cuda.device_count()))
             torch.cuda.set_device(dev)
     return dev
 

@@ -42,15 +42,19 @@ def initialize(
     model). Without arguments it reads `torchrun`'s environment; with
     `coordinator_address` ("host:port") it needs `num_processes` and
     `process_id`. Under NCCL the current CUDA device becomes this rank's
-    card, `LOCAL_RANK` (else `process_id`)."""
+    card, `card_index`'s (`LOCAL_RANK`, else `process_id` or `RANK`
+    wrapped onto the node's cards)."""
     if backend is None:
         backend = "nccl" if str(device).startswith("cuda") else "gloo"
     if backend == "nccl":
         import torch
 
         # NCCL binds a communicator to the current device: this rank's
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
-                                                 process_id or 0)))
+        # card on its node, by the rule "cuda" resolves with
+        torch.cuda.set_device(card_index(
+            torch.cuda.device_count(),
+            int(os.environ.get("RANK", 0)) if process_id is None
+            else process_id))
     if coordinator_address is None:
         dist.init_process_group(backend, init_method="env://")
         return
@@ -157,10 +161,33 @@ def process_index() -> int:
     return world_rank()
 
 
-def local_rank() -> int:
-    """This process's device index on its host: `LOCAL_RANK` as torchrun
-    sets it, else the global rank."""
-    return int(os.environ.get("LOCAL_RANK", world_rank()))
+def node_count() -> int:
+    """How many nodes the launcher laid the world over: torchrun's
+    `GROUP_WORLD_SIZE` (`--nnodes`), else 1."""
+    return int(os.environ.get("GROUP_WORLD_SIZE", "1"))
+
+
+def ranks_per_node() -> int:
+    """The ranks of this rank's node: torchrun's `LOCAL_WORLD_SIZE`
+    (`--nproc-per-node`), else the scope's whole count (one node)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", process_count()))
+
+
+def card_index(visible: int, rank: Optional[int] = None) -> int:
+    """The card "cuda" names on this rank, of the `visible` ones its node
+    shows it: `LOCAL_RANK` as torchrun sets it (a node's ranks take its
+    cards in order, whatever their global ranks), one past them refused;
+    without it the global rank (`rank`, else this process's) wrapped
+    onto them, as one node's ranks follow another's, a card each."""
+    lr = os.environ.get("LOCAL_RANK")
+    if lr is None:
+        return (world_rank() if rank is None else rank) % max(1, visible)
+    if int(lr) >= visible:
+        raise RuntimeError(
+            f"rank with LOCAL_RANK {lr} has no card of its own ({visible} "
+            f"visible); name the device (FFConfig.device = 'cuda:0') to "
+            f"share one")
+    return int(lr)
 
 
 def is_coordinator() -> bool:
@@ -307,11 +334,28 @@ def run_search_on_host0(search_fn: Callable[[], "object"]) -> dict:
     return Strategy.from_json(data).overrides
 
 
-def _spawned(rank, world, port, fn, args, queue):
+def node_env(rank: int, world: int, nodes: int = 1) -> dict:
+    """The variables torchrun gives rank `rank` of a world of `world`
+    ranks laid over `nodes` nodes of `world // nodes` ranks each (one
+    `torchrun --nnodes nodes --nproc-per-node world // nodes` a node):
+    its global RANK, its LOCAL_RANK on its node (`rank % per_node`), the
+    node's size and index (LOCAL_WORLD_SIZE, GROUP_RANK) and the node
+    count (GROUP_WORLD_SIZE)."""
+    if nodes < 1 or world % nodes:
+        raise ValueError(f"{world} ranks do not split over {nodes} nodes")
+    per_node = world // nodes
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank % per_node),
+            "LOCAL_WORLD_SIZE": str(per_node),
+            "GROUP_RANK": str(rank // per_node),
+            "GROUP_WORLD_SIZE": str(nodes),
+            "ROLE_RANK": str(rank), "ROLE_WORLD_SIZE": str(world)}
+
+
+def _spawned(rank, world, port, fn, args, queue, nodes=1):
     import traceback
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+    os.environ.update(node_env(rank, world, nodes), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     try:
         import torch
@@ -348,30 +392,35 @@ class _PortTaken(RuntimeError):
 SPAWN_PORT_TRIES = 3
 
 
-def spawn(fn, nprocs: int, *args, timeout: float = 600.0) -> list:
+def spawn(fn, nprocs: int, *args, timeout: float = 600.0,
+          nodes: int = 1) -> list:
     """Run `fn(rank, *args)` in `nprocs` fresh processes joined in a gloo
     process group over localhost (the CPU twin of `torchrun
-    --nproc-per-node`); returns their results in rank order, or raises
+    --nproc-per-node`; with `nodes` > 1, of `nodes` torchrun nodes of
+    `nprocs // nodes` ranks each, every rank given the variables
+    `node_env` names); returns their results in rank order, or raises
     with the first failing rank's traceback. `fn` must be importable (a
     module-level function). A port another process took before the
     group bound it starts the ranks again on a fresh one."""
+    node_env(0, nprocs, nodes)  # refuse a world the nodes do not split
     for attempt in range(SPAWN_PORT_TRIES):
         try:
-            return _spawn_once(fn, nprocs, args, timeout, free_port())
+            return _spawn_once(fn, nprocs, args, timeout, free_port(), nodes)
         except _PortTaken:
             if attempt == SPAWN_PORT_TRIES - 1:
                 raise
 
 
 def _spawn_once(fn, nprocs: int, args: tuple, timeout: float,
-                port: int) -> list:
+                port: int, nodes: int = 1) -> list:
     import multiprocessing as mp
     import queue as queue_mod
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=_spawned,
-                         args=(r, nprocs, port, fn, args, q), daemon=True)
+                         args=(r, nprocs, port, fn, args, q, nodes),
+                         daemon=True)
              for r in range(nprocs)]
     for p in procs:
         p.start()

@@ -333,12 +333,10 @@ def _ln_forward(p: LayerNormParams, inputs, weights, state, ctx):
 
         return [fused_layer_norm(x, weights["scale"], weights["bias"],
                                  p.eps)], state
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "LayerNorm on CUDA runs the fused last-axis affine kernel only; "
-            f"axes={p.axes}, elementwise_affine={p.elementwise_affine} is "
-            "not on the port's main path (the JAX package runs it as plain "
-            "jnp, no kernel)")
+    # the other forms (several axes, no affine) are plain torch on every
+    # device, as the JAX package computes them in plain jnp with no
+    # kernel (flexflow_tpu/ops/core.py, kernels/layer_norm.py returns
+    # None for them)
     xf = x.float()  # fp32 statistics under mixed precision
     mean = xf.mean(dim=axes, keepdim=True)
     xc = xf - mean

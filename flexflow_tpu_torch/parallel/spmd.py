@@ -78,8 +78,15 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group.order is not None:
         # torch's position j holds our chunk order[j]
         inv = [group.order.index(e) for e in range(group.size)]
-        out = out.view(group.size, *xs.shape)[inv].reshape(out.shape)
+        out = _rows(out.view(group.size, *xs.shape), inv).reshape(out.shape)
     return out.movedim(0, dim)
+
+
+def _rows(v: torch.Tensor, order: list) -> torch.Tensor:
+    """`v[order]` for a Python list of row indices, by one stack of its
+    rows: a list index would be copied from the host, which a CUDA
+    graph's capture refuses (ROADMAP C12)."""
+    return torch.stack([v[j] for j in order])
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -91,7 +98,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
                       dtype=xs.dtype, device=xs.device)
     if group.order is not None:
         # torch hands its position j the input's chunk j: put ours there
-        xs = xs.view(group.size, -1)[group.order].reshape(xs.shape)
+        xs = _rows(xs.view(group.size, -1), group.order).reshape(xs.shape)
     getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
         out, xs, group=group.pg)
     return out.movedim(0, dim)

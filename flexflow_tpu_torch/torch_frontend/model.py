@@ -142,10 +142,11 @@ class PyTorchModel:
             out = ff.layer_norm(x(), axes, sub.elementwise_affine,
                                 sub.eps, name=name)
             if sub.elementwise_affine:
+                # the op's weights are "scale" and "bias" (ROADMAP C10)
                 self._weight_transfers.append(
-                    (name, "gamma", sub.weight.detach().numpy()))
+                    (name, "scale", sub.weight.detach().numpy()))
                 self._weight_transfers.append(
-                    (name, "beta", sub.bias.detach().numpy()))
+                    (name, "bias", sub.bias.detach().numpy()))
             return out
         if isinstance(sub, nn.Embedding):
             out = ff.embedding(x(), sub.num_embeddings, sub.embedding_dim,

@@ -1696,3 +1696,67 @@ def test_moe_captured_steps_match_eager_bitwise(cuda, dtype):
     assert cap["launches"] == eag["launches"]
     assert chip_smoke.compare_masters(
         cap.pop("masters"), eag.pop("masters"))["bitwise_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine,axes,shape", [
+    (False, (3,), (4, 6, 10, 32)), (True, (1, 2, 3), (4, 6, 10, 32)),
+    (False, (1, 2, 3), (4, 6, 10, 32))])
+def test_layer_norm_plain_forms_on_card_match_the_cpu(cuda, dtype, affine,
+                                                      axes, shape):
+    """LayerNorm without affine, or over the axes (C, H, W), runs on the
+    card as the plain f32-statistics torch it is on the CPU (the JAX
+    package computes these forms outside any kernel): output and the
+    gradients of x and the weights against the CPU's, float32 at TOL's,
+    bfloat16 at TOL's too; neither K1 nor K4 launches for them."""
+    from flexflow_tpu_torch.fftype import OperatorType as OT
+    from flexflow_tpu_torch.kernels import counters, reset_counters
+    from flexflow_tpu_torch.ops import LayerNormParams
+    from flexflow_tpu_torch.ops.base import OpContext, get_op_def
+
+    g = torch.Generator().manual_seed(31)
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g).to(dtype)
+    wshape = tuple(shape[a] for a in axes)
+    w = ({"scale": torch.randn(wshape, generator=g),
+          "bias": torch.randn(wshape, generator=g)} if affine else {})
+    p = LayerNormParams(axes, elementwise_affine=affine)
+    results = []
+    reset_counters()
+    for dev in (cuda, torch.device("cpu")):
+        tx = x.to(dev).requires_grad_(True)
+        tw = {k: v.to(dev).requires_grad_(True) for k, v in w.items()}
+        y = get_op_def(OT.OP_LAYERNORM).forward(
+            p, [tx], tw, None, OpContext(training=True))[0][0]
+        y.backward(dy.to(dev))
+        results.append([t.detach().float().cpu() for t in
+                        (y, tx.grad, *(tw[k].grad for k in sorted(tw)))])
+    assert counters()["layer_norm_fwd"].launches == 0
+    assert counters()["layer_norm_bwd"].launches == 0
+    tol = _tol(dtype)
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+def test_group_order_permutation_captures_in_a_cuda_graph(cuda):
+    """C12: the chunk permutation of a collective whose group order
+    differs from torch's (`spmd._rows`) is device work only, so a CUDA
+    graph captures it and its replay gives `v[order]`."""
+    from flexflow_tpu_torch.parallel.spmd import _rows
+
+    v = torch.arange(4 * 6, dtype=torch.float32, device=cuda).reshape(4, 6)
+    order = [0, 2, 1, 3]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        _rows(v, order)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _rows(v, order)
+    v.mul_(3)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, v[order])

@@ -436,8 +436,8 @@ def test_torch_fx_cat_and_global_mean():
 
 
 def test_new_modules_import_no_jax():
-    """The frontends, the MoE ops and the zoo of the port import neither
-    jax nor the JAX package (a fresh interpreter)."""
+    """The frontends (the ONNX one too), the MoE ops and the zoo of the
+    port import neither jax nor the JAX package (a fresh interpreter)."""
     import os
     import subprocess
 
@@ -446,6 +446,8 @@ def test_new_modules_import_no_jax():
         "import sys, flexflow_tpu_torch.keras, "
         "flexflow_tpu_torch.keras.datasets, flexflow_tpu_torch.keras."
         "callbacks, flexflow_tpu_torch.torch_frontend, "
+        "flexflow_tpu_torch.onnx_frontend, "
+        "flexflow_tpu_torch.onnx_frontend.model, "
         "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.models.moe, "
         "flexflow_tpu_torch.models.alexnet, "
         "flexflow_tpu_torch.models.inception, "

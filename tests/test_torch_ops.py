@@ -81,6 +81,43 @@ def test_layer_norm(axes):
     np.testing.assert_allclose(to[0], jo[0], **TOL)
 
 
+@pytest.mark.parametrize("affine,axes", [(False, (2,)), (False, (1, 2)),
+                                         (True, (1, 2))])
+def test_layer_norm_plain_forms_and_their_gradients(affine, axes):
+    """The forms no kernel takes (several axes; no affine): forward and
+    the gradient of x (and of the affine weights) against the JAX op's,
+    through jax.vjp and torch autograd with one cotangent. Plain torch on
+    every device, as the JAX package computes them in plain jnp."""
+    import jax
+
+    rs = np.random.RandomState(11)
+    x = (rs.randn(3, 5, 48) * 1.5 - 0.25).astype(np.float32)
+    dy = rs.randn(*x.shape).astype(np.float32)
+    shape = tuple(x.shape[a] for a in axes)
+    w = ({"scale": rs.randn(*shape).astype(np.float32),
+          "bias": rs.randn(*shape).astype(np.float32)} if affine else {})
+    jp = jops.LayerNormParams(axes, elementwise_affine=affine)
+    tp = tops.LayerNormParams(axes, elementwise_affine=affine)
+
+    def jf(xv, wv):
+        return jdef(JOT.OP_LAYERNORM).forward(
+            jp, [xv], wv, None, JCtx(training=True))[0][0]
+
+    jy, vjp = jax.vjp(jf, jnp.asarray(x),
+                      {k: jnp.asarray(v) for k, v in w.items()})
+    jdx, jdw = vjp(jnp.asarray(dy))
+    tx = torch.tensor(x, requires_grad=True)
+    tw = {k: torch.tensor(v, requires_grad=True) for k, v in w.items()}
+    ty = tdef(TOT.OP_LAYERNORM).forward(tp, [tx], tw, None,
+                                        TCtx(training=True))[0][0]
+    ty.backward(torch.tensor(dy))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL)
+    for k in w:
+        np.testing.assert_allclose(tw[k].grad.numpy(), np.asarray(jdw[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+
+
 def test_embedding_out_of_range_ids_fill_nan():
     """The engine pads idle elements with position max_seq_len, one past
     the position table: the JAX gather fills NaN there, and so must the
